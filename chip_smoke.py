@@ -1,39 +1,55 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port: the quickest proof that the
-port starts on the GPU and that its main path runs through its kernels.
+port starts on the GPU and that its main paths run through its kernels.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --kernels-only  # phases 1-2 only, no final line
 
-Needs one CUDA card (Hopper: the kernel is built for sm_90a) and ``nvcc``;
-it builds every kernel from the sources in ``src/repro_torch`` first.
-Phases, each fatal on failure (a failure exits non-zero and prints no
-final line):
+Needs one CUDA card (Hopper: the kernels are built for sm_90a) and
+``nvcc``; it builds every kernel from the sources in ``src/repro_torch``
+first, one ``nvcc`` per source, all started together. Phases, each fatal
+on failure (a failure exits non-zero and prints no final line):
 
-1. the card's name and power limit; build the paged-attention kernel and
-   print the compiler's register/shared-memory summary;
-2. the kernel against its plain PyTorch version on the card: bf16, f32
-   and int8 pages, MHA/GQA/MQA, softcap, windows, with and without the new
-   token, at the reference's test shapes and at the serving path's shape;
-   then kernel, plain-version and library (SDPA on densely gathered K/V)
-   times at the serving path's shape, beside the least time the card
-   could take for the same work;
-3. the model on a small input: prefill and paged decode on the card
-   (through the kernel) against the same model on the CPU (plain version);
-4. the main path: ``qwen1.5-0.5b`` at full width with random weights
-   from a seed, served by two engines behind ``MoriRouter.replay`` with
-   the launcher's defaults; the kernel's launch count must equal
-   layers x decode steps, and pages must move between the tiers.
+1. the card's name and power limit; build the paged-attention, flash
+   attention and SSD kernels and print the compiler's register and
+   shared-memory summary;
+2. each kernel against its plain PyTorch version on the card, at the
+   reference's test shapes and at the serving paths' shapes: paged
+   attention (bf16/f32/int8 pages, MHA/GQA/MQA, softcap, windows), flash
+   attention (the reference's shapes and variants, ragged lengths,
+   q_offset chunks, kv_hole, kv_lengths, GQA, MQA, D=128, both layouts)
+   and the SSD scan (the reference's shapes, a ragged S, the full-width
+   shape, and the sequential scan at a tiny shape); then each kernel's,
+   its plain version's and, where one PyTorch call computes the same
+   function, that call's time at the serving path's shape, beside the
+   least time the card could take for the same work;
+3. the models on a small input, card (kernels) against CPU (plain
+   versions): reduced qwen prefill, chunked prefill over a bucketed
+   prefix and paged decode; reduced mamba2 prefill and decode;
+4. the qwen main path: ``qwen1.5-0.5b`` at full width with random weights
+   from a seed, served by two engines behind ``MoriRouter.replay`` with the
+   launcher's defaults (monolithic prefill), then again with chunked
+   prefill; the paged kernel's launches must equal layers x decode steps,
+   the flash kernel's layers x prefill passes, and pages must move between
+   the tiers; then where a full-width decode step's time goes;
+5. the SSM main path: ``mamba2-2.7b`` at full width with random weights
+   from a seed, served by ``SsmEngine`` behind ``MoriRouter.replay``; the
+   SSD kernel's launches must equal layers x sequence prefills, and state
+   bundles must go to the host and come back; then where a full-width
+   prefill's and decode step's time goes.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 hold the per-kernel JSON record and the card's name and power limit.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -52,8 +68,10 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 #: identical operands, so what differs is summation order plus, for a bf16
 #: output, one rounding of the result
 ATOL = {"float32": 2e-3, "bfloat16": 2e-2}
-#: model logits and pages, card (kernel) against CPU (plain version), bf16
-#: weights: the band of tests/test_torch_model.py, one bf16 ulp at the
+#: the SSD final state's band (tests/test_kernels.py:234)
+STATE_ATOL = 1e-2
+#: model logits and pages, card (kernels) against CPU (plain versions),
+#: bf16 weights: the band of tests/test_torch_model.py, one bf16 ulp at the
 #: residual stream's magnitude (2**-4) plus 2**-6 relative; the backends
 #: sum bf16 matmuls in different orders
 MODEL_ATOL, MODEL_RTOL = 2**-4, 2**-6
@@ -69,6 +87,32 @@ PAGED_SHAPES = [
 #: pages, 24 pages = max_seq 384, ragged lengths
 MAIN_SHAPE = (3, 16, 16, 64, 16, 24)
 MAIN_LENGTHS = [384, 250, 97]
+FLASH_SHAPES = [
+    # B, H, KH, S, D (tests/test_kernels.py)
+    (2, 4, 4, 64, 32),
+    (1, 8, 2, 128, 64),
+    (2, 4, 1, 64, 64),
+]
+FLASH_VARIANTS = {
+    "causal": dict(causal=True),
+    "window": dict(causal=True, window=24),
+    "bidir": dict(causal=False),
+    "softcap": dict(causal=True, softcap=50.0),
+}
+#: qwen1.5-0.5b's prefill attention at full width (bf16, H = KH = 16,
+#: D = 64): monolithic at max_seq, and one 64-token chunk over a prefix of
+#: 100 real tokens padded to 8 pages of 16 (the 4-page table bucket)
+FLASH_MAIN = dict(B=1, H=16, KH=16, D=64, S=384)
+FLASH_CHUNK = dict(B=1, H=16, KH=16, D=64, Sq=64, Sp=128, prefix_valid=100)
+SSD_SHAPES = [
+    # b, s, h, p, n, chunk (tests/test_kernels.py)
+    (2, 32, 2, 8, 8, 8),
+    (1, 64, 4, 16, 16, 16),
+    (2, 128, 4, 32, 16, 32),
+]
+#: mamba2-2.7b's scan at full width: 80 heads of 64, state 128, chunk 128
+SSD_MAIN = dict(b=1, h=80, p=64, n=128, chunk=128)
+SSD_MAIN_S = 256
 #: where every phase runs
 DEVICE = "cuda"
 
@@ -85,7 +129,70 @@ def gpu_identity() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-# ------------------------------------------------------------ phase 2
+def time_call(fn, reps: int) -> float:
+    """Milliseconds per call from CUDA events, after a warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes: int, n_ops: int, op_type: str) -> dict:
+    """The least time the card could take: bytes over HBM bandwidth or
+    operations over the peak for their type, whichever is larger."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / PEAK_OPS_PER_S[op_type] * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=n_bytes, operations=n_ops, bytes_ms=bytes_ms, ops_ms=ops_ms)
+
+
+def check_close(name: str, got, want, atol: float) -> float:
+    """Hold ``got`` to ``want`` within ``atol`` + ``atol``·|want|; log and
+    return the largest absolute error, raise outside the band."""
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    ok = math.isfinite(err) and bool((diff <= atol + atol * want.float().abs()).all())
+    log(f"kernel case {name}: max_abs_err {err:.3e} (rtol=atol={atol}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"kernel disagrees with its plain version on {name}")
+    return err
+
+
+# ------------------------------------------------------------ phase 1
+def build_kernels():
+    """Build every kernel, one nvcc per source, all started together."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    kernels = {"paged_attention": paged_ops.KERNEL, "flash_attention": flash_ops.KERNEL,
+               "ssd": ssd_ops.KERNEL}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        for fut in [pool.submit(k.load) for k in kernels.values()]:
+            fut.result()
+    log(f"built {', '.join(kernels)} in {time.perf_counter() - t0:.1f}s; ptxas:")
+    for name, k in kernels.items():
+        for line in k.build_log.splitlines():
+            if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+                log(f"  {name}: " + line.strip())
+    m = SSD_MAIN
+    log("dynamic shared memory a block: paged_attention (G=1, D=64, T=16) "
+        f"{paged_ops.KERNEL.load().paged_attention_decode_smem(1, 64, 16)} B; "
+        f"flash_attention D=64 {flash_ops.KERNEL.load().flash_attention_smem(64)} B, "
+        f"D=128 {flash_ops.KERNEL.load().flash_attention_smem(128)} B; ssd (P={m['p']}, "
+        f"N={m['n']}, Q={m['chunk']}) {ssd_ops.KERNEL.load().ssd_smem(m['p'], m['n'], m['chunk'])} B")
+
+
+# ------------------------------------------------------------ phase 2: paged
 def make_case(rng, shape, dtype, lengths=None, quantized=False,
               with_new=True, layers=1):
     """Inputs for one paged-attention case, from a numpy seed, on the card.
@@ -140,8 +247,8 @@ def run_plain(ref, c, layer=0, **kw):
 
 
 def check_kernel_cases():
-    """Every variant, kernel against plain version. Returns the largest
-    error at the serving path's shape."""
+    """Every paged-attention variant, kernel against plain version.
+    Returns the largest error at the serving path's shape."""
     from repro_torch.kernels.paged_attention import ops, ref
 
     rng = np.random.default_rng(0)
@@ -176,33 +283,10 @@ def check_kernel_cases():
         out = run_kernel(ops, c, **attn_kw)
         torch.cuda.synchronize()
         want = run_plain(ref, c, **attn_kw)
-        diff = (out.float() - want.float()).abs()
-        err = diff.max().item()
-        tol = ATOL[str(dtype).removeprefix("torch.")]
-        ok = math.isfinite(err) and bool(
-            (diff <= tol + tol * want.float().abs()).all())
-        log(f"kernel case {name}: max_abs_err {err:.3e} (rtol=atol={tol}) "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"paged attention kernel disagrees on {name}")
+        err = check_close(f"paged {name}", out, want, ATOL[str(dtype).removeprefix("torch.")])
         if name.startswith("main") and "int8=False" in name:
             main_err = err
     return main_err
-
-
-def time_call(fn, reps: int) -> float:
-    """Milliseconds per call from CUDA events, after a warm-up."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def time_kernel(layers: int):
@@ -265,20 +349,243 @@ def time_kernel(layers: int):
     kv_bytes = 2 * int((lengths - 1).sum()) * KH * D * elem
     io_bytes = (B * H * D + 2 * B * KH * D + B * H * D) * elem
     meta_bytes = 4 * (B * P + B)
-    n_bytes = kv_bytes + io_bytes + meta_bytes
     n_ops = int(4 * H * D * lengths.sum())
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                bytes=n_bytes, operations=n_ops)
+                **bound(kv_bytes + io_bytes + meta_bytes, n_ops, "bfloat16"))
+
+
+# ------------------------------------------------------------ phase 2: flash
+def randn_dev(rng, shape, dtype, scale=1.0):
+    return (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)) * scale).to(
+        DEVICE).to(dtype)
+
+
+def chunk_prefill_case(rng, dtype=torch.bfloat16):
+    """The chunked-prefill attention of the serving path: q [B,Sq,H,D] at
+    positions Sp.., k/v over the padded prefix and the chunk, the padding
+    [prefix_valid, Sp) masked as a hole."""
+    c = FLASH_CHUNK
+    q = randn_dev(rng, (c["B"], c["Sq"], c["H"], c["D"]), dtype)
+    k = randn_dev(rng, (c["B"], c["Sp"] + c["Sq"], c["KH"], c["D"]), dtype)
+    v = randn_dev(rng, (c["B"], c["Sp"] + c["Sq"], c["KH"], c["D"]), dtype)
+    kw = dict(causal=True, q_offset=c["Sp"], kv_hole=(c["prefix_valid"], c["Sp"]))
+    return q, k, v, kw
+
+
+def check_flash_cases():
+    """Flash attention against its plain versions: ``flash_attention``
+    ([B,H,S,D]) against ``flash_attention_ref`` and ``prefill_attention``
+    ([B,S,H,D]) against ``blockwise_attention``. Returns the largest error
+    at the serving path's two prefill shapes."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    rng = np.random.default_rng(3)
+    for B, H, KH, S, D in FLASH_SHAPES:
+        for variant, kw in FLASH_VARIANTS.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                q = randn_dev(rng, (B, H, S, D), dtype)
+                k = randn_dev(rng, (B, KH, S, D), dtype)
+                v = randn_dev(rng, (B, KH, S, D), dtype)
+                out = ops.flash_attention(q, k, v, **kw)
+                torch.cuda.synchronize()
+                check_close(f"flash {(B, H, KH, S, D)} {variant} {dtype}", out,
+                            ref.flash_attention_ref(q, k, v, **kw),
+                            ATOL[str(dtype).removeprefix("torch.")])
+    # [B,H,S,D] cases the Pallas kernel cannot take: ragged lengths, a
+    # long bidirectional encoder (whisper's 1500 frames), q_offset chunks
+    bhsd = [
+        ("ragged 100 causal", (1, 4, 4, 100, 100, 64), dict(causal=True)),
+        ("ragged 100 window", (2, 8, 2, 100, 100, 64), dict(causal=True, window=33)),
+        ("bidir 1500", (1, 16, 16, 1500, 1500, 64), dict(causal=False)),
+        ("q_offset chunk", (1, 8, 8, 37, 101, 64), dict(causal=True, q_offset=64)),
+        ("q_offset window softcap", (1, 8, 4, 64, 192, 128),
+         dict(causal=True, q_offset=128, window=80, softcap=30.0)),
+    ]
+    for name, (B, H, KH, Sq, Skv, D), kw in bhsd:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn_dev(rng, (B, H, Sq, D), dtype)
+            k = randn_dev(rng, (B, KH, Skv, D), dtype)
+            v = randn_dev(rng, (B, KH, Skv, D), dtype)
+            out = ops.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            check_close(f"flash {name} {dtype}", out, ref.flash_attention_ref(q, k, v, **kw),
+                        ATOL[str(dtype).removeprefix("torch.")])
+    # the model's layout against blockwise_attention: kv_hole, kv_lengths,
+    # GQA 4:1, MQA, D=128, and the serving path's two prefill shapes
+    m = FLASH_MAIN
+    bshd = [
+        ("hole", (1, 48, 112, 8, 8, 64), dict(causal=True, q_offset=64, kv_hole=(41, 64))),
+        ("kv_lengths gqa4", (3, 40, 72, 16, 4, 64),
+         dict(causal=True, q_offset=32, kv_lengths=[72, 50, 33])),
+        ("mqa d128", (2, 70, 70, 8, 1, 128), dict(causal=True)),
+        ("mqa window softcap", (1, 96, 96, 8, 1, 64), dict(causal=True, window=20, cap=50.0)),
+        ("main monolithic", (m["B"], m["S"], m["S"], m["H"], m["KH"], m["D"]),
+         dict(causal=True)),
+    ]
+    main_err = 0.0
+    for name, (B, Sq, Skv, H, KH, D), kw in bshd:
+        if "kv_lengths" in kw:
+            kw = dict(kw, kv_lengths=torch.tensor(kw["kv_lengths"], dtype=torch.int32,
+                                                  device=DEVICE))
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn_dev(rng, (B, Sq, H, D), dtype)
+            k = randn_dev(rng, (B, Skv, KH, D), dtype)
+            v = randn_dev(rng, (B, Skv, KH, D), dtype)
+            out = ops.prefill_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = check_close(f"prefill {name} {dtype}", out,
+                              ref.blockwise_attention(q, k, v, **kw),
+                              ATOL[str(dtype).removeprefix("torch.")])
+            if name.startswith("main") and dtype == torch.bfloat16:
+                main_err = max(main_err, err)
+    q, k, v, kw = chunk_prefill_case(rng)
+    out = ops.prefill_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = check_close("prefill main chunk over a bucketed prefix", out,
+                      ref.blockwise_attention(q, k, v, **kw), ATOL["bfloat16"])
+    # the layouts share the kernel: [B,H,S,D] views of the same data agree
+    out_bhsd = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   causal=True, q_offset=kw["q_offset"])
+    ref_bhsd = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), causal=True, q_offset=kw["q_offset"])
+    check_close("flash strided [B,H,S,D] views", out_bhsd, ref_bhsd, ATOL["bfloat16"])
+    return max(main_err, err)
+
+
+def time_flash():
+    """Kernel, plain version and SDPA (explicit boolean mask) at the
+    serving path's monolithic prefill shape, and the chunk shape."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    rng = np.random.default_rng(4)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    m = FLASH_MAIN
+    mono = (randn_dev(rng, (m["B"], m["S"], m["H"], m["D"]), torch.bfloat16),
+            randn_dev(rng, (m["B"], m["S"], m["KH"], m["D"]), torch.bfloat16),
+            randn_dev(rng, (m["B"], m["S"], m["KH"], m["D"]), torch.bfloat16),
+            dict(causal=True))
+    chunk = chunk_prefill_case(rng)
+    for name, (q, k, v, kw) in (("monolithic", mono), ("chunk", chunk)):
+        B, Sq, H, D = q.shape
+        Skv, KH = k.shape[1], k.shape[2]
+        q_off = kw.get("q_offset", 0)
+        qpos = q_off + torch.arange(Sq, device=DEVICE)[:, None]
+        kpos = torch.arange(Skv, device=DEVICE)[None, :]
+        mask = qpos >= kpos
+        if "kv_hole" in kw:
+            lo, hi = kw["kv_hole"]
+            mask &= ~((kpos >= lo) & (kpos < hi))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = sdpa(qt, kt, vt, attn_mask=mask).transpose(1, 2).float()
+        kern = ops.prefill_attention(q, k, v, **kw).float()
+        lib_err = (lib - kern).abs().max().item()
+        log(f"SDPA yardstick vs flash kernel ({name}): max_abs_err {lib_err:.3e}")
+        if not lib_err <= ATOL["bfloat16"] * (1 + kern.abs().max().item()):
+            raise AssertionError("the SDPA yardstick computes another function")
+        visible = int(mask.sum().item())
+        n_bytes = (2 * B * Sq * H * D + 2 * B * Skv * KH * D) * 2
+        n_ops = 4 * B * H * D * visible
+        out[name] = dict(
+            ms=time_call(lambda: ops.prefill_attention(q, k, v, **kw), 50),
+            plain_ms=time_call(lambda: ref.blockwise_attention(q, k, v, **kw), 10),
+            library_ms=time_call(lambda: sdpa(qt, kt, vt, attn_mask=mask), 50),
+            Sq=Sq, Skv=Skv, **bound(n_bytes, n_ops, "bfloat16"))
+    return out
+
+
+# ------------------------------------------------------------ phase 2: ssd
+def ssd_inputs(rng, b, s, h, p, n, x_dtype, bc_dtype, realistic=False):
+    """x, dt (after softplus), A (negative), B, C [b,s,n] on the card.
+    ``realistic`` scales them as the model's are: dt around 0.05 (mamba2's
+    dt_bias puts it in [0.001, 0.1]) and C by n**-0.5, which keeps y at
+    O(1), so the bf16 band is one of O(1) values."""
+    x = randn_dev(rng, (b, s, h, p), x_dtype)
+    dt_pre = randn_dev(rng, (b, s, h), torch.float32)
+    dt = torch.nn.functional.softplus(dt_pre - 3.0 if realistic else dt_pre)
+    A = -randn_dev(rng, (h,), torch.float32).abs()
+    B = randn_dev(rng, (b, s, n), bc_dtype)
+    C = randn_dev(rng, (b, s, n), bc_dtype, scale=n ** -0.5 if realistic else 1.0)
+    return x, dt, A, B, C
+
+
+def check_ssd_cases():
+    """The SSD kernel against ``ssd_reference`` (y at the reference's
+    bands, the final state at 1e-2) and against ``ssd_naive`` at a tiny
+    shape. Returns the largest y error at the full-width shape."""
+    from repro_torch.kernels.ssd import ops, ref
+
+    rng = np.random.default_rng(5)
+    m = SSD_MAIN
+    main = (m["b"], m["h"], m["p"], m["n"])
+    cases = [(f"{shape}", shape[:5], shape[5], dtype, torch.float32)
+             for shape in SSD_SHAPES for dtype in (torch.float32, torch.bfloat16)]
+    cases += [
+        ("ragged S=200 chunk=128", (1, 200, 4, 32, 64), 128, torch.bfloat16, torch.bfloat16),
+        ("ragged S=77 chunk=16 f32", (2, 77, 2, 16, 32), 16, torch.float32, torch.float32),
+        ("main S=200", (main[0], 200, *main[1:]), m["chunk"], torch.bfloat16, torch.bfloat16),
+        (f"main S={SSD_MAIN_S}", (main[0], SSD_MAIN_S, *main[1:]), m["chunk"], torch.bfloat16,
+         torch.bfloat16),
+    ]
+    main_err = 0.0
+    for name, (b, s, h, p, n), chunk, x_dtype, bc_dtype in cases:
+        x, dt, A, B, C = ssd_inputs(rng, b, s, h, p, n, x_dtype, bc_dtype,
+                                    realistic=name.startswith("main"))
+        y, st = ops.ssd(x, dt, A, B, C, chunk=chunk)
+        torch.cuda.synchronize()
+        yr, sr = ref.ssd_reference(x, dt, A, B[:, :, None], C[:, :, None], chunk=chunk)
+        err = check_close(f"ssd {name} x={x_dtype} bc={bc_dtype} y", y, yr,
+                          ATOL[str(x_dtype).removeprefix("torch.")])
+        check_close(f"ssd {name} final state", st, sr, STATE_ATOL)
+        if name.startswith("main"):
+            main_err = max(main_err, err)
+    x, dt, A, B, C = ssd_inputs(rng, 1, 24, 2, 4, 8, torch.float32, torch.float32)
+    y, st = ops.ssd(x, dt, A, B[:, :, None], C[:, :, None], chunk=8)
+    torch.cuda.synchronize()
+    yn, sn = ref.ssd_naive(x, dt, A, B[:, :, None], C[:, :, None])
+    check_close("ssd tiny vs the sequential scan y", y, yn, ATOL["float32"])
+    check_close("ssd tiny vs the sequential scan state", st, sn, ATOL["float32"])
+    return main_err
+
+
+def time_ssd():
+    """Kernel and plain version at the full-width shape, S = SSD_MAIN_S.
+    No single PyTorch call computes the scan, so there is no library time."""
+    from repro_torch.kernels.ssd import ops, ref
+
+    m = SSD_MAIN
+    b, h, p, n, Q, S = m["b"], m["h"], m["p"], m["n"], m["chunk"], SSD_MAIN_S
+    rng = np.random.default_rng(6)
+    x, dt, A, B, C = ssd_inputs(rng, b, S, h, p, n, torch.bfloat16, torch.bfloat16,
+                                realistic=True)
+    B4, C4 = B[:, :, None], C[:, :, None]
+    kernel_ms = time_call(lambda: ops.ssd(x, dt, A, B, C, chunk=Q), 20)
+    plain_ms = time_call(lambda: ref.ssd_reference(x, dt, A, B4, C4, chunk=Q), 5)
+    # bytes: x, dt, A, B, C read once; y and the final state written once
+    n_bytes = (2 * b * S * h * p * 2 + b * S * h * 4 + h * 4 + 2 * b * S * n * 2
+               + b * h * p * n * 4)
+    # operations this run's data needs, per (row, head, chunk of q valid
+    # positions): C·Bᵀ and its product with x·dt over the causal triangle,
+    # C·stateᵀ for every chunk after the first (the first state is 0), and
+    # the state update
+    n_ops = 0
+    for c0 in range(0, S, Q):
+        q = min(Q, S - c0)
+        tri = q * (q + 1) // 2
+        macs = tri * n + tri * p + q * p * n + (q * p * n if c0 else 0)
+        n_ops += 2 * macs * b * h
+    rec = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+               library_note="no single PyTorch call computes the SSD scan",
+               S=S, **bound(n_bytes, n_ops, "bfloat16"))
+    rec["ops_ms_f32_cuda_cores"] = n_ops / PEAK_OPS_PER_S["float32"] * 1e3
+    return rec
 
 
 # ------------------------------------------------------------ phase 3
 def check_model_small():
-    """Reduced qwen: prefill + paged decode on the card (kernel) against
-    the CPU (plain version), same weights, teacher-forced tokens."""
+    """Reduced qwen: prefill, chunked prefill over a bucketed prefix and
+    paged decode on the card (kernels) against the CPU (plain versions),
+    same weights, teacher-forced tokens."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model, materialize
 
@@ -286,7 +593,7 @@ def check_model_small():
     params = materialize(Model(cfg).describe(), seed=0)
     T, n_pages, ctx = 8, 16, 21
     tokens = torch.arange(2, 2 + ctx)[None, :] * 7 % cfg.vocab_size
-    worst = 0.0
+    chunk = torch.arange(3, 3 + 16)[None, :] * 5 % cfg.vocab_size
     outs = {}
     for dev in ("cpu", DEVICE):
         model = Model(cfg, {k: _to(v, dev) for k, v in params.items()})
@@ -294,12 +601,18 @@ def check_model_small():
         kp = torch.zeros((L, n_pages, T, KH, HD), dtype=torch.bfloat16, device=dev)
         vp = torch.zeros_like(kp)
         logits, cache = model.prefill({"tokens": tokens.to(dev)})
+        # chunked prefill over the prefix padded to 32 with a hole
+        pad = (0, 0, 0, 0, 0, 32 - ctx)
+        prefix = {"k": torch.nn.functional.pad(cache["k"], pad, value=3.0),
+                  "v": torch.nn.functional.pad(cache["v"], pad, value=-3.0)}
+        chunk_logits, _ = model.prefill({"tokens": chunk.to(dev)}, prefix=prefix,
+                                        positions_offset=ctx, prefix_valid=ctx)
         n = -(-ctx // T)
         k_c = torch.nn.functional.pad(cache["k"][:, 0], (0, 0, 0, 0, 0, n * T - ctx))
         v_c = torch.nn.functional.pad(cache["v"][:, 0], (0, 0, 0, 0, 0, n * T - ctx))
         kp[:, :n] = k_c.reshape(L, n, T, KH, HD)
         vp[:, :n] = v_c.reshape(L, n, T, KH, HD)
-        step_logits = [logits.float().cpu()]
+        step_logits = [logits.float().cpu(), chunk_logits.float().cpu()]
         table = torch.zeros((1, 4), dtype=torch.int32, device=dev)
         table[0, :n + 1] = torch.arange(n + 1, dtype=torch.int32)
         for i in range(6):
@@ -312,17 +625,44 @@ def check_model_small():
             )
             step_logits.append(lg.float().cpu())
         outs[dev] = (torch.stack(step_logits), kp.float().cpu())
-    ok = True
+    compare_model("reduced qwen, prefill + chunked prefill + 6 decode steps", outs)
+
+
+def check_mamba_small():
+    """Reduced mamba2: prefill of a ragged length (the SSD kernel) and
+    decode steps on the card against the CPU, same weights,
+    teacher-forced tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, materialize
+
+    cfg = get_config("mamba2-2.7b").reduced()
+    params = materialize(Model(cfg).describe(), seed=0)
+    tokens = torch.arange(2, 2 + 45)[None, :] * 7 % cfg.vocab_size
+    outs = {}
+    for dev in ("cpu", DEVICE):
+        model = Model(cfg, {k: _to(v, dev) for k, v in params.items()})
+        logits, cache = model.prefill({"tokens": tokens.to(dev)})
+        seen = [logits.float().cpu()]
+        for i in range(4):
+            tok = torch.tensor([(5 + 11 * i) % cfg.vocab_size], device=dev)
+            lg, cache = model.decode(cache, tok, torch.tensor([46 + i], device=dev))
+            seen.append(lg.float().cpu())
+        outs[dev] = (torch.stack(seen), cache["ssm"].float().cpu(), cache["conv"].float().cpu())
+    compare_model("reduced mamba2, prefill of 45 tokens + 4 decode steps", outs)
+
+
+def compare_model(what: str, outs: dict) -> None:
+    worst, ok = 0.0, True
     for a, b in zip(outs["cpu"], outs[DEVICE]):
         if not torch.isfinite(b).all():
             raise AssertionError("non-finite values from the card")
         diff = (a - b).abs()
         worst = max(worst, diff.max().item())
         ok &= bool((diff <= MODEL_ATOL + MODEL_RTOL * a.abs()).all())
-    log(f"model on the card vs the CPU (reduced qwen, 6 decode steps): max_abs_err "
-        f"{worst:.3e} (atol={MODEL_ATOL}, rtol={MODEL_RTOL}) {'ok' if ok else 'FAIL'}")
+    log(f"model on the card vs the CPU ({what}): max_abs_err {worst:.3e} "
+        f"(atol={MODEL_ATOL}, rtol={MODEL_RTOL}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("model on the card disagrees with the CPU")
+        raise AssertionError(f"model on the card disagrees with the CPU ({what})")
 
 
 def _to(tree, dev):
@@ -331,49 +671,104 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-# ------------------------------------------------------------ phase 4
-def serve_full_width():
-    from repro_torch.kernels.paged_attention import ops
-    from repro_torch.launch import serve
+def _param_tree(model) -> dict:
+    """The nested parameter dict a model holds (its buffers, shared)."""
+    out: dict = {}
+    for name, t in model.params.named_buffers():
+        *path, last = name.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = t
+    return out
 
-    args = serve.parse_args([])          # the launcher's defaults: full width, cuda
+
+def _count_calls(obj, attr: str, counter: dict, key: str, when=lambda result: True):
+    """Wrap ``obj.attr`` so that each call whose result passes ``when``
+    adds one to ``counter[key]``."""
+    fn = getattr(obj, attr)
+
+    def wrapped(*args, **kwargs):
+        result = fn(*args, **kwargs)
+        if when(result):
+            counter[key] += 1
+        return result
+
+    setattr(obj, attr, wrapped)
+
+
+# ------------------------------------------------------------ phase 4
+def replay_qwen(args, chunked: bool, engines=None):
+    """One full-width qwen replay through the router; returns the record
+    and the engines. ``chunked`` turns on the router's chunked prefill
+    (the engines are then rebuilt around the first replay's weights)."""
+    from repro_torch.core.types import SchedulerConfig
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.launch import serve
+    from repro_torch.serving import Engine, MoriRouter
+
     t0 = time.perf_counter()
-    cfg, engines, router = serve.build_router(args)
+    if engines is None:
+        cfg, engines, router = serve.build_router(args)
+    else:
+        cfg = engines[0].cfg
+        params = _param_tree(engines[0].model)
+        engines = [Engine(cfg, params, device=DEVICE, page_tokens=16, n_device_pages=72,
+                          n_host_pages=160, max_slots=3, max_seq=384)
+                   for _ in engines]
+        router = MoriRouter(
+            engines, scheduler=args.scheduler,
+            gpu_capacity_bytes=engines[0].pool.page_bytes * args.gpu_pages,  # lint: kv008-ok (GPU budget at device format)
+            cpu_capacity_bytes=engines[0].pool.host_page_bytes * args.cpu_pages,
+            config=SchedulerConfig(tick_interval_s=1.0), chunked_prefill=chunked,
+        )
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     corpus = serve.corpus_for(args)
-    ops.KERNEL.launches = 0
+    passes = {"prefill": 0}
+    for e in engines:
+        _count_calls(e.model, "prefill", passes, "prefill")
+    paged_ops.KERNEL.launches = 0
+    flash_ops.KERNEL.launches = 0
     t0 = time.perf_counter()
     m = router.replay(corpus, vocab_size=cfg.vocab_size, max_new_tokens=args.max_new_tokens)
     torch.cuda.synchronize()
     replay_s = time.perf_counter() - t0
-    launches = ops.KERNEL.launches
+    paged, flash = paged_ops.KERNEL.launches, flash_ops.KERNEL.launches
     engine_steps = sum(e.steps for e in engines)
     record = {
         "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
-        "replicas": len(engines), "programs": len(corpus),
+        "replicas": len(engines), "programs": len(corpus), "chunked_prefill": chunked,
         "steps_completed": m.steps_completed, "tokens_generated": m.tokens_generated,
         "cached_tokens": m.cached_tokens, "prefilled_tokens": m.prefilled_tokens,
         "offloaded_pages": m.offloaded_pages, "reloaded_pages": m.reloaded_pages,
         "gated_events": m.gated_events, "pump_steps": m.pump_steps,
-        "engine_steps": engine_steps, "kernel_launches": launches,
-        "setup_s": setup_s, "replay_s": replay_s,
+        "prefill_chunks": m.prefill_chunks, "engine_steps": engine_steps,
+        "kernel_launches": paged, "prefill_passes": passes["prefill"],
+        "flash_launches": flash, "setup_s": setup_s, "replay_s": replay_s,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
-    log("serve " + json.dumps(record))
+    log(("serve_chunked " if chunked else "serve ") + json.dumps(record))
     if m.steps_completed <= 0:
         raise AssertionError("the replay completed no program step")
     if m.offloaded_pages + m.reloaded_pages <= 0:
         raise AssertionError("no page moved between the tiers")
-    if launches != cfg.num_layers * engine_steps or launches == 0:
+    if paged != cfg.num_layers * engine_steps or paged == 0:
         raise AssertionError(
-            f"kernel launches {launches} != layers {cfg.num_layers} x decode steps "
+            f"paged kernel launches {paged} != layers {cfg.num_layers} x decode steps "
             f"{engine_steps}: decode did not go through the kernel")
+    if flash != cfg.num_layers * passes["prefill"] or flash == 0:
+        raise AssertionError(
+            f"flash kernel launches {flash} != layers {cfg.num_layers} x prefill passes "
+            f"{passes['prefill']}: prefill did not go through the kernel")
+    if chunked and m.prefill_chunks <= 0:
+        raise AssertionError("the chunked replay ran no prefill chunk")
     produced = [t for toks in router.output_log.values() for t in toks]
     if len(produced) != m.tokens_generated or not all(
             0 <= t < cfg.vocab_size for t in produced):
         raise AssertionError("generated tokens are missing or out of the vocabulary")
-    return launches, engines
+    return record, engines
 
 
 def decode_breakdown(engine, context: int = 200, steps: int = 20):
@@ -406,17 +801,7 @@ def decode_breakdown(engine, context: int = 200, steps: int = 20):
             engine.step()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only: the CPU ops that launched them carry the
-    # same time again as their own device total
-    kernels = {}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        if dev_us > 0:
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us
+    kernels = device_kernel_us(prof)
     busy_us = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     return {
@@ -429,46 +814,226 @@ def decode_breakdown(engine, context: int = 200, steps: int = 20):
     }
 
 
-def main() -> int:
+def ssm_breakdown(engine, context: int = 200, steps: int = 20):
+    """Where a full-width mamba2 request's time goes: a ``context``-token
+    prefill (the SSD kernel in every layer) and one-token decode steps on
+    the host clock (each ends in a synchronize), then one profiled prefill
+    and a profiled window of decode steps for the device's busy share and
+    its kernel time by name. Runs after the SSM main path, so its launches
+    are not in that path's count."""
+    model = engine.model
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(2, engine.cfg.vocab_size, (1, context))).to(DEVICE)
+    tok = torch.tensor([5], device=DEVICE)
+    length = torch.tensor([context + 1], dtype=torch.int32, device=DEVICE)
+    _, cache = model.prefill({"tokens": tokens})                 # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cache = model.prefill({"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(3):
+        _, cache = model.decode(cache, tok, length)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        _, cache = model.decode(cache, tok, length)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    out = {"context": context, "prefill_ms": prefill_ms, "decode_step_ms": step_ms}
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if DEVICE == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    for name, fn, n in (("prefill", lambda: model.prefill({"tokens": tokens}), 1),
+                        ("decode", lambda: model.decode(cache, tok, length), 5)):
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        kernels = device_kernel_us(prof)
+        busy_us = sum(kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+        out[name] = {
+            "profiled_calls": n, "window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / window_us if window_us else None,
+            "ssd_kernel_ms": sum(v for k, v in kernels.items() if "ssd_kernel" in k) / 1e3,
+            "top_kernels_ms": {k[:60]: v / 1e3 for k, v in top},
+        }
+    return out
+
+
+def device_kernel_us(prof) -> dict:
+    """Device time by kernel name from a profile: device-side events only
+    (the CPU ops that launched them carry the same time again as their own
+    device total)."""
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us > 0:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us
+    return kernels
+
+
+# ------------------------------------------------------------ phase 5
+def serve_ssm():
+    """mamba2-2.7b at full width behind MoriRouter.replay: the corpus of
+    tests/test_ssm_engine.py, one device state slot, so bundles go to the
+    host between a program's steps and come back."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import SchedulerConfig
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.models import Model, materialize
+    from repro_torch.serving import MoriRouter, SsmEngine
+    from repro_torch.traces import TraceGenConfig, generate_corpus
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = get_config("mamba2-2.7b")
+    params = materialize(Model(cfg).describe(), seed=0, device=DEVICE)
+    engine = SsmEngine(cfg, params, device=DEVICE, n_device_states=1, n_host_states=8,
+                       max_seq=256)
+    router = MoriRouter([engine], scheduler="mori",
+                        config=SchedulerConfig(tick_interval_s=2.0))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    corpus = generate_corpus(3, seed=0, cfg=TraceGenConfig(
+        min_steps=3, mean_steps=4, max_steps=4, initial_context_mean=120, max_context=240))
+    counts = {"prefill": 0, "decode": 0, "to_host": 0, "reload": 0}
+    _count_calls(engine.model, "prefill", counts, "prefill")
+    _count_calls(engine.model, "decode", counts, "decode")
+    _count_calls(engine, "_to_host", counts, "to_host")
+    _count_calls(engine, "_reload", counts, "reload", when=lambda b: b is not None)
+    ops.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    m = router.replay(corpus, vocab_size=cfg.vocab_size, max_new_tokens=2)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    launches = ops.KERNEL.launches
+    bundle = next(iter({**engine.device_states, **engine.host}.values()))
+    real_bytes = sum(t.numel() * t.element_size() for t in bundle.cache.values())
+    record = {
+        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "ssm_heads": cfg.ssm_heads, "ssm_head_dim": cfg.ssm_head_dim,
+        "ssm_state": cfg.ssm_state, "vocab": cfg.vocab_size, "programs": len(corpus),
+        "steps_completed": m.steps_completed, "tokens_generated": m.tokens_generated,
+        "cache_hit_rate": m.cache_hit_rate, "cached_tokens": m.cached_tokens,
+        "prefilled_tokens": m.prefilled_tokens, "sequence_prefills": counts["prefill"],
+        "decode_steps": counts["decode"], "bundles_offloaded": counts["to_host"],
+        "bundles_reloaded": counts["reload"], "router_offloaded": m.offloaded_pages,
+        "router_reloaded": m.reloaded_pages, "ssd_launches": launches,
+        "bundle_bytes_reference_count": engine.bundle_bytes, "bundle_bytes_real": real_bytes,
+        "setup_s": setup_s, "replay_s": replay_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    log("serve_ssm " + json.dumps(record))
+    if m.steps_completed < 9:
+        raise AssertionError(f"the SSM replay completed {m.steps_completed} < 9 steps")
+    if counts["to_host"] <= 0 or counts["reload"] <= 0:
+        raise AssertionError("no state bundle went to the host and came back")
+    if launches != cfg.num_layers * counts["prefill"] or launches == 0:
+        raise AssertionError(
+            f"SSD kernel launches {launches} != layers {cfg.num_layers} x sequence "
+            f"prefills {counts['prefill']}: prefill did not go through the kernel")
+    produced = [t for toks in router.output_log.values() for t in toks]
+    if len(produced) != m.tokens_generated or not all(
+            0 <= t < cfg.vocab_size for t in produced):
+        raise AssertionError("generated tokens are missing or out of the vocabulary")
+    return record, engine
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.launch import serve
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     identity = gpu_identity()
     log(f"gpu: {identity}; torch {torch.__version__}, cuda {torch.version.cuda}")
+    build_kernels()
 
-    t0 = time.perf_counter()
-    ops.KERNEL.load()
-    log(f"built paged_attention in {time.perf_counter() - t0:.1f}s; ptxas:")
-    for line in ops.KERNEL.build_log.splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
-            log("  " + line.strip())
+    paged_err = check_kernel_cases()
+    paged_timing = time_kernel(layers=24)
+    log("paged_attention timing " + json.dumps(paged_timing))
+    flash_err = check_flash_cases()
+    flash_timing = time_flash()
+    log("flash_attention timing " + json.dumps(flash_timing))
+    ssd_err = check_ssd_cases()
+    ssd_timing = time_ssd()
+    log("ssd timing " + json.dumps(ssd_timing))
+    if "--kernels-only" in argv:
+        return 0
 
-    main_err = check_kernel_cases()
-    timing = time_kernel(layers=24)
-    log("paged_attention timing " + json.dumps(timing))
     check_model_small()
-    launches, engines = serve_full_width()
+    check_mamba_small()
+    args = serve.parse_args([])          # the launcher's defaults: full width, cuda
+    mono, engines = replay_qwen(args, chunked=False)
+    chunked, _ = replay_qwen(args, chunked=True, engines=engines)
     log("decode breakdown " + json.dumps(decode_breakdown(engines[0])))
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm, ssm_engine = serve_ssm()
+    log("ssm breakdown " + json.dumps(ssm_breakdown(ssm_engine)))
 
-    kernels = {"kernels": [{
-        "name": "paged_attention_decode",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention/kernel.py:129",
-        "replaces_function": "paged_attention",
-        "launches": launches,
-        "max_abs_err": main_err,
-        "ms": timing["ms"],
-        "kernel_ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-    }]}
+    ft = flash_timing["monolithic"]
+    kernels = {"kernels": [
+        {
+            "name": "paged_attention_decode",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention/kernel.py:129",
+            "replaces_function": "paged_attention",
+            "launches": mono["kernel_launches"],
+            "max_abs_err": paged_err,
+            "ms": paged_timing["ms"],
+            "kernel_ms": paged_timing["ms"],
+            "plain_ms": paged_timing["plain_ms"],
+            "bound_ms": paged_timing["bound_ms"],
+            "bound_by": paged_timing["bound_by"],
+            "library_ms": paged_timing["library_ms"],
+        },
+        {
+            "name": "flash_attention_prefill",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:108",
+            "replaces_function": "flash_attention",
+            "launches": mono["flash_launches"],
+            "launches_chunked_replay": chunked["flash_launches"],
+            "max_abs_err": flash_err,
+            "ms": ft["ms"],
+            "kernel_ms": ft["ms"],
+            "plain_ms": ft["plain_ms"],
+            "bound_ms": ft["bound_ms"],
+            "bound_by": ft["bound_by"],
+            "library_ms": ft["library_ms"],
+        },
+        {
+            "name": "ssd_scan",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/ssd/kernel.py:88",
+            "replaces_function": "ssd",
+            "launches": ssm["ssd_launches"],
+            "max_abs_err": ssd_err,
+            "ms": ssd_timing["ms"],
+            "kernel_ms": ssd_timing["ms"],
+            "plain_ms": ssd_timing["plain_ms"],
+            "bound_ms": ssd_timing["bound_ms"],
+            "bound_by": ssd_timing["bound_by"],
+            "library_ms": None,
+            "library_note": ssd_timing["library_note"],
+        },
+    ]}
     log(json.dumps(kernels))
     log(gpu_identity())
     log(json.dumps({"ok": True, "device": {

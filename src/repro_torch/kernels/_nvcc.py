@@ -1,0 +1,84 @@
+"""Build a kernel's CUDA source into a shared library with ``nvcc``.
+
+Every kernel of the port is one ``csrc/*.cu`` file with a plain C
+interface, compiled alone for ``sm_90a`` at its first launch and loaded
+with ``ctypes``. The library lands in the kernel's ``build/`` directory
+(listed in ``.gitignore``) under a name that carries a hash of the source
+and flags, so an edit rebuilds and an unchanged source loads what an
+earlier call built. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: on ``PATH``, else under the toolkit PyTorch
+    found (``torch.utils.cpp_extension.CUDA_HOME``)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
+
+
+def library_path(source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return source.parent.parent / "build" / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
+
+
+def build(source: Path) -> tuple[Path, str]:
+    """Compile ``source`` if it has not been built yet. Returns the
+    library's path and the compiler's output (registers, shared memory
+    and spills per kernel, from ``-Xptxas -v``)."""
+    lib = library_path(source)
+    log = lib.with_suffix(".log")
+    if lib.exists():
+        return lib, log.read_text() if log.exists() else ""
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    output = res.stdout + res.stderr
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{output}")
+    log.write_text(output)
+    os.replace(tmp, lib)
+    return lib, output
+
+
+class Kernel:
+    """A CUDA kernel behind a wrapper: built and loaded by ``loader`` (a
+    ``_build.load``) at its first launch, never at import. ``launches``
+    counts the wrapper's launches of the kernel and nothing else: calls
+    that took the plain version on CPU tensors do not count."""
+
+    def __init__(self, loader):
+        self.launches = 0
+        self.build_log = ""
+        self._lib = None
+        self._loader = loader
+
+    def load(self):
+        if self._lib is None:
+            self._lib, self.build_log = self._loader()
+        return self._lib
+
+
+def check_status(err: int, name: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -1,0 +1,122 @@
+"""Public entry points of sequence (prefill) attention.
+
+Two entry points over one Hopper kernel (``csrc/flash_attention.cu``),
+which reads its operands through the strides the wrapper passes, so
+neither layout is copied into the other:
+
+* ``flash_attention(q, k, v, *, causal, window, softcap, q_offset)`` in
+  ``[B, H, S, D]``: the counterpart of ``repro.kernels.flash_attention``;
+  its plain version is ``flash_attention_ref``.
+* ``prefill_attention(q, k, v, *, causal, window, cap, q_offset,
+  kv_lengths, kv_hole)`` in the model's ``[B, S, H, D]``: what the model's
+  prefill calls; its plain version is ``blockwise_attention``.
+
+Each chooses by the tensors' device, with no flag: CUDA tensors launch the
+kernel or raise; CPU tensors take the plain version. There is no fallback
+from the kernel to the plain version. The kernel takes ragged ``Sq`` and
+``Skv`` (no divisibility requirement), GQA (``H % KH == 0``), head
+dimensions 32, 64 and 128, and f32 or bf16. A query row that sees no key
+at all comes back as 0 from the kernel (the plain versions give the mean
+of v there); no serving path produces such a row.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _nvcc
+from repro_torch.kernels.flash_attention import _build
+from repro_torch.kernels.flash_attention.ref import blockwise_attention, flash_attention_ref
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (32, 64, 128)
+
+
+class FlashAttentionKernel(_nvcc.Kernel):
+    """The CUDA kernel behind both wrappers (see :class:`_nvcc.Kernel`).
+    ``seq_dim`` and ``head_dim`` name where the sequence and the heads sit
+    in the 4-D operands (2 and 1 for ``[B, H, S, D]``, 1 and 2 for
+    ``[B, S, H, D]``)."""
+
+    def __init__(self):
+        super().__init__(_build.load)
+
+    def __call__(self, q, k, v, *, seq_dim: int, head_dim: int, causal: bool, window,
+                 softcap, q_offset: int, kv_lengths=None, kv_hole=None):
+        for name, t in {"q": q, "k": k, "v": v}.items():
+            if t.dim() != 4:
+                raise ValueError(f"{name} must have 4 dims, has shape {tuple(t.shape)}")
+            if t.stride(-1) != 1:
+                raise ValueError(f"{name} must be contiguous in its last dimension")
+        B, D = q.shape[0], q.shape[3]
+        H, Sq = q.shape[head_dim], q.shape[seq_dim]
+        KH, Skv = k.shape[head_dim], k.shape[seq_dim]
+        dev = q.device
+        if (tuple(v.shape) != tuple(k.shape) or k.shape[0] != B or k.shape[3] != D
+                or H % KH):
+            raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                             f"v {tuple(v.shape)}")
+        if D not in _HEAD_DIMS:
+            raise ValueError(f"head dimension {D} is not one of {_HEAD_DIMS}")
+        if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+            raise TypeError(f"q, k and v must share float32 or bfloat16, not "
+                            f"{q.dtype}, {k.dtype}, {v.dtype}")
+        for name, t in {"k": k, "v": v, "kv_lengths": kv_lengths}.items():
+            if t is not None and t.device != dev:
+                raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if kv_lengths is not None and (
+                kv_lengths.dtype != torch.int32 or tuple(kv_lengths.shape) != (B,)
+                or not kv_lengths.is_contiguous()):
+            raise ValueError(f"kv_lengths must be contiguous int32 of shape {(B,)}")
+        if window is not None and window <= 0:
+            raise ValueError(f"window must be positive, not {window}")
+        if softcap is not None and softcap <= 0:
+            raise ValueError(f"softcap must be positive, not {softcap}")
+        if q_offset < 0:
+            raise ValueError(f"q_offset must be non-negative, not {q_offset}")
+        hole_lo, hole_hi = (0, 0) if kv_hole is None else (int(kv_hole[0]), int(kv_hole[1]))
+
+        lib = self.load()
+        out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+
+        def strides(t):
+            return t.stride(0), t.stride(head_dim), t.stride(seq_dim)
+
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                kv_lengths.data_ptr() if kv_lengths is not None else None, out.data_ptr(),
+                B, H, KH, Sq, Skv, D, _DTYPE_CODES[q.dtype],
+                *strides(q), *strides(k), *strides(v), *strides(out),
+                D ** -0.5, softcap or 0.0, int(causal), window or 0, int(q_offset),
+                hole_lo, hole_hi, stream,
+            )
+        _nvcc.check_status(err, "flash_attention_fwd")
+        self.launches += 1
+        return out
+
+
+#: the one kernel instance both wrappers launch; its ``launches`` is the
+#: count a run reads to show that prefill went through the kernel
+KERNEL = FlashAttentionKernel()
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, q_offset=0):
+    """Sequence attention, q [B,H,Sq,D]; k, v [B,KH,Skv,D] -> [B,H,Sq,D]."""
+    if q.is_cuda:
+        return KERNEL(q, k, v, seq_dim=2, head_dim=1, causal=causal, window=window,
+                      softcap=softcap, q_offset=q_offset)
+    return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                               q_offset=q_offset)
+
+
+def prefill_attention(q, k, v, *, causal: bool, window=None, cap=None, q_offset: int = 0,
+                      kv_lengths=None, kv_hole=None):
+    """Prefill attention in the model's layout, q [B,Sq,H,D]; k, v
+    [B,Skv,KH,D] -> [B,Sq,H,D] (arguments as ``blockwise_attention``)."""
+    if q.is_cuda:
+        return KERNEL(q, k, v, seq_dim=1, head_dim=2, causal=causal, window=window,
+                      softcap=cap, q_offset=q_offset, kv_lengths=kv_lengths,
+                      kv_hole=kv_hole)
+    return blockwise_attention(q, k, v, causal=causal, window=window, cap=cap,
+                               q_offset=q_offset, kv_lengths=kv_lengths, kv_hole=kv_hole)

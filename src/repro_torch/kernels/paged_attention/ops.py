@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _nvcc
+from repro_torch.kernels.paged_attention import _build
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_decode_ref,
     paged_attention_ref,
@@ -26,22 +28,11 @@ from repro_torch.kernels.paged_attention.ref import (
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-class PagedAttentionKernel:
-    """The CUDA kernel behind the wrapper: built and loaded at its first
-    launch, never at import. ``launches`` counts the kernel's launches and
-    nothing else (calls that took the plain version do not count)."""
+class PagedAttentionKernel(_nvcc.Kernel):
+    """The CUDA kernel behind the wrapper (see :class:`_nvcc.Kernel`)."""
 
     def __init__(self):
-        self.launches = 0
-        self.build_log = ""
-        self._lib = None
-
-    def load(self):
-        if self._lib is None:
-            from repro_torch.kernels.paged_attention import _build
-
-            self._lib, self.build_log = _build.load()
-        return self._lib
+        super().__init__(_build.load)
 
     def __call__(self, q, k_new, v_new, k_pages, v_pages, block_tables, lengths,
                  k_scales, v_scales, *, softcap, window):
@@ -109,8 +100,7 @@ class PagedAttentionKernel:
                 D ** -0.5, softcap or 0.0, window or 0,
                 stream,
             )
-        if err != 0:
-            raise RuntimeError(f"paged_attention_decode launch failed: CUDA error {err}")
+        _nvcc.check_status(err, "paged_attention_decode")
         self.launches += 1
         return out
 

@@ -1,0 +1,131 @@
+"""Plain PyTorch version of the Mamba-2 SSD (state-space duality) scan.
+
+The counterpart of ``repro/kernels/ssd/ref.py``: the chunked block
+decomposition of Dao & Gu, "Transformers are SSMs" (arXiv:2405.21060,
+Algorithm 1): a within-chunk attention-like term plus a between-chunk
+low-rank state recurrence. The model runs it on CPU tensors, and the
+Hopper kernel (``csrc/ssd.cu``) is held against it on the card. The whole
+computation is in f32; ``y`` comes back in ``x``'s dtype.
+
+Shapes (h = heads, p = head dim, n = state dim, g = B/C groups):
+    x  : [b, s, h, p]
+    dt : [b, s, h]       (post-softplus, >= 0)
+    A  : [h]             (negative reals; decay = exp(dt * A))
+    B  : [b, s, g, n]
+    C  : [b, s, g, n]
+returns
+    y          : [b, s, h, p]
+    final_state: [b, h, p, n] f32
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+F32 = torch.float32
+
+
+def _expand_groups(t: torch.Tensor, h: int) -> torch.Tensor:
+    """[b, s, g, n] -> [b, s, h, n] by repeating each group over its heads."""
+    g = t.shape[2]
+    if h % g:
+        raise ValueError(f"{h} heads do not divide into {g} groups")
+    return torch.repeat_interleave(t, h // g, dim=2)
+
+
+def ssd_reference(x, dt, A, B, C, *, chunk: int = 128, initial_state=None):
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if s % chunk:
+        # zero-pad to a chunk multiple: dt=0 -> decay 1, x=0 -> no update
+        pad = chunk - s % chunk
+        y, st = ssd_reference(
+            F.pad(x, (0, 0, 0, 0, 0, pad)),
+            F.pad(dt, (0, 0, 0, pad)),
+            A,
+            F.pad(B, (0, 0, 0, 0, 0, pad)),
+            F.pad(C, (0, 0, 0, 0, 0, pad)),
+            chunk=chunk,
+            initial_state=initial_state,
+        )
+        return y[:, :s], st
+    c = s // chunk
+    dev = x.device
+
+    Bh = _expand_groups(B, h).to(F32)
+    Ch = _expand_groups(C, h).to(F32)
+    xf = x.to(F32)
+    dtf = dt.to(F32)
+    dA = dtf * A.to(F32)[None, None, :]                         # [b,s,h]
+
+    # chunked views
+    xq = xf.reshape(b, c, chunk, h, p)
+    dtq = dtf.reshape(b, c, chunk, h)
+    dAq = dA.reshape(b, c, chunk, h)
+    Bq = Bh.reshape(b, c, chunk, h, n)
+    Cq = Ch.reshape(b, c, chunk, h, n)
+
+    cum = torch.cumsum(dAq, dim=2)                              # [b,c,q,h]
+    total = cum[:, :, -1, :]                                    # [b,c,h]
+
+    # ---- intra-chunk (the "attention-like" quadratic term)
+    # L[i,j] = exp(cum_i - cum_j) for i >= j else 0
+    li = cum[:, :, :, None, :]                                  # [b,c,q,1,h]
+    lj = cum[:, :, None, :, :]                                  # [b,c,1,q,h]
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dev))
+    L = torch.where(mask[None, None, :, :, None], torch.exp(li - lj), 0.0)
+    scores = torch.einsum("bcqhn,bckhn->bcqkh", Cq, Bq) * L     # [b,c,q,k,h]
+    xdt = xq * dtq[..., None]                                   # [b,c,q,h,p]
+    y_diag = torch.einsum("bcqkh,bckhp->bcqhp", scores, xdt)
+
+    # ---- per-chunk states: sum_k exp(total - cum_k) * B_k (x)dt_k
+    decay_to_end = torch.exp(total[:, :, None, :] - cum)        # [b,c,q,h]
+    chunk_states = torch.einsum(
+        "bcqhn,bcqhp->bchpn", Bq * decay_to_end[..., None], xdt
+    )                                                           # [b,c,h,p,n]
+
+    # ---- inter-chunk recurrence over chunk states (the reference's scan)
+    decay_chunk = torch.exp(total)                              # [b,c,h]
+    carry = (torch.zeros((b, h, p, n), dtype=F32, device=dev)
+             if initial_state is None else initial_state.to(F32))
+    prev = []
+    for ci in range(c):
+        prev.append(carry)                                      # state BEFORE chunk
+        carry = carry * decay_chunk[:, ci, :, None, None] + chunk_states[:, ci]
+    prev_states = torch.stack(prev, dim=1)                      # [b,c,h,p,n]
+
+    # ---- inter-chunk contribution: C_q exp(cum_q) @ state_before_chunk
+    y_off = torch.einsum(
+        "bcqhn,bchpn->bcqhp", Cq * torch.exp(cum)[..., None], prev_states
+    )
+
+    y = (y_diag + y_off).reshape(b, s, h, p)
+    return y.to(x.dtype), carry
+
+
+def ssd_decode_step(state, x, dt, A, B, C):
+    """One-token recurrent update: h' = exp(dt*A) h + dt * x (x) B; y = C h'.
+
+    state [b, h, p, n] f32; x [b, h, p]; dt [b, h]; A [h]; B/C [b, g, n].
+    """
+    b, h, p, n = state.shape
+    Bh = torch.repeat_interleave(B, h // B.shape[1], dim=1).to(F32)   # [b,h,n]
+    Ch = torch.repeat_interleave(C, h // C.shape[1], dim=1).to(F32)
+    decay = torch.exp(dt.to(F32) * A.to(F32)[None, :])                # [b,h]
+    upd = (dt.to(F32)[..., None] * x.to(F32))[..., None] * Bh[:, :, None, :]
+    new_state = state * decay[:, :, None, None] + upd                 # [b,h,p,n]
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch)
+    return y.to(x.dtype), new_state
+
+
+def ssd_naive(x, dt, A, B, C, *, initial_state=None):
+    """O(s) sequential scan: the ground-truth oracle for tiny shapes."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    state = (torch.zeros((b, h, p, n), dtype=F32, device=x.device)
+             if initial_state is None else initial_state.to(F32))
+    ys = []
+    for t in range(s):
+        y, state = ssd_decode_step(state, x[:, t], dt[:, t], A, B[:, t], C[:, t])
+        ys.append(y)
+    return torch.stack(ys, dim=1), state

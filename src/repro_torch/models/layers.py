@@ -1,4 +1,4 @@
-"""Block library of the port: the dense, non-alternating family.
+"""Block library of the port: the dense, non-alternating family and Mamba-2.
 
 The counterpart of ``repro/models/layers.py``. Every block is a
 (``describe_*``, ``apply_*``) pair: ``describe_*`` builds a dict of
@@ -8,17 +8,27 @@ name) and the activations. Layers are stacked along a leading ``[L, ...]``
 dimension of the stored tensors (:func:`stack`), and the model loops over
 the layer index where the reference ran ``lax.scan``.
 
-Prefill attention is :func:`blockwise_attention` (online softmax in plain
-PyTorch, as the reference's is in plain jnp). Decode attention reads the
-paged pool through :func:`repro_torch.kernels.paged_attention.ops.paged_attention_decode`,
-which launches the Hopper kernel for CUDA tensors. The large projections
-(QKV, wo, FFN) stay ``torch.matmul``, as the reference leaves them to XLA.
+Prefill attention goes through
+:func:`repro_torch.kernels.flash_attention.ops.prefill_attention`, decode
+attention reads the paged pool through
+:func:`repro_torch.kernels.paged_attention.ops.paged_attention_decode`, and
+the Mamba-2 block's sequence-mode scan through
+:func:`repro_torch.kernels.ssd.ops.ssd`: each launches its Hopper kernel
+for CUDA tensors and takes its plain version (:func:`blockwise_attention`,
+``ssd_reference``; the reference ran these in plain jnp) for CPU tensors.
+The Mamba-2 decode step is the plain ``ssd_decode_step``, as in the
+reference. The large projections (QKV, wo, FFN, in/out_proj) stay
+``torch.matmul``, as the reference leaves them to XLA.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention.ops import prefill_attention
+from repro_torch.kernels.flash_attention.ref import blockwise_attention  # noqa: F401 (re-export)
 from repro_torch.kernels.paged_attention.ops import paged_attention_decode
+from repro_torch.kernels.ssd.ops import ssd
+from repro_torch.kernels.ssd.ref import ssd_decode_step
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Leaf
 
@@ -44,6 +54,18 @@ def softcap(t, cap):
     if cap is None:
         return t
     return cap * torch.tanh(t / cap)
+
+
+def silu(x):
+    """silu as the reference computes it, x * 1/(1 + exp(-x)) rounding to
+    x's dtype after every op: bit-equal to XLA's bf16 expansion, where
+    ``F.silu`` rounds once."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def softplus(x):
+    """softplus as ``jax.nn.softplus`` computes it, ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def rope(x, positions, theta: float):
@@ -88,97 +110,6 @@ def _project_qkv(p, x, h, kh, hd, positions, theta):
     return rope(q, positions, theta), rope(k, positions, theta), v
 
 
-def _largest_divisor(n: int, pref: int) -> int:
-    """Largest divisor of ``n`` that is <= ``pref``."""
-    d = min(pref, n)
-    while n % d:
-        d -= 1
-    return d
-
-
-def blockwise_attention(
-    q, k, v, *, causal: bool, window: int | None = None, cap: float | None = None,
-    q_offset: int = 0, kv_lengths=None, kv_hole=None, q_block: int = 512,
-    kv_block: int = 1024,
-):
-    """Flash-style online-softmax attention in plain PyTorch.
-
-    q: [B, Sq, H, D]; k, v: [B, Skv, KH, D] (GQA: H = KH * G).
-    ``q_offset``: absolute position of q[0] (chunked prefill).
-    ``kv_lengths``: [B] valid KV lengths (None = all valid).
-    ``kv_hole``: optional ``(lo, hi)`` — KV indices in ``[lo, hi)`` are
-    masked for every query (the padding between a bucketed prefix's real
-    length and its padded one).
-
-    Scores and the P·V product accumulate in f32 from the bf16 operands
-    (the reference's ``preferred_element_type=F32``); probabilities are
-    rounded to q's dtype before the P·V product, as in the reference.
-    """
-    B, Sq, H, D = q.shape
-    Skv, KH = k.shape[1], k.shape[2]
-    if KH != H:
-        k = torch.repeat_interleave(k, H // KH, dim=2)
-        v = torch.repeat_interleave(v, H // KH, dim=2)
-        KH = H
-    G = H // KH
-    qb = _largest_divisor(Sq, q_block)
-    kb = _largest_divisor(Skv, kv_block)
-    nq, nk = Sq // qb, Skv // kb
-    scale = D ** -0.5
-    dev = q.device
-
-    # sliding-window block skip: a q block at positions [lo, lo+qb) only
-    # sees kv blocks intersecting (lo - window, lo + qb); skipped blocks are
-    # fully masked, so the skip is exact
-    skip_blocks = (
-        window is not None and causal and kv_lengths is None
-        and kv_hole is None and (window + qb) // kb + 2 < nk
-    )
-    n_vis = min(nk, (window + qb) // kb + 2) if skip_blocks else nk
-    k_pos_all = torch.arange(Skv, device=dev)
-
-    outs = []
-    for qi in range(nq):
-        qblk = q[:, qi * qb:(qi + 1) * qb].reshape(B, qb, KH, G, D).to(F32)
-        qp = q_offset + torch.arange(qi * qb, (qi + 1) * qb, device=dev)
-        lo_blk = max(0, (q_offset + qi * qb - window + 1) // kb) if skip_blocks else 0
-        m = torch.full((B, qb, KH, G), -1e30, dtype=F32, device=dev)
-        l = torch.zeros((B, qb, KH, G), dtype=F32, device=dev)
-        acc = torch.zeros((B, qb, KH, G, D), dtype=F32, device=dev)
-        for j in range(n_vis):
-            ki = lo_blk + j if skip_blocks else j
-            in_range = ki < nk
-            ki = min(ki, nk - 1)
-            kblk = k[:, ki * kb:(ki + 1) * kb]
-            vblk = v[:, ki * kb:(ki + 1) * kb]
-            kp = k_pos_all[ki * kb:(ki + 1) * kb]
-            s = torch.einsum("bqhgd,bkhd->bqhgk", qblk, kblk.to(F32)) * scale
-            s = softcap(s, cap)
-            mask = torch.full((qb, kb), in_range, dtype=torch.bool, device=dev)
-            if causal:
-                mask &= qp[:, None] >= kp[None, :]
-            if window is not None:
-                mask &= (qp[:, None] - kp[None, :]) < window
-            m_ = mask[None, :, None, None, :]
-            if kv_lengths is not None:
-                m_ = m_ & (kp[None, :] < kv_lengths[:, None])[:, None, None, None, :]
-            if kv_hole is not None:
-                lo, hi = kv_hole
-                m_ = m_ & ~((kp >= lo) & (kp < hi))[None, None, None, None, :]
-            s = torch.where(m_, s, -1e30)
-            m_new = torch.maximum(m, s.amax(-1))
-            alpha = torch.exp(m - m_new)
-            pexp = torch.exp(s - m_new[..., None])
-            l = l * alpha + pexp.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bqhgk,bkhd->bqhgd", pexp.to(q.dtype).to(F32), vblk.to(F32)
-            )
-            m = m_new
-        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])   # [B,qb,KH,G,D]
-    out = torch.cat(outs, dim=1).reshape(B, Sq, H, D)
-    return out.to(q.dtype)
-
-
 # ======================================================================= FFN
 def describe_ffn(cfg: ModelConfig):
     d, f = cfg.d_model, cfg.d_ff
@@ -190,11 +121,7 @@ def describe_ffn(cfg: ModelConfig):
 
 
 def apply_ffn(p, x):
-    g = x @ p["w_gate"]
-    # silu as the reference computes it, x * 1/(1 + exp(-x)) rounding to
-    # x's dtype after every op: bit-equal to XLA's bf16 expansion, where
-    # F.silu rounds once
-    h = (g * (1 / (1 + torch.exp(-g)))) * (x @ p["w_up"])
+    h = silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
 
 
@@ -231,7 +158,7 @@ def apply_dense_block(
         q_off = pk.shape[1]
         if prefix_valid is not None:
             hole = (prefix_valid, q_off)
-    attn = blockwise_attention(
+    attn = prefill_attention(
         q, k_att, v_att, causal=True, window=window,
         cap=cfg.attn_logit_softcap, q_offset=q_off, kv_hole=hole,
     )
@@ -270,3 +197,88 @@ def apply_dense_block_paged(
     x = x + (attn.reshape(B, 1, h_ * hd) @ p["attn"]["wo"])
     x = x + apply_ffn(p["ffn"], rmsnorm(x, p["ln2"]))
     return x, (k_new, v_new)
+
+
+# ============================================================== mamba2 block
+def describe_mamba_block(cfg: ModelConfig):
+    d = cfg.d_model
+    inner = cfg.ssm_inner
+    h, n, w = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_conv_width
+    g = 1  # single B/C group
+    conv_dim = inner + 2 * g * n
+    return {
+        "ln": Leaf((d,), ("embed_act",), init="zeros"),
+        "in_proj": Leaf((d, 2 * inner + 2 * g * n + h), ("embed", "ssm_heads")),
+        "conv_w": Leaf((w, conv_dim), ("conv", "ssm_heads"), scale=0.2),
+        "conv_b": Leaf((conv_dim,), ("ssm_heads",), init="zeros"),
+        "dt_bias": Leaf((h,), ("ssm_heads",), init="zeros"),
+        "A_log": Leaf((h,), ("ssm_heads",), scale=0.5),
+        "D": Leaf((h,), ("ssm_heads",), init="ones"),
+        "norm": Leaf((inner,), ("ssm_heads",), init="zeros"),
+        "out_proj": Leaf((inner, d), ("ssm_heads", "embed")),
+    }
+
+
+def _mamba_split(cfg: ModelConfig, zxbcdt):
+    inner = cfg.ssm_inner
+    n = cfg.ssm_state
+    z = zxbcdt[..., :inner]
+    xBC = zxbcdt[..., inner : 2 * inner + 2 * n]
+    dt = zxbcdt[..., 2 * inner + 2 * n :]
+    return z, xBC, dt
+
+
+def apply_mamba_block(p, x, cfg: ModelConfig, *, cache=None):
+    """Mamba-2 block. Sequence mode: ``cache=None`` -> ``(y, (ssm_state,
+    conv_state))``, the scan through :func:`repro_torch.kernels.ssd.ops.ssd`.
+    Decode mode: ``cache=(ssm_state [B,H,P,N], conv_state [B,W-1,conv_dim])``,
+    one token through the plain ``ssd_decode_step``."""
+    inner, n, hh, w = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv_width
+    hp = cfg.ssm_head_dim
+    res = x
+    xn = rmsnorm(x, p["ln"])
+    zxbcdt = xn @ p["in_proj"]
+    z, xBC, dt = _mamba_split(cfg, zxbcdt)
+    A = -torch.exp(p["A_log"].to(F32))
+
+    if cache is None:
+        B_, S, _ = x.shape
+        # causal depthwise conv over [B,S,conv_dim]
+        pad = torch.nn.functional.pad(xBC, (0, 0, w - 1, 0))
+        conv_state = pad[:, -(w - 1):, :] if w > 1 else None
+        xBC = _causal_conv(pad, p["conv_w"], p["conv_b"], S)
+        xs, Bmat, Cmat = xBC[..., :inner], xBC[..., inner:inner + n], xBC[..., inner + n:]
+        xs = xs.reshape(B_, S, hh, hp)
+        dt = softplus(dt.to(F32) + p["dt_bias"].to(F32))
+        y, final_state = ssd(xs, dt, A, Bmat, Cmat, chunk=cfg.ssm_chunk)
+        y = y + xs * p["D"].to(x.dtype)[None, None, :, None]
+        y = y.reshape(B_, S, inner)
+        new_cache = (final_state.to(F32), conv_state)
+    else:
+        ssm_state, conv_state = cache
+        B_ = x.shape[0]
+        xBC1 = xBC[:, 0]                                         # [B, conv_dim]
+        window = torch.cat([conv_state, xBC1[:, None, :]], dim=1)   # [B, W, c]
+        xBC1 = torch.einsum("bwc,wc->bc", window, p["conv_w"]) + p["conv_b"]
+        xBC1 = silu(xBC1)
+        new_conv = window[:, 1:, :]
+        xs = xBC1[..., :inner].reshape(B_, hh, hp)
+        Bmat = xBC1[..., inner:inner + n][:, None, :]
+        Cmat = xBC1[..., inner + n:][:, None, :]
+        dt1 = softplus(dt[:, 0].to(F32) + p["dt_bias"].to(F32))
+        y, new_state = ssd_decode_step(ssm_state, xs, dt1, A, Bmat, Cmat)
+        y = y + xs * p["D"].to(x.dtype)[None, :, None]
+        y = y.reshape(B_, 1, inner)
+        new_cache = (new_state, new_conv)
+
+    y = y * silu(z)
+    y = rmsnorm(y, p["norm"])
+    out = res + y @ p["out_proj"]
+    return out, new_cache
+
+
+def _causal_conv(padded, w, b, out_len):
+    """padded: [B, S+W-1, C]; depthwise causal conv, silu."""
+    W = w.shape[0]
+    out = sum(padded[:, i:i + out_len, :] * w[i][None, None, :] for i in range(W))
+    return silu(out + b)

@@ -1,5 +1,6 @@
 """Model assembly of the port: describe / prefill / paged decode for the
-dense, non-alternating family.
+dense, non-alternating family, and describe / prefill / decode for the
+``ssm`` family (mamba2).
 
 The counterpart of ``repro/models/model.py``. :class:`Model` is an
 ``nn.Module`` whose buffers are the parameter tree, leaf name for leaf
@@ -18,7 +19,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_dense_block,
     apply_dense_block_paged,
+    apply_mamba_block,
     describe_dense_block,
+    describe_mamba_block,
     rmsnorm,
     softcap,
     stack,
@@ -29,9 +32,9 @@ F32 = torch.float32
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.local_global_alternating:
+    if cfg.family not in ("dense", "ssm") or cfg.local_global_alternating:
         raise NotImplementedError(
-            f"the port serves the dense, non-alternating family; "
+            f"the port serves the dense, non-alternating family and ssm; "
             f"{cfg.name} is {cfg.family}"
             + (" with local/global alternation" if cfg.local_global_alternating else "")
         )
@@ -91,11 +94,28 @@ class Model(nn.Module):
     def describe(self) -> dict:
         cfg = self.cfg
         d, v = cfg.d_model, cfg.vocab_size
+        block = describe_mamba_block(cfg) if cfg.family == "ssm" else describe_dense_block(cfg)
         return {
             "embed": Leaf((v, d), ("vocab", "embed"), scale=0.02),
             "ln_f": Leaf((d,), ("embed_act",), init="zeros"),
             "head": Leaf((d, v), ("embed", "vocab")),
-            "blocks": stack(describe_dense_block(cfg), cfg.num_layers),
+            "blocks": stack(block, cfg.num_layers),
+        }
+
+    # --------------------------------------------------------------- cache
+    def describe_cache(self, batch: int, max_seq: int) -> dict:
+        """The ssm family's per-program decode state: SSD state f32 and
+        conv state bf16, O(1) in ``max_seq``. The dense family keeps its
+        KV in the serving engine's page pool instead."""
+        cfg = self.cfg
+        if cfg.family != "ssm":
+            raise NotImplementedError("dense-slot caches are not ported; KV lives in pages")
+        L, conv_dim = cfg.num_layers, cfg.ssm_inner + 2 * cfg.ssm_state
+        return {
+            "ssm": Leaf((L, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                        ("layers", "batch", "ssm_heads_act", None, None), F32, init="zeros"),
+            "conv": Leaf((L, batch, cfg.ssm_conv_width - 1, conv_dim),
+                         ("layers", "batch", None, "ssm_heads_act"), init="zeros"),
         }
 
     def _logits(self, h):
@@ -110,9 +130,19 @@ class Model(nn.Module):
         ``prefix``: optional {"k","v"} [L,B,Sp,KH,HD] radix-cached KV for
         chunked prefill. ``prefix_valid`` marks how many prefix positions
         are real when the prefix is padded to a bucket. Returns
-        ``(hidden, cache)`` with cache {"k","v"} [L,B,S,KH,HD].
+        ``(hidden, cache)`` with cache {"k","v"} [L,B,S,KH,HD], or for the
+        ssm family {"ssm": [L,B,H,P,N] f32, "conv": [L,B,W-1,conv_dim]}.
         """
         cfg = self.cfg
+        if cfg.family == "ssm":
+            if prefix is not None:
+                raise ValueError("the ssm family has no prefix to attend over")
+            sts, cvs = [], []
+            for p in self._layers:
+                x, (st, cv) = apply_mamba_block(p, x, cfg)
+                sts.append(st)
+                cvs.append(cv)
+            return x, {"ssm": torch.stack(sts), "conv": torch.stack(cvs)}
         ks, vs = [], []
         for l, p in enumerate(self._layers):
             pre = (prefix["k"][l], prefix["v"][l]) if prefix is not None else None
@@ -149,6 +179,27 @@ class Model(nn.Module):
         idx = -1 if logit_index is None else logit_index
         return self._logits(h[:, idx, :]), cache
 
+    # ------------------------------------------------------------- decode
+    @torch.no_grad()
+    def decode(self, cache, tokens, lengths):
+        """One decode step of the ssm family. ``tokens`` [B]; ``lengths``
+        [B] = context length including the new token (unused by the
+        recurrence, kept for the reference's signature). ``cache`` is
+        {"ssm", "conv"} as :meth:`prefill` returns it; returns
+        ``(logits [B, V] f32, new_cache)``. The dense family's slot-cache
+        decode is not ported: it serves through :meth:`decode_paged`."""
+        del lengths
+        cfg = self.cfg
+        if cfg.family != "ssm":
+            raise NotImplementedError("dense-slot decode is not ported; use decode_paged")
+        x = self.params.embed[tokens][:, None, :]           # [B,1,d]
+        sts, cvs = [], []
+        for l, p in enumerate(self._layers):
+            x, (st, cv) = apply_mamba_block(p, x, cfg, cache=(cache["ssm"][l], cache["conv"][l]))
+            sts.append(st)
+            cvs.append(cv)
+        return self._logits(x[:, 0, :]), {"ssm": torch.stack(sts), "conv": torch.stack(cvs)}
+
     # ------------------------------------------------------- paged decode
     @torch.no_grad()
     def decode_paged(
@@ -170,6 +221,8 @@ class Model(nn.Module):
         Returns ``logits [B, V]`` (f32).
         """
         cfg = self.cfg
+        if cfg.family != "dense":
+            raise NotImplementedError(f"paged decode serves the dense family, not {cfg.family}")
         quantized = k_scales is not None
         x = self.params.embed[tokens][:, None, :]           # [B,1,d]
         k_news, v_news = [], []

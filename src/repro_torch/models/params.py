@@ -68,8 +68,13 @@ def materialize(tree, seed: int = 0, device="cpu") -> dict:
             # rank >= 2, so stacked [L, d, f] leaves use d
             fan_in = l.shape[-2] if len(l.shape) >= 2 else max(1, l.shape[-1])
             std = l.scale if l.scale is not None else 1.0 / np.sqrt(fan_in)
-            vals = rng.standard_normal(l.shape, dtype=np.float32) * std
-            t = torch.from_numpy(np.asarray(vals, np.float32)).to(l.dtype)
+            # a stacked leaf is drawn one layer slice at a time: the same
+            # stream in C order, without a transient f32 copy of the whole
+            # leaf (mamba2-2.7b's in_proj alone would be 6.9 GB)
+            t = torch.empty(l.shape, dtype=l.dtype)
+            for out_slice in t if len(l.shape) >= 3 else t[None]:
+                vals = rng.standard_normal(tuple(out_slice.shape), dtype=np.float32) * std
+                out_slice.copy_(torch.from_numpy(np.asarray(vals, np.float32)))
         out.append((name, t.to(device)))
     return _unflatten(out)
 

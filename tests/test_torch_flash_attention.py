@@ -1,0 +1,181 @@
+"""The port's sequence (prefill) attention against the JAX reference.
+
+``flash_attention`` (layout ``[B, H, S, D]``) on CPU tensors takes the
+plain ``flash_attention_ref`` and is held against the Pallas kernel in
+interpret mode and against the reference's oracle; ``prefill_attention``
+(the model's ``[B, S, H, D]``) on CPU tensors takes the plain
+``blockwise_attention`` and is held against the reference's
+``blockwise_attention`` with ``q_offset``, ``kv_hole`` and ``kv_lengths``.
+The two layouts, which share one kernel on the card, are held against
+each other. Bands are the reference's own ``tol()`` of
+``tests/test_kernels.py`` (2e-3 in f32, 2e-2 in bf16: the frameworks sum
+in another order and round the bf16 output once, and ``blockwise_attention``
+rounds the probabilities to bf16 before the P·V product where the dense
+oracle does not).
+
+The CUDA kernel itself runs only on a card: ``test_kernel_matches_plain_on_card``
+is marked ``cuda`` and skips where there is none.
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.kernel import flash_attention as pallas_flash
+from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref
+from repro.models.layers import blockwise_attention as jax_blockwise
+from repro_torch.kernels.flash_attention import ops, ref
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Test workers share the CPU: one intra-op thread per process keeps
+    torch from oversubscribing it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+FLASH_SHAPES = [
+    # B, H, KH, S, D, qb, kb (tests/test_kernels.py)
+    (2, 4, 4, 64, 32, 16, 16),
+    (1, 8, 2, 128, 64, 32, 32),
+    (2, 4, 1, 64, 64, 64, 16),
+]
+VARIANTS = {
+    "causal": dict(causal=True),
+    "window": dict(causal=True, window=24),
+    "bidir": dict(causal=False),
+    "softcap": dict(causal=True, softcap=50.0),
+}
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def tol(name):
+    return dict(rtol=2e-2, atol=2e-2) if name == "bfloat16" else dict(rtol=2e-3, atol=2e-3)
+
+
+def f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+def qkv(seed, q_shape, kv_shape):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(q_shape, dtype=np.float32),
+            rng.standard_normal(kv_shape, dtype=np.float32),
+            rng.standard_normal(kv_shape, dtype=np.float32))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_flash_attention_on_cpu_matches_pallas_interpret(shape, dtype, variant):
+    B, H, KH, S, D, qb, kb = shape
+    jd, td = DTYPES[dtype]
+    kw = VARIANTS[variant]
+    q, k, v = qkv(11, (B, H, S, D), (B, KH, S, D))
+    want = pallas_flash(jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd),
+                        q_block=qb, kv_block=kb, interpret=True, **kw)
+    before = ops.KERNEL.launches
+    got = ops.flash_attention(torch.from_numpy(q).to(td), torch.from_numpy(k).to(td),
+                              torch.from_numpy(v).to(td), **kw)
+    assert ops.KERNEL.launches == before          # CPU tensors take the plain version
+    assert got.dtype == td and tuple(got.shape) == (B, H, S, D)
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_flash_attention_ref_matches_jax_oracle(variant):
+    """The plain version against the reference's oracle, GQA 4:1, with a
+    ragged length and a query offset (what the Pallas kernel cannot take)."""
+    B, H, KH, Sq, Skv, D = 1, 8, 2, 37, 53, 64
+    kw = dict(VARIANTS[variant], q_offset=Skv - Sq)
+    q, k, v = qkv(12, (B, H, Sq, D), (B, KH, Skv, D))
+    want = jax_flash_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
+    got = ref.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), **kw)
+    np.testing.assert_allclose(f32(got), f32(want), **tol("float32"))
+
+
+def test_flash_attention_q_offset_chunk():
+    """Chunked prefill: the suffix attends over the full KV with offset
+    positions and equals the tail of the full computation."""
+    B, H, S, D = 1, 4, 64, 32
+    q, k, v = (torch.from_numpy(a) for a in qkv(13, (B, H, S, D), (B, H, S, D)))
+    full = ops.flash_attention(q, k, v, causal=True)
+    tail = ops.flash_attention(q[:, :, 32:], k, v, causal=True, q_offset=32)
+    np.testing.assert_allclose(f32(tail), f32(full[:, :, 32:]), **tol("float32"))
+
+
+PREFILL_VARIANTS = {
+    # name: (B, Sq, Skv, H, KH, D, kwargs)
+    "monolithic": (1, 48, 48, 4, 4, 64, dict(causal=True)),
+    "chunk+hole": (1, 32, 96, 4, 4, 64, dict(causal=True, q_offset=64, kv_hole=(45, 64))),
+    "gqa+lengths": (2, 24, 40, 4, 2, 64, dict(causal=True, q_offset=16,
+                                              kv_lengths=[40, 29])),
+    "window+cap": (1, 40, 40, 4, 4, 128, dict(causal=True, window=12, cap=30.0)),
+    "bidir ragged": (2, 30, 30, 4, 1, 32, dict(causal=False)),
+}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("variant", list(PREFILL_VARIANTS))
+def test_prefill_attention_on_cpu_matches_jax_blockwise(variant, dtype):
+    B, Sq, Skv, H, KH, D, kw = PREFILL_VARIANTS[variant]
+    jd, td = DTYPES[dtype]
+    q, k, v = qkv(14, (B, Sq, H, D), (B, Skv, KH, D))
+    jkw, tkw = dict(kw), dict(kw)
+    if "kv_lengths" in kw:
+        jkw["kv_lengths"] = jnp.asarray(kw["kv_lengths"], jnp.int32)
+        tkw["kv_lengths"] = torch.tensor(kw["kv_lengths"], dtype=torch.int32)
+    want = jax_blockwise(jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd), **jkw)
+    before = ops.KERNEL.launches
+    got = ops.prefill_attention(torch.from_numpy(q).to(td), torch.from_numpy(k).to(td),
+                                torch.from_numpy(v).to(td), **tkw)
+    assert ops.KERNEL.launches == before
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("variant", ["causal", "window", "softcap"])
+def test_the_two_layouts_agree(variant):
+    """``prefill_attention`` in [B,S,H,D] and ``flash_attention`` in
+    [B,H,S,D] compute one function (one kernel on the card)."""
+    kw = dict(VARIANTS[variant])
+    pkw = dict(causal=kw["causal"], window=kw.get("window"), cap=kw.get("softcap"))
+    B, H, KH, S, D = 2, 8, 2, 50, 64
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in qkv(15, (B, H, S, D), (B, KH, S, D)))
+    a = ops.flash_attention(q, k, v, **kw)
+    b = ops.prefill_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **pkw)
+    np.testing.assert_allclose(f32(b.transpose(1, 2)), f32(a), **tol("bfloat16"))
+
+
+def test_blockwise_attention_is_importable_from_layers():
+    from repro_torch.models import layers
+
+    assert layers.blockwise_attention is ref.blockwise_attention
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_kernel_matches_plain_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _, td = DTYPES[dtype]
+    # the chunked-prefill shape of the serving path: a 64-token chunk over
+    # a 64-token bucketed prefix whose last 19 positions are padding
+    q, k, v = (torch.from_numpy(a).cuda().to(td)
+               for a in qkv(16, (1, 64, 16, 64), (1, 128, 16, 64)))
+    kw = dict(causal=True, q_offset=64, kv_hole=(45, 64))
+    before = ops.KERNEL.launches
+    got = ops.prefill_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.KERNEL.launches == before + 1
+    want = ref.blockwise_attention(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **tol(dtype))

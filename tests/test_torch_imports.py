@@ -27,8 +27,11 @@ def _port_modules() -> list[str]:
 
 def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
-    assert "repro_torch.launch.serve" in mods
-    assert "repro_torch.serving.router" in mods
+    for mod in ("repro_torch.launch.serve", "repro_torch.serving.router",
+                "repro_torch.serving.ssm_engine", "repro_torch.kernels.ssd.ops",
+                "repro_torch.kernels.ssd.ref", "repro_torch.kernels.flash_attention.ops",
+                "repro_torch.kernels.flash_attention.ref", "repro_torch.kernels._nvcc"):
+        assert mod in mods, mod
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
