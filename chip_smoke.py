@@ -22,7 +22,9 @@ on failure (a failure exits non-zero and prints no final line):
    shape, and the sequential scan at a tiny shape); then each kernel's,
    its plain version's and, where one PyTorch call computes the same
    function, that call's time at the serving path's shape, beside the
-   least time the card could take for the same work;
+   least time the card could take for the same work; each attention
+   kernel's own device time per call (``device_ms``) from
+   ``torch.profiler``;
 3. the models on a small input, card (kernels) against CPU (plain
    versions): reduced qwen prefill, chunked prefill over a bucketed
    prefix and paged decode; reduced mamba2 prefill and decode;
@@ -104,6 +106,10 @@ FLASH_VARIANTS = {
 #: 100 real tokens padded to 8 pages of 16 (the 4-page table bucket)
 FLASH_MAIN = dict(B=1, H=16, KH=16, D=64, S=384)
 FLASH_CHUNK = dict(B=1, H=16, KH=16, D=64, Sq=64, Sp=128, prefix_valid=100)
+#: a long causal prefill at qwen's widths (whisper's encoder holds 1500
+#: frames): timed only, to show where the kernel stands beyond the serving
+#: path's shape
+FLASH_LONG_S = 1536
 SSD_SHAPES = [
     # b, s, h, p, n, chunk (tests/test_kernels.py)
     (2, 32, 2, 8, 8, 8),
@@ -166,6 +172,26 @@ def check_close(name: str, got, want, atol: float) -> float:
     return err
 
 
+def device_ms_per_call(fn, calls: int, names: tuple | None) -> dict:
+    """The device time, per wrapper call, of the kernels whose names hold
+    one of ``names`` (every kernel for ``None``), from ``torch.profiler``
+    over ``fn`` (which makes ``calls`` wrapper calls). Event timing of a
+    loop of Python calls measures the wrapper's host cost once a kernel
+    takes a few microseconds; this measures the kernels alone."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = {k: v for k, v in device_kernel_us(prof).items()
+               if names is None or any(n in k for n in names)}
+    if not kernels:
+        raise AssertionError(f"the profiler saw no device time of a kernel named {names}")
+    return dict(device_ms=sum(kernels.values()) / calls / 1e3,
+                device_kernels_ms={k[:60]: v / calls / 1e3 for k, v in kernels.items()})
+
+
 # ------------------------------------------------------------ phase 1
 def build_kernels():
     """Build every kernel, one nvcc per source, all started together."""
@@ -185,10 +211,12 @@ def build_kernels():
             if "ptxas info" in line and ("Used" in line or "Compiling" in line):
                 log(f"  {name}: " + line.strip())
     m = SSD_MAIN
-    log("dynamic shared memory a block: paged_attention (G=1, D=64, T=16) "
-        f"{paged_ops.KERNEL.load().paged_attention_decode_smem(1, 64, 16)} B; "
-        f"flash_attention D=64 {flash_ops.KERNEL.load().flash_attention_smem(64)} B, "
-        f"D=128 {flash_ops.KERNEL.load().flash_attention_smem(128)} B; ssd (P={m['p']}, "
+    flash = flash_ops.KERNEL.load()
+    log("dynamic shared memory a block: paged_attention split pass (4 warps, G=1, D=64, "
+        f"T=16, bf16) {paged_ops.KERNEL.load().paged_attention_decode_smem(1, 64, 16, 1)} B; "
+        f"flash_attention f32 D=64 {flash.flash_attention_smem(64)} B, D=128 "
+        f"{flash.flash_attention_smem(128)} B, bf16 D=64 {flash.flash_attention_mma_smem(64)} B, "
+        f"D=128 {flash.flash_attention_mma_smem(128)} B; ssd (P={m['p']}, "
         f"N={m['n']}, Q={m['chunk']}) {ssd_ops.KERNEL.load().ssd_smem(m['p'], m['n'], m['chunk'])} B")
 
 
@@ -277,6 +305,24 @@ def check_kernel_cases():
         cases.append((f"main {MAIN_SHAPE} int8={quantized}", MAIN_SHAPE,
                       torch.bfloat16,
                       dict(lengths=MAIN_LENGTHS, quantized=quantized), {}))
+    # the split-K plan at work: lengths at the 64-key split boundaries of the
+    # serving shape's table, and tables wider than any row (empty splits)
+    boundary = (4, 16, 16, 64, 16, 24)
+    for quantized in (False, True):
+        cases.append((f"split boundaries {boundary} int8={quantized}", boundary,
+                      torch.bfloat16, dict(lengths=[64, 65, 128, 1], quantized=quantized), {}))
+    cases.append((f"split boundaries {boundary} window=64", boundary, torch.bfloat16,
+                  dict(lengths=[63, 129, 256, 384]), dict(window=64)))
+    wide = (3, 16, 16, 64, 16, 40)
+    cases.append((f"wide table {wide}", wide, torch.bfloat16,
+                  dict(lengths=[200, 17, 97]), {}))
+    cases.append((f"wide table {wide} f32 no new token", wide, torch.float32,
+                  dict(lengths=[200, 17, 97], with_new=False), {}))
+    wide_gqa = (2, 32, 4, 128, 16, 32)
+    cases.append((f"wide table gqa {wide_gqa} softcap", wide_gqa, torch.bfloat16,
+                  dict(lengths=[300, 129]), dict(softcap=30.0)))
+    cases.append((f"wide table gqa {wide_gqa} int8", wide_gqa, torch.float32,
+                  dict(lengths=[300, 129], quantized=True), {}))
     main_err = 0.0
     for name, shape, dtype, case_kw, attn_kw in cases:
         c = make_case(rng, shape, dtype, **case_kw)
@@ -341,6 +387,19 @@ def time_kernel(layers: int):
     plain_ms = time_call(plain_round, 5) / layers
     library_ms = time_call(library_round, 50) / layers
 
+    def kernel_rounds():
+        for _ in range(20):
+            kernel_round()
+
+    def library_rounds():
+        for _ in range(20):
+            library_round()
+
+    device = device_ms_per_call(kernel_rounds, 20 * layers,
+                                ("paged_split_kernel", "paged_combine_kernel"))
+    library_device = device_ms_per_call(library_rounds, 20 * layers, None)
+    splits, cols = ops._split_plan(P, T, ops.KERNEL.sm_count(c["q"].device), B * KH)
+
     # least time for one call: each needed input byte read once, the
     # output written once; the data decides what is needed (the visible
     # positions of each row, the new token from its operand)
@@ -350,7 +409,10 @@ def time_kernel(layers: int):
     io_bytes = (B * H * D + 2 * B * KH * D + B * H * D) * elem
     meta_bytes = 4 * (B * P + B)
     n_ops = int(4 * H * D * lengths.sum())
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(ms=kernel_ms, **device, splits=splits, cols_per_split=cols,
+                plain_ms=plain_ms, library_ms=library_ms,
+                library_device_ms=library_device["device_ms"],
+                library_kernels_ms=library_device["device_kernels_ms"],
                 **bound(kv_bytes + io_bytes + meta_bytes, n_ops, "bfloat16"))
 
 
@@ -449,12 +511,42 @@ def check_flash_cases():
     ref_bhsd = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                        v.transpose(1, 2), causal=True, q_offset=kw["q_offset"])
     check_close("flash strided [B,H,S,D] views", out_bhsd, ref_bhsd, ATOL["bfloat16"])
+    # the bf16 tensor-core path: every head dimension, GQA, ragged Sq and
+    # Skv tails, a hole with q_offset, and operands whose row starts are
+    # not 16-byte aligned (they take the CUDA-core kernel in bf16)
+    bf16 = [
+        ("d32 ragged", (2, 77, 77, 4, 4, 32), dict(causal=True)),
+        ("d64 ragged tail bidir", (1, 130, 201, 8, 8, 64), dict(causal=False)),
+        ("d128 ragged", (1, 100, 100, 4, 4, 128), dict(causal=True)),
+        ("d128 gqa window softcap", (2, 150, 150, 8, 2, 128),
+         dict(causal=True, window=70, cap=30.0)),
+        ("gqa4 ragged q_offset", (1, 45, 173, 16, 4, 64), dict(causal=True, q_offset=128)),
+        ("hole q_offset gqa", (2, 64, 192, 8, 2, 64),
+         dict(causal=True, q_offset=128, kv_hole=(83, 128))),
+        ("hole q_offset d32", (1, 33, 161, 4, 4, 32),
+         dict(causal=True, q_offset=128, kv_hole=(64, 128))),
+    ]
+    for name, (B, Sq, Skv, H, KH, D), kw in bf16:
+        q = randn_dev(rng, (B, Sq, H, D), torch.bfloat16)
+        k = randn_dev(rng, (B, Skv, KH, D), torch.bfloat16)
+        v = randn_dev(rng, (B, Skv, KH, D), torch.bfloat16)
+        out = ops.prefill_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check_close(f"prefill bf16 {name}", out, ref.blockwise_attention(q, k, v, **kw),
+                    ATOL["bfloat16"])
+    wide = randn_dev(rng, (3, 90, 8, 65), torch.bfloat16)
+    q, k, v = (wide[i:i + 1, ..., :64] for i in range(3))
+    out = ops.prefill_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    check_close("prefill bf16 unaligned strides (CUDA-core kernel)", out,
+                ref.blockwise_attention(q, k, v, causal=True), ATOL["bfloat16"])
     return max(main_err, err)
 
 
 def time_flash():
     """Kernel, plain version and SDPA (explicit boolean mask) at the
-    serving path's monolithic prefill shape, and the chunk shape."""
+    serving path's monolithic prefill shape, the chunk shape, and a long
+    causal prefill (``FLASH_LONG_S``)."""
     from repro_torch.kernels.flash_attention import ops, ref
 
     rng = np.random.default_rng(4)
@@ -466,7 +558,9 @@ def time_flash():
             randn_dev(rng, (m["B"], m["S"], m["KH"], m["D"]), torch.bfloat16),
             dict(causal=True))
     chunk = chunk_prefill_case(rng)
-    for name, (q, k, v, kw) in (("monolithic", mono), ("chunk", chunk)):
+    long_case = tuple(randn_dev(rng, (m["B"], FLASH_LONG_S, m["H"], m["D"]), torch.bfloat16)
+                      for _ in range(3)) + (dict(causal=True),)
+    for name, (q, k, v, kw) in (("monolithic", mono), ("chunk", chunk), ("long", long_case)):
         B, Sq, H, D = q.shape
         Skv, KH = k.shape[1], k.shape[2]
         q_off = kw.get("q_offset", 0)
@@ -486,11 +580,27 @@ def time_flash():
         visible = int(mask.sum().item())
         n_bytes = (2 * B * Sq * H * D + 2 * B * Skv * KH * D) * 2
         n_ops = 4 * B * H * D * visible
+
+        def calls():
+            for _ in range(50):
+                ops.prefill_attention(q, k, v, **kw)
+
+        def library_calls():
+            for _ in range(50):
+                sdpa(qt, kt, vt, attn_mask=mask)
+
+        library_device = device_ms_per_call(library_calls, 50, None)
+
         out[name] = dict(
             ms=time_call(lambda: ops.prefill_attention(q, k, v, **kw), 50),
+            **device_ms_per_call(calls, 50, ("flash_mma_kernel", "flash_attention_kernel")),
             plain_ms=time_call(lambda: ref.blockwise_attention(q, k, v, **kw), 10),
             library_ms=time_call(lambda: sdpa(qt, kt, vt, attn_mask=mask), 50),
+            library_device_ms=library_device["device_ms"],
+            library_kernels_ms=library_device["device_kernels_ms"],
             Sq=Sq, Skv=Skv, **bound(n_bytes, n_ops, "bfloat16"))
+        if not all("flash_mma_kernel" in k for k in out[name]["device_kernels_ms"]):
+            raise AssertionError(f"bf16 prefill ({name}) did not run the tensor-core kernel")
     return out
 
 
@@ -810,7 +920,8 @@ def decode_breakdown(engine, context: int = 200, steps: int = 20):
         "device_busy_share": busy_us / window_us if window_us else None,
         "top_kernels_ms": {k[:60]: v / 1e3 for k, v in top},
         "paged_attention_ms": sum(v for k, v in kernels.items()
-                                  if "paged_attention" in k) / 1e3,
+                                  if "paged_split_kernel" in k
+                                  or "paged_combine_kernel" in k) / 1e3,
     }
 
 
@@ -995,11 +1106,13 @@ def main(argv=None) -> int:
             "launches": mono["kernel_launches"],
             "max_abs_err": paged_err,
             "ms": paged_timing["ms"],
+            "device_ms": paged_timing["device_ms"],
             "kernel_ms": paged_timing["ms"],
             "plain_ms": paged_timing["plain_ms"],
             "bound_ms": paged_timing["bound_ms"],
             "bound_by": paged_timing["bound_by"],
             "library_ms": paged_timing["library_ms"],
+            "library_device_ms": paged_timing["library_device_ms"],
         },
         {
             "name": "flash_attention_prefill",
@@ -1011,11 +1124,13 @@ def main(argv=None) -> int:
             "launches_chunked_replay": chunked["flash_launches"],
             "max_abs_err": flash_err,
             "ms": ft["ms"],
+            "device_ms": ft["device_ms"],
             "kernel_ms": ft["ms"],
             "plain_ms": ft["plain_ms"],
             "bound_ms": ft["bound_ms"],
             "bound_by": ft["bound_by"],
             "library_ms": ft["library_ms"],
+            "library_device_ms": ft["library_device_ms"],
         },
         {
             "name": "ssd_scan",

@@ -25,6 +25,7 @@ def load() -> tuple[ctypes.CDLL, str]:
         ptr,                                    # stream
     ]
     lib.flash_attention_fwd.restype = i32
-    lib.flash_attention_smem.argtypes = [i32]
-    lib.flash_attention_smem.restype = ctypes.c_size_t
+    for name in ("flash_attention_smem", "flash_attention_mma_smem"):
+        getattr(lib, name).argtypes = [i32]
+        getattr(lib, name).restype = ctypes.c_size_t
     return lib, output

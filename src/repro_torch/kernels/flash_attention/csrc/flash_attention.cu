@@ -26,26 +26,61 @@
 // What bounds it: bytes at the serving path's shapes. qwen1.5-0.5b's
 // monolithic prefill at S = 384 (H = KH = 16, D = 64, bf16, causal) moves
 // q, k, v and out once (3.1 MB, ~0.94 us at 3.35 TB/s) against 0.30 GFLOP
-// of useful products (~0.3 us at the bf16 tensor-core peak). In practice a
-// simple kernel is bound by its own issue rate: the products run on CUDA
-// cores in f32.
+// of useful products (~0.3 us at the bf16 tensor-core peak). In practice,
+// with 96 blocks of work at that shape, the latency of one block's chain
+// of kv tiles, and the instructions it issues (below).
 //
-// Design, simple and right first: one block of 256 threads per (q tile of
-// 64 rows, head, batch row). A loop over kv tiles of 64 rows carries the
-// online-softmax max, sum and output accumulator in registers, in place of
-// the Pallas grid's sequential kv axis and its VMEM scratch. Each thread
-// owns 4 query rows × 4 key columns of the score tile and 4 rows × D/16
-// columns of the accumulator (a register micro-tile, so each shared-memory
-// load feeds 4 multiply-adds); the row max and sum reduce across the 16
-// lanes that share a row with warp shuffles. The q tile (pre-scaled) and the
-// K tile sit in shared memory as f32 with rows padded by one float against
-// bank conflicts, and the probabilities go through a shared tile to the P·V
-// product. Kv tiles that causality, the window, kv_lengths or the hole mask
-// entirely are never loaded, as the Pallas `pl.when(live)` skips them.
-// Tensor cores (wgmma on bf16 tiles), TMA loads and split-K are later work.
+// Two kernels, chosen by type:
+//
+// bf16 (`flash_mma_kernel`): tensor cores. One block of 8 warps per (q tile
+// of 64 rows, head, batch row), in two groups of 4; each warp owns 16 query
+// rows, and the two groups take every other live kv tile, so a q tile's
+// chain of kv tiles is half as long. The q tile is read once into
+// registers as `mma` A fragments (`ldmatrix` from a padded shared tile).
+// Each group copies its K and V tiles of 64 rows into its own ring of
+// shared stages with 16-byte `cp.async` (zero-filled past Skv; 3 stages at
+// D <= 64, 2 at D = 128) and synchronises on its own named barrier, so the
+// next tiles' copies are in flight while the current one is computed.
+// S = Q·Kᵀ runs as `mma.sync.m16n8k16` bf16 -> f32 with K's B fragments
+// from `ldmatrix`; the scores, the mask and the online softmax (base-2
+// exponent, row max and sum over the four lanes of a row with shuffles)
+// stay in registers in the accumulator's layout. The probabilities,
+// rounded to bf16, become the A fragments of P·V directly (the accumulator
+// of two 8-key tiles is the A fragment of one 16-key step), and V's B
+// fragments come from `ldmatrix.trans`. At the end group 1 hands its
+// (m, l, o) to group 0 through shared memory, which merges them by
+// log-sum-exp and writes out. Shared rows are padded by 16 bytes, so the
+// eight rows an `ldmatrix` reads fall in distinct banks. Blocks take q
+// tiles from the last (the longest causal rows) to the first. Operands
+// whose rows or starts are not 16-byte aligned (a stride that is not a
+// multiple of 8 elements) cannot use `cp.async`; they run the CUDA-core
+// kernel below in bf16.
+//   What the chip runs taught (H100, S = 384): the loop body is what
+// costs, not the copies or the products. With the softcap's tanhf and the
+// mask written per element, each with its own branches, the unrolled body
+// was tens of kilobytes of machine code, which a loop run a few times a
+// block cannot keep in the instruction cache; removing the products or
+// the exponentials barely changed the time. So the softcap (a branch-free
+// tanh) and the mask (per-row bounds, skipped for tiles with nothing
+// masked) are flat loops; that took the time from 14.5 to 8.3 us. Two
+// groups beat one group of 4 warps at S = 384; at long S one group's
+// smaller ring fits more blocks on an SM. The serving path's prefill is
+// the former.
+//
+// f32 (`flash_attention_kernel`): CUDA cores, kept from the first port (no
+// TF32: the f32 band is 2e-3). One block of 256 threads per (q tile of 64
+// rows, head, batch row); a loop over kv tiles of 64 rows carries the
+// online-softmax state in registers, each thread owns a 4 x 4 register
+// micro-tile of the scores and 4 rows x D/16 columns of the accumulator,
+// and the q, K and probability tiles sit in shared memory as f32.
+//
+// Both skip kv tiles that causality, the window, kv_lengths or the hole
+// mask entirely before they are loaded, as the Pallas `pl.when(live)` does.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace {
 
@@ -220,6 +255,365 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   }
 }
 
+// ------------------------------------------------------------ bf16: tensor cores
+constexpr int kMmaWarps = 4;          // warps of a group: 16 query rows each
+constexpr int kGroups = 2;            // warp groups, each over every other kv tile
+constexpr int kMBQ = 16 * kMmaWarps;  // query rows per block
+constexpr int kMBK = 64;              // key rows per kv tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// wait until at most N of this thread's newest copy groups are in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+// c += a · b, m16n8k16, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// tanh without branches, for the bf16 path: 1 - 2/(e^{2x} + 1), x clamped
+// to |x| <= 15 where tanh is +-1 in f32; absolute error ~1e-6
+__device__ __forceinline__ float fast_tanh(float x) {
+  x = fminf(fmaxf(x, -15.f), 15.f);
+  return 1.f - __fdividef(2.f, __expf(2.f * x) + 1.f);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// kv tiles a warp group keeps in flight: 3 stages at D <= 64 (117 KB a
+// block at D = 64), 2 at D = 128 (153 KB)
+template <int D> __host__ __device__ constexpr int mma_stages() { return D <= 64 ? 3 : 2; }
+
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  // q tile, then each group's stages of K and V, rows padded by 8 elements
+  return sizeof(__nv_bfloat16) * (size_t)(kMBQ + kGroups * 2 * mma_stages<D>() * kMBK) *
+         (D + 8);
+}
+
+__device__ __forceinline__ void group_barrier(int group) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(kMmaWarps * 32));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kGroups * kMmaWarps * 32) flash_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ kv_lengths,
+    __nv_bfloat16* __restrict__ out, Params pr) {
+  constexpr int RW = D + 8;       // padded shared row, elements
+  constexpr int CH = D / 8;       // 16-byte chunks a row
+  constexpr int KS = D / 16;      // k-steps of Q·Kᵀ
+  constexpr int NT = kMBK / 8;    // 8-key score tiles
+  constexpr int DT = D / 8;       // 8-column output tiles
+  constexpr int S = mma_stages<D>();
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / (pr.H / pr.KH);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int group = tid / (kMmaWarps * 32);  // which kv tiles: every other live one
+  const int gtid = tid % (kMmaWarps * 32);   // thread within the group
+  const int warp = gtid >> 5;                // query rows warp*16 .. +16
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kMBQ][RW]
+  __nv_bfloat16* k_s = q_s + (kMBQ + group * 2 * S * kMBK) * RW;    // [S][kMBK][RW]
+  __nv_bfloat16* v_s = k_s + S * kMBK * RW;                          // [S][kMBK][RW]
+
+  const int q0 = qt * kMBQ;
+  const __nv_bfloat16* qb = q + b * pr.q_b + h * pr.q_h;
+  const __nv_bfloat16* kb = k + b * pr.k_b + kh * pr.k_h;
+  const __nv_bfloat16* vb = v + b * pr.v_b + kh * pr.v_h;
+  const int kv_len = kv_lengths != nullptr ? kv_lengths[b] : pr.Skv;
+  const int kv_valid = min(pr.Skv, kv_len);
+
+  // the kv positions any row of this tile can see
+  const int q_first = pr.q_offset + q0;
+  const int q_last = pr.q_offset + min(pr.Sq, q0 + kMBQ) - 1;
+  int kv_end = kv_valid;
+  if (pr.causal) kv_end = min(kv_end, q_last + 1);
+  const int kv_begin = pr.window > 0 ? max(0, q_first - pr.window + 1) : 0;
+  const bool has_hole = pr.hole_hi > pr.hole_lo;
+  const unsigned hole_w = has_hole ? pr.hole_hi - pr.hole_lo : 0;  // keys in the hole
+  auto next_live = [&](int k0) {
+    while (k0 < kv_end && has_hole && k0 >= pr.hole_lo && k0 + kMBK <= pr.hole_hi) k0 += kMBK;
+    return k0;
+  };
+  auto load_kv = [&](int k0, int stage) {
+    __nv_bfloat16* kd = k_s + stage * kMBK * RW;
+    __nv_bfloat16* vd = v_s + stage * kMBK * RW;
+    for (int i = gtid; i < kMBK * CH; i += kMmaWarps * 32) {
+      const int r = i / CH, x = (i - r * CH) * 8;
+      const int pos = k0 + r;
+      const bool ok = pos < pr.Skv;
+      cp_async16(kd + r * RW + x, ok ? kb + (long long)pos * pr.k_s + x : kb, ok);
+      cp_async16(vd + r * RW + x, ok ? vb + (long long)pos * pr.v_s + x : vb, ok);
+    }
+  };
+
+  for (int i = tid; i < kMBQ * CH; i += kGroups * kMmaWarps * 32) {
+    const int r = i / CH, x = (i - r * CH) * 8;
+    const bool ok = q0 + r < pr.Sq;
+    cp_async16(q_s + r * RW + x, ok ? qb + (long long)(q0 + r) * pr.q_s + x : qb, ok);
+  }
+  cp_async_commit();
+  // the live tile n live tiles after k0; a group takes every kGroups-th
+  auto advance = [&](int k0, int n) {
+    for (int i = 0; i < n; ++i) k0 = next_live(k0 + kMBK);
+    return k0;
+  };
+  // the group's first S - 1 live kv tiles go in flight with the q tile
+  int k0 = advance(next_live((kv_begin / kMBK) * kMBK), group);  // the tile to compute next
+  int k_load = k0;  // the tile to load next
+  for (int st = 0; st < S - 1; ++st) {
+    if (k_load < kv_end) {
+      load_kv(k_load, st);
+      k_load = advance(k_load, kGroups);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<S - 1>();  // the q tile has landed
+  __syncthreads();
+
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    ldmatrix_x4(qf[ks], q_s + (warp * 16 + (lane & 15)) * RW + ks * 16 + (lane >> 4) * 8);
+
+  float o[DT][4];
+#pragma unroll
+  for (int t = 0; t < DT; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  // this lane's two query rows (g and g + 8 of the warp's 16)
+  const int qpos0 = pr.q_offset + q0 + warp * 16 + (lane >> 2);
+  const float scale2 = pr.sm_scale * kLog2e;
+
+  for (int stage = 0; k0 < kv_end; stage = stage + 1 == S ? 0 : stage + 1) {
+    cp_async_wait<S - 2>();  // this tile has landed (this thread's copies)
+    group_barrier(group);    // ... the group's; and the last stage is free
+    // refill the stage the previous tile used
+    if (k_load < kv_end) {
+      load_kv(k_load, stage == 0 ? S - 1 : stage - 1);
+      k_load = advance(k_load, kGroups);
+    }
+    cp_async_commit();
+    const __nv_bfloat16* kt = k_s + stage * kMBK * RW;
+    const __nv_bfloat16* vt = v_s + stage * kMBK * RW;
+
+    float s[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * RW + ks * 16 +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], qf[ks], bf[0], bf[1]);
+        mma_bf16(s[2 * np + 1], qf[ks], bf[2], bf[3]);
+      }
+    }
+
+    // scale (to base 2) with the softcap, then the mask where the tile needs
+    // one; each a flat loop, so the unrolled body stays small
+    if (pr.softcap > 0.f) {
+      const float in = pr.sm_scale / pr.softcap, out2 = pr.softcap * kLog2e;
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] = out2 * fast_tanh(s[t][e] * in);
+    } else {
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] *= scale2;
+    }
+    const bool full = k0 + kMBK <= kv_valid && (!pr.causal || k0 + kMBK - 1 <= q_first) &&
+                      (pr.window <= 0 || q_last - k0 < pr.window) &&
+                      !(has_hole && k0 < pr.hole_hi && k0 + kMBK > pr.hole_lo);
+    if (!full) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // row r sees keys [lo, hi) outside the hole
+        const int qpos = qpos0 + 8 * r;
+        const int hi = pr.causal ? min(kv_valid, qpos + 1) : kv_valid;
+        const int lo = pr.window > 0 ? qpos - pr.window + 1 : 0;
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int kpos = k0 + t * 8 + (lane & 3) * 2 + c;
+            const bool ok = kpos >= lo && kpos < hi && (unsigned)(kpos - pr.hole_lo) >= hole_w;
+            s[t][2 * r + c] = ok ? s[t][2 * r + c] : -INFINITY;
+          }
+      }
+    }
+
+    // online softmax, rows g (r = 0) and g + 8 (r = 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) mx = fmaxf(mx, fmaxf(s[t][2 * r], s[t][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f(m[r] - m_use);
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const float p0 = exp2f(s[t][2 * r] - m_use);
+        const float p1 = exp2f(s[t][2 * r + 1] - m_use);
+        s[t][2 * r] = p0;
+        s[t][2 * r + 1] = p1;
+        sum += p0 + p1;
+      }
+      l[r] = l[r] * alpha + sum;  // this lane's columns; the row's four lanes add up at the end
+      m[r] = m_new;
+#pragma unroll
+      for (int t = 0; t < DT; ++t) {
+        o[t][2 * r] *= alpha;
+        o[t][2 * r + 1] *= alpha;
+      }
+    }
+
+    // O += P · V, P rounded to bf16 straight from the score accumulators
+#pragma unroll
+    for (int kk = 0; kk < kMBK / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RW +
+                                  dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], pa, bf[0], bf[1]);
+        mma_bf16(o[2 * dp + 1], pa, bf[2], bf[3]);
+      }
+    }
+    k0 = advance(k0, kGroups);
+  }
+
+  // group 1 hands its state (m, l, o of each lane) to group 0 through its
+  // own stages; group 0 merges by log-sum-exp (base 2) and writes out
+  static_assert(kGroups == 2, "the hand-off merges two groups");
+  __syncthreads();
+  float* hand = reinterpret_cast<float*>(q_s + (kMBQ + 2 * S * kMBK) * RW);  // [DT*4+4][128]
+  constexpr int NTH = kMmaWarps * 32;
+  if (group == 1) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      hand[(DT * 4 + r) * NTH + gtid] = m[r];
+      hand[(DT * 4 + 2 + r) * NTH + gtid] = l[r];
+    }
+#pragma unroll
+    for (int t = 0; t < DT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hand[(t * 4 + e) * NTH + gtid] = o[t][e];
+  }
+  __syncthreads();
+  if (group == 1) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m1 = hand[(DT * 4 + r) * NTH + gtid];
+    const float m_new = fmaxf(m[r], m1);
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    const float a0 = exp2f(m[r] - m_use), a1 = exp2f(m1 - m_use);
+    l[r] = l[r] * a0 + hand[(DT * 4 + 2 + r) * NTH + gtid] * a1;
+#pragma unroll
+    for (int t = 0; t < DT; ++t) {
+      o[t][2 * r] = o[t][2 * r] * a0 + hand[(t * 4 + 2 * r) * NTH + gtid] * a1;
+      o[t][2 * r + 1] = o[t][2 * r + 1] * a0 + hand[(t * 4 + 2 * r + 1) * NTH + gtid] * a1;
+    }
+  }
+
+  __nv_bfloat16* ob = out + b * pr.o_b + h * pr.o_h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = sum > 0.f ? 1.f / sum : 0.f;
+    const int row = q0 + warp * 16 + (lane >> 2) + r * 8;
+    if (row >= pr.Sq) continue;
+    __nv_bfloat16* orow = ob + (long long)row * pr.o_s + (lane & 3) * 2;
+#pragma unroll
+    for (int t = 0; t < DT; ++t)
+      *reinterpret_cast<__nv_bfloat162*>(orow + t * 8) =
+          __floats2bfloat162_rn(o[t][2 * r] * inv, o[t][2 * r + 1] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* kv_lengths,
+                       void* out, int B, const Params& pr, cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<D>();
+  auto kernel = flash_mma_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((pr.Sq + kMBQ - 1) / kMBQ, pr.H, B);
+  kernel<<<grid, kGroups * kMmaWarps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(kv_lengths),
+      static_cast<__nv_bfloat16*>(out), pr);
+  return cudaGetLastError();
+}
+
+// cp.async needs every row start on a 16-byte boundary: the base pointers,
+// and strides that are multiples of 8 bf16 elements
+bool mma_aligned(const void* q, const void* k, const void* v, const void* out, const Params& pr) {
+  for (const void* p : {q, k, v, out})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  for (long long st : {pr.q_b, pr.q_h, pr.q_s, pr.k_b, pr.k_h, pr.k_s, pr.v_b, pr.v_h, pr.v_s,
+                       pr.o_b, pr.o_h, pr.o_s})
+    if (st % 8) return false;
+  return true;
+}
+
+cudaError_t dispatch_mma(int D, const void* q, const void* k, const void* v,
+                         const void* kv_lengths, void* out, int B, const Params& pr,
+                         cudaStream_t stream) {
+  switch (D) {
+    case 32:
+      return launch_mma<32>(q, k, v, kv_lengths, out, B, pr, stream);
+    case 64:
+      return launch_mma<64>(q, k, v, kv_lengths, out, B, pr, stream);
+    case 128:
+      return launch_mma<128>(q, k, v, kv_lengths, out, B, pr, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 size_t smem_bytes(int D) {
   return sizeof(float) * ((size_t)kBQ * (D + 1) + (size_t)kBK * (D + 1) + (size_t)kBK * D +
                           (size_t)kBQ * (kBK + 1));
@@ -258,10 +652,24 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Shared memory one block needs at head dimension D, in bytes.
+// Shared memory one block needs at head dimension D, in bytes: the f32
+// (CUDA-core) kernel, and the bf16 (tensor-core) one.
 extern "C" size_t flash_attention_smem(int D) { return smem_bytes(D); }
+extern "C" size_t flash_attention_mma_smem(int D) {
+  switch (D) {
+    case 32:
+      return mma_smem_bytes<32>();
+    case 64:
+      return mma_smem_bytes<64>();
+    case 128:
+      return mma_smem_bytes<128>();
+    default:
+      return 0;
+  }
+}
 
-// Plain C entry point, bound with ctypes. dtype codes: 0 float32, 1 bfloat16.
+// Plain C entry point, bound with ctypes. dtype codes: 0 float32, 1 bfloat16
+// (the tensor-core kernel when every row start is 16-byte aligned).
 // Strides in elements; kv_lengths may be null; softcap <= 0 and window <= 0
 // mean none; hole_lo >= hole_hi means no hole. Returns the launch's
 // cudaGetLastError() (or the error of setting the shared-memory limit).
@@ -283,6 +691,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     case 0:
       return dispatch_d<float>(D, q, k, v, kv_lengths, out, B, pr, s);
     case 1:
+      if (mma_aligned(q, k, v, out, pr)) return dispatch_mma(D, q, k, v, kv_lengths, out, B, pr, s);
       return dispatch_d<__nv_bfloat16>(D, q, k, v, kv_lengths, out, B, pr, s);
     default:
       return cudaErrorInvalidValue;

@@ -15,9 +15,11 @@ Each chooses by the tensors' device, with no flag: CUDA tensors launch the
 kernel or raise; CPU tensors take the plain version. There is no fallback
 from the kernel to the plain version. The kernel takes ragged ``Sq`` and
 ``Skv`` (no divisibility requirement), GQA (``H % KH == 0``), head
-dimensions 32, 64 and 128, and f32 or bf16. A query row that sees no key
-at all comes back as 0 from the kernel (the plain versions give the mean
-of v there); no serving path produces such a row.
+dimensions 32, 64 and 128, and f32 or bf16: bf16 runs on the tensor cores
+when every row start is 16-byte aligned and on CUDA cores otherwise, f32
+on CUDA cores. A query row that sees no key at all comes back as 0 from
+the kernel (the plain versions give the mean of v there); no serving path
+produces such a row.
 """
 from __future__ import annotations
 

@@ -17,11 +17,12 @@ def load() -> tuple[ctypes.CDLL, str]:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.paged_attention_decode.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,   # tensors
-        i32, i32, i32, i32, i32, i32,                       # B H KH D T P
+        ptr,                                                # workspace
+        i32, i32, i32, i32, i32, i32, i32, i32,             # B H KH D T P splits cols
         i32, i32, f32, f32, i32,                            # dtypes, scale, cap, window
         ptr,                                                # stream
     ]
     lib.paged_attention_decode.restype = i32
-    lib.paged_attention_decode_smem.argtypes = [i32, i32, i32]
+    lib.paged_attention_decode_smem.argtypes = [i32, i32, i32, i32]
     lib.paged_attention_decode_smem.restype = ctypes.c_size_t
     return lib, output

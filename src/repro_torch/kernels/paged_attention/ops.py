@@ -13,6 +13,13 @@ the loop. On an int8 pool the new token is attended at full precision,
 as the plain version does. ``paged_attention`` is the same kernel with no
 new token. Optional ``k_scales``/``v_scales`` ``[N]`` f32 are the per-page
 dequant sidecars of an int8 pool; ``None`` means bf16 (or f32) pages.
+
+The kernel splits the block table's columns into ranges (flash-decoding):
+``_split_plan`` chooses them on the host from the table's width and the
+card's SM count, each range's partial softmax state goes to an f32
+workspace ``[B, H, splits, D + 2]`` that the wrapper allocates per call on
+q's device, and a second pass inside the same C call merges the partials.
+``ref.paged_attention_split_ref`` is that decomposition in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -26,6 +33,23 @@ from repro_torch.kernels.paged_attention.ref import (
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_HEAD_DIMS = (32, 64, 128, 256)
+#: keys a split covers at the least: below this a block's fixed cost
+#: (loading q, merging its warps, writing a partial) outweighs its loads
+_MIN_SPLIT_KEYS = 64
+
+
+def _split_plan(P: int, T: int, n_sm: int, rows: int) -> tuple[int, int]:
+    """How the kernel cuts a block table of ``P`` columns of ``T``-token
+    pages: ``(splits, cols)``, split ``s`` covering columns
+    ``[s * cols, min(P, (s + 1) * cols))``. Enough splits that ``rows``
+    blocks a split (batch rows x KV heads) fill the card's ``n_sm`` SMs
+    about twice, and no split shorter than ``_MIN_SPLIT_KEYS`` keys. It
+    reads host integers only, never ``lengths``, so a call needs no
+    device-to-host sync."""
+    want = max(1, -(-2 * n_sm // rows))
+    cols = min(P, max(1, -(-P // want), -(-_MIN_SPLIT_KEYS // T)))
+    return -(-P // cols), cols
 
 
 class PagedAttentionKernel(_nvcc.Kernel):
@@ -33,6 +57,14 @@ class PagedAttentionKernel(_nvcc.Kernel):
 
     def __init__(self):
         super().__init__(_build.load)
+        self._n_sm: dict[int, int] = {}
+
+    def sm_count(self, dev: torch.device) -> int:
+        """The card's SM count, read once per device."""
+        idx = dev.index if dev.index is not None else torch.cuda.current_device()
+        if idx not in self._n_sm:
+            self._n_sm[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+        return self._n_sm[idx]
 
     def __call__(self, q, k_new, v_new, k_pages, v_pages, block_tables, lengths,
                  k_scales, v_scales, *, softcap, window):
@@ -81,9 +113,16 @@ class PagedAttentionKernel(_nvcc.Kernel):
             raise ValueError(f"window must be positive, not {window}")
         if softcap is not None and softcap <= 0:
             raise ValueError(f"softcap must be positive, not {softcap}")
+        if D not in _HEAD_DIMS:
+            raise ValueError(f"head dimension {D} is not one of {_HEAD_DIMS}")
+        if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+            raise ValueError("k_pages and v_pages must start on a 16-byte boundary")
 
         lib = self.load()
+        splits, cols = _split_plan(P, T, self.sm_count(dev), B * KH)
         out = torch.empty_like(q)
+        ws = (torch.empty((B, H, splits, D + 2), dtype=torch.float32, device=dev)
+              if splits > 1 else None)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.paged_attention_decode(
@@ -94,8 +133,8 @@ class PagedAttentionKernel(_nvcc.Kernel):
                 block_tables.data_ptr(), lengths.data_ptr(),
                 k_scales.data_ptr() if quantized else None,
                 v_scales.data_ptr() if quantized else None,
-                out.data_ptr(),
-                B, H, KH, D, T, P,
+                out.data_ptr(), ws.data_ptr() if ws is not None else None,
+                B, H, KH, D, T, P, splits, cols,
                 _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype],
                 D ** -0.5, softcap or 0.0, window or 0,
                 stream,
