@@ -18,13 +18,16 @@ on failure (a failure exits non-zero and prints no final line):
    attention (bf16/f32/int8 pages, MHA/GQA/MQA, softcap, windows), flash
    attention (the reference's shapes and variants, ragged lengths,
    q_offset chunks, kv_hole, kv_lengths, GQA, MQA, D=128, both layouts)
-   and the SSD scan (the reference's shapes, a ragged S, the full-width
-   shape, and the sequential scan at a tiny shape); then each kernel's,
-   its plain version's and, where one PyTorch call computes the same
-   function, that call's time at the serving path's shape, beside the
-   least time the card could take for the same work; each attention
-   kernel's own device time per call (``device_ms``) from
-   ``torch.profiler``;
+   and the SSD scan (the reference's shapes and a ragged S on the CUDA-core
+   route; the full-width shape at S = 1, 128, 200, 256 and 1024, two rows,
+   chunks of 64 and 256 and strided slices of one fused tensor on the
+   tensor-core route, also against the passes' plain version; the
+   sequential scan at a tiny shape); then each kernel's, its plain
+   version's and, where one PyTorch call computes the same function, that
+   call's time at the serving path's shape, beside the least time the card
+   could take for the same work; each kernel's own device time per call
+   (``device_ms``, all its passes) from ``torch.profiler``, for the SSD
+   scan at S = 128, 200, 256 and 2048 and for its CUDA-core route at 256;
 3. the models on a small input, card (kernels) against CPU (plain
    versions): reduced qwen prefill, chunked prefill over a bucketed
    prefix and paged decode; reduced mamba2 prefill and decode;
@@ -119,6 +122,13 @@ SSD_SHAPES = [
 #: mamba2-2.7b's scan at full width: 80 heads of 64, state 128, chunk 128
 SSD_MAIN = dict(b=1, h=80, p=64, n=128, chunk=128)
 SSD_MAIN_S = 256
+#: a long prefill at mamba2's widths: timed only, to show where the scan
+#: stands beyond the serving path's lengths
+SSD_LONG_S = 2048
+#: the SSD kernels' names: the CUDA-core ``ssd_kernel`` and the tensor-core
+#: passes ``ssd_tc_chunk_state_kernel``, ``ssd_tc_state_pass_kernel`` and
+#: ``ssd_tc_output_kernel``
+SSD_KERNEL_NAMES = ("ssd_kernel", "ssd_tc_")
 #: where every phase runs
 DEVICE = "cuda"
 
@@ -212,12 +222,13 @@ def build_kernels():
                 log(f"  {name}: " + line.strip())
     m = SSD_MAIN
     flash = flash_ops.KERNEL.load()
+    ssd_smem = ssd_ops.KERNEL.load().ssd_smem(m["p"], m["n"], m["chunk"])
     log("dynamic shared memory a block: paged_attention split pass (4 warps, G=1, D=64, "
         f"T=16, bf16) {paged_ops.KERNEL.load().paged_attention_decode_smem(1, 64, 16, 1)} B; "
         f"flash_attention f32 D=64 {flash.flash_attention_smem(64)} B, D=128 "
         f"{flash.flash_attention_smem(128)} B, bf16 D=64 {flash.flash_attention_mma_smem(64)} B, "
-        f"D=128 {flash.flash_attention_mma_smem(128)} B; ssd (P={m['p']}, "
-        f"N={m['n']}, Q={m['chunk']}) {ssd_ops.KERNEL.load().ssd_smem(m['p'], m['n'], m['chunk'])} B")
+        f"D=128 {flash.flash_attention_mma_smem(128)} B; ssd CUDA-core kernel (P={m['p']}, "
+        f"N={m['n']}, Q={m['chunk']}) {ssd_smem} B")
 
 
 # ------------------------------------------------------------ phase 2: paged
@@ -605,48 +616,82 @@ def time_flash():
 
 
 # ------------------------------------------------------------ phase 2: ssd
-def ssd_inputs(rng, b, s, h, p, n, x_dtype, bc_dtype, realistic=False):
+def ssd_inputs(rng, b, s, h, p, n, x_dtype, bc_dtype, realistic=False, fused=False):
     """x, dt (after softplus), A (negative), B, C [b,s,n] on the card.
     ``realistic`` scales them as the model's are: dt around 0.05 (mamba2's
     dt_bias puts it in [0.001, 0.1]) and C by n**-0.5, which keeps y at
-    O(1), so the bf16 band is one of O(1) values."""
-    x = randn_dev(rng, (b, s, h, p), x_dtype)
+    O(1), so the bf16 band is one of O(1) values. ``fused`` makes x, B and
+    C strided slices of one [b, s, h*p + 2n] tensor, as the model's conv
+    output gives them (x and B/C then share ``x_dtype``)."""
+    if fused:
+        xbc = randn_dev(rng, (b, s, h * p + 2 * n), x_dtype)
+        x = xbc[..., :h * p].reshape(b, s, h, p)
+        B, C = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+        if realistic:
+            C = C * n ** -0.5
+    else:
+        x = randn_dev(rng, (b, s, h, p), x_dtype)
+        B = randn_dev(rng, (b, s, n), bc_dtype)
+        C = randn_dev(rng, (b, s, n), bc_dtype, scale=n ** -0.5 if realistic else 1.0)
     dt_pre = randn_dev(rng, (b, s, h), torch.float32)
     dt = torch.nn.functional.softplus(dt_pre - 3.0 if realistic else dt_pre)
     A = -randn_dev(rng, (h,), torch.float32).abs()
-    B = randn_dev(rng, (b, s, n), bc_dtype)
-    C = randn_dev(rng, (b, s, n), bc_dtype, scale=n ** -0.5 if realistic else 1.0)
     return x, dt, A, B, C
 
 
 def check_ssd_cases():
     """The SSD kernel against ``ssd_reference`` (y at the reference's
-    bands, the final state at 1e-2) and against ``ssd_naive`` at a tiny
-    shape. Returns the largest y error at the full-width shape."""
+    bands, the final state at 1e-2) on both routes, the tensor-core route
+    also against the passes' plain version (``ssd_chunked_passes_ref``),
+    and against ``ssd_naive`` at a tiny shape. Each case asserts the route
+    it took. Returns the largest y error at the full-width shape."""
     from repro_torch.kernels.ssd import ops, ref
 
     rng = np.random.default_rng(5)
     m = SSD_MAIN
     main = (m["b"], m["h"], m["p"], m["n"])
-    cases = [(f"{shape}", shape[:5], shape[5], dtype, torch.float32)
-             for shape in SSD_SHAPES for dtype in (torch.float32, torch.bfloat16)]
+    core, tc = "cuda_core", "tensor_core"
+    bf16, f32 = torch.bfloat16, torch.float32
+    # name, (b, s, h, p, n), chunk, x dtype, B/C dtype, route
+    cases = [(f"{shape}", shape[:5], shape[5], dtype, f32, core)
+             for shape in SSD_SHAPES for dtype in (f32, bf16)]
     cases += [
-        ("ragged S=200 chunk=128", (1, 200, 4, 32, 64), 128, torch.bfloat16, torch.bfloat16),
-        ("ragged S=77 chunk=16 f32", (2, 77, 2, 16, 32), 16, torch.float32, torch.float32),
-        ("main S=200", (main[0], 200, *main[1:]), m["chunk"], torch.bfloat16, torch.bfloat16),
-        (f"main S={SSD_MAIN_S}", (main[0], SSD_MAIN_S, *main[1:]), m["chunk"], torch.bfloat16,
-         torch.bfloat16),
+        ("ragged S=200 chunk=128", (1, 200, 4, 32, 64), 128, bf16, bf16, tc),
+        ("ragged S=77 chunk=16 f32", (2, 77, 2, 16, 32), 16, f32, f32, core),
+        ("main S=200", (main[0], 200, *main[1:]), m["chunk"], bf16, bf16, tc),
+        (f"main S={SSD_MAIN_S}", (main[0], SSD_MAIN_S, *main[1:]), m["chunk"], bf16, bf16, tc),
+        (f"main S={SSD_MAIN_S} cuda-core route", (main[0], SSD_MAIN_S, *main[1:]), m["chunk"],
+         bf16, bf16, core),
+        ("main S=1", (main[0], 1, *main[1:]), m["chunk"], bf16, bf16, tc),
+        ("main S=128 one chunk", (main[0], 128, *main[1:]), m["chunk"], bf16, bf16, tc),
+        ("main B=2 S=200", (2, 200, *main[1:]), m["chunk"], bf16, bf16, tc),
+        ("main fused slices S=200", (main[0], 200, *main[1:]), m["chunk"], bf16, bf16, tc),
+        ("main chunk=64 S=200", (main[0], 200, *main[1:]), 64, bf16, bf16, tc),
+        ("main chunk=256 S=300", (main[0], 300, *main[1:]), 256, bf16, bf16, tc),
+        # the reference's own input scales at mamba2's widths: larger y, the
+        # band relative to it
+        ("unscaled S=1024", (main[0], 1024, *main[1:]), m["chunk"], bf16, bf16, tc),
     ]
     main_err = 0.0
-    for name, (b, s, h, p, n), chunk, x_dtype, bc_dtype in cases:
+    for name, (b, s, h, p, n), chunk, x_dtype, bc_dtype, route in cases:
         x, dt, A, B, C = ssd_inputs(rng, b, s, h, p, n, x_dtype, bc_dtype,
-                                    realistic=name.startswith("main"))
-        y, st = ops.ssd(x, dt, A, B, C, chunk=chunk)
+                                    realistic=name.startswith("main"),
+                                    fused="fused" in name)
+        before = ops.KERNEL.routes[route]
+        y, st = ops.KERNEL(x, dt, A, B, C, chunk=chunk, route=route if "route" in name else None)
         torch.cuda.synchronize()
+        if ops.KERNEL.routes[route] != before + 1:
+            raise AssertionError(f"ssd {name} did not take the {route} route")
         yr, sr = ref.ssd_reference(x, dt, A, B[:, :, None], C[:, :, None], chunk=chunk)
-        err = check_close(f"ssd {name} x={x_dtype} bc={bc_dtype} y", y, yr,
+        err = check_close(f"ssd {name} x={x_dtype} bc={bc_dtype} {route} y", y, yr,
                           ATOL[str(x_dtype).removeprefix("torch.")])
         check_close(f"ssd {name} final state", st, sr, STATE_ATOL)
+        if route == tc:
+            yp, sp = ref.ssd_chunked_passes_ref(x, dt, A, B, C, chunk=chunk,
+                                                split_operands=True)
+            check_close(f"ssd {name} y vs the passes' plain version", y, yp, ATOL["bfloat16"])
+            check_close(f"ssd {name} final state vs the passes' plain version", st, sp,
+                        STATE_ATOL)
         if name.startswith("main"):
             main_err = max(main_err, err)
     x, dt, A, B, C = ssd_inputs(rng, 1, 24, 2, 4, 8, torch.float32, torch.float32)
@@ -658,19 +703,8 @@ def check_ssd_cases():
     return main_err
 
 
-def time_ssd():
-    """Kernel and plain version at the full-width shape, S = SSD_MAIN_S.
-    No single PyTorch call computes the scan, so there is no library time."""
-    from repro_torch.kernels.ssd import ops, ref
-
-    m = SSD_MAIN
-    b, h, p, n, Q, S = m["b"], m["h"], m["p"], m["n"], m["chunk"], SSD_MAIN_S
-    rng = np.random.default_rng(6)
-    x, dt, A, B, C = ssd_inputs(rng, b, S, h, p, n, torch.bfloat16, torch.bfloat16,
-                                realistic=True)
-    B4, C4 = B[:, :, None], C[:, :, None]
-    kernel_ms = time_call(lambda: ops.ssd(x, dt, A, B, C, chunk=Q), 20)
-    plain_ms = time_call(lambda: ref.ssd_reference(x, dt, A, B4, C4, chunk=Q), 5)
+def ssd_bound(b, S, h, p, n, Q) -> dict:
+    """The least time the card could take for the scan at these shapes."""
     # bytes: x, dt, A, B, C read once; y and the final state written once
     n_bytes = (2 * b * S * h * p * 2 + b * S * h * 4 + h * 4 + 2 * b * S * n * 2
                + b * h * p * n * 4)
@@ -684,11 +718,53 @@ def time_ssd():
         tri = q * (q + 1) // 2
         macs = tri * n + tri * p + q * p * n + (q * p * n if c0 else 0)
         n_ops += 2 * macs * b * h
-    rec = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
-               library_note="no single PyTorch call computes the SSD scan",
-               S=S, **bound(n_bytes, n_ops, "bfloat16"))
+    rec = bound(n_bytes, n_ops, "bfloat16")
     rec["ops_ms_f32_cuda_cores"] = n_ops / PEAK_OPS_PER_S["float32"] * 1e3
     return rec
+
+
+def time_ssd():
+    """The kernel at the full-width shape, bf16, at S = 128 (one chunk, the
+    replay's common prefill), 200, ``SSD_MAIN_S`` and ``SSD_LONG_S``: its
+    event-timed wrapper call (``ms``), the device time of all its passes a
+    call (``device_ms``, torch.profiler), the bound, and at ``SSD_MAIN_S``
+    the plain version and the CUDA-core route on the same input. Each bf16
+    call must have run the tensor-core passes. No single PyTorch call
+    computes the scan, so there is no library time."""
+    from repro_torch.kernels.ssd import ops, ref
+
+    m = SSD_MAIN
+    b, h, p, n, Q = m["b"], m["h"], m["p"], m["n"], m["chunk"]
+    rng = np.random.default_rng(6)
+    out = {}
+    for S in (128, 200, SSD_MAIN_S, SSD_LONG_S):
+        x, dt, A, B, C = ssd_inputs(rng, b, S, h, p, n, torch.bfloat16, torch.bfloat16,
+                                    realistic=True)
+
+        def calls(route=None, x=x, dt=dt, A=A, B=B, C=C):
+            for _ in range(20):
+                ops.KERNEL(x, dt, A, B, C, chunk=Q, route=route)
+
+        before = ops.KERNEL.routes["tensor_core"]
+        rec = dict(S=S, ms=time_call(lambda: ops.ssd(x, dt, A, B, C, chunk=Q), 20),
+                   **device_ms_per_call(calls, 20, SSD_KERNEL_NAMES),
+                   **ssd_bound(b, S, h, p, n, Q))
+        if (ops.KERNEL.routes["tensor_core"] == before
+                or not all("ssd_tc_" in k for k in rec["device_kernels_ms"])):
+            raise AssertionError(f"the bf16 scan at S={S} did not run the tensor-core passes")
+        if S == SSD_MAIN_S:
+            B4, C4 = B[:, :, None], C[:, :, None]
+            rec["plain_ms"] = time_call(lambda: ref.ssd_reference(x, dt, A, B4, C4, chunk=Q), 5)
+            core = device_ms_per_call(lambda: calls("cuda_core"), 20, SSD_KERNEL_NAMES)
+            rec["cuda_core_ms"] = time_call(
+                lambda: ops.KERNEL(x, dt, A, B, C, chunk=Q, route="cuda_core"), 20)
+            rec["cuda_core_device_ms"] = core["device_ms"]
+            rec["cuda_core_kernels_ms"] = core["device_kernels_ms"]
+        out[S] = rec
+    main = out[SSD_MAIN_S]
+    return dict(main, library_ms=None, library_note="no single PyTorch call computes the SSD scan",
+                by_s={S: {k: v for k, v in r.items() if k not in ("bytes_ms", "ops_ms")}
+                      for S, r in out.items() if S != SSD_MAIN_S})
 
 
 # ------------------------------------------------------------ phase 3
@@ -969,7 +1045,8 @@ def ssm_breakdown(engine, context: int = 200, steps: int = 20):
         out[name] = {
             "profiled_calls": n, "window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / window_us if window_us else None,
-            "ssd_kernel_ms": sum(v for k, v in kernels.items() if "ssd_kernel" in k) / 1e3,
+            "ssd_kernel_ms": sum(v for k, v in kernels.items()
+                                 if any(n in k for n in SSD_KERNEL_NAMES)) / 1e3,
             "top_kernels_ms": {k[:60]: v / 1e3 for k, v in top},
         }
     return out
@@ -1141,7 +1218,9 @@ def main(argv=None) -> int:
             "launches": ssm["ssd_launches"],
             "max_abs_err": ssd_err,
             "ms": ssd_timing["ms"],
+            "device_ms": ssd_timing["device_ms"],
             "kernel_ms": ssd_timing["ms"],
+            "cuda_core_device_ms": ssd_timing["cuda_core_device_ms"],
             "plain_ms": ssd_timing["plain_ms"],
             "bound_ms": ssd_timing["bound_ms"],
             "bound_by": ssd_timing["bound_by"],

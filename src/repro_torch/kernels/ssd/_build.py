@@ -17,9 +17,11 @@ def load() -> tuple[ctypes.CDLL, str]:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ssd_scan.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr,      # x dt A B C y final_state
+        ptr,                                    # workspace (tensor-core route)
         i32, i32, i32, i32, i32, i32,           # B S H P N Q
         i32, i32,                               # dtypes of x and B/C
         i64, i64, i64, i64, i64, i64, i64, i64, i64,   # strides
+        i32, i32, i32,                          # route, state splits, P splits
         ptr,                                    # stream
     ]
     lib.ssd_scan.restype = i32

@@ -13,8 +13,30 @@ state ``[B, H, P, N]`` f32. Unlike the Pallas kernel, S need not be a
 multiple of ``chunk``: the tail is masked as the plain version pads it.
 Inputs may be strided views (the model passes slices of its fused
 projection) as long as their last dimension is contiguous.
+
+Two routes inside the kernel library, chosen by dtype and shape alone
+(``_route``), never on a failure:
+
+- ``tensor_core``: bf16 x and B/C, ``P`` and ``N`` multiples of 16, a
+  chunk that is a multiple of 64, none of them above 256, and 16-byte
+  aligned rows. Three passes launched by one C call (``ssd_scan``): a chunk
+  pass, parallel over (row, chunk, head, column range of N), writes each
+  chunk's ``cum`` and state to an f32 workspace; a state pass, elementwise
+  over (row, head, P·N) and serial over chunks, carries the state (skipped
+  for a one-chunk sequence); an output pass, parallel over (row, chunk,
+  head, row tile, column range of P), writes y. ``_scan_plan`` sizes the
+  grid from the shapes and the card's SM count, never from device data,
+  so a call needs no device-to-host sync. ``ref.ssd_chunked_passes_ref``
+  is the same decomposition in plain PyTorch.
+- ``cuda_core``: everything else (f32 or mixed dtypes, other widths or
+  chunks, unaligned rows): the first port's one-pass f32 kernel.
+
+``KERNEL.launches`` counts wrapper calls that launched a kernel, one per
+call whatever the route; ``KERNEL.routes`` counts them by route.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -23,8 +45,83 @@ from repro_torch.kernels.ssd import _build
 from repro_torch.kernels.ssd.ref import ssd_reference
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE_CODES = {"cuda_core": 0, "tensor_core": 1}
 #: shared memory a block may use on Hopper (bytes)
 _SMEM_LIMIT = 232448
+#: chunk rows an output-pass block covers (4 warps of 16 rows)
+ROW_TILE = 64
+#: the widest column range of P an output-pass block holds in registers,
+#: and of N a chunk-pass block stages: at 64 columns of N the chunk pass
+#: needs ~56 KB of shared memory at mamba2's shape, four blocks an SM,
+#: which the card ran faster than one range of 128 at every S measured
+_MAX_RANGE = 64
+#: the largest P, N and chunk the tensor-core route takes: within them both
+#: passes' shared memory (``csrc/ssd.cu``, ``tc_*_smem``) stays under
+#: ``_SMEM_LIMIT`` (~211 KB at the most)
+_MAX_WIDTH = 256
+
+
+class ScanPlan(NamedTuple):
+    """The tensor-core route's grid: ``state_splits`` column ranges of N a
+    (row, chunk, head) in the chunk pass, ``p_splits`` column ranges of P
+    a (row, chunk, head, row tile) in the output pass, and the blocks each
+    pass runs (the output pass's live ones: row tiles past S exit)."""
+    chunks: int
+    row_tiles: int
+    state_splits: int
+    p_splits: int
+    state_blocks: int
+    output_blocks: int
+
+
+def _splits(width: int, most: int) -> list[int]:
+    """Ways to cut ``width`` into equal ranges that are multiples of 16 and
+    no wider than ``most``, fewest first."""
+    return [s for s in (1, 2, 4, 8) if width % (16 * s) == 0 and width // s <= most]
+
+
+def _scan_plan(Bsz: int, S: int, H: int, P: int, N: int, Q: int, n_sm: int) -> ScanPlan:
+    """Cut the tensor-core route's work so each pass fills ``n_sm`` SMs: the
+    fewest column splits, into ranges of at most ``_MAX_RANGE`` columns,
+    that give every SM a block, or the most there are. A one-chunk prefill
+    of mamba2 (80 heads) gets 160 blocks in both passes. Reads host
+    integers only."""
+    chunks = -(-S // Q)
+    row_tiles = Q // ROW_TILE
+    live_tiles = (chunks - 1) * row_tiles + -(-(S - (chunks - 1) * Q) // ROW_TILE)
+
+    def fewest(cands, blocks_per_split):
+        return next((s for s in cands if blocks_per_split * s >= n_sm), cands[-1])
+
+    state_splits = fewest(_splits(N, _MAX_RANGE), Bsz * chunks * H)
+    p_splits = fewest(_splits(P, _MAX_RANGE), Bsz * H * live_tiles)
+    return ScanPlan(chunks, row_tiles, state_splits, p_splits,
+                    Bsz * chunks * H * state_splits, Bsz * H * live_tiles * p_splits)
+
+
+def _workspace_bytes(Bsz: int, H: int, P: int, N: int, Q: int, chunks: int) -> int:
+    """f32 ``cum [B, chunks, H, Q]`` and the states after every chunk but the
+    last ``[B, chunks - 1, H, P, N]``."""
+    return 4 * (Bsz * chunks * H * Q + Bsz * (chunks - 1) * H * P * N)
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """Rows start on 16-byte boundaries: the pointer, and every stride but
+    the last, in whole 16-byte steps."""
+    step = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(st % step == 0 for st in t.stride()[:-1])
+
+
+def _route(x, Bm, Cm, chunk: int, n_sm: int) -> tuple[str, ScanPlan | None]:
+    """Which kernel a call launches, from dtypes and shapes alone, and the
+    tensor-core route's plan where it takes that route."""
+    (Bsz, S, H, P), N = x.shape, Bm.shape[-1]
+    if (x.dtype == Bm.dtype == Cm.dtype == torch.bfloat16
+            and chunk % ROW_TILE == 0 and max(P, N, chunk) <= _MAX_WIDTH
+            and _splits(P, _MAX_RANGE) and _splits(N, _MAX_RANGE)
+            and _aligned(x) and _aligned(Bm) and _aligned(Cm)):
+        return "tensor_core", _scan_plan(Bsz, S, H, P, N, chunk, n_sm)
+    return "cuda_core", None
 
 
 class SsdKernel(_nvcc.Kernel):
@@ -32,8 +129,20 @@ class SsdKernel(_nvcc.Kernel):
 
     def __init__(self):
         super().__init__(_build.load)
+        self._n_sm: dict[int, int] = {}
+        #: launches by route
+        self.routes = dict.fromkeys(_ROUTE_CODES, 0)
 
-    def __call__(self, x, dt, A, Bm, Cm, *, chunk: int):
+    def sm_count(self, dev: torch.device) -> int:
+        """The card's SM count, read once per device."""
+        idx = dev.index if dev.index is not None else torch.cuda.current_device()
+        if idx not in self._n_sm:
+            self._n_sm[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+        return self._n_sm[idx]
+
+    def __call__(self, x, dt, A, Bm, Cm, *, chunk: int, route: str | None = None):
+        """Launch the scan. ``route`` forces a route (for timing both on one
+        input); ``None`` takes the one ``_route`` chooses."""
         if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 3 or Cm.dim() != 3:
             raise ValueError(
                 f"want x [B,S,H,P], dt [B,S,H], A [H], B/C [B,S,N]; got {tuple(x.shape)}, "
@@ -63,25 +172,39 @@ class SsdKernel(_nvcc.Kernel):
         if chunk <= 0:
             raise ValueError(f"chunk must be positive, not {chunk}")
 
+        if route not in (None, *_ROUTE_CODES):
+            raise ValueError(f"route must be one of {list(_ROUTE_CODES)}, not {route!r}")
+        chosen, plan = _route(x, Bm, Cm, chunk, self.sm_count(dev))
+        if route == "tensor_core" and chosen != "tensor_core":
+            raise ValueError("these dtypes, shapes or strides cannot take the tensor-core route")
+        route = route or chosen
         lib = self.load()
-        smem = lib.ssd_smem(P, N, chunk)
-        if smem > _SMEM_LIMIT:
-            raise ValueError(f"P={P}, N={N}, chunk={chunk} need {smem} B of shared memory, "
-                             f"more than {_SMEM_LIMIT}")
+        if route == "cuda_core":
+            smem = lib.ssd_smem(P, N, chunk)
+            if smem > _SMEM_LIMIT:
+                raise ValueError(f"P={P}, N={N}, chunk={chunk} need {smem} B of shared memory, "
+                                 f"more than {_SMEM_LIMIT}")
+            ws, splits = None, (0, 0)
+        else:
+            ws = torch.empty(_workspace_bytes(Bsz, H, P, N, chunk, plan.chunks),
+                             dtype=torch.uint8, device=dev)
+            splits = (plan.state_splits, plan.p_splits)
         y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=dev)
         final_state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.ssd_scan(
                 x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                y.data_ptr(), final_state.data_ptr(),
+                y.data_ptr(), final_state.data_ptr(), ws.data_ptr() if ws is not None else None,
                 Bsz, S, H, P, N, chunk, _DTYPE_CODES[x.dtype], _DTYPE_CODES[Bm.dtype],
                 x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1),
                 Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
+                _ROUTE_CODES[route], *splits,
                 stream,
             )
         _nvcc.check_status(err, "ssd_scan")
         self.launches += 1
+        self.routes[route] += 1
         return y, final_state
 
 

@@ -129,3 +129,69 @@ def ssd_naive(x, dt, A, B, C, *, initial_state=None):
         y, state = ssd_decode_step(state, x[:, t], dt[:, t], A, B[:, t], C[:, t])
         ys.append(y)
     return torch.stack(ys, dim=1), state
+
+
+def _split_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the sum of two bf16 values, hi = bf16(t) and lo = bf16(t - hi),
+    back in f32: the tensor-core kernel's form of an operand it computes in
+    f32 (about 16 bits of mantissa instead of bf16's 8)."""
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float()
+
+
+def ssd_chunked_passes_ref(x, dt, A, B, C, *, chunk: int = 128, split_operands: bool = False):
+    """The tensor-core kernel's decomposition of the scan in plain PyTorch:
+    the same three passes, for a single B/C group (``[b, s, n]`` or
+    ``[b, s, 1, n]``), with y in x's dtype and the final state f32.
+
+    1. chunk pass: ``cum`` = prefix sum of dt·A within each chunk, and the
+       chunk's state ``xᵀ·(B ∘ dt·exp(total - cum))``;
+    2. state pass: ``carry = carry·exp(total_c) + state_c`` over the chunks,
+       the running state after each chunk but the last, and the final state;
+    3. output pass: ``y = (C·Bᵀ ∘ L ∘ dt_j)·x + exp(cum) ∘ (C·stateᵀ)``, the
+       second term only for chunks after the first (whose state is zero).
+
+    With ``split_operands`` the three operands the kernel computes in f32
+    (``B ∘ dt·exp(total - cum)``, ``C·Bᵀ ∘ L ∘ dt_j`` and the carried state)
+    become hi + lo bf16 pairs (``_split_bf16``), as the kernel feeds them
+    to its bf16 products; x, B and C are taken as they come. Positions past
+    ``s`` are zero, as the kernel's masked loads read them."""
+    if B.dim() == 4:
+        B, C = B[:, :, 0], C[:, :, 0]
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    op = _split_bf16 if split_operands else (lambda t: t)
+    xq = F.pad(x.to(F32), (0, 0, 0, 0, 0, pad)).reshape(b, nc, chunk, h, p)
+    dtq = F.pad(dt.to(F32), (0, 0, 0, pad)).reshape(b, nc, chunk, h)
+    Bq = F.pad(B.to(F32), (0, 0, 0, pad)).reshape(b, nc, chunk, n)
+    Cq = F.pad(C.to(F32), (0, 0, 0, pad)).reshape(b, nc, chunk, n)
+
+    # pass 1: cum, the chunk's total, the chunk states
+    cum = torch.cumsum(dtq * A.to(F32), dim=2)                         # [b,c,q,h]
+    total = cum[:, :, -1]                                              # [b,c,h]
+    w = dtq * torch.exp(total[:, :, None] - cum)                       # [b,c,q,h]
+    Bw = op(Bq[:, :, :, None, :] * w[..., None])                       # [b,c,q,h,n]
+    states = torch.einsum("bcqhp,bcqhn->bchpn", xq, Bw)
+
+    # pass 2: the running state after each chunk; the last one is final
+    carry = states[:, 0]
+    after = [carry]
+    for ci in range(1, nc):
+        carry = carry * torch.exp(total[:, ci])[..., None, None] + states[:, ci]
+        after.append(carry)
+
+    # pass 3: the causal intra-chunk term, then the carried state's
+    idx = torch.arange(chunk, device=x.device)
+    causal = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
+    L = torch.where(causal, torch.exp(cum[:, :, :, None] - cum[:, :, None, :]), 0.0)
+    scores = torch.einsum("bcin,bcjn->bcij", Cq, Bq)[..., None]       # [b,c,i,j,1]
+    coef = op(scores * (L * dtq[:, :, None, :, :]))                    # [b,c,i,j,h]
+    y = torch.einsum("bcijh,bcjhp->bcihp", coef, xq)
+    if nc > 1:
+        prev = op(torch.stack(after[:-1], dim=1))                      # [b,c-1,h,p,n]
+        y_off = torch.einsum("bcin,bchpn->bcihp", Cq[:, 1:], prev)
+        y_off = y_off * torch.exp(cum[:, 1:])[..., None]
+        y = torch.cat([y[:, :1], y[:, 1:] + y_off], dim=1)
+    return y.reshape(b, nc * chunk, h, p)[:, :s].to(x.dtype), carry

@@ -1,7 +1,10 @@
-"""The redesigned attention kernels on the card, against their plain
-versions: the split-K paged decode kernel at split boundaries and over
-tables wider than any row, and the bf16 tensor-core flash kernel at every
-head dimension, with GQA, ragged tails and a hole behind a query offset.
+"""The redesigned kernels on the card, against their plain versions: the
+split-K paged decode kernel at split boundaries and over tables wider than
+any row, the bf16 tensor-core flash kernel at every head dimension, with
+GQA, ragged tails and a hole behind a query offset, and the SSD scan's
+tensor-core passes at mamba2's widths (one chunk, ragged and long
+sequences, other chunk sizes, two rows, strided slices of one fused
+tensor), with f32 and mixed dtypes on the CUDA-core route.
 
 Every test here is marked ``cuda`` and skips where there is no card. The
 file imports neither JAX nor the JAX package, so it runs on a machine with
@@ -10,7 +13,7 @@ a card and PyTorch alone::
     python -m pytest -q -m cuda tests/test_torch_kernels_on_card.py
 
 Bands are the reference's own (``tests/test_kernels.py`` ``tol()``): 2e-3
-in f32, 2e-2 in bf16.
+in f32, 2e-2 in bf16, and 1e-2 for the SSD's final state.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
 
 BANDS = {torch.float32: dict(rtol=2e-3, atol=2e-3), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
@@ -115,3 +120,82 @@ def test_flash_kernel_in_bf16_with_unaligned_rows(card):
     torch.cuda.synchronize()
     want = flash_ref.blockwise_attention(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(), **BANDS[torch.bfloat16])
+
+
+#: mamba2-2.7b's scan: 80 heads of 64, state 128
+SSD_H, SSD_P, SSD_N = 80, 64, 128
+SSD_STATE_BAND = dict(rtol=1e-2, atol=1e-2)
+SSD_CASES = {
+    # name -> (B, S, chunk); S = 1 and 77 are one partial chunk, 128 one
+    # full one (the replay's common prefill), 200 ragged over two
+    "S=1": (1, 1, 128),
+    "S=77": (1, 77, 128),
+    "S=128": (1, 128, 128),
+    "S=200": (1, 200, 128),
+    "S=256": (1, 256, 128),
+    "S=1024": (1, 1024, 128),
+    "chunk 64 S=200": (1, 200, 64),
+    "chunk 256 S=300": (1, 300, 256),
+    "B=2 S=200": (2, 200, 128),
+}
+
+
+def ssd_inputs(rng, b, s, dev, x_dtype=torch.bfloat16, bc_dtype=torch.bfloat16,
+               fused=False):
+    """x [b,s,H,P], dt (after softplus), A (negative), B, C [b,s,N]; with
+    ``fused`` x, B and C are strided slices of one [b, s, H*P + 2N] tensor,
+    as the model's conv output gives them."""
+    inner = SSD_H * SSD_P
+    if fused:
+        xbc = randn(rng, (b, s, inner + 2 * SSD_N), x_dtype, dev)
+        x = xbc[..., :inner].reshape(b, s, SSD_H, SSD_P)
+        B, C = xbc[..., inner:inner + SSD_N], xbc[..., inner + SSD_N:]
+    else:
+        x = randn(rng, (b, s, SSD_H, SSD_P), x_dtype, dev)
+        B, C = (randn(rng, (b, s, SSD_N), bc_dtype, dev) for _ in range(2))
+    dt = torch.nn.functional.softplus(randn(rng, (b, s, SSD_H), torch.float32, dev))
+    A = -randn(rng, (SSD_H,), torch.float32, dev).abs()
+    return x, dt, A, B, C
+
+
+def check_ssd(x, dt, A, B, C, chunk, route):
+    """One wrapper call on ``route``, held against ``ssd_reference`` and the
+    passes' plain version."""
+    before = dict(ssd_ops.KERNEL.routes)
+    y, st = ssd_ops.ssd(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.KERNEL.routes[route] == before[route] + 1
+    yr, sr = ssd_ref.ssd_reference(x, dt, A, B[:, :, None], C[:, :, None], chunk=chunk)
+    torch.testing.assert_close(y.float(), yr.float(), **BANDS[x.dtype])
+    torch.testing.assert_close(st, sr, **SSD_STATE_BAND)
+    if route == "tensor_core":
+        yp, sp = ssd_ref.ssd_chunked_passes_ref(x, dt, A, B, C, chunk=chunk,
+                                                split_operands=True)
+        torch.testing.assert_close(y.float(), yp.float(), **BANDS[x.dtype])
+        torch.testing.assert_close(st, sp, **SSD_STATE_BAND)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SSD_CASES))
+def test_ssd_tensor_core_route_matches_plain_versions(card, name):
+    b, s, chunk = SSD_CASES[name]
+    rng = np.random.default_rng(33)
+    check_ssd(*ssd_inputs(rng, b, s, card), chunk, "tensor_core")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [77, 256])
+def test_ssd_tensor_core_route_takes_slices_of_a_fused_tensor(card, s):
+    rng = np.random.default_rng(34)
+    x, dt, A, B, C = ssd_inputs(rng, 1, s, card, fused=True)
+    assert not x.is_contiguous() and not B.is_contiguous()
+    check_ssd(x, dt, A, B, C, 128, "tensor_core")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,bc_dtype", [(torch.float32, torch.float32),
+                                              (torch.bfloat16, torch.float32),
+                                              (torch.float32, torch.bfloat16)])
+def test_ssd_f32_and_mixed_dtypes_take_the_cuda_core_route(card, x_dtype, bc_dtype):
+    rng = np.random.default_rng(35)
+    check_ssd(*ssd_inputs(rng, 1, 200, card, x_dtype, bc_dtype), 128, "cuda_core")
