@@ -34,23 +34,37 @@ on failure (a failure exits non-zero and prints no final line):
 4. the qwen main path: ``qwen1.5-0.5b`` at full width with random weights
    from a seed, served by two engines behind ``MoriRouter.replay`` with the
    launcher's defaults (monolithic prefill), then again with chunked
-   prefill; the paged kernel's launches must equal layers x decode steps,
-   the flash kernel's layers x prefill passes, and pages must move between
-   the tiers; then where a full-width decode step's time goes;
+   prefill, each engine warmed first (``Engine.warmup``: one CUDA graph of
+   the decode step per table bucket) with the compile tracker armed, each
+   replay run under ``torch.profiler``; no graph may be captured during a
+   replay, every decode step must be one replay, no paged wrapper may be
+   called (a replay calls none), the paged kernels the device ran
+   (``paged_split_kernel``, one a launch, counted by the profiler) must
+   equal layers x decode steps, the flash kernel's launches layers x
+   prefill passes, and pages must move between the tiers; then each table
+   bucket's graph (bf16, and one on an int8 pool) against the same step
+   run eagerly on a clone of the pool, bit for bit, each replay running
+   one paged kernel a layer; then where a full-width decode step's time
+   goes, graphed and eager;
 5. the SSM main path: ``mamba2-2.7b`` at full width with random weights
-   from a seed, served by ``SsmEngine`` behind ``MoriRouter.replay``; the
-   SSD kernel's launches must equal layers x sequence prefills, and state
-   bundles must go to the host and come back; then where a full-width
-   prefill's and decode step's time goes.
+   from a seed, served by a warmed ``SsmEngine`` behind
+   ``MoriRouter.replay``; the SSD kernel's launches must equal layers x
+   sequence prefills, every decode token must be one replay of the decode
+   graph, and state bundles must go to the host and come back; then the
+   decode graph against the eager step, bit for bit, and where a
+   full-width prefill's and decode step's time goes, graphed and eager.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
-hold the per-kernel JSON record and the card's name and power limit.
+hold the per-kernel JSON record and the card's name and power limit. The
+``graph parity`` line holds each graph's largest logit difference from
+the eager step.
 """
 from __future__ import annotations
 
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -129,6 +143,8 @@ SSD_LONG_S = 2048
 #: passes ``ssd_tc_chunk_state_kernel``, ``ssd_tc_state_pass_kernel`` and
 #: ``ssd_tc_output_kernel``
 SSD_KERNEL_NAMES = ("ssd_kernel", "ssd_tc_")
+#: profiles of one timed loop before ``device_ms_per_call`` gives up
+PROFILE_ATTEMPTS = 3
 #: where every phase runs
 DEVICE = "cuda"
 
@@ -191,12 +207,20 @@ def device_ms_per_call(fn, calls: int, names: tuple | None) -> dict:
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = {k: v for k, v in device_kernel_us(prof).items()
-               if names is None or any(n in k for n in names)}
-    if not kernels:
+    # a profile has come back without the kernels' device records once
+    # in several runs, though the wrapper launched them: profile again,
+    # a bounded number of times, and say so
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = {k: v for k, v in device_kernel_us(prof).items()
+                   if names is None or any(n in k for n in names)}
+        if kernels:
+            break
+        log(f"profile {attempt} of {PROFILE_ATTEMPTS} saw no device time of a kernel "
+            f"named {names}")
+    else:
         raise AssertionError(f"the profiler saw no device time of a kernel named {names}")
     return dict(device_ms=sum(kernels.values()) / calls / 1e3,
                 device_kernels_ms={k[:60]: v / calls / 1e3 for k, v in kernels.items()})
@@ -869,6 +893,34 @@ def _param_tree(model) -> dict:
     return out
 
 
+def device_kernel_counts(fn, names: tuple) -> tuple[object, dict]:
+    """Run ``fn`` under ``torch.profiler`` (device activity only) and
+    count the device kernels whose name holds each of ``names``: a
+    kernel inside a replayed graph counts as one where a wrapper call
+    would. Returns ``fn``'s result and the counts; ``counts["fn_s"]`` is
+    ``fn``'s host-clock time under the profiler (ending in a
+    synchronize), ``counts["processing_s"]`` the profiler's own time after
+    it."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        fn_s = time.perf_counter() - t0
+    counts = dict.fromkeys(names, 0)
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            for name in names:
+                if name in ev.key:
+                    counts[name] += ev.count
+    counts.update(fn_s=fn_s, processing_s=time.perf_counter() - t0 - fn_s)
+    return result, counts
+
+
+#: the paged-attention kernels: the split pass runs once a wrapper launch,
+#: the merge pass only where the table has more than one split
+PAGED_KERNEL_NAMES = ("paged_split_kernel", "paged_combine_kernel")
+
+
 def _count_calls(obj, attr: str, counter: dict, key: str, when=lambda result: True):
     """Wrap ``obj.attr`` so that each call whose result passes ``when``
     adds one to ``counter[key]``."""
@@ -911,17 +963,34 @@ def replay_qwen(args, chunked: bool, engines=None):
         )
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    # one decode graph per table bucket on every engine before traffic
+    # (the chunked replay also runs each chunk bucket once, eagerly)
+    t0 = time.perf_counter()
+    for e in engines:
+        e.warmup(prefill_chunks=chunked)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
     corpus = serve.corpus_for(args)
     passes = {"prefill": 0}
     for e in engines:
         _count_calls(e.model, "prefill", passes, "prefill")
+    # the counts warmup moved start again from 0
     paged_ops.KERNEL.launches = 0
     flash_ops.KERNEL.launches = 0
-    t0 = time.perf_counter()
-    m = router.replay(corpus, vocab_size=cfg.vocab_size, max_new_tokens=args.max_new_tokens)
-    torch.cuda.synchronize()
-    replay_s = time.perf_counter() - t0
-    paged, flash = paged_ops.KERNEL.launches, flash_ops.KERNEL.launches
+    warm_captures = 0
+    for e in engines:
+        e.graphs.replays = 0
+        warm_captures += e.graphs.cache_size()
+    # a replayed graph calls no wrapper: the profiler counts the paged
+    # kernels the device ran in this replay
+    m, device_counts = device_kernel_counts(
+        lambda: router.replay(corpus, vocab_size=cfg.vocab_size,
+                              max_new_tokens=args.max_new_tokens),
+        PAGED_KERNEL_NAMES)
+    paged_eager, flash = paged_ops.KERNEL.launches, flash_ops.KERNEL.launches
+    paged = device_counts["paged_split_kernel"]
+    captures = sum(e.graphs.cache_size() for e in engines)
+    replays = sum(e.graphs.replays for e in engines)
     engine_steps = sum(e.steps for e in engines)
     record = {
         "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -931,19 +1000,31 @@ def replay_qwen(args, chunked: bool, engines=None):
         "offloaded_pages": m.offloaded_pages, "reloaded_pages": m.reloaded_pages,
         "gated_events": m.gated_events, "pump_steps": m.pump_steps,
         "prefill_chunks": m.prefill_chunks, "engine_steps": engine_steps,
-        "kernel_launches": paged, "prefill_passes": passes["prefill"],
-        "flash_launches": flash, "setup_s": setup_s, "replay_s": replay_s,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "kernel_launches": paged, "paged_launches_eager": paged_eager,
+        "paged_combine_kernels": device_counts["paged_combine_kernel"],
+        "graph_captures": captures, "post_warmup_captures": captures - warm_captures,
+        "graph_replays": replays, "graph_buckets": sorted(
+            {k for e in engines for k in e.graphs.keys()}),
+        "prefill_passes": passes["prefill"],
+        "flash_launches": flash, "setup_s": setup_s, "warmup_s": warmup_s,
+        "replay_s_profiled": device_counts["fn_s"],
+        "profiler_processing_s": device_counts["processing_s"], "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     log(("serve_chunked " if chunked else "serve ") + json.dumps(record))
     if m.steps_completed <= 0:
         raise AssertionError("the replay completed no program step")
     if m.offloaded_pages + m.reloaded_pages <= 0:
         raise AssertionError("no page moved between the tiers")
+    if captures != warm_captures:
+        raise AssertionError(f"{captures - warm_captures} decode graphs captured after warmup")
+    if replays != engine_steps or paged_eager != 0:
+        raise AssertionError(
+            f"{replays} graph replays and {paged_eager} eager paged launches for "
+            f"{engine_steps} decode steps: decode did not run only through its graphs")
     if paged != cfg.num_layers * engine_steps or paged == 0:
         raise AssertionError(
-            f"paged kernel launches {paged} != layers {cfg.num_layers} x decode steps "
-            f"{engine_steps}: decode did not go through the kernel")
+            f"paged kernels the device ran {paged} != layers {cfg.num_layers} x decode "
+            f"steps {engine_steps}: decode did not go through the kernel")
     if flash != cfg.num_layers * passes["prefill"] or flash == 0:
         raise AssertionError(
             f"flash kernel launches {flash} != layers {cfg.num_layers} x prefill passes "
@@ -957,99 +1038,226 @@ def replay_qwen(args, chunked: bool, engines=None):
     return record, engines
 
 
+def profile_window(fn, n: int) -> tuple[dict, float]:
+    """Device time by kernel name over ``n`` calls of ``fn`` (ending in a
+    synchronize), and the window's host-clock length in µs."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if DEVICE == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    return device_kernel_us(prof), window_us
+
+
+def host_ms(fn, n: int) -> float:
+    """Host-clock milliseconds per call of ``fn`` over ``n`` calls, after
+    three warm-up calls; the window ends in a synchronize."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
 def decode_breakdown(engine, context: int = 200, steps: int = 20):
-    """Where a full-width decode step's time goes: one engine with every
-    slot decoding a ``context``-token request; host-clock time per step
-    (ends in a synchronize), then a profiled window for the device's busy
-    share and its kernel time by name. Runs after the main path, so its
-    launches are not in the main path's count."""
+    """Where a full-width decode step's time goes: one warmed engine with
+    every slot decoding a ``context``-token request. The graphed step
+    (``engine.step``: staging, one replay, the tokens read back) on the
+    host clock, then a profiled window of graphed steps for the device's
+    busy share and its kernel time by name; then the same step's inputs
+    through the eager function the graph captured (``Engine.decode_packed``,
+    the greedy tokens read back) on a clone of the pool, timed and profiled
+    the same way. Runs after the main path, so its launches are not in the
+    main path's count."""
     from repro_torch.serving import EngineRequest
 
     rng = np.random.default_rng(2)
     for i in range(engine.max_slots):
         engine.submit(EngineRequest(
             f"breakdown{i}", rng.integers(2, engine.cfg.vocab_size, context).tolist(),
-            max_new_tokens=2 * steps + 10))
-    for _ in range(3):
-        engine.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        engine.step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / steps * 1e3
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if DEVICE == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            engine.step()
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t0) * 1e6
-    kernels = device_kernel_us(prof)
+            max_new_tokens=3 * steps + 20))
+    step_ms = host_ms(engine.step, steps)
+    kernels, window_us = profile_window(engine.step, 5)
     busy_us = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    return {
+    out = {
         "batch": engine.max_slots, "context": context, "step_ms": step_ms,
         "profiled_steps": 5, "window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / window_us if window_us else None,
+        "device_ms_per_step": busy_us / 5e3,
+        "device_share_of_step": busy_us / 5e3 / step_ms,
         "top_kernels_ms": {k[:60]: v / 1e3 for k, v in top},
         "paged_attention_ms": sum(v for k, v in kernels.items()
-                                  if "paged_split_kernel" in k
-                                  or "paged_combine_kernel" in k) / 1e3,
+                                  if any(n in k for n in PAGED_KERNEL_NAMES)) / 1e3,
     }
+    if DEVICE == "cuda" and not all(any(n in k for k in kernels) for n in PAGED_KERNEL_NAMES):
+        raise AssertionError("the profiler saw no paged attention kernel in the replayed steps")
+    # the eager function on the last replayed step's inputs
+    p_used = max(len(s.table) for s in engine.slots.values())
+    p_pad = -(-p_used // engine._table_bucket) * engine._table_bucket
+    staged = engine._staging[p_pad][1].clone()
+    clones = [t.clone() for t in engine.pool.device_tensors()]
+
+    def eager_step():
+        return engine.decode_packed(staged, p_pad, clones)[1].cpu()
+
+    with torch.no_grad():
+        eager_ms = host_ms(eager_step, steps)
+        eager_kernels, eager_window_us = profile_window(eager_step, 5)
+    eager_busy_us = sum(eager_kernels.values())
+    out.update(
+        table_pages=p_pad, eager_step_ms=eager_ms, graphed_over_eager=step_ms / eager_ms,
+        eager_window_ms=eager_window_us / 1e3, eager_device_busy_ms=eager_busy_us / 1e3,
+        eager_device_busy_share=eager_busy_us / eager_window_us if eager_window_us else None,
+        eager_device_ms_per_step=eager_busy_us / 5e3,
+        eager_device_share_of_step=eager_busy_us / 5e3 / eager_ms,
+    )
+    return out
 
 
 def ssm_breakdown(engine, context: int = 200, steps: int = 20):
     """Where a full-width mamba2 request's time goes: a ``context``-token
     prefill (the SSD kernel in every layer) and one-token decode steps on
-    the host clock (each ends in a synchronize), then one profiled prefill
-    and a profiled window of decode steps for the device's busy share and
-    its kernel time by name. Runs after the SSM main path, so its launches
-    are not in that path's count."""
+    the host clock (each ends in a synchronize): the graphed step (one
+    replay over the engine's static state, the greedy token read back as
+    ``submit`` does) and the eager function it captured
+    (``Model.decode_into``) on a clone of the same state; then one
+    profiled prefill and profiled windows of graphed and eager decode
+    steps for the device's busy share and its kernel time by name. Runs
+    after the SSM main path, so its launches are not in that path's
+    count."""
     model = engine.model
     rng = np.random.default_rng(7)
     tokens = torch.from_numpy(rng.integers(2, engine.cfg.vocab_size, (1, context))).to(DEVICE)
     tok = torch.tensor([5], device=DEVICE)
-    length = torch.tensor([context + 1], dtype=torch.int32, device=DEVICE)
-    _, cache = model.prefill({"tokens": tokens})                 # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, cache = model.prefill({"tokens": tokens})
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t0) * 1e3
-    for _ in range(3):
-        _, cache = model.decode(cache, tok, length)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        _, cache = model.decode(cache, tok, length)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / steps * 1e3
-    out = {"context": context, "prefill_ms": prefill_ms, "decode_step_ms": step_ms}
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if DEVICE == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    for name, fn, n in (("prefill", lambda: model.prefill({"tokens": tokens}), 1),
-                        ("decode", lambda: model.decode(cache, tok, length), 5)):
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            window_us = (time.perf_counter() - t0) * 1e6
-        kernels = device_kernel_us(prof)
-        busy_us = sum(kernels.values())
-        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-        out[name] = {
-            "profiled_calls": n, "window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / window_us if window_us else None,
-            "ssd_kernel_ms": sum(v for k, v in kernels.items()
-                                 if any(n in k for n in SSD_KERNEL_NAMES)) / 1e3,
-            "top_kernels_ms": {k[:60]: v / 1e3 for k, v in top},
-        }
+    with torch.no_grad():
+        _, cache = model.prefill({"tokens": tokens})                 # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = model.prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        engine._load_state(cache)
+        state = {k: t.clone() for k, t in engine._state.items()}
+
+        def graphed():
+            return int(torch.argmax(engine._step_tokens(5)))
+
+        def eager():
+            return int(torch.argmax(model.decode_into(state, tok)[0]))
+
+        step_ms = host_ms(graphed, steps)
+        eager_ms = host_ms(eager, steps)
+        out = {"context": context, "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+               "eager_decode_step_ms": eager_ms, "graphed_over_eager": step_ms / eager_ms}
+        for name, fn, n, ms in (("prefill", lambda: model.prefill({"tokens": tokens}), 1,
+                                 prefill_ms),
+                                ("decode", graphed, 5, step_ms),
+                                ("eager_decode", eager, 5, eager_ms)):
+            kernels, window_us = profile_window(fn, n)
+            busy_us = sum(kernels.values())
+            top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+            out[name] = {
+                "profiled_calls": n, "window_ms": window_us / 1e3,
+                "device_busy_ms": busy_us / 1e3,
+                "device_busy_share": busy_us / window_us if window_us else None,
+                "device_ms_per_call": busy_us / n / 1e3,
+                "device_share_of_call": busy_us / n / 1e3 / ms,
+                "ssd_kernel_ms": sum(v for k, v in kernels.items()
+                                     if any(n in k for n in SSD_KERNEL_NAMES)) / 1e3,
+                "top_kernels_ms": {k[:60]: v / 1e3 for k, v in top},
+            }
     return out
+
+
+def random_pool(engine, seed: int) -> None:
+    """Fill an engine's pool with values a real context would hold, from
+    a seed, on the card."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    pool = engine.pool
+    for t in (pool.k, pool.v):
+        if pool.quantized_device:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g, device=DEVICE))
+        else:
+            t.copy_(torch.randn(t.shape, generator=g, device=DEVICE))
+    if pool.quantized_device:
+        for sc in (pool.k_scale, pool.v_scale):
+            sc.copy_(torch.rand(sc.shape, generator=g, device=DEVICE) * 0.02 + 0.002)
+
+
+def graph_parity_qwen(cfg, params) -> list:
+    """Each table bucket's decode graph (bf16 pool), and the widest bucket
+    on an int8 pool, against the same step run eagerly on a clone of the
+    pool: logits, greedy tokens and the pool bytes written. Fresh engines
+    on the main path's weights, their pools filled from a seed, each row's
+    length in its bucket's last four pages."""
+    from repro_torch.serving import Engine
+
+    rng = np.random.default_rng(8)
+    cases = []
+    for fmt, only in (("bf16", None), ("int8", 24)):
+        engine = Engine(cfg, params, device=DEVICE, page_tokens=16, n_device_pages=8,
+                        n_host_pages=4, max_slots=3, max_seq=384, device_format=fmt,
+                        offload_format=fmt)
+        random_pool(engine, seed=len(cases))
+        engine.warmup()
+        B, T = engine.max_slots, engine.page_tokens
+        live = [p for p in range(engine.pool.k.shape[1]) if p not in engine._scratch_pages]
+        for p_pad in engine.graphs.keys() if only is None else [only]:
+            lengths = rng.integers((p_pad - 4) * T + 1, p_pad * T + 1, B)
+            tables = rng.permutation(live)[: B * p_pad].reshape(B, p_pad)
+            packed = engine._pack(rng.integers(0, cfg.vocab_size, B), lengths,
+                                  tables[np.arange(B), (lengths - 1) // T], (lengths - 1) % T,
+                                  tables)
+            clones = [t.clone() for t in engine.pool.device_tensors()]
+            with torch.no_grad():
+                (logits, tokens), ran = device_kernel_counts(
+                    lambda: [t.clone() for t in engine._decode(p_pad, packed)],
+                    PAGED_KERNEL_NAMES[:1])
+                want, want_tokens = engine.decode_packed(
+                    torch.from_numpy(packed).to(DEVICE), p_pad, clones)
+            torch.cuda.synchronize()
+            cases.append({
+                "case": f"qwen {fmt} pages={p_pad}",
+                "max_abs_logit_diff": (logits - want).abs().max().item(),
+                "tokens_equal": torch.equal(tokens, want_tokens),
+                "pool_equal": all(torch.equal(a, b)
+                                  for a, b in zip(engine.pool.device_tensors(), clones)),
+                "layers": cfg.num_layers,
+                "paged_kernels_replayed": ran["paged_split_kernel"],
+            })
+        del engine
+    return cases
+
+
+def graph_parity_ssm(engine) -> list:
+    """The mamba2 decode graph against ``Model.decode_into`` on a clone of
+    the same state, token by token from a 120-token prefill: logits,
+    greedy tokens and the state."""
+    model = engine.model
+    rng = np.random.default_rng(10)
+    tokens = torch.from_numpy(rng.integers(2, engine.cfg.vocab_size, (1, 120))).to(DEVICE)
+    worst, tokens_equal, state_equal = 0.0, True, True
+    with torch.no_grad():
+        _, cache = model.prefill({"tokens": tokens})
+        engine._load_state(cache)
+        state = {k: t.clone() for k, t in engine._state.items()}
+        for tok in rng.integers(2, engine.cfg.vocab_size, 4).tolist():
+            got = engine._step_tokens(tok).clone()
+            want = model.decode_into(state, torch.tensor([tok], device=DEVICE))[0]
+            torch.cuda.synchronize()
+            worst = max(worst, (got - want).abs().max().item())
+            tokens_equal &= int(torch.argmax(got)) == int(torch.argmax(want))
+            state_equal &= all(torch.equal(engine._state[k], state[k]) for k in state)
+    return [{"case": "mamba2 decode", "tokens_fed": 4, "max_abs_logit_diff": worst,
+             "tokens_equal": tokens_equal, "state_equal": state_equal}]
 
 
 def device_kernel_us(prof) -> dict:
@@ -1090,14 +1298,22 @@ def serve_ssm():
                         config=SchedulerConfig(tick_interval_s=2.0))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.warmup()                      # the decode graph, before traffic
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
     corpus = generate_corpus(3, seed=0, cfg=TraceGenConfig(
         min_steps=3, mean_steps=4, max_steps=4, initial_context_mean=120, max_context=240))
-    counts = {"prefill": 0, "decode": 0, "to_host": 0, "reload": 0}
+    counts = {"prefill": 0, "decode": 0, "eager_decode": 0, "to_host": 0, "reload": 0}
     _count_calls(engine.model, "prefill", counts, "prefill")
-    _count_calls(engine.model, "decode", counts, "decode")
+    _count_calls(engine, "_step_tokens", counts, "decode")
+    for name in ("decode", "decode_into"):
+        _count_calls(engine.model, name, counts, "eager_decode")
     _count_calls(engine, "_to_host", counts, "to_host")
     _count_calls(engine, "_reload", counts, "reload", when=lambda b: b is not None)
     ops.KERNEL.launches = 0
+    engine.graphs.replays = 0
+    warm_captures = engine.graphs.cache_size()
     t0 = time.perf_counter()
     m = router.replay(corpus, vocab_size=cfg.vocab_size, max_new_tokens=2)
     torch.cuda.synchronize()
@@ -1112,14 +1328,27 @@ def serve_ssm():
         "steps_completed": m.steps_completed, "tokens_generated": m.tokens_generated,
         "cache_hit_rate": m.cache_hit_rate, "cached_tokens": m.cached_tokens,
         "prefilled_tokens": m.prefilled_tokens, "sequence_prefills": counts["prefill"],
-        "decode_steps": counts["decode"], "bundles_offloaded": counts["to_host"],
+        "decode_steps": counts["decode"], "ssm_graph_replays": engine.graphs.replays,
+        "eager_decode_calls": counts["eager_decode"],
+        "graph_captures": engine.graphs.cache_size(),
+        "post_warmup_captures": engine.graphs.cache_size() - warm_captures,
+        "bundles_offloaded": counts["to_host"],
         "bundles_reloaded": counts["reload"], "router_offloaded": m.offloaded_pages,
         "router_reloaded": m.reloaded_pages, "ssd_launches": launches,
         "bundle_bytes_reference_count": engine.bundle_bytes, "bundle_bytes_real": real_bytes,
-        "setup_s": setup_s, "replay_s": replay_s,
+        "setup_s": setup_s, "warmup_s": warmup_s, "replay_s": replay_s,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     log("serve_ssm " + json.dumps(record))
+    if engine.graphs.cache_size() != warm_captures:
+        raise AssertionError("the SSM decode graph was captured again during the replay")
+    # a replay runs no Python, so on the card no eager decode may run at all
+    if (record["ssm_graph_replays"] != counts["decode"] or counts["decode"] == 0
+            or (DEVICE == "cuda" and counts["eager_decode"])):
+        raise AssertionError(
+            f"{record['ssm_graph_replays']} decode graph replays and {counts['eager_decode']} "
+            f"eager decodes for {counts['decode']} tokens fed: decode did not run only "
+            "through its graph")
     if m.steps_completed < 9:
         raise AssertionError(f"the SSM replay completed {m.steps_completed} < 9 steps")
     if counts["to_host"] <= 0 or counts["reload"] <= 0:
@@ -1142,6 +1371,9 @@ def main(argv=None) -> int:
         return 1
     from repro_torch.launch import serve
 
+    # arm the compile tracker: a replay that captures a graph after its
+    # engine's warmup raises at its end
+    os.environ["REPRO_JITAUDIT"] = "1"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     identity = gpu_identity()
@@ -1165,11 +1397,20 @@ def main(argv=None) -> int:
     args = serve.parse_args([])          # the launcher's defaults: full width, cuda
     mono, engines = replay_qwen(args, chunked=False)
     chunked, _ = replay_qwen(args, chunked=True, engines=engines)
+    parity = graph_parity_qwen(engines[0].cfg, _param_tree(engines[0].model))
     log("decode breakdown " + json.dumps(decode_breakdown(engines[0])))
     del engines
     gc.collect()
     torch.cuda.empty_cache()
     ssm, ssm_engine = serve_ssm()
+    parity += graph_parity_ssm(ssm_engine)
+    log("graph parity " + json.dumps({"cases": parity}))
+    for case in parity:
+        if not (case["max_abs_logit_diff"] == 0.0 and case["tokens_equal"]
+                and case.get("pool_equal", True) and case.get("state_equal", True)):
+            raise AssertionError(f"a replayed graph differs from its eager step: {case}")
+        if DEVICE == "cuda" and case.get("paged_kernels_replayed", 0) != case.get("layers", 0):
+            raise AssertionError(f"a decode graph did not run one paged kernel a layer: {case}")
     log("ssm breakdown " + json.dumps(ssm_breakdown(ssm_engine)))
 
     ft = flash_timing["monolithic"]

@@ -186,19 +186,31 @@ class Model(nn.Module):
         [B] = context length including the new token (unused by the
         recurrence, kept for the reference's signature). ``cache`` is
         {"ssm", "conv"} as :meth:`prefill` returns it; returns
-        ``(logits [B, V] f32, new_cache)``. The dense family's slot-cache
-        decode is not ported: it serves through :meth:`decode_paged`."""
+        ``(logits [B, V] f32, new_cache)`` and leaves ``cache`` as it was.
+        The dense family's slot-cache decode is not ported: it serves
+        through :meth:`decode_paged`."""
         del lengths
+        if self.cfg.family != "ssm":
+            raise NotImplementedError("dense-slot decode is not ported; use decode_paged")
+        new_cache = {k: t.clone() for k, t in cache.items()}
+        return self.decode_into(new_cache, tokens), new_cache
+
+    @torch.no_grad()
+    def decode_into(self, state, tokens):
+        """:meth:`decode` updating ``state`` ({"ssm", "conv"}, stacked over
+        layers) in place, where the reference returned new arrays: a
+        captured decode graph reads and writes one static state at fixed
+        addresses. Each layer's new state is computed whole before it is
+        copied over the old. Returns ``logits [B, V]`` (f32)."""
         cfg = self.cfg
         if cfg.family != "ssm":
             raise NotImplementedError("dense-slot decode is not ported; use decode_paged")
         x = self.params.embed[tokens][:, None, :]           # [B,1,d]
-        sts, cvs = [], []
         for l, p in enumerate(self._layers):
-            x, (st, cv) = apply_mamba_block(p, x, cfg, cache=(cache["ssm"][l], cache["conv"][l]))
-            sts.append(st)
-            cvs.append(cv)
-        return self._logits(x[:, 0, :]), {"ssm": torch.stack(sts), "conv": torch.stack(cvs)}
+            x, (st, cv) = apply_mamba_block(p, x, cfg, cache=(state["ssm"][l], state["conv"][l]))
+            state["ssm"][l].copy_(st)
+            state["conv"][l].copy_(cv)
+        return self._logits(x[:, 0, :])
 
     # ------------------------------------------------------- paged decode
     @torch.no_grad()

@@ -16,20 +16,30 @@ execution plane the MORI scheduler drives:
 * program-level offload / reload / discard entry points used by the
   MORI router.
 
-PyTorch runs eagerly, so the reference's ``jax.jit`` functions, warmup
-specs, compile tracking and buffer donation have no counterpart: the
-decode step and the chunk prefill update the pool tensors in place. The
-suffix and prefix buckets are kept, so the port computes on the same
-shapes as the reference. The engine runs on the GPU unless the caller
-asks for the CPU (``device="cpu"``); with no CUDA device it raises.
+The reference compiles one ``jax.jit`` per shape bucket; the port
+captures the decode step once per table bucket as a CUDA graph
+(:class:`repro_torch.serving.graphs.StepGraphs`) and replays it.
+:meth:`Engine.warmup_specs` lists the reference's buckets,
+:meth:`Engine.warmup` captures every decode bucket before traffic, and a
+bucket first met later is captured then, which the compile tracker
+(``REPRO_JITAUDIT=1``) counts as a post-warmup capture. A step stages its
+inputs in one pinned host buffer, copies them to the bucket's static
+buffer, replays, and reads back the greedy tokens the graph sampled. The
+chunk prefill runs eagerly: its flash launch takes the chunk's offsets as
+host integers. Where the reference donated buffers, the decode step and
+the chunk prefill update the pool tensors in place. On the CPU the same
+buckets run eagerly. The engine runs on the GPU unless the caller asks for
+the CPU (``device="cpu"``); with no CUDA device it raises.
 """
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from repro_torch.analysis import compile_tracker
 from repro_torch.core.radix_tree import TypedRadixTree
 from repro_torch.core.types import Tier, TypeLabel
 from repro_torch.models.config import ModelConfig
@@ -41,6 +51,10 @@ from repro_torch.serving.kvpool import (
     scatter_token_run,
     scatter_token_run_q,
 )
+from repro_torch.serving.graphs import StepGraphs
+
+#: engine ids for the compile tracker's names, as the reference numbers them
+_ENGINE_IDS = itertools.count()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -101,6 +115,26 @@ class PrefillJob:
     @property
     def remaining(self) -> int:
         return len(self.suffix) - self.cursor
+
+
+@dataclass
+class WarmupSpec:
+    """One shape ``Engine.warmup`` runs before traffic: the reference's
+    spec of the same name, kind, bucket and probe group.
+
+    ``make_args`` is lazy, as in the reference: it builds the inputs at
+    call time, on the engine's scratch pages. A ``paged_decode`` spec's
+    inputs are the bucket's staged int32 vector (:meth:`Engine._pack`); a
+    ``chunk_prefill`` spec's are the keyword arguments of one eager
+    chunk. ``probe_group`` names the structural equivalence class the
+    reference's audit pairs specs by.
+    """
+
+    name: str
+    kind: str                    # "paged_decode" | "chunk_prefill"
+    make_args: object            # () -> the spec's inputs
+    bucket: dict = field(default_factory=dict)
+    probe_group: str = ""
 
 
 def greedy_token(logits: torch.Tensor) -> torch.Tensor:
@@ -234,12 +268,174 @@ class Engine:
         self._free_slots = list(range(max_slots))
         self._scratch_pages = [self.pool.alloc_device() for _ in range(max_slots)]
         self._table_bucket = table_bucket_pages
+        # compile plane: one decode graph per table bucket, each over its
+        # bucket's staged inputs (``_staging``: a host vector, pinned on the
+        # card so its copy is asynchronous, and the static device vector
+        # the graph reads) and the pool's tensors, which never move;
+        # ``_staged`` marks the last copy out of a host vector
+        self._audit_id = next(_ENGINE_IDS)
+        self.graphs = StepGraphs(f"engine{self._audit_id}.paged_decode", self.device)
+        self._staging: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._staged = torch.cuda.Event() if self.device.type == "cuda" else None
         # metrics
         self.steps = 0
         self.evicted_pages = {"gpu": 0, "cpu": 0}
+        # compile tracker (REPRO_JITAUDIT=1 only): register the hot-path
+        # graph caches so post-warmup captures are attributable and gateable
+        if compile_tracker.enabled():
+            tracker = compile_tracker.get_tracker()
+            for name, cache in self.graph_functions().items():
+                tracker.register(name, cache)
 
     def _tensor(self, values, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values), dtype=dtype).to(self.device)
+
+    # ------------------------------------------------------- compile plane
+    def graph_functions(self) -> dict:
+        """The hot-path graph caches by tracker name: the counterpart of
+        the reference's ``jit_functions``. The chunk prefill runs eagerly,
+        so only the decode cache is listed."""
+        return {f"engine{self._audit_id}.paged_decode_graphs": self.graphs}
+
+    def warmup_specs(self, prefill_chunks: bool = False) -> list[WarmupSpec]:
+        """Every shape the serving hot path can dispatch, as lazy-argument
+        specs: the reference's list, name for name.
+
+        Paged decode emits one spec per table bucket (tables pad to
+        ``table_bucket_pages``); chunked prefill one per (prefix-page
+        bucket x chunk bucket) pair up to ``prefill_chunk_tokens``. A
+        replay that stays inside these specs captures nothing after
+        warmup: the compile tracker's budget.
+        """
+        n_buckets = -(-self.pages_per_slot // self._table_bucket)
+        specs: list[WarmupSpec] = []
+        for i in range(1, n_buckets + 1):
+            p_pad = i * self._table_bucket
+            specs.append(WarmupSpec(
+                name=f"paged_decode_fn[pages={p_pad}]", kind="paged_decode",
+                make_args=lambda p_pad=p_pad: self._scratch_decode_inputs(p_pad),
+                bucket={"table_pages": p_pad},
+                probe_group=f"engine{self._audit_id}/paged_decode",
+            ))
+        if not prefill_chunks:
+            return specs
+        T = self.page_tokens
+        cap = max(T, (self.prefill_chunk_tokens // T) * T)
+        cap_pad = -(-cap // self.prefill_bucket) * self.prefill_bucket
+        sp = self._scratch_pages[0]
+
+        def chunk_args(p_pad: int, c_pad: int):
+            def make():
+                return dict(
+                    prefix_idx=[sp] * p_pad, write_idx=[sp] * -(-c_pad // T),
+                    tokens=torch.zeros((1, c_pad), dtype=torch.long, device=self.device),
+                    prefix_valid=0, pos0=0, take=c_pad, logit_idx=c_pad - 1,
+                )
+
+            return make
+
+        for pb in range(n_buckets + 1):
+            p_pad = pb * self._table_bucket
+            # the prefix gather exists only when prefix pages do, so the
+            # pb==0 bucket is a structurally different program
+            group = "prefix" if p_pad else "no-prefix"
+            for c_pad in range(self.prefill_bucket, cap_pad + 1, self.prefill_bucket):
+                specs.append(WarmupSpec(
+                    name=f"chunk_prefill_fn[prefix_pages={p_pad},chunk={c_pad}]",
+                    kind="chunk_prefill", make_args=chunk_args(p_pad, c_pad),
+                    bucket={"prefix_pages": p_pad, "chunk_tokens": c_pad},
+                    probe_group=f"engine{self._audit_id}/chunk_prefill/{group}",
+                ))
+        return specs
+
+    @torch.no_grad()
+    def warmup(self, prefill_chunks: bool = False) -> None:
+        """Capture every decode bucket before admitting traffic.
+
+        Each table bucket's graph is captured and replayed once on the
+        per-slot scratch pages, so serving never stops to capture when a
+        batch first crosses a bucket boundary. Must run on an idle engine
+        (the dummy steps write garbage KV into the scratch pages, which
+        the first real step overwrites). ``prefill_chunks=True`` also runs
+        every chunked-prefill bucket once, eagerly, against the scratch
+        pages. When the compile tracker is armed (``REPRO_JITAUDIT=1``)
+        the caches' sizes then become this engine's capture budget."""
+        if self.slots:
+            raise RuntimeError("warmup must run on an idle engine")
+        tracker = compile_tracker.get_tracker()
+        with tracker.phase("warmup"):
+            for spec in self.warmup_specs(prefill_chunks=prefill_chunks):
+                if spec.kind == "paged_decode":
+                    self._decode(spec.bucket["table_pages"], spec.make_args())
+                else:
+                    _chunk_prefill(self.model, self.pool, **spec.make_args())
+        if compile_tracker.enabled():
+            tracker.mark_warm(tuple(self.graph_functions()))
+
+    def _pack(self, tokens, lengths, tail_pages, tail_offsets, tables) -> np.ndarray:
+        """A decode step's inputs as one int32 vector, the layout of a
+        bucket's staging buffers: ``[tokens | lengths | tail pages | tail
+        offsets]`` (``max_slots`` each), then ``tables`` row by row."""
+        return np.concatenate([
+            np.asarray(a, np.int32).reshape(-1)
+            for a in (tokens, lengths, tail_pages, tail_offsets, tables)
+        ])
+
+    def _scratch_decode_inputs(self, p_pad: int) -> np.ndarray:
+        """Bucket ``p_pad``'s decode inputs with every row on its own
+        scratch page: token 0 written at position 0 and attended alone."""
+        B = self.max_slots
+        scratch = np.asarray(self._scratch_pages, np.int32)
+        return self._pack(np.zeros(B), np.ones(B), scratch, np.zeros(B),
+                          np.repeat(scratch[:, None], p_pad, axis=1))
+
+    def _decode(self, p_pad: int, packed: np.ndarray):
+        """One decode step of table bucket ``p_pad`` over ``packed``
+        (:meth:`_pack`): stage it, replay the bucket's graph (capturing it
+        first if the bucket has none) and return the graph's static
+        ``(logits [B, V] f32, greedy tokens [B])``, valid until the next
+        replay."""
+        if p_pad not in self._staging:
+            n = self.max_slots * (4 + p_pad)
+            self._staging[p_pad] = (
+                torch.zeros(n, dtype=torch.int32, pin_memory=self.device.type == "cuda"),
+                torch.zeros(n, dtype=torch.int32, device=self.device),
+            )
+        host, static = self._staging[p_pad]
+        if p_pad not in self.graphs:
+            self._capture_decode(p_pad, static)
+        if self._staged is not None:
+            # the last asynchronous copy out of a staging buffer has been
+            # read before any staging buffer is written again
+            self._staged.synchronize()
+        host.numpy()[:] = packed
+        static.copy_(host, non_blocking=True)
+        if self._staged is not None:
+            self._staged.record()
+        return self.graphs.replay(p_pad)
+
+    def _capture_decode(self, p_pad: int, static: torch.Tensor) -> None:
+        """Capture bucket ``p_pad``'s decode step over ``static``. The
+        capture's eager run on the card reads ``static``, so it is filled
+        with the warmup spec's scratch-page inputs first."""
+        static.copy_(torch.from_numpy(self._scratch_decode_inputs(p_pad)))
+        self.graphs.capture(p_pad, lambda: self.decode_packed(static, p_pad))
+
+    def decode_packed(self, staged: torch.Tensor, p_pad: int, pool_tensors=None):
+        """The decode step of table bucket ``p_pad`` run op by op: the
+        function a bucket's graph captures. ``staged`` is a device int32
+        vector in :meth:`_pack`'s layout; ``pool_tensors`` the k, v (and,
+        int8-resident, the scales) it reads and appends to, by default
+        the pool's own (:meth:`PagePool.device_tensors`). Returns the
+        logits ``[B, V]`` f32 and the greedy tokens ``[B]``."""
+        B = self.max_slots
+        toks, lens, tails, offs = staged[: 4 * B].view(4, B)
+        k, v, *scales = pool_tensors or self.pool.device_tensors()
+        logits = self.model.decode_paged(
+            k, v, toks.long(), lens, staged[4 * B:].view(B, p_pad), tails, offs,
+            *(scales or (None, None)),
+        )
+        return logits, greedy_token(logits)
 
     # ------------------------------------------------------------- kvsan
     def _kvsan_reachable(self):
@@ -557,10 +753,7 @@ class Engine:
                 # masked: rewrite the existing tail KV instead of clobbering
                 # it with the (not-yet-written) last token's
                 toks_np[sid] = self._tail_token[sid]
-        next_tok = self._paged_step(
-            self._tensor(toks_np, torch.long),
-            self._tensor(np.maximum(self.lengths, 1)),
-        )
+        next_tok = self._paged_step(toks_np, np.maximum(self.lengths, 1))
         done: list[Completion] = []
         for sid, slot in list(self.slots.items()):
             if sid not in active_set:
@@ -574,9 +767,10 @@ class Engine:
         return done
 
     @torch.no_grad()
-    def _paged_step(self, toks, lens) -> np.ndarray:
-        """Block-table decode: attend via tables, append KV to tail pages.
-        Returns the sampled token of every batch row."""
+    def _paged_step(self, toks: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        """Block-table decode: attend via tables, append KV to tail pages,
+        through the table bucket's graph. Returns the sampled token of
+        every batch row."""
         T = self.page_tokens
         for sid, slot in self.slots.items():
             pos = int(self.lengths[sid]) - 1    # this step's write position
@@ -611,14 +805,9 @@ class Engine:
                 pos = int(self.lengths[sid]) - 1
                 tail_pages[sid] = slot.table[pos // T]
                 tail_offsets[sid] = pos % T
-        k_pages, v_pages = self.pool.block_table_view()
-        k_scales, v_scales = self.pool.scale_view()
-        logits = self.model.decode_paged(
-            k_pages, v_pages, toks, lens, self._tensor(tables),
-            self._tensor(tail_pages), self._tensor(tail_offsets),
-            k_scales, v_scales,
-        )
-        return greedy_token(logits).cpu().numpy()
+        _, next_tok = self._decode(
+            p_pad, self._pack(toks, lens, tail_pages, tail_offsets, tables))
+        return next_tok.cpu().numpy()
 
     def _finish(self, slot: _Slot) -> Completion:
         """Persist the slot's full pages into the radix tree, free the slot.

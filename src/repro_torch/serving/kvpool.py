@@ -245,20 +245,30 @@ class PagePool:
         on an int8-resident pool; ``(None, None)`` on a bf16 pool."""
         return self.k_scale, self.v_scale
 
+    def device_tensors(self) -> list[torch.Tensor]:
+        """Every device tensor of the pool: k, v and, on an int8-resident
+        pool, the scale sidecars."""
+        return [t for t in (self.k, self.v, self.k_scale, self.v_scale) if t is not None]
+
     def adopt(self, k, v, k_scale=None, v_scale=None) -> None:
-        """Install replacement page tensors (same shapes, dtypes and
-        device). The engine's decode step updates the pool in place and
-        needs no adopt; this serves callers that built new tensors. Page
-        ids are stable across adopt, so host copies, free lists and
-        in-flight transfer staging stay valid."""
+        """Take the values of replacement page tensors (same shapes, dtypes
+        and device). The engine's decode step updates the pool in place and
+        needs no adopt; this serves callers that built new tensors. Where
+        the reference installed the new arrays, the port copies them into
+        the pool's own tensors, which keep their addresses: the engine's
+        decode graphs read those addresses. Page ids are stable across
+        adopt, so host copies, free lists and in-flight transfer staging
+        stay valid. Every argument is checked before anything is copied."""
         for new, old in ((k, self.k), (v, self.v)):
             if new.shape != old.shape or new.dtype != old.dtype or new.device != old.device:
                 raise ValueError("adopt() needs tensors like the pool's own")
-        self.k, self.v = k, v
+        pairs = [(self.k, k), (self.v, v)]
         if self.quantized_device:
             if k_scale is None or v_scale is None or k_scale.shape != self.k_scale.shape:
                 raise ValueError("int8-resident pool: adopt() needs the scale sidecars")
-            self.k_scale, self.v_scale = k_scale, v_scale
+            pairs += [(self.k_scale, k_scale), (self.v_scale, v_scale)]
+        for dst, src in pairs:
+            dst.copy_(src)
 
     def write_device_pages(self, pages: list[int], k_tokens, v_tokens) -> None:
         """Write a token run spanning several pages in ONE scatter.

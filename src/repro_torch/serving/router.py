@@ -96,7 +96,7 @@ import math
 import time
 from dataclasses import dataclass, field
 
-from repro_torch.analysis import kvsan
+from repro_torch.analysis import compile_tracker, kvsan
 from repro_torch.analysis.invariants import ControlPlaneChecker
 from repro_torch.core import SCHEDULERS, SchedulerConfig, TierCapacity
 from repro_torch.core.actions import (
@@ -436,6 +436,32 @@ class MoriRouter:
                 san.verify(f"end of replay, replica {i}")
                 san.check_leaks(f"end of replay, replica {i}")
 
+    def _jitaudit_end_of_replay(self) -> None:
+        """Capture-budget gate (no-op unless ``REPRO_JITAUDIT=1`` and some
+        engine ran ``warmup()``): a replay that captured a step graph past
+        an engine's warm snapshot stalled the pump for an eager run and a
+        capture — fail it loudly with the per-cache counts."""
+        if not compile_tracker.enabled():
+            return
+        tracker = compile_tracker.get_tracker()
+        if not tracker.marked():
+            return                      # no warm baseline, nothing to gate
+        grew = tracker.post_warmup_compiles()
+        if grew:
+            detail = ", ".join(
+                f"{name}: {warm} warm -> {cur}"
+                for name, (warm, cur) in sorted(grew.items())
+            )
+            phases = {
+                ph: len(tracker.events_in(ph))
+                for ph in sorted({e.phase for e in tracker.events})
+            }
+            raise RuntimeError(
+                f"compile budget violated: {len(grew)} hot-path graph cache(s) "
+                f"captured after warmup ({detail}); captures by phase: "
+                f"{phases} — a shape escaped the warmup buckets"
+            )
+
     def _record_ttft(self, pid: str, step_idx: int) -> None:
         """First token just landed for (pid, step): close its TTFT sample."""
         t0 = self._ttft_start.pop((pid, step_idx), None)
@@ -665,6 +691,13 @@ class MoriRouter:
         ``replica`` / ``fail_at`` / optional ``recover_at``) triggers
         :meth:`mark_failed` and :meth:`mark_recovered` at those times.
         """
+        with compile_tracker.get_tracker().phase("replay"):
+            return self._replay(traces, vocab_size=vocab_size, max_new_tokens=max_new_tokens,
+                                seed=seed, faults=faults)
+
+    def _replay(self, traces, *, vocab_size, max_new_tokens, seed, faults) -> RouterMetrics:
+        """:meth:`replay`'s body; graph captures in it are tagged ``replay``
+        in the compile tracker's log."""
         import random
 
         self._ttft_start.clear()
@@ -799,6 +832,7 @@ class MoriRouter:
             else:
                 stalled, last_progress = 0, cur
         self._kvsan_end_of_replay()
+        self._jitaudit_end_of_replay()
         self._push = None
         self._rs = None
         self.metrics.makespan_s = now

@@ -17,8 +17,16 @@ structural consequences, both visible here:
 :class:`repro_torch.serving.engine.Engine` (offload/reload/discard/set_label
 program verbs), so :class:`~repro_torch.serving.router.MoriRouter` drives it
 unchanged, its transfer plane through ``_AtomicStream``. Prefill is the
-model's sequence mode (the SSD scan kernel on the card), with no bucketing;
-continuation and generation run the model's one-token decode.
+model's sequence mode (the SSD scan kernel on the card), run eagerly at
+each exact length as the reference jits it, with no bucket. Continuation
+and generation run the model's one-token decode as one graph per engine
+(:class:`repro_torch.serving.graphs.StepGraphs`, batch 1), the
+counterpart of the reference's ``jax.jit(model.decode)``: it updates a
+static state in place (``Model.decode_into``). A request copies its
+bundle's state in, replays the graph once per token it feeds, and leaves
+a copy of the state in its bundle, so bundles never alias the static
+state and tier moves see the same tensors as before. On the CPU the same
+step runs eagerly.
 ``bundle_bytes`` counts every cache leaf at 2 bytes, as the reference does,
 although the ``ssm`` leaf is f32: the router's capacity accounting then
 plans the same moves as the reference's. The engine runs on the GPU unless
@@ -32,11 +40,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.analysis import compile_tracker
 from repro_torch.core.types import Tier, TypeLabel
 from repro_torch.models import Model
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import leaves
-from repro_torch.serving.engine import Completion, EngineRequest, _to_device, resolve_device
+from repro_torch.serving.engine import (
+    _ENGINE_IDS,
+    Completion,
+    EngineRequest,
+    _to_device,
+    resolve_device,
+)
+from repro_torch.serving.graphs import StepGraphs
 
 
 @dataclass
@@ -91,6 +107,44 @@ class SsmEngine:
             int(np.prod(l.shape)) * 2 for _, l in leaves(self.model.describe_cache(1, 1))
         )
         self.pool = _PoolShim(self.bundle_bytes, n_device_states, n_host_states)
+        # compile plane: the one decode graph over a static state and token
+        self._audit_id = next(_ENGINE_IDS)
+        self.graphs = StepGraphs(f"engine{self._audit_id}.ssm_decode", self.device)
+        self._state: dict[str, torch.Tensor] = {}
+        self._token = torch.zeros(1, dtype=torch.long, device=self.device)
+        if compile_tracker.enabled():
+            tracker = compile_tracker.get_tracker()
+            for name, cache in self.graph_functions().items():
+                tracker.register(name, cache)
+
+    # ------------------------------------------------------- compile plane
+    def graph_functions(self) -> dict:
+        """The hot-path graph caches by tracker name."""
+        return {f"engine{self._audit_id}.ssm_decode_graphs": self.graphs}
+
+    def warmup(self) -> None:
+        """Capture the decode graph before traffic (on the static state,
+        which the first request overwrites); with the compile tracker
+        armed, its size becomes this engine's capture budget."""
+        tracker = compile_tracker.get_tracker()
+        with tracker.phase("warmup"):
+            self._decode_state()
+        if compile_tracker.enabled():
+            tracker.mark_warm(tuple(self.graph_functions()))
+
+    def _decode_state(self) -> dict:
+        """The static decode state, its decode graph captured on first
+        use (before any bundle is copied in: the capture's eager run on
+        the card advances the state it runs on)."""
+        if "decode" not in self.graphs:
+            if not self._state:
+                self._state = {
+                    name: torch.zeros(leaf.shape, dtype=leaf.dtype, device=self.device)
+                    for name, leaf in leaves(self.model.describe_cache(1, 1))
+                }
+            model, state, token = self.model, self._state, self._token
+            self.graphs.capture("decode", lambda: model.decode_into(state, token)[0])
+        return self._state
 
     # ------------------------------------------------------------ surface
     def free_slot_count(self) -> int:
@@ -98,11 +152,16 @@ class SsmEngine:
         always free — the router's pump probe sees the full budget."""
         return self.max_slots
 
-    def _step_tokens(self, cache, token: int, length: int):
-        tok = torch.tensor([token], dtype=torch.long, device=self.device)
-        lengths = torch.tensor([length], dtype=torch.int32, device=self.device)
-        logits, cache = self.model.decode(cache, tok, lengths)
-        return logits[0], cache
+    def _load_state(self, cache: dict) -> None:
+        """Copy a bundle's state into the static decode state."""
+        for name, t in self._decode_state().items():
+            t.copy_(cache[name])
+
+    def _step_tokens(self, token: int):
+        """Feed one token through the decode graph: returns its logits
+        [V], valid until the next step."""
+        self._token.fill_(token)
+        return self.graphs.replay("decode")
 
     @torch.no_grad()
     def submit(self, req: EngineRequest) -> int:
@@ -136,6 +195,7 @@ class SsmEngine:
             suffix = tokens
 
         ctx = list(tokens)
+        loaded = False
         if cache is None:
             batch = {"tokens": torch.tensor([tokens], dtype=torch.long, device=self.device)}
             logits, cache = self.model.prefill(batch)
@@ -143,9 +203,10 @@ class SsmEngine:
             prefilled = len(tokens)
         else:
             prefilled = len(suffix)
-            last_logits = None
-            for i, tok in enumerate(suffix):
-                last_logits, cache = self._step_tokens(cache, tok, cached + i + 1)
+            self._load_state(cache)
+            loaded = True
+            for tok in suffix:
+                last_logits = self._step_tokens(tok)
 
         out: list[int] = []
         for i in range(req.max_new_tokens):
@@ -156,7 +217,12 @@ class SsmEngine:
                 # stored state then summarizes exactly ``ctx`` and the next
                 # (strictly extending) request starts from a clean suffix
             ctx.append(nxt)
-            last_logits, cache = self._step_tokens(cache, nxt, len(ctx))
+            if not loaded:
+                self._load_state(cache)
+                loaded = True
+            last_logits = self._step_tokens(nxt)
+        if loaded:
+            cache = {name: t.clone() for name, t in self._state.items()}
 
         self.device_states[pid] = _Bundle(
             cache, ctx, self.labels.get(pid, TypeLabel.BUSY), self._clock

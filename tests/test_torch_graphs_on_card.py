@@ -1,0 +1,188 @@
+"""Step graphs on the card: a replay against the same step run eagerly.
+
+For every table bucket of a reduced qwen engine, on a bf16 and an int8
+pool, the replayed decode step's logits and greedy tokens equal an eager
+``Model.decode_paged`` on a clone of the pool bit for bit, and so do the
+pool bytes each writes; each replay runs one paged-attention kernel a
+layer on the device (``torch.profiler``) and calls no wrapper. The
+reduced mamba2 decode graph equals ``Model.decode_into`` on a clone of
+the state, logits and state, bit for bit. ``PagePool.adopt`` copies into
+the pool's tensors, so the next replay reads the adopted bytes.
+
+Every test here is marked ``cuda`` and skips where there is no card. The
+file imports neither JAX nor the JAX package::
+
+    python -m pytest -q -m cuda tests/test_torch_graphs_on_card.py
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.models import Model, materialize
+from repro_torch.serving import Engine, EngineRequest, SsmEngine
+
+#: the serving engine's table geometry: 16-token pages, max_seq 384, so 24
+#: pages a slot in buckets of 4
+ENGINE_KW = dict(page_tokens=16, n_device_pages=40, n_host_pages=8, max_slots=3, max_seq=384)
+BUCKETS = list(range(4, 25, 4))
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: step graphs capture CUDA kernels")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def qwen():
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    return cfg, materialize(Model(cfg).describe(), seed=0)
+
+
+def random_pool(eng, rng) -> None:
+    """Fill the pool with values a real context would hold."""
+    pool = eng.pool
+    for t in (pool.k, pool.v):
+        if pool.quantized_device:
+            vals = rng.integers(-127, 128, t.shape, dtype=np.int8)
+        else:
+            vals = rng.standard_normal(t.shape, dtype=np.float32)
+        t.copy_(torch.from_numpy(vals))
+    if pool.quantized_device:
+        for s in (pool.k_scale, pool.v_scale):
+            s.copy_(torch.from_numpy(rng.uniform(0.002, 0.02, s.shape).astype(np.float32)))
+
+
+def bucket_inputs(eng, p_pad: int, rng) -> np.ndarray:
+    """Staged inputs of one step in bucket ``p_pad``: every row's length in
+    the bucket's last four pages, distinct pages across rows."""
+    B, T = eng.max_slots, eng.page_tokens
+    lengths = rng.integers((p_pad - 4) * T + 1, p_pad * T + 1, B)
+    live = [p for p in range(eng.pool.k.shape[1]) if p not in eng._scratch_pages]
+    tables = rng.permutation(live)[: B * p_pad].reshape(B, p_pad)
+    tail = tables[np.arange(B), (lengths - 1) // T]
+    tokens = rng.integers(0, eng.cfg.vocab_size, B)
+    return eng._pack(tokens, lengths, tail, (lengths - 1) % T, tables)
+
+
+@torch.no_grad()
+def eager_step(eng, packed: np.ndarray, p_pad: int, tensors: list):
+    """The decode step run op by op on ``tensors`` (a pool's k, v and
+    scales)."""
+    return eng.decode_packed(torch.from_numpy(packed).to(eng.device), p_pad, tensors)
+
+
+def paged_kernels_run(fn) -> int:
+    """Paged-attention kernels the device ran while ``fn`` ran: one
+    ``paged_split_kernel`` a wrapper launch, from ``torch.profiler``."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and "paged_split_kernel" in ev.key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+def test_every_bucket_replays_the_eager_step_bit_for_bit(card, qwen, fmt):
+    cfg, params = qwen
+    eng = Engine(cfg, params, device=card, device_format=fmt, offload_format=fmt, **ENGINE_KW)
+    random_pool(eng, np.random.default_rng(40))
+    eng.warmup()
+    assert eng.graphs.keys() == BUCKETS
+    rng = np.random.default_rng(41)
+    for p_pad in BUCKETS:
+        packed = bucket_inputs(eng, p_pad, rng)
+        clones = [t.clone() for t in eng.pool.device_tensors()]
+        launches = paged_ops.KERNEL.launches
+        out = []
+        ran = paged_kernels_run(lambda: out.extend(t.clone() for t in eng._decode(p_pad, packed)))
+        logits, tokens = out
+        assert ran == cfg.num_layers, (p_pad, ran)
+        assert paged_ops.KERNEL.launches == launches      # the replay called no wrapper
+        want_logits, want_tokens = eager_step(eng, packed, p_pad, clones)
+        torch.cuda.synchronize()
+        assert torch.equal(logits, want_logits), (p_pad, (logits - want_logits).abs().max())
+        assert torch.equal(tokens, want_tokens), p_pad
+        for got, want in zip(eng.pool.device_tensors(), clones):
+            assert torch.equal(got, want), p_pad
+
+
+@pytest.mark.cuda
+def test_after_adopt_the_replay_reads_the_adopted_bytes(card, qwen):
+    cfg, params = qwen
+    eng = Engine(cfg, params, device=card, **ENGINE_KW)
+    random_pool(eng, np.random.default_rng(42))
+    eng.warmup()
+    pool = eng.pool
+    tensors = pool.device_tensors()
+    packed = bucket_inputs(eng, 8, np.random.default_rng(43))
+    before = eager_step(eng, packed, 8, [t.clone() for t in tensors])[0]
+    # new values for every page: a replay over the old bytes would differ
+    adopted = [t.clone() for t in tensors]
+    for t in adopted:
+        t.mul_(-0.5)
+    pool.adopt(*adopted)
+    assert all(a is b for a, b in zip(pool.device_tensors(), tensors))
+    clones = [t.clone() for t in adopted]
+    logits, _ = eng._decode(8, packed)
+    torch.cuda.synchronize()
+    assert eng.graphs.keys() == BUCKETS            # no capture: the graphs stay valid
+    want, _ = eager_step(eng, packed, 8, clones)
+    assert torch.equal(logits, want)
+    assert not torch.equal(logits, before)
+    for got, w in zip(pool.device_tensors(), clones):
+        assert torch.equal(got, w)
+
+
+@pytest.mark.cuda
+def test_engine_serves_through_its_graphs(card, qwen):
+    """Two requests to completion on a warmed engine: one replay a step,
+    the paged kernel launched by the replays only."""
+    cfg, params = qwen
+    eng = Engine(cfg, params, device=card, **ENGINE_KW)
+    eng.warmup()
+    rng = np.random.default_rng(44)
+    for pid, n in (("a", 70), ("b", 200)):
+        eng.submit(EngineRequest(pid, rng.integers(2, cfg.vocab_size, n).tolist(),
+                                 max_new_tokens=6))
+    replays, captured = eng.graphs.replays, eng.graphs.keys()
+    launches = paged_ops.KERNEL.launches
+    done = []
+    ran = paged_kernels_run(lambda: done.extend(eng.run_to_completion()))
+    assert sorted(c.program_id for c in done) == ["a", "b"]
+    assert all(0 <= t < cfg.vocab_size for c in done for t in c.output_tokens)
+    assert eng.graphs.keys() == captured
+    assert eng.graphs.replays - replays == eng.steps == 5
+    assert paged_ops.KERNEL.launches == launches
+    assert ran == cfg.num_layers * eng.steps
+
+
+@pytest.mark.cuda
+def test_mamba_decode_graph_replays_the_eager_step_bit_for_bit(card):
+    cfg = get_config("mamba2-2.7b").reduced()
+    params = materialize(Model(cfg).describe(), seed=0)
+    eng = SsmEngine(cfg, params, device=card)
+    eng.warmup()
+    toks = torch.from_numpy(np.random.default_rng(45).integers(2, cfg.vocab_size, (1, 37)))
+    _, cache = eng.model.prefill({"tokens": toks.to(card)})
+    eng._load_state(cache)
+    state = {k: t.clone() for k, t in eng._state.items()}
+    for tok in (5, 77, 300, 9):
+        logits = eng._step_tokens(tok).clone()
+        want = eng.model.decode_into(state, torch.tensor([tok], device=card))[0]
+        torch.cuda.synchronize()
+        assert torch.equal(logits, want), tok
+        for k in state:
+            assert torch.equal(eng._state[k], state[k]), (tok, k)
+    assert eng.graphs.replays == 4 and eng.graphs.keys() == ["decode"]
+    # and the bundle it started from is untouched
+    _, again = eng.model.prefill({"tokens": toks.to(card)})
+    for k in cache:
+        assert torch.equal(cache[k], again[k])

@@ -30,7 +30,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     for mod in ("repro_torch.launch.serve", "repro_torch.serving.router",
                 "repro_torch.serving.ssm_engine", "repro_torch.kernels.ssd.ops",
                 "repro_torch.kernels.ssd.ref", "repro_torch.kernels.flash_attention.ops",
-                "repro_torch.kernels.flash_attention.ref", "repro_torch.kernels._nvcc"):
+                "repro_torch.kernels.flash_attention.ref", "repro_torch.kernels._nvcc",
+                "repro_torch.analysis.compile_tracker", "repro_torch.serving.graphs"):
         assert mod in mods, mod
     code = (
         "import importlib, json, sys\n"

@@ -120,9 +120,15 @@ def test_adopt_takes_only_tensors_like_the_pools_own():
     pool = PagePool(device="cpu", **GEOMETRY, device_format="int8", offload_format="int8")
     k, v = pool.block_table_view()
     ks, vs = pool.scale_view()
-    pool.adopt(k.clone(), v.clone(), ks.clone(), vs.clone())
-    assert pool.k is not k and torch.equal(pool.k, k)
+    new = [k.clone().fill_(3), v.clone().fill_(-2), ks.clone().fill_(0.5), vs.clone().fill_(2.0)]
+    pool.adopt(*new)
+    # copied in place: the pool's tensors keep their addresses
+    assert pool.k is k and pool.v is v and pool.k_scale is ks and pool.v_scale is vs
+    for got, want in zip((k, v, ks, vs), new):
+        assert torch.equal(got, want)
     with pytest.raises(ValueError, match="scale sidecars"):
-        pool.adopt(k, v)
+        pool.adopt(k.clone().fill_(1), v)
     with pytest.raises(ValueError, match="like the pool's own"):
         pool.adopt(k.float(), v, ks, vs)
+    # a refused adopt copied nothing
+    assert torch.equal(k, new[0])
