@@ -38,9 +38,10 @@ on failure (a failure exits non-zero and prints no final line):
    the decode step per table bucket) with the compile tracker armed, each
    replay run under ``torch.profiler``; no graph may be captured during a
    replay, every decode step must be one replay, no paged wrapper may be
-   called (a replay calls none), the paged kernels the device ran
-   (``paged_split_kernel``, one a launch, counted by the profiler) must
-   equal layers x decode steps, the flash kernel's launches layers x
+   called (a replay calls none), the paged kernels the device ran (the
+   kernel's own count on the device, one a launch; the profiler's count
+   of ``paged_split_kernel`` instances beside it) must equal layers x
+   decode steps, the flash kernel's launches layers x
    prefill passes, and pages must move between the tiers; then each table
    bucket's graph (bf16, and one on an int8 pool) against the same step
    run eagerly on a clone of the pool, bit for bit, each replay running
@@ -52,15 +53,27 @@ on failure (a failure exits non-zero and prints no final line):
    sequence prefills, every decode token must be one replay of the decode
    graph, and state bundles must go to the host and come back; then the
    decode graph against the eager step, bit for bit, and where a
-   full-width prefill's and decode step's time goes, graphed and eager.
+   full-width prefill's and decode step's time goes, graphed and eager;
+6. the MoE main path: ``dbrx-132b`` at full width (48/8 heads of 128, 16
+   experts top-4 of width 10,752, vocab 100,352, capacity factor 1.25)
+   cut from 40 layers to 4, random weights drawn on the card from a seed,
+   served like the qwen replay (two warmed engines, the launcher's pools,
+   corpus and scheduler, monolithic prefill) under ``torch.profiler``, with
+   the same checks; one full-width MoE layer in bf16 against the same
+   function in f32 on the card (decode and a 384-token prefill: chosen
+   experts and kept slots equal, the output in the model band); every
+   table bucket's dbrx decode graph against its eager step, bit for bit;
+   and where a decode step's time goes, the MoE products against the
+   bytes of expert weights they must read.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 hold the per-kernel JSON record and the card's name and power limit. The
 ``graph parity`` line holds each graph's largest logit difference from
-the eager step.
+the eager step (qwen, mamba2 and dbrx).
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -127,6 +140,15 @@ FLASH_CHUNK = dict(B=1, H=16, KH=16, D=64, Sq=64, Sp=128, prefix_valid=100)
 #: frames): timed only, to show where the kernel stands beyond the serving
 #: path's shape
 FLASH_LONG_S = 1536
+#: prefill attention at the other full-width shapes timed beside qwen's:
+#: dbrx-132b's (GQA 6:1, D = 128), zamba2's shared attention block (32
+#: heads of 2·2560/32 = 160) and gemma2-9b's (16 heads over 8 KV heads of
+#: 256), each over a prompt of max_seq = 384 tokens
+FLASH_OTHER = {
+    "dbrx": dict(B=1, H=48, KH=8, D=128, S=384),
+    "d160": dict(B=1, H=32, KH=32, D=160, S=384),
+    "d256": dict(B=1, H=16, KH=8, D=256, S=384),
+}
 SSD_SHAPES = [
     # b, s, h, p, n, chunk (tests/test_kernels.py)
     (2, 32, 2, 8, 8, 8),
@@ -145,6 +167,9 @@ SSD_LONG_S = 2048
 SSD_KERNEL_NAMES = ("ssd_kernel", "ssd_tc_")
 #: profiles of one timed loop before ``device_ms_per_call`` gives up
 PROFILE_ATTEMPTS = 3
+#: the MoE main path: dbrx-132b at full width, cut from 40 layers to 4
+#: (14.3 B parameters, 28.5 GB in bf16)
+MOE_ARCH, MOE_LAYERS = "dbrx-132b", 4
 #: where every phase runs
 DEVICE = "cuda"
 
@@ -203,27 +228,34 @@ def device_ms_per_call(fn, calls: int, names: tuple | None) -> dict:
     one of ``names`` (every kernel for ``None``), from ``torch.profiler``
     over ``fn`` (which makes ``calls`` wrapper calls). Event timing of a
     loop of Python calls measures the wrapper's host cost once a kernel
-    takes a few microseconds; this measures the kernels alone."""
+    takes a few microseconds; this measures the kernels alone. Each named
+    kernel (each pass of a call) must appear ``calls`` times, and for
+    ``None`` every kernel a whole multiple of ``calls`` times."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    # a profile has come back without the kernels' device records once
-    # in several runs, though the wrapper launched them: profile again,
-    # a bounded number of times, and say so
+    # profiles have come back without some of the kernels' device records
+    # (none at all once, half of a loop's once) though every launch ran:
+    # profile again, a bounded number of times, and say so
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        counts: dict = {}
         with torch.profiler.profile(activities=acts) as prof:
             fn()
             torch.cuda.synchronize()
-        kernels = {k: v for k, v in device_kernel_us(prof).items()
+        kernels = {k: v for k, v in device_kernel_us(prof, counts).items()
                    if names is None or any(n in k for n in names)}
-        if kernels:
+        whole = all(counts[k] == calls if names is not None else counts[k] % calls == 0
+                    for k in kernels)
+        if kernels and whole:
             break
-        log(f"profile {attempt} of {PROFILE_ATTEMPTS} saw no device time of a kernel "
-            f"named {names}")
+        log(f"profile {attempt} of {PROFILE_ATTEMPTS} of {calls} calls held "
+            f"{ {k[:40]: counts[k] for k in kernels} } instances of the kernels named {names}")
     else:
-        raise AssertionError(f"the profiler saw no device time of a kernel named {names}")
+        if names is not None or not kernels:
+            raise AssertionError(f"no whole profile of the kernels named {names}")
     return dict(device_ms=sum(kernels.values()) / calls / 1e3,
-                device_kernels_ms={k[:60]: v / calls / 1e3 for k, v in kernels.items()})
+                device_kernels_ms={k[:60]: v / calls / 1e3 for k, v in kernels.items()},
+                profiled_instances={k[:60]: counts[k] for k in kernels})
 
 
 # ------------------------------------------------------------ phase 1
@@ -250,8 +282,11 @@ def build_kernels():
     log("dynamic shared memory a block: paged_attention split pass (4 warps, G=1, D=64, "
         f"T=16, bf16) {paged_ops.KERNEL.load().paged_attention_decode_smem(1, 64, 16, 1)} B; "
         f"flash_attention f32 D=64 {flash.flash_attention_smem(64)} B, D=128 "
-        f"{flash.flash_attention_smem(128)} B, bf16 D=64 {flash.flash_attention_mma_smem(64)} B, "
-        f"D=128 {flash.flash_attention_mma_smem(128)} B; ssd CUDA-core kernel (P={m['p']}, "
+        f"{flash.flash_attention_smem(128)} B, D=160 {flash.flash_attention_smem(160)} B, "
+        f"D=256 {flash.flash_attention_smem(256)} B, bf16 D=64 "
+        f"{flash.flash_attention_mma_smem(64)} B, D=128 {flash.flash_attention_mma_smem(128)} B, "
+        f"D=160 {flash.flash_attention_mma_smem(160)} B, D=256 "
+        f"{flash.flash_attention_mma_smem(256)} B; ssd CUDA-core kernel (P={m['p']}, "
         f"N={m['n']}, Q={m['chunk']}) {ssd_smem} B")
 
 
@@ -353,6 +388,12 @@ def check_kernel_cases():
                   dict(lengths=[200, 17, 97]), {}))
     cases.append((f"wide table {wide} f32 no new token", wide, torch.float32,
                   dict(lengths=[200, 17, 97], with_new=False), {}))
+    # dbrx-132b's decode at full width: 48 query heads over 8 KV heads of
+    # 128 (a group of 6, covered in blocks of 4 heads), the main table
+    dbrx = (3, 48, 8, 128, 16, 24)
+    for quantized in (False, True):
+        cases.append((f"dbrx {dbrx} int8={quantized}", dbrx, torch.bfloat16,
+                      dict(lengths=MAIN_LENGTHS, quantized=quantized), {}))
     wide_gqa = (2, 32, 4, 128, 16, 32)
     cases.append((f"wide table gqa {wide_gqa} softcap", wide_gqa, torch.bfloat16,
                   dict(lengths=[300, 129]), dict(softcap=30.0)))
@@ -560,6 +601,9 @@ def check_flash_cases():
          dict(causal=True, q_offset=128, kv_hole=(83, 128))),
         ("hole q_offset d32", (1, 33, 161, 4, 4, 32),
          dict(causal=True, q_offset=128, kv_hole=(64, 128))),
+        ("dbrx gqa 6:1", (1, 384, 384, 48, 8, 128), dict(causal=True)),
+        ("dbrx gqa 6:1 chunk hole", (1, 64, 192, 48, 8, 128),
+         dict(causal=True, q_offset=128, kv_hole=(100, 128))),
     ]
     for name, (B, Sq, Skv, H, KH, D), kw in bf16:
         q = randn_dev(rng, (B, Sq, H, D), torch.bfloat16)
@@ -569,6 +613,26 @@ def check_flash_cases():
         torch.cuda.synchronize()
         check_close(f"prefill bf16 {name}", out, ref.blockwise_attention(q, k, v, **kw),
                     ATOL["bfloat16"])
+    # head dimensions beyond 128, on both kernels: zamba2's shared block
+    # (D = 160, 32 heads) and gemma2-9b (D = 256, GQA 2:1), causal with a
+    # ragged tail, and a chunk at q_offset behind a kv_hole
+    wide_d = [
+        ("d160 ragged", (1, 200, 200, 32, 32, 160), dict(causal=True)),
+        ("d160 chunk hole", (1, 64, 192, 32, 32, 160),
+         dict(causal=True, q_offset=128, kv_hole=(83, 128))),
+        ("d256 ragged", (1, 200, 200, 16, 8, 256), dict(causal=True)),
+        ("d256 chunk hole", (1, 64, 192, 16, 8, 256),
+         dict(causal=True, q_offset=128, kv_hole=(83, 128))),
+    ]
+    for name, (B, Sq, Skv, H, KH, D), kw in wide_d:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn_dev(rng, (B, Sq, H, D), dtype)
+            k = randn_dev(rng, (B, Skv, KH, D), dtype)
+            v = randn_dev(rng, (B, Skv, KH, D), dtype)
+            out = ops.prefill_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            check_close(f"prefill {name} {dtype}", out, ref.blockwise_attention(q, k, v, **kw),
+                        ATOL[str(dtype).removeprefix("torch.")])
     wide = randn_dev(rng, (3, 90, 8, 65), torch.bfloat16)
     q, k, v = (wide[i:i + 1, ..., :64] for i in range(3))
     out = ops.prefill_attention(q, k, v, causal=True)
@@ -579,9 +643,10 @@ def check_flash_cases():
 
 
 def time_flash():
-    """Kernel, plain version and SDPA (explicit boolean mask) at the
-    serving path's monolithic prefill shape, the chunk shape, and a long
-    causal prefill (``FLASH_LONG_S``)."""
+    """Kernel, plain version and SDPA (explicit boolean mask; GQA through
+    its ``enable_gqa``) at the serving path's monolithic prefill shape, the
+    chunk shape, a long causal prefill (``FLASH_LONG_S``) and the prompts
+    of ``FLASH_OTHER``."""
     from repro_torch.kernels.flash_attention import ops, ref
 
     rng = np.random.default_rng(4)
@@ -595,7 +660,13 @@ def time_flash():
     chunk = chunk_prefill_case(rng)
     long_case = tuple(randn_dev(rng, (m["B"], FLASH_LONG_S, m["H"], m["D"]), torch.bfloat16)
                       for _ in range(3)) + (dict(causal=True),)
-    for name, (q, k, v, kw) in (("monolithic", mono), ("chunk", chunk), ("long", long_case)):
+    cases = [("monolithic", mono), ("chunk", chunk), ("long", long_case)]
+    for name, c in FLASH_OTHER.items():
+        cases.append((name, (randn_dev(rng, (c["B"], c["S"], c["H"], c["D"]), torch.bfloat16),
+                             randn_dev(rng, (c["B"], c["S"], c["KH"], c["D"]), torch.bfloat16),
+                             randn_dev(rng, (c["B"], c["S"], c["KH"], c["D"]), torch.bfloat16),
+                             dict(causal=True))))
+    for name, (q, k, v, kw) in cases:
         B, Sq, H, D = q.shape
         Skv, KH = k.shape[1], k.shape[2]
         q_off = kw.get("q_offset", 0)
@@ -606,7 +677,8 @@ def time_flash():
             lo, hi = kw["kv_hole"]
             mask &= ~((kpos >= lo) & (kpos < hi))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib = sdpa(qt, kt, vt, attn_mask=mask).transpose(1, 2).float()
+        gqa = dict(enable_gqa=True) if KH != H else {}
+        lib = sdpa(qt, kt, vt, attn_mask=mask, **gqa).transpose(1, 2).float()
         kern = ops.prefill_attention(q, k, v, **kw).float()
         lib_err = (lib - kern).abs().max().item()
         log(f"SDPA yardstick vs flash kernel ({name}): max_abs_err {lib_err:.3e}")
@@ -622,7 +694,7 @@ def time_flash():
 
         def library_calls():
             for _ in range(50):
-                sdpa(qt, kt, vt, attn_mask=mask)
+                sdpa(qt, kt, vt, attn_mask=mask, **gqa)
 
         library_device = device_ms_per_call(library_calls, 50, None)
 
@@ -630,10 +702,10 @@ def time_flash():
             ms=time_call(lambda: ops.prefill_attention(q, k, v, **kw), 50),
             **device_ms_per_call(calls, 50, ("flash_mma_kernel", "flash_attention_kernel")),
             plain_ms=time_call(lambda: ref.blockwise_attention(q, k, v, **kw), 10),
-            library_ms=time_call(lambda: sdpa(qt, kt, vt, attn_mask=mask), 50),
+            library_ms=time_call(lambda: sdpa(qt, kt, vt, attn_mask=mask, **gqa), 50),
             library_device_ms=library_device["device_ms"],
             library_kernels_ms=library_device["device_kernels_ms"],
-            Sq=Sq, Skv=Skv, **bound(n_bytes, n_ops, "bfloat16"))
+            Sq=Sq, Skv=Skv, H=H, KH=KH, D=D, **bound(n_bytes, n_ops, "bfloat16"))
         if not all("flash_mma_kernel" in k for k in out[name]["device_kernels_ms"]):
             raise AssertionError(f"bf16 prefill ({name}) did not run the tensor-core kernel")
     return out
@@ -921,6 +993,15 @@ def device_kernel_counts(fn, names: tuple) -> tuple[object, dict]:
 PAGED_KERNEL_NAMES = ("paged_split_kernel", "paged_combine_kernel")
 
 
+def paged_device_launches() -> int:
+    """The paged kernel's own count of the launches the card ran (its
+    split pass adds one to an int32 on the device at each launch, inside
+    a replayed graph too)."""
+    from repro_torch.kernels.paged_attention import ops
+
+    return ops.KERNEL.device_launches(DEVICE)
+
+
 def _count_calls(obj, attr: str, counter: dict, key: str, when=lambda result: True):
     """Wrap ``obj.attr`` so that each call whose result passes ``when``
     adds one to ``counter[key]``."""
@@ -936,10 +1017,14 @@ def _count_calls(obj, attr: str, counter: dict, key: str, when=lambda result: Tr
 
 
 # ------------------------------------------------------------ phase 4
-def replay_qwen(args, chunked: bool, engines=None):
-    """One full-width qwen replay through the router; returns the record
-    and the engines. ``chunked`` turns on the router's chunked prefill
-    (the engines are then rebuilt around the first replay's weights)."""
+def replay_paged(args, chunked: bool, cfg=None, params=None, label="serve"):
+    """One full-width replay of a paged family through the router; returns
+    the record and the engines. Without ``cfg`` the launcher builds the
+    engines and the router (``serve.build_router``, qwen); with ``cfg`` and
+    ``params`` they are built on those weights with the launcher's pools
+    and scheduler settings. ``chunked`` turns on the router's chunked
+    prefill."""
+    from repro_torch.configs import get_config
     from repro_torch.core.types import SchedulerConfig
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.paged_attention import ops as paged_ops
@@ -947,14 +1032,12 @@ def replay_qwen(args, chunked: bool, engines=None):
     from repro_torch.serving import Engine, MoriRouter
 
     t0 = time.perf_counter()
-    if engines is None:
+    if cfg is None:
         cfg, engines, router = serve.build_router(args)
     else:
-        cfg = engines[0].cfg
-        params = _param_tree(engines[0].model)
         engines = [Engine(cfg, params, device=DEVICE, page_tokens=16, n_device_pages=72,
                           n_host_pages=160, max_slots=3, max_seq=384)
-                   for _ in engines]
+                   for _ in range(args.replicas)]
         router = MoriRouter(
             engines, scheduler=args.scheduler,
             gpu_capacity_bytes=engines[0].pool.page_bytes * args.gpu_pages,  # lint: kv008-ok (GPU budget at device format)
@@ -981,26 +1064,33 @@ def replay_qwen(args, chunked: bool, engines=None):
     for e in engines:
         e.graphs.replays = 0
         warm_captures += e.graphs.cache_size()
-    # a replayed graph calls no wrapper: the profiler counts the paged
-    # kernels the device ran in this replay
+    # a replayed graph calls no wrapper: the paged kernel counts the
+    # launches the card ran on the device itself, and the profiler counts
+    # its instances by name beside it
+    ran_before = paged_device_launches()
     m, device_counts = device_kernel_counts(
         lambda: router.replay(corpus, vocab_size=cfg.vocab_size,
                               max_new_tokens=args.max_new_tokens),
         PAGED_KERNEL_NAMES)
     paged_eager, flash = paged_ops.KERNEL.launches, flash_ops.KERNEL.launches
-    paged = device_counts["paged_split_kernel"]
+    paged = paged_device_launches() - ran_before
+    paged_profiled = device_counts["paged_split_kernel"]
     captures = sum(e.graphs.cache_size() for e in engines)
     replays = sum(e.graphs.replays for e in engines)
     engine_steps = sum(e.steps for e in engines)
+    full_layers = get_config(cfg.name).num_layers
     record = {
-        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "arch": cfg.name, "d_model": cfg.d_model,
+        "layers": (cfg.num_layers if cfg.num_layers == full_layers
+                   else f"{cfg.num_layers} of {full_layers}"),
         "replicas": len(engines), "programs": len(corpus), "chunked_prefill": chunked,
         "steps_completed": m.steps_completed, "tokens_generated": m.tokens_generated,
         "cached_tokens": m.cached_tokens, "prefilled_tokens": m.prefilled_tokens,
         "offloaded_pages": m.offloaded_pages, "reloaded_pages": m.reloaded_pages,
         "gated_events": m.gated_events, "pump_steps": m.pump_steps,
         "prefill_chunks": m.prefill_chunks, "engine_steps": engine_steps,
-        "kernel_launches": paged, "paged_launches_eager": paged_eager,
+        "kernel_launches": paged, "kernel_launches_profiler": paged_profiled,
+        "paged_launches_eager": paged_eager,
         "paged_combine_kernels": device_counts["paged_combine_kernel"],
         "graph_captures": captures, "post_warmup_captures": captures - warm_captures,
         "graph_replays": replays, "graph_buckets": sorted(
@@ -1010,7 +1100,14 @@ def replay_qwen(args, chunked: bool, engines=None):
         "replay_s_profiled": device_counts["fn_s"],
         "profiler_processing_s": device_counts["processing_s"], "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
-    log(("serve_chunked " if chunked else "serve ") + json.dumps(record))
+    if cfg.num_experts:
+        record.update(experts=cfg.num_experts, top_k=cfg.top_k, moe_d_ff=cfg.moe_d_ff,
+                      capacity_factor=cfg.capacity_factor, heads=cfg.num_heads,
+                      kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, vocab=cfg.vocab_size)
+    log(f"{label} " + json.dumps(record))
+    if paged_profiled != paged:
+        log(f"{label}: the profiler saw {paged_profiled} of the {paged} paged split kernels "
+            "the device counted")
     if m.steps_completed <= 0:
         raise AssertionError("the replay completed no program step")
     if m.offloaded_pages + m.reloaded_pages <= 0:
@@ -1192,17 +1289,18 @@ def random_pool(engine, seed: int) -> None:
             sc.copy_(torch.rand(sc.shape, generator=g, device=DEVICE) * 0.02 + 0.002)
 
 
-def graph_parity_qwen(cfg, params) -> list:
-    """Each table bucket's decode graph (bf16 pool), and the widest bucket
-    on an int8 pool, against the same step run eagerly on a clone of the
-    pool: logits, greedy tokens and the pool bytes written. Fresh engines
-    on the main path's weights, their pools filled from a seed, each row's
-    length in its bucket's last four pages."""
+def graph_parity_paged(cfg, params, formats=(("bf16", None), ("int8", 24))) -> list:
+    """Each table bucket's decode graph, on a pool of each format (every
+    bucket where ``formats`` names none, else that one), against the same
+    step run eagerly on a clone of the pool: logits, greedy tokens and the
+    pool bytes written. Fresh engines on the main path's weights, their
+    pools filled from a seed, each row's length in its bucket's last four
+    pages."""
     from repro_torch.serving import Engine
 
     rng = np.random.default_rng(8)
     cases = []
-    for fmt, only in (("bf16", None), ("int8", 24)):
+    for fmt, only in formats:
         engine = Engine(cfg, params, device=DEVICE, page_tokens=16, n_device_pages=8,
                         n_host_pages=4, max_slots=3, max_seq=384, device_format=fmt,
                         offload_format=fmt)
@@ -1218,20 +1316,20 @@ def graph_parity_qwen(cfg, params) -> list:
                                   tables)
             clones = [t.clone() for t in engine.pool.device_tensors()]
             with torch.no_grad():
-                (logits, tokens), ran = device_kernel_counts(
-                    lambda: [t.clone() for t in engine._decode(p_pad, packed)],
-                    PAGED_KERNEL_NAMES[:1])
+                ran_before = paged_device_launches()
+                logits, tokens = (t.clone() for t in engine._decode(p_pad, packed))
+                ran = paged_device_launches() - ran_before
                 want, want_tokens = engine.decode_packed(
                     torch.from_numpy(packed).to(DEVICE), p_pad, clones)
             torch.cuda.synchronize()
             cases.append({
-                "case": f"qwen {fmt} pages={p_pad}",
+                "case": f"{cfg.name} {fmt} pages={p_pad}",
                 "max_abs_logit_diff": (logits - want).abs().max().item(),
                 "tokens_equal": torch.equal(tokens, want_tokens),
                 "pool_equal": all(torch.equal(a, b)
                                   for a, b in zip(engine.pool.device_tensors(), clones)),
                 "layers": cfg.num_layers,
-                "paged_kernels_replayed": ran["paged_split_kernel"],
+                "paged_kernels_replayed": ran,
             })
         del engine
     return cases
@@ -1260,10 +1358,10 @@ def graph_parity_ssm(engine) -> list:
              "tokens_equal": tokens_equal, "state_equal": state_equal}]
 
 
-def device_kernel_us(prof) -> dict:
+def device_kernel_us(prof, counts: dict | None = None) -> dict:
     """Device time by kernel name from a profile: device-side events only
     (the CPU ops that launched them carry the same time again as their own
-    device total)."""
+    device total). ``counts``, if given, receives each name's instances."""
     kernels = {}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -1273,6 +1371,8 @@ def device_kernel_us(prof) -> dict:
             dev_us = ev.self_cuda_time_total
         if dev_us > 0:
             kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us
+            if counts is not None:
+                counts[ev.key] = counts.get(ev.key, 0) + ev.count
     return kernels
 
 
@@ -1285,6 +1385,7 @@ def serve_ssm():
     from repro_torch.core.types import SchedulerConfig
     from repro_torch.kernels.ssd import ops
     from repro_torch.models import Model, materialize
+    from repro_torch.models.params import flatten_tree
     from repro_torch.serving import MoriRouter, SsmEngine
     from repro_torch.traces import TraceGenConfig, generate_corpus
 
@@ -1292,6 +1393,7 @@ def serve_ssm():
     t0 = time.perf_counter()
     cfg = get_config("mamba2-2.7b")
     params = materialize(Model(cfg).describe(), seed=0, device=DEVICE)
+    materialize_s = time.perf_counter() - t0
     engine = SsmEngine(cfg, params, device=DEVICE, n_device_states=1, n_host_states=8,
                        max_seq=256)
     router = MoriRouter([engine], scheduler="mori",
@@ -1337,6 +1439,7 @@ def serve_ssm():
         "router_reloaded": m.reloaded_pages, "ssd_launches": launches,
         "bundle_bytes_reference_count": engine.bundle_bytes, "bundle_bytes_real": real_bytes,
         "setup_s": setup_s, "warmup_s": warmup_s, "replay_s": replay_s,
+        "materialize_s": materialize_s, "params": sum(t.numel() for _, t in flatten_tree(params)),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     log("serve_ssm " + json.dumps(record))
@@ -1362,6 +1465,159 @@ def serve_ssm():
             0 <= t < cfg.vocab_size for t in produced):
         raise AssertionError("generated tokens are missing or out of the vocabulary")
     return record, engine
+
+
+# ------------------------------------------------------------ phase 6
+def draw_on_card(tree, seed: int) -> dict:
+    """Random weights for the descriptor tree ``tree``, drawn on the card
+    from one seeded ``torch.Generator``, leaf by leaf in sorted-key order,
+    with ``materialize``'s initialisers: zeros, ones, or a normal of the
+    leaf's std (its scale, else 1/sqrt(fan_in) with the reference's
+    fan-in, ``shape[-2]``). Not ``materialize``'s numbers: its stream runs
+    on the host, one value at a time."""
+    from repro_torch.models.params import leaves
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    out: dict = {}
+    for name, l in leaves(tree):
+        t = torch.empty(l.shape, dtype=l.dtype, device=DEVICE)
+        if l.init == "zeros" or l.scale == 0.0:
+            t.zero_()
+        elif l.init == "ones":
+            t.fill_(1.0)
+        else:
+            fan_in = l.shape[-2] if len(l.shape) >= 2 else max(1, l.shape[-1])
+            t.normal_(0.0, l.scale if l.scale is not None else 1.0 / math.sqrt(fan_in),
+                      generator=g)
+        *path, last = name.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = t
+    return out
+
+
+def moe_weights(cfg, host_rate: float) -> tuple[dict, dict]:
+    """dbrx's weights at full width: drawn on the card when drawing them
+    through ``materialize`` on the host, at the rate the mamba2 phase
+    measured (``host_rate`` parameters a second), would take more than
+    150 s; else through ``materialize``. Returns the tree and how it was
+    drawn."""
+    from repro_torch.models import Model, materialize
+    from repro_torch.models.params import leaves
+
+    tree = Model(cfg).describe()
+    n = sum(math.prod(l.shape) for _, l in leaves(tree))
+    host_s = n / host_rate
+    t0 = time.perf_counter()
+    if host_s > 150.0:
+        params, how = draw_on_card(tree, seed=0), "on the card (torch.Generator, seed 0)"
+    else:
+        params, how = materialize(tree, seed=0, device=DEVICE), "through materialize on the host (seed 0)"
+    torch.cuda.synchronize()
+    info = dict(params=n, drawn=how, draw_s=time.perf_counter() - t0,
+                host_estimate_s=host_s, host_rate_per_s=host_rate)
+    log(f"serve_moe weights: {n / 1e9:.3f} B parameters drawn {how} in {info['draw_s']:.3f}s "
+        f"(materialize on the host would take ~{host_s:.0f}s at the {host_rate / 1e6:.1f} M/s "
+        "the mamba2 phase measured)")
+    return params, info
+
+
+def check_moe_layer(cfg, params) -> dict:
+    """One full-width MoE layer (layer 0's router and experts) on a batch-3
+    decode input and a 384-token prefill input, in bf16 on the card,
+    against the same function evaluated in f32 on the card (the weights
+    and input cast up exactly): the chosen experts and the kept slots
+    equal, the output in the model band. Counts the slots dropped at the
+    configuration's capacity factor."""
+    from repro_torch.models import layers
+
+    p = {k: v[0] for k, v in params["blocks"]["ffn"].items()}
+    p32 = {k: v.float() for k, v in p.items()}
+    rng = np.random.default_rng(11)
+    out = {}
+    with torch.no_grad():
+        for name, (B, S) in (("decode", (3, 1)), ("prefill", (1, 384))):
+            x = randn_dev(rng, (B, S, cfg.d_model), torch.bfloat16)
+            g = min(4096, S)
+            y, _ = layers.apply_moe(p, x, cfg)
+            y32, _ = layers.apply_moe(p32, x.float(), cfg)
+            route = layers.moe_route(p, x.reshape(-1, g, cfg.d_model), cfg)
+            route32 = layers.moe_route(p32, x.float().reshape(-1, g, cfg.d_model), cfg)
+            torch.cuda.synchronize()
+            diff = (y.float() - y32).abs()
+            rec = dict(
+                B=B, S=S, group=g, capacity=layers.moe_capacity(cfg, g),
+                entries=B * S * cfg.top_k, dropped_slots=int((~route[4]).sum()),
+                experts_equal=torch.equal(route[2], route32[2]),
+                kept_equal=torch.equal(route[4], route32[4]),
+                finite=bool(torch.isfinite(y).all()), max_abs_err=diff.max().item(),
+                max_abs_f32=y32.abs().max().item(),
+                in_band=bool((diff <= MODEL_ATOL + MODEL_RTOL * y32.abs()).all()))
+            out[name] = rec
+            if not (rec["experts_equal"] and rec["kept_equal"] and rec["finite"]
+                    and rec["in_band"]):
+                raise AssertionError(f"the MoE layer in bf16 disagrees with f32 ({name}): {rec}")
+    del p32
+    if out["prefill"]["dropped_slots"] == 0:
+        log(f"moe layer: no slot was dropped in the 384-token prefill at capacity factor "
+            f"{cfg.capacity_factor} on these random weights")
+    return out
+
+
+def moe_breakdown(engine) -> dict:
+    """Where a full-width dbrx decode step's time goes: ``decode_breakdown``
+    (graphed and eager, device shares), then the MoE layers alone at the
+    step's shape (``max_slots`` rows of one token, the engine's own layer
+    weights), profiled, against the bytes of expert weights they must read
+    (every expert runs on every group's slots, so a step reads them all)."""
+    from repro_torch.models import layers
+
+    cfg = engine.cfg
+    out = decode_breakdown(engine)
+    x = randn_dev(np.random.default_rng(12), (engine.max_slots, 1, cfg.d_model),
+                  torch.bfloat16)
+    ffns = [p["ffn"] for p in engine.model._layers]
+
+    def moe_layers():
+        with torch.no_grad():
+            for p in ffns:
+                layers.apply_moe(p, x, cfg)
+
+    kernels, window_us = profile_window(moe_layers, 5)
+    moe_ms = sum(kernels.values()) / 5e3
+    expert_bytes = 3 * cfg.num_experts * cfg.d_model * cfg.moe_d_ff * 2
+    b = bound(expert_bytes * cfg.num_layers, 0, "bfloat16")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    out["moe"] = dict(
+        layers=cfg.num_layers, expert_bytes_per_layer=expert_bytes,
+        device_ms_per_step=moe_ms, bound_ms_per_step=b["bound_ms"],
+        bound_over_device=b["bound_ms"] / moe_ms if moe_ms else None,
+        share_of_step_device_ms=moe_ms / out["device_ms_per_step"]
+        if out["device_ms_per_step"] else None,
+        host_ms_per_step=host_ms(moe_layers, 10),
+        top_kernels_ms={k[:60]: v / 5e3 for k, v in top})
+    return out
+
+
+def serve_moe(args, host_rate: float):
+    """dbrx-132b at full width, cut to ``MOE_LAYERS`` layers, behind
+    MoriRouter.replay as the qwen replay is served; then the full-width
+    MoE layer check, every bucket's decode graph against its eager step,
+    and the decode step's breakdown."""
+    from repro_torch.configs import get_config
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    params, draw = moe_weights(cfg, host_rate)
+    record, engines = replay_paged(args, chunked=False, cfg=cfg, params=params,
+                                   label="serve_moe")
+    record["weights"] = draw
+    layer = check_moe_layer(cfg, params)
+    log("moe layer " + json.dumps(layer))
+    parity = graph_parity_paged(cfg, params, formats=(("bf16", None),))
+    log("moe breakdown " + json.dumps(moe_breakdown(engines[0])))
+    return record, parity
 
 
 def main(argv=None) -> int:
@@ -1395,15 +1651,22 @@ def main(argv=None) -> int:
     check_model_small()
     check_mamba_small()
     args = serve.parse_args([])          # the launcher's defaults: full width, cuda
-    mono, engines = replay_qwen(args, chunked=False)
-    chunked, _ = replay_qwen(args, chunked=True, engines=engines)
-    parity = graph_parity_qwen(engines[0].cfg, _param_tree(engines[0].model))
+    mono, engines = replay_paged(args, chunked=False)
+    chunked, _ = replay_paged(args, chunked=True, cfg=engines[0].cfg,
+                              params=_param_tree(engines[0].model), label="serve_chunked")
+    parity = graph_parity_paged(engines[0].cfg, _param_tree(engines[0].model))
     log("decode breakdown " + json.dumps(decode_breakdown(engines[0])))
     del engines
     gc.collect()
     torch.cuda.empty_cache()
     ssm, ssm_engine = serve_ssm()
     parity += graph_parity_ssm(ssm_engine)
+    log("ssm breakdown " + json.dumps(ssm_breakdown(ssm_engine)))
+    del ssm_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe, moe_parity = serve_moe(args, host_rate=ssm["params"] / ssm["materialize_s"])
+    parity += moe_parity
     log("graph parity " + json.dumps({"cases": parity}))
     for case in parity:
         if not (case["max_abs_logit_diff"] == 0.0 and case["tokens_equal"]
@@ -1411,7 +1674,6 @@ def main(argv=None) -> int:
             raise AssertionError(f"a replayed graph differs from its eager step: {case}")
         if DEVICE == "cuda" and case.get("paged_kernels_replayed", 0) != case.get("layers", 0):
             raise AssertionError(f"a decode graph did not run one paged kernel a layer: {case}")
-    log("ssm breakdown " + json.dumps(ssm_breakdown(ssm_engine)))
 
     ft = flash_timing["monolithic"]
     kernels = {"kernels": [
@@ -1422,6 +1684,7 @@ def main(argv=None) -> int:
             "replaces": "src/repro/kernels/paged_attention/kernel.py:129",
             "replaces_function": "paged_attention",
             "launches": mono["kernel_launches"],
+            "launches_moe_replay": moe["kernel_launches"],
             "max_abs_err": paged_err,
             "ms": paged_timing["ms"],
             "device_ms": paged_timing["device_ms"],
@@ -1440,6 +1703,7 @@ def main(argv=None) -> int:
             "replaces_function": "flash_attention",
             "launches": mono["flash_launches"],
             "launches_chunked_replay": chunked["flash_launches"],
+            "launches_moe_replay": moe["flash_launches"],
             "max_abs_err": flash_err,
             "ms": ft["ms"],
             "device_ms": ft["device_ms"],
@@ -1449,6 +1713,9 @@ def main(argv=None) -> int:
             "bound_by": ft["bound_by"],
             "library_ms": ft["library_ms"],
             "library_device_ms": ft["library_device_ms"],
+            "other_shapes": {name: {k: flash_timing[name][k] for k in (
+                "H", "KH", "D", "Sq", "ms", "device_ms", "bound_ms", "bound_by", "library_ms",
+                "library_device_ms")} for name in FLASH_OTHER},
         },
         {
             "name": "ssd_scan",

@@ -18,7 +18,7 @@
 // elements; the head dimension has stride 1):
 //   flash_attention    q [B, H, Sq, D], k/v [B, KH, Skv, D], out like q
 //   prefill_attention  q [B, Sq, H, D], k/v [B, Skv, KH, D], out like q
-// D is 32, 64 or 128; the type is f32 or bf16 (out in q's type).
+// D is 32, 64, 128, 160 or 256; the type is f32 or bf16 (out in q's type).
 // A query row that sees no key at all (every key masked) is written as 0;
 // the plain versions return the mean of v there, a row no serving path
 // produces (a causal query always sees itself).
@@ -39,8 +39,17 @@
 // registers as `mma` A fragments (`ldmatrix` from a padded shared tile).
 // Each group copies its K and V tiles of 64 rows into its own ring of
 // shared stages with 16-byte `cp.async` (zero-filled past Skv; 3 stages at
-// D <= 64, 2 at D = 128) and synchronises on its own named barrier, so the
+// D <= 64, 2 above) and synchronises on its own named barrier, so the
 // next tiles' copies are in flight while the current one is computed.
+//   The head dimension sets three things at compile time (`mma_groups`,
+// `mma_stages`, `mma_q_in_regs`). Up to D = 160 the layout above holds: two
+// groups of two stages need 194 KB at D = 160, inside the 227 KB a block
+// may opt into. At D = 256 two groups would need 297 KB, so one group of
+// 4 warps runs every live tile (169 KB at two stages), and the q tile's
+// fragments are read from shared memory at each k-step instead of held:
+// with 128 f32 accumulator registers a lane for O, holding 64 more for Q
+// would spill. Every loop bound is a multiple of D / 16 or D / 8, so
+// D = 160 (10 k-steps, 20 chunks of 16 bytes a row) needs nothing else.
 // S = Q·Kᵀ runs as `mma.sync.m16n8k16` bf16 -> f32 with K's B fragments
 // from `ldmatrix`; the scores, the mask and the online softmax (base-2
 // exponent, row max and sum over the four lanes of a row with shuffles)
@@ -305,23 +314,35 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// warp groups a block runs: two over alternate kv tiles up to D = 160, one
+// at D = 256 (two would need 297 KB of shared memory)
+template <int D> __host__ __device__ constexpr int mma_groups() { return D <= 160 ? kGroups : 1; }
 // kv tiles a warp group keeps in flight: 3 stages at D <= 64 (117 KB a
-// block at D = 64), 2 at D = 128 (153 KB)
+// block at D = 64), 2 above (153 KB at D = 128, 194 KB at D = 160, 169 KB
+// at D = 256 with one group)
 template <int D> __host__ __device__ constexpr int mma_stages() { return D <= 64 ? 3 : 2; }
+// the q tile's A fragments held in registers for the whole kv loop (up to
+// D = 160: 40 registers a lane), else read from shared memory each k-step
+template <int D> __host__ __device__ constexpr bool mma_q_in_regs() { return D <= 160; }
 
 template <int D>
 constexpr size_t mma_smem_bytes() {
   // q tile, then each group's stages of K and V, rows padded by 8 elements
-  return sizeof(__nv_bfloat16) * (size_t)(kMBQ + kGroups * 2 * mma_stages<D>() * kMBK) *
-         (D + 8);
+  return sizeof(__nv_bfloat16) *
+         (size_t)(kMBQ + mma_groups<D>() * 2 * mma_stages<D>() * kMBK) * (D + 8);
 }
+
+// the largest dynamic shared memory a block may opt into on Hopper
+constexpr size_t kMaxSmem = 232448;
+static_assert(mma_smem_bytes<160>() <= kMaxSmem && mma_smem_bytes<256>() <= kMaxSmem,
+              "a head dimension's tiles do not fit in a block's shared memory");
 
 __device__ __forceinline__ void group_barrier(int group) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(kMmaWarps * 32));
 }
 
 template <int D>
-__global__ void __launch_bounds__(kGroups * kMmaWarps * 32) flash_mma_kernel(
+__global__ void __launch_bounds__(mma_groups<D>() * kMmaWarps * 32) flash_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ kv_lengths,
     __nv_bfloat16* __restrict__ out, Params pr) {
@@ -331,11 +352,13 @@ __global__ void __launch_bounds__(kGroups * kMmaWarps * 32) flash_mma_kernel(
   constexpr int NT = kMBK / 8;    // 8-key score tiles
   constexpr int DT = D / 8;       // 8-column output tiles
   constexpr int S = mma_stages<D>();
+  constexpr int G = mma_groups<D>();
+  constexpr bool QR = mma_q_in_regs<D>();
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (pr.H / pr.KH);
   const int tid = threadIdx.x, lane = tid & 31;
-  const int group = tid / (kMmaWarps * 32);  // which kv tiles: every other live one
+  const int group = tid / (kMmaWarps * 32);  // which kv tiles: every G-th live one
   const int gtid = tid % (kMmaWarps * 32);   // thread within the group
   const int warp = gtid >> 5;                // query rows warp*16 .. +16
 
@@ -375,13 +398,13 @@ __global__ void __launch_bounds__(kGroups * kMmaWarps * 32) flash_mma_kernel(
     }
   };
 
-  for (int i = tid; i < kMBQ * CH; i += kGroups * kMmaWarps * 32) {
+  for (int i = tid; i < kMBQ * CH; i += G * kMmaWarps * 32) {
     const int r = i / CH, x = (i - r * CH) * 8;
     const bool ok = q0 + r < pr.Sq;
     cp_async16(q_s + r * RW + x, ok ? qb + (long long)(q0 + r) * pr.q_s + x : qb, ok);
   }
   cp_async_commit();
-  // the live tile n live tiles after k0; a group takes every kGroups-th
+  // the live tile n live tiles after k0; a group takes every G-th
   auto advance = [&](int k0, int n) {
     for (int i = 0; i < n; ++i) k0 = next_live(k0 + kMBK);
     return k0;
@@ -392,17 +415,20 @@ __global__ void __launch_bounds__(kGroups * kMmaWarps * 32) flash_mma_kernel(
   for (int st = 0; st < S - 1; ++st) {
     if (k_load < kv_end) {
       load_kv(k_load, st);
-      k_load = advance(k_load, kGroups);
+      k_load = advance(k_load, G);
     }
     cp_async_commit();
   }
   cp_async_wait<S - 1>();  // the q tile has landed
   __syncthreads();
 
-  uint32_t qf[KS][4];
+  // this lane's address of the q tile's A fragment at k-step 0
+  const __nv_bfloat16* q_frag = q_s + (warp * 16 + (lane & 15)) * RW + (lane >> 4) * 8;
+  uint32_t qf[QR ? KS : 1][4];
+  if constexpr (QR) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    ldmatrix_x4(qf[ks], q_s + (warp * 16 + (lane & 15)) * RW + ks * 16 + (lane >> 4) * 8);
+    for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qf[ks], q_frag + ks * 16);
+  }
 
   float o[DT][4];
 #pragma unroll
@@ -418,7 +444,7 @@ __global__ void __launch_bounds__(kGroups * kMmaWarps * 32) flash_mma_kernel(
     // refill the stage the previous tile used
     if (k_load < kv_end) {
       load_kv(k_load, stage == 0 ? S - 1 : stage - 1);
-      k_load = advance(k_load, kGroups);
+      k_load = advance(k_load, G);
     }
     cp_async_commit();
     const __nv_bfloat16* kt = k_s + stage * kMBK * RW;
@@ -429,13 +455,15 @@ __global__ void __launch_bounds__(kGroups * kMmaWarps * 32) flash_mma_kernel(
     for (int t = 0; t < NT; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
+      if constexpr (!QR) ldmatrix_x4(qf[0], q_frag + ks * 16);
+      const uint32_t(&a)[4] = qf[QR ? ks : 0];
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t bf[4];
         ldmatrix_x4(bf, kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * RW + ks * 16 +
                             ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[ks], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], bf[2], bf[3]);
+        mma_bf16(s[2 * np], a, bf[0], bf[1]);
+        mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
       }
     }
 
@@ -519,39 +547,43 @@ __global__ void __launch_bounds__(kGroups * kMmaWarps * 32) flash_mma_kernel(
         mma_bf16(o[2 * dp + 1], pa, bf[2], bf[3]);
       }
     }
-    k0 = advance(k0, kGroups);
+    k0 = advance(k0, G);
   }
 
-  // group 1 hands its state (m, l, o of each lane) to group 0 through its
-  // own stages; group 0 merges by log-sum-exp (base 2) and writes out
-  static_assert(kGroups == 2, "the hand-off merges two groups");
-  __syncthreads();
-  float* hand = reinterpret_cast<float*>(q_s + (kMBQ + 2 * S * kMBK) * RW);  // [DT*4+4][128]
-  constexpr int NTH = kMmaWarps * 32;
-  if (group == 1) {
+  // with two groups, group 1 hands its state (m, l, o of each lane) to
+  // group 0 through its own stages; group 0 merges by log-sum-exp (base 2)
+  // and writes out
+  if constexpr (G == 2) {
+    constexpr int NTH = kMmaWarps * 32;
+    static_assert((DT * 4 + 4) * NTH * sizeof(float) <= 2 * S * kMBK * RW * sizeof(__nv_bfloat16),
+                  "the hand-off does not fit in group 1's stages");
+    __syncthreads();
+    float* hand = reinterpret_cast<float*>(q_s + (kMBQ + 2 * S * kMBK) * RW);  // [DT*4+4][128]
+    if (group == 1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        hand[(DT * 4 + r) * NTH + gtid] = m[r];
+        hand[(DT * 4 + 2 + r) * NTH + gtid] = l[r];
+      }
+#pragma unroll
+      for (int t = 0; t < DT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hand[(t * 4 + e) * NTH + gtid] = o[t][e];
+    }
+    __syncthreads();
+    if (group == 1) return;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      hand[(DT * 4 + r) * NTH + gtid] = m[r];
-      hand[(DT * 4 + 2 + r) * NTH + gtid] = l[r];
-    }
+      const float m1 = hand[(DT * 4 + r) * NTH + gtid];
+      const float m_new = fmaxf(m[r], m1);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float a0 = exp2f(m[r] - m_use), a1 = exp2f(m1 - m_use);
+      l[r] = l[r] * a0 + hand[(DT * 4 + 2 + r) * NTH + gtid] * a1;
 #pragma unroll
-    for (int t = 0; t < DT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) hand[(t * 4 + e) * NTH + gtid] = o[t][e];
-  }
-  __syncthreads();
-  if (group == 1) return;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float m1 = hand[(DT * 4 + r) * NTH + gtid];
-    const float m_new = fmaxf(m[r], m1);
-    const float m_use = m_new == -INFINITY ? 0.f : m_new;
-    const float a0 = exp2f(m[r] - m_use), a1 = exp2f(m1 - m_use);
-    l[r] = l[r] * a0 + hand[(DT * 4 + 2 + r) * NTH + gtid] * a1;
-#pragma unroll
-    for (int t = 0; t < DT; ++t) {
-      o[t][2 * r] = o[t][2 * r] * a0 + hand[(t * 4 + 2 * r) * NTH + gtid] * a1;
-      o[t][2 * r + 1] = o[t][2 * r + 1] * a0 + hand[(t * 4 + 2 * r + 1) * NTH + gtid] * a1;
+      for (int t = 0; t < DT; ++t) {
+        o[t][2 * r] = o[t][2 * r] * a0 + hand[(t * 4 + 2 * r) * NTH + gtid] * a1;
+        o[t][2 * r + 1] = o[t][2 * r + 1] * a0 + hand[(t * 4 + 2 * r + 1) * NTH + gtid] * a1;
+      }
     }
   }
 
@@ -581,7 +613,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((pr.Sq + kMBQ - 1) / kMBQ, pr.H, B);
-  kernel<<<grid, kGroups * kMmaWarps * 32, smem, stream>>>(
+  kernel<<<grid, mma_groups<D>() * kMmaWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(kv_lengths),
       static_cast<__nv_bfloat16*>(out), pr);
@@ -609,6 +641,10 @@ cudaError_t dispatch_mma(int D, const void* q, const void* k, const void* v,
       return launch_mma<64>(q, k, v, kv_lengths, out, B, pr, stream);
     case 128:
       return launch_mma<128>(q, k, v, kv_lengths, out, B, pr, stream);
+    case 160:
+      return launch_mma<160>(q, k, v, kv_lengths, out, B, pr, stream);
+    case 256:
+      return launch_mma<256>(q, k, v, kv_lengths, out, B, pr, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -645,6 +681,10 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
       return launch<T, 64>(q, k, v, kv_lengths, out, B, pr, stream);
     case 128:
       return launch<T, 128>(q, k, v, kv_lengths, out, B, pr, stream);
+    case 160:
+      return launch<T, 160>(q, k, v, kv_lengths, out, B, pr, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, kv_lengths, out, B, pr, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -663,6 +703,10 @@ extern "C" size_t flash_attention_mma_smem(int D) {
       return mma_smem_bytes<64>();
     case 128:
       return mma_smem_bytes<128>();
+    case 160:
+      return mma_smem_bytes<160>();
+    case 256:
+      return mma_smem_bytes<256>();
     default:
       return 0;
   }

@@ -15,9 +15,9 @@ Each chooses by the tensors' device, with no flag: CUDA tensors launch the
 kernel or raise; CPU tensors take the plain version. There is no fallback
 from the kernel to the plain version. The kernel takes ragged ``Sq`` and
 ``Skv`` (no divisibility requirement), GQA (``H % KH == 0``), head
-dimensions 32, 64 and 128, and f32 or bf16: bf16 runs on the tensor cores
-when every row start is 16-byte aligned and on CUDA cores otherwise, f32
-on CUDA cores. A query row that sees no key at all comes back as 0 from
+dimensions 32, 64, 128, 160 (zamba2's shared block) and 256 (gemma2-9b),
+and f32 or bf16: bf16 runs on the tensor cores when every row start is
+16-byte aligned and on CUDA cores otherwise, f32 on CUDA cores. A query row that sees no key at all comes back as 0 from
 the kernel (the plain versions give the mean of v there); no serving path
 produces such a row.
 """
@@ -30,7 +30,7 @@ from repro_torch.kernels.flash_attention import _build
 from repro_torch.kernels.flash_attention.ref import blockwise_attention, flash_attention_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 160, 256)
 
 
 class FlashAttentionKernel(_nvcc.Kernel):

@@ -17,7 +17,7 @@ def load() -> tuple[ctypes.CDLL, str]:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.paged_attention_decode.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,   # tensors
-        ptr,                                                # workspace
+        ptr, ptr,                                           # workspace, launch counter
         i32, i32, i32, i32, i32, i32, i32, i32,             # B H KH D T P splits cols
         i32, i32, f32, f32, i32,                            # dtypes, scale, cap, window
         ptr,                                                # stream

@@ -18,6 +18,9 @@
 //                 by the physical page id block_tables[b, p], not by p
 //   workspace     [B, H, splits, D + 2] f32: each split's partial (acc[D],
 //                 m, l), when splits > 1
+//   launches      [1] int32 or null: the split pass's first block adds one
+//                 a launch, so a run counts on the device the launches the
+//                 card really ran, inside a replayed CUDA graph too
 // Variants: GQA/MQA/MHA (H = KH*G), logit softcap cap*tanh(s/cap), sliding
 // window (only [length-window, length) visible; pages wholly below it are
 // skipped). Positions >= lengths[b] are masked and nothing is read past
@@ -132,6 +135,7 @@ struct Args {
   const float* v_scales;
   void* out;  // written by the split pass when splits == 1, else null
   float* ws;  // [B, H, splits, D + 2] partials when splits > 1
+  int* launches;  // the device's count of launches, or null
   int H, KH, G, T, P, cols, splits, q_bf16, window;
   float sm_scale, softcap;
 };
@@ -183,6 +187,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32) paged_split_kernel(Args a) {
   const int g0 = (blockIdx.x - kh * HG) * GB;
   const int ng = min(GB, a.G - g0);
   const int b = blockIdx.y, split = blockIdx.z;
+  if (a.launches != nullptr && blockIdx.x == 0 && b == 0 && split == 0 && threadIdx.x == 0)
+    atomicAdd(a.launches, 1);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   const int kg = lane / LPK;         // which key of a warp step this lane works on
   const int dl = lane - kg * LPK;    // ... and which eight of its D elements
@@ -492,13 +498,16 @@ extern "C" size_t paged_attention_decode_smem(int G, int D, int T, int kv_dtype)
 // Plain C entry point, bound with ctypes. dtype codes: 0 float32, 1 bfloat16,
 // 2 int8 (pages only). softcap <= 0 and window <= 0 mean none. `splits`
 // ranges of `cols` block-table columns; with splits > 1 `workspace` holds
-// B*H*splits*(D+2) floats and a second pass merges them. Returns the first
-// non-zero cudaError_t of the launches (0 when both launched).
+// B*H*splits*(D+2) floats and a second pass merges them. `launch_counter`
+// (one int32 on the device, or null) counts the launches the device ran.
+// Returns the first non-zero cudaError_t of the launches (0 when both
+// launched).
 extern "C" int paged_attention_decode(const void* q, const void* k_new, const void* v_new,
                                       const void* k_pages, const void* v_pages,
                                       const void* block_tables, const void* lengths,
                                       const void* k_scales, const void* v_scales, void* out,
-                                      void* workspace, int B, int H, int KH, int D, int T,
+                                      void* workspace, void* launch_counter, int B, int H,
+                                      int KH, int D, int T,
                                       int P, int splits, int cols, int q_dtype, int kv_dtype,
                                       float sm_scale, float softcap, int window, void* stream) {
   if (B <= 0 || KH <= 0 || H % KH != 0 || D <= 0 || T <= 0 || P <= 0 || splits <= 0 ||
@@ -509,6 +518,7 @@ extern "C" int paged_attention_decode(const void* q, const void* k_new, const vo
          static_cast<const int32_t*>(block_tables), static_cast<const int32_t*>(lengths),
          static_cast<const float*>(k_scales), static_cast<const float*>(v_scales),
          splits == 1 ? out : nullptr, static_cast<float*>(workspace),
+         static_cast<int*>(launch_counter),
          H,        KH,       H / KH, T,      P,       cols, splits, q_dtype, window,
          sm_scale, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,4 +1,5 @@
-"""Block library of the port: the dense, non-alternating family and Mamba-2.
+"""Block library of the port: the dense and MoE families (non-alternating)
+and Mamba-2.
 
 The counterpart of ``repro/models/layers.py``. Every block is a
 (``describe_*``, ``apply_*``) pair: ``describe_*`` builds a dict of
@@ -17,8 +18,10 @@ the Mamba-2 block's sequence-mode scan through
 for CUDA tensors and takes its plain version (:func:`blockwise_attention`,
 ``ssd_reference``; the reference ran these in plain jnp) for CPU tensors.
 The Mamba-2 decode step is the plain ``ssd_decode_step``, as in the
-reference. The large projections (QKV, wo, FFN, in/out_proj) stay
-``torch.matmul``, as the reference leaves them to XLA.
+reference. The large projections (QKV, wo, FFN, in/out_proj) and the MoE
+layer's dispatch, expert and combine products stay ``torch.matmul`` /
+``torch.bmm``, as the reference leaves them (plain jnp einsums, no Pallas
+kernel) to XLA.
 """
 from __future__ import annotations
 
@@ -125,13 +128,116 @@ def apply_ffn(p, x):
     return h @ p["w_down"]
 
 
+# ======================================================================= MoE
+def describe_moe(cfg: ModelConfig):
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    p = {
+        "router": Leaf((d, e), ("embed", None), scale=0.02),
+        "w_gate": Leaf((e, d, f), ("experts", "embed", "expert_ffn")),
+        "w_up": Leaf((e, d, f), ("experts", "embed", "expert_ffn")),
+        "w_down": Leaf((e, f, d), ("experts", "expert_ffn", "embed")),
+    }
+    if cfg.dense_residual:  # arctic: dense FFN in parallel with the MoE
+        p["dense"] = describe_ffn(cfg)
+    return p
+
+
+def moe_capacity(cfg: ModelConfig, g: int) -> int:
+    """Slots an expert takes per group of ``g`` tokens, in the reference's
+    Python float arithmetic."""
+    return max(1, int(g * cfg.top_k * cfg.capacity_factor / cfg.num_experts))
+
+
+def moe_route(p, xg, cfg: ModelConfig):
+    """The routing half of :func:`apply_moe` for grouped tokens ``xg``
+    ``[G, g, d]``: router softmax in f32, top-k, renormalised gates, and
+    each (token, k) entry's position in its expert's queue.
+
+    Returns ``(gates [G,g,E], top_vals [G,g,k], top_idx [G,g,k],
+    pos [G,g,k], keep [G,g,k])``: ``pos`` is the exclusive cumsum of the
+    group's entries in (token, k) order, ``keep`` marks ``pos < cap``.
+    Everything stays on the device (a decode graph captures it): top-k is
+    a stable descending sort, so ties go to the lower expert index as in
+    ``jax.lax.top_k``.
+    """
+    e, k = cfg.num_experts, cfg.top_k
+    n_groups, g, _ = xg.shape
+    logits = xg.to(F32) @ p["router"].to(F32)                  # [G,g,E]
+    gates = torch.softmax(logits, dim=-1)
+    top_vals, top_idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    top_vals, top_idx = top_vals[..., :k], top_idx[..., :k]
+    top_vals = top_vals / torch.clamp_min(top_vals.sum(-1, keepdim=True), 1e-9)
+    onehot = top_idx[..., None] == torch.arange(e, device=xg.device)   # [G,g,k,E]
+    flat = onehot.reshape(n_groups, g * k, e).to(torch.int32)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(n_groups, g, k, e)
+    pos = torch.gather(pos, 3, top_idx[..., None])[..., 0]     # [G,g,k]
+    return gates, top_vals, top_idx, pos, pos < moe_capacity(cfg, g)
+
+
+def apply_moe(p, x, cfg: ModelConfig):
+    """GShard-style capacity dispatch (top-k, grouped tokens), as the
+    reference's ``apply_moe``: tokens are grouped ``[B*S/g, g]`` with
+    ``g = min(4096, S)``; per group each expert takes
+    ``cap = g * top_k * capacity_factor / E`` slots and drops the entries
+    past them. Every expert runs on its ``cap`` slots of every group, so a
+    call reads all E experts' weights. Returns ``(y, aux_loss)``.
+
+    The slot masks compare positions against ``arange(cap)`` where the
+    reference takes ``one_hot`` (which gives a zero row past ``cap``). The
+    dispatch and combine products run in ``x.dtype``: dispatch holds 0/1,
+    combine each kept entry's gate rounded to ``x.dtype``, as the
+    reference casts them.
+    """
+    B, S, d = x.shape
+    e = cfg.num_experts
+    g = min(4096, S)
+    n_groups = B * S // g
+    xg = x.reshape(n_groups, g, d)
+    gates, top_vals, top_idx, pos, keep = moe_route(p, xg, cfg)
+    cap = moe_capacity(cfg, g)
+    dev = x.device
+    # slot (expert, c) of a kept entry: [G,g,k,E,C], summed over k
+    at = ((top_idx[..., None] == torch.arange(e, device=dev))[..., None]
+          & (pos[..., None, None] == torch.arange(cap, device=dev))
+          & keep[..., None, None])
+    dispatch = at.sum(2, dtype=x.dtype)                               # [G,g,E,C]
+    combine = (at * top_vals[..., None, None]).sum(2).to(x.dtype)     # [G,g,E,C]
+
+    # expert inputs [E, G*C, d]: every slot's token (0 where empty)
+    xe = torch.bmm(dispatch.reshape(n_groups, g, e * cap).transpose(1, 2), xg)
+    xe = xe.reshape(n_groups, e, cap, d).transpose(0, 1).reshape(e, n_groups * cap, d)
+    h = silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    ye = torch.bmm(h, p["w_down"])                                    # [E, G*C, d]
+    ye = ye.reshape(e, n_groups, cap, d).transpose(0, 1).reshape(n_groups, e * cap, d)
+    y = torch.bmm(combine.reshape(n_groups, g, e * cap), ye).reshape(B, S, d)
+
+    # load-balance auxiliary loss (Switch-style)
+    counts = torch.zeros_like(gates).scatter_add_(
+        2, top_idx, torch.ones_like(top_vals))                       # [G,g,E]
+    density = counts.mean(1)
+    router_prob = gates.mean(1)
+    aux = (density * router_prob).sum(-1).mean() * (e / cfg.top_k)
+
+    if "dense" in p:
+        y = y + apply_ffn(p["dense"], x)
+    return y, aux
+
+
+def apply_ffn_or_moe(p, x, cfg: ModelConfig):
+    """A block's feed-forward: the MoE layer where ``cfg.num_experts`` is
+    set (its aux loss dropped: no serving path reads it), else the FFN."""
+    if cfg.num_experts:
+        return apply_moe(p, x, cfg)[0]
+    return apply_ffn(p, x)
+
+
 # ================================================================ dense block
 def describe_dense_block(cfg: ModelConfig):
     return {
         "ln1": Leaf((cfg.d_model,), ("embed_act",), init="zeros"),
         "attn": describe_attention(cfg),
         "ln2": Leaf((cfg.d_model,), ("embed_act",), init="zeros"),
-        "ffn": describe_ffn(cfg),
+        "ffn": describe_moe(cfg) if cfg.num_experts else describe_ffn(cfg),
     }
 
 
@@ -164,7 +270,7 @@ def apply_dense_block(
     )
     B, S, _, _ = attn.shape
     x = x + (attn.reshape(B, S, h * hd) @ p["attn"]["wo"])
-    x = x + apply_ffn(p["ffn"], rmsnorm(x, p["ln2"]))
+    x = x + apply_ffn_or_moe(p["ffn"], rmsnorm(x, p["ln2"]), cfg)
     return x, (k, v)
 
 
@@ -195,7 +301,7 @@ def apply_dense_block_paged(
         k_scales, v_scales, softcap=cfg.attn_logit_softcap, window=window,
     )                                                      # [B, H, D]
     x = x + (attn.reshape(B, 1, h_ * hd) @ p["attn"]["wo"])
-    x = x + apply_ffn(p["ffn"], rmsnorm(x, p["ln2"]))
+    x = x + apply_ffn_or_moe(p["ffn"], rmsnorm(x, p["ln2"]), cfg)
     return x, (k_new, v_new)
 
 

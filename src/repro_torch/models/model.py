@@ -1,6 +1,6 @@
 """Model assembly of the port: describe / prefill / paged decode for the
-dense, non-alternating family, and describe / prefill / decode for the
-``ssm`` family (mamba2).
+dense and ``moe`` families without local/global alternation, and
+describe / prefill / decode for the ``ssm`` family (mamba2).
 
 The counterpart of ``repro/models/model.py``. :class:`Model` is an
 ``nn.Module`` whose buffers are the parameter tree, leaf name for leaf
@@ -31,13 +31,25 @@ from repro_torch.models.params import Leaf, flatten_tree, leaves
 F32 = torch.float32
 
 
+#: the families the port does not serve yet, each with its ROADMAP §1 item
+_NOT_PORTED = {
+    "hybrid": "the zamba2 hybrid is ROADMAP §1 item 9",
+    "encdec": "whisper's encoder-decoder is ROADMAP §1 item 11",
+    "vlm": "internvl2's image prefix is ROADMAP §1 item 11",
+}
+
+#: the families whose KV lives in the serving engine's page pool
+PAGED_FAMILIES = ("dense", "moe")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm") or cfg.local_global_alternating:
+    if cfg.local_global_alternating:
         raise NotImplementedError(
-            f"the port serves the dense, non-alternating family and ssm; "
-            f"{cfg.name} is {cfg.family}"
-            + (" with local/global alternation" if cfg.local_global_alternating else "")
-        )
+            f"{cfg.name}: local/global alternation is not ported (ROADMAP §1 item 10)")
+    if cfg.family in _NOT_PORTED:
+        raise NotImplementedError(f"{cfg.name} is {cfg.family}: {_NOT_PORTED[cfg.family]}")
+    if cfg.family not in (*PAGED_FAMILIES, "ssm"):
+        raise ValueError(f"unknown family {cfg.family}")
 
 
 class _ParamTree(nn.Module):
@@ -233,8 +245,9 @@ class Model(nn.Module):
         Returns ``logits [B, V]`` (f32).
         """
         cfg = self.cfg
-        if cfg.family != "dense":
-            raise NotImplementedError(f"paged decode serves the dense family, not {cfg.family}")
+        if cfg.family not in PAGED_FAMILIES:
+            raise NotImplementedError(
+                f"paged decode serves the {'/'.join(PAGED_FAMILIES)} families, not {cfg.family}")
         quantized = k_scales is not None
         x = self.params.embed[tokens][:, None, :]           # [B,1,d]
         k_news, v_news = [], []

@@ -121,6 +121,14 @@ PREFILL_VARIANTS = {
                                               kv_lengths=[40, 29])),
     "window+cap": (1, 40, 40, 4, 4, 128, dict(causal=True, window=12, cap=30.0)),
     "bidir ragged": (2, 30, 30, 4, 1, 32, dict(causal=False)),
+    # head dimensions beyond 128: zamba2's shared block (2·2560/32 = 160)
+    # and gemma2-9b (256), with a ragged tail and a chunk behind a hole
+    "d160 ragged": (1, 37, 37, 4, 4, 160, dict(causal=True)),
+    "d160 chunk+hole": (1, 24, 72, 4, 4, 160, dict(causal=True, q_offset=48,
+                                                   kv_hole=(30, 48))),
+    "d256 gqa ragged": (1, 37, 37, 4, 2, 256, dict(causal=True)),
+    "d256 chunk+hole": (1, 24, 72, 4, 2, 256, dict(causal=True, q_offset=48,
+                                                   kv_hole=(30, 48))),
 }
 
 

@@ -4,7 +4,8 @@ For every table bucket of a reduced qwen engine, on a bf16 and an int8
 pool, the replayed decode step's logits and greedy tokens equal an eager
 ``Model.decode_paged`` on a clone of the pool bit for bit, and so do the
 pool bytes each writes; each replay runs one paged-attention kernel a
-layer on the device (``torch.profiler``) and calls no wrapper. The
+layer on the device (``torch.profiler``) and calls no wrapper. So does
+every bucket's MoE decode graph of a reduced dbrx-132b engine. The
 reduced mamba2 decode graph equals ``Model.decode_into`` on a clone of
 the state, logits and state, bit for bit. ``PagePool.adopt`` copies into
 the pool's tensors, so the next replay reads the adopted bytes.
@@ -15,6 +16,8 @@ file imports neither JAX nor the JAX package::
     python -m pytest -q -m cuda tests/test_torch_graphs_on_card.py
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -101,11 +104,39 @@ def test_every_bucket_replays_the_eager_step_bit_for_bit(card, qwen, fmt):
         packed = bucket_inputs(eng, p_pad, rng)
         clones = [t.clone() for t in eng.pool.device_tensors()]
         launches = paged_ops.KERNEL.launches
+        counted = paged_ops.KERNEL.device_launches(card)
         out = []
         ran = paged_kernels_run(lambda: out.extend(t.clone() for t in eng._decode(p_pad, packed)))
         logits, tokens = out
         assert ran == cfg.num_layers, (p_pad, ran)
+        assert paged_ops.KERNEL.device_launches(card) - counted == cfg.num_layers
         assert paged_ops.KERNEL.launches == launches      # the replay called no wrapper
+        want_logits, want_tokens = eager_step(eng, packed, p_pad, clones)
+        torch.cuda.synchronize()
+        assert torch.equal(logits, want_logits), (p_pad, (logits - want_logits).abs().max())
+        assert torch.equal(tokens, want_tokens), p_pad
+        for got, want in zip(eng.pool.device_tensors(), clones):
+            assert torch.equal(got, want), p_pad
+
+
+@pytest.mark.cuda
+def test_dbrx_decode_graphs_replay_the_eager_step_bit_for_bit(card):
+    """The MoE decode step (router top-k, capacity positions and the expert
+    products, all on the device) captured per table bucket of a reduced
+    dbrx-132b engine at its real capacity factor, against the eager step."""
+    cfg = dataclasses.replace(get_config("dbrx-132b").reduced(), capacity_factor=1.25)
+    eng = Engine(cfg, materialize(Model(cfg).describe(), seed=0), device=card, **ENGINE_KW)
+    random_pool(eng, np.random.default_rng(42))
+    eng.warmup()
+    assert eng.graphs.keys() == BUCKETS
+    rng = np.random.default_rng(43)
+    for p_pad in BUCKETS:
+        packed = bucket_inputs(eng, p_pad, rng)
+        clones = [t.clone() for t in eng.pool.device_tensors()]
+        out = []
+        ran = paged_kernels_run(lambda: out.extend(t.clone() for t in eng._decode(p_pad, packed)))
+        logits, tokens = out
+        assert ran == cfg.num_layers, (p_pad, ran)
         want_logits, want_tokens = eager_step(eng, packed, p_pad, clones)
         torch.cuda.synchronize()
         assert torch.equal(logits, want_logits), (p_pad, (logits - want_logits).abs().max())

@@ -1,10 +1,11 @@
 """The redesigned kernels on the card, against their plain versions: the
-split-K paged decode kernel at split boundaries and over tables wider than
-any row, the bf16 tensor-core flash kernel at every head dimension, with
-GQA, ragged tails and a hole behind a query offset, and the SSD scan's
-tensor-core passes at mamba2's widths (one chunk, ragged and long
-sequences, other chunk sizes, two rows, strided slices of one fused
-tensor), with f32 and mixed dtypes on the CUDA-core route.
+split-K paged decode kernel at split boundaries, over tables wider than
+any row and at dbrx-132b's GQA 6:1; the bf16 tensor-core flash kernel at
+every head dimension (32 to 256; 160 and 256 also on the f32 CUDA-core
+kernel), with GQA, ragged tails and a hole behind a query offset; and
+the SSD scan's tensor-core passes at mamba2's widths (one chunk, ragged
+and long sequences, other chunk sizes, two rows, strided slices of one
+fused tensor), with f32 and mixed dtypes on the CUDA-core route.
 
 Every test here is marked ``cuda`` and skips where there is no card. The
 file imports neither JAX nor the JAX package, so it runs on a machine with
@@ -50,6 +51,11 @@ PAGED_CASES = {
     "lengths at split boundaries int8": (4, 16, 16, 64, 16, 24, [63, 64, 256, 384], "int8"),
     "table wider than any row": (3, 16, 16, 64, 16, 40, [200, 17, 97], "bfloat16"),
     "gqa table wider than any row f32": (2, 32, 4, 128, 16, 32, [300, 129], "float32"),
+    # dbrx-132b's decode: 48 query heads over 8 KV heads of 128, a group of
+    # 6 that the kernel covers in blocks of 4 heads (the second block of a
+    # KV head holds heads 4-5 and two empty rows)
+    "dbrx gqa 6:1": (3, 48, 8, 128, 16, 24, [384, 250, 97], "bfloat16"),
+    "dbrx gqa 6:1 int8": (3, 48, 8, 128, 16, 24, [17, 200, 1], "int8"),
 }
 
 
@@ -80,6 +86,37 @@ def test_paged_kernel_matches_split_and_dense_plain_versions(card, name):
     torch.testing.assert_close(got.float(), split.float(), **BANDS[dtype])
 
 
+@pytest.mark.cuda
+def test_paged_kernel_counts_its_launches_on_the_device(card):
+    """A wrapper call adds one to the wrapper's count and one to the
+    kernel's own count on the device; a replay of a captured launch adds
+    to the device's count only."""
+    rng = np.random.default_rng(34)
+    B, H, KH, D, T, P = 2, 8, 2, 64, 16, 4
+    q = randn(rng, (B, H, D), torch.bfloat16, card)
+    k, v = (randn(rng, (B * P, T, KH, D), torch.bfloat16, card) for _ in range(2))
+    tables = torch.arange(B * P, dtype=torch.int32, device=card).reshape(B, P)
+    lens = torch.tensor([40, 64], dtype=torch.int32, device=card)
+
+    def call():
+        return paged_ops.paged_attention(q, k, v, tables, lens)
+
+    call()
+    torch.cuda.synchronize()
+    launches, counted = paged_ops.KERNEL.launches, paged_ops.KERNEL.device_launches(card)
+    call()
+    assert paged_ops.KERNEL.launches == launches + 1
+    assert paged_ops.KERNEL.device_launches(card) == counted + 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call()
+    launches, counted = paged_ops.KERNEL.launches, paged_ops.KERNEL.device_launches(card)
+    for _ in range(3):
+        graph.replay()
+    assert paged_ops.KERNEL.device_launches(card) == counted + 3
+    assert paged_ops.KERNEL.launches == launches
+
+
 FLASH_CASES = {
     # name -> (B, Sq, Skv, H, KH, D, kwargs), the model's [B, S, H, D] layout
     "d32 ragged": (2, 77, 77, 4, 4, 32, dict(causal=True)),
@@ -91,6 +128,24 @@ FLASH_CASES = {
                                                      kv_hole=(83, 128))),
     "hole q_offset d32": (1, 33, 161, 4, 4, 32, dict(causal=True, q_offset=128,
                                                      kv_hole=(64, 128))),
+    # dbrx-132b's prefill: GQA 6:1 at D = 128, a bucket-padded prompt and a
+    # chunk over a bucketed prefix
+    "dbrx gqa 6:1": (1, 384, 384, 48, 8, 128, dict(causal=True)),
+    "dbrx gqa 6:1 chunk hole": (1, 64, 192, 48, 8, 128, dict(causal=True, q_offset=128,
+                                                              kv_hole=(100, 128))),
+}
+
+#: head dimensions beyond 128, in bf16 (two warp groups at 160, one at 256)
+#: and f32 (the CUDA-core kernel): zamba2's shared attention block (32
+#: heads of 160) and gemma2-9b (16 heads over 8 KV heads of 256), causal
+#: with a ragged tail, and a chunk at q_offset behind a kv_hole
+WIDE_FLASH_CASES = {
+    "d160 ragged": (1, 200, 200, 32, 32, 160, dict(causal=True)),
+    "d160 chunk hole": (1, 64, 192, 32, 32, 160, dict(causal=True, q_offset=128,
+                                                      kv_hole=(83, 128))),
+    "d256 ragged": (1, 200, 200, 16, 8, 256, dict(causal=True)),
+    "d256 chunk hole": (1, 64, 192, 16, 8, 256, dict(causal=True, q_offset=128,
+                                                     kv_hole=(83, 128))),
 }
 
 
@@ -107,6 +162,22 @@ def test_flash_kernel_in_bf16_matches_blockwise(card, name):
     assert flash_ops.KERNEL.launches == before + 1
     want = flash_ref.blockwise_attention(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), **BANDS[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name", sorted(WIDE_FLASH_CASES))
+def test_flash_kernel_at_head_dims_160_and_256_matches_blockwise(card, name, dtype):
+    B, Sq, Skv, H, KH, D, kw = WIDE_FLASH_CASES[name]
+    rng = np.random.default_rng(33)
+    q = randn(rng, (B, Sq, H, D), dtype, card)
+    k, v = (randn(rng, (B, Skv, KH, D), dtype, card) for _ in range(2))
+    before = flash_ops.KERNEL.launches
+    got = flash_ops.prefill_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.KERNEL.launches == before + 1
+    want = flash_ref.blockwise_attention(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **BANDS[dtype])
 
 
 @pytest.mark.cuda
