@@ -64,7 +64,21 @@ on failure (a failure exits non-zero and prints no final line):
    experts and kept slots equal, the output in the model band); every
    table bucket's dbrx decode graph against its eager step, bit for bit;
    and where a decode step's time goes, the MoE products against the
-   bytes of expert weights they must read.
+   bytes of expert weights they must read;
+7. the reference's other serving modes, at qwen's full width on phase
+   4's weights, launcher pools and corpus, without the profiler (the
+   kernels count their own device launches): the dense-slot decode
+   attention (the slot cache read as pages by the paged kernel) against
+   its plain version; ``serve_dense_slots``, two warmed
+   ``Engine(dense_slots=True)`` replicas (one decode graph each,
+   captured in warmup and replayed at every step, paged kernels = layers
+   x decode steps, flash = layers x prefill passes), whose output log
+   must equal phase 4's or part from it only at near ties; and
+   ``serve_replicas``, two warmed paged replicas with pressure migration,
+   int8 offload, an NVMe tier and the page-lifetime sanitizer, replica 1
+   failing mid-replay and recovering: programs migrate, one drain, every
+   program completes every step, offloads billed at the int8 page size,
+   no capture after warmup, paged kernels = layers x decode steps.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 hold the per-kernel JSON record and the card's name and power limit. The
@@ -1017,13 +1031,20 @@ def _count_calls(obj, attr: str, counter: dict, key: str, when=lambda result: Tr
 
 
 # ------------------------------------------------------------ phase 4
-def replay_paged(args, chunked: bool, cfg=None, params=None, label="serve"):
+def replay_paged(args, chunked: bool, cfg=None, params=None, label="serve", *,
+                 engine_kw=None, router_kw=None, replay_kw=None, profile=True,
+                 watch=None):
     """One full-width replay of a paged family through the router; returns
-    the record and the engines. Without ``cfg`` the launcher builds the
-    engines and the router (``serve.build_router``, qwen); with ``cfg`` and
-    ``params`` they are built on those weights with the launcher's pools
-    and scheduler settings. ``chunked`` turns on the router's chunked
-    prefill."""
+    the record, the engines and the router. Without ``cfg`` the launcher
+    builds the engines and the router (``serve.build_router``, qwen); with
+    ``cfg`` and ``params`` they are built on those weights with the
+    launcher's pools and scheduler settings, plus ``engine_kw`` for each
+    engine and ``router_kw`` for the router (``config`` replaces the
+    launcher's scheduler config). ``chunked`` turns on the router's chunked
+    prefill; ``replay_kw`` goes to ``replay`` (faults). With ``profile``
+    the replay runs under ``torch.profiler``, which counts the paged
+    kernels beside their own device count; ``watch(engines)`` runs after
+    warmup, before the replay."""
     from repro_torch.configs import get_config
     from repro_torch.core.types import SchedulerConfig
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -1036,13 +1057,15 @@ def replay_paged(args, chunked: bool, cfg=None, params=None, label="serve"):
         cfg, engines, router = serve.build_router(args)
     else:
         engines = [Engine(cfg, params, device=DEVICE, page_tokens=16, n_device_pages=72,
-                          n_host_pages=160, max_slots=3, max_seq=384)
+                          n_host_pages=160, max_slots=3, max_seq=384, **(engine_kw or {}))
                    for _ in range(args.replicas)]
+        router_kw = dict(router_kw or {})
         router = MoriRouter(
             engines, scheduler=args.scheduler,
             gpu_capacity_bytes=engines[0].pool.page_bytes * args.gpu_pages,  # lint: kv008-ok (GPU budget at device format)
             cpu_capacity_bytes=engines[0].pool.host_page_bytes * args.cpu_pages,
-            config=SchedulerConfig(tick_interval_s=1.0), chunked_prefill=chunked,
+            config=router_kw.pop("config", SchedulerConfig(tick_interval_s=1.0)),
+            chunked_prefill=chunked, **router_kw,
         )
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -1067,11 +1090,22 @@ def replay_paged(args, chunked: bool, cfg=None, params=None, label="serve"):
     # a replayed graph calls no wrapper: the paged kernel counts the
     # launches the card ran on the device itself, and the profiler counts
     # its instances by name beside it
+    if watch is not None:
+        watch(engines)
+
+    def run():
+        return router.replay(corpus, vocab_size=cfg.vocab_size,
+                             max_new_tokens=args.max_new_tokens, **(replay_kw or {}))
+
     ran_before = paged_device_launches()
-    m, device_counts = device_kernel_counts(
-        lambda: router.replay(corpus, vocab_size=cfg.vocab_size,
-                              max_new_tokens=args.max_new_tokens),
-        PAGED_KERNEL_NAMES)
+    if profile:
+        m, device_counts = device_kernel_counts(run, PAGED_KERNEL_NAMES)
+    else:
+        t0 = time.perf_counter()
+        m = run()
+        torch.cuda.synchronize()
+        device_counts = {"fn_s": time.perf_counter() - t0, "processing_s": None,
+                         **dict.fromkeys(PAGED_KERNEL_NAMES)}
     paged_eager, flash = paged_ops.KERNEL.launches, flash_ops.KERNEL.launches
     paged = paged_device_launches() - ran_before
     paged_profiled = device_counts["paged_split_kernel"]
@@ -1097,7 +1131,7 @@ def replay_paged(args, chunked: bool, cfg=None, params=None, label="serve"):
             {k for e in engines for k in e.graphs.keys()}),
         "prefill_passes": passes["prefill"],
         "flash_launches": flash, "setup_s": setup_s, "warmup_s": warmup_s,
-        "replay_s_profiled": device_counts["fn_s"],
+        ("replay_s_profiled" if profile else "replay_s"): device_counts["fn_s"],
         "profiler_processing_s": device_counts["processing_s"], "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     if cfg.num_experts:
@@ -1105,7 +1139,7 @@ def replay_paged(args, chunked: bool, cfg=None, params=None, label="serve"):
                       capacity_factor=cfg.capacity_factor, heads=cfg.num_heads,
                       kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, vocab=cfg.vocab_size)
     log(f"{label} " + json.dumps(record))
-    if paged_profiled != paged:
+    if profile and paged_profiled != paged:
         log(f"{label}: the profiler saw {paged_profiled} of the {paged} paged split kernels "
             "the device counted")
     if m.steps_completed <= 0:
@@ -1132,7 +1166,7 @@ def replay_paged(args, chunked: bool, cfg=None, params=None, label="serve"):
     if len(produced) != m.tokens_generated or not all(
             0 <= t < cfg.vocab_size for t in produced):
         raise AssertionError("generated tokens are missing or out of the vocabulary")
-    return record, engines
+    return record, engines, router
 
 
 def profile_window(fn, n: int) -> tuple[dict, float]:
@@ -1610,14 +1644,195 @@ def serve_moe(args, host_rate: float):
     torch.cuda.reset_peak_memory_stats()
     cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
     params, draw = moe_weights(cfg, host_rate)
-    record, engines = replay_paged(args, chunked=False, cfg=cfg, params=params,
-                                   label="serve_moe")
+    record, engines, _ = replay_paged(args, chunked=False, cfg=cfg, params=params,
+                                      label="serve_moe")
     record["weights"] = draw
     layer = check_moe_layer(cfg, params)
     log("moe layer " + json.dumps(layer))
     parity = graph_parity_paged(cfg, params, formats=(("bf16", None),))
     log("moe breakdown " + json.dumps(moe_breakdown(engines[0])))
     return record, parity
+
+
+# ------------------------------------------------------------ phase 7
+#: serve_replicas: replica 1 fails at the first virtual time and recovers
+#: at the second (seconds on the router's clock), mid-replay
+REPLICA_FAULT = (20.0, 80.0)
+#: serve_replicas: the NVMe tier's budget, in int8 host pages a replica
+SSD_PAGES = 40
+#: the logits kept of each sampled token when comparing two replays
+TOP_K = 8
+
+
+def check_dense_slot_view() -> float:
+    """The dense-slot decode attention at the serving shape (3 slots of
+    max_seq 384, MHA 16x64, read as 16-token pages), the kernel on the
+    card against the reference's masked softmax in plain PyTorch on the
+    same inputs; for the lengths of a full, a ragged and a free slot."""
+    from repro_torch.models.layers import decode_attention
+
+    B, H, KH, D, T, P = MAIN_SHAPE
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).bfloat16()
+               for shape in ((B, H, D), (B, P * T, KH, D), (B, P * T, KH, D)))
+    lens = torch.tensor([P * T, 250, 1], dtype=torch.int32)
+    err = 0.0
+    for window in (None, 100):
+        got = decode_attention(q.to(DEVICE), k.to(DEVICE), v.to(DEVICE), lengths=lens.to(DEVICE),
+                               window=window, page_tokens=T)
+        want = decode_attention(q, k, v, lengths=lens, window=window, page_tokens=T)
+        torch.cuda.synchronize()
+        err = max(err, check_close(f"dense slots B={B} H={H} S={P * T} D={D} T={T} "
+                                   f"window={window}", got.cpu(), want, ATOL["bfloat16"]))
+    return err
+
+
+def record_top_logits(engines, tops: dict) -> None:
+    """Wrap each engine so that every token it samples (a prefill's, and
+    each advancing row's at a decode step) appends that pass's ``TOP_K``
+    largest logits and their token ids to ``tops[program id]``: the order
+    in which the router logs the program's tokens."""
+    def keep(pid, logits):
+        vals, ids = torch.topk(logits.float(), TOP_K)
+        tops.setdefault(pid, []).append((vals.tolist(), ids.tolist()))
+
+    for e in engines:
+        last = {}
+
+        def prefill(*a, _f=e.model.prefill, _last=last, **kw):
+            logits, cache = _f(*a, **kw)
+            _last["prefill"] = logits[0]
+            return logits, cache
+
+        def decode(key, packed, _f=e._decode, _last=last):
+            out = _f(key, packed)
+            _last["decode"] = out[0]
+            return out
+
+        def submit(req, _f=e.submit, _last=last):
+            sid = _f(req)
+            keep(req.program_id, _last.pop("prefill"))
+            return sid
+
+        def step(active=None, _f=e.step, _e=e, _last=last):
+            pids = {sid: slot.request.program_id for sid, slot in _e.slots.items()}
+            rows = [sid for sid in (pids if active is None else active) if sid in pids]
+            done = _f(active)
+            if "decode" in _last:
+                logits = _last.pop("decode")
+                for sid in rows:
+                    keep(pids[sid], logits[sid])
+            return done
+
+        e.model.prefill, e._decode, e.submit, e.step = prefill, decode, submit, step
+
+
+def compare_logs(got: dict, want: dict, tops: dict) -> dict:
+    """``got``'s output log against ``want``'s, program by program. Where
+    they part, the first differing token must be a near tie in ``got``'s
+    run: ``want``'s token among its top logits, within the model band
+    (MODEL_ATOL + MODEL_RTOL·|top logit|) of the largest."""
+    if set(got) != set(want):
+        raise AssertionError("the two replays served different programs")
+    firsts = []
+    for pid in sorted(got):
+        a, b = got[pid], want[pid]
+        if len(a) != len(b) or len(tops.get(pid, [])) != len(a):
+            raise AssertionError(f"{pid}: {len(a)} tokens against {len(b)}, "
+                                 f"{len(tops.get(pid, []))} sampled")
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            continue
+        vals, ids = tops[pid][i]
+        band = MODEL_ATOL + MODEL_RTOL * abs(vals[0])
+        gap = vals[0] - vals[ids.index(b[i])] if b[i] in ids else math.inf
+        firsts.append(dict(program=pid, index=i, token=a[i], other_token=b[i],
+                           logit_gap=gap, band=band))
+        if gap > band:
+            raise AssertionError(f"{pid} parts from the other replay at token {i} "
+                                 f"by a logit gap {gap} beyond the band {band}")
+    return dict(output_log_equal=not firsts, programs_differing=len(firsts),
+                first_differences=firsts)
+
+
+def serve_dense_slots(args, cfg, params, serve_log: dict) -> dict:
+    """Two warmed ``Engine(dense_slots=True)`` replicas behind
+    ``MoriRouter.replay`` with the launcher's pools, corpus and scheduler
+    (monolithic prefill): one decode graph an engine, captured in warmup,
+    replayed at every step; paged kernels (over the slots seen as pages)
+    = layers x decode steps on the device; the output log against phase
+    4's ``serve`` log."""
+    tops: dict = {}
+    record, engines, router = replay_paged(
+        args, chunked=False, cfg=cfg, params=params, label="serve_dense_slots",
+        engine_kw=dict(dense_slots=True), profile=False,
+        watch=lambda engines: record_top_logits(engines, tops))
+    if record["graph_captures"] != len(engines) or record["graph_buckets"] != ["dense"]:
+        raise AssertionError(f"dense-slot engines captured {record['graph_buckets']} "
+                             f"{record['graph_captures']} times, not one graph each")
+    out = compare_logs(router.output_log, serve_log, tops)
+    m = router.metrics
+    out.update(steps_completed=m.steps_completed, offloaded_pages=m.offloaded_pages,
+               reloaded_pages=m.reloaded_pages, decode_reserve_pages=engines[0].decode_reserve_pages)
+    log("serve_dense_slots against serve " + json.dumps(out))
+    record.update(out)
+    return record
+
+
+def serve_replicas(args, cfg, params) -> dict:
+    """Two warmed paged replicas with pressure migration on, int8 offload,
+    an NVMe tier and the page-lifetime sanitizer armed, replica 1 failing
+    mid-replay and recovering (``REPLICA_FAULT``): programs migrate, the
+    drain runs once, every program completes every step, offloads are
+    billed at the int8 page size, and the sanitizer stays quiet."""
+    from repro_torch.core.types import SchedulerConfig
+    from repro_torch.kernels import kv_quant
+    from repro_torch.launch import serve
+    from repro_torch.sim import FaultPlan
+
+    int8_page = kv_quant.page_wire_bytes(cfg.num_layers, 16, cfg.num_kv_heads, cfg.head_dim,
+                                         "int8")
+    os.environ["REPRO_KVSAN"] = "1"
+    try:
+        record, engines, router = replay_paged(
+            args, chunked=False, cfg=cfg, params=params, label="serve_replicas",
+            engine_kw=dict(offload_format="int8"), profile=False,
+            router_kw=dict(config=SchedulerConfig(tick_interval_s=1.0, migrate_on_pressure=True),
+                           ssd_capacity_bytes=SSD_PAGES * int8_page),
+            replay_kw=dict(faults=[FaultPlan(replica=1, fail_at=REPLICA_FAULT[0],
+                                             recover_at=REPLICA_FAULT[1])]))
+    finally:
+        os.environ.pop("REPRO_KVSAN")
+    m = router.metrics
+    corpus = serve.corpus_for(args)
+    want_steps = {t.program_id: len(t.steps) for t in corpus}
+    out = dict(
+        fault=dict(replica=1, fail_at=REPLICA_FAULT[0], recover_at=REPLICA_FAULT[1]),
+        migrations=m.migrations, migrated_pages=m.migrated_pages, drain_events=m.drain_events,
+        requeued_slots=m.requeued_slots, cancelled_pages=m.cancelled_pages,
+        nvme_reloaded_pages=m.nvme_reloaded_pages, offload_bytes=m.offload_bytes,
+        reload_bytes=m.reload_bytes, host_page_bytes=engines[0].pool.host_page_bytes,
+        int8_page_bytes=int8_page, steps_expected=sum(want_steps.values()),
+        kvsan_armed=all(e.pool._san is not None for e in engines),
+        checker_ran=router._checker is not None, ledger_open=len(router.sched.ledger),
+    )
+    log("serve_replicas checks " + json.dumps(out))
+    record.update(out)
+    lost = {pid: len(router.output_log.get(pid, [])) for pid, n in want_steps.items()
+            if len(router.output_log.get(pid, [])) != n * args.max_new_tokens}
+    if m.steps_completed != out["steps_expected"] or lost:
+        raise AssertionError(f"tokens lost: {m.steps_completed} of {out['steps_expected']} "
+                             f"steps completed; short programs {lost}")
+    if m.migrations <= 0 or m.migrated_pages <= 0:
+        raise AssertionError("no program migrated between the replicas")
+    if m.drain_events != 1:
+        raise AssertionError(f"{m.drain_events} drain events, not 1")
+    if engines[0].pool.host_page_bytes != int8_page or m.offload_bytes != (
+            m.offloaded_pages * int8_page):
+        raise AssertionError("offloads are not billed at the int8 page size")
+    if not (out["kvsan_armed"] and out["checker_ran"]) or out["ledger_open"]:
+        raise AssertionError("the sanitizer did not run, or left a transfer open")
+    return record
 
 
 def main(argv=None) -> int:
@@ -1651,12 +1866,15 @@ def main(argv=None) -> int:
     check_model_small()
     check_mamba_small()
     args = serve.parse_args([])          # the launcher's defaults: full width, cuda
-    mono, engines = replay_paged(args, chunked=False)
-    chunked, _ = replay_paged(args, chunked=True, cfg=engines[0].cfg,
-                              params=_param_tree(engines[0].model), label="serve_chunked")
+    mono, engines, serve_router = replay_paged(args, chunked=False)
+    chunked, _, _ = replay_paged(args, chunked=True, cfg=engines[0].cfg,
+                                 params=_param_tree(engines[0].model), label="serve_chunked")
     parity = graph_parity_paged(engines[0].cfg, _param_tree(engines[0].model))
     log("decode breakdown " + json.dumps(decode_breakdown(engines[0])))
-    del engines
+    # phase 7 serves the same weights again
+    qwen_cfg, qwen_params = engines[0].cfg, _param_tree(engines[0].model)
+    serve_log = {pid: list(toks) for pid, toks in serve_router.output_log.items()}
+    del engines, serve_router
     gc.collect()
     torch.cuda.empty_cache()
     ssm, ssm_engine = serve_ssm()
@@ -1674,6 +1892,15 @@ def main(argv=None) -> int:
             raise AssertionError(f"a replayed graph differs from its eager step: {case}")
         if DEVICE == "cuda" and case.get("paged_kernels_replayed", 0) != case.get("layers", 0):
             raise AssertionError(f"a decode graph did not run one paged kernel a layer: {case}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 7: the reference's other serving modes at qwen's full width
+    torch.cuda.reset_peak_memory_stats()
+    paged_err = max(paged_err, check_dense_slot_view())
+    dense = serve_dense_slots(args, qwen_cfg, qwen_params, serve_log)
+    torch.cuda.reset_peak_memory_stats()
+    replicas = serve_replicas(args, qwen_cfg, qwen_params)
 
     ft = flash_timing["monolithic"]
     kernels = {"kernels": [
@@ -1685,6 +1912,8 @@ def main(argv=None) -> int:
             "replaces_function": "paged_attention",
             "launches": mono["kernel_launches"],
             "launches_moe_replay": moe["kernel_launches"],
+            "launches_dense_slots_replay": dense["kernel_launches"],
+            "launches_replicas_replay": replicas["kernel_launches"],
             "max_abs_err": paged_err,
             "ms": paged_timing["ms"],
             "device_ms": paged_timing["device_ms"],
@@ -1704,6 +1933,8 @@ def main(argv=None) -> int:
             "launches": mono["flash_launches"],
             "launches_chunked_replay": chunked["flash_launches"],
             "launches_moe_replay": moe["flash_launches"],
+            "launches_dense_slots_replay": dense["flash_launches"],
+            "launches_replicas_replay": replicas["flash_launches"],
             "max_abs_err": flash_err,
             "ms": ft["ms"],
             "device_ms": ft["device_ms"],

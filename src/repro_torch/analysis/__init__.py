@@ -7,6 +7,9 @@
   checker run on every router tick when the sanitizer is enabled.
 * :mod:`repro_torch.analysis.compile_tracker` — capture budgets for the
   engines' step graphs (``REPRO_JITAUDIT=1``).
+* :mod:`repro_torch.analysis.fuzz` — randomized replay fuzzer that drives
+  the router under the sanitizer (``python -m repro_torch.analysis.fuzz``);
+  ``--compile-audit`` also arms the compile tracker per round.
 
 The first two are copies of the reference's pure-Python modules; the
 tracker counts graph captures where the reference counted jit lowerings. This

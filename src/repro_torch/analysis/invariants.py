@@ -125,13 +125,17 @@ class ControlPlaneChecker:
         sched = self.sched
         trace = self.auditor.ops
         for rep in sched.replicas:
+            # a host-tier copy is stored in the offload format, so the
+            # host tiers hold ``host_kv_bytes`` a program (the accounting
+            # of ``core.tiers``); the reference sums ``kv_bytes`` on every
+            # tier and so fails every int8-offload replay here
             named = (
-                ("gpu", rep.gpu, rep.gpu_used),
-                ("cpu", rep.cpu, rep.cpu_used),
-                ("ssd", rep.ssd, rep.ssd_used),
+                ("gpu", rep.gpu, rep.gpu_used, "kv_bytes"),
+                ("cpu", rep.cpu, rep.cpu_used, "host_kv_bytes"),
+                ("ssd", rep.ssd, rep.ssd_used, "host_kv_bytes"),
             )
-            for name, q, used in named:
-                want = sum(p.kv_bytes for p in q.values())
+            for name, q, used, size in named:
+                want = sum(getattr(p, size) for p in q.values())
                 if used != want:
                     raise InvariantError(
                         f"replica {rep.replica_id} {name} occupancy "

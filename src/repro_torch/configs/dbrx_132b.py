@@ -1,6 +1,6 @@
 """dbrx-132b [moe]: 40L d_model=6144 48H (GQA kv=8) d_ff=10752 vocab=100352,
 MoE 16e top-4, fine-grained. [hf:databricks/dbrx-base; unverified]
-Paper role: mid MoE scale point (132B, 16e top-4) standing in for the paper's MoE serving pair (qwen3-30b-a3b rows of repro.sim.hardware).
+Paper role: mid MoE scale point (132B, 16e top-4) standing in for the paper's MoE serving pair (qwen3-30b-a3b rows of repro_torch.sim.hardware).
 """
 from repro_torch.models.config import ModelConfig
 

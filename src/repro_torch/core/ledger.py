@@ -7,7 +7,7 @@ transfer-bearing action (``Offload``, ``Forward`` with a CPU/SSD source,
 ``scheduler.on_transfer_complete(pid, action_id, now)`` — or when the
 scheduler cancels it (early tool return) or the owning replica fails.
 
-Two channels are modeled, matching the hardware in ``repro.sim.hardware``:
+Two channels are modeled, matching the hardware in ``repro_torch.sim.hardware``:
 
 * ``pcie`` — host ↔ device DMA (GPU↔CPU offload/reload, migration ingest);
 * ``nvme`` — the §7.1 SSD tier's drive bandwidth (anything touching SSD).

@@ -5,7 +5,7 @@ lifecycle events and every event returns a :class:`PlacementPlan` — an
 ordered, immutable batch of typed actions (``Forward`` / ``Offload`` /
 ``Discard`` / ``Migrate`` / ``SetLabel`` / ``CancelTransfer``) that the
 runtime executes through its own ``apply_plan`` executor. The
-discrete-event simulator (``repro.sim``) and the real JAX serving engine
+discrete-event simulator (``repro_torch.sim``) and the real serving engine
 (``repro_torch.serving``) both drive *this exact code* — the policy is
 implemented once, and because plans are data, tests can assert exact
 action sequences from both runtimes on the same trace.

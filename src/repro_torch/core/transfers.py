@@ -10,7 +10,7 @@ hook, so the same queue model drives both executors of the plan/ack
 protocol:
 
 * the discrete-event simulator schedules straight into its event heap
-  (``repro.sim.engine._Replica``), one single-chunk job per transfer —
+  (``repro_torch.sim.engine._Replica``), one single-chunk job per transfer —
   the fluid model the paper's evaluation uses;
 * the real serving path (``repro_torch.serving.transfer_plane``) splits a job
   into page-granular chunks (``n_chunks``), copying one page per chunk

@@ -2,7 +2,7 @@
 
 Everything in ``repro_torch.core`` is *control plane*: pure Python, no JAX. The same
 objects drive both the real JAX serving engine (``repro_torch.serving``) and the
-discrete-event simulator (``repro.sim``), which is how the paper's policy code
+discrete-event simulator (``repro_torch.sim``), which is how the paper's policy code
 is validated once and reused everywhere.
 """
 from __future__ import annotations

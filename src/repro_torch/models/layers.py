@@ -12,7 +12,9 @@ the layer index where the reference ran ``lax.scan``.
 Prefill attention goes through
 :func:`repro_torch.kernels.flash_attention.ops.prefill_attention`, decode
 attention reads the paged pool through
-:func:`repro_torch.kernels.paged_attention.ops.paged_attention_decode`, and
+:func:`repro_torch.kernels.paged_attention.ops.paged_attention_decode` and
+a dense slot cache through :func:`decode_attention` (the same kernel over
+the slots seen as pages), and
 the Mamba-2 block's sequence-mode scan through
 :func:`repro_torch.kernels.ssd.ops.ssd`: each launches its Hopper kernel
 for CUDA tensors and takes its plain version (:func:`blockwise_attention`,
@@ -29,7 +31,7 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import prefill_attention
 from repro_torch.kernels.flash_attention.ref import blockwise_attention  # noqa: F401 (re-export)
-from repro_torch.kernels.paged_attention.ops import paged_attention_decode
+from repro_torch.kernels.paged_attention.ops import paged_attention, paged_attention_decode
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.kernels.ssd.ref import ssd_decode_step
 from repro_torch.models.config import ModelConfig
@@ -111,6 +113,63 @@ def _project_qkv(p, x, h, kh, hd, positions, theta):
     k = k.reshape(B, S, kh, hd)
     v = v.reshape(B, S, kh, hd)
     return rope(q, positions, theta), rope(k, positions, theta), v
+
+
+def slot_pages(cache, page_tokens: int):
+    """A slot cache ``[B, S, KH, D]`` seen as a page pool, without a copy:
+    pages ``[B*S/T, T, KH, D]`` and the block table ``[B, S/T]`` int32 whose
+    row ``b`` names the pages ``b*S/T + arange(S/T)``. ``S`` must be a
+    multiple of ``T`` (``page_tokens``)."""
+    B, S, KH, D = cache.shape
+    if S % page_tokens:
+        raise ValueError(
+            f"a slot cache of {S} positions is not a whole number of "
+            f"{page_tokens}-token pages")
+    P = S // page_tokens
+    pages = cache.view(B * P, page_tokens, KH, D)
+    table = torch.arange(B * P, dtype=torch.int32, device=cache.device).view(B, P)
+    return pages, table
+
+
+def decode_attention(q, k_cache, v_cache, *, lengths, window=None, cap=None,
+                     page_tokens: int = 16):
+    """Single-token attention over a slot cache.
+
+    q: [B, H, D]; k_cache/v_cache: [B, S, KH, D]; lengths: [B] (tokens
+    valid, inclusive of the one just written). Returns ``[B, H*D]`` in
+    q's dtype.
+
+    On CUDA tensors the caches are read as ``page_tokens``-token pages
+    (:func:`slot_pages`) by the paged-attention kernel, whose visible
+    positions ``[lengths - window, lengths)`` are the reference's mask; it
+    raises where the kernel refuses the shapes. On CPU tensors this is the
+    reference's masked softmax in plain PyTorch: scores and the weighted
+    sum in f32, the weights rounded to q's dtype before the sum, as the
+    reference's einsums take them.
+    """
+    B, S, KH, D = k_cache.shape
+    H = q.shape[1]
+    if q.is_cuda:
+        k_pages, table = slot_pages(k_cache, page_tokens)
+        v_pages, _ = slot_pages(v_cache, page_tokens)
+        out = paged_attention(q, k_pages, v_pages, table, lengths.to(torch.int32),
+                              softcap=cap, window=window)
+        return out.reshape(B, H * D)
+    G = H // KH
+    s = torch.einsum("bhgd,bshd->bhgs", q.reshape(B, KH, G, D).to(F32),
+                     k_cache.to(F32)) * (D ** -0.5)
+    s = softcap(s, cap)
+    pos = torch.arange(S, device=q.device)[None, :]
+    lens = lengths.long()[:, None]
+    mask = pos < lens
+    if window is not None:
+        mask &= pos >= (lens - window)
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, -1e30))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    out = torch.einsum("bhgs,bshd->bhgd", p.to(q.dtype).to(F32), v_cache.to(F32))
+    out = out / p.sum(-1)[..., None]
+    return out.reshape(B, H * D).to(q.dtype)
 
 
 # ======================================================================= FFN
@@ -242,36 +301,62 @@ def describe_dense_block(cfg: ModelConfig):
 
 
 def apply_dense_block(
-    p, x, cfg: ModelConfig, *, positions, window=None, prefix=None,
-    prefix_valid=None,
+    p, x, cfg: ModelConfig, *, positions, window=None, cache=None, lengths=None,
+    prefix=None, prefix_valid=None, page_tokens: int = 16,
 ):
-    """One transformer block in sequence mode: returns ``(x, (k, v))``.
+    """One transformer block. Modes:
 
-    With ``prefix=(pk, pv)`` (chunked prefill over a radix-cached prefix),
-    attention runs over concat(prefix, current) — positions must already
-    be offset by the prefix length. ``prefix_valid`` marks how many prefix
-    positions are real when the prefix is padded to a bucket; positions in
-    ``[prefix_valid, Sp)`` are masked.
+    * sequence mode (``cache`` is None): returns ``(x, (k, v))``. With
+      ``prefix=(pk, pv)`` (chunked prefill over a radix-cached prefix),
+      attention runs over concat(prefix, current) — positions must
+      already be offset by the prefix length. ``prefix_valid`` marks how
+      many prefix positions are real when the prefix is padded to a
+      bucket; positions in ``[prefix_valid, Sp)`` are masked.
+    * decode mode (``cache = (k_cache, v_cache)`` slot buffers
+      ``[B, S, KH, HD]``): writes the new token at ``lengths - 1`` in
+      place, where the reference returned updated buffers, then attends
+      through :func:`decode_attention` (``page_tokens`` is the page size
+      the kernel reads the slots in); returns ``(x, (k_cache, v_cache))``.
     """
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     a_in = rmsnorm(x, p["ln1"])
     q, k, v = _project_qkv(p["attn"], a_in, h, kh, hd, positions, cfg.rope_theta)
-    k_att, v_att, q_off, hole = k, v, 0, None
-    if prefix is not None:
-        pk, pv = prefix
-        k_att = torch.cat([pk.to(k.dtype), k], dim=1)
-        v_att = torch.cat([pv.to(v.dtype), v], dim=1)
-        q_off = pk.shape[1]
-        if prefix_valid is not None:
-            hole = (prefix_valid, q_off)
-    attn = prefill_attention(
-        q, k_att, v_att, causal=True, window=window,
-        cap=cfg.attn_logit_softcap, q_offset=q_off, kv_hole=hole,
-    )
-    B, S, _, _ = attn.shape
-    x = x + (attn.reshape(B, S, h * hd) @ p["attn"]["wo"])
+    if cache is None:
+        k_att, v_att, q_off, hole = k, v, 0, None
+        if prefix is not None:
+            pk, pv = prefix
+            k_att = torch.cat([pk.to(k.dtype), k], dim=1)
+            v_att = torch.cat([pv.to(v.dtype), v], dim=1)
+            q_off = pk.shape[1]
+            if prefix_valid is not None:
+                hole = (prefix_valid, q_off)
+        attn = prefill_attention(
+            q, k_att, v_att, causal=True, window=window,
+            cap=cfg.attn_logit_softcap, q_offset=q_off, kv_hole=hole,
+        )
+        B, S, _, _ = attn.shape
+        attn = attn.reshape(B, S, h * hd)
+        new_kv = (k, v)
+    else:
+        k_cache, v_cache = cache
+        idx = lengths - 1                                      # write position
+        _write_slot(k_cache, k[:, 0], idx)
+        _write_slot(v_cache, v[:, 0], idx)
+        attn = decode_attention(
+            q[:, 0], k_cache, v_cache, lengths=lengths, window=window,
+            cap=cfg.attn_logit_softcap, page_tokens=page_tokens,
+        )[:, None, :]
+        new_kv = (k_cache, v_cache)
+    x = x + (attn @ p["attn"]["wo"])
     x = x + apply_ffn_or_moe(p["ffn"], rmsnorm(x, p["ln2"]), cfg)
-    return x, (k, v)
+    return x, new_kv
+
+
+def _write_slot(cache, new, idx):
+    """cache: [B, S, ...]; new: [B, ...]; idx: [B] position per row.
+    Writes in place (the reference returned the updated array)."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, idx.long()] = new.to(cache.dtype)
 
 
 def apply_dense_block_paged(

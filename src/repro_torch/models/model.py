@@ -1,6 +1,7 @@
-"""Model assembly of the port: describe / prefill / paged decode for the
-dense and ``moe`` families without local/global alternation, and
-describe / prefill / decode for the ``ssm`` family (mamba2).
+"""Model assembly of the port: describe / prefill / slot-cache decode /
+paged decode for the dense and ``moe`` families without local/global
+alternation, and describe / prefill / decode for the ``ssm`` family
+(mamba2).
 
 The counterpart of ``repro/models/model.py``. :class:`Model` is an
 ``nn.Module`` whose buffers are the parameter tree, leaf name for leaf
@@ -29,6 +30,7 @@ from repro_torch.models.layers import (
 from repro_torch.models.params import Leaf, flatten_tree, leaves
 
 F32 = torch.float32
+KV_AXES = ("layers", "batch", "kv_seq", "kv_heads_act", "head_dim")
 
 
 #: the families the port does not serve yet, each with its ROADMAP §1 item
@@ -116,12 +118,19 @@ class Model(nn.Module):
 
     # --------------------------------------------------------------- cache
     def describe_cache(self, batch: int, max_seq: int) -> dict:
-        """The ssm family's per-program decode state: SSD state f32 and
-        conv state bf16, O(1) in ``max_seq``. The dense family keeps its
-        KV in the serving engine's page pool instead."""
+        """The decode cache :meth:`decode` takes. The dense and moe
+        families: dense slot buffers ``{"k", "v"}`` ``[L, batch, max_seq,
+        KH, HD]`` bf16 (the serving engine's paged mode keeps its KV in the
+        page pool instead). The ssm family: SSD state f32 and conv state
+        bf16, O(1) in ``max_seq``."""
         cfg = self.cfg
-        if cfg.family != "ssm":
-            raise NotImplementedError("dense-slot caches are not ported; KV lives in pages")
+        if cfg.family in PAGED_FAMILIES:
+            L, KH, HD = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+            return {
+                name: Leaf((L, batch, max_seq, KH, HD), KV_AXES, torch.bfloat16,
+                           init="zeros")
+                for name in ("k", "v")
+            }
         L, conv_dim = cfg.num_layers, cfg.ssm_inner + 2 * cfg.ssm_state
         return {
             "ssm": Leaf((L, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
@@ -193,31 +202,41 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------- decode
     @torch.no_grad()
-    def decode(self, cache, tokens, lengths):
-        """One decode step of the ssm family. ``tokens`` [B]; ``lengths``
-        [B] = context length including the new token (unused by the
-        recurrence, kept for the reference's signature). ``cache`` is
-        {"ssm", "conv"} as :meth:`prefill` returns it; returns
-        ``(logits [B, V] f32, new_cache)`` and leaves ``cache`` as it was.
-        The dense family's slot-cache decode is not ported: it serves
-        through :meth:`decode_paged`."""
-        del lengths
-        if self.cfg.family != "ssm":
-            raise NotImplementedError("dense-slot decode is not ported; use decode_paged")
+    def decode(self, cache, tokens, lengths, *, page_tokens: int = 16):
+        """One decode step. ``tokens`` [B]; ``lengths`` [B] = context
+        length including the new token. ``cache`` is the dense and moe
+        families' slot buffers {"k", "v"} ``[L, B, S, KH, HD]``
+        (:meth:`describe_cache`) or the ssm family's {"ssm", "conv"} as
+        :meth:`prefill` returns it. Returns ``(logits [B, V] f32,
+        new_cache)`` and leaves ``cache`` as it was (see
+        :meth:`decode_into` for the in-place step)."""
         new_cache = {k: t.clone() for k, t in cache.items()}
-        return self.decode_into(new_cache, tokens), new_cache
+        return self.decode_into(new_cache, tokens, lengths, page_tokens=page_tokens), new_cache
 
     @torch.no_grad()
-    def decode_into(self, state, tokens):
-        """:meth:`decode` updating ``state`` ({"ssm", "conv"}, stacked over
-        layers) in place, where the reference returned new arrays: a
-        captured decode graph reads and writes one static state at fixed
-        addresses. Each layer's new state is computed whole before it is
-        copied over the old. Returns ``logits [B, V]`` (f32)."""
+    def decode_into(self, state, tokens, lengths=None, *, page_tokens: int = 16):
+        """:meth:`decode` updating ``state`` in place, where the reference
+        returned new arrays: a captured decode graph reads and writes one
+        static cache at fixed addresses. Returns ``logits [B, V]`` (f32).
+
+        Dense and moe: each layer writes the new token's KV into its slot
+        buffers at ``lengths - 1``, then attends over them through
+        :func:`~repro_torch.models.layers.decode_attention`, which on the
+        card reads the slots as ``page_tokens``-token pages with the
+        paged-attention kernel. ssm: ``lengths`` is unused (the recurrence
+        needs none); each layer's new state is computed whole before it is
+        copied over the old."""
         cfg = self.cfg
-        if cfg.family != "ssm":
-            raise NotImplementedError("dense-slot decode is not ported; use decode_paged")
         x = self.params.embed[tokens][:, None, :]           # [B,1,d]
+        if cfg.family in PAGED_FAMILIES:
+            positions = (lengths - 1)[:, None]
+            for l, p in enumerate(self._layers):
+                x, _ = apply_dense_block(
+                    p, x, cfg, positions=positions, window=cfg.sliding_window,
+                    cache=(state["k"][l], state["v"][l]), lengths=lengths,
+                    page_tokens=page_tokens,
+                )
+            return self._logits(x[:, 0, :])
         for l, p in enumerate(self._layers):
             x, (st, cv) = apply_mamba_block(p, x, cfg, cache=(state["ssm"][l], state["conv"][l]))
             state["ssm"][l].copy_(st)

@@ -12,6 +12,12 @@ execution plane the MORI scheduler drives:
   slot's tail page in place,
 * monolithic (``submit``) and chunked (``begin_submit``/``prefill_step``)
   prefill that write KV straight into pool pages,
+* ``dense_slots=True``: the reference's pre-block-table decode path
+  (JetStream-style fixed slot buffers ``[L, max_slots, max_seq, KH, HD]``),
+  its benchmark baseline. The decode step reads the slot buffers with the
+  same paged-attention kernel, each slot seen as ``max_seq / page_tokens``
+  pages of its own; ``_finish`` copies full pages into the pool for the
+  radix tree. It takes monolithic prefill only, and bf16 device pages.
 * engine-level eviction that follows the scheduler's typed labels,
 * program-level offload / reload / discard entry points used by the
   MORI router.
@@ -22,7 +28,8 @@ captures the decode step once per table bucket as a CUDA graph
 :meth:`Engine.warmup_specs` lists the reference's buckets,
 :meth:`Engine.warmup` captures every decode bucket before traffic, and a
 bucket first met later is captured then, which the compile tracker
-(``REPRO_JITAUDIT=1``) counts as a post-warmup capture. A step stages its
+(``REPRO_JITAUDIT=1``) counts as a post-warmup capture. The dense-slot
+step has one shape, so one graph. A step stages its
 inputs in one pinned host buffer, copies them to the bucket's static
 buffer, replays, and reads back the greedy tokens the graph sampled. The
 chunk prefill runs eagerly: its flash launch takes the chunk's offsets as
@@ -55,6 +62,8 @@ from repro_torch.serving.graphs import StepGraphs
 
 #: engine ids for the compile tracker's names, as the reference numbers them
 _ENGINE_IDS = itertools.count()
+#: the graph key of the dense-slot decode step (paged buckets are ints)
+DENSE_KEY = "dense"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -123,15 +132,16 @@ class WarmupSpec:
     spec of the same name, kind, bucket and probe group.
 
     ``make_args`` is lazy, as in the reference: it builds the inputs at
-    call time, on the engine's scratch pages. A ``paged_decode`` spec's
-    inputs are the bucket's staged int32 vector (:meth:`Engine._pack`); a
+    call time, on the engine's scratch pages or, for the ``dense`` spec,
+    slot position 0. A ``dense`` or ``paged_decode`` spec's inputs are the
+    step's staged int32 vector (:meth:`Engine._pack`); a
     ``chunk_prefill`` spec's are the keyword arguments of one eager
     chunk. ``probe_group`` names the structural equivalence class the
     reference's audit pairs specs by.
     """
 
     name: str
-    kind: str                    # "paged_decode" | "chunk_prefill"
+    kind: str                    # "dense" | "paged_decode" | "chunk_prefill"
     make_args: object            # () -> the spec's inputs
     bucket: dict = field(default_factory=dict)
     probe_group: str = ""
@@ -214,12 +224,22 @@ class Engine:
         n_host_pages: int = 256,
         max_slots: int = 4,
         max_seq: int = 512,
+        dense_slots: bool = False,
         table_bucket_pages: int = 4,
         prefill_bucket_tokens: int = 32,
         prefill_chunk_tokens: int = 64,
         offload_format: str = "bf16",
         device_format: str = "bf16",
     ):
+        if dense_slots and device_format == "int8":
+            raise ValueError(
+                "device_format='int8' packs the paged pool; the dense-slot "
+                "path has no page-granular scale sidecars")
+        if dense_slots and max_seq % page_tokens:
+            raise ValueError(
+                f"dense_slots needs max_seq ({max_seq}) to be a multiple of "
+                f"page_tokens ({page_tokens}): the decode kernel reads each "
+                "slot as whole pages")
         self.device = resolve_device(device)
         self.cfg = cfg
         # the model holds ``params`` without copying them when they are
@@ -230,17 +250,21 @@ class Engine:
         self.page_tokens = page_tokens
         self.max_slots = max_slots
         self.max_seq = max_seq
+        self.dense_slots = dense_slots
         # suffix prefill pads to this bucket, as the reference does;
         # causality keeps outputs identical
         self.prefill_bucket = max(1, prefill_bucket_tokens)
         # default per-call token budget for prefill_step (page-aligned there)
         self.prefill_chunk_tokens = max(1, prefill_chunk_tokens)
         self.pages_per_slot = -(-max_seq // page_tokens)
-        # decode state lives IN the pool: pages_per_slot per slot plus one
-        # scratch page per slot (inactive batch rows write their garbage
+        # paged decode state lives IN the pool: pages_per_slot per slot plus
+        # one scratch page per slot (inactive batch rows write their garbage
         # token there). The reserve is excluded from the router's
-        # radix-capacity accounting via ``decode_reserve_pages``.
-        self.decode_reserve_pages = max_slots * (self.pages_per_slot + 1)
+        # radix-capacity accounting via ``decode_reserve_pages``; the
+        # dense-slot path keeps its decode state in the slot buffers.
+        self.decode_reserve_pages = (
+            0 if dense_slots else max_slots * (self.pages_per_slot + 1)
+        )
         self.radix_device_pages = n_device_pages  # cache budget (sans reserve)
         self.pool = PagePool(
             layers=cfg.num_layers,
@@ -266,16 +290,26 @@ class Engine:
         self._tail_token = np.zeros(max_slots, np.int32)
         self.slots: dict[int, _Slot] = {}
         self._free_slots = list(range(max_slots))
-        self._scratch_pages = [self.pool.alloc_device() for _ in range(max_slots)]
+        if dense_slots:
+            L, KH, HD = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+            self.slot_k = torch.zeros((L, max_slots, max_seq, KH, HD),
+                                      dtype=torch.bfloat16, device=self.device)
+            self.slot_v = torch.zeros_like(self.slot_k)
+            self._scratch_pages: list[int] = []
+        else:
+            self._scratch_pages = [self.pool.alloc_device() for _ in range(max_slots)]
         self._table_bucket = table_bucket_pages
-        # compile plane: one decode graph per table bucket, each over its
-        # bucket's staged inputs (``_staging``: a host vector, pinned on the
-        # card so its copy is asynchronous, and the static device vector
-        # the graph reads) and the pool's tensors, which never move;
-        # ``_staged`` marks the last copy out of a host vector
+        # compile plane: one decode graph per table bucket (dense slots: one
+        # graph), each over its bucket's staged inputs (``_staging``: a host
+        # vector, pinned on the card so its copy is asynchronous, and the
+        # static device vector the graph reads) and the pool's tensors or
+        # slot buffers, which never move; ``_staged`` marks the last copy
+        # out of a host vector
         self._audit_id = next(_ENGINE_IDS)
-        self.graphs = StepGraphs(f"engine{self._audit_id}.paged_decode", self.device)
-        self._staging: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self.graphs = StepGraphs(
+            f"engine{self._audit_id}.{'decode' if dense_slots else 'paged_decode'}",
+            self.device)
+        self._staging: dict = {}             # graph key -> (host, static)
         self._staged = torch.cuda.Event() if self.device.type == "cuda" else None
         # metrics
         self.steps = 0
@@ -295,6 +329,8 @@ class Engine:
         """The hot-path graph caches by tracker name: the counterpart of
         the reference's ``jit_functions``. The chunk prefill runs eagerly,
         so only the decode cache is listed."""
+        if self.dense_slots:
+            return {f"engine{self._audit_id}.decode_graphs": self.graphs}
         return {f"engine{self._audit_id}.paged_decode_graphs": self.graphs}
 
     def warmup_specs(self, prefill_chunks: bool = False) -> list[WarmupSpec]:
@@ -303,10 +339,16 @@ class Engine:
 
         Paged decode emits one spec per table bucket (tables pad to
         ``table_bucket_pages``); chunked prefill one per (prefix-page
-        bucket x chunk bucket) pair up to ``prefill_chunk_tokens``. A
-        replay that stays inside these specs captures nothing after
-        warmup: the compile tracker's budget.
+        bucket x chunk bucket) pair up to ``prefill_chunk_tokens``; the
+        dense path a single shape. A replay that stays inside these specs
+        captures nothing after warmup: the compile tracker's budget.
         """
+        if self.dense_slots:
+            return [WarmupSpec(
+                name="decode_fn", kind="dense", make_args=self._scratch_dense_inputs,
+                bucket={"max_slots": self.max_slots, "max_seq": self.max_seq},
+                probe_group=f"engine{self._audit_id}/dense",
+            )]
         n_buckets = -(-self.pages_per_slot // self._table_bucket)
         specs: list[WarmupSpec] = []
         for i in range(1, n_buckets + 1):
@@ -354,32 +396,42 @@ class Engine:
 
         Each table bucket's graph is captured and replayed once on the
         per-slot scratch pages, so serving never stops to capture when a
-        batch first crosses a bucket boundary. Must run on an idle engine
-        (the dummy steps write garbage KV into the scratch pages, which
-        the first real step overwrites). ``prefill_chunks=True`` also runs
-        every chunked-prefill bucket once, eagerly, against the scratch
-        pages. When the compile tracker is armed (``REPRO_JITAUDIT=1``)
+        batch first crosses a bucket boundary; the dense-slot path's one
+        graph is captured on slot position 0. Must run on an idle engine
+        (the dummy steps write garbage KV into the scratch pages or slot
+        position 0, which the first real submit or step overwrites).
+        ``prefill_chunks=True`` also runs every chunked-prefill bucket
+        once, eagerly, against the scratch pages. When the compile tracker is armed (``REPRO_JITAUDIT=1``)
         the caches' sizes then become this engine's capture budget."""
         if self.slots:
             raise RuntimeError("warmup must run on an idle engine")
         tracker = compile_tracker.get_tracker()
         with tracker.phase("warmup"):
             for spec in self.warmup_specs(prefill_chunks=prefill_chunks):
-                if spec.kind == "paged_decode":
+                if spec.kind == "dense":
+                    self._decode(DENSE_KEY, spec.make_args())
+                elif spec.kind == "paged_decode":
                     self._decode(spec.bucket["table_pages"], spec.make_args())
                 else:
                     _chunk_prefill(self.model, self.pool, **spec.make_args())
         if compile_tracker.enabled():
             tracker.mark_warm(tuple(self.graph_functions()))
 
-    def _pack(self, tokens, lengths, tail_pages, tail_offsets, tables) -> np.ndarray:
+    def _pack(self, tokens, lengths, *paged) -> np.ndarray:
         """A decode step's inputs as one int32 vector, the layout of a
-        bucket's staging buffers: ``[tokens | lengths | tail pages | tail
-        offsets]`` (``max_slots`` each), then ``tables`` row by row."""
+        bucket's staging buffers: ``[tokens | lengths]`` (``max_slots``
+        each); for paged decode (``paged = (tail_pages, tail_offsets,
+        tables)``) then the tail pages and offsets, and ``tables`` row by
+        row."""
         return np.concatenate([
-            np.asarray(a, np.int32).reshape(-1)
-            for a in (tokens, lengths, tail_pages, tail_offsets, tables)
+            np.asarray(a, np.int32).reshape(-1) for a in (tokens, lengths, *paged)
         ])
+
+    def _scratch_dense_inputs(self) -> np.ndarray:
+        """The dense step's inputs with every row at slot position 0:
+        token 0 written there and attended alone."""
+        B = self.max_slots
+        return self._pack(np.zeros(B), np.ones(B))
 
     def _scratch_decode_inputs(self, p_pad: int) -> np.ndarray:
         """Bucket ``p_pad``'s decode inputs with every row on its own
@@ -389,21 +441,21 @@ class Engine:
         return self._pack(np.zeros(B), np.ones(B), scratch, np.zeros(B),
                           np.repeat(scratch[:, None], p_pad, axis=1))
 
-    def _decode(self, p_pad: int, packed: np.ndarray):
-        """One decode step of table bucket ``p_pad`` over ``packed``
-        (:meth:`_pack`): stage it, replay the bucket's graph (capturing it
-        first if the bucket has none) and return the graph's static
-        ``(logits [B, V] f32, greedy tokens [B])``, valid until the next
-        replay."""
-        if p_pad not in self._staging:
-            n = self.max_slots * (4 + p_pad)
-            self._staging[p_pad] = (
+    def _decode(self, key, packed: np.ndarray):
+        """One decode step of table bucket ``key`` (the dense-slot step:
+        :data:`DENSE_KEY`) over ``packed`` (:meth:`_pack`): stage it, replay
+        the bucket's graph (capturing it first if the bucket has none) and
+        return the graph's static ``(logits [B, V] f32, greedy tokens
+        [B])``, valid until the next replay."""
+        if key not in self._staging:
+            n = len(packed)
+            self._staging[key] = (
                 torch.zeros(n, dtype=torch.int32, pin_memory=self.device.type == "cuda"),
                 torch.zeros(n, dtype=torch.int32, device=self.device),
             )
-        host, static = self._staging[p_pad]
-        if p_pad not in self.graphs:
-            self._capture_decode(p_pad, static)
+        host, static = self._staging[key]
+        if key not in self.graphs:
+            self._capture_decode(key, static, packed)
         if self._staged is not None:
             # the last asynchronous copy out of a staging buffer has been
             # read before any staging buffer is written again
@@ -412,14 +464,34 @@ class Engine:
         static.copy_(host, non_blocking=True)
         if self._staged is not None:
             self._staged.record()
-        return self.graphs.replay(p_pad)
+        return self.graphs.replay(key)
 
-    def _capture_decode(self, p_pad: int, static: torch.Tensor) -> None:
-        """Capture bucket ``p_pad``'s decode step over ``static``. The
+    def _capture_decode(self, key, static: torch.Tensor, packed: np.ndarray) -> None:
+        """Capture bucket ``key``'s decode step over ``static``. The
         capture's eager run on the card reads ``static``, so it is filled
-        with the warmup spec's scratch-page inputs first."""
-        static.copy_(torch.from_numpy(self._scratch_decode_inputs(p_pad)))
-        self.graphs.capture(p_pad, lambda: self.decode_packed(static, p_pad))
+        first: for a paged bucket with the warmup spec's scratch-page
+        inputs; for the dense-slot step with the step's own inputs
+        ``packed``, whose eager run rewrites the KV each row's replay then
+        writes again, the same values at the same positions (and, on an
+        idle engine, slot position 0)."""
+        if key == DENSE_KEY:
+            static.copy_(torch.from_numpy(packed))
+            self.graphs.capture(key, lambda: self.decode_dense(static))
+            return
+        static.copy_(torch.from_numpy(self._scratch_decode_inputs(key)))
+        self.graphs.capture(key, lambda: self.decode_packed(static, key))
+
+    def decode_dense(self, staged: torch.Tensor, slot_tensors=None):
+        """The dense-slot decode step run op by op: the function its graph
+        captures. ``staged`` is a device int32 vector ``[tokens |
+        lengths]``; ``slot_tensors`` the k and v slot buffers it writes and
+        reads, by default the engine's own. Returns the logits ``[B, V]``
+        f32 and the greedy tokens ``[B]``."""
+        toks, lens = staged.view(2, self.max_slots)
+        k, v = slot_tensors or (self.slot_k, self.slot_v)
+        logits = self.model.decode_into({"k": k, "v": v}, toks.long(), lens,
+                                        page_tokens=self.page_tokens)
+        return logits, greedy_token(logits)
 
     def decode_packed(self, staged: torch.Tensor, p_pad: int, pool_tensors=None):
         """The decode step of table bucket ``p_pad`` run op by op: the
@@ -440,7 +512,8 @@ class Engine:
     # ------------------------------------------------------------- kvsan
     def _kvsan_reachable(self):
         """Live page references outside the radix tree, for the sanitizer:
-        per-slot scratch pages and every resident block table."""
+        per-slot scratch pages and every resident block table (none in
+        the dense-slot path)."""
         out = [("dev", p, "scratch") for p in self._scratch_pages]
         for slot in self.slots.values():
             pid = slot.request.program_id
@@ -503,9 +576,11 @@ class Engine:
             raise ValueError("request must extend its cached prefix")
 
         # pin before touching the pool: suffix-page allocation may evict,
-        # and the prefix chain a block table points at must survive
+        # and the prefix chain a block table points at must survive (the
+        # dense-slot path copies the prefix into its slot and holds none)
         self.tree.pin(pid)
-        self.tree.acquire_nodes(nodes)
+        if not self.dense_slots:
+            self.tree.acquire_nodes(nodes)
 
         prefix = None
         if pages:
@@ -519,11 +594,9 @@ class Engine:
         )
         first_token = int(greedy_token(logits[0]))
 
-        # 3. install into a decode slot: reference the cached prefix pages
-        # and write the suffix KV straight into freshly allocated pages
+        # 3. install into a decode slot
         sid = self._free_slots.pop()
         length = len(req.tokens)
-        new_pages = self._alloc_suffix_pages(len(pages), length, nodes, pid, sid)
         slot = _Slot(
             request=req,
             slot_id=sid,
@@ -532,13 +605,25 @@ class Engine:
             cached_tokens=cached,
             prefilled_tokens=len(suffix),
             reloaded_pages=reloaded,
-            table=list(pages) + new_pages,
-            owned_from=len(pages),
-            prefix_nodes=nodes,
         )
         k_suf = cache["k"][:, 0, : len(suffix)]                 # [L,Ssuf,KH,HD]
         v_suf = cache["v"][:, 0, : len(suffix)]
-        self.pool.write_device_pages(new_pages, k_suf, v_suf)
+        if self.dense_slots:
+            # the slot holds the whole context: cached prefix, then suffix
+            k_ctx, v_ctx = k_suf, v_suf
+            if prefix is not None:
+                k_ctx = torch.cat([prefix["k"][:, 0], k_ctx], dim=1)
+                v_ctx = torch.cat([prefix["v"][:, 0], v_ctx], dim=1)
+            self.slot_k[:, sid, :length] = k_ctx
+            self.slot_v[:, sid, :length] = v_ctx
+        else:
+            # block-table install: reference the cached prefix pages and
+            # write the suffix KV straight into freshly allocated pages
+            new_pages = self._alloc_suffix_pages(len(pages), length, nodes, pid, sid)
+            slot.table = list(pages) + new_pages
+            slot.owned_from = len(pages)
+            slot.prefix_nodes = nodes
+            self.pool.write_device_pages(new_pages, k_suf, v_suf)
         self.lengths[sid] = length
         self.last_token[sid] = first_token
         self._tail_token[sid] = req.tokens[-1]  # prefill wrote its KV last
@@ -552,8 +637,10 @@ class Engine:
         Reserves a decode slot, pins the matched prefix chain, and stages
         every suffix page up front. No model compute runs here. On
         allocation failure all state is rolled back and the RuntimeError
-        propagates, as in ``submit``.
+        propagates, as in ``submit``. The dense-slot path refuses it.
         """
+        if self.dense_slots:
+            raise RuntimeError("chunked prefill requires the paged engine")
         self._check_request(req)
         pid = req.program_id
         self._san_scope(f"begin_submit:{pid}")
@@ -753,7 +840,11 @@ class Engine:
                 # masked: rewrite the existing tail KV instead of clobbering
                 # it with the (not-yet-written) last token's
                 toks_np[sid] = self._tail_token[sid]
-        next_tok = self._paged_step(toks_np, np.maximum(self.lengths, 1))
+        lens = np.maximum(self.lengths, 1)
+        if self.dense_slots:
+            next_tok = self._dense_step(toks_np, lens)
+        else:
+            next_tok = self._paged_step(toks_np, lens)
         done: list[Completion] = []
         for sid, slot in list(self.slots.items()):
             if sid not in active_set:
@@ -765,6 +856,15 @@ class Engine:
             if len(slot.produced) >= slot.request.max_new_tokens:
                 done.append(self._finish(slot))
         return done
+
+    @torch.no_grad()
+    def _dense_step(self, toks: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        """Dense-slot decode through its graph: every row writes its token's
+        KV at ``lens - 1`` of its slot and attends over the slot's first
+        ``lens`` positions (a free slot: position 0). Returns the sampled
+        token of every batch row."""
+        _, next_tok = self._decode(DENSE_KEY, self._pack(toks, lens))
+        return next_tok.cpu().numpy()
 
     @torch.no_grad()
     def _paged_step(self, toks: np.ndarray, lens: np.ndarray) -> np.ndarray:
@@ -812,7 +912,9 @@ class Engine:
     def _finish(self, slot: _Slot) -> Completion:
         """Persist the slot's full pages into the radix tree, free the slot.
 
-        The already-resident pages are handed over by id (zero copy).
+        Paged mode hands the already-resident pages over by id (zero copy).
+        Dense mode copies slot data into freshly allocated pool pages, as
+        far as the pool has room.
         """
         req = slot.request
         self._san_scope(f"finish:{req.program_id}")
@@ -825,16 +927,32 @@ class Engine:
         self.slots.pop(slot.slot_id)
         self._free_slots.append(slot.slot_id)
         self.lengths[slot.slot_id] = 0
-        # duplicates of pages another program inserted first, plus the
-        # partially filled tail page, go back to the free list; the rest
-        # transfer ownership to the tree in place
-        new_pages = slot.table[have:n_full]
-        for p in range(slot.owned_from, have):
-            self.pool.free_device(slot.table[p])
-        if len(all_tokens) % T and n_full < len(slot.table):
-            self.pool.free_device(slot.table[n_full])
-        covered = n_full * T
-        self.tree.release_nodes(slot.prefix_nodes)
+        if self.dense_slots:
+            new_pages = []
+            for p in range(have, n_full):
+                self._ensure_device_page()
+                page = self.pool.alloc_device()
+                if page is None:
+                    break
+                lo, hi = p * T, (p + 1) * T
+                self.pool.write_device_pages(
+                    [page],
+                    self.slot_k[:, slot.slot_id, lo:hi],
+                    self.slot_v[:, slot.slot_id, lo:hi],
+                )
+                new_pages.append(page)
+            covered = (have + len(new_pages)) * T
+        else:
+            # duplicates of pages another program inserted first, plus the
+            # partially filled tail page, go back to the free list; the
+            # rest transfer ownership to the tree in place
+            new_pages = slot.table[have:n_full]
+            for p in range(slot.owned_from, have):
+                self.pool.free_device(slot.table[p])
+            if len(all_tokens) % T and n_full < len(slot.table):
+                self.pool.free_device(slot.table[n_full])
+            covered = n_full * T
+            self.tree.release_nodes(slot.prefix_nodes)
         self.tree.unpin(req.program_id)  # release the pages pinned at submit
         self.tree.insert_chain(
             all_tokens[:covered], new_pages, req.program_id, TypeLabel.BUSY
@@ -861,8 +979,12 @@ class Engine:
 
     # ---------------------------------------------- typed eviction machinery
     def _cache_over_budget(self) -> bool:
-        """Is the radix cache at/over its device-page budget? (The pool is
-        over-provisioned by ``decode_reserve_pages`` for decode state.)"""
+        """Is the radix cache at/over its device-page budget? (The paged
+        pool is over-provisioned by ``decode_reserve_pages`` for decode
+        state; the dense-slot pool holds the cache alone and is never over
+        budget.)"""
+        if self.dense_slots:
+            return False
         return self.tree.stats()["device_pages"] >= self.radix_device_pages
 
     def _ensure_device_page(self, cache_page: bool = True) -> None:
@@ -982,9 +1104,10 @@ class Engine:
         self.slots.pop(slot.slot_id)
         self._free_slots.append(slot.slot_id)
         self.lengths[slot.slot_id] = 0
-        for page in slot.table[slot.owned_from:]:
-            self.pool.free_device(page)
-        self.tree.release_nodes(slot.prefix_nodes)
+        if not self.dense_slots:
+            for page in slot.table[slot.owned_from:]:
+                self.pool.free_device(page)
+            self.tree.release_nodes(slot.prefix_nodes)
         self.tree.unpin(pid)
         return slot.request
 

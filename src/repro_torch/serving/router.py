@@ -34,9 +34,9 @@ while the pump runs one ``prefill_token_budget``-bounded chunk per settle
 visit, and due decode steps interleave between chunks instead of stalling
 behind a whole prefill (``RouterMetrics.prefill_interleaved_steps``).
 This module is the PyTorch port's copy of the reference router. It
-differs only where the port has no counterpart: there is no
-compile-budget gate (the port runs eagerly and compiles nothing during a
-replay), and no dense-slot engine for chunked prefill to refuse.
+differs only where the port has no counterpart: its compile-budget gate
+counts the engines' step-graph captures where the reference counted jit
+compiles.
 
 Transfers execute in one of two modes:
 
@@ -45,7 +45,7 @@ Transfers execute in one of two modes:
   :class:`~repro_torch.serving.transfer_plane.ReplicaTransferPlane` (PCIe and
   NVMe channel queues, bandwidths from
   :class:`~repro_torch.core.types.TransferCost` or a
-  :class:`~repro.sim.hardware.HwConfig`). Copy chunks interleave with
+  :class:`~repro_torch.sim.hardware.HwConfig`). Copy chunks interleave with
   engine decode steps on the virtual clock, ``on_transfer_complete`` acks
   only when the last page lands, and a tool call that returns early finds
   its offload still pending — the scheduler's ``CancelTransfer`` path
@@ -84,7 +84,7 @@ so no tokens are lost — then hands the scheduler the failure event, whose
 ``drain_migrate`` pass moves host-resident KV to the healthy replica with
 the most DRAM headroom. :meth:`MoriRouter.mark_recovered` re-admits the
 replica for placement. ``replay(faults=[...])`` injects both on the
-virtual clock (same :class:`~repro.sim.engine.FaultPlan` shape the
+virtual clock (same :class:`~repro_torch.sim.engine.FaultPlan` shape the
 simulator takes).
 """
 from __future__ import annotations
@@ -256,7 +256,7 @@ class MoriRouter:
         chunked_prefill: bool = False,
         prefill_token_budget: int | None = None,
         xfer_cost: TransferCost | None = None,
-        hw: "object | None" = None,   # repro.sim.hardware.HwConfig
+        hw: "object | None" = None,   # repro_torch.sim.hardware.HwConfig
     ):
         self.engines = engines
         cfg0 = engines[0].cfg
@@ -341,6 +341,11 @@ class MoriRouter:
                 raise ValueError(
                     "chunked_prefill needs the decode pump; serial_decode "
                     "replay keeps the monolithic golden path"
+                )
+            if any(getattr(e, "dense_slots", True) for e in engines):
+                raise ValueError(
+                    "chunked_prefill requires paged engines "
+                    "(dense_slots=False)"
                 )
         self.chunked_prefill = chunked_prefill
         self.prefill_token_budget = prefill_token_budget
@@ -687,7 +692,7 @@ class MoriRouter:
         next event.
 
         ``faults`` injects live drain/failover on the virtual clock: each
-        entry (duck-typed like :class:`~repro.sim.engine.FaultPlan` —
+        entry (duck-typed like :class:`~repro_torch.sim.engine.FaultPlan` —
         ``replica`` / ``fail_at`` / optional ``recover_at``) triggers
         :meth:`mark_failed` and :meth:`mark_recovered` at those times.
         """

@@ -196,6 +196,38 @@ def test_engine_serves_through_its_graphs(card, qwen):
 
 
 @pytest.mark.cuda
+def test_dense_slot_graph_replays_the_eager_step_bit_for_bit(card, qwen):
+    """``Engine(dense_slots=True)``: one decode graph over the slot
+    buffers, against ``Engine.decode_dense`` on clones of them; the replay
+    runs one paged kernel a layer over the slots seen as pages."""
+    cfg, params = qwen
+    eng = Engine(cfg, params, device=card, dense_slots=True, **ENGINE_KW)
+    rng = np.random.default_rng(45)
+    for t in (eng.slot_k, eng.slot_v):
+        t.copy_(torch.from_numpy(rng.standard_normal(t.shape, dtype=np.float32)))
+    eng.warmup()
+    assert eng.graphs.keys() == ["dense"]
+    for _ in range(3):
+        lengths = rng.integers(1, eng.max_seq + 1, eng.max_slots)
+        packed = eng._pack(rng.integers(0, cfg.vocab_size, eng.max_slots), lengths)
+        clones = [eng.slot_k.clone(), eng.slot_v.clone()]
+        counted = paged_ops.KERNEL.device_launches(card)
+        out = []
+        ran = paged_kernels_run(
+            lambda: out.extend(t.clone() for t in eng._decode("dense", packed)))
+        logits, tokens = out
+        assert ran == cfg.num_layers
+        assert paged_ops.KERNEL.device_launches(card) - counted == cfg.num_layers
+        want_logits, want_tokens = eng.decode_dense(
+            torch.from_numpy(packed).to(card), clones)
+        torch.cuda.synchronize()
+        assert torch.equal(logits, want_logits), (logits - want_logits).abs().max()
+        assert torch.equal(tokens, want_tokens)
+        assert torch.equal(eng.slot_k, clones[0]) and torch.equal(eng.slot_v, clones[1])
+    assert eng.graphs.keys() == ["dense"]
+
+
+@pytest.mark.cuda
 def test_mamba_decode_graph_replays_the_eager_step_bit_for_bit(card):
     cfg = get_config("mamba2-2.7b").reduced()
     params = materialize(Model(cfg).describe(), seed=0)

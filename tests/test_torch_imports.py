@@ -31,7 +31,9 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "repro_torch.serving.ssm_engine", "repro_torch.kernels.ssd.ops",
                 "repro_torch.kernels.ssd.ref", "repro_torch.kernels.flash_attention.ops",
                 "repro_torch.kernels.flash_attention.ref", "repro_torch.kernels._nvcc",
-                "repro_torch.analysis.compile_tracker", "repro_torch.serving.graphs"):
+                "repro_torch.analysis.compile_tracker", "repro_torch.serving.graphs",
+                "repro_torch.sim", "repro_torch.sim.engine", "repro_torch.sim.hardware",
+                "repro_torch.sim.metrics", "repro_torch.analysis.fuzz"):
         assert mod in mods, mod
     code = (
         "import importlib, json, sys\n"

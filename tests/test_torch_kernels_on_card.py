@@ -270,3 +270,28 @@ def test_ssd_tensor_core_route_takes_slices_of_a_fused_tensor(card, s):
 def test_ssd_f32_and_mixed_dtypes_take_the_cuda_core_route(card, x_dtype, bc_dtype):
     rng = np.random.default_rng(35)
     check_ssd(*ssd_inputs(rng, 1, 200, card, x_dtype, bc_dtype), 128, "cuda_core")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,cap", [(None, None), (100, None), (None, 30.0)],
+                         ids=["plain", "window", "softcap"])
+def test_dense_slot_decode_attention_runs_the_paged_kernel(card, window, cap):
+    """A slot cache at the serving shape, read as 16-token pages by the
+    paged kernel, against the reference's masked softmax on the CPU."""
+    from repro_torch.models.layers import decode_attention
+
+    rng = np.random.default_rng(31)
+    B, H, KH, D, S = 3, 16, 16, 64, 384
+    q, k, v = (randn(rng, s, torch.bfloat16, "cpu")
+               for s in ((B, H, D), (B, S, KH, D), (B, S, KH, D)))
+    lens = torch.tensor([S, 250, 1], dtype=torch.int32)
+    before = paged_ops.KERNEL.launches
+    got = decode_attention(q.to(card), k.to(card), v.to(card), lengths=lens.to(card),
+                           window=window, cap=cap, page_tokens=16)
+    torch.cuda.synchronize()
+    assert paged_ops.KERNEL.launches == before + 1
+    want = decode_attention(q, k, v, lengths=lens, window=window, cap=cap, page_tokens=16)
+    torch.testing.assert_close(got.cpu().float(), want.float(), **BANDS[torch.bfloat16])
+    with pytest.raises(ValueError, match="whole number"):
+        decode_attention(q.to(card), k[:, :380].to(card), v[:, :380].to(card),
+                         lengths=lens.to(card), page_tokens=16)
