@@ -3,7 +3,7 @@
 port starts on the GPU and that its main paths run through its kernels.
 
     python3 chip_smoke.py                 # every phase
-    python3 chip_smoke.py --kernels-only  # phases 1-2 only, no final line
+    python3 chip_smoke.py --kernels-only  # phases 1-2 and 9 only, no final line
 
 Needs one CUDA card (Hopper: the kernels are built for sm_90a) and
 ``nvcc``; it builds every kernel from the sources in ``src/repro_torch``
@@ -15,19 +15,27 @@ on failure (a failure exits non-zero and prints no final line):
    shared-memory summary;
 2. each kernel against its plain PyTorch version on the card, at the
    reference's test shapes and at the serving paths' shapes: paged
-   attention (bf16/f32/int8 pages, MHA/GQA/MQA, softcap, windows), flash
-   attention (the reference's shapes and variants, ragged lengths,
-   q_offset chunks, kv_hole, kv_lengths, GQA, MQA, D=128, both layouts)
-   and the SSD scan (the reference's shapes and a ragged S on the CUDA-core
+   attention (bf16/f32/int8 pages, MHA/GQA/MQA, softcap, windows, zamba2's
+   D = 160, gemma2's 4096-slot ring and 4624-slot global and full-size
+   local caches read as pages, in f32 and bf16), flash attention (the
+   reference's shapes and variants, ragged lengths, q_offset chunks,
+   kv_hole, kv_lengths, GQA, MQA, D=128, both layouts, gemma2's 4600-token
+   local layer with window 4096 and softcap 50) and the SSD scan (the
+   reference's shapes and a ragged S on the CUDA-core
    route; the full-width shape at S = 1, 128, 200, 256 and 1024, two rows,
    chunks of 64 and 256 and strided slices of one fused tensor on the
    tensor-core route, also against the passes' plain version; the
-   sequential scan at a tiny shape); then each kernel's, its plain
+   sequential scan at a tiny shape; zamba2's N = 64); then each kernel's,
+   its plain
    version's and, where one PyTorch call computes the same function, that
    call's time at the serving path's shape, beside the least time the card
    could take for the same work; each kernel's own device time per call
    (``device_ms``, all its passes) from ``torch.profiler``, for the SSD
    scan at S = 128, 200, 256 and 2048 and for its CUDA-core route at 256;
+   the paged kernel also at zamba2's decode shape (D = 160), flash at
+   gemma2's local layer, the SSD scan at zamba2's N = 64. gemma2's cases
+   scale q so its logits reach the softcap, and each shows that its band
+   rejects the plain version without the softcap or the window;
 3. the models on a small input, card (kernels) against CPU (plain
    versions): reduced qwen prefill, chunked prefill over a bucketed
    prefix and paged decode; reduced mamba2 prefill and decode;
@@ -78,7 +86,22 @@ on failure (a failure exits non-zero and prints no final line):
    int8 offload, an NVMe tier and the page-lifetime sanitizer, replica 1
    failing mid-replay and recovering: programs migrate, one drain, every
    program completes every step, offloads billed at the int8 page size,
-   no capture after warmup, paged kernels = layers x decode steps.
+   no capture after warmup, paged kernels = layers x decode steps;
+8. the two families the reference runs only at model level, at full
+   width and depth on weights drawn on the card, eagerly: ``gemma2-9b``
+   (prompts of 4600 and 1000 tokens prefilled one at a time, flash =
+   layers x prefills; 16 greedy steps over a local ring of 4096 slots
+   that the longer prompt wraps and again over full-size local slots,
+   paged kernels on the device = layers x steps in each run, tokens
+   equal or parted at a near tie; the last step against a prefill of the
+   longer sequence) and ``zamba2-2.7b`` (prompts of 384 and 200 tokens:
+   SSD = mamba layers x prefills, all on the tensor cores, flash = groups
+   x prefills; 16 greedy steps, paged kernels at D = 160 = groups x
+   steps; the last step against a prefill of the longer sequence);
+9. the library yardstick of gemma2's local layer, compiled
+   ``flex_attention`` with its softcap and window (SDPA has no softcap),
+   held to the kernel's output and timed; last, because after
+   ``torch.compile`` a profile can lose kernel records.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 hold the per-kernel JSON record and the card's name and power limit. The
@@ -133,6 +156,19 @@ PAGED_SHAPES = [
 #: pages, 24 pages = max_seq 384, ragged lengths
 MAIN_SHAPE = (3, 16, 16, 64, 16, 24)
 MAIN_LENGTHS = [384, 250, 97]
+#: zamba2-2.7b's shared-block decode at full width (phase 8): 2 rows, MHA
+#: 32 heads of 2·2560/32 = 160, 16-token pages, max_seq 400 = 25 pages, at
+#: the phase's prompt lengths; one cache a group, 9 groups
+D160_SHAPE = (2, 32, 32, 160, 16, 25)
+D160_LENGTHS = [384, 200]
+D160_LAYERS = 9
+#: gemma2-9b's decode attention at full width (phase 8): 2 rows, 16 query
+#: heads over 8 KV heads of 256, softcap 50; a local ring of 4096 slots,
+#: global slots of 4624, the lengths the 16th step reaches, the window of
+#: a full-size local cache. q is scaled by 8: with unit k the scores have
+#: std 8 and their largest reach ~30, where cap·tanh(s/cap) bends them
+GEMMA2_DECODE = dict(B=2, H=16, KH=8, D=256, ring=4096, slots=4624, lengths=[4616, 1016],
+                     window=4096, cap=50.0, q_scale=8.0)
 FLASH_SHAPES = [
     # B, H, KH, S, D (tests/test_kernels.py)
     (2, 4, 4, 64, 32),
@@ -163,6 +199,11 @@ FLASH_OTHER = {
     "d160": dict(B=1, H=32, KH=32, D=160, S=384),
     "d256": dict(B=1, H=16, KH=8, D=256, S=384),
 }
+#: gemma2-9b's local-layer prefill in phase 8: the 4600-token prompt, a
+#: 4096-token window and softcap 50 (SDPA has no softcap: the library
+#: time is compiled ``flex_attention``'s, phase 9); q scaled as in
+#: GEMMA2_DECODE
+FLASH_GEMMA2 = dict(B=1, H=16, KH=8, D=256, S=4600, window=4096, cap=50.0, q_scale=8.0)
 SSD_SHAPES = [
     # b, s, h, p, n, chunk (tests/test_kernels.py)
     (2, 32, 2, 8, 8, 8),
@@ -172,6 +213,9 @@ SSD_SHAPES = [
 #: mamba2-2.7b's scan at full width: 80 heads of 64, state 128, chunk 128
 SSD_MAIN = dict(b=1, h=80, p=64, n=128, chunk=128)
 SSD_MAIN_S = 256
+#: zamba2-2.7b's scan (phase 8): mamba2's heads with state 64, its longer
+#: prompt
+SSD_ZAMBA2 = dict(b=1, h=80, p=64, n=64, chunk=128, S=384)
 #: a long prefill at mamba2's widths: timed only, to show where the scan
 #: stands beyond the serving path's lengths
 SSD_LONG_S = 2048
@@ -181,6 +225,9 @@ SSD_LONG_S = 2048
 SSD_KERNEL_NAMES = ("ssd_kernel", "ssd_tc_")
 #: profiles of one timed loop before ``device_ms_per_call`` gives up
 PROFILE_ATTEMPTS = 3
+#: spin kernels (``torch.cuda._sleep``) before and after a profiled loop,
+#: and the name that leaves them out of its times
+PROFILE_PADS, PAD_KERNEL = 4, "spin_kernel"
 #: the MoE main path: dbrx-132b at full width, cut from 40 layers to 4
 #: (14.3 B parameters, 28.5 GB in bf16)
 MOE_ARCH, MOE_LAYERS = "dbrx-132b", 4
@@ -237,6 +284,21 @@ def check_close(name: str, got, want, atol: float) -> float:
     return err
 
 
+def check_band_binds(name: str, want, without: dict, atol: float) -> None:
+    """Show that ``check_close``'s band on ``name`` can tell: each entry of
+    ``without`` (a feature's name -> the plain version computed without
+    it, a missing softcap or window) must fall outside the band around
+    ``want`` somewhere, as a kernel that dropped the feature would."""
+    want = want.float()
+    band = atol + atol * want.abs()
+    for feature, out in without.items():
+        excess = ((out.float() - want).abs() - band).max().item()
+        log(f"band check {name}: without {feature} the largest excess over the band is "
+            f"{excess:.3e} {'rejected' if excess > 0 else 'ACCEPTED'}")
+        if not excess > 0:
+            raise AssertionError(f"the band of {name} cannot tell a missing {feature}")
+
+
 def device_ms_per_call(fn, calls: int, names: tuple | None) -> dict:
     """The device time, per wrapper call, of the kernels whose names hold
     one of ``names`` (every kernel for ``None``), from ``torch.profiler``
@@ -248,22 +310,34 @@ def device_ms_per_call(fn, calls: int, names: tuple | None) -> dict:
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def pad():
+        for _ in range(PROFILE_PADS):
+            torch.cuda._sleep(1)
+
     # profiles have come back without some of the kernels' device records
-    # (none at all once, half of a loop's once) though every launch ran:
-    # profile again, a bounded number of times, and say so
+    # (none at all once, half of a loop's once, one or two of a loop's
+    # after torch.compile had run) though every launch ran: pad the loop
+    # with spin kernels (not counted), profile again a bounded number of
+    # times, and say so
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         counts: dict = {}
         with torch.profiler.profile(activities=acts) as prof:
+            pad()
             fn()
+            pad()
             torch.cuda.synchronize()
-        kernels = {k: v for k, v in device_kernel_us(prof, counts).items()
-                   if names is None or any(n in k for n in names)}
+        timed = device_kernel_us(prof, counts)
+        pads = sum(n for k, n in counts.items() if PAD_KERNEL in k)
+        kernels = {k: v for k, v in timed.items() if PAD_KERNEL not in k
+                   and (names is None or any(n in k for n in names))}
         whole = all(counts[k] == calls if names is not None else counts[k] % calls == 0
                     for k in kernels)
         if kernels and whole:
             break
         log(f"profile {attempt} of {PROFILE_ATTEMPTS} of {calls} calls held "
-            f"{ {k[:40]: counts[k] for k in kernels} } instances of the kernels named {names}")
+            f"{ {k[:40]: counts[k] for k in kernels} } instances of the kernels named {names} "
+            f"and {pads} of {2 * PROFILE_PADS} pads")
     else:
         if names is not None or not kernels:
             raise AssertionError(f"no whole profile of the kernels named {names}")
@@ -413,6 +487,14 @@ def check_kernel_cases():
                   dict(lengths=[300, 129]), dict(softcap=30.0)))
     cases.append((f"wide table gqa {wide_gqa} int8", wide_gqa, torch.float32,
                   dict(lengths=[300, 129], quantized=True), {}))
+    # zamba2's shared-block decode at full width: D = 160, where a key spans
+    # 20 lanes (one key a warp step); lengths at and across the 80-key splits
+    # of its 25-column table, in bf16, f32 and int8 pages
+    for pages, dtype, quantized, lengths in (
+            ("bf16", torch.bfloat16, False, [80, 81]), ("f32", torch.float32, False, [160, 1]),
+            ("int8", torch.bfloat16, True, [161, 400])):
+        cases.append((f"d160 {D160_SHAPE} {pages} pages lengths={lengths}", D160_SHAPE, dtype,
+                      dict(lengths=lengths, quantized=quantized), {}))
     main_err = 0.0
     for name, shape, dtype, case_kw, attn_kw in cases:
         c = make_case(rng, shape, dtype, **case_kw)
@@ -422,19 +504,63 @@ def check_kernel_cases():
         err = check_close(f"paged {name}", out, want, ATOL[str(dtype).removeprefix("torch.")])
         if name.startswith("main") and "int8=False" in name:
             main_err = err
+    check_gemma2_decode_cases()
     return main_err
 
 
-def time_kernel(layers: int):
-    """Kernel, plain version and SDPA at the serving path's shape, over
-    ``layers`` distinct layer slices of the pool per call round (as one
-    decode step walks the layers, so the pages do not sit in L2)."""
+def check_gemma2_decode_cases() -> None:
+    """gemma2-9b's decode attention at full width, as phase 8 runs it:
+    slot caches read as 16-token pages through ``decode_attention`` (the
+    kernel), against the paged kernel's plain version over the same view,
+    with f32 and bf16 caches. The 4096-slot local ring (one full, wrapped
+    row and one of 1016 slots), the 4624-slot global cache (289 pages) at
+    the lengths phase 8 reaches, and the same slots under the 4096 window
+    (the full-size local cache). q is scaled (``GEMMA2_DECODE``) so the
+    logits reach the softcap, and each case checks that its band would
+    reject the plain version without the softcap and, where the window
+    binds, without the window."""
+    from repro_torch.kernels.paged_attention import ref
+    from repro_torch.models.layers import decode_attention, slot_pages
+
+    g = GEMMA2_DECODE
+    B, H, KH, D, T, cap = g["B"], g["H"], g["KH"], g["D"], 16, g["cap"]
+    rng = np.random.default_rng(13)
+    cases = (("ring", g["ring"], [g["ring"], g["lengths"][1]], None),
+             ("global", g["slots"], g["lengths"], None),
+             ("full-size local", g["slots"], g["lengths"], g["window"]))
+    for name, S, lengths, window in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn_dev(rng, (B, H, D), dtype, scale=g["q_scale"])
+            k, v = (randn_dev(rng, (B, S, KH, D), dtype) for _ in range(2))
+            lens = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+            got = decode_attention(q, k, v, lengths=lens, window=window, cap=cap, page_tokens=T)
+            torch.cuda.synchronize()
+            (kp, table), (vp, _) = slot_pages(k, T), slot_pages(v, T)
+
+            def plain(**kw):
+                return ref.paged_attention_ref(q, kp, vp, table, lens, **kw).reshape(B, H * D)
+
+            label = (f"paged gemma2 {name} B={B} H={H} KH={KH} S={S} D={D} lengths={lengths} "
+                     f"window={window} softcap={cap} q*{g['q_scale']} {dtype}")
+            atol = ATOL[str(dtype).removeprefix("torch.")]
+            want = plain(softcap=cap, window=window)
+            check_close(label, got, want, atol)
+            without = {"softcap": plain(window=window)}
+            if window is not None:
+                without["window"] = plain(softcap=cap)
+            check_band_binds(label, want, without, atol)
+
+
+def time_kernel(layers: int, shape=MAIN_SHAPE, lengths=MAIN_LENGTHS):
+    """Kernel, plain version and SDPA at ``shape`` (the serving path's by
+    default) and ``lengths``, over ``layers`` distinct layer slices of the
+    pool per call round (as one decode step walks the layers, so the pages
+    do not sit in L2)."""
     from repro_torch.kernels.paged_attention import ops, ref
 
     rng = np.random.default_rng(1)
-    c = make_case(rng, MAIN_SHAPE, torch.bfloat16, lengths=MAIN_LENGTHS,
-                  layers=layers)
-    B, H, KH, D, T, P = MAIN_SHAPE
+    c = make_case(rng, shape, torch.bfloat16, lengths=lengths, layers=layers)
+    B, H, KH, D, T, P = shape
 
     def kernel_round():
         for l in range(layers):
@@ -469,7 +595,7 @@ def time_kernel(layers: int):
     lib_out = sdpa(qd, dense[0][0], dense[0][1], attn_mask=mask)[:, :, 0, :].float()
     kern_out = run_kernel(ops, c, layer=0).float()
     lib_err = (lib_out - kern_out).abs().max().item()
-    log(f"SDPA yardstick vs kernel at the main shape: max_abs_err {lib_err:.3e}")
+    log(f"SDPA yardstick vs kernel at {shape}: max_abs_err {lib_err:.3e}")
     if not lib_err <= ATOL["bfloat16"] * (1 + kern_out.abs().max().item()):
         raise AssertionError("the SDPA yardstick computes another function")
 
@@ -493,13 +619,14 @@ def time_kernel(layers: int):
     # least time for one call: each needed input byte read once, the
     # output written once; the data decides what is needed (the visible
     # positions of each row, the new token from its operand)
-    lengths = np.asarray(MAIN_LENGTHS)
+    lengths = np.asarray(lengths)
     elem = 2
     kv_bytes = 2 * int((lengths - 1).sum()) * KH * D * elem
     io_bytes = (B * H * D + 2 * B * KH * D + B * H * D) * elem
     meta_bytes = 4 * (B * P + B)
     n_ops = int(4 * H * D * lengths.sum())
-    return dict(ms=kernel_ms, **device, splits=splits, cols_per_split=cols,
+    return dict(shape=shape, lengths=lengths.tolist(), layers=layers,
+                ms=kernel_ms, **device, splits=splits, cols_per_split=cols,
                 plain_ms=plain_ms, library_ms=library_ms,
                 library_device_ms=library_device["device_ms"],
                 library_kernels_ms=library_device["device_kernels_ms"],
@@ -647,6 +774,32 @@ def check_flash_cases():
             torch.cuda.synchronize()
             check_close(f"prefill {name} {dtype}", out, ref.blockwise_attention(q, k, v, **kw),
                         ATOL[str(dtype).removeprefix("torch.")])
+    # gemma2-9b's local layers at its phase-8 prompt: the 4096-token window
+    # binds at 4600 tokens, with softcap 50; and a chunk behind a hole. q
+    # is scaled so the logits reach the softcap, and each band must reject
+    # the plain version without the window and without the softcap
+    g = FLASH_GEMMA2
+    local = dict(causal=True, window=g["window"], cap=g["cap"])
+    gemma2 = [
+        ("gemma2 local", (g["B"], g["S"], g["S"], g["H"], g["KH"], g["D"]), local),
+        ("gemma2 local chunk hole", (1, 64, 4224, g["H"], g["KH"], g["D"]),
+         dict(local, q_offset=4160, kv_hole=(4100, 4160))),
+    ]
+    for name, (B, Sq, Skv, H, KH, D), kw in gemma2:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn_dev(rng, (B, Sq, H, D), dtype, scale=g["q_scale"])
+            k = randn_dev(rng, (B, Skv, KH, D), dtype)
+            v = randn_dev(rng, (B, Skv, KH, D), dtype)
+            out = ops.prefill_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            label = f"prefill {name} {(B, Sq, Skv, H, KH, D)} {kw} q*{g['q_scale']} {dtype}"
+            atol = ATOL[str(dtype).removeprefix("torch.")]
+            want = ref.blockwise_attention(q, k, v, **kw)
+            check_close(label, out, want, atol)
+            check_band_binds(label, want, {
+                feature: ref.blockwise_attention(
+                    q, k, v, **{n: x for n, x in kw.items() if n != feature})
+                for feature in ("window", "cap")}, atol)
     wide = randn_dev(rng, (3, 90, 8, 65), torch.bfloat16)
     q, k, v = (wide[i:i + 1, ..., :64] for i in range(3))
     out = ops.prefill_attention(q, k, v, causal=True)
@@ -659,8 +812,10 @@ def check_flash_cases():
 def time_flash():
     """Kernel, plain version and SDPA (explicit boolean mask; GQA through
     its ``enable_gqa``) at the serving path's monolithic prefill shape, the
-    chunk shape, a long causal prefill (``FLASH_LONG_S``) and the prompts
-    of ``FLASH_OTHER``."""
+    chunk shape, a long causal prefill (``FLASH_LONG_S``), the prompts
+    of ``FLASH_OTHER`` and gemma2's local layer (``FLASH_GEMMA2``, whose
+    softcap SDPA cannot compute: :func:`time_flex_yardstick` adds its
+    library time at the end of the run)."""
     from repro_torch.kernels.flash_attention import ops, ref
 
     rng = np.random.default_rng(4)
@@ -680,6 +835,7 @@ def time_flash():
                              randn_dev(rng, (c["B"], c["S"], c["KH"], c["D"]), torch.bfloat16),
                              randn_dev(rng, (c["B"], c["S"], c["KH"], c["D"]), torch.bfloat16),
                              dict(causal=True))))
+    cases.append(("gemma2_local", gemma2_local_case()))
     for name, (q, k, v, kw) in cases:
         B, Sq, H, D = q.shape
         Skv, KH = k.shape[1], k.shape[2]
@@ -687,17 +843,20 @@ def time_flash():
         qpos = q_off + torch.arange(Sq, device=DEVICE)[:, None]
         kpos = torch.arange(Skv, device=DEVICE)[None, :]
         mask = qpos >= kpos
+        if "window" in kw:
+            mask &= (qpos - kpos) < kw["window"]
         if "kv_hole" in kw:
             lo, hi = kw["kv_hole"]
             mask &= ~((kpos >= lo) & (kpos < hi))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         gqa = dict(enable_gqa=True) if KH != H else {}
-        lib = sdpa(qt, kt, vt, attn_mask=mask, **gqa).transpose(1, 2).float()
-        kern = ops.prefill_attention(q, k, v, **kw).float()
-        lib_err = (lib - kern).abs().max().item()
-        log(f"SDPA yardstick vs flash kernel ({name}): max_abs_err {lib_err:.3e}")
-        if not lib_err <= ATOL["bfloat16"] * (1 + kern.abs().max().item()):
-            raise AssertionError("the SDPA yardstick computes another function")
+        # SDPA has no softcap: the softcapped case's library (compiled
+        # flex_attention) is timed by ``time_flex_yardstick`` at the end
+        library = "cap" not in kw
+        if library:
+            lib = sdpa(qt, kt, vt, attn_mask=mask, **gqa).transpose(1, 2)
+            check_yardstick(f"scaled_dot_product_attention ({name})", lib,
+                            ops.prefill_attention(q, k, v, **kw))
         visible = int(mask.sum().item())
         n_bytes = (2 * B * Sq * H * D + 2 * B * Skv * KH * D) * 2
         n_ops = 4 * B * H * D * visible
@@ -710,19 +869,107 @@ def time_flash():
             for _ in range(50):
                 sdpa(qt, kt, vt, attn_mask=mask, **gqa)
 
-        library_device = device_ms_per_call(library_calls, 50, None)
-
+        if library:
+            library_device = device_ms_per_call(library_calls, 50, None)
+            lib_rec = dict(library="scaled_dot_product_attention",
+                           library_ms=time_call(lambda: sdpa(qt, kt, vt, attn_mask=mask, **gqa),
+                                                50),
+                           library_device_ms=library_device["device_ms"],
+                           library_kernels_ms=library_device["device_kernels_ms"])
+        else:
+            lib_rec = {}
         out[name] = dict(
             ms=time_call(lambda: ops.prefill_attention(q, k, v, **kw), 50),
             **device_ms_per_call(calls, 50, ("flash_mma_kernel", "flash_attention_kernel")),
             plain_ms=time_call(lambda: ref.blockwise_attention(q, k, v, **kw), 10),
-            library_ms=time_call(lambda: sdpa(qt, kt, vt, attn_mask=mask, **gqa), 50),
-            library_device_ms=library_device["device_ms"],
-            library_kernels_ms=library_device["device_kernels_ms"],
-            Sq=Sq, Skv=Skv, H=H, KH=KH, D=D, **bound(n_bytes, n_ops, "bfloat16"))
+            **lib_rec, Sq=Sq, Skv=Skv, H=H, KH=KH, D=D, window=kw.get("window"),
+            softcap=kw.get("cap"), **bound(n_bytes, n_ops, "bfloat16"))
         if not all("flash_mma_kernel" in k for k in out[name]["device_kernels_ms"]):
             raise AssertionError(f"bf16 prefill ({name}) did not run the tensor-core kernel")
     return out
+
+
+def gemma2_local_case():
+    """gemma2-9b's local-layer prefill attention (``FLASH_GEMMA2``) in bf16,
+    from its own seed: q, k, v [B, S, H, D] and the keywords."""
+    g = FLASH_GEMMA2
+    rng = np.random.default_rng(14)
+    q = randn_dev(rng, (g["B"], g["S"], g["H"], g["D"]), torch.bfloat16, scale=g["q_scale"])
+    k, v = (randn_dev(rng, (g["B"], g["S"], g["KH"], g["D"]), torch.bfloat16) for _ in range(2))
+    return q, k, v, dict(causal=True, window=g["window"], cap=g["cap"])
+
+
+def check_yardstick(name: str, lib, kern) -> None:
+    """A library yardstick must compute the kernel's function."""
+    lib, kern = lib.float(), kern.float()
+    err = (lib - kern).abs().max().item()
+    log(f"{name} yardstick vs flash kernel: max_abs_err {err:.3e}")
+    if not err <= ATOL["bfloat16"] * (1 + kern.abs().max().item()):
+        raise AssertionError(f"the {name} yardstick computes another function")
+
+
+def time_flex_yardstick(timing: dict) -> None:
+    """The library time of gemma2's local layer (``timing``'s
+    ``gemma2_local`` entry gains it): compiled ``flex_attention`` with the
+    softcap and the causal window, on the inputs ``time_flash`` timed the
+    kernel on. Run it after every other profile: once ``torch.compile``
+    has run, a profile has come back one or two kernel records short."""
+    from repro_torch.kernels.flash_attention import ops
+
+    q, k, v, kw = gemma2_local_case()
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    t0 = time.perf_counter()
+    library = flex_softcap_attention(kw, q.shape[1], k.shape[1])
+    lib = library(qt, kt, vt).transpose(1, 2)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    check_yardstick("flex_attention (gemma2_local)", lib, ops.prefill_attention(q, k, v, **kw))
+
+    def library_calls():
+        for _ in range(50):
+            library(qt, kt, vt)
+
+    device = device_ms_per_call(library_calls, 50, None)
+    rec = dict(library="flex_attention (torch.compile)", library_compile_s=compile_s,
+               library_ms=time_call(lambda: library(qt, kt, vt), 50),
+               library_device_ms=device["device_ms"],
+               library_kernels_ms=device["device_kernels_ms"],
+               library_profiled_instances=device["profiled_instances"])
+    timing["gemma2_local"].update(rec)
+    log("flash gemma2_local library " + json.dumps(rec))
+
+
+def flex_softcap_attention(kw: dict, Sq: int, Skv: int):
+    """The library yardstick where SDPA has no softcap: ``flex_attention``,
+    compiled (its eager form is an unfused reference), with the softcap as
+    its score modifier and causal-window visibility as its block mask.
+    Returns ``f(q, k, v)`` on ``[B, H, S, D]`` operands (GQA allowed)."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    if kw.get("q_offset", 0) or "kv_hole" in kw or not kw.get("causal"):
+        raise ValueError(f"the flex yardstick covers causal prompts from 0 only: {kw}")
+    cap, window = kw["cap"], kw.get("window")
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        visible = q_idx >= kv_idx
+        if window is not None:
+            visible = visible & (q_idx - kv_idx < window)
+        return visible
+
+    import torch._inductor.config as inductor_config
+
+    inductor_config.compile_threads = 1      # compile here: no worker processes to stop
+    block_mask = create_block_mask(mask_mod, None, None, Sq, Skv, device=DEVICE)
+    compiled = torch.compile(flex_attention)
+
+    def library(q, k, v):
+        return compiled(q, k, v, score_mod=score_mod, block_mask=block_mask,
+                        enable_gqa=k.shape[1] != q.shape[1])
+
+    return library
 
 
 # ------------------------------------------------------------ phase 2: ssd
@@ -778,6 +1025,9 @@ def check_ssd_cases():
         ("main fused slices S=200", (main[0], 200, *main[1:]), m["chunk"], bf16, bf16, tc),
         ("main chunk=64 S=200", (main[0], 200, *main[1:]), 64, bf16, bf16, tc),
         ("main chunk=256 S=300", (main[0], 300, *main[1:]), 256, bf16, bf16, tc),
+        # zamba2's widths: state 64, its two prompt lengths
+        ("main zamba2 N=64 S=384", (1, 384, 80, 64, 64), 128, bf16, bf16, tc),
+        ("main zamba2 N=64 S=200 fused slices", (1, 200, 80, 64, 64), 128, bf16, bf16, tc),
         # the reference's own input scales at mamba2's widths: larger y, the
         # band relative to it
         ("unscaled S=1024", (main[0], 1024, *main[1:]), m["chunk"], bf16, bf16, tc),
@@ -872,9 +1122,26 @@ def time_ssd():
             rec["cuda_core_kernels_ms"] = core["device_kernels_ms"]
         out[S] = rec
     main = out[SSD_MAIN_S]
+    z = SSD_ZAMBA2
+    x, dt, A, B, C = ssd_inputs(rng, z["b"], z["S"], z["h"], z["p"], z["n"], torch.bfloat16,
+                                torch.bfloat16, realistic=True)
+
+    def zamba2_calls():
+        for _ in range(20):
+            ops.KERNEL(x, dt, A, B, C, chunk=z["chunk"])
+
+    before = ops.KERNEL.routes["tensor_core"]
+    zamba2 = dict(z, ms=time_call(lambda: ops.ssd(x, dt, A, B, C, chunk=z["chunk"]), 20),
+                  **device_ms_per_call(zamba2_calls, 20, SSD_KERNEL_NAMES),
+                  plain_ms=time_call(lambda: ref.ssd_reference(
+                      x, dt, A, B[:, :, None], C[:, :, None], chunk=z["chunk"]), 5),
+                  **ssd_bound(z["b"], z["S"], z["h"], z["p"], z["n"], z["chunk"]))
+    if ops.KERNEL.routes["tensor_core"] == before:
+        raise AssertionError("the bf16 scan at zamba2's widths did not run the tensor-core passes")
     return dict(main, library_ms=None, library_note="no single PyTorch call computes the SSD scan",
                 by_s={S: {k: v for k, v in r.items() if k not in ("bytes_ms", "ops_ms")}
-                      for S, r in out.items() if S != SSD_MAIN_S})
+                      for S, r in out.items() if S != SSD_MAIN_S},
+                zamba2={k: v for k, v in zamba2.items() if k not in ("bytes_ms", "ops_ms")})
 
 
 # ------------------------------------------------------------ phase 3
@@ -1835,6 +2102,263 @@ def serve_replicas(args, cfg, params) -> dict:
     return record
 
 
+# ------------------------------------------------------------ phase 8
+#: gemma2-9b at full width and depth: a 4600-token prompt (it wraps the
+#: 4096-slot local ring) and a 1000-token one, global slots of 4624
+GEMMA2_ARCH, GEMMA2_PROMPTS, GEMMA2_MAX_SEQ = "gemma2-9b", (4600, 1000), 4624
+#: zamba2-2.7b at full width and depth: 9 groups of 6 mamba layers and the
+#: shared block, prompts of 384 and 200 tokens, shared slots of 400
+ZAMBA2_ARCH, ZAMBA2_PROMPTS, ZAMBA2_MAX_SEQ = "zamba2-2.7b", (384, 200), 400
+#: greedy decode steps of each phase-8 model
+MODEL_STEPS = 16
+
+
+def card_model(arch: str, seed: int):
+    """``arch`` at full width and depth, its weights drawn on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.params import leaves
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    tree = Model(cfg).describe()
+    params = draw_on_card(tree, seed)
+    torch.cuda.synchronize()
+    info = dict(arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+                params=sum(math.prod(l.shape) for _, l in leaves(tree)),
+                draw_s=time.perf_counter() - t0)
+    return cfg, Model(cfg, params), info
+
+
+def seeded_prompts(seed: int, lengths, vocab: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.integers(0, vocab, n).astype(np.int64)).to(DEVICE)
+            for n in lengths]
+
+
+def synced_ms(fn):
+    """``fn()`` and its host-clock milliseconds, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def zeros_tree(tree) -> dict:
+    """Zero tensors on the card for a descriptor tree."""
+    from repro_torch.models.params import Leaf
+
+    return {k: zeros_tree(v) if not isinstance(v, Leaf)
+            else torch.zeros(v.shape, dtype=v.dtype, device=DEVICE) for k, v in tree.items()}
+
+
+def tree_bytes(tree) -> int:
+    return sum(tree_bytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+               for v in tree.values())
+
+
+def greedy_decode(model, cache, first, lengths, feed=None):
+    """``MODEL_STEPS`` eager decode steps into ``cache`` from the tokens
+    ``first`` at context ``lengths`` (prompt lengths), each step feeding
+    its argmax, or ``feed[i]`` where given (teacher forcing). Returns the
+    fed tokens [steps, B], every step's logits [steps, B, V] and the host
+    milliseconds a step."""
+    tok, fed, logits = first, [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(MODEL_STEPS):
+        tok = tok if feed is None else feed[i]
+        fed.append(tok)
+        out = model.decode_into(cache, tok, lengths + i + 1)
+        logits.append(out)
+        tok = torch.argmax(out, -1)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / MODEL_STEPS
+    return torch.stack(fed), torch.stack(logits), step_ms
+
+
+def near_tie(logits, want: int, got: int) -> float:
+    """How far ``got`` falls short of ``want``, the argmax, in ``logits``,
+    against the model band at that logit: <= 0 is a near tie."""
+    top = logits[want].item()
+    return (top - logits[got].item()) - (MODEL_ATOL + MODEL_RTOL * abs(top))
+
+
+def compare_greedy(what: str, logits, want_logits) -> dict:
+    """Two runs' logits [steps, B, V] on the same fed tokens: the largest
+    difference, and each step's top-1 equal or a near tie in ``want``."""
+    diff = (logits - want_logits).abs().max().item()
+    parted = []
+    for i, b in zip(*torch.nonzero(logits.argmax(-1) != want_logits.argmax(-1),
+                                   as_tuple=True)):
+        got, want = int(logits[i, b].argmax()), int(want_logits[i, b].argmax())
+        parted.append(dict(step=int(i), row=int(b), tokens=[got, want],
+                           excess_over_band=near_tie(want_logits[i, b], want, got)))
+    rec = dict(max_abs_logit_diff=diff, top1_parted=parted)
+    if not math.isfinite(diff) or any(p["excess_over_band"] > 0 for p in parted):
+        raise AssertionError(f"{what}: top-1 parts beyond a near tie: {rec}")
+    return rec
+
+
+def against_prefill(model, prompts, fed, last_logits) -> dict:
+    """The last decode step's logits against a prefill of each row's
+    prompt and its fed tokens, one row at a time."""
+    want = []
+    for b, prompt in enumerate(prompts):
+        seq = torch.cat([prompt, fed[:, b]])[None]
+        want.append(model.prefill({"tokens": seq})[0][0])
+    return compare_greedy("decode vs prefill of the longer sequence", last_logits[None],
+                          torch.stack(want)[None])
+
+
+def decode_device_ms(model, cache, tok, lengths) -> dict:
+    """The last decode step again (it rewrites the same slots), profiled:
+    device time a step and its share of the step's host clock."""
+    kernels, window_us = profile_window(lambda: model.decode_into(cache, tok, lengths), 3)
+    busy_us = sum(kernels.values())
+    return dict(device_ms_per_step=busy_us / 3e3,
+                device_share_of_window=busy_us / window_us if window_us else None,
+                paged_attention_ms_per_step=sum(
+                    v for k, v in kernels.items()
+                    if any(n in k for n in PAGED_KERNEL_NAMES)) / 3e3)
+
+
+def model_gemma2() -> dict:
+    """gemma2-9b at full width and depth: the two prompts prefilled one at
+    a time (flash in all 42 layers, windowed softcapped attention in the
+    21 local ones), their KV put into global slots of ``GEMMA2_MAX_SEQ``
+    and into a local ring of ``sliding_window`` slots (position p in slot
+    p % 4096: the 4600-token prompt wraps it), then ``MODEL_STEPS`` greedy
+    steps over the ring (the paged kernel in every layer, the local ones
+    over the ring's 256 pages); the same tokens again over full-size local
+    slots; the last step against a prefill of the longer sequence."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, info = card_model(GEMMA2_ARCH, seed=0)
+    W, S = cfg.sliding_window, GEMMA2_MAX_SEQ
+    prompts = seeded_prompts(21, GEMMA2_PROMPTS, cfg.vocab_size)
+    full = zeros_tree(model.describe_cache(len(prompts), S))
+    ring_local = zeros_tree(model.describe_cache(len(prompts), W))["local"]
+    flash_ops.KERNEL.launches = 0
+    first, prefill_ms = [], []
+    for b, prompt in enumerate(prompts):
+        (logits, pre), ms = synced_ms(lambda: model.prefill({"tokens": prompt[None]}))
+        n = prompt.numel()
+        prefill_ms.append(ms)
+        for kind in ("local", "global"):
+            for name in ("k", "v"):
+                full[kind][name][:, b, :n] = pre[kind][name][:, 0]
+        pos = torch.arange(max(0, n - W), n, device=DEVICE)
+        for name in ("k", "v"):
+            ring_local[name][:, b, pos % W] = pre["local"][name][:, 0, pos]
+        first.append(torch.argmax(logits[0]))
+        del pre
+    flash = flash_ops.KERNEL.launches
+    first = torch.stack(first)
+    lengths = torch.tensor(GEMMA2_PROMPTS, dtype=torch.int32, device=DEVICE)
+    # each run decodes into global slots of its own
+    ring = {"local": ring_local, "global": {n: t.clone() for n, t in full["global"].items()}}
+
+    paged_ops.KERNEL.launches = 0
+    before = paged_device_launches()
+    fed, ring_logits, ring_step_ms = greedy_decode(model, ring, first, lengths)
+    paged_ring = paged_device_launches() - before
+    before = paged_device_launches()
+    _, full_logits, full_step_ms = greedy_decode(model, full, first, lengths, feed=fed)
+    paged_full = paged_device_launches() - before
+    paged_eager = paged_ops.KERNEL.launches
+    ring_vs_full = compare_greedy("gemma2 ring vs full-cache decode", ring_logits, full_logits)
+    vs_prefill = against_prefill(model, prompts, fed, ring_logits[-1])
+    device = decode_device_ms(model, ring, fed[-1], lengths + MODEL_STEPS)
+    record = dict(
+        info, kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, window=W,
+        prompts=list(GEMMA2_PROMPTS), max_seq=S, decode_steps=MODEL_STEPS,
+        flash_launches=flash, prefills=len(prompts), paged_kernel_launches_ring=paged_ring,
+        paged_kernel_launches_full=paged_full, paged_wrapper_calls=paged_eager,
+        prefill_ms=prefill_ms, ring_step_ms=ring_step_ms, full_step_ms=full_step_ms,
+        **device, local_cache_bytes_ring=tree_bytes(ring["local"]),
+        local_cache_bytes_full=tree_bytes(full["local"]), ring_vs_full=ring_vs_full,
+        decode_vs_prefill=vs_prefill, tokens=fed.T.tolist(),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log("gemma2 " + json.dumps(record))
+    if flash != cfg.num_layers * len(prompts):
+        raise AssertionError(f"flash launches {flash} != layers {cfg.num_layers} x prefills "
+                             f"{len(prompts)}: prefill did not go through the kernel")
+    for what, n in (("ring", paged_ring), ("full-cache", paged_full)):
+        if n != cfg.num_layers * MODEL_STEPS:
+            raise AssertionError(f"{what} decode: paged kernels the device ran {n} != layers "
+                                 f"{cfg.num_layers} x steps {MODEL_STEPS}")
+    if not torch.isfinite(ring_logits).all():
+        raise AssertionError("non-finite gemma2 logits")
+    return record
+
+
+def model_zamba2() -> dict:
+    """zamba2-2.7b at full width and depth: the two prompts prefilled one
+    at a time (the SSD scan in all 54 mamba layers, flash in the 9 shared
+    block calls), the states and shared KV gathered into one batch-2 cache
+    with shared slots of ``ZAMBA2_MAX_SEQ``, ``MODEL_STEPS`` greedy steps
+    (the paged kernel at D = 160 in each shared block call), the last step
+    against a prefill of the longer sequence."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, info = card_model(ZAMBA2_ARCH, seed=0)
+    groups = cfg.num_layers // cfg.shared_attn_period
+    prompts = seeded_prompts(22, ZAMBA2_PROMPTS, cfg.vocab_size)
+    cache = zeros_tree(model.describe_cache(len(prompts), ZAMBA2_MAX_SEQ))
+    flash_ops.KERNEL.launches = 0
+    ssd_ops.KERNEL.launches = 0
+    routes = dict(ssd_ops.KERNEL.routes)
+    first, prefill_ms = [], []
+    for b, prompt in enumerate(prompts):
+        (logits, pre), ms = synced_ms(lambda: model.prefill({"tokens": prompt[None]}))
+        prefill_ms.append(ms)
+        cache["ssm"][:, :, b] = pre["ssm"][:, :, 0]
+        cache["conv"][:, :, b] = pre["conv"][:, :, 0]
+        for name in ("shared_k", "shared_v"):
+            cache[name][:, b, :prompt.numel()] = pre[name][:, 0]
+        first.append(torch.argmax(logits[0]))
+        del pre
+    flash, ssd = flash_ops.KERNEL.launches, ssd_ops.KERNEL.launches
+    ssd_routes = {k: v - routes[k] for k, v in ssd_ops.KERNEL.routes.items()}
+    lengths = torch.tensor(ZAMBA2_PROMPTS, dtype=torch.int32, device=DEVICE)
+
+    paged_ops.KERNEL.launches = 0
+    before = paged_device_launches()
+    fed, logits, step_ms = greedy_decode(model, cache, torch.stack(first), lengths)
+    paged = paged_device_launches() - before
+    paged_eager = paged_ops.KERNEL.launches
+    vs_prefill = against_prefill(model, prompts, fed, logits[-1])
+    device = decode_device_ms(model, cache, fed[-1], lengths + MODEL_STEPS)
+    record = dict(
+        info, groups=groups, period=cfg.shared_attn_period, ssm_state=cfg.ssm_state,
+        shared_heads=cfg.num_heads, shared_head_dim=cfg.hybrid_head_dim,
+        prompts=list(ZAMBA2_PROMPTS), max_seq=ZAMBA2_MAX_SEQ, decode_steps=MODEL_STEPS,
+        ssd_launches=ssd, ssd_routes=ssd_routes, flash_launches=flash, prefills=len(prompts),
+        paged_kernel_launches=paged, paged_wrapper_calls=paged_eager, prefill_ms=prefill_ms,
+        step_ms=step_ms, **device, cache_bytes=tree_bytes(cache), decode_vs_prefill=vs_prefill,
+        tokens=fed.T.tolist(), peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log("zamba2 " + json.dumps(record))
+    n = len(prompts)
+    if ssd != cfg.num_layers * n or ssd_routes.get("tensor_core") != ssd:
+        raise AssertionError(f"SSD launches {ssd} (routes {ssd_routes}) != layers "
+                             f"{cfg.num_layers} x prefills {n}, all on the tensor cores")
+    if flash != groups * n:
+        raise AssertionError(f"flash launches {flash} != groups {groups} x prefills {n}")
+    if paged != groups * MODEL_STEPS:
+        raise AssertionError(f"paged kernels the device ran {paged} != groups {groups} x "
+                             f"steps {MODEL_STEPS}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite zamba2 logits")
+    return record
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -1845,6 +2369,9 @@ def main(argv=None) -> int:
     # arm the compile tracker: a replay that captures a graph after its
     # engine's warmup raises at its end
     os.environ["REPRO_JITAUDIT"] = "1"
+    # torch.compile (the flex_attention yardstick) caches inside the checkout
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     identity = gpu_identity()
@@ -1854,6 +2381,8 @@ def main(argv=None) -> int:
     paged_err = check_kernel_cases()
     paged_timing = time_kernel(layers=24)
     log("paged_attention timing " + json.dumps(paged_timing))
+    paged_d160 = time_kernel(D160_LAYERS, D160_SHAPE, D160_LENGTHS)
+    log("paged timing d160 " + json.dumps(paged_d160))
     flash_err = check_flash_cases()
     flash_timing = time_flash()
     log("flash_attention timing " + json.dumps(flash_timing))
@@ -1861,6 +2390,7 @@ def main(argv=None) -> int:
     ssd_timing = time_ssd()
     log("ssd timing " + json.dumps(ssd_timing))
     if "--kernels-only" in argv:
+        time_flex_yardstick(flash_timing)
         return 0
 
     check_model_small()
@@ -1901,6 +2431,18 @@ def main(argv=None) -> int:
     dense = serve_dense_slots(args, qwen_cfg, qwen_params, serve_log)
     torch.cuda.reset_peak_memory_stats()
     replicas = serve_replicas(args, qwen_cfg, qwen_params)
+    del qwen_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 8: gemma2's alternation and the zamba2 hybrid at model level
+    gemma2 = model_gemma2()
+    gc.collect()
+    torch.cuda.empty_cache()
+    zamba2 = model_zamba2()
+    # last: after torch.compile a profile can lose kernel records, and the
+    # replays' checks count kernels in profiles
+    time_flex_yardstick(flash_timing)
 
     ft = flash_timing["monolithic"]
     kernels = {"kernels": [
@@ -1914,6 +2456,9 @@ def main(argv=None) -> int:
             "launches_moe_replay": moe["kernel_launches"],
             "launches_dense_slots_replay": dense["kernel_launches"],
             "launches_replicas_replay": replicas["kernel_launches"],
+            "launches_gemma2_decode": gemma2["paged_kernel_launches_ring"],
+            "launches_gemma2_full_cache_decode": gemma2["paged_kernel_launches_full"],
+            "launches_zamba2_decode": zamba2["paged_kernel_launches"],
             "max_abs_err": paged_err,
             "ms": paged_timing["ms"],
             "device_ms": paged_timing["device_ms"],
@@ -1923,6 +2468,9 @@ def main(argv=None) -> int:
             "bound_by": paged_timing["bound_by"],
             "library_ms": paged_timing["library_ms"],
             "library_device_ms": paged_timing["library_device_ms"],
+            "d160": {k: paged_d160[k] for k in (
+                "shape", "lengths", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms")},
         },
         {
             "name": "flash_attention_prefill",
@@ -1935,6 +2483,8 @@ def main(argv=None) -> int:
             "launches_moe_replay": moe["flash_launches"],
             "launches_dense_slots_replay": dense["flash_launches"],
             "launches_replicas_replay": replicas["flash_launches"],
+            "launches_gemma2_prefills": gemma2["flash_launches"],
+            "launches_zamba2_prefills": zamba2["flash_launches"],
             "max_abs_err": flash_err,
             "ms": ft["ms"],
             "device_ms": ft["device_ms"],
@@ -1945,8 +2495,8 @@ def main(argv=None) -> int:
             "library_ms": ft["library_ms"],
             "library_device_ms": ft["library_device_ms"],
             "other_shapes": {name: {k: flash_timing[name][k] for k in (
-                "H", "KH", "D", "Sq", "ms", "device_ms", "bound_ms", "bound_by", "library_ms",
-                "library_device_ms")} for name in FLASH_OTHER},
+                "H", "KH", "D", "Sq", "ms", "device_ms", "bound_ms", "bound_by", "library",
+                "library_ms", "library_device_ms")} for name in (*FLASH_OTHER, "gemma2_local")},
         },
         {
             "name": "ssd_scan",
@@ -1955,6 +2505,7 @@ def main(argv=None) -> int:
             "replaces": "src/repro/kernels/ssd/kernel.py:88",
             "replaces_function": "ssd",
             "launches": ssm["ssd_launches"],
+            "launches_zamba2_prefills": zamba2["ssd_launches"],
             "max_abs_err": ssd_err,
             "ms": ssd_timing["ms"],
             "device_ms": ssd_timing["device_ms"],
@@ -1965,6 +2516,8 @@ def main(argv=None) -> int:
             "bound_by": ssd_timing["bound_by"],
             "library_ms": None,
             "library_note": ssd_timing["library_note"],
+            "zamba2": {k: ssd_timing["zamba2"][k] for k in (
+                "S", "n", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
         },
     ]}
     log(json.dumps(kernels))

@@ -26,7 +26,7 @@
 // skipped). Positions >= lengths[b] are masked and nothing is read past
 // column ceil(lengths[b] / T) of the block table, whose padding may name
 // another slot's live page. A row with length 0 reads nothing and writes
-// zeros. D is 32, 64, 128 or 256.
+// zeros. D is 32, 64, 128, 160 or 256.
 //
 // What bounds it: bytes. At the serving path's shape (B=3, H=KH=16, D=64,
 // T=16, a 24-column table, lengths 384/250/97) the visible K and V are
@@ -57,7 +57,11 @@
 //   row (one 16-byte shared-memory read in bf16), so D/8 lanes hold a key
 //   and a warp step covers 32/(D/8) keys at once (4 at D = 64); q sits
 //   pre-scaled in f32 registers. A score is a shuffle reduction over the
-//   key's D/8 lanes (3 shuffles at D = 64), and the steps of a sub-tile of
+//   key's D/8 lanes (3 shuffles at D = 64). Where D/8 is not a power of two
+//   (D = 160: 20 lanes) a warp step covers one key, the reduction runs over
+//   all 32 lanes, and lanes 20-31 hold zeros in q and in every row, so they
+//   add nothing and write nothing: simple, and 3/8 of the warp idle, a
+//   layout to redesign when D = 160 matters for speed. The steps of a sub-tile of
 //   16 rows are independent, so their shuffles overlap. The sub-tile's max
 //   and sum cross the key groups with two shuffles, each key costs one exp,
 //   and each lane adds p·v for its own key into its accumulator with no
@@ -176,8 +180,11 @@ __device__ __forceinline__ void load8(const int8_t* p, float (&x)[8]) {
 template <typename KT, int D, int GB>
 __global__ void __launch_bounds__(kMaxWarps * 32) paged_split_kernel(Args a) {
   constexpr int EPL = 8;                       // elements of a key row a lane owns
-  constexpr int LPK = D / EPL;                 // lanes a key: 4, 8, 16, 32
-  constexpr int KPS = 32 / LPK;                // keys a warp step covers: 8, 4, 2, 1
+  constexpr int LPK = D / EPL;                 // lanes a key: 4, 8, 16, 20, 32
+  // lanes a score's reduction spans: LPK, or the whole warp where LPK is
+  // not a power of two (D = 160), whose lanes LPK.. then hold zeros
+  constexpr int RED = (LPK & (LPK - 1)) == 0 ? LPK : 32;
+  constexpr int KPS = 32 / RED;                // keys a warp step covers: 8, 4, 2, 1
   constexpr int NS = KPS >= 2 ? 16 / KPS : 8;  // warp steps a sub-tile (16 or 8 rows)
   constexpr int kVec = 16 / (int)sizeof(KT);   // elements of one 16-byte copy
   constexpr int kChunks = D / kVec;            // 16-byte copies a row
@@ -190,8 +197,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32) paged_split_kernel(Args a) {
   if (a.launches != nullptr && blockIdx.x == 0 && b == 0 && split == 0 && threadIdx.x == 0)
     atomicAdd(a.launches, 1);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  const int kg = lane / LPK;         // which key of a warp step this lane works on
-  const int dl = lane - kg * LPK;    // ... and which eight of its D elements
+  const int kg = lane / RED;         // which key of a warp step this lane works on
+  const int dl = lane - kg * RED;    // ... and which eight of its D elements
+  const bool active = RED == LPK || dl < LPK;  // this lane holds elements of a key
   const int T = a.T;
   const int tile = T * D;
 
@@ -214,7 +222,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) paged_split_kernel(Args a) {
     const size_t qo = ((size_t)b * a.H + kh * a.G + g0 + min(g, ng - 1)) * D + dl * EPL;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
-      qv[g][e] = load_q(a.q, qo + e, a.q_bf16) * a.sm_scale;
+      qv[g][e] = active ? load_q(a.q, qo + e, a.q_bf16) * a.sm_scale : 0.f;
       acc[g][e] = 0.f;
     }
     m[g] = -INFINITY;
@@ -241,7 +249,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) paged_split_kernel(Args a) {
   // not visible; the new token's from registers
   auto row8 = [&](const KT* tile_s, const float (&fresh)[EPL], int row, bool vis, int pos,
                   float sc, float (&x)[EPL]) {
-    if (vis) {
+    if (vis && active) {
       load8(tile_s + row * D + dl * EPL, x);
     } else {
 #pragma unroll
@@ -258,7 +266,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) paged_split_kernel(Args a) {
   for (int stage = 0; c < c_end; c += nw, stage ^= 1) {
     if (c + nw < c_end) issue(c + nw, stage ^ 1);
     cp_async_commit();
-    if (new_pos >= c * T && new_pos < (c + 1) * T) {
+    if (active && new_pos >= c * T && new_pos < (c + 1) * T) {
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
         k_fresh[e] = as_pool<KT>(load_q(a.k_new, new_off + e, a.q_bf16));
@@ -291,7 +299,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) paged_split_kernel(Args a) {
 #pragma unroll
           for (int e = 0; e < EPL; ++e) s = fmaf(qv[g][e], kv[e], s);
 #pragma unroll
-          for (int o = LPK / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+          for (int o = RED / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
           sc[g][st] = s;
         }
       }
@@ -314,7 +322,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) paged_split_kernel(Args a) {
 #pragma unroll
         for (int st = 0; st < NS; ++st) mx = fmaxf(mx, sc[g][st]);
 #pragma unroll
-        for (int o = LPK; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        for (int o = RED; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
         const float m_new = fmaxf(m[g], mx);
         if (m_new == -INFINITY) {  // nothing visible yet
 #pragma unroll
@@ -329,7 +337,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) paged_split_kernel(Args a) {
           ps += sc[g][st];
         }
 #pragma unroll
-        for (int o = LPK; o < 32; o <<= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
+        for (int o = RED; o < 32; o <<= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
         l[g] = l[g] * alpha + ps;
 #pragma unroll
         for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
@@ -359,8 +367,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32) paged_split_kernel(Args a) {
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
 #pragma unroll
-      for (int o = LPK; o < 32; o <<= 1) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
-      if (kg == 0) mine[g * RS + dl * EPL + e] = acc[g][e];
+      for (int o = RED; o < 32; o <<= 1) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+      if (kg == 0 && active) mine[g * RS + dl * EPL + e] = acc[g][e];
     }
     if (lane == 0) {
       mine[g * RS + D] = m[g];
@@ -473,6 +481,8 @@ cudaError_t dispatch_d(int D, const Args& a, int B, cudaStream_t stream) {
       return dispatch_gb<KT, 64>(a, B, stream);
     case 128:
       return dispatch_gb<KT, 128>(a, B, stream);
+    case 160:
+      return dispatch_gb<KT, 160>(a, B, stream);
     case 256:
       return dispatch_gb<KT, 256>(a, B, stream);
     default:

@@ -38,7 +38,7 @@ from repro_torch.kernels.paged_attention.ref import (
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_HEAD_DIMS = (32, 64, 128, 256)
+_HEAD_DIMS = (32, 64, 128, 160, 256)
 #: keys a split covers at the least: below this a block's fixed cost
 #: (loading q, merging its warps, writing a partial) outweighs its loads
 _MIN_SPLIT_KEYS = 64

@@ -19,7 +19,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.types import SchedulerConfig
 from repro_torch.models import Model, materialize
 from repro_torch.serving import Engine, MoriRouter
-from repro_torch.serving.engine import resolve_device
+from repro_torch.serving.engine import check_servable, resolve_device
 from repro_torch.serving.state_io import restore_snapshot, save_snapshot
 from repro_torch.traces import TraceGenConfig, generate_corpus
 
@@ -53,6 +53,7 @@ def build_router(args: argparse.Namespace):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    check_servable(cfg)      # before any weight is drawn
     params = materialize(Model(cfg).describe(), seed=0, device=device)
     engines = [
         Engine(cfg, params, device=device, page_tokens=16, n_device_pages=72,

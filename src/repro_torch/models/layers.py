@@ -1,5 +1,6 @@
-"""Block library of the port: the dense and MoE families (non-alternating)
-and Mamba-2.
+"""Block library of the port: the dense and MoE families (with gemma2's
+window-limited ring cache for its local layers), Mamba-2, and zamba2's
+shared attention block.
 
 The counterpart of ``repro/models/layers.py``. Every block is a
 (``describe_*``, ``apply_*``) pair: ``describe_*`` builds a dict of
@@ -87,15 +88,24 @@ def rope(x, positions, theta: float):
 
 
 # ================================================================= attention
-def describe_attention(cfg: ModelConfig):
-    d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+def describe_attention(cfg: ModelConfig, d_in: int | None = None, heads=None,
+                       kv_heads=None, head_dim=None, bias: bool | None = None):
+    """The attention leaves; each width defaults to ``cfg``'s. The keywords
+    mirror the reference's ``describe_attention``; the shared block passes
+    them as the reference's does, and only its ``d_in``, ``head_dim`` and
+    ``bias`` differ from ``cfg``'s."""
+    d = d_in or cfg.d_model
+    h = heads or cfg.num_heads
+    kh = kv_heads or cfg.num_kv_heads
+    hd = head_dim or cfg.head_dim
+    bias = cfg.qkv_bias if bias is None else bias
     p = {
         "wq": Leaf((d, h * hd), ("embed", "heads")),
         "wk": Leaf((d, kh * hd), ("embed", "heads")),
         "wv": Leaf((d, kh * hd), ("embed", "heads")),
         "wo": Leaf((h * hd, d), ("heads", "embed")),
     }
-    if cfg.qkv_bias:
+    if bias:
         p["bq"] = Leaf((h * hd,), ("heads",), init="zeros")
         p["bk"] = Leaf((kh * hd,), ("heads",), init="zeros")
         p["bv"] = Leaf((kh * hd,), ("heads",), init="zeros")
@@ -173,12 +183,19 @@ def decode_attention(q, k_cache, v_cache, *, lengths, window=None, cap=None,
 
 
 # ======================================================================= FFN
-def describe_ffn(cfg: ModelConfig):
-    d, f = cfg.d_model, cfg.d_ff
+def describe_ffn(cfg: ModelConfig, d_in: int | None = None, d_ff: int | None = None,
+                 d_out: int | None = None):
+    """The gated FFN's leaves; each width defaults to ``cfg``'s. The
+    keywords mirror the reference's ``describe_ffn``; the shared block passes
+    them as the reference's does, and only its ``d_in`` (and so ``d_out``)
+    differs from ``cfg``'s."""
+    d = d_in or cfg.d_model
+    f = d_ff or cfg.d_ff
+    o = d_out or d
     return {
         "w_gate": Leaf((d, f), ("embed", "ffn")),
         "w_up": Leaf((d, f), ("embed", "ffn")),
-        "w_down": Leaf((f, d), ("ffn", "embed")),
+        "w_down": Leaf((f, o), ("ffn", "embed")),
     }
 
 
@@ -303,6 +320,7 @@ def describe_dense_block(cfg: ModelConfig):
 def apply_dense_block(
     p, x, cfg: ModelConfig, *, positions, window=None, cache=None, lengths=None,
     prefix=None, prefix_valid=None, page_tokens: int = 16,
+    ring_window: int | None = None,
 ):
     """One transformer block. Modes:
 
@@ -317,6 +335,14 @@ def apply_dense_block(
       place, where the reference returned updated buffers, then attends
       through :func:`decode_attention` (``page_tokens`` is the page size
       the kernel reads the slots in); returns ``(x, (k_cache, v_cache))``.
+      With ``ring_window`` the slots are a ring holding the last
+      ``ring_window`` tokens (gemma2's window-limited local cache): the
+      token goes to slot ``(lengths - 1) % ring_window`` and attention
+      covers the first ``min(lengths, ring_window)`` slots with no window
+      (RoPE is baked into K, and attention does not depend on the order
+      of its keys). On the card the slots are read as pages, so a ring
+      that fills its cache must be a whole number of ``page_tokens``-token
+      pages (:func:`slot_pages` raises otherwise).
     """
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     a_in = rmsnorm(x, p["ln1"])
@@ -339,11 +365,17 @@ def apply_dense_block(
         new_kv = (k, v)
     else:
         k_cache, v_cache = cache
-        idx = lengths - 1                                      # write position
+        if ring_window is not None:
+            idx = (lengths - 1) % ring_window
+            attn_lengths = torch.clamp(lengths, max=ring_window)
+            window = None
+        else:
+            idx = lengths - 1                                  # write position
+            attn_lengths = lengths
         _write_slot(k_cache, k[:, 0], idx)
         _write_slot(v_cache, v[:, 0], idx)
         attn = decode_attention(
-            q[:, 0], k_cache, v_cache, lengths=lengths, window=window,
+            q[:, 0], k_cache, v_cache, lengths=attn_lengths, window=window,
             cap=cfg.attn_logit_softcap, page_tokens=page_tokens,
         )[:, None, :]
         new_kv = (k_cache, v_cache)
@@ -473,3 +505,51 @@ def _causal_conv(padded, w, b, out_len):
     W = w.shape[0]
     out = sum(padded[:, i:i + out_len, :] * w[i][None, None, :] for i in range(W))
     return silu(out + b)
+
+
+# =================================================== zamba2 shared attention
+def describe_shared_block(cfg: ModelConfig):
+    """Zamba2: ONE transformer block shared across the depth, operating on
+    concat(hidden, initial embedding) = 2*d_model, projected back to d_model."""
+    d2 = 2 * cfg.d_model
+    hd = cfg.hybrid_head_dim
+    return {
+        "ln1": Leaf((d2,), ("embed_act",), init="zeros"),
+        "attn": describe_attention(cfg, d_in=d2, heads=cfg.num_heads,
+                                   kv_heads=cfg.num_kv_heads, head_dim=hd, bias=False),
+        "ln2": Leaf((d2,), ("embed_act",), init="zeros"),
+        "ffn": describe_ffn(cfg, d_in=d2, d_ff=cfg.d_ff, d_out=d2),
+        "down": Leaf((d2, cfg.d_model), ("embed", None)),
+    }
+
+
+def apply_shared_block(p, h, x0, cfg: ModelConfig, *, positions, cache=None,
+                       lengths=None, page_tokens: int = 16):
+    """h: hidden [B,S,d]; x0: initial embedding [B,S,d]. Returns ``(h', kv)``.
+
+    Sequence mode (``cache`` None): causal attention through
+    :func:`prefill_attention` (the flash kernel on the card); ``kv`` is this
+    call's ``(k, v)``. Decode mode (``cache = (k_cache, v_cache)`` slot
+    buffers ``[B, S, KH, hybrid_head_dim]``): the token is written at
+    ``lengths - 1`` in place and attends through :func:`decode_attention`
+    (the paged kernel over the slots on the card); ``kv`` is the caches."""
+    heads, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hybrid_head_dim
+    xin = torch.cat([h, x0], dim=-1)                          # [B,S,2d]
+    a_in = rmsnorm(xin, p["ln1"])
+    q, k, v = _project_qkv(p["attn"], a_in, heads, kh, hd, positions, cfg.rope_theta)
+    if cache is None:
+        attn = prefill_attention(q, k, v, causal=True)
+        B, S = attn.shape[:2]
+        attn = attn.reshape(B, S, heads * hd)
+        new_kv = (k, v)
+    else:
+        k_cache, v_cache = cache
+        idx = lengths - 1
+        _write_slot(k_cache, k[:, 0], idx)
+        _write_slot(v_cache, v[:, 0], idx)
+        attn = decode_attention(q[:, 0], k_cache, v_cache, lengths=lengths,
+                                page_tokens=page_tokens)[:, None, :]
+        new_kv = (k_cache, v_cache)
+    xin = xin + attn @ p["attn"]["wo"]
+    xin = xin + apply_ffn(p["ffn"], rmsnorm(xin, p["ln2"]))
+    return h + xin @ p["down"], new_kv

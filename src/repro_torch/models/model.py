@@ -1,7 +1,10 @@
 """Model assembly of the port: describe / prefill / slot-cache decode /
 paged decode for the dense and ``moe`` families without local/global
-alternation, and describe / prefill / decode for the ``ssm`` family
-(mamba2).
+alternation; describe / prefill / decode for gemma2's local/global
+alternation (its local layers optionally over a window-limited ring
+cache), the ``ssm`` family (mamba2) and the ``hybrid`` family (zamba2:
+groups of Mamba-2 blocks, each followed by one shared attention block on
+``concat(hidden, embedding)``).
 
 The counterpart of ``repro/models/model.py``. :class:`Model` is an
 ``nn.Module`` whose buffers are the parameter tree, leaf name for leaf
@@ -21,8 +24,10 @@ from repro_torch.models.layers import (
     apply_dense_block,
     apply_dense_block_paged,
     apply_mamba_block,
+    apply_shared_block,
     describe_dense_block,
     describe_mamba_block,
+    describe_shared_block,
     rmsnorm,
     softcap,
     stack,
@@ -35,23 +40,38 @@ KV_AXES = ("layers", "batch", "kv_seq", "kv_heads_act", "head_dim")
 
 #: the families the port does not serve yet, each with its ROADMAP §1 item
 _NOT_PORTED = {
-    "hybrid": "the zamba2 hybrid is ROADMAP §1 item 9",
     "encdec": "whisper's encoder-decoder is ROADMAP §1 item 11",
     "vlm": "internvl2's image prefix is ROADMAP §1 item 11",
 }
 
-#: the families whose KV lives in the serving engine's page pool
+#: the families whose KV lives in the serving engine's page pool (without
+#: local/global alternation)
 PAGED_FAMILIES = ("dense", "moe")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.local_global_alternating:
-        raise NotImplementedError(
-            f"{cfg.name}: local/global alternation is not ported (ROADMAP §1 item 10)")
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(f"{cfg.name} is {cfg.family}: {_NOT_PORTED[cfg.family]}")
-    if cfg.family not in (*PAGED_FAMILIES, "ssm"):
+    if cfg.family not in (*PAGED_FAMILIES, "ssm", "hybrid"):
         raise ValueError(f"unknown family {cfg.family}")
+
+
+def _check_prefix(cfg: ModelConfig, prefix) -> None:
+    """Chunked prefill over a prefix exists for the paged families only:
+    the reference's alternating, ssm and hybrid bodies take no prefix."""
+    if prefix is not None and (cfg.family not in PAGED_FAMILIES
+                               or cfg.local_global_alternating):
+        kind = "local/global alternation" if cfg.local_global_alternating else cfg.family
+        raise ValueError(f"{cfg.name} ({kind}) has no prefix to attend over")
+
+
+def _kv_tree(ks, vs) -> dict:
+    return {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def _clone_tree(tree: dict) -> dict:
+    """A copy of a nested dict of tensors, leaf by leaf."""
+    return {k: _clone_tree(t) if isinstance(t, dict) else t.clone() for k, t in tree.items()}
 
 
 class _ParamTree(nn.Module):
@@ -100,43 +120,85 @@ class Model(nn.Module):
             if want != got:
                 raise ValueError(f"parameter tree mismatch: want {want}, got {got}")
             self.params = _ParamTree(params)
-            self._layers = [
-                _layer_view(params["blocks"], l) for l in range(cfg.num_layers)
-            ]
+            blocks = params["blocks"]
+            if cfg.family == "hybrid":
+                # [groups, period] mamba blocks, then the one shared block
+                period = cfg.shared_attn_period
+                self._layers = [
+                    [_layer_view(_layer_view(blocks, g), j) for j in range(period)]
+                    for g in range(cfg.num_layers // period)
+                ]
+                self._shared = params["shared"]
+            else:
+                # alternation stacks (local, global) pairs
+                n = cfg.num_layers // 2 if cfg.local_global_alternating else cfg.num_layers
+                self._layers = [_layer_view(blocks, l) for l in range(n)]
 
     # ------------------------------------------------------------ describe
     def describe(self) -> dict:
         cfg = self.cfg
         d, v = cfg.d_model, cfg.vocab_size
-        block = describe_mamba_block(cfg) if cfg.family == "ssm" else describe_dense_block(cfg)
-        return {
+        tree = {
             "embed": Leaf((v, d), ("vocab", "embed"), scale=0.02),
             "ln_f": Leaf((d,), ("embed_act",), init="zeros"),
             "head": Leaf((d, v), ("embed", "vocab")),
-            "blocks": stack(block, cfg.num_layers),
         }
+        if cfg.family == "ssm":
+            tree["blocks"] = stack(describe_mamba_block(cfg), cfg.num_layers)
+        elif cfg.family == "hybrid":
+            period = cfg.shared_attn_period
+            tree["blocks"] = stack(stack(describe_mamba_block(cfg), period),
+                                   cfg.num_layers // period)
+            tree["shared"] = describe_shared_block(cfg)
+        elif cfg.local_global_alternating:
+            # gemma2: (local, global) pairs
+            pair = {"local": describe_dense_block(cfg), "global": describe_dense_block(cfg)}
+            tree["blocks"] = stack(pair, cfg.num_layers // 2)
+        else:
+            tree["blocks"] = stack(describe_dense_block(cfg), cfg.num_layers)
+        return tree
 
     # --------------------------------------------------------------- cache
     def describe_cache(self, batch: int, max_seq: int) -> dict:
         """The decode cache :meth:`decode` takes. The dense and moe
         families: dense slot buffers ``{"k", "v"}`` ``[L, batch, max_seq,
         KH, HD]`` bf16 (the serving engine's paged mode keeps its KV in the
-        page pool instead). The ssm family: SSD state f32 and conv state
-        bf16, O(1) in ``max_seq``."""
+        page pool instead); with alternation ``{"local": ..., "global":
+        ...}`` of ``L/2`` layers each (a local cache given fewer slots than
+        the global one is decoded as a ring). The ssm family: SSD state f32
+        and conv state bf16, O(1) in ``max_seq``. The hybrid family: those
+        per ``(group, layer)`` plus the shared block's ``shared_k``/
+        ``shared_v`` per group."""
         cfg = self.cfg
-        if cfg.family in PAGED_FAMILIES:
-            L, KH, HD = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+        L, KH, HD = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+
+        def kv(layers, kh, hd):
             return {
-                name: Leaf((L, batch, max_seq, KH, HD), KV_AXES, torch.bfloat16,
+                name: Leaf((layers, batch, max_seq, kh, hd), KV_AXES, torch.bfloat16,
                            init="zeros")
                 for name in ("k", "v")
             }
-        L, conv_dim = cfg.num_layers, cfg.ssm_inner + 2 * cfg.ssm_state
+
+        if cfg.family in PAGED_FAMILIES:
+            if cfg.local_global_alternating:
+                return {"local": kv(L // 2, KH, HD), "global": kv(L // 2, KH, HD)}
+            return kv(L, KH, HD)
+        if cfg.family == "ssm":
+            return self._ssm_cache((L,), batch)
+        groups = L // cfg.shared_attn_period
+        c = self._ssm_cache((groups, cfg.shared_attn_period), batch)
+        c.update({f"shared_{k}": t for k, t in kv(groups, KH, cfg.hybrid_head_dim).items()})
+        return c
+
+    def _ssm_cache(self, lead: tuple[int, ...], batch: int) -> dict:
+        cfg = self.cfg
+        conv_dim = cfg.ssm_inner + 2 * cfg.ssm_state
+        lead_axes = tuple("layers" for _ in lead)
         return {
-            "ssm": Leaf((L, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
-                        ("layers", "batch", "ssm_heads_act", None, None), F32, init="zeros"),
-            "conv": Leaf((L, batch, cfg.ssm_conv_width - 1, conv_dim),
-                         ("layers", "batch", None, "ssm_heads_act"), init="zeros"),
+            "ssm": Leaf((*lead, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                        (*lead_axes, "batch", "ssm_heads_act", None, None), F32, init="zeros"),
+            "conv": Leaf((*lead, batch, cfg.ssm_conv_width - 1, conv_dim),
+                         (*lead_axes, "batch", None, "ssm_heads_act"), init="zeros"),
         }
 
     def _logits(self, h):
@@ -149,21 +211,51 @@ class Model(nn.Module):
         """Run the full stack over a token-embedded sequence ``x`` [B,S,d].
 
         ``prefix``: optional {"k","v"} [L,B,Sp,KH,HD] radix-cached KV for
-        chunked prefill. ``prefix_valid`` marks how many prefix positions
-        are real when the prefix is padded to a bucket. Returns
-        ``(hidden, cache)`` with cache {"k","v"} [L,B,S,KH,HD], or for the
-        ssm family {"ssm": [L,B,H,P,N] f32, "conv": [L,B,W-1,conv_dim]}.
+        chunked prefill (the paged families only). ``prefix_valid`` marks
+        how many prefix positions are real when the prefix is padded to a
+        bucket. Returns ``(hidden, cache)`` with cache {"k","v"}
+        [L,B,S,KH,HD]; with alternation {"local": {"k","v"}, "global":
+        {"k","v"}} of L/2 layers each (local layers attend within
+        ``sliding_window``, global ones over everything); for the ssm
+        family {"ssm": [L,B,H,P,N] f32, "conv": [L,B,W-1,conv_dim]}; for
+        the hybrid family those with a [groups, period] lead plus
+        "shared_k"/"shared_v" [groups,B,S,KH,hybrid_head_dim], the shared
+        block taking the initial embedding ``x`` at every call.
         """
         cfg = self.cfg
+        _check_prefix(cfg, prefix)
         if cfg.family == "ssm":
-            if prefix is not None:
-                raise ValueError("the ssm family has no prefix to attend over")
             sts, cvs = [], []
             for p in self._layers:
                 x, (st, cv) = apply_mamba_block(p, x, cfg)
                 sts.append(st)
                 cvs.append(cv)
             return x, {"ssm": torch.stack(sts), "conv": torch.stack(cvs)}
+        if cfg.family == "hybrid":
+            x0 = x
+            sts, cvs, ks, vs = [], [], [], []
+            for group in self._layers:
+                g_sts, g_cvs = [], []
+                for p in group:
+                    x, (st, cv) = apply_mamba_block(p, x, cfg)
+                    g_sts.append(st)
+                    g_cvs.append(cv)
+                x, (k, v) = apply_shared_block(self._shared, x, x0, cfg, positions=positions)
+                sts.append(torch.stack(g_sts))
+                cvs.append(torch.stack(g_cvs))
+                ks.append(k)
+                vs.append(v)
+            return x, {"ssm": torch.stack(sts), "conv": torch.stack(cvs),
+                       "shared_k": torch.stack(ks), "shared_v": torch.stack(vs)}
+        if cfg.local_global_alternating:
+            kvs = {"local": ([], []), "global": ([], [])}
+            for p in self._layers:
+                for kind, window in (("local", cfg.sliding_window), ("global", None)):
+                    x, (k, v) = apply_dense_block(p[kind], x, cfg, positions=positions,
+                                                  window=window)
+                    kvs[kind][0].append(k)
+                    kvs[kind][1].append(v)
+            return x, {kind: _kv_tree(*pair) for kind, pair in kvs.items()}
         ks, vs = [], []
         for l, p in enumerate(self._layers):
             pre = (prefix["k"][l], prefix["v"][l]) if prefix is not None else None
@@ -173,7 +265,7 @@ class Model(nn.Module):
             )
             ks.append(k)
             vs.append(v)
-        return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+        return x, _kv_tree(ks, vs)
 
     # ------------------------------------------------------------ prefill
     @torch.no_grad()
@@ -190,6 +282,7 @@ class Model(nn.Module):
         absolute position of the first suffix token (RoPE uses true
         positions), the second masks the padded prefix tail.
         """
+        _check_prefix(self.cfg, prefix)
         tokens = batch["tokens"]
         x = self.params.embed[tokens]
         S = x.shape[1]
@@ -204,13 +297,13 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode(self, cache, tokens, lengths, *, page_tokens: int = 16):
         """One decode step. ``tokens`` [B]; ``lengths`` [B] = context
-        length including the new token. ``cache`` is the dense and moe
-        families' slot buffers {"k", "v"} ``[L, B, S, KH, HD]``
-        (:meth:`describe_cache`) or the ssm family's {"ssm", "conv"} as
-        :meth:`prefill` returns it. Returns ``(logits [B, V] f32,
-        new_cache)`` and leaves ``cache`` as it was (see
-        :meth:`decode_into` for the in-place step)."""
-        new_cache = {k: t.clone() for k, t in cache.items()}
+        length including the new token. ``cache`` is the tree
+        :meth:`describe_cache` describes (slot buffers, the alternating
+        families' nested local/global slots, the ssm and hybrid states), or
+        the ssm family's {"ssm", "conv"} as :meth:`prefill` returns it.
+        Returns ``(logits [B, V] f32, new_cache)`` and leaves ``cache`` as
+        it was (see :meth:`decode_into` for the in-place step)."""
+        new_cache = _clone_tree(cache)
         return self.decode_into(new_cache, tokens, lengths, page_tokens=page_tokens), new_cache
 
     @torch.no_grad()
@@ -223,11 +316,33 @@ class Model(nn.Module):
         buffers at ``lengths - 1``, then attends over them through
         :func:`~repro_torch.models.layers.decode_attention`, which on the
         card reads the slots as ``page_tokens``-token pages with the
-        paged-attention kernel. ssm: ``lengths`` is unused (the recurrence
+        paged-attention kernel. Alternation: each (local, global) pair in
+        turn; the local layers run as a ring (``ring_window`` = their slot
+        count) when the local cache has fewer slots than the global one,
+        else over the window. ssm: ``lengths`` is unused (the recurrence
         needs none); each layer's new state is computed whole before it is
-        copied over the old."""
+        copied over the old. hybrid: each group's mamba layers as ssm, then
+        the shared block over the group's slot buffers, fed the token's
+        embedding."""
         cfg = self.cfg
         x = self.params.embed[tokens][:, None, :]           # [B,1,d]
+        if cfg.local_global_alternating:
+            positions = (lengths - 1)[:, None]
+            local, glob = state["local"], state["global"]
+            slots = local["k"].shape[2]
+            ring = slots if slots < glob["k"].shape[2] else None
+            for l, p in enumerate(self._layers):
+                x, _ = apply_dense_block(
+                    p["local"], x, cfg, positions=positions, window=cfg.sliding_window,
+                    cache=(local["k"][l], local["v"][l]), lengths=lengths,
+                    page_tokens=page_tokens, ring_window=ring,
+                )
+                x, _ = apply_dense_block(
+                    p["global"], x, cfg, positions=positions, window=None,
+                    cache=(glob["k"][l], glob["v"][l]), lengths=lengths,
+                    page_tokens=page_tokens,
+                )
+            return self._logits(x[:, 0, :])
         if cfg.family in PAGED_FAMILIES:
             positions = (lengths - 1)[:, None]
             for l, p in enumerate(self._layers):
@@ -237,11 +352,28 @@ class Model(nn.Module):
                     page_tokens=page_tokens,
                 )
             return self._logits(x[:, 0, :])
+        if cfg.family == "hybrid":
+            x0 = x
+            positions = (lengths - 1)[:, None]
+            for g, group in enumerate(self._layers):
+                for j, p in enumerate(group):
+                    x = self._mamba_step(p, x, state["ssm"][g, j], state["conv"][g, j])
+                x, _ = apply_shared_block(
+                    self._shared, x, x0, cfg, positions=positions,
+                    cache=(state["shared_k"][g], state["shared_v"][g]), lengths=lengths,
+                    page_tokens=page_tokens,
+                )
+            return self._logits(x[:, 0, :])
         for l, p in enumerate(self._layers):
-            x, (st, cv) = apply_mamba_block(p, x, cfg, cache=(state["ssm"][l], state["conv"][l]))
-            state["ssm"][l].copy_(st)
-            state["conv"][l].copy_(cv)
+            x = self._mamba_step(p, x, state["ssm"][l], state["conv"][l])
         return self._logits(x[:, 0, :])
+
+    def _mamba_step(self, p, x, ssm, conv):
+        """One mamba layer's decode step, its state updated in place."""
+        x, (st, cv) = apply_mamba_block(p, x, self.cfg, cache=(ssm, conv))
+        ssm.copy_(st)
+        conv.copy_(cv)
+        return x
 
     # ------------------------------------------------------- paged decode
     @torch.no_grad()
@@ -264,9 +396,10 @@ class Model(nn.Module):
         Returns ``logits [B, V]`` (f32).
         """
         cfg = self.cfg
-        if cfg.family not in PAGED_FAMILIES:
+        if cfg.family not in PAGED_FAMILIES or cfg.local_global_alternating:
             raise NotImplementedError(
-                f"paged decode serves the {'/'.join(PAGED_FAMILIES)} families, not {cfg.family}")
+                f"paged decode serves the {'/'.join(PAGED_FAMILIES)} families without "
+                f"local/global alternation, not {cfg.name}")
         quantized = k_scales is not None
         x = self.params.embed[tokens][:, None, :]           # [B,1,d]
         k_news, v_news = [], []

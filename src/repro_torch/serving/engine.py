@@ -50,7 +50,7 @@ from repro_torch.analysis import compile_tracker
 from repro_torch.core.radix_tree import TypedRadixTree
 from repro_torch.core.types import Tier, TypeLabel
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import Model
+from repro_torch.models.model import PAGED_FAMILIES, Model
 from repro_torch.serving.kvpool import (
     PagePool,
     gather_token_run,
@@ -75,6 +75,20 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """The families :class:`Engine` serves: dense and moe without
+    local/global alternation, as the reference's ``Engine`` asserts ("the
+    real engine serves dense-cache families"). gemma2's alternation keeps
+    two caches of another layout and zamba2's hybrid an SSM state beside
+    its KV; :class:`Model` runs both, the paged engine serves neither.
+    Raises ``ValueError`` for any other configuration."""
+    if cfg.family not in PAGED_FAMILIES or cfg.local_global_alternating:
+        kind = "local/global alternation" if cfg.local_global_alternating else cfg.family
+        raise ValueError(
+            f"{cfg.name} ({kind}): the real engine serves dense-cache families "
+            f"({'/'.join(PAGED_FAMILIES)} without local/global alternation)")
 
 
 @dataclass
@@ -231,6 +245,7 @@ class Engine:
         offload_format: str = "bf16",
         device_format: str = "bf16",
     ):
+        check_servable(cfg)
         if dense_slots and device_format == "int8":
             raise ValueError(
                 "device_format='int8' packs the paged pool; the dense-slot "

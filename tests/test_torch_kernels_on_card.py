@@ -1,6 +1,7 @@
 """The redesigned kernels on the card, against their plain versions: the
 split-K paged decode kernel at split boundaries, over tables wider than
-any row and at dbrx-132b's GQA 6:1; the bf16 tensor-core flash kernel at
+any row, at dbrx-132b's GQA 6:1 and at zamba2's head dimension 160 (bf16,
+f32 and int8 pages); the bf16 tensor-core flash kernel at
 every head dimension (32 to 256; 160 and 256 also on the f32 CUDA-core
 kernel), with GQA, ragged tails and a hole behind a query offset; and
 the SSD scan's tensor-core passes at mamba2's widths (one chunk, ragged
@@ -56,6 +57,11 @@ PAGED_CASES = {
     # KV head holds heads 4-5 and two empty rows)
     "dbrx gqa 6:1": (3, 48, 8, 128, 16, 24, [384, 250, 97], "bfloat16"),
     "dbrx gqa 6:1 int8": (3, 48, 8, 128, 16, 24, [17, 200, 1], "int8"),
+    # zamba2's shared-block decode: 32 heads of 160, where a key spans 20
+    # lanes (one key a warp step); lengths across the 64-key split boundaries
+    "zamba2 d160": (2, 32, 32, 160, 16, 25, [384, 200], "bfloat16"),
+    "zamba2 d160 f32": (3, 32, 32, 160, 16, 25, [65, 129, 1], "float32"),
+    "zamba2 d160 int8": (3, 32, 32, 160, 16, 25, [64, 257, 17], "int8"),
 }
 
 
@@ -138,7 +144,8 @@ FLASH_CASES = {
 #: head dimensions beyond 128, in bf16 (two warp groups at 160, one at 256)
 #: and f32 (the CUDA-core kernel): zamba2's shared attention block (32
 #: heads of 160) and gemma2-9b (16 heads over 8 KV heads of 256), causal
-#: with a ragged tail, and a chunk at q_offset behind a kv_hole
+#: with a ragged tail, a chunk at q_offset behind a kv_hole, and gemma2's
+#: window with its softcap
 WIDE_FLASH_CASES = {
     "d160 ragged": (1, 200, 200, 32, 32, 160, dict(causal=True)),
     "d160 chunk hole": (1, 64, 192, 32, 32, 160, dict(causal=True, q_offset=128,
@@ -146,7 +153,14 @@ WIDE_FLASH_CASES = {
     "d256 ragged": (1, 200, 200, 16, 8, 256, dict(causal=True)),
     "d256 chunk hole": (1, 64, 192, 16, 8, 256, dict(causal=True, q_offset=128,
                                                      kv_hole=(83, 128))),
+    # gemma2-9b's local layers: a window and the attention softcap (q is
+    # scaled by CAPPED_Q_SCALE so the logits reach the cap)
+    "d256 gqa window softcap": (1, 300, 300, 16, 8, 256, dict(causal=True, window=100,
+                                                              cap=50.0)),
 }
+#: q's scale in the softcapped cases: with unit k the scores have std 8
+#: and their largest reach ~25, where cap·tanh(s/cap) bends them
+CAPPED_Q_SCALE = 8.0
 
 
 @pytest.mark.cuda
@@ -170,7 +184,7 @@ def test_flash_kernel_in_bf16_matches_blockwise(card, name):
 def test_flash_kernel_at_head_dims_160_and_256_matches_blockwise(card, name, dtype):
     B, Sq, Skv, H, KH, D, kw = WIDE_FLASH_CASES[name]
     rng = np.random.default_rng(33)
-    q = randn(rng, (B, Sq, H, D), dtype, card)
+    q = randn(rng, (B, Sq, H, D), dtype, card) * (CAPPED_Q_SCALE if "cap" in kw else 1.0)
     k, v = (randn(rng, (B, Skv, KH, D), dtype, card) for _ in range(2))
     before = flash_ops.KERNEL.launches
     got = flash_ops.prefill_attention(q, k, v, **kw)
@@ -178,6 +192,11 @@ def test_flash_kernel_at_head_dims_160_and_256_matches_blockwise(card, name, dty
     assert flash_ops.KERNEL.launches == before + 1
     want = flash_ref.blockwise_attention(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), **BANDS[dtype])
+    if "cap" in kw:
+        # the band can tell: the plain version without the softcap lies outside it
+        uncapped = flash_ref.blockwise_attention(q, k, v, **{**kw, "cap": None})
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(uncapped.float(), want.float(), **BANDS[dtype])
 
 
 @pytest.mark.cuda

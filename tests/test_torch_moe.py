@@ -129,11 +129,10 @@ def jax_route(p, xg, jcfg):
 
 # ----------------------------------------------------------------- family
 def test_the_moe_family_is_admitted_and_the_rest_refused():
-    for arch in ARCHS:
+    for arch in ARCHS + ["zamba2-2.7b", "gemma2-9b"]:
         Model(get_config(arch).reduced())
-    for arch, item in (("zamba2-2.7b", "item 9"), ("whisper-medium", "item 11"),
-                       ("internvl2-26b", "item 11"), ("gemma2-9b", "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
+    for arch in ("whisper-medium", "internvl2-26b"):
+        with pytest.raises(NotImplementedError, match="item 11"):
             Model(get_config(arch).reduced())
 
 

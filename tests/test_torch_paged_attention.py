@@ -43,6 +43,7 @@ PAGED_SHAPES = [
     (3, 8, 2, 64, 8, 4),      # GQA 4:1
     (2, 16, 8, 128, 16, 3),   # GQA 2:1, 128-dim
     (4, 4, 1, 64, 16, 5),     # MQA
+    (2, 8, 8, 160, 16, 3),    # MHA at zamba2's shared-block head dim, 2·2560/32
 ]
 #: int8 bands of tests/test_kv_quant.py
 EXACT_BAND = 2e-3
@@ -151,6 +152,9 @@ INT8_CASES = {
                          softcap=None, window=None),
     "all-at-once": dict(B=2, H=8, KH=2, D=64, T=16, P=3, lengths=[39, 15],
                         softcap=50.0, window=20),
+    # zamba2's shared-block decode: MHA at D = 160
+    "d160": dict(B=2, H=4, KH=4, D=160, T=16, P=3, lengths=[48, 17],
+                 softcap=None, window=None),
 }
 
 
