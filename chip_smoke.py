@@ -17,10 +17,14 @@ on failure (a failure exits non-zero and prints no final line):
    reference's test shapes and at the serving paths' shapes: paged
    attention (bf16/f32/int8 pages, MHA/GQA/MQA, softcap, windows, zamba2's
    D = 160, gemma2's 4096-slot ring and 4624-slot global and full-size
-   local caches read as pages, in f32 and bf16), flash attention (the
-   reference's shapes and variants, ragged lengths, q_offset chunks,
-   kv_hole, kv_lengths, GQA, MQA, D=128, both layouts, gemma2's 4600-token
-   local layer with window 4096 and softcap 50) and the SSD scan (the
+   local caches read as pages, in f32 and bf16; 30-token pages, and
+   whisper's 1500-position cross cache read as such pages), flash
+   attention (the reference's shapes and variants, ragged lengths,
+   q_offset chunks, kv_hole, kv_lengths, GQA, MQA, D=128, both layouts,
+   gemma2's 4600-token local layer with window 4096 and softcap 50,
+   whisper's 1500-position bidirectional encoder and its cross-attention
+   from a 64-token prompt, internvl2's 856-token prefill at 48/8 heads of
+   128) and the SSD scan (the
    reference's shapes and a ragged S on the CUDA-core
    route; the full-width shape at S = 1, 128, 200, 256 and 1024, two rows,
    chunks of 64 and 256 and strided slices of one fused tensor on the
@@ -32,8 +36,10 @@ on failure (a failure exits non-zero and prints no final line):
    could take for the same work; each kernel's own device time per call
    (``device_ms``, all its passes) from ``torch.profiler``, for the SSD
    scan at S = 128, 200, 256 and 2048 and for its CUDA-core route at 256;
-   the paged kernel also at zamba2's decode shape (D = 160), flash at
-   gemma2's local layer, the SSD scan at zamba2's N = 64. gemma2's cases
+   the paged kernel also at zamba2's decode shape (D = 160) and at
+   whisper's cross-attention decode (30-token pages), flash at gemma2's
+   local layer and phase 8's whisper and internvl2 shapes, the SSD scan
+   at zamba2's N = 64. gemma2's cases
    scale q so its logits reach the softcap, and each shows that its band
    rejects the plain version without the softcap or the window;
 3. the models on a small input, card (kernels) against CPU (plain
@@ -87,7 +93,7 @@ on failure (a failure exits non-zero and prints no final line):
    failing mid-replay and recovering: programs migrate, one drain, every
    program completes every step, offloads billed at the int8 page size,
    no capture after warmup, paged kernels = layers x decode steps;
-8. the two families the reference runs only at model level, at full
+8. the families the reference runs only at model level, at full
    width and depth on weights drawn on the card, eagerly: ``gemma2-9b``
    (prompts of 4600 and 1000 tokens prefilled one at a time, flash =
    layers x prefills; 16 greedy steps over a local ring of 4096 slots
@@ -97,7 +103,17 @@ on failure (a failure exits non-zero and prints no final line):
    longer sequence) and ``zamba2-2.7b`` (prompts of 384 and 200 tokens:
    SSD = mamba layers x prefills, all on the tensor cores, flash = groups
    x prefills; 16 greedy steps, paged kernels at D = 160 = groups x
-   steps; the last step against a prefill of the longer sequence);
+   steps; the last step against a prefill of the longer sequence),
+   ``whisper-medium`` (frames of 1500 x 1024 a row and prompts of 64 and
+   24 tokens: flash = (encoder + 2 x decoder layers) x prefills; 16
+   greedy steps at batch 2, paged kernels = 2 x decoder layers x steps,
+   the cross cache read as 30-token pages; the cross and self cache
+   bytes; the last step against a prefill of the longer sequence) and
+   ``internvl2-26b`` (256 image embeddings before prompts of 600 and 200
+   tokens: flash = layers x prefills; 16 greedy steps over slots, then
+   the same tokens through ``decode_paged`` over a pool, paged kernels =
+   layers x steps in each, tokens equal or parted at a near tie; the
+   last step against a prefill of the longer sequence);
 9. the library yardstick of gemma2's local layer, compiled
    ``flex_attention`` with its softcap and window (SDPA has no softcap),
    held to the kernel's output and timed; last, because after
@@ -204,6 +220,24 @@ FLASH_OTHER = {
 #: time is compiled ``flex_attention``'s, phase 9); q scaled as in
 #: GEMMA2_DECODE
 FLASH_GEMMA2 = dict(B=1, H=16, KH=8, D=256, S=4600, window=4096, cap=50.0, q_scale=8.0)
+#: prefill attention of phase 8's whisper-medium and internvl2-26b at full
+#: width: whisper's encoder layer (1500 positions, bidirectional, 16x64),
+#: its cross-attention over them from the 64-token prompt (not causal), and
+#: internvl2's prefill of 256 image tokens and a 600-token prompt (48 query
+#: heads over 8 KV heads of 128, causal). SDPA computes each without a mask
+#: tensor (no mask where every key is visible, ``is_causal`` for a prompt
+#: from position 0)
+FLASH_MODELS = {
+    "whisper_encoder": dict(B=1, Sq=1500, Skv=1500, H=16, KH=16, D=64, causal=False),
+    "whisper_cross": dict(B=1, Sq=64, Skv=1500, H=16, KH=16, D=64, causal=False),
+    "internvl2": dict(B=1, Sq=856, Skv=856, H=48, KH=8, D=128, causal=True),
+}
+#: key rows a kv tile of either flash kernel reads
+FLASH_KV_TILE = 64
+#: whisper-medium's cross-attention decode in phase 8: 2 rows, 16x64 MHA
+#: over the 1500 encoder positions, which the card reads as 30-token pages
+#: (the largest divisor of 1500 not above 32); 24 decoder layers a step
+CROSS_DECODE = dict(B=2, H=16, KH=16, D=64, S=1500, layers=24)
 SSD_SHAPES = [
     # b, s, h, p, n, chunk (tests/test_kernels.py)
     (2, 32, 2, 8, 8, 8),
@@ -341,6 +375,12 @@ def device_ms_per_call(fn, calls: int, names: tuple | None) -> dict:
     else:
         if names is not None or not kernels:
             raise AssertionError(f"no whole profile of the kernels named {names}")
+        # a library's profile still short after every attempt (after
+        # torch.compile, 32 of 50 flex records three times over): its time
+        # is not known, only the instances the profile held
+        return dict(device_ms=None, device_kernels_ms=None,
+                    profiled_instances={k[:60]: counts[k] for k in kernels},
+                    profiled_calls=calls)
     return dict(device_ms=sum(kernels.values()) / calls / 1e3,
                 device_kernels_ms={k[:60]: v / calls / 1e3 for k, v in kernels.items()},
                 profiled_instances={k[:60]: counts[k] for k in kernels})
@@ -495,6 +535,13 @@ def check_kernel_cases():
             ("int8", torch.bfloat16, True, [161, 400])):
         cases.append((f"d160 {D160_SHAPE} {pages} pages lengths={lengths}", D160_SHAPE, dtype,
                       dict(lengths=lengths, quantized=quantized), {}))
+    # 30-token pages (whisper's cross cache): a permuted table, a full row
+    # and rows that end inside a page, with and without a new token
+    t30 = (2, 16, 16, 64, 30, 50)
+    cases.append((f"T=30 {t30} bf16 lengths=[1500, 777]", t30, torch.bfloat16,
+                  dict(lengths=[1500, 777]), {}))
+    cases.append((f"T=30 {t30} f32 no new token lengths=[1500, 31]", t30, torch.float32,
+                  dict(lengths=[1500, 31], with_new=False), {}))
     main_err = 0.0
     for name, shape, dtype, case_kw, attn_kw in cases:
         c = make_case(rng, shape, dtype, **case_kw)
@@ -505,6 +552,7 @@ def check_kernel_cases():
         if name.startswith("main") and "int8=False" in name:
             main_err = err
     check_gemma2_decode_cases()
+    check_cross_decode_cases()
     return main_err
 
 
@@ -549,6 +597,99 @@ def check_gemma2_decode_cases() -> None:
             if window is not None:
                 without["window"] = plain(softcap=cap)
             check_band_binds(label, want, without, atol)
+
+
+def check_cross_decode_cases() -> None:
+    """whisper-medium's cross-attention decode as phase 8 runs it: a cross
+    cache of 1500 encoder positions read through ``decode_attention`` as
+    pages of ``dividing_page_tokens(1500)`` = 30 tokens, every position
+    visible, with f32 and bf16 caches, against the paged kernel's plain
+    version over the same view."""
+    from repro_torch.kernels.paged_attention import ref
+    from repro_torch.models.layers import decode_attention, dividing_page_tokens, slot_pages
+
+    c = CROSS_DECODE
+    B, H, KH, D, S = c["B"], c["H"], c["KH"], c["D"], c["S"]
+    T = dividing_page_tokens(S)
+    if T != 30:
+        raise AssertionError(f"whisper's cross cache would be read in pages of {T}, not 30")
+    rng = np.random.default_rng(15)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = randn_dev(rng, (B, H, D), dtype)
+        k, v = (randn_dev(rng, (B, S, KH, D), dtype) for _ in range(2))
+        lens = torch.full((B,), S, dtype=torch.int32, device=DEVICE)
+        got = decode_attention(q, k, v, lengths=lens, page_tokens=T)
+        torch.cuda.synchronize()
+        (kp, table), (vp, _) = slot_pages(k, T), slot_pages(v, T)
+        want = ref.paged_attention_ref(q, kp, vp, table, lens).reshape(B, H * D)
+        check_close(f"paged whisper cross B={B} H={H} KH={KH} S={S} T={T} D={D} {dtype}", got,
+                    want, ATOL[str(dtype).removeprefix("torch.")])
+
+
+def time_cross_decode() -> dict:
+    """whisper-medium's cross-attention decode (``CROSS_DECODE``), bf16:
+    the kernel through ``decode_attention`` over ``layers`` distinct cross
+    caches a round (as a decode step walks the layers, so they do not sit
+    in L2), each read as 30-token pages; its plain version over the same
+    views; and SDPA over the caches in [B, H, S, D] with no mask (every
+    position is visible), the transposes not timed."""
+    from repro_torch.kernels.paged_attention import ops, ref
+    from repro_torch.models.layers import decode_attention, dividing_page_tokens, slot_pages
+
+    c = CROSS_DECODE
+    B, H, KH, D, S, L = c["B"], c["H"], c["KH"], c["D"], c["S"], c["layers"]
+    T = dividing_page_tokens(S)
+    rng = np.random.default_rng(16)
+    q = randn_dev(rng, (B, H, D), torch.bfloat16)
+    caches = [tuple(randn_dev(rng, (B, S, KH, D), torch.bfloat16) for _ in range(2))
+              for _ in range(L)]
+    views = [(slot_pages(k, T), slot_pages(v, T)) for k, v in caches]
+    lens = torch.full((B,), S, dtype=torch.int32, device=DEVICE)
+    dense = [(k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
+             for k, v in caches]
+    qd = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def kernel_round():
+        for k, v in caches:
+            decode_attention(q, k, v, lengths=lens, page_tokens=T)
+
+    def plain_round():
+        for (kp, table), (vp, _) in views:
+            ref.paged_attention_ref(q, kp, vp, table, lens)
+
+    def library_round():
+        for kd, vd in dense:
+            sdpa(qd, kd, vd)
+
+    lib = sdpa(qd, *dense[0])[:, :, 0, :].reshape(B, H * D).float()
+    kern = decode_attention(q, *caches[0], lengths=lens, page_tokens=T).float()
+    lib_err = (lib - kern).abs().max().item()
+    log(f"SDPA yardstick vs kernel at whisper's cross decode: max_abs_err {lib_err:.3e}")
+    if not lib_err <= ATOL["bfloat16"] * (1 + kern.abs().max().item()):
+        raise AssertionError("the SDPA yardstick computes another function")
+    kernel_ms = time_call(kernel_round, 20) / L
+    plain_ms = time_call(plain_round, 3) / L
+    library_ms = time_call(library_round, 20) / L
+
+    def kernel_rounds():
+        for _ in range(10):
+            kernel_round()
+
+    def library_rounds():
+        for _ in range(10):
+            library_round()
+
+    device = device_ms_per_call(kernel_rounds, 10 * L, PAGED_KERNEL_NAMES)
+    library_device = device_ms_per_call(library_rounds, 10 * L, None)
+    splits, cols = ops._split_plan(S // T, T, ops.KERNEL.sm_count(q.device), B * KH)
+    # every position of both caches read once, q read and the output written
+    n_bytes = 2 * B * S * KH * D * 2 + 2 * B * H * D * 2 + 4 * (B * S // T + B)
+    return dict(B=B, H=H, KH=KH, D=D, S=S, page_tokens=T, layers=L, ms=kernel_ms, **device,
+                splits=splits, cols_per_split=cols, plain_ms=plain_ms, library_ms=library_ms,
+                library_device_ms=library_device["device_ms"],
+                library_kernels_ms=library_device["device_kernels_ms"],
+                **bound(n_bytes, 4 * B * H * D * S, "bfloat16"))
 
 
 def time_kernel(layers: int, shape=MAIN_SHAPE, lengths=MAIN_LENGTHS):
@@ -800,6 +941,30 @@ def check_flash_cases():
                 feature: ref.blockwise_attention(
                     q, k, v, **{n: x for n, x in kw.items() if n != feature})
                 for feature in ("window", "cap")}, atol)
+    # phase 8's whisper encoder, its cross-attention prefill and internvl2's
+    # prefill, at full width, in f32 and bf16. Each band must reject the
+    # plain version without the ragged last kv tile (1500 = 23 tiles of 64
+    # and 28; 856 = 13 and 24), and the bidirectional cases' bands the
+    # plain version with a causal mask
+    for name, c in FLASH_MODELS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn_dev(rng, (c["B"], c["Sq"], c["H"], c["D"]), dtype)
+            k, v = (randn_dev(rng, (c["B"], c["Skv"], c["KH"], c["D"]), dtype) for _ in range(2))
+            kw = dict(causal=c["causal"])
+            out = ops.prefill_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            label = (f"prefill {name} {(c['B'], c['Sq'], c['Skv'], c['H'], c['KH'], c['D'])} "
+                     f"{kw} {dtype}")
+            atol = ATOL[str(dtype).removeprefix("torch.")]
+            want = ref.blockwise_attention(q, k, v, **kw)
+            check_close(label, out, want, atol)
+            whole_tiles = torch.full((c["B"],), c["Skv"] - c["Skv"] % FLASH_KV_TILE,
+                                     dtype=torch.int32, device=DEVICE)
+            without = {"the ragged kv tile": ref.blockwise_attention(
+                q, k, v, kv_lengths=whole_tiles, **kw)}
+            if not c["causal"]:
+                without["bidirection"] = ref.blockwise_attention(q, k, v, causal=True)
+            check_band_binds(label, want, without, atol)
     wide = randn_dev(rng, (3, 90, 8, 65), torch.bfloat16)
     q, k, v = (wide[i:i + 1, ..., :64] for i in range(3))
     out = ops.prefill_attention(q, k, v, causal=True)
@@ -813,9 +978,10 @@ def time_flash():
     """Kernel, plain version and SDPA (explicit boolean mask; GQA through
     its ``enable_gqa``) at the serving path's monolithic prefill shape, the
     chunk shape, a long causal prefill (``FLASH_LONG_S``), the prompts
-    of ``FLASH_OTHER`` and gemma2's local layer (``FLASH_GEMMA2``, whose
+    of ``FLASH_OTHER``, gemma2's local layer (``FLASH_GEMMA2``, whose
     softcap SDPA cannot compute: :func:`time_flex_yardstick` adds its
-    library time at the end of the run)."""
+    library time at the end of the run) and phase 8's whisper and
+    internvl2 shapes (``FLASH_MODELS``, SDPA without a mask tensor)."""
     from repro_torch.kernels.flash_attention import ops, ref
 
     rng = np.random.default_rng(4)
@@ -836,25 +1002,36 @@ def time_flash():
                              randn_dev(rng, (c["B"], c["S"], c["KH"], c["D"]), torch.bfloat16),
                              dict(causal=True))))
     cases.append(("gemma2_local", gemma2_local_case()))
+    for name, c in FLASH_MODELS.items():
+        cases.append((name, (randn_dev(rng, (c["B"], c["Sq"], c["H"], c["D"]), torch.bfloat16),
+                             randn_dev(rng, (c["B"], c["Skv"], c["KH"], c["D"]), torch.bfloat16),
+                             randn_dev(rng, (c["B"], c["Skv"], c["KH"], c["D"]), torch.bfloat16),
+                             dict(causal=c["causal"]))))
     for name, (q, k, v, kw) in cases:
         B, Sq, H, D = q.shape
         Skv, KH = k.shape[1], k.shape[2]
         q_off = kw.get("q_offset", 0)
         qpos = q_off + torch.arange(Sq, device=DEVICE)[:, None]
         kpos = torch.arange(Skv, device=DEVICE)[None, :]
-        mask = qpos >= kpos
+        mask = qpos >= kpos if kw["causal"] else torch.ones_like(qpos >= kpos)
         if "window" in kw:
             mask &= (qpos - kpos) < kw["window"]
         if "kv_hole" in kw:
             lo, hi = kw["kv_hole"]
             mask &= ~((kpos >= lo) & (kpos < hi))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        gqa = dict(enable_gqa=True) if KH != H else {}
+        # SDPA's keywords: GQA through its enable_gqa; FLASH_MODELS' cases
+        # without a mask tensor, the others with the explicit mask
+        lib_kw = dict(enable_gqa=True) if KH != H else {}
+        if name not in FLASH_MODELS:
+            lib_kw.update(attn_mask=mask)
+        elif kw["causal"]:
+            lib_kw.update(is_causal=True)
         # SDPA has no softcap: the softcapped case's library (compiled
         # flex_attention) is timed by ``time_flex_yardstick`` at the end
         library = "cap" not in kw
         if library:
-            lib = sdpa(qt, kt, vt, attn_mask=mask, **gqa).transpose(1, 2)
+            lib = sdpa(qt, kt, vt, **lib_kw).transpose(1, 2)
             check_yardstick(f"scaled_dot_product_attention ({name})", lib,
                             ops.prefill_attention(q, k, v, **kw))
         visible = int(mask.sum().item())
@@ -867,13 +1044,12 @@ def time_flash():
 
         def library_calls():
             for _ in range(50):
-                sdpa(qt, kt, vt, attn_mask=mask, **gqa)
+                sdpa(qt, kt, vt, **lib_kw)
 
         if library:
             library_device = device_ms_per_call(library_calls, 50, None)
             lib_rec = dict(library="scaled_dot_product_attention",
-                           library_ms=time_call(lambda: sdpa(qt, kt, vt, attn_mask=mask, **gqa),
-                                                50),
+                           library_ms=time_call(lambda: sdpa(qt, kt, vt, **lib_kw), 50),
                            library_device_ms=library_device["device_ms"],
                            library_kernels_ms=library_device["device_kernels_ms"])
         else:
@@ -2109,6 +2285,14 @@ GEMMA2_ARCH, GEMMA2_PROMPTS, GEMMA2_MAX_SEQ = "gemma2-9b", (4600, 1000), 4624
 #: zamba2-2.7b at full width and depth: 9 groups of 6 mamba layers and the
 #: shared block, prompts of 384 and 200 tokens, shared slots of 400
 ZAMBA2_ARCH, ZAMBA2_PROMPTS, ZAMBA2_MAX_SEQ = "zamba2-2.7b", (384, 200), 400
+#: whisper-medium at full width and depth: 24 encoder and 24 decoder
+#: layers, frames of 1500 x 1024 a row (the stub of the convolutional front
+#: end), prompts of 64 and 24 tokens, self-attention slots of 448
+WHISPER_ARCH, WHISPER_PROMPTS, WHISPER_MAX_SEQ = "whisper-medium", (64, 24), 448
+#: internvl2-26b at full width and depth: 48 layers, 256 image embeddings a
+#: row (the stub of the InternViT front end) before prompts of 600 and 200
+#: tokens, slots of 880 = 55 pages of 16 (the longer row reaches 872)
+INTERNVL2_ARCH, INTERNVL2_PROMPTS, INTERNVL2_MAX_SEQ = "internvl2-26b", (600, 200), 880
 #: greedy decode steps of each phase-8 model
 MODEL_STEPS = 16
 
@@ -2201,13 +2385,14 @@ def compare_greedy(what: str, logits, want_logits) -> dict:
     return rec
 
 
-def against_prefill(model, prompts, fed, last_logits) -> dict:
+def against_prefill(model, prompts, fed, last_logits, rows=None) -> dict:
     """The last decode step's logits against a prefill of each row's
-    prompt and its fed tokens, one row at a time."""
+    prompt and its fed tokens, one row at a time; ``rows[b]`` holds what
+    else row ``b``'s batch takes (frames, image embeddings)."""
     want = []
     for b, prompt in enumerate(prompts):
         seq = torch.cat([prompt, fed[:, b]])[None]
-        want.append(model.prefill({"tokens": seq})[0][0])
+        want.append(model.prefill({"tokens": seq, **(rows[b] if rows else {})})[0][0])
     return compare_greedy("decode vs prefill of the longer sequence", last_logits[None],
                           torch.stack(want)[None])
 
@@ -2359,6 +2544,169 @@ def model_zamba2() -> dict:
     return record
 
 
+def model_whisper() -> dict:
+    """whisper-medium at full width and depth: the two prompts prefilled
+    one at a time over their own frames (flash in all 24 encoder layers,
+    and for self- and cross-attention in all 24 decoder layers), their self
+    KV put into slots of ``WHISPER_MAX_SEQ`` and their cross KV into the
+    1500-position cross caches, then ``MODEL_STEPS`` greedy steps at batch
+    2 (the paged kernel twice a decoder layer: over the self slots in
+    16-token pages and over the cross cache in 30-token pages); the last
+    step against a prefill of the longer sequence."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.models.layers import dividing_page_tokens
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, info = card_model(WHISPER_ARCH, seed=0)
+    prompts = seeded_prompts(23, WHISPER_PROMPTS, cfg.vocab_size)
+    g = torch.Generator(device=DEVICE).manual_seed(24)
+    frames = torch.randn((len(prompts), cfg.encoder_seq, cfg.d_model), generator=g,
+                         device=DEVICE)
+    rows = [{"frames": frames[b:b + 1]} for b in range(len(prompts))]
+    cache = zeros_tree(model.describe_cache(len(prompts), WHISPER_MAX_SEQ))
+    flash_ops.KERNEL.launches = 0
+    first, prefill_ms = [], []
+    for b, prompt in enumerate(prompts):
+        (logits, pre), ms = synced_ms(lambda: model.prefill({"tokens": prompt[None], **rows[b]}))
+        prefill_ms.append(ms)
+        for name in ("k", "v"):
+            cache[name][:, b, :prompt.numel()] = pre[name][:, 0]
+        for name in ("ck", "cv"):
+            cache[name][:, b] = pre[name][:, 0]
+        first.append(torch.argmax(logits[0]))
+        del pre
+    flash = flash_ops.KERNEL.launches
+    lengths = torch.tensor(WHISPER_PROMPTS, dtype=torch.int32, device=DEVICE)
+
+    paged_ops.KERNEL.launches = 0
+    before = paged_device_launches()
+    fed, logits, step_ms = greedy_decode(model, cache, torch.stack(first), lengths)
+    paged = paged_device_launches() - before
+    paged_eager = paged_ops.KERNEL.launches
+    vs_prefill = against_prefill(model, prompts, fed, logits[-1], rows)
+    device = decode_device_ms(model, cache, fed[-1], lengths + MODEL_STEPS)
+    L, n = cfg.num_layers, len(prompts)
+    cross_bytes = tree_bytes({k: cache[k] for k in ("ck", "cv")})
+    record = dict(
+        info, encoder_layers=cfg.encoder_layers, encoder_seq=cfg.encoder_seq,
+        heads=cfg.num_heads, head_dim=cfg.head_dim, prompts=list(WHISPER_PROMPTS),
+        max_seq=WHISPER_MAX_SEQ, cross_page_tokens=dividing_page_tokens(cfg.encoder_seq),
+        decode_steps=MODEL_STEPS, flash_launches=flash, prefills=n,
+        paged_kernel_launches=paged, paged_wrapper_calls=paged_eager, prefill_ms=prefill_ms,
+        step_ms=step_ms, **device, cross_cache_bytes=cross_bytes,
+        self_cache_bytes=tree_bytes({k: cache[k] for k in ("k", "v")}),
+        decode_vs_prefill=vs_prefill, tokens=fed.T.tolist(),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log("whisper " + json.dumps(record))
+    if flash != (cfg.encoder_layers + 2 * L) * n:
+        raise AssertionError(f"flash launches {flash} != (encoder {cfg.encoder_layers} + "
+                             f"self and cross {2 * L}) x prefills {n}")
+    if paged != 2 * L * MODEL_STEPS:
+        raise AssertionError(f"paged kernels the device ran {paged} != self and cross "
+                             f"{2 * L} x steps {MODEL_STEPS}")
+    if cross_bytes != 2 * L * n * cfg.encoder_seq * cfg.num_kv_heads * cfg.head_dim * 2:
+        raise AssertionError(f"cross caches of {cross_bytes} B")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite whisper logits")
+    return record
+
+
+def paged_greedy(model, k_pages, v_pages, tables, fed, lengths, page_tokens: int):
+    """``MODEL_STEPS`` eager ``decode_paged`` steps feeding ``fed`` [steps,
+    B] from context ``lengths``, each token's KV appended at its tail page.
+    Returns every step's logits [steps, B, V] and the host ms a step."""
+    rows = torch.arange(tables.shape[0], device=DEVICE)
+    logits = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(MODEL_STEPS):
+        lens = lengths + i + 1
+        pos = (lens - 1).long()
+        logits.append(model.decode_paged(k_pages, v_pages, fed[i], lens, tables,
+                                         tables[rows, pos // page_tokens],
+                                         pos % page_tokens))
+    torch.cuda.synchronize()
+    return torch.stack(logits), (time.perf_counter() - t0) * 1e3 / MODEL_STEPS
+
+
+def model_internvl2() -> dict:
+    """internvl2-26b at full width and depth: 256 image embeddings before
+    each of the two prompts, prefilled one at a time (flash in all 48
+    layers); their KV put into slots of ``INTERNVL2_MAX_SEQ`` and into a
+    pool of 16-token pages behind a permuted block table; ``MODEL_STEPS``
+    greedy steps over the slots (the paged kernel over the slots as pages,
+    ``lengths`` counting the image tokens), the same tokens again through
+    ``decode_paged`` over the pool; the last step against a prefill of the
+    longer sequence."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, info = card_model(INTERNVL2_ARCH, seed=0)
+    L, KH, HD, T = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, 16
+    n_img, n = cfg.num_image_tokens, len(INTERNVL2_PROMPTS)
+    prompts = seeded_prompts(25, INTERNVL2_PROMPTS, cfg.vocab_size)
+    # image embeddings at the token embeddings' scale (their std, 0.02)
+    g = torch.Generator(device=DEVICE).manual_seed(26)
+    images = 0.02 * torch.randn((n, n_img, cfg.d_model), generator=g, device=DEVICE)
+    rows = [{"image_embeds": images[b:b + 1]} for b in range(n)]
+    cache = zeros_tree(model.describe_cache(n, INTERNVL2_MAX_SEQ))
+    P = INTERNVL2_MAX_SEQ // T
+    pool = {name: torch.zeros((L, n * P, T, KH, HD), dtype=torch.bfloat16, device=DEVICE)
+            for name in ("k", "v")}
+    perm = np.random.default_rng(27).permutation(n * P).reshape(n, P).astype(np.int32)
+    tables = torch.from_numpy(perm).to(DEVICE)
+    flash_ops.KERNEL.launches = 0
+    first, prefill_ms = [], []
+    for b, prompt in enumerate(prompts):
+        (logits, pre), ms = synced_ms(lambda: model.prefill({"tokens": prompt[None], **rows[b]}))
+        prefill_ms.append(ms)
+        ctx = n_img + prompt.numel()
+        for name in ("k", "v"):
+            cache[name][:, b, :ctx] = pre[name][:, 0]
+            flat = cache[name][:, b].reshape(L, P, T, KH, HD)
+            pool[name][:, tables[b].long()] = flat
+        first.append(torch.argmax(logits[0]))
+        del pre
+    flash = flash_ops.KERNEL.launches
+    lengths = torch.tensor([n_img + p for p in INTERNVL2_PROMPTS], dtype=torch.int32,
+                           device=DEVICE)
+
+    paged_ops.KERNEL.launches = 0
+    before = paged_device_launches()
+    fed, slot_logits, step_ms = greedy_decode(model, cache, torch.stack(first), lengths)
+    paged_slots = paged_device_launches() - before
+    before = paged_device_launches()
+    pool_logits, paged_step_ms = paged_greedy(model, pool["k"], pool["v"], tables, fed,
+                                              lengths, T)
+    paged_pool = paged_device_launches() - before
+    paged_eager = paged_ops.KERNEL.launches
+    pool_vs_slots = compare_greedy("internvl2 decode_paged vs slot decode", pool_logits,
+                                   slot_logits)
+    vs_prefill = against_prefill(model, prompts, fed, slot_logits[-1], rows)
+    device = decode_device_ms(model, cache, fed[-1], lengths + MODEL_STEPS)
+    record = dict(
+        info, heads=cfg.num_heads, kv_heads=KH, head_dim=HD, image_tokens=n_img,
+        prompts=list(INTERNVL2_PROMPTS), contexts=lengths.tolist(), max_seq=INTERNVL2_MAX_SEQ,
+        decode_steps=MODEL_STEPS, flash_launches=flash, prefills=n,
+        paged_kernel_launches_slots=paged_slots, paged_kernel_launches_pool=paged_pool,
+        paged_wrapper_calls=paged_eager, prefill_ms=prefill_ms, step_ms=step_ms,
+        paged_step_ms=paged_step_ms, **device, cache_bytes=tree_bytes(cache),
+        pool_vs_slots=pool_vs_slots, decode_vs_prefill=vs_prefill, tokens=fed.T.tolist(),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log("internvl2 " + json.dumps(record))
+    if flash != L * n:
+        raise AssertionError(f"flash launches {flash} != layers {L} x prefills {n}")
+    for what, got in (("slot", paged_slots), ("decode_paged", paged_pool)):
+        if got != L * MODEL_STEPS:
+            raise AssertionError(f"{what} decode: paged kernels the device ran {got} != layers "
+                                 f"{L} x steps {MODEL_STEPS}")
+    if not torch.isfinite(slot_logits).all():
+        raise AssertionError("non-finite internvl2 logits")
+    return record
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -2383,6 +2731,8 @@ def main(argv=None) -> int:
     log("paged_attention timing " + json.dumps(paged_timing))
     paged_d160 = time_kernel(D160_LAYERS, D160_SHAPE, D160_LENGTHS)
     log("paged timing d160 " + json.dumps(paged_d160))
+    paged_cross = time_cross_decode()
+    log("paged timing whisper cross " + json.dumps(paged_cross))
     flash_err = check_flash_cases()
     flash_timing = time_flash()
     log("flash_attention timing " + json.dumps(flash_timing))
@@ -2440,6 +2790,13 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     zamba2 = model_zamba2()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # whisper's encoder-decoder and internvl2's image prefix at model level
+    whisper = model_whisper()
+    gc.collect()
+    torch.cuda.empty_cache()
+    internvl2 = model_internvl2()
     # last: after torch.compile a profile can lose kernel records, and the
     # replays' checks count kernels in profiles
     time_flex_yardstick(flash_timing)
@@ -2459,6 +2816,9 @@ def main(argv=None) -> int:
             "launches_gemma2_decode": gemma2["paged_kernel_launches_ring"],
             "launches_gemma2_full_cache_decode": gemma2["paged_kernel_launches_full"],
             "launches_zamba2_decode": zamba2["paged_kernel_launches"],
+            "launches_whisper_decode": whisper["paged_kernel_launches"],
+            "launches_internvl2_slot_decode": internvl2["paged_kernel_launches_slots"],
+            "launches_internvl2_decode_paged": internvl2["paged_kernel_launches_pool"],
             "max_abs_err": paged_err,
             "ms": paged_timing["ms"],
             "device_ms": paged_timing["device_ms"],
@@ -2471,6 +2831,9 @@ def main(argv=None) -> int:
             "d160": {k: paged_d160[k] for k in (
                 "shape", "lengths", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_device_ms")},
+            "whisper_cross": {k: paged_cross[k] for k in (
+                "B", "H", "S", "page_tokens", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_device_ms")},
         },
         {
             "name": "flash_attention_prefill",
@@ -2485,6 +2848,8 @@ def main(argv=None) -> int:
             "launches_replicas_replay": replicas["flash_launches"],
             "launches_gemma2_prefills": gemma2["flash_launches"],
             "launches_zamba2_prefills": zamba2["flash_launches"],
+            "launches_whisper_prefills": whisper["flash_launches"],
+            "launches_internvl2_prefills": internvl2["flash_launches"],
             "max_abs_err": flash_err,
             "ms": ft["ms"],
             "device_ms": ft["device_ms"],
@@ -2496,7 +2861,8 @@ def main(argv=None) -> int:
             "library_device_ms": ft["library_device_ms"],
             "other_shapes": {name: {k: flash_timing[name][k] for k in (
                 "H", "KH", "D", "Sq", "ms", "device_ms", "bound_ms", "bound_by", "library",
-                "library_ms", "library_device_ms")} for name in (*FLASH_OTHER, "gemma2_local")},
+                "library_ms", "library_device_ms")}
+                for name in (*FLASH_OTHER, "gemma2_local", *FLASH_MODELS)},
         },
         {
             "name": "ssd_scan",

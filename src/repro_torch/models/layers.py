@@ -1,6 +1,7 @@
 """Block library of the port: the dense and MoE families (with gemma2's
-window-limited ring cache for its local layers), Mamba-2, and zamba2's
-shared attention block.
+window-limited ring cache for its local layers and whisper's
+bidirectional encoder blocks), Mamba-2, and zamba2's shared attention
+block.
 
 The counterpart of ``repro/models/layers.py``. Every block is a
 (``describe_*``, ``apply_*``) pair: ``describe_*`` builds a dict of
@@ -15,7 +16,8 @@ Prefill attention goes through
 attention reads the paged pool through
 :func:`repro_torch.kernels.paged_attention.ops.paged_attention_decode` and
 a dense slot cache through :func:`decode_attention` (the same kernel over
-the slots seen as pages), and
+the slots seen as pages: 16-token pages, or for whisper's cross cache of
+1500 positions pages of :func:`dividing_page_tokens`), and
 the Mamba-2 block's sequence-mode scan through
 :func:`repro_torch.kernels.ssd.ops.ssd`: each launches its Hopper kernel
 for CUDA tensors and takes its plain version (:func:`blockwise_attention`,
@@ -112,8 +114,17 @@ def describe_attention(cfg: ModelConfig, d_in: int | None = None, heads=None,
     return p
 
 
+def promote(x, w):
+    """``x`` in the type ``x @ w`` has in jnp, where a bf16 ``x`` against
+    f32 weights promotes to f32 (exactly); ``torch.matmul`` refuses mixed
+    types. Only whisper's encoder meets it: the reference casts ``frames``
+    to bf16 whatever the weights' type."""
+    return x.to(torch.promote_types(x.dtype, w.dtype))
+
+
 def _project_qkv(p, x, h, kh, hd, positions, theta):
     B, S, _ = x.shape
+    x = promote(x, p["wq"])
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -139,6 +150,22 @@ def slot_pages(cache, page_tokens: int):
     pages = cache.view(B * P, page_tokens, KH, D)
     table = torch.arange(B * P, dtype=torch.int32, device=cache.device).view(B, P)
     return pages, table
+
+
+#: the largest page :func:`dividing_page_tokens` chooses
+_MAX_CROSS_PAGE = 32
+
+
+def dividing_page_tokens(seq: int) -> int:
+    """The largest page size not above ``_MAX_CROSS_PAGE`` that divides
+    ``seq``: the page :func:`slot_pages` reads a slot cache of ``seq``
+    positions in when ``seq`` is no whole number of 16-token pages
+    (whisper's cross cache of 1500 encoder positions: 30; the reduced
+    config's 24: 24)."""
+    t = min(_MAX_CROSS_PAGE, seq)
+    while seq % t:
+        t -= 1
+    return t
 
 
 def decode_attention(q, k_cache, v_cache, *, lengths, window=None, cap=None,
@@ -320,11 +347,12 @@ def describe_dense_block(cfg: ModelConfig):
 def apply_dense_block(
     p, x, cfg: ModelConfig, *, positions, window=None, cache=None, lengths=None,
     prefix=None, prefix_valid=None, page_tokens: int = 16,
-    ring_window: int | None = None,
+    ring_window: int | None = None, causal: bool = True,
 ):
     """One transformer block. Modes:
 
-    * sequence mode (``cache`` is None): returns ``(x, (k, v))``. With
+    * sequence mode (``cache`` is None): returns ``(x, (k, v))``; attention
+      is causal unless ``causal=False`` (whisper's encoder). With
       ``prefix=(pk, pv)`` (chunked prefill over a radix-cached prefix),
       attention runs over concat(prefix, current) — positions must
       already be offset by the prefix length. ``prefix_valid`` marks how
@@ -357,7 +385,7 @@ def apply_dense_block(
             if prefix_valid is not None:
                 hole = (prefix_valid, q_off)
         attn = prefill_attention(
-            q, k_att, v_att, causal=True, window=window,
+            q, k_att, v_att, causal=causal, window=window,
             cap=cfg.attn_logit_softcap, q_offset=q_off, kv_hole=hole,
         )
         B, S, _, _ = attn.shape

@@ -1,10 +1,14 @@
 """Model assembly of the port: describe / prefill / slot-cache decode /
-paged decode for the dense and ``moe`` families without local/global
-alternation; describe / prefill / decode for gemma2's local/global
-alternation (its local layers optionally over a window-limited ring
-cache), the ``ssm`` family (mamba2) and the ``hybrid`` family (zamba2:
-groups of Mamba-2 blocks, each followed by one shared attention block on
-``concat(hidden, embedding)``).
+paged decode for the dense, ``moe`` and ``vlm`` families without
+local/global alternation (``vlm``, internvl2, prepends ``image_embeds``
+to the prompt at prefill); describe / prefill / decode for gemma2's
+local/global alternation (its local layers optionally over a
+window-limited ring cache), the ``ssm`` family (mamba2), the ``hybrid``
+family (zamba2: groups of Mamba-2 blocks, each followed by one shared
+attention block on ``concat(hidden, embedding)``) and the ``encdec``
+family (whisper: a bidirectional encoder over ``frames``, and decoder
+blocks of self-attention, cross-attention over the encoder's output and
+the FFN).
 
 The counterpart of ``repro/models/model.py``. :class:`Model` is an
 ``nn.Module`` whose buffers are the parameter tree, leaf name for leaf
@@ -19,15 +23,22 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import kv_quant
+from repro_torch.kernels.flash_attention.ops import prefill_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
+    _project_qkv,
+    _write_slot,
     apply_dense_block,
     apply_dense_block_paged,
+    apply_ffn,
     apply_mamba_block,
     apply_shared_block,
+    decode_attention,
+    describe_attention,
     describe_dense_block,
     describe_mamba_block,
     describe_shared_block,
+    dividing_page_tokens,
     rmsnorm,
     softcap,
     stack,
@@ -38,21 +49,13 @@ F32 = torch.float32
 KV_AXES = ("layers", "batch", "kv_seq", "kv_heads_act", "head_dim")
 
 
-#: the families the port does not serve yet, each with its ROADMAP §1 item
-_NOT_PORTED = {
-    "encdec": "whisper's encoder-decoder is ROADMAP §1 item 11",
-    "vlm": "internvl2's image prefix is ROADMAP §1 item 11",
-}
-
 #: the families whose KV lives in the serving engine's page pool (without
-#: local/global alternation)
-PAGED_FAMILIES = ("dense", "moe")
+#: local/global alternation), as the reference's ``Engine`` admits them
+PAGED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(f"{cfg.name} is {cfg.family}: {_NOT_PORTED[cfg.family]}")
-    if cfg.family not in (*PAGED_FAMILIES, "ssm", "hybrid"):
+    if cfg.family not in (*PAGED_FAMILIES, "ssm", "hybrid", "encdec"):
         raise ValueError(f"unknown family {cfg.family}")
 
 
@@ -69,9 +72,16 @@ def _kv_tree(ks, vs) -> dict:
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
+#: whisper's cache leaves: the decoder's self-attention slots, then the
+#: cross caches, which a decode step reads and never writes
+ENCDEC_CACHE = ("k", "v", "ck", "cv")
+_CROSS = ENCDEC_CACHE[2:]
+
+
 def _clone_tree(tree: dict) -> dict:
     """A copy of a nested dict of tensors, leaf by leaf."""
-    return {k: _clone_tree(t) if isinstance(t, dict) else t.clone() for k, t in tree.items()}
+    return {k: _clone_tree(t) if isinstance(t, dict) else t.clone()
+            for k, t in tree.items()}
 
 
 class _ParamTree(nn.Module):
@@ -129,6 +139,10 @@ class Model(nn.Module):
                     for g in range(cfg.num_layers // period)
                 ]
                 self._shared = params["shared"]
+            elif cfg.family == "encdec":
+                self._layers = [_layer_view(blocks, l) for l in range(cfg.num_layers)]
+                self._enc_layers = [_layer_view(params["enc_blocks"], l)
+                                    for l in range(cfg.encoder_layers)]
             else:
                 # alternation stacks (local, global) pairs
                 n = cfg.num_layers // 2 if cfg.local_global_alternating else cfg.num_layers
@@ -150,6 +164,13 @@ class Model(nn.Module):
             tree["blocks"] = stack(stack(describe_mamba_block(cfg), period),
                                    cfg.num_layers // period)
             tree["shared"] = describe_shared_block(cfg)
+        elif cfg.family == "encdec":
+            tree["enc_blocks"] = stack(describe_dense_block(cfg), cfg.encoder_layers)
+            dec = describe_dense_block(cfg)
+            dec["lnx"] = Leaf((d,), ("embed_act",), init="zeros")
+            dec["cross"] = describe_attention(cfg)
+            tree["blocks"] = stack(dec, cfg.num_layers)
+            tree["enc_ln_f"] = Leaf((d,), ("embed_act",), init="zeros")
         elif cfg.local_global_alternating:
             # gemma2: (local, global) pairs
             pair = {"local": describe_dense_block(cfg), "global": describe_dense_block(cfg)}
@@ -160,7 +181,7 @@ class Model(nn.Module):
 
     # --------------------------------------------------------------- cache
     def describe_cache(self, batch: int, max_seq: int) -> dict:
-        """The decode cache :meth:`decode` takes. The dense and moe
+        """The decode cache :meth:`decode` takes. The dense, moe and vlm
         families: dense slot buffers ``{"k", "v"}`` ``[L, batch, max_seq,
         KH, HD]`` bf16 (the serving engine's paged mode keeps its KV in the
         page pool instead); with alternation ``{"local": ..., "global":
@@ -168,15 +189,17 @@ class Model(nn.Module):
         the global one is decoded as a ring). The ssm family: SSD state f32
         and conv state bf16, O(1) in ``max_seq``. The hybrid family: those
         per ``(group, layer)`` plus the shared block's ``shared_k``/
-        ``shared_v`` per group."""
+        ``shared_v`` per group. The encdec family: decoder slots ``{"k",
+        "v"}`` over ``max_seq`` and the cross caches ``{"ck", "cv"}`` over
+        the ``encoder_seq`` encoder positions."""
         cfg = self.cfg
         L, KH, HD = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
 
-        def kv(layers, kh, hd):
+        def kv(layers, kh, hd, seq=max_seq, names=("k", "v")):
             return {
-                name: Leaf((layers, batch, max_seq, kh, hd), KV_AXES, torch.bfloat16,
+                name: Leaf((layers, batch, seq, kh, hd), KV_AXES, torch.bfloat16,
                            init="zeros")
-                for name in ("k", "v")
+                for name in names
             }
 
         if cfg.family in PAGED_FAMILIES:
@@ -185,6 +208,8 @@ class Model(nn.Module):
             return kv(L, KH, HD)
         if cfg.family == "ssm":
             return self._ssm_cache((L,), batch)
+        if cfg.family == "encdec":
+            return {**kv(L, KH, HD), **kv(L, KH, HD, cfg.encoder_seq, _CROSS)}
         groups = L // cfg.shared_attn_period
         c = self._ssm_cache((groups, cfg.shared_attn_period), batch)
         c.update({f"shared_{k}": t for k, t in kv(groups, KH, cfg.hybrid_head_dim).items()})
@@ -207,7 +232,7 @@ class Model(nn.Module):
         return softcap((h @ p.head).to(F32), self.cfg.final_logit_softcap)
 
     # ------------------------------------------------------- sequence mode
-    def sequence(self, x, positions, prefix=None, prefix_valid=None):
+    def sequence(self, x, positions, prefix=None, prefix_valid=None, frames=None):
         """Run the full stack over a token-embedded sequence ``x`` [B,S,d].
 
         ``prefix``: optional {"k","v"} [L,B,Sp,KH,HD] radix-cached KV for
@@ -220,10 +245,23 @@ class Model(nn.Module):
         family {"ssm": [L,B,H,P,N] f32, "conv": [L,B,W-1,conv_dim]}; for
         the hybrid family those with a [groups, period] lead plus
         "shared_k"/"shared_v" [groups,B,S,KH,hybrid_head_dim], the shared
-        block taking the initial embedding ``x`` at every call.
+        block taking the initial embedding ``x`` at every call; for the
+        encdec family {"k","v"} [L,B,S,KH,HD] and the cross caches
+        {"ck","cv"} [L,B,S_enc,KH,HD], the decoder attending over the
+        encoder's output on ``frames`` [B,S_enc,d].
         """
         cfg = self.cfg
         _check_prefix(cfg, prefix)
+        if cfg.family == "encdec":
+            if frames is None:
+                raise ValueError(f"{cfg.name} (encdec) takes the encoder's frames")
+            enc_out = self._encode(frames)
+            kvs: dict = {name: [] for name in ENCDEC_CACHE}
+            for p in self._layers:
+                x, kv, ckv = self._decoder_block(p, x, positions, enc_out=enc_out)
+                for name, t in zip(ENCDEC_CACHE, (*kv, *ckv)):
+                    kvs[name].append(t)
+            return x, {name: torch.stack(ts) for name, ts in kvs.items()}
         if cfg.family == "ssm":
             sts, cvs = [], []
             for p in self._layers:
@@ -267,6 +305,60 @@ class Model(nn.Module):
             vs.append(v)
         return x, _kv_tree(ks, vs)
 
+    def _encode(self, frames):
+        """The encoder over ``frames`` [B, S_enc, d]: RoPE positions from 0,
+        bidirectional attention, ``frames`` cast to bf16 whatever the
+        weights' type, as the reference casts them."""
+        h = frames.to(torch.bfloat16)
+        pos = torch.arange(h.shape[1], device=h.device)[None, :]
+        for p in self._enc_layers:
+            h, _ = apply_dense_block(p, h, self.cfg, positions=pos, causal=False)
+        return rmsnorm(h, self.params.enc_ln_f)
+
+    def _decoder_block(self, p, h, positions, *, enc_out=None, cache=None, lengths=None,
+                       page_tokens: int = 16):
+        """whisper's decoder block: self-attention, cross-attention (no RoPE,
+        no bias), the FFN. Sequence mode (``cache`` None): causal
+        self-attention and cross-attention over ``enc_out`` through the
+        flash kernel; returns ``(h, (k, v), (ck, cv))``. Decode mode
+        (``cache = (k, v, ck, cv)``, one layer's slot buffers): the token's
+        K/V are written at ``lengths - 1`` in place and attended through
+        :func:`decode_attention`; the cross caches are read whole, as pages
+        of :func:`dividing_page_tokens` of the encoder length, never
+        written. Returns ``(h, (k, v), (ck, cv))`` with the caches."""
+        cfg = self.cfg
+        H, KH, HD = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        B, S = h.shape[:2]
+        a_in = rmsnorm(h, p["ln1"])
+        q, k, v = _project_qkv(p["attn"], a_in, H, KH, HD, positions, cfg.rope_theta)
+        cross = p["cross"]
+        if cache is None:
+            a = prefill_attention(q, k, v, causal=True)
+            h = h + a.reshape(B, S, H * HD) @ p["attn"]["wo"]
+            xq = rmsnorm(h, p["lnx"])
+            q = (xq @ cross["wq"]).reshape(B, S, H, HD)
+            ck = (enc_out @ cross["wk"]).reshape(B, -1, KH, HD)
+            cv = (enc_out @ cross["wv"]).reshape(B, -1, KH, HD)
+            a = prefill_attention(q, ck, cv, causal=False)
+            kv = (k, v)
+        else:
+            k_cache, v_cache, ck, cv = cache
+            _write_slot(k_cache, k[:, 0], lengths - 1)
+            _write_slot(v_cache, v[:, 0], lengths - 1)
+            a = decode_attention(q[:, 0], k_cache, v_cache, lengths=lengths,
+                                 page_tokens=page_tokens)
+            h = h + a[:, None, :] @ p["attn"]["wo"]
+            xq = rmsnorm(h, p["lnx"])
+            q = (xq @ cross["wq"]).reshape(B, H, HD)
+            enc_seq = ck.shape[1]
+            enc_len = torch.full((B,), enc_seq, dtype=torch.int32, device=h.device)
+            a = decode_attention(q, ck, cv, lengths=enc_len,
+                                 page_tokens=dividing_page_tokens(enc_seq))
+            kv = (k_cache, v_cache)
+        h = h + a.reshape(B, S, H * HD) @ cross["wo"]
+        h = h + apply_ffn(p["ffn"], rmsnorm(h, p["ln2"]))
+        return h, kv, (ck, cv)
+
     # ------------------------------------------------------------ prefill
     @torch.no_grad()
     def prefill(self, batch: dict, prefix=None, logit_index=None,
@@ -281,16 +373,29 @@ class Model(nn.Module):
         a prefix padded past its real length: the first is the real
         absolute position of the first suffix token (RoPE uses true
         positions), the second masks the padded prefix tail.
+
+        The vlm family prepends ``batch["image_embeds"]`` [B, n_img, d]
+        (cast to the embedding's type) to the tokens, as the reference
+        does, with a prefix too: positions, the cache and so every later
+        ``lengths`` count the image tokens, and ``logit_index`` counts
+        from the first text token. The encdec family takes
+        ``batch["frames"]`` [B, S_enc, d] for its encoder.
         """
         _check_prefix(self.cfg, prefix)
         tokens = batch["tokens"]
         x = self.params.embed[tokens]
+        n_img = 0
+        if self.cfg.family == "vlm":
+            img = batch["image_embeds"].to(x.dtype)
+            n_img = img.shape[1]
+            x = torch.cat([img, x], dim=1)
         S = x.shape[1]
         q_off = 0 if prefix is None else prefix["k"].shape[2]
         pos0 = q_off if positions_offset is None else positions_offset
         positions = pos0 + torch.arange(S, device=x.device)[None, :]
-        h, cache = self.sequence(x, positions, prefix=prefix, prefix_valid=prefix_valid)
-        idx = -1 if logit_index is None else logit_index
+        h, cache = self.sequence(x, positions, prefix=prefix, prefix_valid=prefix_valid,
+                                 frames=batch.get("frames"))
+        idx = -1 if logit_index is None else n_img + logit_index
         return self._logits(h[:, idx, :]), cache
 
     # ------------------------------------------------------------- decode
@@ -303,7 +408,11 @@ class Model(nn.Module):
         the ssm family's {"ssm", "conv"} as :meth:`prefill` returns it.
         Returns ``(logits [B, V] f32, new_cache)`` and leaves ``cache`` as
         it was (see :meth:`decode_into` for the in-place step)."""
-        new_cache = _clone_tree(cache)
+        if self.cfg.family == "encdec":
+            # the cross caches are read, never written: shared, not copied
+            new_cache = {k: t if k in _CROSS else t.clone() for k, t in cache.items()}
+        else:
+            new_cache = _clone_tree(cache)
         return self.decode_into(new_cache, tokens, lengths, page_tokens=page_tokens), new_cache
 
     @torch.no_grad()
@@ -323,7 +432,9 @@ class Model(nn.Module):
         needs none); each layer's new state is computed whole before it is
         copied over the old. hybrid: each group's mamba layers as ssm, then
         the shared block over the group's slot buffers, fed the token's
-        embedding."""
+        embedding. encdec: each decoder layer writes its slots as dense
+        does and reads the cross caches ``ck``/``cv`` whole, without
+        writing them. vlm: as dense (``lengths`` count the image tokens)."""
         cfg = self.cfg
         x = self.params.embed[tokens][:, None, :]           # [B,1,d]
         if cfg.local_global_alternating:
@@ -351,6 +462,13 @@ class Model(nn.Module):
                     cache=(state["k"][l], state["v"][l]), lengths=lengths,
                     page_tokens=page_tokens,
                 )
+            return self._logits(x[:, 0, :])
+        if cfg.family == "encdec":
+            positions = (lengths - 1)[:, None]
+            for l, p in enumerate(self._layers):
+                x, _, _ = self._decoder_block(
+                    p, x, positions, lengths=lengths, page_tokens=page_tokens,
+                    cache=tuple(state[name][l] for name in ENCDEC_CACHE))
             return self._logits(x[:, 0, :])
         if cfg.family == "hybrid":
             x0 = x

@@ -78,12 +78,14 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_servable(cfg: ModelConfig) -> None:
-    """The families :class:`Engine` serves: dense and moe without
+    """The families :class:`Engine` serves: dense, moe and vlm without
     local/global alternation, as the reference's ``Engine`` asserts ("the
     real engine serves dense-cache families"). gemma2's alternation keeps
-    two caches of another layout and zamba2's hybrid an SSM state beside
-    its KV; :class:`Model` runs both, the paged engine serves neither.
-    Raises ``ValueError`` for any other configuration."""
+    two caches of another layout, zamba2's hybrid an SSM state beside its
+    KV and whisper's encoder-decoder cross caches; :class:`Model` runs
+    them, the paged engine serves none. vlm is admitted as the reference
+    admits it, and fails alike at the first prefill: neither engine passes
+    ``image_embeds``. Raises ``ValueError`` for any other configuration."""
     if cfg.family not in PAGED_FAMILIES or cfg.local_global_alternating:
         kind = "local/global alternation" if cfg.local_global_alternating else cfg.family
         raise ValueError(

@@ -1,9 +1,12 @@
 """The redesigned kernels on the card, against their plain versions: the
 split-K paged decode kernel at split boundaries, over tables wider than
-any row, at dbrx-132b's GQA 6:1 and at zamba2's head dimension 160 (bf16,
-f32 and int8 pages); the bf16 tensor-core flash kernel at
-every head dimension (32 to 256; 160 and 256 also on the f32 CUDA-core
-kernel), with GQA, ragged tails and a hole behind a query offset; and
+any row, at dbrx-132b's GQA 6:1, at zamba2's head dimension 160 (bf16,
+f32 and int8 pages) and over 30-token pages (whisper's cross cache of
+1500 encoder positions, also read as a slot cache); the bf16 tensor-core
+flash kernel at every head dimension (32 to 256; 160 and 256 also on the
+f32 CUDA-core kernel), with GQA, ragged tails and a hole behind a query
+offset, and at whisper's encoder, its cross-attention prefill and
+internvl2-26b's prefill in bf16 and f32; and
 the SSD scan's tensor-core passes at mamba2's widths (one chunk, ragged
 and long sequences, other chunk sizes, two rows, strided slices of one
 fused tensor), with f32 and mixed dtypes on the CUDA-core route.
@@ -62,6 +65,10 @@ PAGED_CASES = {
     "zamba2 d160": (2, 32, 32, 160, 16, 25, [384, 200], "bfloat16"),
     "zamba2 d160 f32": (3, 32, 32, 160, 16, 25, [65, 129, 1], "float32"),
     "zamba2 d160 int8": (3, 32, 32, 160, 16, 25, [64, 257, 17], "int8"),
+    # whisper's cross cache: 30-token pages (the largest divisor of its 1500
+    # encoder positions not above 32), a full row and one ending in a page
+    "whisper cross pages of 30": (2, 16, 16, 64, 30, 50, [1500, 777], "bfloat16"),
+    "whisper cross pages of 30 f32": (2, 16, 16, 64, 30, 50, [1500, 31], "float32"),
 }
 
 
@@ -158,6 +165,15 @@ WIDE_FLASH_CASES = {
     "d256 gqa window softcap": (1, 300, 300, 16, 8, 256, dict(causal=True, window=100,
                                                               cap=50.0)),
 }
+#: phase 8's model shapes at full width: whisper-medium's encoder (1500
+#: bidirectional positions, 16x64), its cross-attention from a 64-token
+#: prompt over them, and internvl2-26b's prefill of 256 image tokens and a
+#: 600-token prompt (48 query heads over 8 KV heads of 128)
+MODEL_FLASH_CASES = {
+    "whisper encoder": (1, 1500, 1500, 16, 16, 64, dict(causal=False)),
+    "whisper cross": (1, 64, 1500, 16, 16, 64, dict(causal=False)),
+    "internvl2 prefill": (1, 856, 856, 48, 8, 128, dict(causal=True)),
+}
 #: q's scale in the softcapped cases: with unit k the scores have std 8
 #: and their largest reach ~25, where cap·tanh(s/cap) bends them
 CAPPED_Q_SCALE = 8.0
@@ -197,6 +213,32 @@ def test_flash_kernel_at_head_dims_160_and_256_matches_blockwise(card, name, dty
         uncapped = flash_ref.blockwise_attention(q, k, v, **{**kw, "cap": None})
         with pytest.raises(AssertionError):
             torch.testing.assert_close(uncapped.float(), want.float(), **BANDS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name", sorted(MODEL_FLASH_CASES))
+def test_flash_kernel_at_whisper_and_internvl2_shapes(card, name, dtype):
+    B, Sq, Skv, H, KH, D, kw = MODEL_FLASH_CASES[name]
+    rng = np.random.default_rng(36)
+    q = randn(rng, (B, Sq, H, D), dtype, card)
+    k, v = (randn(rng, (B, Skv, KH, D), dtype, card) for _ in range(2))
+    before = flash_ops.KERNEL.launches
+    got = flash_ops.prefill_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.KERNEL.launches == before + 1
+    want = flash_ref.blockwise_attention(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **BANDS[dtype])
+    # the band can tell: the plain version without the ragged last kv tile
+    # of 64 keys (1500 = 23 tiles and 28, 856 = 13 and 24), and for the
+    # bidirectional cases with a causal mask, lies outside it
+    whole_tiles = torch.full((B,), Skv - Skv % 64, dtype=torch.int32, device=card)
+    faults = [flash_ref.blockwise_attention(q, k, v, kv_lengths=whole_tiles, **kw)]
+    if not kw["causal"]:
+        faults.append(flash_ref.blockwise_attention(q, k, v, causal=True))
+    for fault in faults:
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(fault.float(), want.float(), **BANDS[dtype])
 
 
 @pytest.mark.cuda
@@ -314,3 +356,27 @@ def test_dense_slot_decode_attention_runs_the_paged_kernel(card, window, cap):
     with pytest.raises(ValueError, match="whole number"):
         decode_attention(q.to(card), k[:, :380].to(card), v[:, :380].to(card),
                          lengths=lens.to(card), page_tokens=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cross_cache_decode_attention_reads_30_token_pages(card, dtype):
+    """whisper's cross cache at full width, 1500 encoder positions (no
+    whole number of 16-token pages), read through ``decode_attention`` as
+    pages of ``dividing_page_tokens(1500)`` = 30 by the paged kernel, every
+    position visible, against the reference's masked softmax on the CPU."""
+    from repro_torch.models.layers import decode_attention, dividing_page_tokens
+
+    rng = np.random.default_rng(37)
+    B, H, KH, D, S = 2, 16, 16, 64, 1500
+    q, k, v = (randn(rng, s, dtype, "cpu") for s in ((B, H, D), (B, S, KH, D), (B, S, KH, D)))
+    lens = torch.full((B,), S, dtype=torch.int32)
+    T = dividing_page_tokens(S)
+    assert T == 30
+    before = paged_ops.KERNEL.launches
+    got = decode_attention(q.to(card), k.to(card), v.to(card), lengths=lens.to(card),
+                           page_tokens=T)
+    torch.cuda.synchronize()
+    assert paged_ops.KERNEL.launches == before + 1
+    want = decode_attention(q, k, v, lengths=lens, page_tokens=T)
+    torch.testing.assert_close(got.cpu().float(), want.float(), **BANDS[dtype])

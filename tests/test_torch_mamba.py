@@ -23,7 +23,7 @@ from repro.configs import get_config as jax_get_config
 from repro.models import Model as JaxModel
 from repro.models import materialize as jax_materialize
 from repro.models.layers import apply_mamba_block as jax_apply_mamba_block
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import Model, load_jax_params, materialize
 from repro_torch.models.layers import apply_mamba_block
 from repro_torch.models.params import Leaf, flatten_tree, leaves
@@ -198,12 +198,16 @@ def test_the_dense_only_and_ssm_only_entry_points_refuse(models):
     dense = Model(get_config("qwen1.5-0.5b").reduced())
     assert set(dense.describe_cache(2, 64)) == {"k", "v"}
     assert set(model.describe_cache(2, 64)) == {"ssm", "conv"}
-    # the zamba2 hybrid and gemma2's alternation construct
-    # (tests/test_torch_zamba2.py, tests/test_torch_gemma2.py); the families
-    # not ported yet refuse, naming their ROADMAP item
+    # every family constructs: the zamba2 hybrid and gemma2's alternation
+    # (tests/test_torch_zamba2.py, tests/test_torch_gemma2.py), whisper's
+    # encoder-decoder with its cross caches and internvl2's dense cache
+    # (tests/test_torch_whisper.py, tests/test_torch_internvl2.py)
+    for arch in ARCH_IDS:
+        Model(get_config(arch))
     assert "shared_k" in Model(get_config("zamba2-2.7b").reduced()).describe_cache(2, 64)
     assert set(Model(get_config("gemma2-9b").reduced()).describe_cache(2, 64)) == {
         "local", "global"}
-    for arch in ("whisper-medium", "internvl2-26b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 11"):
-            Model(get_config(arch).reduced())
+    assert set(Model(get_config("whisper-medium").reduced()).describe_cache(2, 64)) == {
+        "k", "v", "ck", "cv"}
+    assert set(Model(get_config("internvl2-26b").reduced()).describe_cache(2, 64)) == {
+        "k", "v"}

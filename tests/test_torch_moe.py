@@ -43,7 +43,7 @@ from repro.models import materialize as jax_materialize
 from repro.models.layers import apply_dense_block as jax_block
 from repro.models.layers import apply_dense_block_paged as jax_block_paged
 from repro.models.layers import apply_moe as jax_apply_moe
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import Model, layers, load_jax_params, materialize
 from repro_torch.models.params import flatten_tree
 
@@ -129,11 +129,15 @@ def jax_route(p, xg, jcfg):
 
 # ----------------------------------------------------------------- family
 def test_the_moe_family_is_admitted_and_the_rest_refused():
-    for arch in ARCHS + ["zamba2-2.7b", "gemma2-9b"]:
+    """Every configuration of the registry constructs, reduced and at full
+    width; a family the reference does not know is refused."""
+    for arch in ARCH_IDS:
         Model(get_config(arch).reduced())
-    for arch in ("whisper-medium", "internvl2-26b"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            Model(get_config(arch).reduced())
+        Model(get_config(arch))
+    whisper = Model(get_config("whisper-medium").reduced())
+    assert set(whisper.describe_cache(2, 64)) == {"k", "v", "ck", "cv"}
+    with pytest.raises(ValueError, match="unknown family"):
+        Model(dataclasses.replace(get_config(ARCHS[0]).reduced(), family="speech"))
 
 
 # ---------------------------------------------------------------- weights
