@@ -3,7 +3,7 @@
 port starts on the GPU and that its main paths run through its kernels.
 
     python3 chip_smoke.py                 # every phase
-    python3 chip_smoke.py --kernels-only  # phases 1-2 and 9 only, no final line
+    python3 chip_smoke.py --kernels-only  # phases 1-2, 9's kernel cases and 10, no final line
 
 Needs one CUDA card (Hopper: the kernels are built for sm_90a) and
 ``nvcc``; it builds every kernel from the sources in ``src/repro_torch``
@@ -11,8 +11,8 @@ first, one ``nvcc`` per source, all started together. Phases, each fatal
 on failure (a failure exits non-zero and prints no final line):
 
 1. the card's name and power limit; build the paged-attention, flash
-   attention and SSD kernels and print the compiler's register and
-   shared-memory summary;
+   attention (forward and backward) and SSD kernels and print the
+   compiler's register and shared-memory summary;
 2. each kernel against its plain PyTorch version on the card, at the
    reference's test shapes and at the serving paths' shapes: paged
    attention (bf16/f32/int8 pages, MHA/GQA/MQA, softcap, windows, zamba2's
@@ -114,7 +114,21 @@ on failure (a failure exits non-zero and prints no final line):
    the same tokens through ``decode_paged`` over a pool, paged kernels =
    layers x steps in each, tokens equal or parted at a near tie; the
    last step against a prefill of the longer sequence);
-9. the library yardstick of gemma2's local layer, compiled
+9. training: the flash backward kernel against its plain version
+   (autograd through ``blockwise_attention`` in f32) at qwen's training
+   shape, a gemma2-like GQA layer with window and softcap at D = 256,
+   D = 160 and whisper's cross-attention, in f32 and bf16, each band
+   shown to reject the gradient without the softcap or window or under
+   the other mask; its time beside its bound and SDPA's backward; reduced
+   qwen's ``Model.loss`` and every gradient on the card against the CPU;
+   ``qwen1.5-0.5b`` at full width trained for 6 steps through the
+   launcher's code path (seed-0 weights drawn on the card, 2
+   microbatches of 4 x 1024 tokens, remat): every loss finite, the last
+   below the first, the flash forward launched 2 x layers x microbatches
+   x steps times and its backward layers x microbatches x steps, peak
+   memory, one step's host-clock and device time; a checkpoint saved and
+   restored onto the card;
+10. the library yardstick of gemma2's local layer, compiled
    ``flex_attention`` with its softcap and window (SDPA has no softcap),
    held to the kernel's output and timed; last, because after
    ``torch.compile`` a profile can lose kernel records.
@@ -217,7 +231,7 @@ FLASH_OTHER = {
 }
 #: gemma2-9b's local-layer prefill in phase 8: the 4600-token prompt, a
 #: 4096-token window and softcap 50 (SDPA has no softcap: the library
-#: time is compiled ``flex_attention``'s, phase 9); q scaled as in
+#: time is compiled ``flex_attention``'s, phase 10); q scaled as in
 #: GEMMA2_DECODE
 FLASH_GEMMA2 = dict(B=1, H=16, KH=8, D=256, S=4600, window=4096, cap=50.0, q_scale=8.0)
 #: prefill attention of phase 8's whisper-medium and internvl2-26b at full
@@ -394,7 +408,7 @@ def build_kernels():
     from repro_torch.kernels.ssd import ops as ssd_ops
 
     kernels = {"paged_attention": paged_ops.KERNEL, "flash_attention": flash_ops.KERNEL,
-               "ssd": ssd_ops.KERNEL}
+               "flash_attention_bwd": flash_ops.KERNEL.backward_kernel, "ssd": ssd_ops.KERNEL}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         for fut in [pool.submit(k.load) for k in kernels.values()]:
@@ -414,7 +428,11 @@ def build_kernels():
         f"D=256 {flash.flash_attention_smem(256)} B, bf16 D=64 "
         f"{flash.flash_attention_mma_smem(64)} B, D=128 {flash.flash_attention_mma_smem(128)} B, "
         f"D=160 {flash.flash_attention_mma_smem(160)} B, D=256 "
-        f"{flash.flash_attention_mma_smem(256)} B; ssd CUDA-core kernel (P={m['p']}, "
+        f"{flash.flash_attention_mma_smem(256)} B; flash_attention_bwd D=64 "
+        f"{flash_ops.KERNEL.backward_kernel.load().flash_attention_bwd_smem(64)} B, D=160 "
+        f"{flash_ops.KERNEL.backward_kernel.load().flash_attention_bwd_smem(160)} B, D=256 "
+        f"{flash_ops.KERNEL.backward_kernel.load().flash_attention_bwd_smem(256)} B; "
+        f"ssd CUDA-core kernel (P={m['p']}, "
         f"N={m['n']}, Q={m['chunk']}) {ssd_smem} B")
 
 
@@ -2707,6 +2725,319 @@ def model_internvl2() -> dict:
     return record
 
 
+# ------------------------------------------------------------ phase 9: training
+#: the flash backward kernel's cases, [B, S, H, D]: qwen1.5-0.5b's training
+#: shape (a microbatch of 4 rows of 1024 tokens); a gemma2-like layer (GQA
+#: 2:1 at D = 256, window and softcap, q scaled by 8 so the cap binds, as
+#: GEMMA2_DECODE); zamba2's D = 160; whisper's cross-attention (64 queries
+#: over the 1500 encoder positions, bidirectional). ``wrong`` names the
+#: mask each case's band must reject: the plain gradient without the
+#: softcap or the window, or with the other of causal/bidirectional
+FLASH_BWD_CASES = {
+    "qwen_train": dict(B=4, Sq=1024, Skv=1024, H=16, KH=16, D=64, causal=True),
+    "gemma2_like": dict(B=1, Sq=640, Skv=640, H=16, KH=8, D=256, causal=True, window=256,
+                        cap=50.0, q_scale=8.0),
+    "d160": dict(B=1, Sq=384, Skv=384, H=32, KH=32, D=160, causal=True),
+    "whisper_cross": dict(B=2, Sq=64, Skv=1500, H=16, KH=16, D=64, causal=False),
+}
+#: the backward's kernels, one of each a call: Di = rowsum(dO ∘ O), dK/dV, dQ
+FLASH_BWD_KERNELS = ("flash_bwd_dot_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+#: the full-width training run: the launcher's flags (seed-0 weights drawn
+#: on the card, no checkpoint: one of qwen's state would write ~7.4 GB)
+TRAIN_ARGS = ["--arch", "qwen1.5-0.5b", "--global-batch", "8", "--seq-len", "1024",
+              "--microbatches", "2", "--steps", "6", "--lr", "3e-4", "--ckpt-every", "0"]
+
+
+def flash_bwd_inputs(c: dict, dtype, seed: int):
+    rng = np.random.default_rng(seed)
+    q = randn_dev(rng, (c["B"], c["Sq"], c["H"], c["D"]), torch.float32) * c.get("q_scale", 1.0)
+    k, v = (randn_dev(rng, (c["B"], c["Skv"], c["KH"], c["D"]), dtype) for _ in range(2))
+    do = randn_dev(rng, (c["B"], c["Sq"], c["H"], c["D"]), dtype)
+    return q.to(dtype), k, v, do
+
+
+def flash_kernel_grads(q, k, v, do, mask: dict):
+    """dq, dk, dv through the wrapper under autograd (forward kernel with
+    the log-sum-exp, then the backward kernel)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    qq, kk, vv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = ops.prefill_attention(qq, kk, vv, **mask)
+    if out.grad_fn is None:
+        raise AssertionError("the flash wrapper returned no autograd node under grad")
+    return torch.autograd.grad(out, (qq, kk, vv), do)
+
+
+def check_flash_bwd_cases() -> float:
+    """Each backward case in f32 and bf16 against the plain backward
+    (autograd through ``blockwise_attention`` in f32), each gradient held
+    to ``ATOL`` of its dtype relative to its own largest entry; each band
+    must reject the plain gradient without the case's softcap or window,
+    or under the other mask. Returns the largest error (relative to each
+    gradient's largest entry)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ATOL[str(dtype).removeprefix("torch.")]
+        for name, c in FLASH_BWD_CASES.items():
+            q, k, v, do = flash_bwd_inputs(c, dtype, seed=11)
+            mask = dict(causal=c["causal"], window=c.get("window"), cap=c.get("cap"))
+            before = ops.KERNEL.backward_launches
+            got = flash_kernel_grads(q, k, v, do, mask)
+            torch.cuda.synchronize()
+            if DEVICE == "cuda" and ops.KERNEL.backward_launches != before + 1:
+                raise AssertionError("the backward did not launch its kernel once")
+            want = ref.flash_attention_bwd_ref(q, k, v, do, **mask)
+            wrong = {}
+            if "cap" in c:
+                wrong["softcap"] = dict(mask, cap=None)
+            if "window" in c:
+                wrong["window"] = dict(mask, window=None)
+            wrong["the causal mask" if c["causal"] else "bidirectional attention"] = dict(
+                mask, causal=not c["causal"])
+            plain_wrong = {f: ref.flash_attention_bwd_ref(q, k, v, do, **m)
+                           for f, m in wrong.items()}
+            for i, grad in enumerate("qkv"):
+                s = want[i].abs().max()
+                case = f"flash backward {name} d{grad} {str(dtype).removeprefix('torch.')}"
+                if got[i].dtype != dtype or got[i].shape != want[i].shape:
+                    raise AssertionError(f"{case}: {got[i].dtype} {tuple(got[i].shape)}")
+                worst = max(worst, check_close(case, got[i] / s, want[i] / s, tol))
+                check_band_binds(case, want[i] / s,
+                                 {f: w[i] / s for f, w in plain_wrong.items()}, tol)
+    return worst
+
+
+def time_flash_bwd() -> dict:
+    """The backward kernel at qwen's training shape in bf16: events and
+    device time a call, the plain backward's time, the bound (the five
+    products' operations over the visible pairs at the bf16 peak, or the
+    bytes: q, k, v, O, dO and the log-sum-exp read, dq, dk, dv written),
+    and SDPA's backward through autograd at the same shape (its kernels'
+    device time)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    c = FLASH_BWD_CASES["qwen_train"]
+    B, S, H, D = c["B"], c["Sq"], c["H"], c["D"]
+    q, k, v, do = flash_bwd_inputs(c, torch.bfloat16, seed=12)
+    out, lse = ops.KERNEL(q, k, v, seq_dim=1, head_dim=2, causal=True, window=None,
+                          softcap=None, q_offset=0, with_lse=True)
+
+    def kernel():
+        return ops.KERNEL.backward(q, k, v, out, do, lse, seq_dim=1, head_dim=2, causal=True,
+                                   window=None, softcap=None)
+
+    def kernel_calls():
+        for _ in range(10):
+            kernel()
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    lib_out = sdpa(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+
+    def library():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
+
+    def library_calls():
+        for _ in range(10):
+            library()
+
+    lib_grads = [g.transpose(1, 2) for g in library()]
+    for name, got, want in zip("qkv", kernel(), lib_grads):
+        check_yardstick(f"SDPA backward d{name} (qwen_train)", want, got)
+    visible = B * H * S * (S + 1) // 2
+    n_ops = 5 * 2 * D * visible               # S, dP, dV, dK, dQ products
+    n_bytes = 8 * B * S * H * D * 2 + B * H * S * 4
+    rec = dict(B=B, S=S, H=H, D=D, causal=True,
+               ms=time_call(kernel, 10),
+               **device_ms_per_call(kernel_calls, 10, FLASH_BWD_KERNELS),
+               plain_ms=time_call(lambda: ref.flash_attention_bwd_ref(q, k, v, do, causal=True),
+                                  3),
+               library="scaled_dot_product_attention backward (autograd)",
+               library_ms=time_call(library, 10),
+               **bound(n_bytes, n_ops, "bfloat16"))
+    lib_dev = device_ms_per_call(library_calls, 10, None)
+    rec.update(library_device_ms=lib_dev["device_ms"],
+               library_kernels_ms=lib_dev["device_kernels_ms"])
+    return rec
+
+
+def check_train_small() -> dict:
+    """Reduced qwen: ``Model.loss`` and the gradient of every leaf on the
+    card (flash forward and backward kernels) against the CPU (plain
+    versions), same bf16 weights and tokens: the loss within 1e-2
+    relative, each leaf within 5e-2 relative Frobenius error (the bands of
+    tests/test_torch_loss.py in bf16)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import Model, materialize
+    from repro_torch.models.params import flatten_tree
+
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    params = materialize(Model(cfg).describe(), seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(1, cfg.vocab_size, (2, 129)))
+    res = {}
+    for dev in ("cpu", DEVICE):
+        p = _to(params, dev)
+        for _, t in flatten_tree(p):
+            t.requires_grad_(True)
+        fwd, bwd = ops.KERNEL.launches, ops.KERNEL.backward_launches
+        loss, _ = Model(cfg, p).loss({"tokens": tokens.to(dev)})
+        grads = torch.autograd.grad(loss, [t for _, t in flatten_tree(p)])
+        res[dev] = (loss.item(), [g.float().cpu() for g in grads],
+                    ops.KERNEL.launches - fwd, ops.KERNEL.backward_launches - bwd)
+    (l_cpu, g_cpu, _, _), (l_dev, g_dev, fwd, bwd) = res["cpu"], res[DEVICE]
+    worst = max(((a - b).norm() / b.norm()).item() for a, b in zip(g_dev, g_cpu))
+    rec = dict(loss_cpu=l_cpu, loss_card=l_dev, loss_rel=abs(l_dev - l_cpu) / abs(l_cpu),
+               worst_leaf_rel_frobenius=worst, flash_launches=fwd, backward_launches=bwd)
+    log("train small " + json.dumps(rec))
+    if not (rec["loss_rel"] <= 1e-2 and worst <= 5e-2 and math.isfinite(l_dev)):
+        raise AssertionError("the reduced loss or its gradients on the card disagree with the CPU")
+    if DEVICE == "cuda" and (fwd, bwd) != (cfg.num_layers, cfg.num_layers):
+        raise AssertionError(f"a reduced loss ran {fwd} flash forwards and {bwd} backwards, "
+                             f"not {cfg.num_layers} each")
+    return rec
+
+
+def step_breakdown(trainer, state, model) -> dict:
+    """One more optimizer step, on the host clock (synchronized) and under
+    ``torch.profiler``: the device's kernel time, its share of the
+    unprofiled step (and of the profiled one),
+    and the kernels that took most of it, grouped (the flash kernels,
+    products, the rest)."""
+    tokens = trainer._tokens_for(state.step)
+    trainer.train_step(state, tokens, model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_step(state, tokens, model)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(state, tokens, model)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    # the step's ``train.*`` ranges (loop.py) also show on the device as
+    # annotations, which are no kernels
+    kernels = {k: us for k, us in device_kernel_us(prof).items() if not k.startswith("train.")}
+    device_ms = sum(kernels.values()) / 1e3
+    # the kernels launched inside each range, from its host-side event (the
+    # backward runs on autograd's thread, outside them: it is the rest)
+    ranges: dict = {}
+    for ev in prof.events():
+        if ev.name.startswith("train.") and ev.device_type == torch.autograd.DeviceType.CPU:
+            ranges[ev.name] = ranges.get(ev.name, 0.0) + ev.device_time_total / 1e3
+    ranges["backward (the rest)"] = device_ms - sum(ranges.values())
+    groups = {"flash_forward": 0.0, "flash_backward": 0.0, "products": 0.0, "other": 0.0}
+    for name, us in kernels.items():
+        if "flash_mma_kernel" in name or "flash_attention_kernel" in name:
+            groups["flash_forward"] += us / 1e3
+        elif any(k in name for k in FLASH_BWD_KERNELS):
+            groups["flash_backward"] += us / 1e3
+        elif any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "sm90_", "nvjet")):
+            groups["products"] += us / 1e3
+        else:
+            groups["other"] += us / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
+    # the share is of the step without the profiler, whose own host work
+    # would make the step look more host-bound than it is
+    return dict(step_host_ms=host_ms, profiled_step_host_ms=profiled_ms,
+                step_device_ms=device_ms, device_share=device_ms / host_ms,
+                device_share_of_profiled_step=device_ms / profiled_ms,
+                device_ms_by_group=groups, device_ms_by_range=ranges,
+                top_kernels_ms={k[:80]: v / 1e3 for k, v in top})
+
+
+def train_full() -> dict:
+    """qwen1.5-0.5b at full width through the launcher's code path
+    (``parse_args`` → ``build_trainer`` → ``train``): seed-0 weights drawn
+    on the card, 6 steps of 2 microbatches of 4 x 1024 tokens, remat on.
+    Every loss finite and the last below the first; the flash forward
+    launched 2 x layers x microbatches x steps times (remat recomputes each
+    block's forward in the backward), its backward layers x microbatches x
+    steps; peak memory; then one step's time on the host clock and on the
+    device."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import Model
+    from repro_torch.models.params import leaves
+
+    args = launch_train.parse_args(TRAIN_ARGS + ["--device", DEVICE])
+    trainer = launch_train.build_trainer(args)
+    trainer.tcfg.log_every = 1
+    cfg, tcfg = trainer.cfg, trainer.tcfg
+    n_params = sum(math.prod(l.shape) for _, l in leaves(trainer.param_tree))
+    t0 = time.perf_counter()
+    state = trainer.adopt(draw_on_card(trainer.param_tree, seed=0))
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ops.KERNEL.launches = 0
+    ops.KERNEL.backward_launches = 0
+    t0 = time.perf_counter()
+    state = launch_train.train(trainer, state)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    fwd, bwd = ops.KERNEL.launches, ops.KERNEL.backward_launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [m["loss"] for m in trainer.metrics]
+    rec = dict(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, params=n_params,
+               remat=cfg.remat, global_batch=args.global_batch, seq_len=args.seq_len,
+               microbatches=tcfg.microbatches, steps=state.step, lr=tcfg.lr,
+               weights="drawn on the card (torch.Generator, seed 0)", draw_s=draw_s,
+               run_s=run_s, losses=losses, flash_launches=fwd, backward_launches=bwd,
+               flash_launches_expected=2 * cfg.num_layers * tcfg.microbatches * tcfg.steps,
+               backward_launches_expected=cfg.num_layers * tcfg.microbatches * tcfg.steps,
+               peak_gib=peak)
+    rec.update(step_breakdown(trainer, state, Model(cfg, state.params)))
+    log("train " + json.dumps(rec))
+    if len(losses) != tcfg.steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"the training losses are missing or not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall over {tcfg.steps} steps: {losses}")
+    if DEVICE == "cuda" and (fwd, bwd) != (rec["flash_launches_expected"],
+                                           rec["backward_launches_expected"]):
+        raise AssertionError(f"training ran {fwd} flash forwards and {bwd} backwards")
+    return rec
+
+
+def train_restore() -> dict:
+    """A reduced-qwen trainer on the card saves at step 2; a fresh trainer
+    restores it onto the card, leaf for leaf bit-equal to what was saved."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import flatten_tree
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.loop import TrainConfig, Trainer
+
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cfg = get_config("qwen1.5-0.5b").reduced()
+
+    def trainer():
+        return Trainer(cfg, TrainConfig(steps=2, microbatches=2, ckpt_every=2,
+                                        ckpt_dir=str(ckpt_dir), log_every=1),
+                       DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4),
+                       device=DEVICE)
+
+    saved = trainer().run()
+    restored = trainer().resume_or_init()
+    same = all(torch.equal(a.detach(), b.detach()) and b.device == a.device for (_, a), (_, b)
+               in zip(flatten_tree({"p": saved.params, "o": saved.opt}),
+                      flatten_tree({"p": restored.params, "o": restored.opt})))
+    rec = dict(step=restored.step, device=str(restored.params["embed"].device), bit_equal=same,
+               checkpoint_bytes=sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file()))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log("train restore " + json.dumps(rec))
+    if not (same and restored.step == 2 and restored.params["embed"].device.type == DEVICE):
+        raise AssertionError(f"the checkpoint did not restore onto the card: {rec}")
+    return rec
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -2740,6 +3071,8 @@ def main(argv=None) -> int:
     ssd_timing = time_ssd()
     log("ssd timing " + json.dumps(ssd_timing))
     if "--kernels-only" in argv:
+        check_flash_bwd_cases()
+        log("flash_attention_bwd timing " + json.dumps(time_flash_bwd()))
         time_flex_yardstick(flash_timing)
         return 0
 
@@ -2797,6 +3130,18 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     internvl2 = model_internvl2()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 9: training through the flash kernel's forward and backward
+    bwd_err = check_flash_bwd_cases()
+    bwd_timing = time_flash_bwd()
+    log("flash_attention_bwd timing " + json.dumps(bwd_timing))
+    check_train_small()
+    train = train_full()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_restore()
     # last: after torch.compile a profile can lose kernel records, and the
     # replays' checks count kernels in profiles
     time_flex_yardstick(flash_timing)
@@ -2850,6 +3195,7 @@ def main(argv=None) -> int:
             "launches_zamba2_prefills": zamba2["flash_launches"],
             "launches_whisper_prefills": whisper["flash_launches"],
             "launches_internvl2_prefills": internvl2["flash_launches"],
+            "launches_training": train["flash_launches"],
             "max_abs_err": flash_err,
             "ms": ft["ms"],
             "device_ms": ft["device_ms"],
@@ -2863,6 +3209,28 @@ def main(argv=None) -> int:
                 "H", "KH", "D", "Sq", "ms", "device_ms", "bound_ms", "bound_by", "library",
                 "library_ms", "library_device_ms")}
                 for name in (*FLASH_OTHER, "gemma2_local", *FLASH_MODELS)},
+        },
+        {
+            "name": "flash_attention_bwd",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/model.py:561",
+            "replaces_note": "no TPU kernel: the reference's Model.loss is differentiated "
+                             "through plain jnp (blockwise_attention); no Pallas kernel has a "
+                             "backward",
+            "launches": train["backward_launches"],
+            "max_abs_err": bwd_err,
+            "max_abs_err_note": "relative to each gradient's largest entry",
+            "ms": bwd_timing["ms"],
+            "device_ms": bwd_timing["device_ms"],
+            "kernel_ms": bwd_timing["ms"],
+            "device_kernels_ms": bwd_timing["device_kernels_ms"],
+            "plain_ms": bwd_timing["plain_ms"],
+            "bound_ms": bwd_timing["bound_ms"],
+            "bound_by": bwd_timing["bound_by"],
+            "library_ms": bwd_timing["library_ms"],
+            "library_device_ms": bwd_timing["library_device_ms"],
+            "shape": {k: bwd_timing[k] for k in ("B", "S", "H", "D", "causal")},
         },
         {
             "name": "ssd_scan",

@@ -15,6 +15,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -76,6 +78,14 @@ class Kernel:
         if self._lib is None:
             self._lib, self.build_log = self._loader()
         return self._lib
+
+
+def records_grad(*operands) -> bool:
+    """Whether autograd would record a call on ``operands`` (None entries
+    ignored): grad enabled and an operand that requires grad. A wrapper
+    with no backward kernel raises then, rather than return a result
+    without a gradient."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in operands)
 
 
 def check_status(err: int, name: str) -> None:

@@ -85,6 +85,12 @@
 //
 // Both skip kv tiles that causality, the window, kv_lengths or the hole
 // mask entirely before they are loaded, as the Pallas `pl.when(live)` does.
+//
+// Training: given an `lse` pointer (f32 [B, H, Sq], contiguous), both
+// kernels also write each query row's natural log-sum-exp of its scaled
+// (and capped) scores, -inf for a row that sees no key; the backward kernel
+// (flash_attention_bwd.cu) recomputes the probabilities from it. With a null
+// pointer (every serving call) nothing more is written.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -125,7 +131,8 @@ struct Params {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int32_t* __restrict__ kv_lengths, T* __restrict__ out, Params pr) {
+    const int32_t* __restrict__ kv_lengths, T* __restrict__ out, float* __restrict__ lse,
+    Params pr) {
   constexpr int DP = D + 1;    // padded row stride of the q and K tiles
   constexpr int PP = kBK + 1;  // padded row stride of the probability tile
   constexpr int DC = D / 16;   // accumulator columns per thread
@@ -261,6 +268,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const float denom = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int c = 0; c < DC; ++c) ob[row * pr.o_s + tx + 16 * c] = from_f32<T>(acc[r][c] / denom);
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * pr.H + h) * pr.Sq + row] = l[r] > 0.f ? m[r] + logf(l[r]) : -INFINITY;
   }
 }
 
@@ -345,7 +354,7 @@ template <int D>
 __global__ void __launch_bounds__(mma_groups<D>() * kMmaWarps * 32) flash_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ kv_lengths,
-    __nv_bfloat16* __restrict__ out, Params pr) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, Params pr) {
   constexpr int RW = D + 8;       // padded shared row, elements
   constexpr int CH = D / 8;       // 16-byte chunks a row
   constexpr int KS = D / 16;      // k-steps of Q·Kᵀ
@@ -579,6 +588,7 @@ __global__ void __launch_bounds__(mma_groups<D>() * kMmaWarps * 32) flash_mma_ke
       const float m_use = m_new == -INFINITY ? 0.f : m_new;
       const float a0 = exp2f(m[r] - m_use), a1 = exp2f(m1 - m_use);
       l[r] = l[r] * a0 + hand[(DT * 4 + 2 + r) * NTH + gtid] * a1;
+      m[r] = m_new;
 #pragma unroll
       for (int t = 0; t < DT; ++t) {
         o[t][2 * r] = o[t][2 * r] * a0 + hand[(t * 4 + 2 * r) * NTH + gtid] * a1;
@@ -596,6 +606,10 @@ __global__ void __launch_bounds__(mma_groups<D>() * kMmaWarps * 32) flash_mma_ke
     const float inv = sum > 0.f ? 1.f / sum : 0.f;
     const int row = q0 + warp * 16 + (lane >> 2) + r * 8;
     if (row >= pr.Sq) continue;
+    // m is in base-2 units of the scaled scores
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((long long)b * pr.H + h) * pr.Sq + row] =
+          sum > 0.f ? (m[r] + log2f(sum)) * 0.6931471805599453f : -INFINITY;
     __nv_bfloat16* orow = ob + (long long)row * pr.o_s + (lane & 3) * 2;
 #pragma unroll
     for (int t = 0; t < DT; ++t)
@@ -606,7 +620,7 @@ __global__ void __launch_bounds__(mma_groups<D>() * kMmaWarps * 32) flash_mma_ke
 
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* kv_lengths,
-                       void* out, int B, const Params& pr, cudaStream_t stream) {
+                       void* out, float* lse, int B, const Params& pr, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D>();
   auto kernel = flash_mma_kernel<D>;
   cudaError_t err =
@@ -616,7 +630,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   kernel<<<grid, mma_groups<D>() * kMmaWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(kv_lengths),
-      static_cast<__nv_bfloat16*>(out), pr);
+      static_cast<__nv_bfloat16*>(out), lse, pr);
   return cudaGetLastError();
 }
 
@@ -632,19 +646,19 @@ bool mma_aligned(const void* q, const void* k, const void* v, const void* out, c
 }
 
 cudaError_t dispatch_mma(int D, const void* q, const void* k, const void* v,
-                         const void* kv_lengths, void* out, int B, const Params& pr,
+                         const void* kv_lengths, void* out, float* lse, int B, const Params& pr,
                          cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch_mma<32>(q, k, v, kv_lengths, out, B, pr, stream);
+      return launch_mma<32>(q, k, v, kv_lengths, out, lse, B, pr, stream);
     case 64:
-      return launch_mma<64>(q, k, v, kv_lengths, out, B, pr, stream);
+      return launch_mma<64>(q, k, v, kv_lengths, out, lse, B, pr, stream);
     case 128:
-      return launch_mma<128>(q, k, v, kv_lengths, out, B, pr, stream);
+      return launch_mma<128>(q, k, v, kv_lengths, out, lse, B, pr, stream);
     case 160:
-      return launch_mma<160>(q, k, v, kv_lengths, out, B, pr, stream);
+      return launch_mma<160>(q, k, v, kv_lengths, out, lse, B, pr, stream);
     case 256:
-      return launch_mma<256>(q, k, v, kv_lengths, out, B, pr, stream);
+      return launch_mma<256>(q, k, v, kv_lengths, out, lse, B, pr, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -657,7 +671,7 @@ size_t smem_bytes(int D) {
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_lengths, void* out,
-                   int B, const Params& pr, cudaStream_t stream) {
+                   float* lse, int B, const Params& pr, cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   auto kernel = flash_attention_kernel<T, D>;
   cudaError_t err =
@@ -666,25 +680,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_l
   const dim3 grid((pr.Sq + kBQ - 1) / kBQ, pr.H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int32_t*>(kv_lengths), static_cast<T*>(out), pr);
+      static_cast<const int32_t*>(kv_lengths), static_cast<T*>(out), lse, pr);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       const void* kv_lengths, void* out, int B, const Params& pr,
+                       const void* kv_lengths, void* out, float* lse, int B, const Params& pr,
                        cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, kv_lengths, out, B, pr, stream);
+      return launch<T, 32>(q, k, v, kv_lengths, out, lse, B, pr, stream);
     case 64:
-      return launch<T, 64>(q, k, v, kv_lengths, out, B, pr, stream);
+      return launch<T, 64>(q, k, v, kv_lengths, out, lse, B, pr, stream);
     case 128:
-      return launch<T, 128>(q, k, v, kv_lengths, out, B, pr, stream);
+      return launch<T, 128>(q, k, v, kv_lengths, out, lse, B, pr, stream);
     case 160:
-      return launch<T, 160>(q, k, v, kv_lengths, out, B, pr, stream);
+      return launch<T, 160>(q, k, v, kv_lengths, out, lse, B, pr, stream);
     case 256:
-      return launch<T, 256>(q, k, v, kv_lengths, out, B, pr, stream);
+      return launch<T, 256>(q, k, v, kv_lengths, out, lse, B, pr, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -714,11 +728,13 @@ extern "C" size_t flash_attention_mma_smem(int D) {
 
 // Plain C entry point, bound with ctypes. dtype codes: 0 float32, 1 bfloat16
 // (the tensor-core kernel when every row start is 16-byte aligned).
-// Strides in elements; kv_lengths may be null; softcap <= 0 and window <= 0
-// mean none; hole_lo >= hole_hi means no hole. Returns the launch's
+// Strides in elements; kv_lengths and lse may be null (lse: f32 [B, H, Sq],
+// written when given); softcap <= 0 and window <= 0 mean none; hole_lo >=
+// hole_hi means no hole. Returns the launch's
 // cudaGetLastError() (or the error of setting the shared-memory limit).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   const void* kv_lengths, void* out, int B, int H, int KH,
+                                   const void* kv_lengths, void* out, void* lse, int B, int H,
+                                   int KH,
                                    int Sq, int Skv, int D, int dtype, long long q_b,
                                    long long q_h, long long q_s, long long k_b, long long k_h,
                                    long long k_s, long long v_b, long long v_h, long long v_s,
@@ -731,12 +747,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                   v_b, v_h, v_s, o_b,      o_h,     o_s,    sm_scale, softcap, causal, window,
                   q_offset, hole_lo, hole_hi};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (dtype) {
     case 0:
-      return dispatch_d<float>(D, q, k, v, kv_lengths, out, B, pr, s);
+      return dispatch_d<float>(D, q, k, v, kv_lengths, out, l, B, pr, s);
     case 1:
-      if (mma_aligned(q, k, v, out, pr)) return dispatch_mma(D, q, k, v, kv_lengths, out, B, pr, s);
-      return dispatch_d<__nv_bfloat16>(D, q, k, v, kv_lengths, out, B, pr, s);
+      if (mma_aligned(q, k, v, out, pr))
+        return dispatch_mma(D, q, k, v, kv_lengths, out, l, B, pr, s);
+      return dispatch_d<__nv_bfloat16>(D, q, k, v, kv_lengths, out, l, B, pr, s);
     default:
       return cudaErrorInvalidValue;
   }

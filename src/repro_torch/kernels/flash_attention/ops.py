@@ -12,7 +12,8 @@ neither layout is copied into the other:
   prefill calls; its plain version is ``blockwise_attention``.
 
 Each chooses by the tensors' device, with no flag: CUDA tensors launch the
-kernel or raise; CPU tensors take the plain version. There is no fallback
+kernel or raise; CPU tensors take the plain version, through which
+autograd runs as through any PyTorch code. There is no fallback
 from the kernel to the plain version. The kernel takes ragged ``Sq`` and
 ``Skv`` (no divisibility requirement), GQA (``H % KH == 0``), head
 dimensions 32, 64, 128, 160 (zamba2's shared block) and 256 (gemma2-9b),
@@ -20,8 +21,21 @@ and f32 or bf16: bf16 runs on the tensor cores when every row start is
 16-byte aligned and on CUDA cores otherwise, f32 on CUDA cores. A query row that sees no key at all comes back as 0 from
 the kernel (the plain versions give the mean of v there); no serving path
 produces such a row.
+
+Gradients on the card: when autograd records (``torch.is_grad_enabled()``)
+and an operand requires grad, a CUDA call goes through
+:class:`_FlashAttentionFn`, whose forward launches the kernel with its
+per-row log-sum-exp and whose backward launches the backward kernel
+(``csrc/flash_attention_bwd.cu``; plain version
+:func:`~repro_torch.kernels.flash_attention.ref.flash_attention_bwd_ref`).
+Every other CUDA call launches the forward alone, as serving always has.
+The backward takes no ``q_offset``, ``kv_lengths`` or ``kv_hole``: a
+gradient asked through them raises (ROADMAP), and no training path uses
+them.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -41,9 +55,22 @@ class FlashAttentionKernel(_nvcc.Kernel):
 
     def __init__(self):
         super().__init__(_build.load)
+        #: the backward kernel, its own build; its ``launches`` counts the
+        #: backward's launches (``backward_launches``)
+        self.backward_kernel = _nvcc.Kernel(_build.load_bwd)
+
+    @property
+    def backward_launches(self) -> int:
+        return self.backward_kernel.launches
+
+    @backward_launches.setter
+    def backward_launches(self, n: int) -> None:
+        self.backward_kernel.launches = n
 
     def __call__(self, q, k, v, *, seq_dim: int, head_dim: int, causal: bool, window,
-                 softcap, q_offset: int, kv_lengths=None, kv_hole=None):
+                 softcap, q_offset: int, kv_lengths=None, kv_hole=None, with_lse=False):
+        """The forward; with ``with_lse`` returns ``(out, lse)``, ``lse`` the
+        f32 ``[B, H, Sq]`` log-sum-exp of each query row's scores."""
         for name, t in {"q": q, "k": k, "v": v}.items():
             if t.dim() != 4:
                 raise ValueError(f"{name} must have 4 dims, has shape {tuple(t.shape)}")
@@ -79,23 +106,63 @@ class FlashAttentionKernel(_nvcc.Kernel):
 
         lib = self.load()
         out = torch.empty(q.shape, dtype=q.dtype, device=dev)
-
-        def strides(t):
-            return t.stride(0), t.stride(head_dim), t.stride(seq_dim)
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev) if with_lse else None
 
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.flash_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 kv_lengths.data_ptr() if kv_lengths is not None else None, out.data_ptr(),
+                lse.data_ptr() if lse is not None else None,
                 B, H, KH, Sq, Skv, D, _DTYPE_CODES[q.dtype],
-                *strides(q), *strides(k), *strides(v), *strides(out),
+                *(s for t in (q, k, v, out) for s in _strides(t, seq_dim, head_dim)),
                 D ** -0.5, softcap or 0.0, int(causal), window or 0, int(q_offset),
                 hole_lo, hole_hi, stream,
             )
         _nvcc.check_status(err, "flash_attention_fwd")
         self.launches += 1
-        return out
+        return (out, lse) if with_lse else out
+
+    def backward(self, q, k, v, out, dout, lse, *, seq_dim: int, head_dim: int, causal: bool,
+                 window, softcap):
+        """dq, dk, dv of the forward that gave ``out`` and ``lse`` on
+        ``q, k, v`` (same layout and masks), given ``dout``; each in its
+        operand's type and layout."""
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        if dout.shape != out.shape or dout.dtype != out.dtype:
+            raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not match the "
+                             f"output {tuple(out.shape)} {out.dtype}")
+        B, D = q.shape[0], q.shape[3]
+        H, Sq = q.shape[head_dim], q.shape[seq_dim]
+        KH, Skv = k.shape[head_dim], k.shape[seq_dim]
+        dev = q.device
+        if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Sq) or not lse.is_contiguous():
+            raise ValueError(f"lse must be contiguous float32 of shape {(B, H, Sq)}")
+        lib = self.backward_kernel.load()
+        dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
+        dk = torch.empty(k.shape, dtype=k.dtype, device=dev)
+        dv = torch.empty(v.shape, dtype=v.dtype, device=dev)
+        di = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+        strides = [s for t in (q, k, v, out, dout, dq, dk, dv)
+                   for s in _strides(t, seq_dim, head_dim)]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.flash_attention_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                B, H, KH, Sq, Skv, D, _DTYPE_CODES[q.dtype],
+                (ctypes.c_longlong * len(strides))(*strides),
+                D ** -0.5, softcap or 0.0, int(causal), window or 0, stream,
+            )
+        _nvcc.check_status(err, "flash_attention_bwd")
+        self.backward_launches += 1
+        return dq, dk, dv
+
+
+def _strides(t, seq_dim: int, head_dim: int) -> tuple[int, int, int]:
+    """(batch, head, sequence) strides of a 4-D operand, in elements."""
+    return t.stride(0), t.stride(head_dim), t.stride(seq_dim)
 
 
 #: the one kernel instance both wrappers launch; its ``launches`` is the
@@ -103,9 +170,44 @@ class FlashAttentionKernel(_nvcc.Kernel):
 KERNEL = FlashAttentionKernel()
 
 
+class _FlashAttentionFn(torch.autograd.Function):
+    """The kernel under autograd: the forward launches it with the
+    log-sum-exp and keeps q, k, v, the output and the log-sum-exp; the
+    backward launches the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seq_dim, head_dim, causal, window, softcap):
+        out, lse = KERNEL(q, k, v, seq_dim=seq_dim, head_dim=head_dim, causal=causal,
+                          window=window, softcap=softcap, q_offset=0, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = dict(seq_dim=seq_dim, head_dim=head_dim, causal=causal, window=window,
+                        softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = KERNEL.backward(q, k, v, out, dout, lse, **ctx.mask)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _refuse_grad(q_offset=0, kv_lengths=None, kv_hole=None) -> None:
+    """The backward kernel's refusals: its queries start at position 0 and
+    every key up to the mask is real."""
+    for name, given in (("q_offset", q_offset), ("kv_lengths", kv_lengths is not None),
+                        ("kv_hole", kv_hole is not None)):
+        if given:
+            raise NotImplementedError(
+                f"the flash backward kernel takes no {name}; no training path uses it "
+                "(ROADMAP, kernel work on flash_attention)")
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, q_offset=0):
     """Sequence attention, q [B,H,Sq,D]; k, v [B,KH,Skv,D] -> [B,H,Sq,D]."""
     if q.is_cuda:
+        if _nvcc.records_grad(q, k, v):
+            _refuse_grad(q_offset)
+            return _FlashAttentionFn.apply(q, k, v, 2, 1, causal, window, softcap)
         return KERNEL(q, k, v, seq_dim=2, head_dim=1, causal=causal, window=window,
                       softcap=softcap, q_offset=q_offset)
     return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
@@ -117,6 +219,9 @@ def prefill_attention(q, k, v, *, causal: bool, window=None, cap=None, q_offset:
     """Prefill attention in the model's layout, q [B,Sq,H,D]; k, v
     [B,Skv,KH,D] -> [B,Sq,H,D] (arguments as ``blockwise_attention``)."""
     if q.is_cuda:
+        if _nvcc.records_grad(q, k, v):
+            _refuse_grad(q_offset, kv_lengths, kv_hole)
+            return _FlashAttentionFn.apply(q, k, v, 1, 2, causal, window, cap)
         return KERNEL(q, k, v, seq_dim=1, head_dim=2, causal=causal, window=window,
                       softcap=cap, q_offset=q_offset, kv_lengths=kv_lengths,
                       kv_hole=kv_hole)

@@ -7,6 +7,10 @@
 blocks, the model's layout ``[B, S, H, D]``, with ``kv_lengths`` and
 ``kv_hole``), which the model's prefill runs on CPU tensors. The Hopper
 kernel (``csrc/flash_attention.cu``) is held against both on the card.
+``flash_attention_bwd_ref`` is the plain version of the backward kernel
+(``csrc/flash_attention_bwd.cu``): autograd through
+``blockwise_attention`` in f32. The tests and the smoke run hold the
+kernel against it; no training path calls it.
 """
 from __future__ import annotations
 
@@ -128,3 +132,14 @@ def blockwise_attention(
         outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])   # [B,qb,KH,G,D]
     out = torch.cat(outs, dim=1).reshape(B, Sq, H, D)
     return out.to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, do, *, causal: bool, window: int | None = None,
+                            cap: float | None = None):
+    """dq, dk, dv (f32) of :func:`blockwise_attention` on ``q, k, v``
+    ([B, S, H, D], the model's layout) cast to f32, for the output
+    gradient ``do``: ``torch.autograd.grad`` through the plain forward."""
+    with torch.enable_grad():
+        qf, kf, vf = (t.detach().to(F32).requires_grad_(True) for t in (q, k, v))
+        out = blockwise_attention(qf, kf, vf, causal=causal, window=window, cap=cap)
+        return torch.autograd.grad(out, (qf, kf, vf), do.to(F32))

@@ -3,7 +3,9 @@
 The wrapper chooses by the tensors' device, with no flag: CUDA tensors
 launch the Hopper kernel (``csrc/paged_attention.cu``) or raise; CPU
 tensors take the plain PyTorch version in ``ref.py``. There is no
-fallback from the kernel to the plain version.
+fallback from the kernel to the plain version. The kernel has no
+backward: a CUDA call that autograd would record raises
+``NotImplementedError`` instead of returning a result without a gradient.
 
 ``paged_attention_decode`` is the serving hot path: the current token's
 ``k_new``/``v_new`` ``[B, KH, D]`` (global position ``lengths - 1``) are
@@ -182,12 +184,22 @@ def _shape(t, ndim: int, name: str):
 KERNEL = PagedAttentionKernel()
 
 
+def _refuse_grad(*operands) -> None:
+    """Decode attention has no backward kernel: a CUDA call that autograd
+    would record raises rather than return a result without a gradient."""
+    if _nvcc.records_grad(*operands):
+        raise NotImplementedError(
+            "paged attention has no backward kernel yet (ROADMAP): a gradient through it "
+            "on the card would be lost; CPU tensors train through the plain version")
+
+
 def paged_attention(
     q, k_pages, v_pages, block_tables, lengths,
     k_scales=None, v_scales=None, *, softcap=None, window=None,
 ):
     """Decode attention over a paged KV pool (layouts in ``csrc``)."""
     if q.is_cuda:
+        _refuse_grad(q, k_pages, v_pages)
         return KERNEL(
             q, None, None, k_pages, v_pages, block_tables, lengths,
             k_scales, v_scales, softcap=softcap, window=window,
@@ -204,6 +216,7 @@ def paged_attention_decode(
 ):
     """Decode attention for a token whose KV is not yet in the pool."""
     if q.is_cuda:
+        _refuse_grad(q, k_new, v_new, k_pages, v_pages)
         return KERNEL(
             q, k_new, v_new, k_pages, v_pages, block_tables, lengths,
             k_scales, v_scales, softcap=softcap, window=window,

@@ -3,7 +3,10 @@
 The wrapper chooses by the tensors' device, with no flag: CUDA tensors
 launch the Hopper kernel (``csrc/ssd.cu``) or raise; CPU tensors take the
 plain PyTorch version, ``ssd_reference``. There is no fallback from the
-kernel to the plain version.
+kernel to the plain version. The kernel has no backward yet: a CUDA call that
+autograd would record (grad enabled, an operand that requires grad)
+raises ``NotImplementedError`` instead of returning a result without a
+gradient; autograd runs through the plain version on CPU tensors.
 
 ``ssd(x, dt, A, Bm, Cm, chunk=128)`` is the counterpart of
 ``repro.kernels.ssd``: x ``[B, S, H, P]``, dt ``[B, S, H]`` f32 (after
@@ -220,5 +223,9 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128):
             raise ValueError("ssd takes a single B/C group")
         Bm, Cm = Bm[:, :, 0, :], Cm[:, :, 0, :]
     if x.is_cuda:
+        if _nvcc.records_grad(x, dt, A, Bm, Cm):
+            raise NotImplementedError(
+                "the SSD scan has no backward kernel yet (ROADMAP): a gradient through "
+                "it on the card would be lost; CPU tensors train through the plain version")
         return KERNEL(x, dt, A, Bm, Cm, chunk=chunk)
     return ssd_reference(x, dt, A, Bm[:, :, None, :], Cm[:, :, None, :], chunk=chunk)

@@ -328,10 +328,11 @@ def apply_moe(p, x, cfg: ModelConfig):
 
 def apply_ffn_or_moe(p, x, cfg: ModelConfig):
     """A block's feed-forward: the MoE layer where ``cfg.num_experts`` is
-    set (its aux loss dropped: no serving path reads it), else the FFN."""
+    set, else the FFN. Returns ``(y, aux)``, the MoE layer's load-balance
+    loss or 0.0 for the FFN, as the reference's blocks return it."""
     if cfg.num_experts:
-        return apply_moe(p, x, cfg)[0]
-    return apply_ffn(p, x)
+        return apply_moe(p, x, cfg)
+    return apply_ffn(p, x), 0.0
 
 
 # ================================================================ dense block
@@ -347,9 +348,11 @@ def describe_dense_block(cfg: ModelConfig):
 def apply_dense_block(
     p, x, cfg: ModelConfig, *, positions, window=None, cache=None, lengths=None,
     prefix=None, prefix_valid=None, page_tokens: int = 16,
-    ring_window: int | None = None, causal: bool = True,
+    ring_window: int | None = None, causal: bool = True, with_aux: bool = False,
 ):
-    """One transformer block. Modes:
+    """One transformer block. Modes (with ``with_aux`` each returns
+    ``(x, kv, aux)``, ``aux`` the MoE layer's load-balance loss or 0.0, as the
+    reference's block does; the training loss reads it):
 
     * sequence mode (``cache`` is None): returns ``(x, (k, v))``; attention
       is causal unless ``causal=False`` (whisper's encoder). With
@@ -408,8 +411,9 @@ def apply_dense_block(
         )[:, None, :]
         new_kv = (k_cache, v_cache)
     x = x + (attn @ p["attn"]["wo"])
-    x = x + apply_ffn_or_moe(p["ffn"], rmsnorm(x, p["ln2"]), cfg)
-    return x, new_kv
+    f_out, aux = apply_ffn_or_moe(p["ffn"], rmsnorm(x, p["ln2"]), cfg)
+    x = x + f_out
+    return (x, new_kv, aux) if with_aux else (x, new_kv)
 
 
 def _write_slot(cache, new, idx):
@@ -446,7 +450,8 @@ def apply_dense_block_paged(
         k_scales, v_scales, softcap=cfg.attn_logit_softcap, window=window,
     )                                                      # [B, H, D]
     x = x + (attn.reshape(B, 1, h_ * hd) @ p["attn"]["wo"])
-    x = x + apply_ffn_or_moe(p["ffn"], rmsnorm(x, p["ln2"]), cfg)
+    f_out, _ = apply_ffn_or_moe(p["ffn"], rmsnorm(x, p["ln2"]), cfg)
+    x = x + f_out
     return x, (k_new, v_new)
 
 

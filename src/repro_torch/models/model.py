@@ -8,7 +8,7 @@ family (zamba2: groups of Mamba-2 blocks, each followed by one shared
 attention block on ``concat(hidden, embedding)``) and the ``encdec``
 family (whisper: a bidirectional encoder over ``frames``, and decoder
 blocks of self-attention, cross-attention over the encoder's output and
-the FFN).
+the FFN). :meth:`Model.loss`, the training loss, runs every family.
 
 The counterpart of ``repro/models/model.py``. :class:`Model` is an
 ``nn.Module`` whose buffers are the parameter tree, leaf name for leaf
@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import kv_quant
 from repro_torch.kernels.flash_attention.ops import prefill_attention
@@ -68,8 +69,10 @@ def _check_prefix(cfg: ModelConfig, prefix) -> None:
         raise ValueError(f"{cfg.name} ({kind}) has no prefix to attend over")
 
 
-def _kv_tree(ks, vs) -> dict:
-    return {"k": torch.stack(ks), "v": torch.stack(vs)}
+def _stack_layers(cols) -> tuple:
+    """Per-layer tuples of cache tensors -> one ``[L, ...]`` stack per
+    position in the tuple."""
+    return tuple(torch.stack(ts) for ts in zip(*cols))
 
 
 #: whisper's cache leaves: the decoder's self-attention slots, then the
@@ -104,12 +107,14 @@ class _ParamTree(nn.Module):
         return key in self._buffers or key in self._modules
 
 
-def _layer_view(tree: dict, l: int) -> dict:
-    """Layer ``l``'s slice of a stacked tree (views, no copies)."""
-    return {
-        k: _layer_view(v, l) if isinstance(v, dict) else v[l]
-        for k, v in tree.items()
-    }
+def _unbind(tree: dict) -> list[dict]:
+    """A stacked tree's layer slices (views, no copies), one ``unbind`` a
+    leaf. Under autograd each leaf's slices get their gradients stacked
+    once; indexing layer by layer would add a zero-padded gradient of the
+    whole stack for every layer."""
+    parts = {k: _unbind(v) if isinstance(v, dict) else v.unbind(0) for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: part[l] for k, part in parts.items()} for l in range(n)]
 
 
 class Model(nn.Module):
@@ -130,23 +135,39 @@ class Model(nn.Module):
             if want != got:
                 raise ValueError(f"parameter tree mismatch: want {want}, got {got}")
             self.params = _ParamTree(params)
-            blocks = params["blocks"]
-            if cfg.family == "hybrid":
-                # [groups, period] mamba blocks, then the one shared block
-                period = cfg.shared_attn_period
-                self._layers = [
-                    [_layer_view(_layer_view(blocks, g), j) for j in range(period)]
-                    for g in range(cfg.num_layers // period)
-                ]
-                self._shared = params["shared"]
-            elif cfg.family == "encdec":
-                self._layers = [_layer_view(blocks, l) for l in range(cfg.num_layers)]
-                self._enc_layers = [_layer_view(params["enc_blocks"], l)
-                                    for l in range(cfg.encoder_layers)]
-            else:
-                # alternation stacks (local, global) pairs
-                n = cfg.num_layers // 2 if cfg.local_global_alternating else cfg.num_layers
-                self._layers = [_layer_view(blocks, l) for l in range(n)]
+            self._stacked = params
+            self._layers, self._enc_layers = self._slice_layers()
+            self._shared = params.get("shared")
+
+    def _slice_layers(self) -> tuple[list, list | None]:
+        """Each layer's slice of the stacked leaves: the decoder (or only)
+        stack's, and the encoder's for encdec. hybrid: ``[group][j]`` mamba
+        blocks; alternation: (local, global) pairs."""
+        cfg, blocks = self.cfg, self._stacked["blocks"]
+        if cfg.family == "hybrid":
+            return [_unbind(group) for group in _unbind(blocks)], None
+        if cfg.family == "encdec":
+            return _unbind(blocks), _unbind(self._stacked["enc_blocks"])
+        return _unbind(blocks), None
+
+    def _layer_slices(self) -> tuple[list, list | None]:
+        """The layer slices a forward reads: those cached at construction
+        where autograd records nothing (serving), else slices made now. A
+        view taken before its leaf was set to require grad carries no
+        gradient to it, so a training forward slices the stacked leaves
+        itself."""
+        if torch.is_grad_enabled():
+            return self._slice_layers()
+        return self._layers, self._enc_layers
+
+    def _block(self, fn, *args):
+        """``fn(*args)``; with ``cfg.remat`` while autograd records, under
+        ``torch.utils.checkpoint`` (non-reentrant): the block's activations
+        are recomputed in the backward, as the reference's ``_maybe_remat``
+        does."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
 
     # ------------------------------------------------------------ describe
     def describe(self) -> dict:
@@ -232,87 +253,104 @@ class Model(nn.Module):
         return softcap((h @ p.head).to(F32), self.cfg.final_logit_softcap)
 
     # ------------------------------------------------------- sequence mode
-    def sequence(self, x, positions, prefix=None, prefix_valid=None, frames=None):
+    def sequence(self, x, positions, prefix=None, prefix_valid=None, frames=None,
+                 collect_cache: bool = False):
         """Run the full stack over a token-embedded sequence ``x`` [B,S,d].
 
         ``prefix``: optional {"k","v"} [L,B,Sp,KH,HD] radix-cached KV for
         chunked prefill (the paged families only). ``prefix_valid`` marks
         how many prefix positions are real when the prefix is padded to a
-        bucket. Returns ``(hidden, cache)`` with cache {"k","v"}
-        [L,B,S,KH,HD]; with alternation {"local": {"k","v"}, "global":
-        {"k","v"}} of L/2 layers each (local layers attend within
-        ``sliding_window``, global ones over everything); for the ssm
-        family {"ssm": [L,B,H,P,N] f32, "conv": [L,B,W-1,conv_dim]}; for
-        the hybrid family those with a [groups, period] lead plus
-        "shared_k"/"shared_v" [groups,B,S,KH,hybrid_head_dim], the shared
-        block taking the initial embedding ``x`` at every call; for the
-        encdec family {"k","v"} [L,B,S,KH,HD] and the cross caches
-        {"ck","cv"} [L,B,S_enc,KH,HD], the decoder attending over the
-        encoder's output on ``frames`` [B,S_enc,d].
+        bucket. Returns ``(hidden, cache, aux)``: ``aux`` the summed MoE
+        load-balance loss (an f32 tensor; the float 0.0 without experts,
+        so serving makes no tensor of it), ``cache`` None unless
+        ``collect_cache``, else {"k","v"} [L,B,S,KH,HD]; with alternation
+        {"local": {"k","v"}, "global": {"k","v"}} of L/2 layers each (local
+        layers attend within ``sliding_window``, global ones over
+        everything); for the ssm family {"ssm": [L,B,H,P,N] f32, "conv":
+        [L,B,W-1,conv_dim]}; for the hybrid family those with a [groups,
+        period] lead plus "shared_k"/"shared_v" [groups,B,S,KH,
+        hybrid_head_dim], the shared block taking the initial embedding
+        ``x`` at every call; for the encdec family {"k","v"} [L,B,S,KH,HD]
+        and the cross caches {"ck","cv"} [L,B,S_enc,KH,HD], the decoder
+        attending over the encoder's output on ``frames`` [B,S_enc,d].
+        With ``cfg.remat`` a recording forward recomputes each block (each
+        (local, global) pair, each hybrid group) in the backward.
         """
         cfg = self.cfg
         _check_prefix(cfg, prefix)
+        layers, enc_layers = self._layer_slices()
+        keep = collect_cache   # a block returns its cache only when it is collected
+        steps = [(p,) for p in layers]   # each block's arguments after the hidden state
         if cfg.family == "encdec":
             if frames is None:
                 raise ValueError(f"{cfg.name} (encdec) takes the encoder's frames")
-            enc_out = self._encode(frames)
-            kvs: dict = {name: [] for name in ENCDEC_CACHE}
-            for p in self._layers:
-                x, kv, ckv = self._decoder_block(p, x, positions, enc_out=enc_out)
-                for name, t in zip(ENCDEC_CACHE, (*kv, *ckv)):
-                    kvs[name].append(t)
-            return x, {name: torch.stack(ts) for name, ts in kvs.items()}
-        if cfg.family == "ssm":
-            sts, cvs = [], []
-            for p in self._layers:
-                x, (st, cv) = apply_mamba_block(p, x, cfg)
-                sts.append(st)
-                cvs.append(cv)
-            return x, {"ssm": torch.stack(sts), "conv": torch.stack(cvs)}
-        if cfg.family == "hybrid":
-            x0 = x
-            sts, cvs, ks, vs = [], [], [], []
-            for group in self._layers:
-                g_sts, g_cvs = [], []
-                for p in group:
-                    x, (st, cv) = apply_mamba_block(p, x, cfg)
-                    g_sts.append(st)
-                    g_cvs.append(cv)
-                x, (k, v) = apply_shared_block(self._shared, x, x0, cfg, positions=positions)
-                sts.append(torch.stack(g_sts))
-                cvs.append(torch.stack(g_cvs))
-                ks.append(k)
-                vs.append(v)
-            return x, {"ssm": torch.stack(sts), "conv": torch.stack(cvs),
-                       "shared_k": torch.stack(ks), "shared_v": torch.stack(vs)}
-        if cfg.local_global_alternating:
-            kvs = {"local": ([], []), "global": ([], [])}
-            for p in self._layers:
-                for kind, window in (("local", cfg.sliding_window), ("global", None)):
-                    x, (k, v) = apply_dense_block(p[kind], x, cfg, positions=positions,
-                                                  window=window)
-                    kvs[kind][0].append(k)
-                    kvs[kind][1].append(v)
-            return x, {kind: _kv_tree(*pair) for kind, pair in kvs.items()}
-        ks, vs = [], []
-        for l, p in enumerate(self._layers):
-            pre = (prefix["k"][l], prefix["v"][l]) if prefix is not None else None
-            x, (k, v) = apply_dense_block(
-                p, x, cfg, positions=positions, window=cfg.sliding_window,
-                prefix=pre, prefix_valid=prefix_valid,
-            )
-            ks.append(k)
-            vs.append(v)
-        return x, _kv_tree(ks, vs)
+            enc_out = self._encode(frames, enc_layers)
+            names = ENCDEC_CACHE
 
-    def _encode(self, frames):
+            def body(h, p):
+                h, kv, ckv = self._decoder_block(p, h, positions, enc_out=enc_out)
+                return h, (*kv, *ckv) if keep else None, 0.0
+        elif cfg.family == "ssm":
+            names = ("ssm", "conv")
+
+            def body(h, p):
+                h, st = apply_mamba_block(p, h, cfg)
+                return h, st if keep else None, 0.0
+        elif cfg.family == "hybrid":
+            x0 = x
+            names = ("ssm", "conv", "shared_k", "shared_v")
+
+            def body(h, group):
+                sts = []
+                for p in group:
+                    h, st = apply_mamba_block(p, h, cfg)
+                    sts.append(st)
+                h, kv = apply_shared_block(self._shared, h, x0, cfg, positions=positions)
+                return h, (*_stack_layers(sts), *kv) if keep else None, 0.0
+        elif cfg.local_global_alternating:
+            names = None
+
+            def body(h, p):
+                h, kv_l, a_l = apply_dense_block(p["local"], h, cfg, positions=positions,
+                                                 window=cfg.sliding_window, with_aux=True)
+                h, kv_g, a_g = apply_dense_block(p["global"], h, cfg, positions=positions,
+                                                 window=None, with_aux=True)
+                return h, (*kv_l, *kv_g) if keep else None, a_l + a_g
+        else:
+            names = ("k", "v")
+            if prefix is not None:
+                steps = [(p, (prefix["k"][l], prefix["v"][l])) for l, p in enumerate(layers)]
+
+            def body(h, p, pre=None):
+                h, kv, a = apply_dense_block(
+                    p, h, cfg, positions=positions, window=cfg.sliding_window,
+                    prefix=pre, prefix_valid=prefix_valid, with_aux=True)
+                return h, kv if keep else None, a
+
+        aux = 0.0   # a tensor once an MoE layer adds to it
+        cols = []
+        for args in steps:
+            x, c, a = self._block(body, x, *args)
+            aux = aux + a
+            cols.append(c)
+        if not collect_cache:
+            return x, None, aux
+        stacks = _stack_layers(cols)
+        if names is None:
+            lk, lv, gk, gv = stacks
+            return x, {"local": {"k": lk, "v": lv}, "global": {"k": gk, "v": gv}}, aux
+        return x, dict(zip(names, stacks)), aux
+
+    def _encode(self, frames, enc_layers=None):
         """The encoder over ``frames`` [B, S_enc, d]: RoPE positions from 0,
         bidirectional attention, ``frames`` cast to bf16 whatever the
-        weights' type, as the reference casts them."""
+        weights' type, as the reference casts them. ``enc_layers``: the
+        encoder's layer slices (default: those cached at construction)."""
         h = frames.to(torch.bfloat16)
         pos = torch.arange(h.shape[1], device=h.device)[None, :]
-        for p in self._enc_layers:
-            h, _ = apply_dense_block(p, h, self.cfg, positions=pos, causal=False)
+        for p in self._enc_layers if enc_layers is None else enc_layers:
+            h, _ = self._block(
+                lambda x, p=p: apply_dense_block(p, x, self.cfg, positions=pos, causal=False), h)
         return rmsnorm(h, self.params.enc_ln_f)
 
     def _decoder_block(self, p, h, positions, *, enc_out=None, cache=None, lengths=None,
@@ -393,10 +431,40 @@ class Model(nn.Module):
         q_off = 0 if prefix is None else prefix["k"].shape[2]
         pos0 = q_off if positions_offset is None else positions_offset
         positions = pos0 + torch.arange(S, device=x.device)[None, :]
-        h, cache = self.sequence(x, positions, prefix=prefix, prefix_valid=prefix_valid,
-                                 frames=batch.get("frames"))
+        h, cache, _ = self.sequence(x, positions, prefix=prefix, prefix_valid=prefix_valid,
+                                    frames=batch.get("frames"), collect_cache=True)
         idx = -1 if logit_index is None else n_img + logit_index
         return self._logits(h[:, idx, :]), cache
+
+    # -------------------------------------------------------------- train
+    def loss(self, batch: dict):
+        """The training loss on ``batch["tokens"]`` [B, S+1]: next-token
+        cross-entropy of ``tokens[:, :-1]`` predicting ``tokens[:, 1:]``
+        (logits and their log-sum-exp in f32), plus 0.01 x the summed MoE
+        load-balance loss. vlm prepends ``batch["image_embeds"]`` and scores
+        only the text positions; encdec takes ``batch["frames"]``. Returns
+        ``(loss, {"ce": ce, "aux": aux})`` as the reference's ``Model.loss``;
+        differentiate it with ``torch.autograd``. On the card every
+        attention layer runs the flash kernel forward and backward."""
+        cfg = self.cfg
+        tokens = batch["tokens"].long()
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        x = self.params.embed[inputs]
+        n_img = 0
+        if cfg.family == "vlm":
+            img = batch["image_embeds"].to(x.dtype)
+            n_img = img.shape[1]
+            x = torch.cat([img, x], dim=1)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        h, _, aux = self.sequence(x, positions, frames=batch.get("frames"))
+        aux = torch.as_tensor(aux, dtype=F32, device=h.device)
+        if n_img:
+            h = h[:, n_img:, :]
+        logits = self._logits(h)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        ce = (logz - gold).mean()
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------- decode
     @torch.no_grad()

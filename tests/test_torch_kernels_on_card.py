@@ -9,7 +9,12 @@ offset, and at whisper's encoder, its cross-attention prefill and
 internvl2-26b's prefill in bf16 and f32; and
 the SSD scan's tensor-core passes at mamba2's widths (one chunk, ragged
 and long sequences, other chunk sizes, two rows, strided slices of one
-fused tensor), with f32 and mixed dtypes on the CUDA-core route.
+fused tensor), with f32 and mixed dtypes on the CUDA-core route; the
+flash backward kernel against autograd through ``blockwise_attention`` at
+chip_smoke's shapes (bit-for-bit repeatable, in either layout), and the
+wrappers' refusals under grad (flash without q_offset, kv_hole and
+kv_lengths; SSD and paged attention, which have no backward kernel);
+and AdamW's f32 square root on the card, which must round correctly.
 
 Every test here is marked ``cuda`` and skips where there is no card. The
 file imports neither JAX nor the JAX package, so it runs on a machine with
@@ -380,3 +385,133 @@ def test_cross_cache_decode_attention_reads_30_token_pages(card, dtype):
     assert paged_ops.KERNEL.launches == before + 1
     want = decode_attention(q, k, v, lengths=lens, page_tokens=T)
     torch.testing.assert_close(got.cpu().float(), want.float(), **BANDS[dtype])
+
+
+# ------------------------------------------------------------ flash backward
+#: the backward kernel's cases, chip_smoke's shapes in [B, S, H, D]:
+#: qwen1.5-0.5b's training shape; a gemma2-like layer (GQA 2:1 at D = 256,
+#: window and softcap, q scaled by 8 so the cap binds); D = 160; whisper's
+#: cross-attention (64 queries over 1500 encoder positions, bidirectional)
+FLASH_BWD_CASES = {
+    "qwen training": dict(B=4, Sq=1024, Skv=1024, H=16, KH=16, D=64, causal=True),
+    "gemma2 d256 gqa window softcap": dict(B=1, Sq=640, Skv=640, H=16, KH=8, D=256,
+                                           causal=True, window=256, cap=50.0, q_scale=8.0),
+    "d160": dict(B=1, Sq=384, Skv=384, H=32, KH=32, D=160, causal=True),
+    "whisper cross": dict(B=2, Sq=64, Skv=1500, H=16, KH=16, D=64, causal=False),
+}
+
+
+def flash_bwd_inputs(c, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    q = randn(rng, (c["B"], c["Sq"], c["H"], c["D"]), torch.float32, dev) * c.get("q_scale", 1.0)
+    k = randn(rng, (c["B"], c["Skv"], c["KH"], c["D"]), dtype, dev)
+    v = randn(rng, (c["B"], c["Skv"], c["KH"], c["D"]), dtype, dev)
+    do = randn(rng, (c["B"], c["Sq"], c["H"], c["D"]), dtype, dev)
+    return q.to(dtype), k, v, do
+
+
+def kernel_grads(q, k, v, do, **mask):
+    qq, kk, vv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = flash_ops.prefill_attention(qq, kk, vv, **mask)
+    assert out.grad_fn is not None
+    out.backward(do)
+    return qq.grad, kk.grad, vv.grad
+
+
+def assert_grad_close(got, want, tol):
+    """|got - want| <= tol · (max|want| + |want|): the gradient's own scale
+    sets the band, so small entries are held as tightly as large ones."""
+    want = want.float()
+    err = (got.float() - want).abs()
+    assert bool((err <= tol * (want.abs().max() + want.abs())).all()), err.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name", sorted(FLASH_BWD_CASES))
+def test_flash_backward_matches_autograd_through_blockwise(card, name, dtype):
+    c = FLASH_BWD_CASES[name]
+    q, k, v, do = flash_bwd_inputs(c, dtype, card)
+    mask = dict(causal=c["causal"], window=c.get("window"), cap=c.get("cap"))
+    before = flash_ops.KERNEL.backward_launches
+    got = kernel_grads(q, k, v, do, **mask)
+    torch.cuda.synchronize()
+    assert flash_ops.KERNEL.backward_launches == before + 1
+    want = flash_ref.flash_attention_bwd_ref(q, k, v, do, **mask)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert_grad_close(g, w, BANDS[dtype]["atol"])
+
+
+@pytest.mark.cuda
+def test_flash_backward_is_deterministic_and_layout_free(card):
+    """Two runs give the same bits (no atomics), and the [B, H, S, D] entry
+    point gives the [B, S, H, D] one's gradients, transposed."""
+    c = FLASH_BWD_CASES["gemma2 d256 gqa window softcap"]
+    q, k, v, do = flash_bwd_inputs(c, torch.bfloat16, card, seed=1)
+    mask = dict(causal=True, window=c["window"], cap=c["cap"])
+    first = kernel_grads(q, k, v, do, **mask)
+    second = kernel_grads(q, k, v, do, **mask)
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    out = flash_ops.flash_attention(qh, kh, vh, causal=True, window=c["window"],
+                                    softcap=c["cap"])
+    out.backward(do.transpose(1, 2))
+    for a, b, h in zip(first, second, (qh.grad, kh.grad, vh.grad)):
+        assert torch.equal(a, b)
+        assert torch.equal(a, h.transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_flash_under_grad_refuses_what_its_backward_lacks(card):
+    rng = np.random.default_rng(3)
+    q = randn(rng, (1, 64, 4, 64), torch.bfloat16, card).requires_grad_(True)
+    k = randn(rng, (1, 128, 4, 64), torch.bfloat16, card)
+    v = randn(rng, (1, 128, 4, 64), torch.bfloat16, card)
+    lengths = torch.tensor([100], dtype=torch.int32, device=card)
+    for kw in (dict(q_offset=64), dict(q_offset=64, kv_hole=(50, 64)), dict(kv_lengths=lengths)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            flash_ops.prefill_attention(q, k, v, causal=True, **kw)
+    with torch.no_grad():   # serving: the forward alone, no autograd node
+        before = (flash_ops.KERNEL.launches, flash_ops.KERNEL.backward_launches)
+        out = flash_ops.prefill_attention(q, k, v, causal=True, q_offset=64)
+        assert out.grad_fn is None
+        assert (flash_ops.KERNEL.launches, flash_ops.KERNEL.backward_launches) == (
+            before[0] + 1, before[1])
+
+
+@pytest.mark.cuda
+def test_ssd_and_paged_refuse_gradients_on_the_card(card):
+    """Neither has a backward kernel: under grad they raise rather than
+    return a result that autograd would not differentiate."""
+    rng = np.random.default_rng(4)
+    x, dt, A, B, C = ssd_inputs(rng, 1, 128, card)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ssd_ops.ssd(x.requires_grad_(True), dt, A, B, C, chunk=64)
+    with torch.no_grad():
+        y, _ = ssd_ops.ssd(x, dt, A, B, C, chunk=64)
+        assert y.grad_fn is None
+    q = randn(rng, (2, 16, 64), torch.bfloat16, card).requires_grad_(True)
+    pages = randn(rng, (8, 16, 16, 64), torch.bfloat16, card)
+    table = torch.arange(8, dtype=torch.int32, device=card).view(2, 4)
+    lengths = torch.tensor([64, 30], dtype=torch.int32, device=card)
+    new = randn(rng, (2, 16, 64), torch.bfloat16, card)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        paged_ops.paged_attention(q, pages, pages, table, lengths)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        paged_ops.paged_attention_decode(q, new, new, pages, pages, table, lengths)
+
+
+@pytest.mark.cuda
+def test_adamw_square_root_on_the_card_is_correctly_rounded(card):
+    """AdamW takes torch's f32 ``sqrt`` on the card (the f64 route only on
+    the CPU): over every exponent of the positive f32 range, denormals and
+    zero included, it equals the f64 root rounded to f32, bit for bit."""
+    from repro_torch.train.optimizer import _sqrt
+
+    gen = torch.Generator(device=card).manual_seed(6)
+    bits_ = torch.randint(0, 0x7F800000, (1 << 24,), generator=gen, device=card,
+                          dtype=torch.int32)
+    x = torch.cat([bits_.view(torch.float32), torch.zeros(1, device=card)])
+    want = torch.sqrt(x.double()).float()
+    assert torch.equal(torch.sqrt(x).view(torch.int32), want.view(torch.int32))
+    assert torch.equal(_sqrt(x).view(torch.int32), want.view(torch.int32))
