@@ -117,15 +117,18 @@ on failure (a failure exits non-zero and prints no final line):
 9. training: the flash backward kernel against its plain version
    (autograd through ``blockwise_attention`` in f32) at qwen's training
    shape, a gemma2-like GQA layer with window and softcap at D = 256,
-   D = 160 and whisper's cross-attention, in f32 and bf16, each band
-   shown to reject the gradient without the softcap or window or under
-   the other mask; its time beside its bound and SDPA's backward; reduced
+   D = 160, whisper's cross-attention and ragged 1000-row tails at
+   32/8 x 128, in f32 and bf16, each on the route it must take (bf16 at
+   D <= 128 on the tensor cores), each band shown to reject the gradient
+   without the softcap or window or under the other mask; its time on
+   both routes beside its bound and SDPA's backward; reduced
    qwen's ``Model.loss`` and every gradient on the card against the CPU;
    ``qwen1.5-0.5b`` at full width trained for 6 steps through the
    launcher's code path (seed-0 weights drawn on the card, 2
    microbatches of 4 x 1024 tokens, remat): every loss finite, the last
    below the first, the flash forward launched 2 x layers x microbatches
-   x steps times and its backward layers x microbatches x steps, peak
+   x steps times and its backward layers x microbatches x steps, every
+   backward on the tensor cores, peak
    memory, one step's host-clock and device time; a checkpoint saved and
    restored onto the card;
 10. the library yardstick of gemma2's local layer, compiled
@@ -276,6 +279,10 @@ PROFILE_ATTEMPTS = 3
 #: spin kernels (``torch.cuda._sleep``) before and after a profiled loop,
 #: and the name that leaves them out of its times
 PROFILE_PADS, PAD_KERNEL = 4, "spin_kernel"
+#: cycles of the spin kernel queued ahead of a call timed by
+#: ``device_ms_behind_spin`` (~1 ms on an H100), longer than the host
+#: takes to enqueue the call
+SPIN_CYCLES = 2_000_000
 #: the MoE main path: dbrx-132b at full width, cut from 40 layers to 4
 #: (14.3 B parameters, 28.5 GB in bf16)
 MOE_ARCH, MOE_LAYERS = "dbrx-132b", 4
@@ -400,6 +407,27 @@ def device_ms_per_call(fn, calls: int, names: tuple | None) -> dict:
                 profiled_instances={k[:60]: counts[k] for k in kernels})
 
 
+def device_ms_behind_spin(fn, reps: int) -> float:
+    """The device time of one call of ``fn`` from CUDA events around it,
+    with a spin kernel queued first: the host enqueues the call's kernels
+    while the device spins, so the events bracket the device's work (and
+    its gaps between the call's kernels), not the host's launch cost. The
+    profiler drops some records of a library's kernels (PERF.md §7); this
+    needs none. The median of ``reps`` calls, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
 # ------------------------------------------------------------ phase 1
 def build_kernels():
     """Build every kernel, one nvcc per source, all started together."""
@@ -420,6 +448,7 @@ def build_kernels():
                 log(f"  {name}: " + line.strip())
     m = SSD_MAIN
     flash = flash_ops.KERNEL.load()
+    bwd = flash_ops.KERNEL.backward_kernel.load()
     ssd_smem = ssd_ops.KERNEL.load().ssd_smem(m["p"], m["n"], m["chunk"])
     log("dynamic shared memory a block: paged_attention split pass (4 warps, G=1, D=64, "
         f"T=16, bf16) {paged_ops.KERNEL.load().paged_attention_decode_smem(1, 64, 16, 1)} B; "
@@ -428,10 +457,12 @@ def build_kernels():
         f"D=256 {flash.flash_attention_smem(256)} B, bf16 D=64 "
         f"{flash.flash_attention_mma_smem(64)} B, D=128 {flash.flash_attention_mma_smem(128)} B, "
         f"D=160 {flash.flash_attention_mma_smem(160)} B, D=256 "
-        f"{flash.flash_attention_mma_smem(256)} B; flash_attention_bwd D=64 "
-        f"{flash_ops.KERNEL.backward_kernel.load().flash_attention_bwd_smem(64)} B, D=160 "
-        f"{flash_ops.KERNEL.backward_kernel.load().flash_attention_bwd_smem(160)} B, D=256 "
-        f"{flash_ops.KERNEL.backward_kernel.load().flash_attention_bwd_smem(256)} B; "
+        f"{flash.flash_attention_mma_smem(256)} B; flash_attention_bwd tensor cores "
+        f"dK/dV, dQ: D=64 {bwd.flash_attention_bwd_mma_smem(64, 0)}, "
+        f"{bwd.flash_attention_bwd_mma_smem(64, 1)} B, D=128 "
+        f"{bwd.flash_attention_bwd_mma_smem(128, 0)}, {bwd.flash_attention_bwd_mma_smem(128, 1)} "
+        f"B; CUDA cores D=64 {bwd.flash_attention_bwd_smem(64)} B, D=160 "
+        f"{bwd.flash_attention_bwd_smem(160)} B, D=256 {bwd.flash_attention_bwd_smem(256)} B; "
         f"ssd CUDA-core kernel (P={m['p']}, "
         f"N={m['n']}, Q={m['chunk']}) {ssd_smem} B")
 
@@ -2730,18 +2761,23 @@ def model_internvl2() -> dict:
 #: shape (a microbatch of 4 rows of 1024 tokens); a gemma2-like layer (GQA
 #: 2:1 at D = 256, window and softcap, q scaled by 8 so the cap binds, as
 #: GEMMA2_DECODE); zamba2's D = 160; whisper's cross-attention (64 queries
-#: over the 1500 encoder positions, bidirectional). ``wrong`` names the
-#: mask each case's band must reject: the plain gradient without the
-#: softcap or the window, or with the other of causal/bidirectional
+#: over the 1500 encoder positions, bidirectional); ragged tails (1000
+#: rows, which the tensor-core passes' copies zero-fill past the end) at
+#: GQA 4:1 and D = 128. Each case's band must reject the plain gradient
+#: without the softcap or the window, or with the other of
+#: causal/bidirectional
 FLASH_BWD_CASES = {
     "qwen_train": dict(B=4, Sq=1024, Skv=1024, H=16, KH=16, D=64, causal=True),
     "gemma2_like": dict(B=1, Sq=640, Skv=640, H=16, KH=8, D=256, causal=True, window=256,
                         cap=50.0, q_scale=8.0),
     "d160": dict(B=1, Sq=384, Skv=384, H=32, KH=32, D=160, causal=True),
     "whisper_cross": dict(B=2, Sq=64, Skv=1500, H=16, KH=16, D=64, causal=False),
+    "ragged_gqa_d128": dict(B=1, Sq=1000, Skv=1000, H=32, KH=8, D=128, causal=True),
 }
-#: the backward's kernels, one of each a call: Di = rowsum(dO ∘ O), dK/dV, dQ
-FLASH_BWD_KERNELS = ("flash_bwd_dot_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+#: the backward's kernels, three a call: Di = rowsum(dO ∘ O), then dK/dV
+#: and dQ on the tensor cores (``_mma_``) or the CUDA cores
+FLASH_BWD_KERNELS = ("flash_bwd_dot_kernel", "flash_bwd_dkdv_mma_kernel",
+                     "flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 #: the full-width training run: the launcher's flags (seed-0 weights drawn
 #: on the card, no checkpoint: one of qwen's state would write ~7.4 GB)
 TRAIN_ARGS = ["--arch", "qwen1.5-0.5b", "--global-batch", "8", "--seq-len", "1024",
@@ -2768,13 +2804,20 @@ def flash_kernel_grads(q, k, v, do, mask: dict):
     return torch.autograd.grad(out, (qq, kk, vv), do)
 
 
+def bwd_route(c: dict, dtype) -> str:
+    """The route the backward must take on a case's contiguous operands:
+    the tensor cores for bf16 at D <= 128, else the CUDA cores."""
+    return "tensor_core" if dtype == torch.bfloat16 and c["D"] <= 128 else "cuda_core"
+
+
 def check_flash_bwd_cases() -> float:
     """Each backward case in f32 and bf16 against the plain backward
     (autograd through ``blockwise_attention`` in f32), each gradient held
-    to ``ATOL`` of its dtype relative to its own largest entry; each band
-    must reject the plain gradient without the case's softcap or window,
-    or under the other mask. Returns the largest error (relative to each
-    gradient's largest entry)."""
+    to ``ATOL`` of its dtype relative to its own largest entry, each on the
+    route it must take (``bwd_route``); each band must reject the plain
+    gradient without the case's softcap or window, or under the other
+    mask. Returns the largest error (relative to each gradient's largest
+    entry)."""
     from repro_torch.kernels.flash_attention import ops, ref
 
     worst = 0.0
@@ -2784,10 +2827,13 @@ def check_flash_bwd_cases() -> float:
             q, k, v, do = flash_bwd_inputs(c, dtype, seed=11)
             mask = dict(causal=c["causal"], window=c.get("window"), cap=c.get("cap"))
             before = ops.KERNEL.backward_launches
+            route = bwd_route(c, dtype)
+            routed = ops.KERNEL.backward_kernel.routes[route]
             got = flash_kernel_grads(q, k, v, do, mask)
             torch.cuda.synchronize()
-            if DEVICE == "cuda" and ops.KERNEL.backward_launches != before + 1:
-                raise AssertionError("the backward did not launch its kernel once")
+            if DEVICE == "cuda" and (ops.KERNEL.backward_launches != before + 1
+                                     or ops.KERNEL.backward_kernel.routes[route] != routed + 1):
+                raise AssertionError(f"the backward did not launch its {route} kernel once")
             want = ref.flash_attention_bwd_ref(q, k, v, do, **mask)
             wrong = {}
             if "cap" in c:
@@ -2800,7 +2846,8 @@ def check_flash_bwd_cases() -> float:
                            for f, m in wrong.items()}
             for i, grad in enumerate("qkv"):
                 s = want[i].abs().max()
-                case = f"flash backward {name} d{grad} {str(dtype).removeprefix('torch.')}"
+                case = (f"flash backward {name} d{grad} {str(dtype).removeprefix('torch.')} "
+                        f"{route}")
                 if got[i].dtype != dtype or got[i].shape != want[i].shape:
                     raise AssertionError(f"{case}: {got[i].dtype} {tuple(got[i].shape)}")
                 worst = max(worst, check_close(case, got[i] / s, want[i] / s, tol))
@@ -2810,12 +2857,14 @@ def check_flash_bwd_cases() -> float:
 
 
 def time_flash_bwd() -> dict:
-    """The backward kernel at qwen's training shape in bf16: events and
-    device time a call, the plain backward's time, the bound (the five
-    products' operations over the visible pairs at the bf16 peak, or the
-    bytes: q, k, v, O, dO and the log-sum-exp read, dq, dk, dv written),
-    and SDPA's backward through autograd at the same shape (its kernels'
-    device time)."""
+    """The backward kernel at qwen's training shape in bf16, on the route
+    the training path takes (tensor cores) and forced onto the CUDA cores
+    on the same input: events and device time a call (the profiler's, and
+    CUDA events behind a spin kernel), the plain backward's time, the
+    bound (the five products' operations over the visible pairs at the
+    bf16 peak, or the bytes: q, k, v, O, dO and the log-sum-exp read, dq,
+    dk, dv written), and SDPA's backward through autograd at the same
+    shape, its device time by the events behind a spin kernel."""
     from repro_torch.kernels.flash_attention import ops, ref
 
     c = FLASH_BWD_CASES["qwen_train"]
@@ -2824,13 +2873,13 @@ def time_flash_bwd() -> dict:
     out, lse = ops.KERNEL(q, k, v, seq_dim=1, head_dim=2, causal=True, window=None,
                           softcap=None, q_offset=0, with_lse=True)
 
-    def kernel():
+    def kernel(route=None):
         return ops.KERNEL.backward(q, k, v, out, do, lse, seq_dim=1, head_dim=2, causal=True,
-                                   window=None, softcap=None)
+                                   window=None, softcap=None, route=route)
 
-    def kernel_calls():
+    def kernel_calls(route=None):
         for _ in range(10):
-            kernel()
+            kernel(route)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
@@ -2840,28 +2889,31 @@ def time_flash_bwd() -> dict:
     def library():
         return torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
 
-    def library_calls():
-        for _ in range(10):
-            library()
-
     lib_grads = [g.transpose(1, 2) for g in library()]
+    routes = dict(ops.KERNEL.backward_kernel.routes)
     for name, got, want in zip("qkv", kernel(), lib_grads):
         check_yardstick(f"SDPA backward d{name} (qwen_train)", want, got)
+    if DEVICE == "cuda" and (ops.KERNEL.backward_kernel.routes["tensor_core"]
+                             != routes["tensor_core"] + 1):
+        raise AssertionError("the timed backward did not take the tensor-core route")
+    cuda_core = device_ms_per_call(lambda: kernel_calls("cuda_core"), 10, FLASH_BWD_KERNELS)
     visible = B * H * S * (S + 1) // 2
     n_ops = 5 * 2 * D * visible               # S, dP, dV, dK, dQ products
     n_bytes = 8 * B * S * H * D * 2 + B * H * S * 4
-    rec = dict(B=B, S=S, H=H, D=D, causal=True,
-               ms=time_call(kernel, 10),
-               **device_ms_per_call(kernel_calls, 10, FLASH_BWD_KERNELS),
-               plain_ms=time_call(lambda: ref.flash_attention_bwd_ref(q, k, v, do, causal=True),
-                                  3),
-               library="scaled_dot_product_attention backward (autograd)",
-               library_ms=time_call(library, 10),
-               **bound(n_bytes, n_ops, "bfloat16"))
-    lib_dev = device_ms_per_call(library_calls, 10, None)
-    rec.update(library_device_ms=lib_dev["device_ms"],
-               library_kernels_ms=lib_dev["device_kernels_ms"])
-    return rec
+    return dict(B=B, S=S, H=H, D=D, causal=True, route="tensor_core",
+                ms=time_call(kernel, 10),
+                **device_ms_per_call(kernel_calls, 10, FLASH_BWD_KERNELS),
+                device_ms_behind_spin=device_ms_behind_spin(kernel, 20),
+                cuda_core_device_ms=cuda_core["device_ms"],
+                cuda_core_device_kernels_ms=cuda_core["device_kernels_ms"],
+                plain_ms=time_call(lambda: ref.flash_attention_bwd_ref(q, k, v, do, causal=True),
+                                   3),
+                library="scaled_dot_product_attention backward (autograd)",
+                library_ms=time_call(library, 10),
+                library_device_ms=device_ms_behind_spin(library, 20),
+                library_device_ms_by="CUDA events around one call queued behind a "
+                                     f"torch.cuda._sleep({SPIN_CYCLES}) spin, median of 20",
+                **bound(n_bytes, n_ops, "bfloat16"))
 
 
 def check_train_small() -> dict:
@@ -2958,8 +3010,8 @@ def train_full() -> dict:
     Every loss finite and the last below the first; the flash forward
     launched 2 x layers x microbatches x steps times (remat recomputes each
     block's forward in the backward), its backward layers x microbatches x
-    steps; peak memory; then one step's time on the host clock and on the
-    device."""
+    steps, every one on the tensor cores; peak memory; then one step's
+    time on the host clock and on the device."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch import train as launch_train
     from repro_torch.models import Model
@@ -2977,11 +3029,14 @@ def train_full() -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.KERNEL.launches = 0
     ops.KERNEL.backward_launches = 0
+    routes = ops.KERNEL.backward_kernel.routes
+    routes.update(dict.fromkeys(routes, 0))
     t0 = time.perf_counter()
     state = launch_train.train(trainer, state)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     fwd, bwd = ops.KERNEL.launches, ops.KERNEL.backward_launches
+    bwd_routes = dict(routes)
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [m["loss"] for m in trainer.metrics]
     rec = dict(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, params=n_params,
@@ -2989,6 +3044,7 @@ def train_full() -> dict:
                microbatches=tcfg.microbatches, steps=state.step, lr=tcfg.lr,
                weights="drawn on the card (torch.Generator, seed 0)", draw_s=draw_s,
                run_s=run_s, losses=losses, flash_launches=fwd, backward_launches=bwd,
+               backward_routes=bwd_routes,
                flash_launches_expected=2 * cfg.num_layers * tcfg.microbatches * tcfg.steps,
                backward_launches_expected=cfg.num_layers * tcfg.microbatches * tcfg.steps,
                peak_gib=peak)
@@ -3001,6 +3057,9 @@ def train_full() -> dict:
     if DEVICE == "cuda" and (fwd, bwd) != (rec["flash_launches_expected"],
                                            rec["backward_launches_expected"]):
         raise AssertionError(f"training ran {fwd} flash forwards and {bwd} backwards")
+    if DEVICE == "cuda" and bwd_routes["tensor_core"] != bwd:
+        raise AssertionError(f"training's backwards did not all take the tensor cores: "
+                             f"{bwd_routes}")
     return rec
 
 
@@ -3221,16 +3280,20 @@ def main(argv=None) -> int:
             "launches": train["backward_launches"],
             "max_abs_err": bwd_err,
             "max_abs_err_note": "relative to each gradient's largest entry",
+            "launches_by_route": train["backward_routes"],
             "ms": bwd_timing["ms"],
             "device_ms": bwd_timing["device_ms"],
+            "device_ms_behind_spin": bwd_timing["device_ms_behind_spin"],
             "kernel_ms": bwd_timing["ms"],
             "device_kernels_ms": bwd_timing["device_kernels_ms"],
+            "cuda_core_device_ms": bwd_timing["cuda_core_device_ms"],
             "plain_ms": bwd_timing["plain_ms"],
             "bound_ms": bwd_timing["bound_ms"],
             "bound_by": bwd_timing["bound_by"],
             "library_ms": bwd_timing["library_ms"],
             "library_device_ms": bwd_timing["library_device_ms"],
-            "shape": {k: bwd_timing[k] for k in ("B", "S", "H", "D", "causal")},
+            "library_device_ms_by": bwd_timing["library_device_ms_by"],
+            "shape": {k: bwd_timing[k] for k in ("B", "S", "H", "D", "causal", "route")},
         },
         {
             "name": "ssd_scan",

@@ -66,10 +66,14 @@ class Kernel:
     """A CUDA kernel behind a wrapper: built and loaded by ``loader`` (a
     ``_build.load``) at its first launch, never at import. ``launches``
     counts the wrapper's launches of the kernel and nothing else: calls
-    that took the plain version on CPU tensors do not count."""
+    that took the plain version on CPU tensors do not count. A kernel with
+    several routes names them (``routes``), and its wrapper counts its
+    launches by route there too."""
 
-    def __init__(self, loader):
+    def __init__(self, loader, routes=()):
         self.launches = 0
+        #: launches by route
+        self.routes = dict.fromkeys(routes, 0)
         self.build_log = ""
         self._lib = None
         self._loader = loader
@@ -78,6 +82,13 @@ class Kernel:
         if self._lib is None:
             self._lib, self.build_log = self._loader()
         return self._lib
+
+
+def aligned(t: torch.Tensor) -> bool:
+    """Rows start on 16-byte boundaries, as ``cp.async`` needs: the pointer,
+    and every stride but the last, in whole 16-byte steps."""
+    step = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(st % step == 0 for st in t.stride()[:-1])
 
 
 def records_grad(*operands) -> bool:

@@ -40,7 +40,7 @@ def load_bwd() -> tuple[ctypes.CDLL, str]:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_bwd.argtypes = [
         *[ptr] * 10,                            # q k v o dout lse di dq dk dv
-        i32, i32, i32, i32, i32, i32, i32,      # B H KH Sq Skv D dtype
+        i32, i32, i32, i32, i32, i32, i32, i32, # B H KH Sq Skv D dtype route
         ctypes.POINTER(ctypes.c_longlong),      # 24 strides: (b, h, s) of q k v o dout dq dk dv
         f32, f32, i32, i32,                     # scale, softcap, causal, window
         ptr,                                    # stream
@@ -48,4 +48,6 @@ def load_bwd() -> tuple[ctypes.CDLL, str]:
     lib.flash_attention_bwd.restype = i32
     lib.flash_attention_bwd_smem.argtypes = [i32]
     lib.flash_attention_bwd_smem.restype = ctypes.c_size_t
+    lib.flash_attention_bwd_mma_smem.argtypes = [i32, i32]
+    lib.flash_attention_bwd_mma_smem.restype = ctypes.c_size_t
     return lib, output

@@ -31,7 +31,11 @@ per-row log-sum-exp and whose backward launches the backward kernel
 Every other CUDA call launches the forward alone, as serving always has.
 The backward takes no ``q_offset``, ``kv_lengths`` or ``kv_hole``: a
 gradient asked through them raises (ROADMAP), and no training path uses
-them.
+them. It has two routes, chosen by ``_bwd_route`` from dtype, head
+dimension and alignment alone, never on a failure: ``tensor_core`` (bf16,
+D in 32, 64, 128, every row start 16-byte aligned: ``mma.sync`` passes)
+and ``cuda_core`` (everything else: the first version's f32 tiles).
+``KERNEL.backward_kernel.routes`` counts the backward's launches by route.
 """
 from __future__ import annotations
 
@@ -45,6 +49,20 @@ from repro_torch.kernels.flash_attention.ref import blockwise_attention, flash_a
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 160, 256)
+_BWD_ROUTE_CODES = {"cuda_core": 0, "tensor_core": 1}
+#: head dimensions the backward's tensor-core passes take (at 160 and 256
+#: the f32 accumulators of dK and dV would not fit in registers)
+_BWD_TENSOR_CORE_HEAD_DIMS = (32, 64, 128)
+
+
+def _bwd_route(tensors, D: int) -> str:
+    """The backward's route for these operands and outputs (q, k, v, out,
+    dout, dq, dk, dv), from their dtype, the head dimension and their
+    alignment alone."""
+    if (D in _BWD_TENSOR_CORE_HEAD_DIMS and all(t.dtype == torch.bfloat16 for t in tensors)
+            and all(_nvcc.aligned(t) for t in tensors)):
+        return "tensor_core"
+    return "cuda_core"
 
 
 class FlashAttentionKernel(_nvcc.Kernel):
@@ -56,8 +74,9 @@ class FlashAttentionKernel(_nvcc.Kernel):
     def __init__(self):
         super().__init__(_build.load)
         #: the backward kernel, its own build; its ``launches`` counts the
-        #: backward's launches (``backward_launches``)
-        self.backward_kernel = _nvcc.Kernel(_build.load_bwd)
+        #: backward's launches (``backward_launches``), its ``routes`` them
+        #: by route
+        self.backward_kernel = _nvcc.Kernel(_build.load_bwd, routes=_BWD_ROUTE_CODES)
 
     @property
     def backward_launches(self) -> int:
@@ -124,10 +143,11 @@ class FlashAttentionKernel(_nvcc.Kernel):
         return (out, lse) if with_lse else out
 
     def backward(self, q, k, v, out, dout, lse, *, seq_dim: int, head_dim: int, causal: bool,
-                 window, softcap):
+                 window, softcap, route: str | None = None):
         """dq, dk, dv of the forward that gave ``out`` and ``lse`` on
         ``q, k, v`` (same layout and masks), given ``dout``; each in its
-        operand's type and layout."""
+        operand's type and layout. ``route`` forces a route (for timing
+        both on one input); ``None`` takes the one ``_bwd_route`` chooses."""
         if dout.stride(-1) != 1:
             dout = dout.contiguous()
         if dout.shape != out.shape or dout.dtype != out.dtype:
@@ -144,19 +164,27 @@ class FlashAttentionKernel(_nvcc.Kernel):
         dk = torch.empty(k.shape, dtype=k.dtype, device=dev)
         dv = torch.empty(v.shape, dtype=v.dtype, device=dev)
         di = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-        strides = [s for t in (q, k, v, out, dout, dq, dk, dv)
-                   for s in _strides(t, seq_dim, head_dim)]
+        tensors = (q, k, v, out, dout, dq, dk, dv)
+        if route not in (None, *_BWD_ROUTE_CODES):
+            raise ValueError(f"route must be one of {list(_BWD_ROUTE_CODES)}, not {route!r}")
+        chosen = _bwd_route(tensors, D)
+        if route == "tensor_core" and chosen != "tensor_core":
+            raise ValueError("these dtypes, head dimension or strides cannot take the "
+                             "tensor-core route")
+        route = route or chosen
+        strides = [s for t in tensors for s in _strides(t, seq_dim, head_dim)]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.flash_attention_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                 lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                B, H, KH, Sq, Skv, D, _DTYPE_CODES[q.dtype],
+                B, H, KH, Sq, Skv, D, _DTYPE_CODES[q.dtype], _BWD_ROUTE_CODES[route],
                 (ctypes.c_longlong * len(strides))(*strides),
                 D ** -0.5, softcap or 0.0, int(causal), window or 0, stream,
             )
         _nvcc.check_status(err, "flash_attention_bwd")
         self.backward_launches += 1
+        self.backward_kernel.routes[route] += 1
         return dq, dk, dv
 
 

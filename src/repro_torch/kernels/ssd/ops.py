@@ -108,13 +108,6 @@ def _workspace_bytes(Bsz: int, H: int, P: int, N: int, Q: int, chunks: int) -> i
     return 4 * (Bsz * chunks * H * Q + Bsz * (chunks - 1) * H * P * N)
 
 
-def _aligned(t: torch.Tensor) -> bool:
-    """Rows start on 16-byte boundaries: the pointer, and every stride but
-    the last, in whole 16-byte steps."""
-    step = 16 // t.element_size()
-    return t.data_ptr() % 16 == 0 and all(st % step == 0 for st in t.stride()[:-1])
-
-
 def _route(x, Bm, Cm, chunk: int, n_sm: int) -> tuple[str, ScanPlan | None]:
     """Which kernel a call launches, from dtypes and shapes alone, and the
     tensor-core route's plan where it takes that route."""
@@ -122,7 +115,7 @@ def _route(x, Bm, Cm, chunk: int, n_sm: int) -> tuple[str, ScanPlan | None]:
     if (x.dtype == Bm.dtype == Cm.dtype == torch.bfloat16
             and chunk % ROW_TILE == 0 and max(P, N, chunk) <= _MAX_WIDTH
             and _splits(P, _MAX_RANGE) and _splits(N, _MAX_RANGE)
-            and _aligned(x) and _aligned(Bm) and _aligned(Cm)):
+            and _nvcc.aligned(x) and _nvcc.aligned(Bm) and _nvcc.aligned(Cm)):
         return "tensor_core", _scan_plan(Bsz, S, H, P, N, chunk, n_sm)
     return "cuda_core", None
 
@@ -131,10 +124,8 @@ class SsdKernel(_nvcc.Kernel):
     """The CUDA kernel behind the wrapper (see :class:`_nvcc.Kernel`)."""
 
     def __init__(self):
-        super().__init__(_build.load)
+        super().__init__(_build.load, routes=_ROUTE_CODES)
         self._n_sm: dict[int, int] = {}
-        #: launches by route
-        self.routes = dict.fromkeys(_ROUTE_CODES, 0)
 
     def sm_count(self, dev: torch.device) -> int:
         """The card's SM count, read once per device."""

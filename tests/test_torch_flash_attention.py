@@ -13,11 +13,17 @@ in another order and round the bf16 output once, and ``blockwise_attention``
 rounds the probabilities to bf16 before the P·V product where the dense
 oracle does not).
 
+The plain backward, ``flash_attention_bwd_ref`` (the gradient the backward
+kernel is held to on the card), is held in f32 against ``jax.vjp`` of the
+reference's ``blockwise_attention``; the backward's choice of route
+(``ops._bwd_route``) is pure Python and is held here too.
+
 The CUDA kernel itself runs only on a card: ``test_kernel_matches_plain_on_card``
 is marked ``cuda`` and skips where there is none.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -162,6 +168,63 @@ def test_the_two_layouts_agree(variant):
     a = ops.flash_attention(q, k, v, **kw)
     b = ops.prefill_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **pkw)
     np.testing.assert_allclose(f32(b.transpose(1, 2)), f32(a), **tol("bfloat16"))
+
+
+BWD_CASES = {
+    # name: (B, Sq, Skv, H, KH, D, kwargs)
+    "causal": (2, 40, 40, 4, 4, 32, dict(causal=True)),
+    "window+softcap": (1, 48, 48, 4, 4, 64, dict(causal=True, window=12, cap=30.0)),
+    "gqa 2:1": (1, 37, 37, 4, 2, 64, dict(causal=True)),
+    "cross": (2, 24, 53, 4, 4, 32, dict(causal=False)),
+}
+#: the plain backward against the reference's gradient, both in f32: each
+#: gradient within 1e-5 of its own largest entry (the two sum in another
+#: order; nothing is rounded to bf16)
+BWD_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("name", list(BWD_CASES))
+def test_plain_backward_matches_jax_vjp_of_blockwise(name):
+    B, Sq, Skv, H, KH, D, kw = BWD_CASES[name]
+    q, k, v = qkv(17, (B, Sq, H, D), (B, Skv, KH, D))
+    do = np.random.default_rng(18).standard_normal((B, Sq, H, D), dtype=np.float32)
+    if "cap" in kw:
+        q = q * 4.0             # scores past the softcap's knee, so the cap binds
+    _, vjp = jax.vjp(lambda a, b, c: jax_blockwise(a, b, c, **kw),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    got = ref.flash_attention_bwd_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                      torch.from_numpy(v), torch.from_numpy(do), **kw)
+    for g, w, t in zip(got, want, (q, k, v)):
+        w = f32(w)
+        assert g.dtype == torch.float32 and tuple(g.shape) == t.shape
+        np.testing.assert_allclose(f32(g), w, rtol=0, atol=BWD_RTOL * np.abs(w).max())
+
+
+def _strided(shape, dtype, offset=0, pad=0):
+    """A [..., D] view of a wider buffer: rows ``D + pad`` apart, starting
+    ``offset`` elements in."""
+    *lead, D = shape
+    buf = torch.zeros((*lead, D + pad + offset), dtype=dtype)
+    return buf[..., offset:offset + D]
+
+
+@pytest.mark.parametrize("case", ["bf16 d64", "bf16 d32", "bf16 d128", "bf16 d160", "bf16 d256",
+                                  "f32 d64", "bf16 unaligned start", "bf16 unaligned stride"])
+def test_backward_route_follows_dtype_head_dim_and_alignment(case):
+    """bf16 at D <= 128 with 16-byte-aligned rows takes the tensor cores;
+    f32, D = 160 or 256, or a row start or stride off 16 bytes takes the
+    CUDA cores. The choice reads dtypes, shapes and strides alone."""
+    dtype = torch.float32 if case.startswith("f32") else torch.bfloat16
+    D = int(case.split("d")[-1]) if " d" in case else 64
+    ts = [_strided((1, 8, 2, D), dtype) for _ in range(8)]
+    if case == "bf16 unaligned start":
+        ts[4] = _strided((1, 8, 2, D), dtype, offset=1)      # dout 2 bytes off
+    if case == "bf16 unaligned stride":
+        ts[1] = _strided((1, 8, 2, D), dtype, pad=4)         # k rows 8 bytes apart extra
+    want = "tensor_core" if dtype == torch.bfloat16 and D <= 128 and "unaligned" not in case \
+        else "cuda_core"
+    assert ops._bwd_route(ts, D) == want
 
 
 def test_blockwise_attention_is_importable_from_layers():

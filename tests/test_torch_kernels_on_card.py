@@ -391,14 +391,25 @@ def test_cross_cache_decode_attention_reads_30_token_pages(card, dtype):
 #: the backward kernel's cases, chip_smoke's shapes in [B, S, H, D]:
 #: qwen1.5-0.5b's training shape; a gemma2-like layer (GQA 2:1 at D = 256,
 #: window and softcap, q scaled by 8 so the cap binds); D = 160; whisper's
-#: cross-attention (64 queries over 1500 encoder positions, bidirectional)
+#: cross-attention (64 queries over 1500 encoder positions, bidirectional);
+#: ragged tails at D = 128 (1000 rows: the copies past the last row are
+#: zero-filled); and D = 32 with GQA 4:1, a window and a softcap
 FLASH_BWD_CASES = {
     "qwen training": dict(B=4, Sq=1024, Skv=1024, H=16, KH=16, D=64, causal=True),
     "gemma2 d256 gqa window softcap": dict(B=1, Sq=640, Skv=640, H=16, KH=8, D=256,
                                            causal=True, window=256, cap=50.0, q_scale=8.0),
     "d160": dict(B=1, Sq=384, Skv=384, H=32, KH=32, D=160, causal=True),
     "whisper cross": dict(B=2, Sq=64, Skv=1500, H=16, KH=16, D=64, causal=False),
+    "ragged gqa d128": dict(B=1, Sq=1000, Skv=1000, H=32, KH=8, D=128, causal=True),
+    "d32 gqa window softcap": dict(B=2, Sq=300, Skv=300, H=8, KH=2, D=32, causal=True,
+                                   window=100, cap=30.0, q_scale=4.0),
 }
+
+
+def bwd_route(c, dtype) -> str:
+    """The route the backward must take on a case's contiguous operands:
+    the tensor cores for bf16 at D <= 128, else the CUDA cores."""
+    return "tensor_core" if dtype == torch.bfloat16 and c["D"] <= 128 else "cuda_core"
 
 
 def flash_bwd_inputs(c, dtype, dev, seed=0):
@@ -434,9 +445,12 @@ def test_flash_backward_matches_autograd_through_blockwise(card, name, dtype):
     q, k, v, do = flash_bwd_inputs(c, dtype, card)
     mask = dict(causal=c["causal"], window=c.get("window"), cap=c.get("cap"))
     before = flash_ops.KERNEL.backward_launches
+    routes = dict(flash_ops.KERNEL.backward_kernel.routes)
     got = kernel_grads(q, k, v, do, **mask)
     torch.cuda.synchronize()
     assert flash_ops.KERNEL.backward_launches == before + 1
+    route = bwd_route(c, dtype)
+    assert flash_ops.KERNEL.backward_kernel.routes[route] == routes[route] + 1
     want = flash_ref.flash_attention_bwd_ref(q, k, v, do, **mask)
     for g, w, t in zip(got, want, (q, k, v)):
         assert g.dtype == t.dtype and g.shape == t.shape
@@ -446,19 +460,63 @@ def test_flash_backward_matches_autograd_through_blockwise(card, name, dtype):
 @pytest.mark.cuda
 def test_flash_backward_is_deterministic_and_layout_free(card):
     """Two runs give the same bits (no atomics), and the [B, H, S, D] entry
-    point gives the [B, S, H, D] one's gradients, transposed."""
-    c = FLASH_BWD_CASES["gemma2 d256 gqa window softcap"]
-    q, k, v, do = flash_bwd_inputs(c, torch.bfloat16, card, seed=1)
-    mask = dict(causal=True, window=c["window"], cap=c["cap"])
-    first = kernel_grads(q, k, v, do, **mask)
-    second = kernel_grads(q, k, v, do, **mask)
-    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
-    out = flash_ops.flash_attention(qh, kh, vh, causal=True, window=c["window"],
-                                    softcap=c["cap"])
-    out.backward(do.transpose(1, 2))
-    for a, b, h in zip(first, second, (qh.grad, kh.grad, vh.grad)):
-        assert torch.equal(a, b)
-        assert torch.equal(a, h.transpose(1, 2))
+    point gives the [B, S, H, D] one's gradients, transposed: on the
+    CUDA-core route (D = 256) and on the tensor-core route (D = 32, 64)."""
+    for name in ("gemma2 d256 gqa window softcap", "d32 gqa window softcap", "qwen training"):
+        c = FLASH_BWD_CASES[name]
+        q, k, v, do = flash_bwd_inputs(c, torch.bfloat16, card, seed=1)
+        mask = dict(causal=True, window=c.get("window"), cap=c.get("cap"))
+        routes = dict(flash_ops.KERNEL.backward_kernel.routes)
+        first = kernel_grads(q, k, v, do, **mask)
+        second = kernel_grads(q, k, v, do, **mask)
+        qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+        out = flash_ops.flash_attention(qh, kh, vh, causal=True, window=c.get("window"),
+                                        softcap=c.get("cap"))
+        out.backward(do.transpose(1, 2))
+        route = bwd_route(c, torch.bfloat16)
+        assert flash_ops.KERNEL.backward_kernel.routes[route] == routes[route] + 3, name
+        for a, b, h in zip(first, second, (qh.grad, kh.grad, vh.grad)):
+            assert torch.equal(a, b), name
+            assert torch.equal(a, h.transpose(1, 2)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qwen training", "ragged gqa d128", "d32 gqa window softcap",
+                                  "whisper cross"])
+def test_flash_backward_routes_agree_on_one_input(card, name):
+    """The tensor-core and CUDA-core routes, forced on the same bf16 input,
+    each hold the plain backward's band; a bf16 q whose rows are not
+    16-byte aligned takes the CUDA-core route by itself."""
+    c = FLASH_BWD_CASES[name]
+    q, k, v, do = flash_bwd_inputs(c, torch.bfloat16, card, seed=2)
+    mask = dict(causal=c["causal"], window=c.get("window"), cap=c.get("cap"))
+    want = flash_ref.flash_attention_bwd_ref(q, k, v, do, **mask)
+    out, lse = flash_ops.KERNEL(q, k, v, seq_dim=1, head_dim=2, causal=c["causal"],
+                                window=c.get("window"), softcap=c.get("cap"), q_offset=0,
+                                with_lse=True)
+    for route in ("tensor_core", "cuda_core"):
+        before = flash_ops.KERNEL.backward_kernel.routes[route]
+        got = flash_ops.KERNEL.backward(q, k, v, out, do, lse, seq_dim=1, head_dim=2,
+                                        causal=c["causal"], window=c.get("window"),
+                                        softcap=c.get("cap"), route=route)
+        torch.cuda.synchronize()
+        assert flash_ops.KERNEL.backward_kernel.routes[route] == before + 1
+        for g, w in zip(got, want):
+            assert_grad_close(g, w, BANDS[torch.bfloat16]["atol"])
+    # q's rows start 2 bytes past a 16-byte boundary (a slice of a wider
+    # leaf, which autograd does not copy)
+    D = c["D"]
+    wide = torch.zeros((*q.shape[:3], D + 8), dtype=torch.bfloat16, device=card)
+    wide[..., 1:D + 1] = q
+    wide.requires_grad_(True)
+    kk, vv = (t.detach().clone().requires_grad_(True) for t in (k, v))
+    before = dict(flash_ops.KERNEL.backward_kernel.routes)
+    flash_ops.prefill_attention(wide[..., 1:D + 1], kk, vv, **mask).backward(do)
+    torch.cuda.synchronize()
+    assert flash_ops.KERNEL.backward_kernel.routes["cuda_core"] == before["cuda_core"] + 1
+    assert flash_ops.KERNEL.backward_kernel.routes["tensor_core"] == before["tensor_core"]
+    for g, w in zip((wide.grad[..., 1:D + 1], kk.grad, vv.grad), want):
+        assert_grad_close(g, w, BANDS[torch.bfloat16]["atol"])
 
 
 @pytest.mark.cuda
