@@ -11,7 +11,8 @@ first, one ``nvcc`` per source, all started together. Phases, each fatal
 on failure (a failure exits non-zero and prints no final line):
 
 1. the card's name and power limit; build the paged-attention, flash
-   attention (forward and backward) and SSD kernels and print the
+   attention (forward and backward) and SSD (forward and backward)
+   kernels and print the
    compiler's register and shared-memory summary;
 2. each kernel against its plain PyTorch version on the card, at the
    reference's test shapes and at the serving paths' shapes: paged
@@ -130,7 +131,27 @@ on failure (a failure exits non-zero and prints no final line):
    x steps times and its backward layers x microbatches x steps, every
    backward on the tensor cores, peak
    memory, one step's host-clock and device time; a checkpoint saved and
-   restored onto the card;
+   restored onto the card; the SSD backward kernel against its plain
+   version (autograd through ``ssd_reference`` in f32) at the reference's
+   shapes, mamba2's training shape (bf16 slices of one fused tensor), a
+   ragged S = 1000, one chunk and zamba2's N = 64, in f32 and bf16, with
+   and without a final-state cotangent, each band shown to reject the
+   passes' plain version without the reverse state pass, the carried
+   state, the decay's gradient or the causal mask, two calls equal bit
+   for bit on either forward route; at mamba2's shape with dt as random
+   full-width weights give it, where autograd through ``ssd_reference``
+   turns NaN, held to the passes' plain version and finite; its time
+   beside its bound; reduced mamba2's and zamba2's loss and gradients on
+   the card against the CPU; then
+   ``mamba2-2.7b`` and ``zamba2-2.7b`` at full width and depth trained
+   for 3 steps through the launcher (seed-0 weights drawn on the card, 2
+   microbatches of 2 x 1024 tokens, lr 1e-4, remat): losses finite and
+   the last below the first, the
+   SSD forward launched 2 x mamba layers x microbatches x steps times and
+   its backward mamba layers x microbatches x steps (zamba2's shared
+   block: flash likewise per group, backwards on the CUDA cores), peak
+   memory, one step's host-clock and device time and the SSD backward's
+   share;
 10. the library yardstick of gemma2's local layer, compiled
    ``flex_attention`` with its softcap and window (SDPA has no softcap),
    held to the kernel's output and timed; last, because after
@@ -274,8 +295,9 @@ SSD_LONG_S = 2048
 #: passes ``ssd_tc_chunk_state_kernel``, ``ssd_tc_state_pass_kernel`` and
 #: ``ssd_tc_output_kernel``
 SSD_KERNEL_NAMES = ("ssd_kernel", "ssd_tc_")
-#: profiles of one timed loop before ``device_ms_per_call`` gives up
-PROFILE_ATTEMPTS = 3
+#: profiles of one timed loop before ``device_ms_per_call`` gives up: late
+#: in a run, three profiles in a row have held 3, 8 and 9 of 10 calls' records
+PROFILE_ATTEMPTS = 6
 #: spin kernels (``torch.cuda._sleep``) before and after a profiled loop,
 #: and the name that leaves them out of its times
 PROFILE_PADS, PAD_KERNEL = 4, "spin_kernel"
@@ -407,6 +429,39 @@ def device_ms_per_call(fn, calls: int, names: tuple | None) -> dict:
                 profiled_instances={k[:60]: counts[k] for k in kernels})
 
 
+def device_ms_by_instance(fn, names: tuple, kinds: int) -> dict:
+    """The device time of one call from one ``torch.profiler`` profile of
+    ``fn`` (a loop of calls): each of the ``kinds`` kernels named in
+    ``names``, which a call launches once each, at its mean over the
+    instances the profile held, summed. Profiles lose some records (§7 of
+    PERF.md): a long profile late in a run has kept 6 of 10 of each of the
+    SSD backward's kernels, three times over, and one has kept none of a
+    kernel's. Every instance of a kernel is the same work, so the mean over
+    those kept needs none of the lost; a profile that kept no instance of
+    one is taken again, a bounded number of times."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        counts: dict = {}
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(PROFILE_PADS):
+                torch.cuda._sleep(1)
+            fn()
+            torch.cuda.synchronize()
+        timed = {k: us / counts[k] for k, us in device_kernel_us(prof, counts).items()
+                 if any(n in k for n in names)}
+        if len(timed) == kinds:
+            break
+        log(f"profile {attempt} of {PROFILE_ATTEMPTS} held {len(timed)} of the {kinds} "
+            f"kernels named {names}")
+    else:
+        raise AssertionError(f"no profile held the {kinds} kernels named {names}")
+    return dict(device_ms=sum(timed.values()) / 1e3,
+                device_kernels_ms={k[:60]: v / 1e3 for k, v in timed.items()},
+                profiled_instances={k[:60]: counts[k] for k in timed})
+
+
 def device_ms_behind_spin(fn, reps: int) -> float:
     """The device time of one call of ``fn`` from CUDA events around it,
     with a spin kernel queued first: the host enqueues the call's kernels
@@ -436,7 +491,8 @@ def build_kernels():
     from repro_torch.kernels.ssd import ops as ssd_ops
 
     kernels = {"paged_attention": paged_ops.KERNEL, "flash_attention": flash_ops.KERNEL,
-               "flash_attention_bwd": flash_ops.KERNEL.backward_kernel, "ssd": ssd_ops.KERNEL}
+               "flash_attention_bwd": flash_ops.KERNEL.backward_kernel, "ssd": ssd_ops.KERNEL,
+               "ssd_bwd": ssd_ops.KERNEL.backward_kernel}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         for fut in [pool.submit(k.load) for k in kernels.values()]:
@@ -450,6 +506,7 @@ def build_kernels():
     flash = flash_ops.KERNEL.load()
     bwd = flash_ops.KERNEL.backward_kernel.load()
     ssd_smem = ssd_ops.KERNEL.load().ssd_smem(m["p"], m["n"], m["chunk"])
+    ssd_bwd_smem = ssd_ops.KERNEL.backward_kernel.load().ssd_bwd_smem(m["p"], m["n"], m["chunk"])
     log("dynamic shared memory a block: paged_attention split pass (4 warps, G=1, D=64, "
         f"T=16, bf16) {paged_ops.KERNEL.load().paged_attention_decode_smem(1, 64, 16, 1)} B; "
         f"flash_attention f32 D=64 {flash.flash_attention_smem(64)} B, D=128 "
@@ -464,7 +521,8 @@ def build_kernels():
         f"B; CUDA cores D=64 {bwd.flash_attention_bwd_smem(64)} B, D=160 "
         f"{bwd.flash_attention_bwd_smem(160)} B, D=256 {bwd.flash_attention_bwd_smem(256)} B; "
         f"ssd CUDA-core kernel (P={m['p']}, "
-        f"N={m['n']}, Q={m['chunk']}) {ssd_smem} B")
+        f"N={m['n']}, Q={m['chunk']}) {ssd_smem} B, its backward's gradient pass "
+        f"{ssd_bwd_smem} B")
 
 
 # ------------------------------------------------------------ phase 2: paged
@@ -2782,6 +2840,30 @@ FLASH_BWD_KERNELS = ("flash_bwd_dot_kernel", "flash_bwd_dkdv_mma_kernel",
 #: on the card, no checkpoint: one of qwen's state would write ~7.4 GB)
 TRAIN_ARGS = ["--arch", "qwen1.5-0.5b", "--global-batch", "8", "--seq-len", "1024",
               "--microbatches", "2", "--steps", "6", "--lr", "3e-4", "--ckpt-every", "0"]
+#: the SSD backward kernel's cases, (b, s, h, p, n, chunk, fused): the
+#: reference's shapes (tests/test_kernels.py); mamba2's training shape (a
+#: microbatch of 2 x 1024 tokens, 80 heads of 64, state 128, x, B and C
+#: slices of one fused [2, 1024, 5376] tensor); a ragged S = 1000; one
+#: chunk; zamba2's state of 64. Each in f32 and bf16, with and without a
+#: final-state cotangent
+SSD_BWD_CASES = {
+    "reference 2x32 chunk 8": (2, 32, 2, 8, 8, 8, False),
+    "reference 1x64 chunk 16": (1, 64, 4, 16, 16, 16, False),
+    "reference 2x128 chunk 32": (2, 128, 4, 32, 16, 32, False),
+    "mamba2_train": (2, 1024, 80, 64, 128, 128, True),
+    "ragged S=1000": (1, 1000, 80, 64, 128, 128, False),
+    "one chunk S=128": (1, 128, 80, 64, 128, 128, False),
+    "zamba2 N=64": (2, 1024, 80, 64, 64, 128, True),
+}
+#: the backward's five kernels a call: the chunk pass, the state pass, the
+#: gradient pass and the reductions over heads and over chunks
+SSD_BWD_KERNELS = ("ssd_bwd_",)
+#: the mamba2 and zamba2 training runs: the launcher's flags (seed-0 weights
+#: drawn on the card, no checkpoint), 2 microbatches of 2 x 1024 tokens. lr
+#: 1e-4: at 3e-4 zamba2's third loss jumped (10.87, 9.57, 15.47, then 9.93
+#: and 9.66) while its reduced gradients matched the CPU's (PERF.md §6)
+SSM_TRAIN_ARGS = ["--global-batch", "4", "--seq-len", "1024", "--microbatches", "2",
+                  "--steps", "3", "--lr", "1e-4", "--ckpt-every", "0"]
 
 
 def flash_bwd_inputs(c: dict, dtype, seed: int):
@@ -2916,18 +2998,245 @@ def time_flash_bwd() -> dict:
                 **bound(n_bytes, n_ops, "bfloat16"))
 
 
-def check_train_small() -> dict:
-    """Reduced qwen: ``Model.loss`` and the gradient of every leaf on the
-    card (flash forward and backward kernels) against the CPU (plain
-    versions), same bf16 weights and tokens: the loss within 1e-2
-    relative, each leaf within 5e-2 relative Frobenius error (the bands of
-    tests/test_torch_loss.py in bf16)."""
+def ssd_bwd_case(c, dtype, with_dfinal: bool, seed: int):
+    """The leaves (x, B, C, or the fused tensor they are sliced from; dt;
+    A), a function from leaves to the scan's operands, dy and the final
+    state's cotangent (or None), on the card, scaled as the model's (dt
+    near 0.05)."""
+    b, s, h, p, n, _, fused = c
+    rng = np.random.default_rng(seed)
+    if fused:
+        leaves = [randn_dev(rng, (b, s, h * p + 2 * n), dtype)]
+
+        def operands(xbc, dt, A):
+            return (xbc[..., :h * p].reshape(b, s, h, p), dt, A, xbc[..., h * p:h * p + n],
+                    xbc[..., h * p + n:])
+    else:
+        leaves = [randn_dev(rng, (b, s, h, p), dtype), randn_dev(rng, (b, s, n), dtype),
+                  randn_dev(rng, (b, s, n), dtype)]
+
+        def operands(x, B, C, dt, A):
+            return x, dt, A, B, C
+    leaves.append(torch.nn.functional.softplus(randn_dev(rng, (b, s, h), torch.float32) - 3.0))
+    leaves.append(-randn_dev(rng, (h,), torch.float32).abs())
+    dy = randn_dev(rng, (b, s, h, p), dtype)
+    dfinal = randn_dev(rng, (b, h, p, n), torch.float32) if with_dfinal else None
+    return leaves, operands, dy, dfinal
+
+
+def ssd_kernel_grads(leaves, operands, dy, dfinal, chunk):
+    """dx, ddt, dA, dB, dC through ``ssd`` under autograd (the forward
+    kernel, then the backward kernel), split from the leaves' gradients."""
+    from repro_torch.kernels.ssd import ops
+
+    ls = [t.detach().clone().requires_grad_(True) for t in leaves]
+    y, final = ops.ssd(*operands(*ls), chunk=chunk)
+    if y.grad_fn is None:
+        raise AssertionError("the SSD wrapper returned no autograd node under grad")
+    outs, grads = ([y, final], [dy, dfinal]) if dfinal is not None else ([y], [dy])
+    torch.autograd.backward(outs, grads)
+    return operands(*[t.grad for t in ls])
+
+
+#: the gradients each dropped part of the backward moves (dC reads the
+#: forward state, not the state's gradient), for ``check_band_binds``
+SSD_BWD_DROPS = {
+    "the reverse state pass": (dict(carry_gradient=False), "x dt A B"),
+    "the carried state": (dict(carry_state=False), "dt A C"),
+    "the decay's gradient": (dict(decay_gradient=False), "dt A"),
+    "the causal mask": (dict(causal=False), "x dt A B C"),
+}
+
+
+def check_ssd_bwd_cases() -> dict:
+    """The SSD backward kernel through ``ssd`` under autograd against its
+    plain version (autograd through ``ssd_reference`` in f32) on each case,
+    each gradient within ``ATOL`` of its dtype relative to its own largest
+    entry; each band shown to reject the passes' plain version with a part
+    dropped: the reverse state pass (where there is an inter-chunk gradient
+    or a final-state cotangent), the carried state (more than one chunk),
+    the decay's gradient and the causal mask. Two calls on one input equal
+    bit for bit, on inputs whose forward takes either route, and equal to a
+    direct call of the backward kernel. Returns the largest error
+    (relative to each gradient's largest entry) and the cases' routes."""
+    from repro_torch.kernels.ssd import ops, ref
+
+    worst, routes_seen = 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ATOL[str(dtype).removeprefix("torch.")]
+        for name, c in SSD_BWD_CASES.items():
+            chunk, chunks = c[5], -(-c[1] // c[5])
+            for with_dfinal in (False, True):
+                leaves, operands, dy, dfinal = ssd_bwd_case(c, dtype, with_dfinal, seed=21)
+                before = (ops.KERNEL.launches, ops.KERNEL.backward_launches,
+                          dict(ops.KERNEL.routes))
+                got = ssd_kernel_grads(leaves, operands, dy, dfinal, chunk)
+                torch.cuda.synchronize()
+                fwd_route = next((r for r, n in ops.KERNEL.routes.items()
+                                  if n != before[2][r]), None)
+                if DEVICE == "cuda" and (ops.KERNEL.launches, ops.KERNEL.backward_launches) != (
+                        before[0] + 1, before[1] + 1):
+                    raise AssertionError(f"ssd backward {name}: not one forward and one "
+                                         "backward launch")
+                ops_ = operands(*leaves)
+                want = ref.ssd_bwd_ref(*ops_, dy, dfinal, chunk=chunk)
+                drops = {f: (kw, grads) for f, (kw, grads) in SSD_BWD_DROPS.items()
+                         if (f != "the reverse state pass" or chunks > 1 or with_dfinal)
+                         and (f != "the carried state" or chunks > 1)}
+                wrong = {f: ref.ssd_backward_passes_ref(*ops_, dy, dfinal, chunk=chunk, **kw)
+                         for f, (kw, _) in drops.items()}
+                tag = (f"{str(dtype).removeprefix('torch.')} "
+                       f"{'dfinal' if with_dfinal else 'no dfinal'} forward {fwd_route}")
+                routes_seen[f"{name} {tag}"] = fwd_route
+                for i, grad in enumerate(("x", "dt", "A", "B", "C")):
+                    sc = want[i].abs().max()
+                    case = f"ssd backward {name} d{grad} {tag}"
+                    if got[i].dtype != ops_[i].dtype or got[i].shape != ops_[i].shape:
+                        raise AssertionError(f"{case}: {got[i].dtype} {tuple(got[i].shape)}")
+                    worst = max(worst, check_close(case, got[i] / sc, want[i] / sc, tol))
+                    check_band_binds(case, want[i] / sc,
+                                     {f: w[i].float() / sc for f, w in wrong.items()
+                                      if grad in drops[f][1].split()}, tol)
+    # bit for bit: bf16 slices of the fused tensor (the forward on the
+    # tensor cores) and f32 (the forward on the CUDA cores)
+    repeat = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        c = SSD_BWD_CASES["mamba2_train"]
+        leaves, operands, dy, dfinal = ssd_bwd_case(c, dtype, True, seed=22)
+        before = dict(ops.KERNEL.routes)
+        first = ssd_kernel_grads(leaves, operands, dy, dfinal, c[5])
+        second = ssd_kernel_grads(leaves, operands, dy, dfinal, c[5])
+        direct = ops.KERNEL.backward(*operands(*leaves), dy, dfinal, chunk=c[5])
+        torch.cuda.synchronize()
+        route = next((r for r, n in ops.KERNEL.routes.items() if n != before[r]), None)
+        equal = all(torch.equal(a, b) and torch.equal(a, d)
+                    for a, b, d in zip(first, second, direct))
+        repeat[str(dtype).removeprefix("torch.")] = dict(forward_route=route, bit_equal=equal)
+        if not equal:
+            raise AssertionError(f"two SSD backward calls differ ({dtype}, forward {route})")
+    rec = dict(max_rel_err=worst, repeat=repeat)
+    log("ssd backward cases " + json.dumps(rec))
+    return rec
+
+
+def check_ssd_bwd_large_decay() -> dict:
+    """The backward at mamba2's training shape with dt as full-width random
+    weights give it (softplus of a unit normal, ~0.7; a chunk's Σ dt·|A|
+    passes 88): autograd through ``ssd_reference`` turns NaN there (its
+    ``where(mask, exp(cum_i - cum_j), 0)`` overflows above the diagonal,
+    ROADMAP §3), so the kernel is held to the passes' plain version, which
+    masks before the exp, and must be finite."""
+    from repro_torch.kernels.ssd import ops, ref
+
+    c = SSD_BWD_CASES["mamba2_train"]
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ATOL[str(dtype).removeprefix("torch.")]
+        leaves, operands, dy, _ = ssd_bwd_case(c, dtype, False, seed=24)
+        rng = np.random.default_rng(25)
+        leaves[-2] = torch.nn.functional.softplus(randn_dev(rng, tuple(leaves[-2].shape),
+                                                            torch.float32))
+        got = ssd_kernel_grads(leaves, operands, dy, None, c[5])
+        ops_ = operands(*leaves)
+        want = ref.ssd_backward_passes_ref(*ops_, dy, None, chunk=c[5])
+        autograd_nan = sum(int(torch.isnan(g).sum()) for g in ref.ssd_bwd_ref(*ops_, dy, None,
+                                                                             chunk=c[5]))
+        dtype_name = str(dtype).removeprefix("torch.")
+        for i, grad in enumerate(("x", "dt", "A", "B", "C")):
+            if not torch.isfinite(got[i]).all():
+                raise AssertionError(f"ssd backward large decay d{grad} {dtype_name}: not finite")
+            sc = want[i].float().abs().max()
+            check_close(f"ssd backward large decay d{grad} {dtype_name} vs the passes' plain "
+                        "version", got[i] / sc, want[i].float() / sc, tol)
+        rec[dtype_name] = dict(autograd_nan_entries=autograd_nan,
+                               max_chunk_decay=float((leaves[-2] * leaves[-1].abs()).reshape(
+                                   c[0], -1, c[5], c[2]).sum(2).max()))
+    log("ssd backward large decay " + json.dumps(rec))
+    return rec
+
+
+def ssd_bwd_bound(b, S, h, p, n, Q, with_dfinal: bool) -> dict:
+    """The least time the card could take for the scan's backward."""
+    # bytes: x, dy, dt, A, B, C (and dfinal) read once; dx, ddt, dA, dB, dC
+    # written once (bf16 x, dy, B, C and their gradients; f32 dt, ddt, A, dA)
+    n_bytes = (3 * b * S * h * p * 2 + 2 * b * S * h * 4 + 2 * h * 4 + 4 * b * S * n * 2
+               + (b * h * p * n * 4 if with_dfinal else 0))
+    # operations this data needs, per (row, head, chunk of q valid
+    # positions): C·Bᵀ and dy·uᵀ over the causal triangle and the three
+    # products with them (du, dC, dB); the state before every chunk but the
+    # first and, for every chunk with a state gradient after it, the
+    # chunk's share of it and the products with it (du, dB); h_inᵀ dy for
+    # every chunk after the first
+    chunks = -(-S // Q)
+    n_ops = 0
+    for ci in range(chunks):
+        q = min(Q, S - ci * Q)
+        tri = q * (q + 1) // 2
+        has_h, has_dh = ci > 0, ci < chunks - 1 or with_dfinal
+        macs = tri * (n + p + p + n + n)
+        macs += (q * p * n if ci < chunks - 1 else 0)          # the state it passes on
+        macs += (q * p * n if ci > 0 else 0)                   # its share of dh_in
+        macs += (2 * q * p * n if has_dh else 0) + (q * p * n if has_h else 0)
+        n_ops += 2 * macs * b * h
+    rec = bound(n_bytes, n_ops, "bfloat16")
+    rec["ops_ms_f32_cuda_cores"] = n_ops / PEAK_OPS_PER_S["float32"] * 1e3
+    return rec
+
+
+def time_ssd_bwd() -> dict:
+    """The backward kernel at mamba2's training shape (a microbatch of 2 x
+    1024 tokens, bf16 slices of the fused tensor, no final-state
+    cotangent, as training calls it): events and device time a call (the
+    profiler's, all five kernels, and CUDA events behind a spin kernel),
+    the forward's device time on the same input (behind a spin kernel),
+    the plain backward's time, the bound. The profiler's time is the sum of
+    per-instance means (``device_ms_by_instance``). No single PyTorch call
+    computes the scan's backward, so there is no library time."""
+    from repro_torch.kernels.ssd import ops, ref
+
+    c = SSD_BWD_CASES["mamba2_train"]
+    b, S, h, p, n, Q, _ = c
+    leaves, operands, dy, _ = ssd_bwd_case(c, torch.bfloat16, False, seed=23)
+    args = operands(*leaves)
+
+    def kernel():
+        return ops.KERNEL.backward(*args, dy, None, chunk=Q)
+
+    def kernel_calls():
+        for _ in range(10):
+            kernel()
+
+    return dict(B=b, S=S, H=h, P=p, N=n, chunk=Q, dtype="bfloat16", fused_slices=True,
+                ms=time_call(kernel, 10),
+                **device_ms_by_instance(kernel_calls, SSD_BWD_KERNELS, 5),
+                device_ms_behind_spin=device_ms_behind_spin(kernel, 20),
+                forward_device_ms_behind_spin=device_ms_behind_spin(
+                    lambda: ops.KERNEL(*args, chunk=Q), 20),
+                plain_ms=time_call(lambda: ref.ssd_bwd_ref(*args, dy, None, chunk=Q), 3),
+                library_ms=None,
+                library_note="no single PyTorch call computes the SSD scan's backward",
+                **ssd_bwd_bound(b, S, h, p, n, Q, False))
+
+
+def check_train_small(arch: str = "qwen1.5-0.5b") -> dict:
+    """A reduced model (qwen, mamba2 or zamba2): ``Model.loss`` and the
+    gradient of every leaf on the card (the flash and SSD forward and
+    backward kernels) against the CPU (plain versions), same bf16 weights
+    and tokens: the loss within 1e-2 relative, each leaf within 5e-2
+    relative Frobenius error (the bands of tests/test_torch_loss.py in
+    bf16); each kernel launched once a layer it runs in, forward and
+    backward."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.models import Model, materialize
     from repro_torch.models.params import flatten_tree
 
-    cfg = get_config("qwen1.5-0.5b").reduced()
+    cfg = get_config(arch).reduced()
+    groups = cfg.num_layers // cfg.shared_attn_period if cfg.family == "hybrid" else 0
+    ssm = cfg.family in ("ssm", "hybrid")
+    kernels = {"flash": flash_ops.KERNEL, "ssd": ssd_ops.KERNEL}
+    want = {"flash": groups if ssm else cfg.num_layers, "ssd": cfg.num_layers if ssm else 0}
     params = materialize(Model(cfg).describe(), seed=0)
     tokens = torch.from_numpy(np.random.default_rng(13).integers(1, cfg.vocab_size, (2, 129)))
     res = {}
@@ -2935,21 +3244,25 @@ def check_train_small() -> dict:
         p = _to(params, dev)
         for _, t in flatten_tree(p):
             t.requires_grad_(True)
-        fwd, bwd = ops.KERNEL.launches, ops.KERNEL.backward_launches
+        before = {k: (kern.launches, kern.backward_launches) for k, kern in kernels.items()}
         loss, _ = Model(cfg, p).loss({"tokens": tokens.to(dev)})
         grads = torch.autograd.grad(loss, [t for _, t in flatten_tree(p)])
         res[dev] = (loss.item(), [g.float().cpu() for g in grads],
-                    ops.KERNEL.launches - fwd, ops.KERNEL.backward_launches - bwd)
-    (l_cpu, g_cpu, _, _), (l_dev, g_dev, fwd, bwd) = res["cpu"], res[DEVICE]
+                    {k: (kern.launches - before[k][0], kern.backward_launches - before[k][1])
+                     for k, kern in kernels.items()})
+    (l_cpu, g_cpu, _), (l_dev, g_dev, counts) = res["cpu"], res[DEVICE]
     worst = max(((a - b).norm() / b.norm()).item() for a, b in zip(g_dev, g_cpu))
-    rec = dict(loss_cpu=l_cpu, loss_card=l_dev, loss_rel=abs(l_dev - l_cpu) / abs(l_cpu),
-               worst_leaf_rel_frobenius=worst, flash_launches=fwd, backward_launches=bwd)
+    rec = dict(arch=arch, loss_cpu=l_cpu, loss_card=l_dev,
+               loss_rel=abs(l_dev - l_cpu) / abs(l_cpu), worst_leaf_rel_frobenius=worst,
+               **{f"{k}_launches": n[0] for k, n in counts.items()},
+               **{f"{k}_backward_launches": n[1] for k, n in counts.items()})
     log("train small " + json.dumps(rec))
     if not (rec["loss_rel"] <= 1e-2 and worst <= 5e-2 and math.isfinite(l_dev)):
-        raise AssertionError("the reduced loss or its gradients on the card disagree with the CPU")
-    if DEVICE == "cuda" and (fwd, bwd) != (cfg.num_layers, cfg.num_layers):
-        raise AssertionError(f"a reduced loss ran {fwd} flash forwards and {bwd} backwards, "
-                             f"not {cfg.num_layers} each")
+        raise AssertionError(f"{arch}: the reduced loss or its gradients on the card disagree "
+                             "with the CPU")
+    if DEVICE == "cuda" and any(counts[k] != (n, n) for k, n in want.items()):
+        raise AssertionError(f"{arch}: a reduced loss ran {counts} forwards and backwards, "
+                             f"not {want} each")
     return rec
 
 
@@ -2957,8 +3270,8 @@ def step_breakdown(trainer, state, model) -> dict:
     """One more optimizer step, on the host clock (synchronized) and under
     ``torch.profiler``: the device's kernel time, its share of the
     unprofiled step (and of the profiled one),
-    and the kernels that took most of it, grouped (the flash kernels,
-    products, the rest)."""
+    and the kernels that took most of it, grouped (the flash and SSD
+    kernels, forward and backward, products, the rest)."""
     tokens = trainer._tokens_for(state.step)
     trainer.train_step(state, tokens, model)
     torch.cuda.synchronize()
@@ -2974,7 +3287,9 @@ def step_breakdown(trainer, state, model) -> dict:
         profiled_ms = (time.perf_counter() - t0) * 1e3
     # the step's ``train.*`` ranges (loop.py) also show on the device as
     # annotations, which are no kernels
-    kernels = {k: us for k, us in device_kernel_us(prof).items() if not k.startswith("train.")}
+    counts: dict = {}
+    kernels = {k: us for k, us in device_kernel_us(prof, counts).items()
+               if not k.startswith("train.")}
     device_ms = sum(kernels.values()) / 1e3
     # the kernels launched inside each range, from its host-side event (the
     # backward runs on autograd's thread, outside them: it is the rest)
@@ -2983,12 +3298,17 @@ def step_breakdown(trainer, state, model) -> dict:
         if ev.name.startswith("train.") and ev.device_type == torch.autograd.DeviceType.CPU:
             ranges[ev.name] = ranges.get(ev.name, 0.0) + ev.device_time_total / 1e3
     ranges["backward (the rest)"] = device_ms - sum(ranges.values())
-    groups = {"flash_forward": 0.0, "flash_backward": 0.0, "products": 0.0, "other": 0.0}
+    groups = {"flash_forward": 0.0, "flash_backward": 0.0, "ssd_forward": 0.0,
+              "ssd_backward": 0.0, "products": 0.0, "other": 0.0}
     for name, us in kernels.items():
         if "flash_mma_kernel" in name or "flash_attention_kernel" in name:
             groups["flash_forward"] += us / 1e3
         elif any(k in name for k in FLASH_BWD_KERNELS):
             groups["flash_backward"] += us / 1e3
+        elif any(k in name for k in SSD_BWD_KERNELS):
+            groups["ssd_backward"] += us / 1e3
+        elif any(k in name for k in SSD_KERNEL_NAMES):
+            groups["ssd_forward"] += us / 1e3
         elif any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "sm90_", "nvjet")):
             groups["products"] += us / 1e3
         else:
@@ -3000,7 +3320,11 @@ def step_breakdown(trainer, state, model) -> dict:
                 step_device_ms=device_ms, device_share=device_ms / host_ms,
                 device_share_of_profiled_step=device_ms / profiled_ms,
                 device_ms_by_group=groups, device_ms_by_range=ranges,
-                top_kernels_ms={k[:80]: v / 1e3 for k, v in top})
+                top_kernels_ms={k[:80]: v / 1e3 for k, v in top},
+                # the profile can lose records (PERF.md §7): what it held of
+                # the two backwards' largest kernels
+                profiled_instances={k[:60]: counts[k] for k in kernels
+                                    if "ssd_bwd_grad" in k or "flash_bwd_dq" in k})
 
 
 def train_full() -> dict:
@@ -3060,6 +3384,88 @@ def train_full() -> dict:
     if DEVICE == "cuda" and bwd_routes["tensor_core"] != bwd:
         raise AssertionError(f"training's backwards did not all take the tensor cores: "
                              f"{bwd_routes}")
+    return rec
+
+
+def train_ssm(arch: str) -> dict:
+    """An SSD-scan model at full width and depth through the launcher's code
+    path (``parse_args`` → ``build_trainer`` → ``train``): seed-0 weights
+    drawn on the card, 3 steps of 2 microbatches of 2 x 1024 tokens, remat
+    on. Every loss finite and the last below the first; the SSD forward
+    launched 2 x mamba layers x microbatches x steps times (remat
+    recomputes each block's forward in the backward), its backward mamba
+    layers x microbatches x steps; for the hybrid, the shared block's flash
+    forward and backward likewise per group, every backward on the CUDA
+    cores (D = 160); peak memory; then one step's time on the host clock
+    and on the device, and the SSD backward's share of the device time."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import Model
+    from repro_torch.models.params import leaves
+
+    args = launch_train.parse_args(["--arch", arch, *SSM_TRAIN_ARGS, "--device", DEVICE])
+    trainer = launch_train.build_trainer(args)
+    trainer.tcfg.log_every = 1
+    cfg, tcfg = trainer.cfg, trainer.tcfg
+    n_params = sum(math.prod(l.shape) for _, l in leaves(trainer.param_tree))
+    t0 = time.perf_counter()
+    state = trainer.adopt(draw_on_card(trainer.param_tree, seed=0))
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    counters = (ssd_ops.KERNEL, flash_ops.KERNEL)
+    for k in counters:
+        k.launches = 0
+        k.backward_launches = 0
+    for routes in (ssd_ops.KERNEL.routes, flash_ops.KERNEL.backward_kernel.routes):
+        routes.update(dict.fromkeys(routes, 0))
+    t0 = time.perf_counter()
+    state = launch_train.train(trainer, state)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [m["loss"] for m in trainer.metrics]
+    runs = tcfg.microbatches * tcfg.steps
+    groups = cfg.num_layers // cfg.shared_attn_period if cfg.family == "hybrid" else 0
+    rec = dict(arch=cfg.name, layers=cfg.num_layers, layers_run=f"{cfg.num_layers} of "
+               f"{cfg.num_layers}", d_model=cfg.d_model, ssd_heads=cfg.ssm_heads,
+               ssd_head_dim=cfg.ssm_head_dim, ssd_state=cfg.ssm_state, params=n_params,
+               remat=cfg.remat, global_batch=args.global_batch, seq_len=args.seq_len,
+               microbatches=tcfg.microbatches, steps=state.step, lr=tcfg.lr,
+               weights="drawn on the card (torch.Generator, seed 0)", draw_s=draw_s,
+               run_s=run_s, losses=losses,
+               ssd_launches=ssd_ops.KERNEL.launches,
+               ssd_routes=dict(ssd_ops.KERNEL.routes),
+               ssd_backward_launches=ssd_ops.KERNEL.backward_launches,
+               ssd_launches_expected=2 * cfg.num_layers * runs,
+               ssd_backward_launches_expected=cfg.num_layers * runs,
+               peak_gib=peak)
+    if groups:
+        rec.update(shared_block_groups=groups, flash_launches=flash_ops.KERNEL.launches,
+                   flash_backward_launches=flash_ops.KERNEL.backward_launches,
+                   flash_backward_routes=dict(flash_ops.KERNEL.backward_kernel.routes),
+                   flash_launches_expected=2 * groups * runs,
+                   flash_backward_launches_expected=groups * runs)
+    rec.update(step_breakdown(trainer, state, Model(cfg, state.params)))
+    rec["ssd_backward_share_of_device"] = (rec["device_ms_by_group"]["ssd_backward"]
+                                           / rec["step_device_ms"])
+    rec["profiled_instances_expected"] = dict(ssd_bwd_grad=cfg.num_layers * tcfg.microbatches,
+                                              flash_bwd_dq=groups * tcfg.microbatches)
+    log(f"train {arch} " + json.dumps(rec))
+    if len(losses) != tcfg.steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{arch}: the training losses are missing or not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch}: the loss did not fall over {tcfg.steps} steps: {losses}")
+    if DEVICE == "cuda":
+        want = {k: rec[f"{k}_expected"] for k in (
+            "ssd_launches", "ssd_backward_launches", "flash_launches", "flash_backward_launches")
+            if f"{k}_expected" in rec}
+        if any(rec[k] != v for k, v in want.items()):
+            raise AssertionError(f"{arch}: launches { {k: rec[k] for k in want} } against {want}")
+        if groups and rec["flash_backward_routes"]["cuda_core"] != groups * runs:
+            raise AssertionError(f"{arch}: the D = 160 flash backwards did not all take the "
+                                 f"CUDA cores: {rec['flash_backward_routes']}")
     return rec
 
 
@@ -3132,6 +3538,9 @@ def main(argv=None) -> int:
     if "--kernels-only" in argv:
         check_flash_bwd_cases()
         log("flash_attention_bwd timing " + json.dumps(time_flash_bwd()))
+        check_ssd_bwd_cases()
+        check_ssd_bwd_large_decay()
+        log("ssd_bwd timing " + json.dumps(time_ssd_bwd()))
         time_flex_yardstick(flash_timing)
         return 0
 
@@ -3192,15 +3601,27 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 9: training through the flash kernel's forward and backward
+    # phase 9: training through the flash and SSD kernels' forwards and
+    # backwards
     bwd_err = check_flash_bwd_cases()
     bwd_timing = time_flash_bwd()
     log("flash_attention_bwd timing " + json.dumps(bwd_timing))
-    check_train_small()
+    ssd_bwd = check_ssd_bwd_cases()
+    check_ssd_bwd_large_decay()
+    ssd_bwd_timing = time_ssd_bwd()
+    log("ssd_bwd timing " + json.dumps(ssd_bwd_timing))
+    for arch in ("qwen1.5-0.5b", "mamba2-2.7b", "zamba2-2.7b"):
+        check_train_small(arch)
     train = train_full()
     gc.collect()
     torch.cuda.empty_cache()
     train_restore()
+    train_mamba2 = train_ssm("mamba2-2.7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_zamba2 = train_ssm("zamba2-2.7b")
+    gc.collect()
+    torch.cuda.empty_cache()
     # last: after torch.compile a profile can lose kernel records, and the
     # replays' checks count kernels in profiles
     time_flex_yardstick(flash_timing)
@@ -3255,6 +3676,7 @@ def main(argv=None) -> int:
             "launches_whisper_prefills": whisper["flash_launches"],
             "launches_internvl2_prefills": internvl2["flash_launches"],
             "launches_training": train["flash_launches"],
+            "launches_zamba2_training": train_zamba2["flash_launches"],
             "max_abs_err": flash_err,
             "ms": ft["ms"],
             "device_ms": ft["device_ms"],
@@ -3278,6 +3700,8 @@ def main(argv=None) -> int:
                              "through plain jnp (blockwise_attention); no Pallas kernel has a "
                              "backward",
             "launches": train["backward_launches"],
+            "launches_zamba2_training": train_zamba2["flash_backward_launches"],
+            "launches_zamba2_training_by_route": train_zamba2["flash_backward_routes"],
             "max_abs_err": bwd_err,
             "max_abs_err_note": "relative to each gradient's largest entry",
             "launches_by_route": train["backward_routes"],
@@ -3303,6 +3727,8 @@ def main(argv=None) -> int:
             "replaces_function": "ssd",
             "launches": ssm["ssd_launches"],
             "launches_zamba2_prefills": zamba2["ssd_launches"],
+            "launches_mamba2_training": train_mamba2["ssd_launches"],
+            "launches_zamba2_training": train_zamba2["ssd_launches"],
             "max_abs_err": ssd_err,
             "ms": ssd_timing["ms"],
             "device_ms": ssd_timing["device_ms"],
@@ -3315,6 +3741,30 @@ def main(argv=None) -> int:
             "library_note": ssd_timing["library_note"],
             "zamba2": {k: ssd_timing["zamba2"][k] for k in (
                 "S", "n", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+        },
+        {
+            "name": "ssd_bwd",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu",
+            "replaces": "src/repro/models/layers.py:550",
+            "replaces_note": "no TPU kernel: the reference's mamba block runs ssd_reference in "
+                             "plain jnp, differentiated by jax.value_and_grad; the Pallas ssd "
+                             "kernel has no backward",
+            "launches": train_mamba2["ssd_backward_launches"],
+            "launches_zamba2_training": train_zamba2["ssd_backward_launches"],
+            "max_abs_err": ssd_bwd["max_rel_err"],
+            "max_abs_err_note": "relative to each gradient's largest entry",
+            "ms": ssd_bwd_timing["ms"],
+            "device_ms": ssd_bwd_timing["device_ms"],
+            "device_ms_behind_spin": ssd_bwd_timing["device_ms_behind_spin"],
+            "device_kernels_ms": ssd_bwd_timing["device_kernels_ms"],
+            "kernel_ms": ssd_bwd_timing["ms"],
+            "plain_ms": ssd_bwd_timing["plain_ms"],
+            "bound_ms": ssd_bwd_timing["bound_ms"],
+            "bound_by": ssd_bwd_timing["bound_by"],
+            "library_ms": None,
+            "library_note": ssd_bwd_timing["library_note"],
+            "shape": {k: ssd_bwd_timing[k] for k in ("B", "S", "H", "P", "N", "chunk", "dtype")},
         },
     ]}
     log(json.dumps(kernels))

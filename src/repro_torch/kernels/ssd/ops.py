@@ -2,11 +2,21 @@
 
 The wrapper chooses by the tensors' device, with no flag: CUDA tensors
 launch the Hopper kernel (``csrc/ssd.cu``) or raise; CPU tensors take the
-plain PyTorch version, ``ssd_reference``. There is no fallback from the
-kernel to the plain version. The kernel has no backward yet: a CUDA call that
-autograd would record (grad enabled, an operand that requires grad)
-raises ``NotImplementedError`` instead of returning a result without a
-gradient; autograd runs through the plain version on CPU tensors.
+plain PyTorch version, ``ssd_reference``, and autograd runs through it as
+through any PyTorch code. There is no fallback from the kernel to the
+plain version.
+
+Gradients on the card: a CUDA call that autograd records (grad enabled,
+an operand that requires grad) goes through :class:`_SsdFn`, whose
+forward launches the forward kernel on the route ``_route`` picks and
+whose backward launches the backward kernel (``csrc/ssd_bwd.cu``; plain
+versions ``ref.ssd_bwd_ref`` and, pass for pass,
+``ref.ssd_backward_passes_ref``). The backward recomputes the states from
+the forward's operands, so both forward routes feed it alike; it takes
+f32 or bf16, P and N up to 256 and chunks whose working set fits a
+block's shared memory (chunk 256 at P = N = 256), and refuses the rest
+before the forward runs (ROADMAP). ``KERNEL.backward_launches`` counts its
+launches; serving runs under ``torch.no_grad()`` and never reaches it.
 
 ``ssd(x, dt, A, Bm, Cm, chunk=128)`` is the counterpart of
 ``repro.kernels.ssd``: x ``[B, S, H, P]``, dt ``[B, S, H]`` f32 (after
@@ -34,11 +44,12 @@ Two routes inside the kernel library, chosen by dtype and shape alone
 - ``cuda_core``: everything else (f32 or mixed dtypes, other widths or
   chunks, unaligned rows): the first port's one-pass f32 kernel.
 
-``KERNEL.launches`` counts wrapper calls that launched a kernel, one per
-call whatever the route; ``KERNEL.routes`` counts them by route.
+``KERNEL.launches`` counts forward launches, one per call whatever the
+route (a recording call's too); ``KERNEL.routes`` counts them by route.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -108,6 +119,14 @@ def _workspace_bytes(Bsz: int, H: int, P: int, N: int, Q: int, chunks: int) -> i
     return 4 * (Bsz * chunks * H * Q + Bsz * (chunks - 1) * H * P * N)
 
 
+def _bwd_workspace_bytes(Bsz: int, S: int, H: int, P: int, N: int, Q: int) -> int:
+    """The backward's f32 workspace: ``cum [B, chunks, H, Q]``, the states
+    and their gradients ``[B, chunks, H, P, N]`` each, a head's dB and dC
+    ``[B, S, H, N]`` each, and a (row, chunk, head)'s dA."""
+    chunks = -(-S // Q)
+    return 4 * (Bsz * chunks * H * (Q + 2 * P * N + 1) + 2 * Bsz * S * H * N)
+
+
 def _route(x, Bm, Cm, chunk: int, n_sm: int) -> tuple[str, ScanPlan | None]:
     """Which kernel a call launches, from dtypes and shapes alone, and the
     tensor-core route's plan where it takes that route."""
@@ -120,12 +139,55 @@ def _route(x, Bm, Cm, chunk: int, n_sm: int) -> tuple[str, ScanPlan | None]:
     return "cuda_core", None
 
 
+def _check_operands(x, dt, A, Bm, Cm, chunk: int) -> None:
+    """The kernels' operands: shapes, devices, dtypes and unit last strides."""
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 3 or Cm.dim() != 3:
+        raise ValueError(
+            f"want x [B,S,H,P], dt [B,S,H], A [H], B/C [B,S,N]; got {tuple(x.shape)}, "
+            f"{tuple(dt.shape)}, {tuple(A.shape)}, {tuple(Bm.shape)}, {tuple(Cm.shape)}"
+        )
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if (tuple(dt.shape) != (Bsz, S, H) or tuple(A.shape) != (H,)
+            or tuple(Bm.shape) != (Bsz, S, N) or tuple(Cm.shape) != (Bsz, S, N)):
+        raise ValueError(
+            f"shapes disagree: x {tuple(x.shape)}, dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
+            f"B {tuple(Bm.shape)}, C {tuple(Cm.shape)}"
+        )
+    dev = x.device
+    for name, t in {"dt": dt, "A": A, "B": Bm, "C": Cm}.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous in its last dimension")
+    if x.stride(-1) != 1:
+        raise ValueError("x must be contiguous in its last dimension")
+    if x.dtype not in _DTYPE_CODES or Bm.dtype not in _DTYPE_CODES or Cm.dtype != Bm.dtype:
+        raise TypeError(f"x and B/C must be float32 or bfloat16 (B and C alike), "
+                        f"not {x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(f"dt and A must be float32, not {dt.dtype}, {A.dtype}")
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, not {chunk}")
+
+
 class SsdKernel(_nvcc.Kernel):
     """The CUDA kernel behind the wrapper (see :class:`_nvcc.Kernel`)."""
 
     def __init__(self):
         super().__init__(_build.load, routes=_ROUTE_CODES)
         self._n_sm: dict[int, int] = {}
+        #: the backward kernel, its own build; its ``launches`` counts the
+        #: backward's launches (``backward_launches``)
+        self.backward_kernel = _nvcc.Kernel(_build.load_bwd, routes=("cuda_core",))
+
+    @property
+    def backward_launches(self) -> int:
+        return self.backward_kernel.launches
+
+    @backward_launches.setter
+    def backward_launches(self, n: int) -> None:
+        self.backward_kernel.launches = n
 
     def sm_count(self, dev: torch.device) -> int:
         """The card's SM count, read once per device."""
@@ -137,35 +199,10 @@ class SsdKernel(_nvcc.Kernel):
     def __call__(self, x, dt, A, Bm, Cm, *, chunk: int, route: str | None = None):
         """Launch the scan. ``route`` forces a route (for timing both on one
         input); ``None`` takes the one ``_route`` chooses."""
-        if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 3 or Cm.dim() != 3:
-            raise ValueError(
-                f"want x [B,S,H,P], dt [B,S,H], A [H], B/C [B,S,N]; got {tuple(x.shape)}, "
-                f"{tuple(dt.shape)}, {tuple(A.shape)}, {tuple(Bm.shape)}, {tuple(Cm.shape)}"
-            )
+        _check_operands(x, dt, A, Bm, Cm, chunk)
         Bsz, S, H, P = x.shape
         N = Bm.shape[-1]
-        if (tuple(dt.shape) != (Bsz, S, H) or tuple(A.shape) != (H,)
-                or tuple(Bm.shape) != (Bsz, S, N) or tuple(Cm.shape) != (Bsz, S, N)):
-            raise ValueError(
-                f"shapes disagree: x {tuple(x.shape)}, dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
-                f"B {tuple(Bm.shape)}, C {tuple(Cm.shape)}"
-            )
         dev = x.device
-        for name, t in {"dt": dt, "A": A, "B": Bm, "C": Cm}.items():
-            if t.device != dev:
-                raise ValueError(f"{name} is on {t.device}, x on {dev}")
-            if t.stride(-1) != 1:
-                raise ValueError(f"{name} must be contiguous in its last dimension")
-        if x.stride(-1) != 1:
-            raise ValueError("x must be contiguous in its last dimension")
-        if x.dtype not in _DTYPE_CODES or Bm.dtype not in _DTYPE_CODES or Cm.dtype != Bm.dtype:
-            raise TypeError(f"x and B/C must be float32 or bfloat16 (B and C alike), "
-                            f"not {x.dtype}, {Bm.dtype}, {Cm.dtype}")
-        if dt.dtype != torch.float32 or A.dtype != torch.float32:
-            raise TypeError(f"dt and A must be float32, not {dt.dtype}, {A.dtype}")
-        if chunk <= 0:
-            raise ValueError(f"chunk must be positive, not {chunk}")
-
         if route not in (None, *_ROUTE_CODES):
             raise ValueError(f"route must be one of {list(_ROUTE_CODES)}, not {route!r}")
         chosen, plan = _route(x, Bm, Cm, chunk, self.sm_count(dev))
@@ -201,10 +238,88 @@ class SsdKernel(_nvcc.Kernel):
         self.routes[route] += 1
         return y, final_state
 
+    def refuse_backward(self, P: int, N: int, chunk: int) -> None:
+        """Raise where the backward kernel cannot take these widths: its
+        gradient pass's working set must fit a block's shared memory."""
+        smem = self.backward_kernel.load().ssd_bwd_smem(P, N, chunk)
+        if smem > _SMEM_LIMIT:
+            raise NotImplementedError(
+                f"the SSD backward kernel takes no P={P}, N={N}, chunk={chunk}: they need "
+                f"{smem} B of shared memory a block, more than {_SMEM_LIMIT} (ROADMAP, kernel "
+                "work on the SSD backward)")
+
+    def backward(self, x, dt, A, Bm, Cm, dy, dfinal=None, *, chunk: int):
+        """dx, ddt, dA, dB, dC of the scan on ``x, dt, A, Bm, Cm`` given the
+        output's gradient ``dy`` and the final state's ``dfinal`` (None: not
+        used); dx in x's type, dB and dC in B's, ddt and dA f32, each
+        contiguous in its operand's shape."""
+        _check_operands(x, dt, A, Bm, Cm, chunk)
+        Bsz, S, H, P = x.shape
+        N = Bm.shape[-1]
+        dev = x.device
+        if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != dev:
+            raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match the output "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if dy.stride(-1) != 1:
+            dy = dy.contiguous()
+        if dfinal is not None:
+            if tuple(dfinal.shape) != (Bsz, H, P, N) or dfinal.device != dev:
+                raise ValueError(f"dfinal must be [{Bsz}, {H}, {P}, {N}] on {dev}, not "
+                                 f"{tuple(dfinal.shape)} on {dfinal.device}")
+            dfinal = dfinal.to(torch.float32).contiguous()
+        self.refuse_backward(P, N, chunk)
+        lib = self.backward_kernel.load()
+        dx = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=dev)
+        ddt = torch.empty((Bsz, S, H), dtype=torch.float32, device=dev)
+        dA = torch.empty((H,), dtype=torch.float32, device=dev)
+        dB = torch.empty((Bsz, S, N), dtype=Bm.dtype, device=dev)
+        dC = torch.empty((Bsz, S, N), dtype=Cm.dtype, device=dev)
+        ws = torch.empty(_bwd_workspace_bytes(Bsz, S, H, P, N, chunk), dtype=torch.uint8,
+                         device=dev)
+        strides = [x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1),
+                   Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
+                   dy.stride(0), dy.stride(1), dy.stride(2)]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.ssd_bwd(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                dy.data_ptr(), dfinal.data_ptr() if dfinal is not None else None,
+                dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                ws.data_ptr(), Bsz, S, H, P, N, chunk, _DTYPE_CODES[x.dtype],
+                _DTYPE_CODES[Bm.dtype], (ctypes.c_longlong * len(strides))(*strides), stream,
+            )
+        _nvcc.check_status(err, "ssd_bwd")
+        self.backward_launches += 1
+        self.backward_kernel.routes["cuda_core"] += 1
+        return dx, ddt, dA, dB, dC
+
 
 #: the one kernel instance the wrapper launches; its ``launches`` is the
 #: count a run reads to show that prefill went through the kernel
 KERNEL = SsdKernel()
+
+
+class _SsdFn(torch.autograd.Function):
+    """The kernel under autograd: the forward launches the forward kernel
+    and keeps its operands; the backward launches the backward kernel,
+    which recomputes what it needs from them. A final state that is not
+    used (training uses none) gets no cotangent: ``None``, not zeros."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        ctx.set_materialize_grads(False)
+        y, final_state = KERNEL(x, dt, A, Bm, Cm, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        return y, final_state
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, Bm, Cm = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dx, ddt, dA, dB, dC = KERNEL.backward(x, dt, A, Bm, Cm, dy, dfinal, chunk=ctx.chunk)
+        return dx, ddt, dA, dB, dC, None
 
 
 def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128):
@@ -215,8 +330,7 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128):
         Bm, Cm = Bm[:, :, 0, :], Cm[:, :, 0, :]
     if x.is_cuda:
         if _nvcc.records_grad(x, dt, A, Bm, Cm):
-            raise NotImplementedError(
-                "the SSD scan has no backward kernel yet (ROADMAP): a gradient through "
-                "it on the card would be lost; CPU tensors train through the plain version")
+            KERNEL.refuse_backward(x.shape[-1], Bm.shape[-1], chunk)
+            return _SsdFn.apply(x, dt, A, Bm, Cm, chunk)
         return KERNEL(x, dt, A, Bm, Cm, chunk=chunk)
     return ssd_reference(x, dt, A, Bm[:, :, None, :], Cm[:, :, None, :], chunk=chunk)

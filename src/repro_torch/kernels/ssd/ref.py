@@ -195,3 +195,132 @@ def ssd_chunked_passes_ref(x, dt, A, B, C, *, chunk: int = 128, split_operands: 
         y_off = y_off * torch.exp(cum[:, 1:])[..., None]
         y = torch.cat([y[:, :1], y[:, 1:] + y_off], dim=1)
     return y.reshape(b, nc * chunk, h, p)[:, :s].to(x.dtype), carry
+
+
+def ssd_bwd_ref(x, dt, A, B, C, dy, dfinal=None, *, chunk: int = 128):
+    """dx, ddt, dA, dB, dC (f32) of :func:`ssd_reference` on the operands
+    cast to f32, for the output gradient ``dy`` and the final state's
+    ``dfinal`` (None: the final state is not used): ``torch.autograd.grad``
+    through the plain forward. B and C are one group, ``[b, s, n]`` or
+    ``[b, s, 1, n]``; dB and dC come back in the shape given."""
+    with torch.enable_grad():
+        leaves = [t.detach().to(F32).requires_grad_(True) for t in (x, dt, A, B, C)]
+        B4, C4 = (t if t.dim() == 4 else t[:, :, None] for t in leaves[3:])
+        y, final = ssd_reference(*leaves[:3], B4, C4, chunk=chunk)
+        outs, grads = [y], [dy.to(F32)]
+        if dfinal is not None:
+            outs.append(final)
+            grads.append(dfinal.to(F32))
+        return torch.autograd.grad(outs, leaves, grads)
+
+
+def ssd_backward_passes_ref(x, dt, A, B, C, dy, dfinal=None, *, chunk: int = 128,
+                            carry_gradient: bool = True, carry_state: bool = True,
+                            decay_gradient: bool = True, causal: bool = True):
+    """The backward kernel's decomposition of the scan's gradient
+    (``csrc/ssd_bwd.cu``) in plain PyTorch, pass for pass, for a single B/C
+    group: dx in x's dtype, ddt and dA f32, dB and dC in B's dtype.
+
+    With ``a = dt·A``, ``cum`` its prefix sum within a chunk, ``T`` the
+    chunk's total, ``u = dt·x`` and ``L_ij = exp(cum_i - cum_j)`` (j <= i):
+
+    1. chunk pass: each chunk's state ``Σ_j exp(T - cum_j) u_j ⊗ B_j`` and
+       its share of the state's gradient ``Σ_i exp(cum_i) dy_i ⊗ C_i``;
+    2. state pass: the state before each chunk (``h_in``, zero for the
+       first) and, in reverse, the gradient of the state after each chunk
+       (``dh_out``: ``dfinal`` for the last, zero without it, then
+       ``dh_out_{c-1} = exp(T_c) dh_out_c + Σ_i exp(cum_i) dy_i ⊗ C_i``);
+    3. gradient pass, per chunk and head:
+       ``du_j = Σ_{i>=j} (C_i·B_j) L_ij dy_i + exp(T - cum_j) dh_out B_j``,
+       ``dx = dt du``, the direct ``ddt = x·du``;
+       ``dC_i = Σ_{j<=i} L_ij (dy_i·u_j) B_j + exp(cum_i) h_inᵀ dy_i``;
+       ``dB_j = Σ_{i>=j} L_ij (dy_i·u_j) C_i + exp(T - cum_j) dh_outᵀ u_j``;
+       ``dcum`` from every exponent (``M_ij = (dy_i·u_j)(C_i·B_j) L_ij``
+       to i and from j; ``exp(cum_i) dy_i·h_in C_i`` to i;
+       ``s_j = exp(T - cum_j) u_j·dh_out B_j`` from j and to T;
+       ``exp(T) Σ dh_out ∘ h_in`` to T; T's total to the chunk's last
+       position); ``da`` its reverse prefix sum, ``ddt += A·da``, and the
+       head's share of ``dA = Σ dt·da``;
+    4. reduction: dB and dC summed over the heads, dA over rows, chunks and
+       positions.
+
+    The switches drop one part each, to show that a band can tell its
+    loss: ``carry_gradient=False`` skips the reverse state pass (every
+    ``dh_out`` zero, ``dfinal`` too), ``carry_state=False`` the forward
+    state (every ``h_in`` zero), ``decay_gradient=False`` the ``dcum``
+    chain (no ``A·da`` in ddt, dA zero), ``causal=False`` the mask of L.
+    Positions past ``s`` are the forward's zero padding; their gradients
+    are dropped. dB and dC come back in the shape B and C were given."""
+    grouped = B.dim() == 4
+    if grouped:
+        B, C = B[:, :, 0], C[:, :, 0]
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    Af = A.to(F32)
+    xq = F.pad(x.to(F32), (0, 0, 0, 0, 0, pad)).reshape(b, nc, chunk, h, p)
+    dyq = F.pad(dy.to(F32), (0, 0, 0, 0, 0, pad)).reshape(b, nc, chunk, h, p)
+    dtq = F.pad(dt.to(F32), (0, 0, 0, pad)).reshape(b, nc, chunk, h)
+    Bq = F.pad(B.to(F32), (0, 0, 0, pad)).reshape(b, nc, chunk, n)
+    Cq = F.pad(C.to(F32), (0, 0, 0, pad)).reshape(b, nc, chunk, n)
+
+    # pass 1: cum, the chunk states and the chunks' shares of dh
+    cum = torch.cumsum(dtq * Af, dim=2)                                # [b,c,q,h]
+    total = cum[:, :, -1]                                              # [b,c,h]
+    u = xq * dtq[..., None]                                            # [b,c,q,h,p]
+    states = torch.einsum("bcqhp,bcqn->bchpn", u * torch.exp(total[:, :, None] - cum)[..., None],
+                          Bq)
+    dstates = torch.einsum("bcqhp,bcqn->bchpn", dyq * torch.exp(cum)[..., None], Cq)
+
+    # pass 2: h_in forward, dh_out in reverse
+    zero = torch.zeros((b, h, p, n), dtype=F32, device=x.device)
+    h_in, carry = [], zero
+    for ci in range(nc):
+        h_in.append(carry if carry_state else zero)
+        carry = carry * torch.exp(total[:, ci])[..., None, None] + states[:, ci]
+    dh_out = [zero] * nc
+    if carry_gradient:
+        dcarry = zero if dfinal is None else dfinal.to(F32)
+        for ci in range(nc - 1, -1, -1):
+            dh_out[ci] = dcarry
+            dcarry = dcarry * torch.exp(total[:, ci])[..., None, None] + dstates[:, ci]
+    h_in, dh_out = torch.stack(h_in, dim=1), torch.stack(dh_out, dim=1)   # [b,c,h,p,n]
+
+    # pass 3: per chunk and head
+    idx = torch.arange(chunk, device=x.device)
+    mask = (idx[:, None] >= idx[None, :]) if causal else torch.ones(
+        (chunk, chunk), dtype=torch.bool, device=x.device)
+    mask = mask[None, None, :, :, None]
+    # masked before the exp: above the diagonal cum_i - cum_j > 0 can overflow
+    L = torch.exp(torch.where(mask, cum[:, :, :, None] - cum[:, :, None, :],
+                              -torch.inf))                                  # [b,c,i,j,h]
+    G = torch.einsum("bcin,bcjn->bcij", Cq, Bq)[..., None]                          # [b,c,i,j,1]
+    D = torch.einsum("bcihp,bcjhp->bcijh", dyq, u)                                  # [b,c,i,j,h]
+    W, V = G * L, D * L
+    M = V * G
+    to_end = torch.exp(total[:, :, None] - cum)                                     # [b,c,q,h]
+    du_off = torch.einsum("bcjn,bchpn->bcjhp", Bq, dh_out) * to_end[..., None]
+    du = torch.einsum("bcijh,bcihp->bcjhp", W, dyq) + du_off
+    dc_off = torch.einsum("bcihp,bchpn->bcihn", dyq, h_in) * torch.exp(cum)[..., None]
+    dC = torch.einsum("bcijh,bcjn->bcihn", V, Bq) + dc_off
+    dB = (torch.einsum("bcijh,bcin->bcjhn", V, Cq)
+          + torch.einsum("bcjhp,bchpn->bcjhn", u, dh_out) * to_end[..., None])
+    s_j = (u * du_off).sum(-1)                                                      # [b,c,q,h]
+    dcum = M.sum(3) - M.sum(2) + (Cq[:, :, :, None, :] * dc_off).sum(-1) - s_j
+    last = s_j.sum(2) + torch.exp(total) * (dh_out * h_in).sum((-2, -1))            # [b,c,h]
+    dcum = torch.cat([dcum[:, :, :-1], dcum[:, :, -1:] + last[:, :, None]], dim=2)
+    da = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), dim=2), (2,))
+    if not decay_gradient:
+        da = torch.zeros_like(da)
+    ddt = (xq * du).sum(-1) + Af * da
+    dA = (dtq * da).sum((0, 1, 2))
+
+    # pass 4: over heads; the padded tail dropped
+    dx = (dtq[..., None] * du).reshape(b, nc * chunk, h, p)[:, :s]
+    dB = dB.sum(3).reshape(b, nc * chunk, n)[:, :s]
+    dC = dC.sum(3).reshape(b, nc * chunk, n)[:, :s]
+    ddt = ddt.reshape(b, nc * chunk, h)[:, :s]
+    if grouped:
+        dB, dC = dB[:, :, None], dC[:, :, None]
+    return dx.to(x.dtype), ddt, dA, dB.to(B.dtype), dC.to(C.dtype)

@@ -13,8 +13,13 @@ fused tensor), with f32 and mixed dtypes on the CUDA-core route; the
 flash backward kernel against autograd through ``blockwise_attention`` at
 chip_smoke's shapes (bit-for-bit repeatable, in either layout), and the
 wrappers' refusals under grad (flash without q_offset, kv_hole and
-kv_lengths; SSD and paged attention, which have no backward kernel);
-and AdamW's f32 square root on the card, which must round correctly.
+kv_lengths; paged attention, which has no backward kernel); the SSD
+backward kernel against autograd through ``ssd_reference`` (the
+reference's shapes, mamba2's and zamba2's widths, ragged, one chunk,
+slices of a fused tensor, P = N = 256; with and without a final-state
+cotangent; bit-for-bit repeatable whichever route the forward took), its
+launch counter and its refusals; and AdamW's f32 square root on the card,
+which must round correctly.
 
 Every test here is marked ``cuda`` and skips where there is no card. The
 file imports neither JAX nor the JAX package, so it runs on a machine with
@@ -537,17 +542,173 @@ def test_flash_under_grad_refuses_what_its_backward_lacks(card):
             before[0] + 1, before[1])
 
 
+#: the SSD backward's cases: name -> (B, S, H, P, N, chunk, fused). The
+#: reference's shapes (tests/test_kernels.py), mamba2's widths (ragged over
+#: chunks, one chunk, two rows of slices of one fused tensor as the model's
+#: conv output gives them), zamba2's N = 64 and the widest P and N
+SSD_BWD_CASES = {
+    "reference 2x32 chunk 8": (2, 32, 2, 8, 8, 8, False),
+    "reference 1x64 chunk 16": (1, 64, 4, 16, 16, 16, False),
+    "reference 2x128 chunk 32": (2, 128, 4, 32, 16, 32, False),
+    "mamba2 S=1000": (1, 1000, 80, 64, 128, 128, False),
+    "mamba2 S=128 one chunk": (1, 128, 80, 64, 128, 128, False),
+    "mamba2 fused B=2 S=300": (2, 300, 80, 64, 128, 128, True),
+    "zamba2 N=64 S=384": (1, 384, 80, 64, 64, 128, False),
+    "P=N=256 chunk 256 S=300": (1, 300, 2, 256, 256, 256, False),
+}
+
+
+def ssd_bwd_case(c, dtype, dev, with_dfinal, seed=0):
+    """The leaves (x, B, C, or the fused tensor they are sliced from; dt;
+    A), a function from the leaves to the scan's operands, dy and the final
+    state's cotangent (or None). dt is near 0.05, as mamba2's dt_bias puts
+    it."""
+    b, s, h, p, n, _, fused = c
+    rng = np.random.default_rng(seed)
+    if fused:
+        leaves = [randn(rng, (b, s, h * p + 2 * n), dtype, dev)]
+
+        def operands(xbc, dt, A):
+            return (xbc[..., :h * p].reshape(b, s, h, p), dt, A, xbc[..., h * p:h * p + n],
+                    xbc[..., h * p + n:])
+    else:
+        leaves = [randn(rng, (b, s, h, p), dtype, dev), randn(rng, (b, s, n), dtype, dev),
+                  randn(rng, (b, s, n), dtype, dev)]
+
+        def operands(x, B, C, dt, A):
+            return x, dt, A, B, C
+    leaves.append(torch.nn.functional.softplus(randn(rng, (b, s, h), torch.float32, dev) - 3.0))
+    leaves.append(-randn(rng, (h,), torch.float32, dev).abs())
+    dy = randn(rng, (b, s, h, p), dtype, dev)
+    dfinal = randn(rng, (b, h, p, n), torch.float32, dev) if with_dfinal else None
+    return leaves, operands, dy, dfinal
+
+
+def ssd_kernel_grads(leaves, operands, dy, dfinal, chunk):
+    """The leaves' gradients through ``ssd`` under autograd (the forward
+    kernel, then the backward kernel), split back into x, dt, A, B, C."""
+    ls = [t.detach().clone().requires_grad_(True) for t in leaves]
+    y, final = ssd_ops.ssd(*operands(*ls), chunk=chunk)
+    assert y.grad_fn is not None
+    outs, grads = ([y, final], [dy, dfinal]) if dfinal is not None else ([y], [dy])
+    torch.autograd.backward(outs, grads)
+    x, dt, A, B, C = operands(*[t.grad for t in ls])
+    return x, dt, A, B, C
+
+
+#: (case, dtype) pairs through ``ssd`` under autograd: the f32 forward
+#: (its CUDA-core kernel keeps the [P, N] state in shared memory) takes no
+#: P = N = 256, so that case runs in f32 through the backward kernel alone
+SSD_BWD_GRAD_CASES = [(name, dtype) for name in SSD_BWD_CASES
+                      for dtype in (torch.bfloat16, torch.float32)
+                      if not (name.startswith("P=N=256") and dtype == torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_dfinal", [False, True], ids=["no dfinal", "dfinal"])
+@pytest.mark.parametrize("name,dtype", SSD_BWD_GRAD_CASES,
+                         ids=[f"{n}-{str(d)[6:]}" for n, d in SSD_BWD_GRAD_CASES])
+def test_ssd_backward_matches_autograd_through_the_reference(card, name, dtype, with_dfinal):
+    c = SSD_BWD_CASES[name]
+    leaves, operands, dy, dfinal = ssd_bwd_case(c, dtype, card, with_dfinal)
+    before = (ssd_ops.KERNEL.launches, ssd_ops.KERNEL.backward_launches)
+    got = ssd_kernel_grads(leaves, operands, dy, dfinal, c[5])
+    torch.cuda.synchronize()
+    assert (ssd_ops.KERNEL.launches, ssd_ops.KERNEL.backward_launches) == (
+        before[0] + 1, before[1] + 1)
+    ops_ = operands(*leaves)
+    want = ssd_ref.ssd_bwd_ref(*ops_, dy, dfinal, chunk=c[5])
+    for g, w, t in zip(got, want, ops_):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert_grad_close(g, w, BANDS[dtype]["atol"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_dfinal", [False, True], ids=["no dfinal", "dfinal"])
+def test_ssd_backward_kernel_takes_p_and_n_of_256_in_f32(card, with_dfinal):
+    c = SSD_BWD_CASES["P=N=256 chunk 256 S=300"]
+    leaves, operands, dy, dfinal = ssd_bwd_case(c, torch.float32, card, with_dfinal)
+    ops_ = operands(*leaves)
+    got = ssd_ops.KERNEL.backward(*ops_, dy, dfinal, chunk=c[5])
+    torch.cuda.synchronize()
+    want = ssd_ref.ssd_bwd_ref(*ops_, dy, dfinal, chunk=c[5])
+    for g, w, t in zip(got, want, ops_):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert_grad_close(g, w, BANDS[torch.float32]["atol"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_ssd_backward_stays_finite_where_the_plain_scan_overflows(card, dtype):
+    """dt as full-width random weights give it (~0.7): a chunk's decay
+    passes 88, autograd through ``ssd_reference`` gives NaN (its masked
+    exp overflows above the diagonal), and the kernel is held to the
+    passes' plain version, which masks before the exp."""
+    c = SSD_BWD_CASES["mamba2 S=1000"]
+    leaves, operands, dy, _ = ssd_bwd_case(c, dtype, card, False)
+    leaves[-2] = torch.nn.functional.softplus(
+        randn(np.random.default_rng(5), tuple(leaves[-2].shape), torch.float32, card))
+    got = ssd_kernel_grads(leaves, operands, dy, None, c[5])
+    ops_ = operands(*leaves)
+    assert any(torch.isnan(g).any() for g in ssd_ref.ssd_bwd_ref(*ops_, dy, None, chunk=c[5]))
+    want = ssd_ref.ssd_backward_passes_ref(*ops_, dy, None, chunk=c[5])
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert_grad_close(g, w, BANDS[dtype]["atol"])
+
+
+@pytest.mark.cuda
+def test_ssd_backward_is_deterministic_and_free_of_the_forward_route(card):
+    """Two runs give the same bits (no atomics), on inputs whose forward
+    takes the tensor cores (bf16, aligned) and the CUDA cores (f32); the
+    backward recomputes what it needs, so its gradients through ``ssd``
+    equal a direct call of the backward kernel bit for bit."""
+    for dtype, route in ((torch.bfloat16, "tensor_core"), (torch.float32, "cuda_core")):
+        c = SSD_BWD_CASES["mamba2 fused B=2 S=300"]
+        leaves, operands, dy, dfinal = ssd_bwd_case(c, dtype, card, True, seed=1)
+        routes = dict(ssd_ops.KERNEL.routes)
+        first = ssd_kernel_grads(leaves, operands, dy, dfinal, c[5])
+        second = ssd_kernel_grads(leaves, operands, dy, dfinal, c[5])
+        assert ssd_ops.KERNEL.routes[route] == routes[route] + 2
+        direct = ssd_ops.KERNEL.backward(*operands(*leaves), dy, dfinal, chunk=c[5])
+        torch.cuda.synchronize()
+        for a, b, d in zip(first, second, direct):
+            assert torch.equal(a, b) and torch.equal(a, d)
+
+
+@pytest.mark.cuda
+def test_ssd_under_grad_refuses_what_its_backward_lacks(card):
+    """A chunk whose gradient pass would not fit a block's shared memory
+    (1024 at P = N = 256) raises before the forward runs."""
+    leaves, operands, _, _ = ssd_bwd_case((1, 1100, 2, 256, 256, 1024, False), torch.bfloat16,
+                                          card, False)
+    before = ssd_ops.KERNEL.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ssd_ops.ssd(*operands(leaves[0].requires_grad_(True), *leaves[1:]), chunk=1024)
+    assert ssd_ops.KERNEL.launches == before
+
+
 @pytest.mark.cuda
 def test_ssd_and_paged_refuse_gradients_on_the_card(card):
-    """Neither has a backward kernel: under grad they raise rather than
-    return a result that autograd would not differentiate."""
+    """The SSD scan has a backward kernel: under grad it returns a result
+    with an autograd node, whose backward launches that kernel once, and
+    under ``no_grad`` the forward alone. Paged attention has none: under
+    grad it raises rather than return a result that autograd would not
+    differentiate."""
     rng = np.random.default_rng(4)
     x, dt, A, B, C = ssd_inputs(rng, 1, 128, card)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssd_ops.ssd(x.requires_grad_(True), dt, A, B, C, chunk=64)
+    before = (ssd_ops.KERNEL.launches, ssd_ops.KERNEL.backward_launches)
+    y, _ = ssd_ops.ssd(x.requires_grad_(True), dt, A, B, C, chunk=64)
+    assert y.grad_fn is not None
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    assert x.grad is not None and x.grad.shape == x.shape
+    assert (ssd_ops.KERNEL.launches, ssd_ops.KERNEL.backward_launches) == (
+        before[0] + 1, before[1] + 1)
     with torch.no_grad():
         y, _ = ssd_ops.ssd(x, dt, A, B, C, chunk=64)
         assert y.grad_fn is None
+    assert ssd_ops.KERNEL.backward_launches == before[1] + 1
     q = randn(rng, (2, 16, 64), torch.bfloat16, card).requires_grad_(True)
     pages = randn(rng, (8, 16, 16, 64), torch.bfloat16, card)
     table = torch.arange(8, dtype=torch.int32, device=card).view(2, 4)

@@ -137,6 +137,28 @@ def test_adamw_matches_the_reference(pdt, bf16_moments, count):
             np.testing.assert_array_equal(bits(got), bits(want), err_msg=f"{key}.{name}")
 
 
+@pytest.mark.parametrize("pdt,bf16_moments", [(jnp.bfloat16, False), (jnp.float32, False),
+                                              (jnp.bfloat16, True)],
+                         ids=["bf16", "f32", "bf16_moments"])
+def test_adamw_in_pieces_gives_the_bits_of_the_whole(monkeypatch, pdt, bf16_moments):
+    """A leaf larger than ``_CHUNK_ELEMENTS`` is updated a slice range at
+    a time (to bound the f32 temporaries on the card); the update is
+    elementwise, so the pieces give the whole leaf's bits."""
+    from repro_torch.train import optimizer
+
+    jp, jg, jopt = _opt_inputs(5, pdt, bf16_moments, 3)
+    runs = []
+    for limit in (optimizer._CHUNK_ELEMENTS, 100):
+        monkeypatch.setattr(optimizer, "_CHUNK_ELEMENTS", limit)
+        params, grads, opt = _torch_tree(jp), _torch_tree(jg), _torch_tree(jopt)
+        adamw_update(grads, opt, params, lr=1e-3)
+        runs.append(flatten_tree({"p": params, "m": opt["m"], "v": opt["v"]}))
+    assert len(optimizer._chunks(torch.zeros(3, 16, 24))) == 3      # 384 per slice > 100
+    assert len(optimizer._chunks(torch.zeros(64, 96))) == 64
+    for (name, whole), (_, pieces) in zip(*runs):
+        np.testing.assert_array_equal(bits(pieces), bits(whole), err_msg=name)
+
+
 def test_describe_opt_state_mirrors_the_reference():
     for bf16 in (False, True):
         cfg = get_config("qwen1.5-0.5b").reduced(bf16_moments=bf16)
