@@ -135,21 +135,25 @@ on failure (a failure exits non-zero and prints no final line):
    version (autograd through ``ssd_reference`` in f32) at the reference's
    shapes, mamba2's training shape (bf16 slices of one fused tensor), a
    ragged S = 1000, one chunk and zamba2's N = 64, in f32 and bf16, with
-   and without a final-state cotangent, each band shown to reject the
-   passes' plain version without the reverse state pass, the carried
-   state, the decay's gradient or the causal mask, two calls equal bit
-   for bit on either forward route; at mamba2's shape with dt as random
+   and without a final-state cotangent, each on the backward route it
+   must take (the tensor cores for bf16 at mamba2's and zamba2's widths,
+   the CUDA cores for f32 and the reference's widths), each band shown to
+   reject the passes' plain version without the reverse state pass, the
+   carried state, the decay's gradient or the causal mask, two calls
+   equal bit for bit on either route; at mamba2's shape with dt as random
    full-width weights give it, where autograd through ``ssd_reference``
-   turns NaN, held to the passes' plain version and finite; its time
-   beside its bound; reduced mamba2's and zamba2's loss and gradients on
+   turns NaN, held to the passes' plain version and finite; its time on
+   both routes, pass by pass, beside its bound; reduced mamba2's and
+   zamba2's loss and gradients on
    the card against the CPU; then
    ``mamba2-2.7b`` and ``zamba2-2.7b`` at full width and depth trained
    for 3 steps through the launcher (seed-0 weights drawn on the card, 2
    microbatches of 2 x 1024 tokens, lr 1e-4, remat): losses finite and
    the last below the first, the
    SSD forward launched 2 x mamba layers x microbatches x steps times and
-   its backward mamba layers x microbatches x steps (zamba2's shared
-   block: flash likewise per group, backwards on the CUDA cores), peak
+   its backward mamba layers x microbatches x steps, every one on the
+   tensor cores (zamba2's shared block: flash likewise per group,
+   backwards on the CUDA cores), peak
    memory, one step's host-clock and device time and the SSD backward's
    share;
 10. the library yardstick of gemma2's local layer, compiled
@@ -506,7 +510,8 @@ def build_kernels():
     flash = flash_ops.KERNEL.load()
     bwd = flash_ops.KERNEL.backward_kernel.load()
     ssd_smem = ssd_ops.KERNEL.load().ssd_smem(m["p"], m["n"], m["chunk"])
-    ssd_bwd_smem = ssd_ops.KERNEL.backward_kernel.load().ssd_bwd_smem(m["p"], m["n"], m["chunk"])
+    ssd_bwd = ssd_ops.KERNEL.backward_kernel.load()
+    ssd_bwd_smem = [ssd_bwd.ssd_bwd_smem(m["p"], m["n"], m["chunk"], r) for r in (0, 1)]
     log("dynamic shared memory a block: paged_attention split pass (4 warps, G=1, D=64, "
         f"T=16, bf16) {paged_ops.KERNEL.load().paged_attention_decode_smem(1, 64, 16, 1)} B; "
         f"flash_attention f32 D=64 {flash.flash_attention_smem(64)} B, D=128 "
@@ -521,8 +526,8 @@ def build_kernels():
         f"B; CUDA cores D=64 {bwd.flash_attention_bwd_smem(64)} B, D=160 "
         f"{bwd.flash_attention_bwd_smem(160)} B, D=256 {bwd.flash_attention_bwd_smem(256)} B; "
         f"ssd CUDA-core kernel (P={m['p']}, "
-        f"N={m['n']}, Q={m['chunk']}) {ssd_smem} B, its backward's gradient pass "
-        f"{ssd_bwd_smem} B")
+        f"N={m['n']}, Q={m['chunk']}) {ssd_smem} B, its backward's largest block: CUDA "
+        f"cores {ssd_bwd_smem[0]} B, tensor cores {ssd_bwd_smem[1]} B")
 
 
 # ------------------------------------------------------------ phase 2: paged
@@ -2855,8 +2860,9 @@ SSD_BWD_CASES = {
     "one chunk S=128": (1, 128, 80, 64, 128, 128, False),
     "zamba2 N=64": (2, 1024, 80, 64, 64, 128, True),
 }
-#: the backward's five kernels a call: the chunk pass, the state pass, the
-#: gradient pass and the reductions over heads and over chunks
+#: the backward's five kernels a call, on either route: the chunk pass, the
+#: state pass, the gradient pass and the reductions over heads and over
+#: chunks
 SSD_BWD_KERNELS = ("ssd_bwd_",)
 #: the mamba2 and zamba2 training runs: the launcher's flags (seed-0 weights
 #: drawn on the card, no checkpoint), 2 microbatches of 2 x 1024 tokens. lr
@@ -3048,6 +3054,16 @@ SSD_BWD_DROPS = {
 }
 
 
+def ssd_bwd_route(c, dtype) -> str:
+    """The route the SSD backward must take on a case's operands: the
+    tensor cores for bf16 at P and N multiples of 16 and a chunk that is a
+    multiple of 64 (every case here is aligned and fits a block), else the
+    CUDA cores."""
+    _, _, _, p, n, chunk, _ = c
+    tc = dtype == torch.bfloat16 and p % 16 == 0 and n % 16 == 0 and chunk % 64 == 0
+    return "tensor_core" if tc else "cuda_core"
+
+
 def check_ssd_bwd_cases() -> dict:
     """The SSD backward kernel through ``ssd`` under autograd against its
     plain version (autograd through ``ssd_reference`` in f32) on each case,
@@ -3056,8 +3072,9 @@ def check_ssd_bwd_cases() -> dict:
     dropped: the reverse state pass (where there is an inter-chunk gradient
     or a final-state cotangent), the carried state (more than one chunk),
     the decay's gradient and the causal mask. Two calls on one input equal
-    bit for bit, on inputs whose forward takes either route, and equal to a
-    direct call of the backward kernel. Returns the largest error
+    bit for bit, on inputs whose forward and backward take either route,
+    and equal to a direct call of the backward kernel. Each case asserts
+    its backward's route (``ssd_bwd_route``). Returns the largest error
     (relative to each gradient's largest entry) and the cases' routes."""
     from repro_torch.kernels.ssd import ops, ref
 
@@ -3070,6 +3087,8 @@ def check_ssd_bwd_cases() -> dict:
                 leaves, operands, dy, dfinal = ssd_bwd_case(c, dtype, with_dfinal, seed=21)
                 before = (ops.KERNEL.launches, ops.KERNEL.backward_launches,
                           dict(ops.KERNEL.routes))
+                bwd_route = ssd_bwd_route(c, dtype)
+                routed = ops.KERNEL.backward_kernel.routes[bwd_route]
                 got = ssd_kernel_grads(leaves, operands, dy, dfinal, chunk)
                 torch.cuda.synchronize()
                 fwd_route = next((r for r, n in ops.KERNEL.routes.items()
@@ -3078,6 +3097,9 @@ def check_ssd_bwd_cases() -> dict:
                         before[0] + 1, before[1] + 1):
                     raise AssertionError(f"ssd backward {name}: not one forward and one "
                                          "backward launch")
+                if DEVICE == "cuda" and ops.KERNEL.backward_kernel.routes[bwd_route] != routed + 1:
+                    raise AssertionError(f"ssd backward {name} {dtype}: the backward did not "
+                                         f"take its {bwd_route} route")
                 ops_ = operands(*leaves)
                 want = ref.ssd_bwd_ref(*ops_, dy, dfinal, chunk=chunk)
                 drops = {f: (kw, grads) for f, (kw, grads) in SSD_BWD_DROPS.items()
@@ -3086,8 +3108,9 @@ def check_ssd_bwd_cases() -> dict:
                 wrong = {f: ref.ssd_backward_passes_ref(*ops_, dy, dfinal, chunk=chunk, **kw)
                          for f, (kw, _) in drops.items()}
                 tag = (f"{str(dtype).removeprefix('torch.')} "
-                       f"{'dfinal' if with_dfinal else 'no dfinal'} forward {fwd_route}")
-                routes_seen[f"{name} {tag}"] = fwd_route
+                       f"{'dfinal' if with_dfinal else 'no dfinal'} forward {fwd_route} "
+                       f"backward {bwd_route}")
+                routes_seen[f"{name} {tag}"] = (fwd_route, bwd_route)
                 for i, grad in enumerate(("x", "dt", "A", "B", "C")):
                     sc = want[i].abs().max()
                     case = f"ssd backward {name} d{grad} {tag}"
@@ -3097,24 +3120,33 @@ def check_ssd_bwd_cases() -> dict:
                     check_band_binds(case, want[i] / sc,
                                      {f: w[i].float() / sc for f, w in wrong.items()
                                       if grad in drops[f][1].split()}, tol)
-    # bit for bit: bf16 slices of the fused tensor (the forward on the
-    # tensor cores) and f32 (the forward on the CUDA cores)
+    # bit for bit: bf16 slices of the fused tensor (the forward and the
+    # backward on the tensor cores) and f32 (both on the CUDA cores); the
+    # three calls of a dtype take one backward route, asserted
     repeat = {}
     for dtype in (torch.bfloat16, torch.float32):
         c = SSD_BWD_CASES["mamba2_train"]
         leaves, operands, dy, dfinal = ssd_bwd_case(c, dtype, True, seed=22)
         before = dict(ops.KERNEL.routes)
+        bwd_route = ssd_bwd_route(c, dtype)
+        routed = ops.KERNEL.backward_kernel.routes[bwd_route]
         first = ssd_kernel_grads(leaves, operands, dy, dfinal, c[5])
         second = ssd_kernel_grads(leaves, operands, dy, dfinal, c[5])
         direct = ops.KERNEL.backward(*operands(*leaves), dy, dfinal, chunk=c[5])
         torch.cuda.synchronize()
         route = next((r for r, n in ops.KERNEL.routes.items() if n != before[r]), None)
+        if DEVICE == "cuda" and ops.KERNEL.backward_kernel.routes[bwd_route] != routed + 3:
+            raise AssertionError(f"the repeated SSD backwards ({dtype}) did not all take "
+                                 f"the {bwd_route} route")
         equal = all(torch.equal(a, b) and torch.equal(a, d)
                     for a, b, d in zip(first, second, direct))
-        repeat[str(dtype).removeprefix("torch.")] = dict(forward_route=route, bit_equal=equal)
+        repeat[str(dtype).removeprefix("torch.")] = dict(forward_route=route,
+                                                         backward_route=bwd_route,
+                                                         bit_equal=equal)
         if not equal:
-            raise AssertionError(f"two SSD backward calls differ ({dtype}, forward {route})")
-    rec = dict(max_rel_err=worst, repeat=repeat)
+            raise AssertionError(f"two SSD backward calls differ ({dtype}, forward {route}, "
+                                 f"backward {bwd_route})")
+    rec = dict(max_rel_err=worst, repeat=repeat, routes=routes_seen)
     log("ssd backward cases " + json.dumps(rec))
     return rec
 
@@ -3136,7 +3168,11 @@ def check_ssd_bwd_large_decay() -> dict:
         rng = np.random.default_rng(25)
         leaves[-2] = torch.nn.functional.softplus(randn_dev(rng, tuple(leaves[-2].shape),
                                                             torch.float32))
+        bwd_route = ssd_bwd_route(c, dtype)
+        routed = ops.KERNEL.backward_kernel.routes[bwd_route]
         got = ssd_kernel_grads(leaves, operands, dy, None, c[5])
+        if DEVICE == "cuda" and ops.KERNEL.backward_kernel.routes[bwd_route] != routed + 1:
+            raise AssertionError(f"ssd backward large decay {dtype}: not on {bwd_route}")
         ops_ = operands(*leaves)
         want = ref.ssd_backward_passes_ref(*ops_, dy, None, chunk=c[5])
         autograd_nan = sum(int(torch.isnan(g).sum()) for g in ref.ssd_bwd_ref(*ops_, dy, None,
@@ -3148,7 +3184,7 @@ def check_ssd_bwd_large_decay() -> dict:
             sc = want[i].float().abs().max()
             check_close(f"ssd backward large decay d{grad} {dtype_name} vs the passes' plain "
                         "version", got[i] / sc, want[i].float() / sc, tol)
-        rec[dtype_name] = dict(autograd_nan_entries=autograd_nan,
+        rec[dtype_name] = dict(backward_route=bwd_route, autograd_nan_entries=autograd_nan,
                                max_chunk_decay=float((leaves[-2] * leaves[-1].abs()).reshape(
                                    c[0], -1, c[5], c[2]).sum(2).max()))
     log("ssd backward large decay " + json.dumps(rec))
@@ -3186,12 +3222,14 @@ def ssd_bwd_bound(b, S, h, p, n, Q, with_dfinal: bool) -> dict:
 def time_ssd_bwd() -> dict:
     """The backward kernel at mamba2's training shape (a microbatch of 2 x
     1024 tokens, bf16 slices of the fused tensor, no final-state
-    cotangent, as training calls it): events and device time a call (the
-    profiler's, all five kernels, and CUDA events behind a spin kernel),
-    the forward's device time on the same input (behind a spin kernel),
-    the plain backward's time, the bound. The profiler's time is the sum of
-    per-instance means (``device_ms_by_instance``). No single PyTorch call
-    computes the scan's backward, so there is no library time."""
+    cotangent, as training calls it), on the route training takes (tensor
+    cores) and forced onto the CUDA cores on the same input: events and
+    device time a call (the profiler's, all five kernels by pass, and CUDA
+    events behind a spin kernel), the forward's device time on the same
+    input (behind a spin kernel), the plain backward's time, the bound. The
+    profiler's time is the sum of per-instance means
+    (``device_ms_by_instance``). No single PyTorch call computes the scan's
+    backward, so there is no library time."""
     from repro_torch.kernels.ssd import ops, ref
 
     c = SSD_BWD_CASES["mamba2_train"]
@@ -3199,17 +3237,27 @@ def time_ssd_bwd() -> dict:
     leaves, operands, dy, _ = ssd_bwd_case(c, torch.bfloat16, False, seed=23)
     args = operands(*leaves)
 
-    def kernel():
-        return ops.KERNEL.backward(*args, dy, None, chunk=Q)
+    def kernel(route=None):
+        return ops.KERNEL.backward(*args, dy, None, chunk=Q, route=route)
 
-    def kernel_calls():
+    def kernel_calls(route=None):
         for _ in range(10):
-            kernel()
+            kernel(route)
 
+    routes = dict(ops.KERNEL.backward_kernel.routes)
+    kernel()
+    if DEVICE == "cuda" and (ops.KERNEL.backward_kernel.routes["tensor_core"]
+                             != routes["tensor_core"] + 1):
+        raise AssertionError("the timed SSD backward did not take the tensor-core route")
+    cuda_core = device_ms_by_instance(lambda: kernel_calls("cuda_core"), SSD_BWD_KERNELS, 5)
     return dict(B=b, S=S, H=h, P=p, N=n, chunk=Q, dtype="bfloat16", fused_slices=True,
-                ms=time_call(kernel, 10),
+                route="tensor_core", ms=time_call(kernel, 10),
                 **device_ms_by_instance(kernel_calls, SSD_BWD_KERNELS, 5),
                 device_ms_behind_spin=device_ms_behind_spin(kernel, 20),
+                cuda_core_device_ms=cuda_core["device_ms"],
+                cuda_core_device_kernels_ms=cuda_core["device_kernels_ms"],
+                cuda_core_device_ms_behind_spin=device_ms_behind_spin(
+                    lambda: kernel("cuda_core"), 5),
                 forward_device_ms_behind_spin=device_ms_behind_spin(
                     lambda: ops.KERNEL(*args, chunk=Q), 20),
                 plain_ms=time_call(lambda: ref.ssd_bwd_ref(*args, dy, None, chunk=Q), 3),
@@ -3396,7 +3444,8 @@ def train_ssm(arch: str) -> dict:
     recomputes each block's forward in the backward), its backward mamba
     layers x microbatches x steps; for the hybrid, the shared block's flash
     forward and backward likewise per group, every backward on the CUDA
-    cores (D = 160); peak memory; then one step's time on the host clock
+    cores (D = 160); every SSD backward on the tensor cores; peak memory;
+    then one step's time on the host clock
     and on the device, and the SSD backward's share of the device time."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
@@ -3418,7 +3467,8 @@ def train_ssm(arch: str) -> dict:
     for k in counters:
         k.launches = 0
         k.backward_launches = 0
-    for routes in (ssd_ops.KERNEL.routes, flash_ops.KERNEL.backward_kernel.routes):
+    for routes in (ssd_ops.KERNEL.routes, ssd_ops.KERNEL.backward_kernel.routes,
+                   flash_ops.KERNEL.backward_kernel.routes):
         routes.update(dict.fromkeys(routes, 0))
     t0 = time.perf_counter()
     state = launch_train.train(trainer, state)
@@ -3438,6 +3488,7 @@ def train_ssm(arch: str) -> dict:
                ssd_launches=ssd_ops.KERNEL.launches,
                ssd_routes=dict(ssd_ops.KERNEL.routes),
                ssd_backward_launches=ssd_ops.KERNEL.backward_launches,
+               ssd_backward_routes=dict(ssd_ops.KERNEL.backward_kernel.routes),
                ssd_launches_expected=2 * cfg.num_layers * runs,
                ssd_backward_launches_expected=cfg.num_layers * runs,
                peak_gib=peak)
@@ -3463,6 +3514,9 @@ def train_ssm(arch: str) -> dict:
             if f"{k}_expected" in rec}
         if any(rec[k] != v for k, v in want.items()):
             raise AssertionError(f"{arch}: launches { {k: rec[k] for k in want} } against {want}")
+        if rec["ssd_backward_routes"]["tensor_core"] != rec["ssd_backward_launches"]:
+            raise AssertionError(f"{arch}: the SSD backwards did not all take the tensor "
+                                 f"cores: {rec['ssd_backward_routes']}")
         if groups and rec["flash_backward_routes"]["cuda_core"] != groups * runs:
             raise AssertionError(f"{arch}: the D = 160 flash backwards did not all take the "
                                  f"CUDA cores: {rec['flash_backward_routes']}")
@@ -3752,6 +3806,8 @@ def main(argv=None) -> int:
                              "kernel has no backward",
             "launches": train_mamba2["ssd_backward_launches"],
             "launches_zamba2_training": train_zamba2["ssd_backward_launches"],
+            "launches_by_route": train_mamba2["ssd_backward_routes"],
+            "launches_zamba2_training_by_route": train_zamba2["ssd_backward_routes"],
             "max_abs_err": ssd_bwd["max_rel_err"],
             "max_abs_err_note": "relative to each gradient's largest entry",
             "ms": ssd_bwd_timing["ms"],
@@ -3759,12 +3815,15 @@ def main(argv=None) -> int:
             "device_ms_behind_spin": ssd_bwd_timing["device_ms_behind_spin"],
             "device_kernels_ms": ssd_bwd_timing["device_kernels_ms"],
             "kernel_ms": ssd_bwd_timing["ms"],
+            "cuda_core_device_ms": ssd_bwd_timing["cuda_core_device_ms"],
+            "cuda_core_device_kernels_ms": ssd_bwd_timing["cuda_core_device_kernels_ms"],
             "plain_ms": ssd_bwd_timing["plain_ms"],
             "bound_ms": ssd_bwd_timing["bound_ms"],
             "bound_by": ssd_bwd_timing["bound_by"],
             "library_ms": None,
             "library_note": ssd_bwd_timing["library_note"],
-            "shape": {k: ssd_bwd_timing[k] for k in ("B", "S", "H", "P", "N", "chunk", "dtype")},
+            "shape": {k: ssd_bwd_timing[k] for k in ("B", "S", "H", "P", "N", "chunk", "dtype",
+                                                     "route")},
         },
     ]}
     log(json.dumps(kernels))

@@ -1,11 +1,12 @@
 """Build a kernel's CUDA source into a shared library with ``nvcc``.
 
 Every kernel of the port is one ``csrc/*.cu`` file with a plain C
-interface, compiled alone for ``sm_90a`` at its first launch and loaded
-with ``ctypes``. The library lands in the kernel's ``build/`` directory
-(listed in ``.gitignore``) under a name that carries a hash of the source
-and flags, so an edit rebuilds and an unchanged source loads what an
-earlier call built. Nothing here runs at import time.
+interface (it may include ``*.cuh`` headers beside it), compiled alone
+for ``sm_90a`` at its first launch and loaded with ``ctypes``. The
+library lands in the kernel's ``build/`` directory (listed in
+``.gitignore``) under a name that carries a hash of the source, its
+headers and the flags, so an edit rebuilds and an unchanged source loads
+what an earlier call built. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -37,7 +38,11 @@ def nvcc_path() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path: the hash covers the source, the headers beside it
+    (``*.cuh``, which a source includes) and the flags."""
+    headers = sorted(source.parent.glob("*.cuh"))
+    digest = hashlib.sha256(b"".join(h.read_bytes() for h in (source, *headers))
+                            + " ".join(NVCC_FLAGS).encode())
     return source.parent.parent / "build" / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
 
 

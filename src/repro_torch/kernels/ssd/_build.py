@@ -45,9 +45,10 @@ def load_bwd() -> tuple[ctypes.CDLL, str]:
         i32, i32, i32, i32, i32, i32,           # B S H P N Q
         i32, i32,                               # dtypes of x (and dy) and B/C
         ctypes.POINTER(ctypes.c_longlong),      # 12 strides: x (b, s, h), dt, B, C (b, s), dy
+        i32,                                    # route
         ptr,                                    # stream
     ]
     lib.ssd_bwd.restype = i32
-    lib.ssd_bwd_smem.argtypes = [i32, i32, i32]
+    lib.ssd_bwd_smem.argtypes = [i32, i32, i32, i32]   # P N Q route
     lib.ssd_bwd_smem.restype = ctypes.c_size_t
     return lib, output

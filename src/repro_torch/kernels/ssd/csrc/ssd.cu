@@ -50,9 +50,10 @@
 //      accumulator of two 8-key tiles is the A fragment of one 16-key step.
 //      The state is staged after the first term, into the shared memory
 //      that B and x held.
-// Products are `mma.sync.m16n8k16` bf16 -> f32 from `ldmatrix` fragments
-// of padded shared rows (16 bytes of padding put the eight rows an
-// `ldmatrix` reads in distinct banks), loaded with 16-byte `cp.async`
+// Products are `mma.sync.m16n8k16` bf16 -> f32 (helpers in ssd_mma.cuh,
+// shared with the backward) from `ldmatrix` fragments of padded shared
+// rows (16 bytes of padding put the eight rows an `ldmatrix` reads in
+// distinct banks), loaded with 16-byte `cp.async`
 // (zero-filled past S). x, B and C are operands as they come. The three
 // operands computed in f32 (B ∘ dt·exp(total - cum), the masked scores
 // times dt, the carried state) enter as two bf16 products, hi = bf16(v)
@@ -95,6 +96,8 @@
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "ssd_mma.cuh"
 
 namespace {
 
@@ -317,52 +320,6 @@ struct TcParams {
   int p_splits;
   Strides st;
 };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
-               "l"(gmem), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-// wait until at most N of this thread's newest copy groups are in flight
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-// c += a · b, m16n8k16, bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// (v0, v1) as two bf16 pairs: hi = bf16(v), lo = bf16(v - hi)
-__device__ __forceinline__ void split_bf16(float v0, float v1, __nv_bfloat162& hi,
-                                           __nv_bfloat162& lo) {
-  hi = __floats2bfloat162_rn(v0, v1);
-  const float2 h = __bfloat1622float2(hi);
-  lo = __floats2bfloat162_rn(v0 - h.x, v1 - h.y);
-}
-__device__ __forceinline__ void split_pack(float v0, float v1, uint32_t& hi, uint32_t& lo) {
-  __nv_bfloat162 h, l;
-  split_bf16(v0, v1, h, l);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = *reinterpret_cast<uint32_t*>(&l);
-}
 
 // cum_s[q] = dt_s[0] a + ... + dt_s[q] a over the chunk, by warp 0: each lane
 // sums a run, then a shuffle scan adds the runs before it

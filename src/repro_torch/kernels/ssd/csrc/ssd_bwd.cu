@@ -20,9 +20,17 @@
 //           ddt += A·da, dA = Σ dt·da
 //   dh_in = exp(T) dh_out + Σ_i exp(cum_i) dy_i ⊗ C_i   (reverse over chunks)
 //
-// Passes, all launched by the one C entry point below, deterministic (no
-// atomics: every sum runs in a fixed order), products in f32 on CUDA cores
-// from the operands as they come (bf16 or f32):
+// Two routes, chosen by the wrapper from dtypes, shapes and alignment
+// (ops._bwd_route), both launched by the one C entry point below and
+// deterministic (no atomics: every sum runs in a fixed order). Both write
+// the same workspace in the same four steps: the chunks' states and shares
+// of dh, the states carried forward and their gradients backward, the
+// gradients of each (row, chunk, head), and the sums over heads and
+// chunks.
+//
+// cuda_core (f32 or mixed dtypes, other widths or chunks, unaligned rows;
+// the first version): products in f32 on CUDA cores from the operands as
+// they come (bf16 or f32):
 //   1. `ssd_bwd_chunk_kernel`, one block a (tile of 32 x 64 of the [P, N]
 //      state, chunk, row, head, mode): cum (a warp scan, written to the
 //      workspace) and either the chunk's own state Σ_j exp(T - cum_j) u_j ⊗
@@ -42,6 +50,47 @@
 //      scan), ddt, dx, and the head's share of dA; dB and dC a head's own.
 //   4. `ssd_bwd_reduce_kernel` sums dB and dC over the heads in order,
 //      `ssd_bwd_reduce_da_kernel` dA over rows and chunks in order.
+//
+// tensor_core (bf16 x, dy, B and C with 16-byte aligned rows, P and N
+// multiples of 16 up to 256, Q a multiple of 64 up to 256, a working set
+// that fits a block): the same steps on `mma.sync.m16n8k16` (bf16 in, f32
+// accumulate; helpers in ssd_mma.cuh, shared with the forward), from
+// `ldmatrix` fragments of padded shared rows loaded with 16-byte
+// `cp.async`:
+//   1. `ssd_bwd_chunk_tc_kernel`: the forward's chunk pass with other row
+//      weights, for both the state (x, B ∘ dt·exp(T - cum)) and the share
+//      of dh (dy, C ∘ exp(cum)).
+//   2. `ssd_bwd_state_tc_kernel`: step 2 in float4, each thread with
+//      several chunks' loads in flight.
+//   3. `ssd_bwd_grad_tc_kernel`: one block a (row, chunk, head) holding the
+//      chunk's C, B, x and dy, warps of 16 rows, the two sweeps with the
+//      scores in registers (sweep B's transposed, so a warp's rows are its
+//      keys) and the state terms' states staged as hi + lo pairs.
+//   4. the same sums.
+// The operands computed in f32 (the weighted B and C rows, the masked
+// scores W = (C·Bᵀ) ∘ L and V = (dy·xᵀ) ∘ dt_j ∘ L, the carried states and
+// their gradients) enter the products as hi + lo bf16 pairs, ~16 bits of
+// mantissa where one bf16 rounding keeps 8; x, dy, B and C enter as they
+// come, so C·Bᵀ and dy·xᵀ are exact products summed in f32, and dt enters
+// as an f32 scale of rows or columns, never through u = dt·x.
+// ../ref.py `ssd_backward_passes_ref(split_operands=True)` is this route in
+// plain PyTorch.
+//   The gradient pass's block holds ~142 KB of shared memory and 225
+// registers a thread at mamba2's widths: one block of 8 warps an SM. Two
+// sweeps in one block (not two kernels) because a warp that owns row tile
+// w walks w + 1 key tiles in sweep A and 8 - w query tiles in sweep B, 9
+// in all for every warp, and the chunk's operands are loaded once; more
+// than one block an SM would need both halves of that: under ~113 KB and
+// 128 registers, which the accumulators of sweep B (du and dB, 96 f32 a
+// thread) do not leave. P and N are compile-time constants at mamba2's and
+// zamba2's widths, which unrolls the products' loops (0.47 -> 0.30 ms at
+// mamba2's training shape on the H100, chip_smoke's `ssd_bwd timing`).
+//
+// What bounds it: operations, at the bf16 tensor-core peak: at mamba2's
+// training shape (B = 2, S = 1024, 80x64, N = 128, chunk 128) ~22.6 GFLOP,
+// 0.023 ms, against 66 MB of operands and gradients (0.020 ms); the passes
+// also move ~0.3 GB of f32 states, gradients and per-head partial sums
+// through the workspace.
 // Positions past S are the forward's zero padding (dt = x = B = C = 0, and
 // dy = 0): they contribute nothing, and their gradients are not written.
 //
@@ -59,6 +108,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "ssd_mma.cuh"
 
 namespace {
 
@@ -655,31 +708,829 @@ cudaError_t dispatch_bc(int bc_dtype, const void* x, const void* dt, const void*
   }
 }
 
+
+// ------------------------------------------------------------ tensor cores
+typedef __nv_bfloat16 bf16;
+constexpr int kTcChunkWarps = 8;  // chunk pass
+constexpr int kTcChunkThreads = 32 * kTcChunkWarps;
+constexpr int kTcChunkCols = 64;  // the widest column range of N a chunk-pass block covers
+constexpr int kTcGradWarps = 8;   // the most warps of a gradient-pass block
+constexpr int kTcDuCols = 64;     // columns of P a du accumulator holds
+constexpr float kLog2e = 1.4426950408889634f;
+
+// columns of N a chunk-pass block covers: the widest multiple of 16 that
+// divides N, at most kTcChunkCols
+__host__ __device__ inline int tc_chunk_cols(int N) {
+  for (int w = kTcChunkCols; w > 16; w -= 16)
+    if (N % w == 0) return w;
+  return 16;
+}
+
+// a float4 of an f32 state into the hi and lo bf16 rows at `off`
+__device__ __forceinline__ void stage_split4(const float4 v, bf16* hi_s, bf16* lo_s, int off) {
+  __nv_bfloat162 h0, l0, h1, l1;
+  split_bf16(v.x, v.y, h0, l0);
+  split_bf16(v.z, v.w, h1, l1);
+  __nv_bfloat162* hp = reinterpret_cast<__nv_bfloat162*>(hi_s + off);
+  __nv_bfloat162* lp = reinterpret_cast<__nv_bfloat162*>(lo_s + off);
+  hp[0] = h0;
+  hp[1] = h1;
+  lp[0] = l0;
+  lp[1] = l1;
+}
+
+__device__ __forceinline__ float2 bf2_at(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// the sum of a value over the four lanes of a quad (the lanes that hold one
+// accumulator row), the same tree on every lane
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Pass 1 on tensor cores, grid (N / nw, H, B x C x 2): mode 0 (even z) the
+// chunk's own state xᵀ·(B ∘ dt·exp(T - cum)), mode 1 its share of the
+// state's gradient dyᵀ·(C ∘ exp(cum)), columns [n0, n0 + nw) of the [P, N]
+// slot of (row, chunk, head); mode 0's first range also writes cum. The
+// forward's chunk pass with other row weights: x or dy as they come (A
+// fragments from `ldmatrix.trans`), the f32-weighted B or C rows as hi + lo
+// bf16 pairs. The last chunk's state and the first chunk's share are never
+// read (pass 2 carries neither on), so those blocks compute no product.
+__global__ void __launch_bounds__(kTcChunkThreads) ssd_bwd_chunk_tc_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
+    const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
+    float* __restrict__ cum_ws, float* __restrict__ states, float* __restrict__ dstates, Dims d,
+    Strides st, int nw) {
+  const int h = blockIdx.y, mode = blockIdx.z & 1, bc = blockIdx.z >> 1;
+  const int b = bc / d.C, c = bc % d.C;
+  const bool writes_cum = mode == 0 && blockIdx.x == 0;
+  const bool product = mode == 0 ? c < d.C - 1 : c > 0;
+  if (!product && !writes_cum) return;
+  const int Q = d.Q, P = d.P, N = d.N, n0 = blockIdx.x * nw;
+  const int XR = P + 8, BR = nw + 8;  // padded shared rows, elements
+  const int s0 = c * Q;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* x_s = reinterpret_cast<bf16*>(smem_raw);            // [Q][XR]: x or dy
+  bf16* bhi_s = x_s + Q * XR;                               // [Q][BR]: B or C, then hi
+  bf16* blo_s = bhi_s + Q * BR;                             // [Q][BR]: lo
+  float* cum_s = reinterpret_cast<float*>(blo_s + Q * BR);  // [Q]
+  float* w_s = cum_s + Q;                                   // [Q]: dt, then the row weights
+
+  if (product) {
+    const bf16* src = mode == 0 ? x + b * st.x_b + h * st.x_h : dy + b * st.dy_b + h * st.dy_h;
+    const long long src_s = mode == 0 ? st.x_s : st.dy_s;
+    const bf16* wsrc = mode == 0 ? Bm + b * st.b_b + n0 : Cm + b * st.c_b + n0;
+    const long long wsrc_s = mode == 0 ? st.b_s : st.c_s;
+    for (int i = tid; i < Q * (P / 8); i += kTcChunkThreads) {
+      const int r = i / (P / 8), col = (i - r * (P / 8)) * 8;
+      const bool ok = s0 + r < d.S;
+      cp_async16(x_s + r * XR + col, ok ? src + (long long)(s0 + r) * src_s + col : src, ok);
+    }
+    for (int i = tid; i < Q * (nw / 8); i += kTcChunkThreads) {
+      const int r = i / (nw / 8), col = (i - r * (nw / 8)) * 8;
+      const bool ok = s0 + r < d.S;
+      cp_async16(bhi_s + r * BR + col, ok ? wsrc + (long long)(s0 + r) * wsrc_s + col : wsrc,
+                 ok);
+    }
+    cp_async_commit();
+  }
+  const float* dtb = dt + b * st.dt_b + h;
+  for (int q = tid; q < Q; q += kTcChunkThreads)
+    w_s[q] = s0 + q < d.S ? dtb[(long long)(s0 + q) * st.dt_s] : 0.f;
+  __syncthreads();
+  chunk_cumsum(w_s, A[h], cum_s, Q, tid);
+  __syncthreads();
+  if (writes_cum) {
+    float* cw = cum_ws + ((size_t)bc * d.H + h) * Q;
+    for (int q = tid; q < Q; q += kTcChunkThreads) cw[q] = cum_s[q];
+  }
+  if (!product) return;
+  const float total = cum_s[Q - 1];
+  for (int q = tid; q < Q; q += kTcChunkThreads)
+    w_s[q] = mode == 0 ? w_s[q] * expf(total - cum_s[q]) : expf(cum_s[q]);
+  cp_async_wait<0>();
+  __syncthreads();
+  // the weighted rows as hi + lo bf16 pairs, hi in place
+  for (int i = tid; i < Q * (nw / 2); i += kTcChunkThreads) {
+    const int r = i / (nw / 2), col = (i - r * (nw / 2)) * 2;
+    __nv_bfloat162* hp = reinterpret_cast<__nv_bfloat162*>(bhi_s + r * BR + col);
+    const float2 v = __bfloat1622float2(*hp);
+    const float w = w_s[r];
+    __nv_bfloat162 hi, lo;
+    split_bf16(v.x * w, v.y * w, hi, lo);
+    *hp = hi;
+    *reinterpret_cast<__nv_bfloat162*>(blo_s + r * BR + col) = lo;
+  }
+  __syncthreads();
+
+  // out[p, n] = Σ_q src[q, p] w[q] B[q, n]: a warp takes 16 rows of P by up
+  // to 32 columns at a time (at mamba2's widths every warp has an item)
+  float* out = (mode == 0 ? states : dstates) + ((size_t)bc * d.H + h) * P * N;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int n_tiles = (nw + 31) / 32;
+  for (int item = warp; item < (P / 16) * n_tiles; item += kTcChunkWarps) {
+    const int pt = item / n_tiles, nb = (item - pt * n_tiles) * 32;
+    float acc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int k = 0; k < Q; k += 16) {
+      uint32_t af[4];
+      ldmatrix_x4_trans(af, x_s + (k + (lane & 7) + ((lane >> 4) << 3)) * XR + pt * 16 +
+                                ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (nb + 16 * j < nw) {
+          const int off =
+              (k + (lane & 7) + ((lane >> 3) & 1) * 8) * BR + nb + 16 * j + (lane >> 4) * 8;
+          uint32_t bh[4], bl[4];
+          ldmatrix_x4_trans(bh, bhi_s + off);
+          ldmatrix_x4_trans(bl, blo_s + off);
+          mma_bf16(acc[2 * j], af, bh[0], bh[1]);
+          mma_bf16(acc[2 * j + 1], af, bh[2], bh[3]);
+          mma_bf16(acc[2 * j], af, bl[0], bl[1]);
+          mma_bf16(acc[2 * j + 1], af, bl[2], bl[3]);
+        }
+      }
+    }
+    const int p = pt * 16 + g;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (nb + 8 * j < nw) {
+        const int n = n0 + nb + 8 * j + 2 * t4;
+        *reinterpret_cast<float2*>(out + (size_t)p * N + n) = make_float2(acc[j][0], acc[j][1]);
+        *reinterpret_cast<float2*>(out + (size_t)(p + 8) * N + n) =
+            make_float2(acc[j][2], acc[j][3]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float4 carry_on(float4 carry, float decay, float4 v) {
+  return make_float4(carry.x * decay + v.x, carry.y * decay + v.y, carry.z * decay + v.z,
+                     carry.w * decay + v.w);
+}
+
+// Pass 2 on the tensor cores' route, a thread per 4 state elements of a
+// (row, head), serial over chunks: slot c of `states` becomes the state
+// before chunk c and slot c of `dstates` the gradient of the state after
+// chunk c, as in ssd_bwd_state_kernel, in float4. The last chunk's own
+// state and the first chunk's share of the gradient are not read (pass 1
+// did not compute them). Bound by its bytes: each thread loads the slots of
+// kStateAhead chunks before it stores the first, so that many loads are in
+// flight, not one.
+constexpr int kStateAhead = 4;
+__global__ void __launch_bounds__(kThreads) ssd_bwd_state_tc_kernel(
+    const float* __restrict__ cum_ws, float* __restrict__ states, float* __restrict__ dstates,
+    const float* __restrict__ dfinal, Dims d) {
+  const size_t PN4 = (size_t)d.P * d.N / 4;
+  const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (e >= PN4) return;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto slot = [&](int c) { return ((size_t)b * d.C + c) * d.H + h; };
+  float4* s4 = reinterpret_cast<float4*>(states);
+  float4* ds4 = reinterpret_cast<float4*>(dstates);
+  float4 carry = zero;
+  for (int c0 = 0; c0 < d.C; c0 += kStateAhead) {
+    float4 v[kStateAhead];
+    float decay[kStateAhead];
+#pragma unroll
+    for (int k = 0; k < kStateAhead; ++k) {
+      const int c = c0 + k;
+      const bool read = c < d.C - 1;
+      v[k] = read ? s4[slot(c) * PN4 + e] : zero;
+      decay[k] = read ? expf(cum_ws[slot(c) * d.Q + d.Q - 1]) : 1.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kStateAhead; ++k) {
+      if (c0 + k < d.C) {
+        s4[slot(c0 + k) * PN4 + e] = carry;
+        carry = carry_on(carry, decay[k], v[k]);
+      }
+    }
+  }
+  float4 dcarry = dfinal != nullptr
+                      ? reinterpret_cast<const float4*>(dfinal)[((size_t)b * d.H + h) * PN4 + e]
+                      : zero;
+  for (int c0 = d.C - 1; c0 >= 0; c0 -= kStateAhead) {
+    float4 v[kStateAhead];
+    float decay[kStateAhead];
+#pragma unroll
+    for (int k = 0; k < kStateAhead; ++k) {
+      const int c = c0 - k;
+      const bool read = c > 0;
+      v[k] = read ? ds4[slot(c) * PN4 + e] : zero;
+      decay[k] = read ? expf(cum_ws[slot(c) * d.Q + d.Q - 1]) : 1.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kStateAhead; ++k) {
+      if (c0 - k >= 0) {
+        ds4[slot(c0 - k) * PN4 + e] = dcarry;
+        dcarry = carry_on(dcarry, decay[k], v[k]);
+      }
+    }
+  }
+}
+
+// Pass 3 on tensor cores, one block a (row x chunk, head): the chunk's C, B,
+// x and dy rows in shared memory (16-byte `cp.async`, zero past S), and the
+// state that a sweep's state term reads (h_in, then dh_out) as hi + lo bf16
+// rows. Warps of 16 rows; each owns the same row tiles in both sweeps, in
+// snake order, so every warp covers as many (query, key) tile pairs.
+//   Sweep A holds query rows i and walks the key tiles j <= i: G = C_i·B_jᵀ
+// over N and D' = dy_i·x_jᵀ over P from bf16 fragments (exact products, f32
+// sums), then in registers V = D'·dt_j·L (L = exp(cum_i - cum_j), masked
+// before the exp) and the row sums of M = V∘G; dC += V·B_j with V as a hi +
+// lo A fragment straight from the accumulators. Its state term dy_i·h_in,
+// scaled by exp(cum_i), comes first, and C_i·(that term) gives its dcum
+// share.
+//   Sweep B holds key rows j and walks the query tiles i >= j, with the
+// scores transposed (Gᵀ = B_j·C_iᵀ, D'ᵀ = x_j·dy_iᵀ) so a warp's rows are its
+// keys: Wᵀ = Gᵀ·L and Vᵀ = D'ᵀ·dt_j·L, the row sums of Mᵀ, du += Wᵀ·dy_i and
+// dB += Vᵀ·C_i. Its state terms come first: du = exp(T - cum_j) B_j·dh_outᵀ
+// (and u_j·du, its dcum share) and dB = dt_j exp(T - cum_j) x_j·dh_out, so
+// u = dt·x is never an operand: dt enters as an f32 scale.
+//   dC and dB accumulate WN columns at a time and du 64 (more columns run
+// the sweep again), which keeps a thread's registers under 255. Then the
+// tail: dcum, its reverse prefix sum, ddt, dx = dt·du (x·du reads x, never
+// u / dt) and the head's share of dA. kP and kN, where not 0, fix P and N
+// at compile time (mamba2's and zamba2's widths), so the products' loops
+// unroll and the row strides are constants; 0 reads them from `d`.
+template <int WN, int kP, int kN>
+__global__ void __launch_bounds__(32 * kTcGradWarps) ssd_bwd_grad_tc_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
+    const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
+    const float* __restrict__ cum_ws, const float* __restrict__ states,
+    const float* __restrict__ dstates, int has_dfinal, bf16* __restrict__ dx,
+    float* __restrict__ ddt, float* __restrict__ db_part, float* __restrict__ dc_part,
+    float* __restrict__ da_part, Dims d, Strides st) {
+  constexpr int TN = WN / 8;         // 8-column tiles of a dC or dB accumulator
+  constexpr int TP = kTcDuCols / 8;  // of a du accumulator
+  const int bc = blockIdx.x, b = bc / d.C, c = bc % d.C, h = blockIdx.y;
+  const int Q = d.Q, P = kP > 0 ? kP : d.P, N = kN > 0 ? kN : d.N, s0 = c * Q;
+  const int NR = N + 8, PR = P + 8;  // padded shared rows, elements
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const size_t PN = (size_t)P * N;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* c_s = reinterpret_cast<bf16*>(smem_raw);  // [Q][NR]
+  bf16* b_s = c_s + Q * NR;                       // [Q][NR]
+  bf16* x_s = b_s + Q * NR;                       // [Q][PR]
+  bf16* dy_s = x_s + Q * PR;                      // [Q][PR]
+  bf16* shi_s = dy_s + Q * PR;                    // [P][NR]: h_in, then dh_out, hi
+  bf16* slo_s = shi_s + P * NR;                   // [P][NR]: lo
+  float* cum2_s = reinterpret_cast<float*>(slo_s + P * NR);  // [Q]: cum·log2(e)
+  float* dt_s = cum2_s + Q;                                  // [Q]
+  float* rowm_s = dt_s + Q;                                  // [Q]: Σ_j M_ij
+  float* colm_s = rowm_s + Q;                                // [Q]: Σ_i M_ij
+  float* cterm_s = colm_s + Q;  // [Q]: C_i·exp(cum_i) h_inᵀ dy_i
+  float* s_s = cterm_s + Q;     // [Q]: u_j·exp(T - cum_j) dh_out B_j
+  float* xdu_s = s_s + Q;       // [Q]: x_j·du_j
+  float* red_s = xdu_s + Q;     // [kTcGradWarps]
+
+  const bf16* xb = x + b * st.x_b + h * st.x_h;
+  const bf16* dyb = dy + b * st.dy_b + h * st.dy_h;
+  const bf16* Bb = Bm + b * st.b_b;
+  const bf16* Cb = Cm + b * st.c_b;
+  for (int i = tid; i < Q * (N / 8); i += blockDim.x) {
+    const int r = i / (N / 8), col = (i - r * (N / 8)) * 8;
+    const bool ok = s0 + r < d.S;
+    const long long pos = s0 + r;
+    cp_async16(c_s + r * NR + col, ok ? Cb + pos * st.c_s + col : Cb, ok);
+    cp_async16(b_s + r * NR + col, ok ? Bb + pos * st.b_s + col : Bb, ok);
+  }
+  for (int i = tid; i < Q * (P / 8); i += blockDim.x) {
+    const int r = i / (P / 8), col = (i - r * (P / 8)) * 8;
+    const bool ok = s0 + r < d.S;
+    const long long pos = s0 + r;
+    cp_async16(x_s + r * PR + col, ok ? xb + pos * st.x_s + col : xb, ok);
+    cp_async16(dy_s + r * PR + col, ok ? dyb + pos * st.dy_s + col : dyb, ok);
+  }
+  cp_async_commit();
+  const float* cw = cum_ws + ((size_t)bc * d.H + h) * Q;
+  const float* dtb = dt + b * st.dt_b + h;
+  for (int q = tid; q < Q; q += blockDim.x) {
+    cum2_s[q] = cw[q] * kLog2e;
+    dt_s[q] = s0 + q < d.S ? dtb[(long long)(s0 + q) * st.dt_s] : 0.f;
+    rowm_s[q] = colm_s[q] = cterm_s[q] = s_s[q] = xdu_s[q] = 0.f;
+  }
+  const bool has_h = c > 0;
+  const bool has_dh = c < d.C - 1 || has_dfinal;
+  const float* h_in = states + ((size_t)bc * d.H + h) * PN;
+  const float* dh_out = dstates + ((size_t)bc * d.H + h) * PN;
+  // a [P][N] f32 state as hi + lo rows; returns this thread's share of
+  // Σ state ∘ other (other: null for none), in a fixed order
+  auto stage = [&](const float* src, const float* other) {
+    float part = 0.f;
+    for (int i = tid; i < P * (N / 4); i += blockDim.x) {
+      const int r = i / (N / 4), col = (i - r * (N / 4)) * 4;
+      const float4 v = reinterpret_cast<const float4*>(src)[i];
+      if (other != nullptr) {
+        const float4 o = reinterpret_cast<const float4*>(other)[i];
+        part += v.x * o.x + v.y * o.y + v.z * o.z + v.w * o.w;
+      }
+      stage_split4(v, shi_s, slo_s, r * NR + col);
+    }
+    return part;
+  };
+  if (has_h) stage(h_in, nullptr);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int per_warp = (Q / 16) / warps;
+  auto row_tile = [&](int k) { return 16 * (k * warps + ((k & 1) ? warps - 1 - warp : warp)); };
+  const int n_passes = (N + WN - 1) / WN, p_passes = (P + kTcDuCols - 1) / kTcDuCols;
+  // lane offsets of `ldmatrix` fragments: A from [row][k] rows, B from [n][k]
+  // rows, B from [k][n] rows (`.trans`)
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
+  const int t_row = (lane & 7) + ((lane >> 3) & 1) * 8, t_col = (lane >> 4) * 8;
+
+  // ---- sweep A: a warp's query tiles, the key tiles at or below them
+  for (int pa = 0; pa < n_passes; ++pa) {
+    const int n0 = pa * WN;
+    for (int k = 0; k < per_warp; ++k) {
+      const int i0 = row_tile(k);
+      if (s0 + i0 >= d.S) continue;
+      const int r0 = i0 + g, r1 = r0 + 8;
+      const float ci0 = cum2_s[r0], ci1 = cum2_s[r1];
+      float acc[TN][4];
+#pragma unroll
+      for (int t = 0; t < TN; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+      float ct0 = 0.f, ct1 = 0.f;
+      if (has_h) {  // exp(cum_i) dy_i·h_in, and C_i·(it) toward dcum_i
+        for (int kp = 0; kp < P; kp += 16) {
+          uint32_t af[4];
+          ldmatrix_x4(af, dy_s + (i0 + a_row) * PR + kp + a_col);
+#pragma unroll
+          for (int dp = 0; dp < TN / 2; ++dp) {
+            if (n0 + 16 * dp < N) {
+              const int off = (kp + t_row) * NR + n0 + 16 * dp + t_col;
+              uint32_t bh[4], bl[4];
+              ldmatrix_x4_trans(bh, shi_s + off);
+              ldmatrix_x4_trans(bl, slo_s + off);
+              mma_bf16(acc[2 * dp], af, bh[0], bh[1]);
+              mma_bf16(acc[2 * dp + 1], af, bh[2], bh[3]);
+              mma_bf16(acc[2 * dp], af, bl[0], bl[1]);
+              mma_bf16(acc[2 * dp + 1], af, bl[2], bl[3]);
+            }
+          }
+        }
+        const float e0 = exp2f(ci0), e1 = exp2f(ci1);
+#pragma unroll
+        for (int t = 0; t < TN; ++t) {
+          if (n0 + 8 * t < N) {
+            const int n = n0 + 8 * t + 2 * t4;
+            acc[t][0] *= e0;
+            acc[t][1] *= e0;
+            acc[t][2] *= e1;
+            acc[t][3] *= e1;
+            const float2 c0 = bf2_at(c_s + r0 * NR + n), c1 = bf2_at(c_s + r1 * NR + n);
+            ct0 += c0.x * acc[t][0] + c0.y * acc[t][1];
+            ct1 += c1.x * acc[t][2] + c1.y * acc[t][3];
+          }
+        }
+      }
+      float rm0 = 0.f, rm1 = 0.f;
+      for (int j0 = 0; j0 <= i0; j0 += 16) {
+        float G[2][4], D[2][4];
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) G[t][e] = D[t][e] = 0.f;
+#pragma unroll
+        for (int kn = 0; kn < N; kn += 16) {
+          uint32_t af[4], bf[4];
+          ldmatrix_x4(af, c_s + (i0 + a_row) * NR + kn + a_col);
+          ldmatrix_x4(bf, b_s + (j0 + b_row) * NR + kn + b_col);
+          mma_bf16(G[0], af, bf[0], bf[1]);
+          mma_bf16(G[1], af, bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int kp = 0; kp < P; kp += 16) {
+          uint32_t af[4], bf[4];
+          ldmatrix_x4(af, dy_s + (i0 + a_row) * PR + kp + a_col);
+          ldmatrix_x4(bf, x_s + (j0 + b_row) * PR + kp + b_col);
+          mma_bf16(D[0], af, bf[0], bf[1]);
+          mma_bf16(D[1], af, bf[2], bf[3]);
+        }
+        // V = D'·dt_j·L, zero where j > i (masked before the exp); M = V·G
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = j0 + 8 * t + 2 * t4 + e;
+            const float cj = cum2_s[j], dj = dt_s[j];
+            const float l0 = j <= r0 ? exp2f(ci0 - cj) : 0.f;
+            const float l1 = j <= r1 ? exp2f(ci1 - cj) : 0.f;
+            const float v0 = D[t][e] * dj * l0, v1 = D[t][2 + e] * dj * l1;
+            rm0 += v0 * G[t][e];
+            rm1 += v1 * G[t][2 + e];
+            D[t][e] = v0;
+            D[t][2 + e] = v1;
+          }
+        uint32_t vh[4], vl[4];
+        split_pack(D[0][0], D[0][1], vh[0], vl[0]);
+        split_pack(D[0][2], D[0][3], vh[1], vl[1]);
+        split_pack(D[1][0], D[1][1], vh[2], vl[2]);
+        split_pack(D[1][2], D[1][3], vh[3], vl[3]);
+        // dC += V·B_j: B_j's rows are the k of this step
+#pragma unroll
+        for (int dp = 0; dp < TN / 2; ++dp) {
+          if (n0 + 16 * dp < N) {
+            uint32_t bf[4];
+            ldmatrix_x4_trans(bf, b_s + (j0 + t_row) * NR + n0 + 16 * dp + t_col);
+            mma_bf16(acc[2 * dp], vh, bf[0], bf[1]);
+            mma_bf16(acc[2 * dp + 1], vh, bf[2], bf[3]);
+            mma_bf16(acc[2 * dp], vl, bf[0], bf[1]);
+            mma_bf16(acc[2 * dp + 1], vl, bf[2], bf[3]);
+          }
+        }
+      }
+      rm0 = quad_sum(rm0);
+      rm1 = quad_sum(rm1);
+      ct0 = quad_sum(ct0);
+      ct1 = quad_sum(ct1);
+      if (t4 == 0) {
+        if (pa == 0) {
+          rowm_s[r0] = rm0;
+          rowm_s[r1] = rm1;
+        }
+        cterm_s[r0] += ct0;
+        cterm_s[r1] += ct1;
+      }
+      float* dcb = dc_part + (((size_t)b * d.S + s0) * d.H + h) * N;
+      const size_t row = (size_t)d.H * N;
+#pragma unroll
+      for (int t = 0; t < TN; ++t) {
+        if (n0 + 8 * t < N) {
+          const int n = n0 + 8 * t + 2 * t4;
+          if (s0 + r0 < d.S)
+            *reinterpret_cast<float2*>(dcb + r0 * row + n) = make_float2(acc[t][0], acc[t][1]);
+          if (s0 + r1 < d.S)
+            *reinterpret_cast<float2*>(dcb + r1 * row + n) = make_float2(acc[t][2], acc[t][3]);
+        }
+      }
+    }
+  }
+
+  // ---- sweep B: a warp's key tiles, the query tiles at or after them
+  __syncthreads();  // every warp is done with h_in
+  float hdh = 0.f;  // Σ dh_out ∘ h_in, in a fixed order
+  {
+    float part = has_dh ? stage(dh_out, has_h ? h_in : nullptr) : 0.f;
+    part = warp_sum(part);
+    if (lane == 0) red_s[warp] = part;
+    __syncthreads();
+    for (int w = 0; w < warps; ++w) hdh += red_s[w];
+  }
+  const float T2 = cum2_s[Q - 1];
+  for (int pb = 0; pb < max(n_passes, p_passes); ++pb) {
+    const bool with_du = pb < p_passes, with_db = pb < n_passes;
+    const int p0 = pb * kTcDuCols, n0 = pb * WN;
+    for (int k = 0; k < per_warp; ++k) {
+      const int j0 = row_tile(k);
+      if (s0 + j0 >= d.S) continue;
+      const int r0 = j0 + g, r1 = r0 + 8;
+      const float cj0 = cum2_s[r0], cj1 = cum2_s[r1];
+      const float dj0 = dt_s[r0], dj1 = dt_s[r1];
+      float du[TP][4], db[TN][4];
+#pragma unroll
+      for (int t = 0; t < TP; ++t) du[t][0] = du[t][1] = du[t][2] = du[t][3] = 0.f;
+#pragma unroll
+      for (int t = 0; t < TN; ++t) db[t][0] = db[t][1] = db[t][2] = db[t][3] = 0.f;
+      float sp0 = 0.f, sp1 = 0.f;
+      if (has_dh) {
+        const float te0 = exp2f(T2 - cj0), te1 = exp2f(T2 - cj1);
+        if (with_du) {  // exp(T - cum_j) B_j·dh_outᵀ, and u_j·(it) toward dcum_j
+          for (int kn = 0; kn < N; kn += 16) {
+            uint32_t af[4];
+            ldmatrix_x4(af, b_s + (j0 + a_row) * NR + kn + a_col);
+#pragma unroll
+            for (int dp = 0; dp < TP / 2; ++dp) {
+              if (p0 + 16 * dp < P) {
+                const int off = (p0 + 16 * dp + b_row) * NR + kn + b_col;
+                uint32_t bh[4], bl[4];
+                ldmatrix_x4(bh, shi_s + off);
+                ldmatrix_x4(bl, slo_s + off);
+                mma_bf16(du[2 * dp], af, bh[0], bh[1]);
+                mma_bf16(du[2 * dp + 1], af, bh[2], bh[3]);
+                mma_bf16(du[2 * dp], af, bl[0], bl[1]);
+                mma_bf16(du[2 * dp + 1], af, bl[2], bl[3]);
+              }
+            }
+          }
+#pragma unroll
+          for (int t = 0; t < TP; ++t) {
+            if (p0 + 8 * t < P) {
+              const int p = p0 + 8 * t + 2 * t4;
+              du[t][0] *= te0;
+              du[t][1] *= te0;
+              du[t][2] *= te1;
+              du[t][3] *= te1;
+              const float2 x0 = bf2_at(x_s + r0 * PR + p), x1 = bf2_at(x_s + r1 * PR + p);
+              sp0 += x0.x * du[t][0] + x0.y * du[t][1];
+              sp1 += x1.x * du[t][2] + x1.y * du[t][3];
+            }
+          }
+          sp0 *= dj0;
+          sp1 *= dj1;
+        }
+        if (with_db) {  // dt_j exp(T - cum_j) x_j·dh_out
+          for (int kp = 0; kp < P; kp += 16) {
+            uint32_t af[4];
+            ldmatrix_x4(af, x_s + (j0 + a_row) * PR + kp + a_col);
+#pragma unroll
+            for (int dp = 0; dp < TN / 2; ++dp) {
+              if (n0 + 16 * dp < N) {
+                const int off = (kp + t_row) * NR + n0 + 16 * dp + t_col;
+                uint32_t bh[4], bl[4];
+                ldmatrix_x4_trans(bh, shi_s + off);
+                ldmatrix_x4_trans(bl, slo_s + off);
+                mma_bf16(db[2 * dp], af, bh[0], bh[1]);
+                mma_bf16(db[2 * dp + 1], af, bh[2], bh[3]);
+                mma_bf16(db[2 * dp], af, bl[0], bl[1]);
+                mma_bf16(db[2 * dp + 1], af, bl[2], bl[3]);
+              }
+            }
+          }
+          const float f0 = te0 * dj0, f1 = te1 * dj1;
+#pragma unroll
+          for (int t = 0; t < TN; ++t) {
+            db[t][0] *= f0;
+            db[t][1] *= f0;
+            db[t][2] *= f1;
+            db[t][3] *= f1;
+          }
+        }
+      }
+      float cm0 = 0.f, cm1 = 0.f;
+      for (int i0 = j0; i0 < Q && s0 + i0 < d.S; i0 += 16) {
+        float G[2][4], D[2][4];
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) G[t][e] = D[t][e] = 0.f;
+#pragma unroll
+        for (int kn = 0; kn < N; kn += 16) {
+          uint32_t af[4], bf[4];
+          ldmatrix_x4(af, b_s + (j0 + a_row) * NR + kn + a_col);
+          ldmatrix_x4(bf, c_s + (i0 + b_row) * NR + kn + b_col);
+          mma_bf16(G[0], af, bf[0], bf[1]);
+          mma_bf16(G[1], af, bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int kp = 0; kp < P; kp += 16) {
+          uint32_t af[4], bf[4];
+          ldmatrix_x4(af, x_s + (j0 + a_row) * PR + kp + a_col);
+          ldmatrix_x4(bf, dy_s + (i0 + b_row) * PR + kp + b_col);
+          mma_bf16(D[0], af, bf[0], bf[1]);
+          mma_bf16(D[1], af, bf[2], bf[3]);
+        }
+        // Wᵀ = Gᵀ·L and Vᵀ = D'ᵀ·dt_j·L (rows: keys j; columns: queries i),
+        // zero where i < j; the row sums of Mᵀ = Vᵀ∘Gᵀ
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = i0 + 8 * t + 2 * t4 + e;
+            const float ci = cum2_s[i];
+            const float l0 = i >= r0 ? exp2f(ci - cj0) : 0.f;
+            const float l1 = i >= r1 ? exp2f(ci - cj1) : 0.f;
+            const float v0 = D[t][e] * dj0 * l0, v1 = D[t][2 + e] * dj1 * l1;
+            cm0 += v0 * G[t][e];
+            cm1 += v1 * G[t][2 + e];
+            G[t][e] *= l0;
+            G[t][2 + e] *= l1;
+            D[t][e] = v0;
+            D[t][2 + e] = v1;
+          }
+        uint32_t wh[4], wl[4], vh[4], vl[4];
+        split_pack(G[0][0], G[0][1], wh[0], wl[0]);
+        split_pack(G[0][2], G[0][3], wh[1], wl[1]);
+        split_pack(G[1][0], G[1][1], wh[2], wl[2]);
+        split_pack(G[1][2], G[1][3], wh[3], wl[3]);
+        split_pack(D[0][0], D[0][1], vh[0], vl[0]);
+        split_pack(D[0][2], D[0][3], vh[1], vl[1]);
+        split_pack(D[1][0], D[1][1], vh[2], vl[2]);
+        split_pack(D[1][2], D[1][3], vh[3], vl[3]);
+        if (with_du) {  // du += Wᵀ·dy_i
+#pragma unroll
+          for (int dp = 0; dp < TP / 2; ++dp) {
+            if (p0 + 16 * dp < P) {
+              uint32_t bf[4];
+              ldmatrix_x4_trans(bf, dy_s + (i0 + t_row) * PR + p0 + 16 * dp + t_col);
+              mma_bf16(du[2 * dp], wh, bf[0], bf[1]);
+              mma_bf16(du[2 * dp + 1], wh, bf[2], bf[3]);
+              mma_bf16(du[2 * dp], wl, bf[0], bf[1]);
+              mma_bf16(du[2 * dp + 1], wl, bf[2], bf[3]);
+            }
+          }
+        }
+        if (with_db) {  // dB += Vᵀ·C_i
+#pragma unroll
+          for (int dp = 0; dp < TN / 2; ++dp) {
+            if (n0 + 16 * dp < N) {
+              uint32_t bf[4];
+              ldmatrix_x4_trans(bf, c_s + (i0 + t_row) * NR + n0 + 16 * dp + t_col);
+              mma_bf16(db[2 * dp], vh, bf[0], bf[1]);
+              mma_bf16(db[2 * dp + 1], vh, bf[2], bf[3]);
+              mma_bf16(db[2 * dp], vl, bf[0], bf[1]);
+              mma_bf16(db[2 * dp + 1], vl, bf[2], bf[3]);
+            }
+          }
+        }
+      }
+      cm0 = quad_sum(cm0);
+      cm1 = quad_sum(cm1);
+      sp0 = quad_sum(sp0);
+      sp1 = quad_sum(sp1);
+      float xd0 = 0.f, xd1 = 0.f;
+      if (with_du) {  // dx = dt du, and x·du toward ddt
+        bf16* dxb = dx + (((size_t)b * d.S + s0) * d.H + h) * P;
+        const size_t row = (size_t)d.H * P;
+#pragma unroll
+        for (int t = 0; t < TP; ++t) {
+          if (p0 + 8 * t < P) {
+            const int p = p0 + 8 * t + 2 * t4;
+            const float2 x0 = bf2_at(x_s + r0 * PR + p), x1 = bf2_at(x_s + r1 * PR + p);
+            xd0 += x0.x * du[t][0] + x0.y * du[t][1];
+            xd1 += x1.x * du[t][2] + x1.y * du[t][3];
+            if (s0 + r0 < d.S)
+              *reinterpret_cast<__nv_bfloat162*>(dxb + r0 * row + p) =
+                  __floats2bfloat162_rn(dj0 * du[t][0], dj0 * du[t][1]);
+            if (s0 + r1 < d.S)
+              *reinterpret_cast<__nv_bfloat162*>(dxb + r1 * row + p) =
+                  __floats2bfloat162_rn(dj1 * du[t][2], dj1 * du[t][3]);
+          }
+        }
+        xd0 = quad_sum(xd0);
+        xd1 = quad_sum(xd1);
+      }
+      if (t4 == 0) {
+        if (pb == 0) {
+          colm_s[r0] = cm0;
+          colm_s[r1] = cm1;
+        }
+        if (with_du) {
+          s_s[r0] += sp0;
+          s_s[r1] += sp1;
+          xdu_s[r0] += xd0;
+          xdu_s[r1] += xd1;
+        }
+      }
+      if (with_db) {
+        float* dbb = db_part + (((size_t)b * d.S + s0) * d.H + h) * N;
+        const size_t row = (size_t)d.H * N;
+#pragma unroll
+        for (int t = 0; t < TN; ++t) {
+          if (n0 + 8 * t < N) {
+            const int n = n0 + 8 * t + 2 * t4;
+            if (s0 + r0 < d.S)
+              *reinterpret_cast<float2*>(dbb + r0 * row + n) = make_float2(db[t][0], db[t][1]);
+            if (s0 + r1 < d.S)
+              *reinterpret_cast<float2*>(dbb + r1 * row + n) = make_float2(db[t][2], db[t][3]);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- dcum, da = its reverse prefix sum, ddt and the head's dA
+  if (tid < 32) {  // T's share: Σ_j s_j + exp(T) Σ dh_out ∘ h_in
+    float part = 0.f;
+    for (int q = tid; q < Q; q += 32) part += s_s[q];
+    part = warp_sum(part);
+    if (tid == 0) red_s[0] = part + exp2f(T2) * hdh;
+  }
+  __syncthreads();
+  for (int q = tid; q < Q; q += blockDim.x)
+    rowm_s[q] = rowm_s[q] - colm_s[q] + cterm_s[q] - s_s[q] + (q == Q - 1 ? red_s[0] : 0.f);
+  __syncthreads();
+  chunk_suffix_sum(rowm_s, Q, tid);
+  __syncthreads();
+  const float a = A[h];
+  for (int q = tid; q < Q; q += blockDim.x)
+    if (s0 + q < d.S) ddt[((size_t)b * d.S + s0 + q) * d.H + h] = xdu_s[q] + a * rowm_s[q];
+  if (tid < 32) {
+    float part = 0.f;
+    for (int q = tid; q < Q; q += 32) part += dt_s[q] * rowm_s[q];
+    part = warp_sum(part);
+    if (tid == 0) da_part[(size_t)bc * d.H + h] = part;
+  }
+}
+
+size_t tc_chunk_smem(int P, int Q, int nw) {
+  return 2 * ((size_t)Q * (P + 8) + 2 * (size_t)Q * (nw + 8)) + 8 * (size_t)Q;
+}
+size_t tc_grad_smem(int P, int N, int Q) {
+  const size_t NR = N + 8, PR = P + 8;
+  return 2 * (2 * Q * NR + 2 * Q * PR + 2 * P * NR) + 4 * (7 * (size_t)Q + kTcGradWarps);
+}
+size_t tc_smem(int P, int N, int Q) {
+  return std::max(tc_chunk_smem(P, Q, tc_chunk_cols(N)), tc_grad_smem(P, N, Q));
+}
+
+cudaError_t launch_tc(const void* x, const void* dt, const void* A, const void* Bm,
+                      const void* Cm, const void* dy, const void* dfinal, void* dx, void* ddt,
+                      void* dA, void* dB, void* dC, void* workspace, const Dims& d,
+                      const Strides& st, cudaStream_t stream) {
+  if (d.P % 16 || d.N % 16 || d.Q % 64 || d.P > 256 || d.N > 256 || d.Q > 256)
+    return cudaErrorInvalidValue;
+  const int nw = tc_chunk_cols(d.N);
+  const size_t smem1 = tc_chunk_smem(d.P, d.Q, nw), smem3 = tc_grad_smem(d.P, d.N, d.Q);
+  if (std::max(smem1, smem3) > (size_t)kSmemLimit) return cudaErrorInvalidConfiguration;
+  const size_t BCH = (size_t)d.B * d.C * d.H;
+  float* cum_ws = static_cast<float*>(workspace);
+  float* states = cum_ws + BCH * d.Q;
+  float* dstates = states + BCH * d.P * d.N;
+  float* db_part = dstates + BCH * d.P * d.N;
+  float* dc_part = db_part + (size_t)d.B * d.S * d.H * d.N;
+  float* da_part = dc_part + (size_t)d.B * d.S * d.H * d.N;
+  const auto* xp = static_cast<const bf16*>(x);
+  const auto* dyp = static_cast<const bf16*>(dy);
+  const auto* bp = static_cast<const bf16*>(Bm);
+  const auto* cp = static_cast<const bf16*>(Cm);
+  const auto* dtp = static_cast<const float*>(dt);
+  const auto* ap = static_cast<const float*>(A);
+
+  auto k3 = d.P == 64 && d.N == 128  ? &ssd_bwd_grad_tc_kernel<128, 64, 128>
+            : d.P == 64 && d.N == 64 ? &ssd_bwd_grad_tc_kernel<64, 64, 64>
+            : d.N <= 64              ? &ssd_bwd_grad_tc_kernel<64, 0, 0>
+                                     : &ssd_bwd_grad_tc_kernel<128, 0, 0>;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_chunk_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(k3, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem3);
+  if (err != cudaSuccess) return err;
+
+  ssd_bwd_chunk_tc_kernel<<<dim3(d.N / nw, d.H, d.B * d.C * 2), kTcChunkThreads, smem1,
+                            stream>>>(xp, dtp, ap, bp, cp, dyp, cum_ws, states, dstates, d, st,
+                                      nw);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t PN4 = (size_t)d.P * d.N / 4;
+  ssd_bwd_state_tc_kernel<<<dim3((unsigned)((PN4 + kThreads - 1) / kThreads), d.H, d.B),
+                            kThreads, 0, stream>>>(cum_ws, states, dstates,
+                                                   static_cast<const float*>(dfinal), d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int warps = (d.Q / 16) % kTcGradWarps == 0 ? kTcGradWarps : 4;
+  k3<<<dim3(d.B * d.C, d.H), 32 * warps, smem3, stream>>>(
+      xp, dtp, ap, bp, cp, dyp, cum_ws, states, dstates, dfinal != nullptr,
+      static_cast<bf16*>(dx), static_cast<float*>(ddt), db_part, dc_part, da_part, d, st);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t elems = (size_t)d.B * d.S * d.N;
+  ssd_bwd_reduce_kernel<bf16><<<(unsigned)((elems + kThreads - 1) / kThreads), kThreads, 0,
+                                stream>>>(db_part, dc_part, static_cast<bf16*>(dB),
+                                          static_cast<bf16*>(dC), d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_bwd_reduce_da_kernel<<<(d.H + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      da_part, static_cast<float*>(dA), d);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Dynamic shared memory of the gradient pass's block, in bytes (the
-// largest of the passes').
-extern "C" size_t ssd_bwd_smem(int P, int N, int Q) {
-  return sizeof(float) * grad_smem_floats(P, N, Q);
+// Dynamic shared memory of a route's largest block, in bytes (route 0: the
+// CUDA cores' gradient pass; 1: the tensor cores' chunk or gradient pass).
+extern "C" size_t ssd_bwd_smem(int P, int N, int Q, int route) {
+  return route == 1 ? tc_smem(P, N, Q) : sizeof(float) * grad_smem_floats(P, N, Q);
 }
 
 // Plain C entry point, bound with ctypes. dtype codes: 0 float32, 1
 // bfloat16 (dy in x's type). `strides` holds 12 element strides: x (b, s,
-// h), dt (b, s), Bm (b, s), Cm (b, s), dy (b, s, h). `dfinal` may be null.
-// `workspace` holds ops._bwd_workspace_bytes. Returns the first launch's
-// error (cudaGetLastError(), or the error of setting a kernel's
+// h), dt (b, s), Bm (b, s), Cm (b, s), dy (b, s, h). `dfinal` may be null
+// (on route 1, 16-byte aligned). `workspace` holds ops._bwd_workspace_bytes.
+// route: 0 the CUDA-core passes, 1 the tensor-core passes (bf16 x, dy, B
+// and C with 16-byte aligned rows; P and N multiples of 16 up to 256, Q a
+// multiple of 64 up to 256, within ssd_bwd_smem). Returns the first
+// launch's error (cudaGetLastError(), or the error of setting a kernel's
 // shared-memory limit).
 extern "C" int ssd_bwd(const void* x, const void* dt, const void* A, const void* Bm,
                        const void* Cm, const void* dy, const void* dfinal, void* dx, void* ddt,
                        void* dA, void* dB, void* dC, void* workspace, int Bsz, int S, int H,
                        int P, int N, int Q, int x_dtype, int bc_dtype, const long long* strides,
-                       void* stream) {
+                       int route, void* stream) {
   if (Bsz <= 0 || S <= 0 || H <= 0 || P <= 0 || N <= 0 || Q <= 0 || workspace == nullptr)
     return cudaErrorInvalidValue;
   const Dims d{Bsz, S, H, P, N, Q, (S + Q - 1) / Q};
   const long long* s = strides;
   const Strides st{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11]};
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (x_dtype != 1 || bc_dtype != 1) return cudaErrorInvalidValue;
+    return launch_tc(x, dt, A, Bm, Cm, dy, dfinal, dx, ddt, dA, dB, dC, workspace, d, st, cs);
+  }
+  if (route != 0) return cudaErrorInvalidValue;
   switch (x_dtype) {
     case 0:
       return dispatch_bc<float>(bc_dtype, x, dt, A, Bm, Cm, dy, dfinal, dx, ddt, dA, dB, dC,

@@ -15,8 +15,17 @@ versions ``ref.ssd_bwd_ref`` and, pass for pass,
 the forward's operands, so both forward routes feed it alike; it takes
 f32 or bf16, P and N up to 256 and chunks whose working set fits a
 block's shared memory (chunk 256 at P = N = 256), and refuses the rest
-before the forward runs (ROADMAP). ``KERNEL.backward_launches`` counts its
-launches; serving runs under ``torch.no_grad()`` and never reaches it.
+before the forward runs (ROADMAP). It has two routes of its own, chosen
+by ``_bwd_route`` from dtypes, shapes and alignment alone:
+``tensor_core`` (bf16 x, dy, B and C, P and N multiples of 16 up to 256,
+a chunk that is a multiple of 64 up to 256, 16-byte aligned rows, and a
+working set within a block's shared memory, ``_bwd_tc_smem``: the
+``mma.sync`` passes, with the operands they compute in f32 as hi + lo
+bf16 pairs; plain version ``ref.ssd_backward_passes_ref(split_operands=
+True)``) and ``cuda_core`` (everything else: the first version's f32
+passes). ``KERNEL.backward_launches`` counts its launches and
+``KERNEL.backward_kernel.routes`` them by route; serving runs under
+``torch.no_grad()`` and never reaches it.
 
 ``ssd(x, dt, A, Bm, Cm, chunk=128)`` is the counterpart of
 ``repro.kernels.ssd``: x ``[B, S, H, P]``, dt ``[B, S, H]`` f32 (after
@@ -127,6 +136,36 @@ def _bwd_workspace_bytes(Bsz: int, S: int, H: int, P: int, N: int, Q: int) -> in
     return 4 * (Bsz * chunks * H * (Q + 2 * P * N + 1) + 2 * Bsz * S * H * N)
 
 
+def _bwd_tc_smem(P: int, N: int, Q: int) -> int:
+    """Shared memory of the backward's largest tensor-core block, in bytes
+    (``tc_smem`` in ``csrc/ssd_bwd.cu``): the gradient pass holds the
+    chunk's C, B, x and dy rows and a state as hi + lo pairs (rows padded by
+    8 elements) and seven f32 vectors of Q; the chunk pass x or dy and the
+    hi + lo weighted rows of its column range of N."""
+    nw = next(w for w in (64, 48, 32, 16) if N % w == 0)
+    grad = 2 * (2 * Q * (N + 8) + 2 * Q * (P + 8) + 2 * P * (N + 8)) + 4 * (7 * Q + 8)
+    chunk = 2 * (Q * (P + 8) + 2 * Q * (nw + 8)) + 8 * Q
+    return max(grad, chunk)
+
+
+def _bwd_route(x, dy, Bm, Cm, chunk: int) -> str:
+    """The backward's route, from dtypes, shapes and alignment alone, never
+    on a failure: ``tensor_core`` for bf16 x, dy, B and C, P and N
+    multiples of 16 up to 256, a chunk that is a multiple of 64 up to 256,
+    16-byte aligned rows and a working set that fits a block's shared
+    memory; ``cuda_core`` for everything else. At mamba2's and zamba2's
+    training shapes the slices of the fused projection take the tensor
+    cores."""
+    P, N = x.shape[-1], Bm.shape[-1]
+    if (all(t.dtype == torch.bfloat16 for t in (x, dy, Bm, Cm))
+            and P % 16 == 0 and N % 16 == 0 and max(P, N) <= _MAX_WIDTH
+            and chunk % 64 == 0 and chunk <= _MAX_WIDTH
+            and _bwd_tc_smem(P, N, chunk) <= _SMEM_LIMIT
+            and all(_nvcc.aligned(t) for t in (x, dy, Bm, Cm))):
+        return "tensor_core"
+    return "cuda_core"
+
+
 def _route(x, Bm, Cm, chunk: int, n_sm: int) -> tuple[str, ScanPlan | None]:
     """Which kernel a call launches, from dtypes and shapes alone, and the
     tensor-core route's plan where it takes that route."""
@@ -179,7 +218,7 @@ class SsdKernel(_nvcc.Kernel):
         self._n_sm: dict[int, int] = {}
         #: the backward kernel, its own build; its ``launches`` counts the
         #: backward's launches (``backward_launches``)
-        self.backward_kernel = _nvcc.Kernel(_build.load_bwd, routes=("cuda_core",))
+        self.backward_kernel = _nvcc.Kernel(_build.load_bwd, routes=_ROUTE_CODES)
 
     @property
     def backward_launches(self) -> int:
@@ -238,21 +277,31 @@ class SsdKernel(_nvcc.Kernel):
         self.routes[route] += 1
         return y, final_state
 
-    def refuse_backward(self, P: int, N: int, chunk: int) -> None:
-        """Raise where the backward kernel cannot take these widths: its
-        gradient pass's working set must fit a block's shared memory."""
-        smem = self.backward_kernel.load().ssd_bwd_smem(P, N, chunk)
+    def refuse_backward(self, x, Bm, Cm, chunk: int, route: str | None = None) -> str:
+        """Raise where the backward kernel cannot take these operands: the
+        route's largest block must fit a block's shared memory (the
+        tensor-core route's always does, ``_bwd_route``). ``route`` None
+        takes the one ``_bwd_route`` chooses, with the output's gradient,
+        not yet known before the forward, taken to be like x. Returns the
+        route."""
+        P, N = x.shape[-1], Bm.shape[-1]
+        route = route or _bwd_route(x, x, Bm, Cm, chunk)
+        smem = self.backward_kernel.load().ssd_bwd_smem(P, N, chunk, _ROUTE_CODES[route])
         if smem > _SMEM_LIMIT:
             raise NotImplementedError(
                 f"the SSD backward kernel takes no P={P}, N={N}, chunk={chunk}: they need "
                 f"{smem} B of shared memory a block, more than {_SMEM_LIMIT} (ROADMAP, kernel "
                 "work on the SSD backward)")
+        return route
 
-    def backward(self, x, dt, A, Bm, Cm, dy, dfinal=None, *, chunk: int):
+    def backward(self, x, dt, A, Bm, Cm, dy, dfinal=None, *, chunk: int,
+                 route: str | None = None):
         """dx, ddt, dA, dB, dC of the scan on ``x, dt, A, Bm, Cm`` given the
         output's gradient ``dy`` and the final state's ``dfinal`` (None: not
         used); dx in x's type, dB and dC in B's, ddt and dA f32, each
-        contiguous in its operand's shape."""
+        contiguous in its operand's shape. ``route`` forces a route (for
+        timing both on one input); ``None`` takes the one ``_bwd_route``
+        chooses."""
         _check_operands(x, dt, A, Bm, Cm, chunk)
         Bsz, S, H, P = x.shape
         N = Bm.shape[-1]
@@ -267,7 +316,15 @@ class SsdKernel(_nvcc.Kernel):
                 raise ValueError(f"dfinal must be [{Bsz}, {H}, {P}, {N}] on {dev}, not "
                                  f"{tuple(dfinal.shape)} on {dfinal.device}")
             dfinal = dfinal.to(torch.float32).contiguous()
-        self.refuse_backward(P, N, chunk)
+            if dfinal.data_ptr() % 16:   # the tensor-core route reads it in float4
+                dfinal = dfinal.clone()
+        if route not in (None, *_ROUTE_CODES):
+            raise ValueError(f"route must be one of {list(_ROUTE_CODES)}, not {route!r}")
+        chosen = _bwd_route(x, dy, Bm, Cm, chunk)
+        if route == "tensor_core" and chosen != "tensor_core":
+            raise ValueError("these dtypes, shapes or strides cannot take the backward's "
+                             "tensor-core route")
+        route = self.refuse_backward(x, Bm, Cm, chunk, route or chosen)
         lib = self.backward_kernel.load()
         dx = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=dev)
         ddt = torch.empty((Bsz, S, H), dtype=torch.float32, device=dev)
@@ -286,11 +343,12 @@ class SsdKernel(_nvcc.Kernel):
                 dy.data_ptr(), dfinal.data_ptr() if dfinal is not None else None,
                 dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
                 ws.data_ptr(), Bsz, S, H, P, N, chunk, _DTYPE_CODES[x.dtype],
-                _DTYPE_CODES[Bm.dtype], (ctypes.c_longlong * len(strides))(*strides), stream,
+                _DTYPE_CODES[Bm.dtype], (ctypes.c_longlong * len(strides))(*strides),
+                _ROUTE_CODES[route], stream,
             )
         _nvcc.check_status(err, "ssd_bwd")
         self.backward_launches += 1
-        self.backward_kernel.routes["cuda_core"] += 1
+        self.backward_kernel.routes[route] += 1
         return dx, ddt, dA, dB, dC
 
 
@@ -330,7 +388,7 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128):
         Bm, Cm = Bm[:, :, 0, :], Cm[:, :, 0, :]
     if x.is_cuda:
         if _nvcc.records_grad(x, dt, A, Bm, Cm):
-            KERNEL.refuse_backward(x.shape[-1], Bm.shape[-1], chunk)
+            KERNEL.refuse_backward(x, Bm, Cm, chunk)
             return _SsdFn.apply(x, dt, A, Bm, Cm, chunk)
         return KERNEL(x, dt, A, Bm, Cm, chunk=chunk)
     return ssd_reference(x, dt, A, Bm[:, :, None, :], Cm[:, :, None, :], chunk=chunk)

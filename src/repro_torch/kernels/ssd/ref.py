@@ -216,7 +216,8 @@ def ssd_bwd_ref(x, dt, A, B, C, dy, dfinal=None, *, chunk: int = 128):
 
 def ssd_backward_passes_ref(x, dt, A, B, C, dy, dfinal=None, *, chunk: int = 128,
                             carry_gradient: bool = True, carry_state: bool = True,
-                            decay_gradient: bool = True, causal: bool = True):
+                            decay_gradient: bool = True, causal: bool = True,
+                            split_operands: bool = False):
     """The backward kernel's decomposition of the scan's gradient
     (``csrc/ssd_bwd.cu``) in plain PyTorch, pass for pass, for a single B/C
     group: dx in x's dtype, ddt and dA f32, dB and dC in B's dtype.
@@ -249,6 +250,12 @@ def ssd_backward_passes_ref(x, dt, A, B, C, dy, dfinal=None, *, chunk: int = 128
     ``dh_out`` zero, ``dfinal`` too), ``carry_state=False`` the forward
     state (every ``h_in`` zero), ``decay_gradient=False`` the ``dcum``
     chain (no ``A·da`` in ddt, dA zero), ``causal=False`` the mask of L.
+    With ``split_operands`` the operands the tensor-core route computes in
+    f32 become hi + lo bf16 pairs (``_split_bf16``) where it feeds them to
+    its bf16 products: the weighted rows ``B ∘ dt·exp(T - cum)`` and
+    ``C ∘ exp(cum)`` of pass 1, ``h_in`` and ``dh_out`` where pass 3 takes
+    their products (Σ dh_out ∘ h_in stays f32), and ``W`` and ``V``; x, dy,
+    B and C are taken as they come, and ``M`` stays f32.
     Positions past ``s`` are the forward's zero padding; their gradients
     are dropped. dB and dC come back in the shape B and C were given."""
     grouped = B.dim() == 4
@@ -265,13 +272,17 @@ def ssd_backward_passes_ref(x, dt, A, B, C, dy, dfinal=None, *, chunk: int = 128
     Bq = F.pad(B.to(F32), (0, 0, 0, pad)).reshape(b, nc, chunk, n)
     Cq = F.pad(C.to(F32), (0, 0, 0, pad)).reshape(b, nc, chunk, n)
 
+    op = _split_bf16 if split_operands else (lambda t: t)
+
     # pass 1: cum, the chunk states and the chunks' shares of dh
     cum = torch.cumsum(dtq * Af, dim=2)                                # [b,c,q,h]
     total = cum[:, :, -1]                                              # [b,c,h]
     u = xq * dtq[..., None]                                            # [b,c,q,h,p]
-    states = torch.einsum("bcqhp,bcqn->bchpn", u * torch.exp(total[:, :, None] - cum)[..., None],
-                          Bq)
-    dstates = torch.einsum("bcqhp,bcqn->bchpn", dyq * torch.exp(cum)[..., None], Cq)
+    to_end = torch.exp(total[:, :, None] - cum)                                     # [b,c,q,h]
+    Bw = op(Bq[:, :, :, None, :] * (dtq * to_end)[..., None])                       # [b,c,q,h,n]
+    Cw = op(Cq[:, :, :, None, :] * torch.exp(cum)[..., None])
+    states = torch.einsum("bcqhp,bcqhn->bchpn", xq, Bw)
+    dstates = torch.einsum("bcqhp,bcqhn->bchpn", dyq, Cw)
 
     # pass 2: h_in forward, dh_out in reverse
     zero = torch.zeros((b, h, p, n), dtype=F32, device=x.device)
@@ -299,13 +310,13 @@ def ssd_backward_passes_ref(x, dt, A, B, C, dy, dfinal=None, *, chunk: int = 128
     D = torch.einsum("bcihp,bcjhp->bcijh", dyq, u)                                  # [b,c,i,j,h]
     W, V = G * L, D * L
     M = V * G
-    to_end = torch.exp(total[:, :, None] - cum)                                     # [b,c,q,h]
-    du_off = torch.einsum("bcjn,bchpn->bcjhp", Bq, dh_out) * to_end[..., None]
+    W, V, h_op, dh_op = op(W), op(V), op(h_in), op(dh_out)
+    du_off = torch.einsum("bcjn,bchpn->bcjhp", Bq, dh_op) * to_end[..., None]
     du = torch.einsum("bcijh,bcihp->bcjhp", W, dyq) + du_off
-    dc_off = torch.einsum("bcihp,bchpn->bcihn", dyq, h_in) * torch.exp(cum)[..., None]
+    dc_off = torch.einsum("bcihp,bchpn->bcihn", dyq, h_op) * torch.exp(cum)[..., None]
     dC = torch.einsum("bcijh,bcjn->bcihn", V, Bq) + dc_off
     dB = (torch.einsum("bcijh,bcin->bcjhn", V, Cq)
-          + torch.einsum("bcjhp,bchpn->bcjhn", u, dh_out) * to_end[..., None])
+          + torch.einsum("bcjhp,bchpn->bcjhn", xq, dh_op) * (dtq * to_end)[..., None])
     s_j = (u * du_off).sum(-1)                                                      # [b,c,q,h]
     dcum = M.sum(3) - M.sum(2) + (Cq[:, :, :, None, :] * dc_off).sum(-1) - s_j
     last = s_j.sum(2) + torch.exp(total) * (dh_out * h_in).sum((-2, -1))            # [b,c,h]

@@ -545,7 +545,9 @@ def test_flash_under_grad_refuses_what_its_backward_lacks(card):
 #: the SSD backward's cases: name -> (B, S, H, P, N, chunk, fused). The
 #: reference's shapes (tests/test_kernels.py), mamba2's widths (ragged over
 #: chunks, one chunk, two rows of slices of one fused tensor as the model's
-#: conv output gives them), zamba2's N = 64 and the widest P and N
+#: conv output gives them), zamba2's N = 64, N and P of 256 at chunk 64 (the
+#: tensor-core route's gradient pass in two and four passes over its
+#: columns) and the widest P and N
 SSD_BWD_CASES = {
     "reference 2x32 chunk 8": (2, 32, 2, 8, 8, 8, False),
     "reference 1x64 chunk 16": (1, 64, 4, 16, 16, 16, False),
@@ -554,8 +556,21 @@ SSD_BWD_CASES = {
     "mamba2 S=128 one chunk": (1, 128, 80, 64, 128, 128, False),
     "mamba2 fused B=2 S=300": (2, 300, 80, 64, 128, 128, True),
     "zamba2 N=64 S=384": (1, 384, 80, 64, 64, 128, False),
+    "N=256 chunk 64 S=300": (1, 300, 2, 64, 256, 64, False),
+    "P=256 chunk 64 S=300": (1, 300, 2, 256, 64, 64, False),
     "P=N=256 chunk 256 S=300": (1, 300, 2, 256, 256, 256, False),
 }
+
+
+def ssd_bwd_route(c, dtype) -> str:
+    """The route the SSD backward must take on a case's (aligned) operands:
+    the tensor cores for bf16 at P and N multiples of 16, a chunk that is a
+    multiple of 64 and a working set that fits a block (not P = N = 256 at
+    chunk 256), else the CUDA cores."""
+    _, _, _, p, n, chunk, _ = c
+    tc = (dtype == torch.bfloat16 and p % 16 == 0 and n % 16 == 0 and chunk % 64 == 0
+          and (p, n, chunk) != (256, 256, 256))
+    return "tensor_core" if tc else "cuda_core"
 
 
 def ssd_bwd_case(c, dtype, dev, with_dfinal, seed=0):
@@ -609,18 +624,29 @@ SSD_BWD_GRAD_CASES = [(name, dtype) for name in SSD_BWD_CASES
 @pytest.mark.parametrize("name,dtype", SSD_BWD_GRAD_CASES,
                          ids=[f"{n}-{str(d)[6:]}" for n, d in SSD_BWD_GRAD_CASES])
 def test_ssd_backward_matches_autograd_through_the_reference(card, name, dtype, with_dfinal):
+    """Through ``ssd`` under autograd on the route the case must take (the
+    tensor cores for every aligned bf16 case they fit), and for those the
+    CUDA-core route forced on the same inputs: both within the band."""
     c = SSD_BWD_CASES[name]
     leaves, operands, dy, dfinal = ssd_bwd_case(c, dtype, card, with_dfinal)
-    before = (ssd_ops.KERNEL.launches, ssd_ops.KERNEL.backward_launches)
+    route = ssd_bwd_route(c, dtype)
+    before = (ssd_ops.KERNEL.launches, ssd_ops.KERNEL.backward_launches,
+              ssd_ops.KERNEL.backward_kernel.routes[route])
     got = ssd_kernel_grads(leaves, operands, dy, dfinal, c[5])
     torch.cuda.synchronize()
-    assert (ssd_ops.KERNEL.launches, ssd_ops.KERNEL.backward_launches) == (
-        before[0] + 1, before[1] + 1)
+    assert (ssd_ops.KERNEL.launches, ssd_ops.KERNEL.backward_launches,
+            ssd_ops.KERNEL.backward_kernel.routes[route]) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
     ops_ = operands(*leaves)
     want = ssd_ref.ssd_bwd_ref(*ops_, dy, dfinal, chunk=c[5])
-    for g, w, t in zip(got, want, ops_):
-        assert g.dtype == t.dtype and g.shape == t.shape
-        assert_grad_close(g, w, BANDS[dtype]["atol"])
+    runs = [got]
+    if route == "tensor_core":
+        runs.append(ssd_ops.KERNEL.backward(*ops_, dy, dfinal, chunk=c[5], route="cuda_core"))
+        torch.cuda.synchronize()
+    for run in runs:
+        for g, w, t in zip(run, want, ops_):
+            assert g.dtype == t.dtype and g.shape == t.shape
+            assert_grad_close(g, w, BANDS[dtype]["atol"])
 
 
 @pytest.mark.cuda
@@ -638,17 +664,32 @@ def test_ssd_backward_kernel_takes_p_and_n_of_256_in_f32(card, with_dfinal):
 
 
 @pytest.mark.cuda
+def test_ssd_backward_tensor_core_smem_matches_the_route_rule(card):
+    """The Python rule that routes the backward (``_bwd_tc_smem``) and the
+    kernel's own count of its tensor-core blocks' shared memory agree."""
+    lib = ssd_ops.KERNEL.backward_kernel.load()
+    for P, N, Q in [(64, 128, 128), (64, 64, 128), (64, 256, 64), (256, 64, 64),
+                    (128, 128, 128), (64, 128, 256), (256, 256, 256), (32, 16, 64)]:
+        assert lib.ssd_bwd_smem(P, N, Q, 1) == ssd_ops._bwd_tc_smem(P, N, Q)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_ssd_backward_stays_finite_where_the_plain_scan_overflows(card, dtype):
     """dt as full-width random weights give it (~0.7): a chunk's decay
     passes 88, autograd through ``ssd_reference`` gives NaN (its masked
     exp overflows above the diagonal), and the kernel is held to the
-    passes' plain version, which masks before the exp."""
+    passes' plain version, which masks before the exp. bf16 runs on the
+    tensor cores, f32 on the CUDA cores."""
     c = SSD_BWD_CASES["mamba2 S=1000"]
     leaves, operands, dy, _ = ssd_bwd_case(c, dtype, card, False)
     leaves[-2] = torch.nn.functional.softplus(
         randn(np.random.default_rng(5), tuple(leaves[-2].shape), torch.float32, card))
+    route = ssd_bwd_route(c, dtype)
+    assert route == ("tensor_core" if dtype == torch.bfloat16 else "cuda_core")
+    routed = ssd_ops.KERNEL.backward_kernel.routes[route]
     got = ssd_kernel_grads(leaves, operands, dy, None, c[5])
+    assert ssd_ops.KERNEL.backward_kernel.routes[route] == routed + 1
     ops_ = operands(*leaves)
     assert any(torch.isnan(g).any() for g in ssd_ref.ssd_bwd_ref(*ops_, dy, None, chunk=c[5]))
     want = ssd_ref.ssd_backward_passes_ref(*ops_, dy, None, chunk=c[5])
@@ -659,21 +700,32 @@ def test_ssd_backward_stays_finite_where_the_plain_scan_overflows(card, dtype):
 
 @pytest.mark.cuda
 def test_ssd_backward_is_deterministic_and_free_of_the_forward_route(card):
-    """Two runs give the same bits (no atomics), on inputs whose forward
-    takes the tensor cores (bf16, aligned) and the CUDA cores (f32); the
-    backward recomputes what it needs, so its gradients through ``ssd``
-    equal a direct call of the backward kernel bit for bit."""
+    """Two runs give the same bits (no atomics), on each backward route:
+    bf16 (aligned: the forward and the backward on the tensor cores) and
+    f32 (both on the CUDA cores); the backward recomputes what it needs,
+    so its gradients through ``ssd`` equal a direct call of the backward
+    kernel bit for bit. The three calls of a dtype take one backward route
+    (the two routes round differently, ROADMAP §3), asserted; the
+    CUDA-core route forced on the bf16 inputs repeats bit for bit too."""
+    c = SSD_BWD_CASES["mamba2 fused B=2 S=300"]
     for dtype, route in ((torch.bfloat16, "tensor_core"), (torch.float32, "cuda_core")):
-        c = SSD_BWD_CASES["mamba2 fused B=2 S=300"]
         leaves, operands, dy, dfinal = ssd_bwd_case(c, dtype, card, True, seed=1)
         routes = dict(ssd_ops.KERNEL.routes)
+        bwd_routes = dict(ssd_ops.KERNEL.backward_kernel.routes)
         first = ssd_kernel_grads(leaves, operands, dy, dfinal, c[5])
         second = ssd_kernel_grads(leaves, operands, dy, dfinal, c[5])
         assert ssd_ops.KERNEL.routes[route] == routes[route] + 2
         direct = ssd_ops.KERNEL.backward(*operands(*leaves), dy, dfinal, chunk=c[5])
         torch.cuda.synchronize()
+        assert ssd_ops.KERNEL.backward_kernel.routes[route] == bwd_routes[route] + 3
         for a, b, d in zip(first, second, direct):
             assert torch.equal(a, b) and torch.equal(a, d)
+    leaves, operands, dy, dfinal = ssd_bwd_case(c, torch.bfloat16, card, True, seed=1)
+    forced = [ssd_ops.KERNEL.backward(*operands(*leaves), dy, dfinal, chunk=c[5],
+                                      route="cuda_core") for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*forced):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -10,6 +10,14 @@ scan; the port's card path differentiates through a backward kernel
   ``ssd_reference``, in f32 at the reference's shapes and a ragged S, with
   and without a final-state cotangent: within 1e-5 of each gradient's
   largest entry (the two sum in other orders; nothing is rounded to bf16);
+- the tensor-core route's plain version (``ssd_backward_passes_ref`` with
+  ``split_operands=True``: the operands that route computes in f32 as hi +
+  lo bf16 pairs) against ``jax.vjp`` of the reference at the same shapes,
+  on f32 inputs within 2e-3 and on bf16 inputs (x, B, C and dy) within
+  2e-2 of each gradient's largest entry, the card's bands;
+- ``ops._bwd_route``: which operands the backward's tensor-core route
+  takes (bf16, aligned, widths and chunk it fits) and which go to the
+  CUDA cores;
 - the wiring of ``_SsdFn``: with the kernel's two entry points replaced
   by their plain versions inside the test, reduced mamba2's and zamba2's
   ``Model.loss`` gradients through ``_SsdFn`` equal those through plain
@@ -90,6 +98,70 @@ def test_plain_backwards_match_jax_vjp_of_the_reference(shape, which, with_dfina
         w = np.asarray(w, np.float32)
         assert g.dtype == torch.float32 and tuple(g.shape) == t.shape
         np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=RTOL * np.abs(w).max())
+
+
+#: the card's bands, of each gradient's largest entry
+SPLIT_BANDS = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("with_dfinal", [False, True], ids=["no dfinal", "dfinal"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_split_operand_passes_match_jax_vjp_of_the_reference(shape, with_dfinal, dtype):
+    """The tensor-core route's decomposition, its f32 operands split into
+    hi + lo bf16 pairs where the kernel splits them, against the reference's
+    gradient: x, B, C and dy in ``dtype`` (the reference gets their values
+    in f32), dt and A f32."""
+    b, s, h, p, n, chunk = SHAPES[shape]
+    (x, dt, A, B, C), dy, dfinal = inputs(11, b, s, h, p, n, with_dfinal)
+    x, B, C, dy = (torch.from_numpy(t).to(dtype) for t in (x, B, C, dy))
+    dt, A = torch.from_numpy(dt), torch.from_numpy(A)
+    operands = (x, dt, A, B, C)
+    (_, final), vjp = jax.vjp(lambda *a: jref.ssd_reference(*a, chunk=chunk),
+                              *(jnp.asarray(t.float().numpy()) for t in operands))
+    want = vjp((jnp.asarray(dy.float().numpy()),
+                jnp.asarray(dfinal) if with_dfinal else jnp.zeros_like(final)))
+    got = ref.ssd_backward_passes_ref(*operands, dy,
+                                      None if dfinal is None else torch.from_numpy(dfinal),
+                                      chunk=chunk, split_operands=True)
+    for g, w, t in zip(got, want, operands):
+        w = np.asarray(w, np.float32)
+        assert g.dtype == t.dtype and tuple(g.shape) == tuple(t.shape)
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
+                                   atol=SPLIT_BANDS[dtype] * np.abs(w).max())
+
+
+def route_operands(P=64, N=128, dtype=torch.bfloat16, bc_dtype=None, offset=0):
+    """x, dy, B and C of mamba2's layout on the CPU: x, B and C slices of one
+    fused [1, 256, 2·P + 2·N + offset] tensor (``offset`` elements before
+    B; B and C cast to ``bc_dtype`` if given), dy contiguous."""
+    fused = torch.zeros((1, 256, 2 * P + 2 * N + offset), dtype=dtype)
+    x = fused[..., :2 * P].view(1, 256, 2, P)
+    B, C = fused[..., 2 * P + offset:2 * P + offset + N], fused[..., 2 * P + offset + N:]
+    if bc_dtype is not None:
+        B, C = B.to(bc_dtype), C.to(bc_dtype)
+    return x, torch.zeros_like(x), B, C
+
+
+@pytest.mark.parametrize("case,chunk,route", [
+    (dict(), 128, "tensor_core"),
+    (dict(N=64), 128, "tensor_core"),
+    (dict(P=256, N=64), 64, "tensor_core"),
+    (dict(dtype=torch.float32), 128, "cuda_core"),
+    (dict(bc_dtype=torch.float32), 128, "cuda_core"),
+    (dict(P=8), 128, "cuda_core"),
+    (dict(), 32, "cuda_core"),
+    (dict(offset=4), 128, "cuda_core"),
+    (dict(P=256, N=256), 256, "cuda_core"),
+], ids=["bf16 aligned", "zamba2 N=64", "P=256 chunk 64", "f32", "mixed", "P=8", "chunk 32",
+        "unaligned slice", "P=N=256 chunk 256"])
+def test_backward_route_from_dtypes_shapes_and_alignment(case, chunk, route):
+    """The tensor cores take bf16 x, dy, B and C with 16-byte aligned rows,
+    P and N multiples of 16 up to 256, a chunk that is a multiple of 64 up
+    to 256, and a working set that fits a block's shared memory (not P = N
+    = 256 at chunk 256); everything else takes the CUDA cores."""
+    x, dy, B, C = route_operands(**case)
+    assert ops._bwd_route(x, dy, B, C, chunk) == route
 
 
 def f32_params(cfg) -> dict:
