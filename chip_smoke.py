@@ -4,6 +4,7 @@ port starts on the GPU and that its main paths run through its kernels.
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # phases 1-2, 9's kernel cases and 10, no final line
+                                          # (and not phase 11)
 
 Needs one CUDA card (Hopper: the kernels are built for sm_90a) and
 ``nvcc``; it builds every kernel from the sources in ``src/repro_torch``
@@ -158,8 +159,19 @@ on failure (a failure exits non-zero and prints no final line):
    share;
 10. the library yardstick of gemma2's local layer, compiled
    ``flex_attention`` with its softcap and window (SDPA has no softcap),
-   held to the kernel's output and timed; last, because after
-   ``torch.compile`` a profile can lose kernel records.
+   held to the kernel's output and timed; after the profiled phases,
+   because after ``torch.compile`` a profile can lose kernel records;
+11. the audit plane on the card: the step auditor's seeded selftest
+   (``repro_torch.analysis.jitaudit``); the audit of full-width qwen
+   engines on phase 4's weights with the launcher's pools (every paged
+   decode bucket, every chunk-prefill spec, the dense-slot spec) and of
+   the three kernels' targets: no violation, and each captured bucket's
+   replay timed against its static bound (roofline share in (0, 1.05]);
+   the replay gate (a warmed engine behind the router's chunked pump
+   captures nothing after warmup); the account: every timing line's
+   bytes, operations and bound equal what the kernels' ``cost`` gives at
+   its shapes (the bounds PERF.md records among them); and the port's
+   lint over its default paths, clean. One ``jitaudit`` line holds it.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 hold the per-kernel JSON record and the card's name and power limit. The
@@ -185,10 +197,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and operations/s
-#: by the type of the operands
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+#: the card's peaks and the bound of a kernel call from its ``cost`` (one
+#: account: the auditor sums the same costs over a step)
+from repro_torch.kernels.roofline import PEAK_OPS_PER_S, bound, bound_of  # noqa: E402
 
 #: kernel-vs-plain bands, the reference's own (tests/test_kernels.py tol()
 #: and tests/test_kv_quant.py EXACT_BAND): both sides compute in f32 from
@@ -343,14 +354,12 @@ def time_call(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: int, n_ops: int, op_type: str) -> dict:
-    """The least time the card could take: bytes over HBM bandwidth or
-    operations over the peak for their type, whichever is larger."""
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / PEAK_OPS_PER_S[op_type] * 1e3
-    return dict(bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                bytes=n_bytes, operations=n_ops, bytes_ms=bytes_ms, ops_ms=ops_ms)
+def with_f32_ops(cost: dict) -> dict:
+    """:func:`bound_of` ``cost``, and its operations' time at the f32 peak
+    (what the CUDA-core route could reach at best)."""
+    rec = bound_of(cost)
+    rec["ops_ms_f32_cuda_cores"] = cost["flops"] / PEAK_OPS_PER_S["float32"] * 1e3
+    return rec
 
 
 def check_close(name: str, got, want, atol: float) -> float:
@@ -795,13 +804,12 @@ def time_cross_decode() -> dict:
     device = device_ms_per_call(kernel_rounds, 10 * L, PAGED_KERNEL_NAMES)
     library_device = device_ms_per_call(library_rounds, 10 * L, None)
     splits, cols = ops._split_plan(S // T, T, ops.KERNEL.sm_count(q.device), B * KH)
-    # every position of both caches read once, q read and the output written
-    n_bytes = 2 * B * S * KH * D * 2 + 2 * B * H * D * 2 + 4 * (B * S // T + B)
+    (k_pages, table), _ = views[0]
     return dict(B=B, H=H, KH=KH, D=D, S=S, page_tokens=T, layers=L, ms=kernel_ms, **device,
                 splits=splits, cols_per_split=cols, plain_ms=plain_ms, library_ms=library_ms,
                 library_device_ms=library_device["device_ms"],
                 library_kernels_ms=library_device["device_kernels_ms"],
-                **bound(n_bytes, 4 * B * H * D * S, "bfloat16"))
+                **bound_of(ops.cost(q, k_pages, table, lens)))
 
 
 def time_kernel(layers: int, shape=MAIN_SHAPE, lengths=MAIN_LENGTHS):
@@ -869,21 +877,17 @@ def time_kernel(layers: int, shape=MAIN_SHAPE, lengths=MAIN_LENGTHS):
     library_device = device_ms_per_call(library_rounds, 20 * layers, None)
     splits, cols = ops._split_plan(P, T, ops.KERNEL.sm_count(c["q"].device), B * KH)
 
-    # least time for one call: each needed input byte read once, the
-    # output written once; the data decides what is needed (the visible
-    # positions of each row, the new token from its operand)
+    # least time for one call (``ops.cost``): the data decides what is
+    # needed (the visible positions of each row, the new token from its
+    # operand)
     lengths = np.asarray(lengths)
-    elem = 2
-    kv_bytes = 2 * int((lengths - 1).sum()) * KH * D * elem
-    io_bytes = (B * H * D + 2 * B * KH * D + B * H * D) * elem
-    meta_bytes = 4 * (B * P + B)
-    n_ops = int(4 * H * D * lengths.sum())
     return dict(shape=shape, lengths=lengths.tolist(), layers=layers,
                 ms=kernel_ms, **device, splits=splits, cols_per_split=cols,
                 plain_ms=plain_ms, library_ms=library_ms,
                 library_device_ms=library_device["device_ms"],
                 library_kernels_ms=library_device["device_kernels_ms"],
-                **bound(kv_bytes + io_bytes + meta_bytes, n_ops, "bfloat16"))
+                **bound_of(ops.cost(c["q"], c["k"][0], c["tables"], lengths,
+                                    k_new=c["k_new"])))
 
 
 # ------------------------------------------------------------ phase 2: flash
@@ -1146,9 +1150,6 @@ def time_flash():
             lib = sdpa(qt, kt, vt, **lib_kw).transpose(1, 2)
             check_yardstick(f"scaled_dot_product_attention ({name})", lib,
                             ops.prefill_attention(q, k, v, **kw))
-        visible = int(mask.sum().item())
-        n_bytes = (2 * B * Sq * H * D + 2 * B * Skv * KH * D) * 2
-        n_ops = 4 * B * H * D * visible
 
         def calls():
             for _ in range(50):
@@ -1170,8 +1171,9 @@ def time_flash():
             ms=time_call(lambda: ops.prefill_attention(q, k, v, **kw), 50),
             **device_ms_per_call(calls, 50, ("flash_mma_kernel", "flash_attention_kernel")),
             plain_ms=time_call(lambda: ref.blockwise_attention(q, k, v, **kw), 10),
-            **lib_rec, Sq=Sq, Skv=Skv, H=H, KH=KH, D=D, window=kw.get("window"),
-            softcap=kw.get("cap"), **bound(n_bytes, n_ops, "bfloat16"))
+            **lib_rec, B=B, Sq=Sq, Skv=Skv, H=H, KH=KH, D=D, causal=kw["causal"],
+            window=kw.get("window"), softcap=kw.get("cap"), q_offset=kw.get("q_offset", 0),
+            kv_hole=kw.get("kv_hole"), **bound_of(ops.prefill_cost(q, k, v, **kw)))
         if not all("flash_mma_kernel" in k for k in out[name]["device_kernels_ms"]):
             raise AssertionError(f"bf16 prefill ({name}) did not run the tensor-core kernel")
     return out
@@ -1351,26 +1353,6 @@ def check_ssd_cases():
     return main_err
 
 
-def ssd_bound(b, S, h, p, n, Q) -> dict:
-    """The least time the card could take for the scan at these shapes."""
-    # bytes: x, dt, A, B, C read once; y and the final state written once
-    n_bytes = (2 * b * S * h * p * 2 + b * S * h * 4 + h * 4 + 2 * b * S * n * 2
-               + b * h * p * n * 4)
-    # operations this run's data needs, per (row, head, chunk of q valid
-    # positions): C·Bᵀ and its product with x·dt over the causal triangle,
-    # C·stateᵀ for every chunk after the first (the first state is 0), and
-    # the state update
-    n_ops = 0
-    for c0 in range(0, S, Q):
-        q = min(Q, S - c0)
-        tri = q * (q + 1) // 2
-        macs = tri * n + tri * p + q * p * n + (q * p * n if c0 else 0)
-        n_ops += 2 * macs * b * h
-    rec = bound(n_bytes, n_ops, "bfloat16")
-    rec["ops_ms_f32_cuda_cores"] = n_ops / PEAK_OPS_PER_S["float32"] * 1e3
-    return rec
-
-
 def time_ssd():
     """The kernel at the full-width shape, bf16, at S = 128 (one chunk, the
     replay's common prefill), 200, ``SSD_MAIN_S`` and ``SSD_LONG_S``: its
@@ -1396,7 +1378,7 @@ def time_ssd():
         before = ops.KERNEL.routes["tensor_core"]
         rec = dict(S=S, ms=time_call(lambda: ops.ssd(x, dt, A, B, C, chunk=Q), 20),
                    **device_ms_per_call(calls, 20, SSD_KERNEL_NAMES),
-                   **ssd_bound(b, S, h, p, n, Q))
+                   **with_f32_ops(ops.cost(x, dt, A, B, C, chunk=Q)))
         if (ops.KERNEL.routes["tensor_core"] == before
                 or not all("ssd_tc_" in k for k in rec["device_kernels_ms"])):
             raise AssertionError(f"the bf16 scan at S={S} did not run the tensor-core passes")
@@ -1423,7 +1405,7 @@ def time_ssd():
                   **device_ms_per_call(zamba2_calls, 20, SSD_KERNEL_NAMES),
                   plain_ms=time_call(lambda: ref.ssd_reference(
                       x, dt, A, B[:, :, None], C[:, :, None], chunk=z["chunk"]), 5),
-                  **ssd_bound(z["b"], z["S"], z["h"], z["p"], z["n"], z["chunk"]))
+                  **with_f32_ops(ops.cost(x, dt, A, B, C, chunk=z["chunk"])))
     if ops.KERNEL.routes["tensor_core"] == before:
         raise AssertionError("the bf16 scan at zamba2's widths did not run the tensor-core passes")
     return dict(main, library_ms=None, library_note="no single PyTorch call computes the SSD scan",
@@ -1611,8 +1593,8 @@ def replay_paged(args, chunked: bool, cfg=None, params=None, label="serve", *,
     if cfg is None:
         cfg, engines, router = serve.build_router(args)
     else:
-        engines = [Engine(cfg, params, device=DEVICE, page_tokens=16, n_device_pages=72,
-                          n_host_pages=160, max_slots=3, max_seq=384, **(engine_kw or {}))
+        engines = [Engine(cfg, params, device=DEVICE, **serve.ENGINE_POOLS,
+                          **(engine_kw or {}))
                    for _ in range(args.replicas)]
         router_kw = dict(router_kw or {})
         router = MoriRouter(
@@ -2717,7 +2699,9 @@ def model_whisper() -> dict:
     if paged != 2 * L * MODEL_STEPS:
         raise AssertionError(f"paged kernels the device ran {paged} != self and cross "
                              f"{2 * L} x steps {MODEL_STEPS}")
-    if cross_bytes != 2 * L * n * cfg.encoder_seq * cfg.num_kv_heads * cfg.head_dim * 2:
+    # the cross caches are bf16 on the card
+    want = 2 * L * n * cfg.encoder_seq * cfg.num_kv_heads * cfg.head_dim * 2  # lint: kv008-ok
+    if cross_bytes != want:
         raise AssertionError(f"cross caches of {cross_bytes} B")
     if not torch.isfinite(logits).all():
         raise AssertionError("non-finite whisper logits")
@@ -2985,9 +2969,6 @@ def time_flash_bwd() -> dict:
                              != routes["tensor_core"] + 1):
         raise AssertionError("the timed backward did not take the tensor-core route")
     cuda_core = device_ms_per_call(lambda: kernel_calls("cuda_core"), 10, FLASH_BWD_KERNELS)
-    visible = B * H * S * (S + 1) // 2
-    n_ops = 5 * 2 * D * visible               # S, dP, dV, dK, dQ products
-    n_bytes = 8 * B * S * H * D * 2 + B * H * S * 4
     return dict(B=B, S=S, H=H, D=D, causal=True, route="tensor_core",
                 ms=time_call(kernel, 10),
                 **device_ms_per_call(kernel_calls, 10, FLASH_BWD_KERNELS),
@@ -3001,7 +2982,7 @@ def time_flash_bwd() -> dict:
                 library_device_ms=device_ms_behind_spin(library, 20),
                 library_device_ms_by="CUDA events around one call queued behind a "
                                      f"torch.cuda._sleep({SPIN_CYCLES}) spin, median of 20",
-                **bound(n_bytes, n_ops, "bfloat16"))
+                **bound_of(ops.backward_cost(q, k, v, seq_dim=1, head_dim=2, causal=True)))
 
 
 def ssd_bwd_case(c, dtype, with_dfinal: bool, seed: int):
@@ -3191,34 +3172,6 @@ def check_ssd_bwd_large_decay() -> dict:
     return rec
 
 
-def ssd_bwd_bound(b, S, h, p, n, Q, with_dfinal: bool) -> dict:
-    """The least time the card could take for the scan's backward."""
-    # bytes: x, dy, dt, A, B, C (and dfinal) read once; dx, ddt, dA, dB, dC
-    # written once (bf16 x, dy, B, C and their gradients; f32 dt, ddt, A, dA)
-    n_bytes = (3 * b * S * h * p * 2 + 2 * b * S * h * 4 + 2 * h * 4 + 4 * b * S * n * 2
-               + (b * h * p * n * 4 if with_dfinal else 0))
-    # operations this data needs, per (row, head, chunk of q valid
-    # positions): C·Bᵀ and dy·uᵀ over the causal triangle and the three
-    # products with them (du, dC, dB); the state before every chunk but the
-    # first and, for every chunk with a state gradient after it, the
-    # chunk's share of it and the products with it (du, dB); h_inᵀ dy for
-    # every chunk after the first
-    chunks = -(-S // Q)
-    n_ops = 0
-    for ci in range(chunks):
-        q = min(Q, S - ci * Q)
-        tri = q * (q + 1) // 2
-        has_h, has_dh = ci > 0, ci < chunks - 1 or with_dfinal
-        macs = tri * (n + p + p + n + n)
-        macs += (q * p * n if ci < chunks - 1 else 0)          # the state it passes on
-        macs += (q * p * n if ci > 0 else 0)                   # its share of dh_in
-        macs += (2 * q * p * n if has_dh else 0) + (q * p * n if has_h else 0)
-        n_ops += 2 * macs * b * h
-    rec = bound(n_bytes, n_ops, "bfloat16")
-    rec["ops_ms_f32_cuda_cores"] = n_ops / PEAK_OPS_PER_S["float32"] * 1e3
-    return rec
-
-
 def time_ssd_bwd() -> dict:
     """The backward kernel at mamba2's training shape (a microbatch of 2 x
     1024 tokens, bf16 slices of the fused tensor, no final-state
@@ -3263,7 +3216,7 @@ def time_ssd_bwd() -> dict:
                 plain_ms=time_call(lambda: ref.ssd_bwd_ref(*args, dy, None, chunk=Q), 3),
                 library_ms=None,
                 library_note="no single PyTorch call computes the SSD scan's backward",
-                **ssd_bwd_bound(b, S, h, p, n, Q, False))
+                **with_f32_ops(ops.backward_cost(*args, chunk=Q)))
 
 
 def check_train_small(arch: str = "qwen1.5-0.5b") -> dict:
@@ -3557,6 +3510,153 @@ def train_restore() -> dict:
     return rec
 
 
+# ------------------------------------------------------------ phase 11: the audit
+#: the bound of every timing line that PERF.md §6 records, in ms to the
+#: digits it gives (the account of ``ops.cost``; moved there unchanged)
+RECORDED_BOUND_MS = {
+    "paged main": 0.00090, "paged d160": 0.00358, "paged whisper cross": 0.00367,
+    "flash monolithic": 0.00094, "flash dbrx": 0.00329, "flash d160": 0.00470,
+    "flash d256": 0.00282, "flash gemma2_local": 0.17320, "flash whisper_encoder": 0.00932,
+    "flash whisper_cross": 0.00191, "flash internvl2": 0.00911, "flash backward": 0.02173,
+    f"ssd S={SSD_MAIN_S}": 0.00241, "ssd zamba2": 0.00280, "ssd backward": 0.02282,
+}
+
+
+def meta(*shape, dtype=torch.bfloat16):
+    """An operand of ``shape`` and ``dtype`` with no data, for a cost."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def account_costs(paged_timing, paged_d160, paged_cross, flash_timing, ssd_timing,
+                  bwd_timing, ssd_bwd_timing) -> dict:
+    """Each timing line's shapes, as the line prints them, through the
+    kernels' ``cost``: ``{line: (cost, the line's record)}``."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    def paged(rec):
+        B, H, KH, D, T, P = rec["shape"]
+        return paged_ops.cost(meta(B, H, D), meta(1, T, KH, D),
+                              meta(B, P, dtype=torch.int32), rec["lengths"],
+                              k_new=meta(B, KH, D))
+
+    c = paged_cross
+    out = {"paged main": (paged(paged_timing), paged_timing),
+           "paged d160": (paged(paged_d160), paged_d160),
+           "paged whisper cross": (paged_ops.cost(
+               meta(c["B"], c["H"], c["D"]), meta(1, c["page_tokens"], c["KH"], c["D"]),
+               meta(c["B"], c["S"] // c["page_tokens"], dtype=torch.int32),
+               [c["S"]] * c["B"]), c)}
+    for name, r in flash_timing.items():
+        out[f"flash {name}"] = (flash_ops.prefill_cost(
+            meta(r["B"], r["Sq"], r["H"], r["D"]), meta(r["B"], r["Skv"], r["KH"], r["D"]),
+            meta(r["B"], r["Skv"], r["KH"], r["D"]), causal=r["causal"], window=r["window"],
+            q_offset=r["q_offset"], kv_hole=r["kv_hole"]), r)
+    b = bwd_timing
+    q = meta(b["B"], b["S"], b["H"], b["D"])
+    out["flash backward"] = (flash_ops.backward_cost(q, q, q, seq_dim=1, head_dim=2,
+                                                     causal=b["causal"]), b)
+
+    def ssd_operands(bsz, S, h, p, n):
+        return (meta(bsz, S, h, p), meta(bsz, S, h, dtype=torch.float32),
+                meta(h, dtype=torch.float32), meta(bsz, S, n), meta(bsz, S, n))
+
+    m = SSD_MAIN
+    for S, r in [(SSD_MAIN_S, ssd_timing), *ssd_timing["by_s"].items()]:
+        out[f"ssd S={S}"] = (ssd_ops.cost(*ssd_operands(m["b"], int(S), m["h"], m["p"],
+                                                         m["n"]), chunk=m["chunk"]), r)
+    z = ssd_timing["zamba2"]
+    out["ssd zamba2"] = (ssd_ops.cost(*ssd_operands(z["b"], z["S"], z["h"], z["p"], z["n"]),
+                                      chunk=z["chunk"]), z)
+    r = ssd_bwd_timing
+    out["ssd backward"] = (ssd_ops.backward_cost(*ssd_operands(r["B"], r["S"], r["H"], r["P"],
+                                                               r["N"]), chunk=r["chunk"]), r)
+    return out
+
+
+def check_account(timings: dict) -> dict:
+    """Every timing line's bytes, operations and bound equal what the
+    kernels' ``cost`` gives at the line's shapes, and every bound that
+    PERF.md §6 records equals it to the digits recorded there."""
+    checked = {}
+    for line, (cost, rec) in timings.items():
+        want = bound_of(cost)
+        got = {k: rec[k] for k in ("bytes", "operations", "bound_ms")}
+        if got != {k: want[k] for k in got}:
+            raise AssertionError(f"{line}: the line prints {got}, its cost gives {want}")
+        if line in RECORDED_BOUND_MS and round(rec["bound_ms"], 5) != RECORDED_BOUND_MS[line]:
+            raise AssertionError(f"{line}: bound {rec['bound_ms']} ms, PERF.md records "
+                                 f"{RECORDED_BOUND_MS[line]}")
+        checked[line] = rec["bound_ms"]
+    missing = set(RECORDED_BOUND_MS) - set(checked)
+    if missing:
+        raise AssertionError(f"no timing line for the recorded bounds {sorted(missing)}")
+    return checked
+
+
+def audit_on_card(cfg, params, timings: dict) -> dict:
+    """Phase 11: the step auditor and the lint on the card. The seeded
+    selftest; the audit of full-width qwen engines with the launcher's
+    pools (every paged decode bucket, every chunk-prefill spec, the
+    dense-slot spec) and of the three kernel targets, with every captured
+    bucket's replay timed against its bound: no violation; the replay
+    gate: no capture after warmup; the timing lines' account; the port's
+    lint over its default paths: clean."""
+    from repro_torch.analysis import jitaudit, lint
+    from repro_torch.launch.serve import ENGINE_POOLS
+    from repro_torch.serving import Engine
+
+    t0 = time.perf_counter()
+    failures = jitaudit.selftest(DEVICE)
+    if failures:
+        raise AssertionError(f"jitaudit selftest: {failures}")
+    paged = Engine(cfg, params, device=DEVICE, **ENGINE_POOLS)
+    dense = Engine(cfg, params, device=DEVICE, dense_slots=True, **ENGINE_POOLS)
+    paged.warmup(prefill_chunks=True)
+    dense.warmup()
+    targets = (jitaudit.engine_targets(paged, prefill_chunks=True)
+               + jitaudit.engine_targets(dense, prefill_chunks=False)
+               + jitaudit.kernel_targets(DEVICE))
+    rows, violations = jitaudit.audit(targets)
+    if violations:
+        raise AssertionError("jitaudit: " + "; ".join(str(v) for v in violations))
+    decode = [r for r in rows if r["kind"] in ("paged_decode", "dense")]
+    shares = [r.get("replay_share") for r in decode]
+    n_buckets = -(-paged.pages_per_slot // paged._table_bucket)
+    if len(decode) != n_buckets + 1 or DEVICE == "cuda" and not all(
+            s is not None and 0 < s <= jitaudit.REPLAY_SHARE_LIMIT for s in shares):
+        raise AssertionError(f"decode buckets' roofline shares: {shares}")
+    del paged, dense
+    gate = jitaudit.replay_gate(cfg, params, device=DEVICE, log=log)
+    if gate["post_warmup_captures"] or gate["captures_by_phase"]["replay"]:
+        raise AssertionError(f"the replay gate captured after warmup: {gate}")
+    account = check_account(timings)
+    lint_files = lint._gather(lint.default_paths(str(ROOT)))
+    lint_violations = lint.run(lint_files)
+    if lint_violations:
+        raise AssertionError("lint: " + "; ".join(str(v) for v in lint_violations))
+    blockers = jitaudit.blocker_sites(rows)
+    record = dict(
+        selftest_failures=failures, targets=len(rows), violations=len(violations),
+        kinds={k: sum(r["kind"] == k for r in rows) for k in sorted({r["kind"] for r in rows})},
+        decode_buckets={r["target"]: dict(
+            bucket=r["bucket"], flops=r["static"]["flops"], hbm_bytes=r["static"]["hbm_bytes"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], replay_ms=r.get("replay_ms"),
+            replay_share=r.get("replay_share"), ratios=r["ratios"]) for r in decode},
+        ratio_ranges={k: [min(r["ratios"][k] for r in rows), max(r["ratios"][k] for r in rows)]
+                      for k in jitaudit.TOLERANCES},
+        chunk_specs=sum(r["kind"] == "chunk_prefill" for r in rows),
+        capture_blockers=blockers,
+        replay_gate={k: gate[k] for k in ("post_warmup_captures", "captures_by_phase",
+                                          "graph_replays")},
+        account_lines=len(account), account_recorded=len(RECORDED_BOUND_MS),
+        lint_files=len(lint_files), lint_violations=len(lint_violations),
+        seconds=time.perf_counter() - t0)
+    log("jitaudit " + json.dumps(record))
+    return record
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -3636,7 +3736,8 @@ def main(argv=None) -> int:
     dense = serve_dense_slots(args, qwen_cfg, qwen_params, serve_log)
     torch.cuda.reset_peak_memory_stats()
     replicas = serve_replicas(args, qwen_cfg, qwen_params)
-    del qwen_params
+    # phase 11 audits engines on these weights: they wait on the host
+    qwen_params = _to(qwen_params, "cpu")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3679,6 +3780,14 @@ def main(argv=None) -> int:
     # last: after torch.compile a profile can lose kernel records, and the
     # replays' checks count kernels in profiles
     time_flex_yardstick(flash_timing)
+
+    # phase 11: the audit of the step graphs, the account and the lint
+    audit_on_card(qwen_cfg, _to(qwen_params, DEVICE), account_costs(
+        paged_timing, paged_d160, paged_cross, flash_timing, ssd_timing, bwd_timing,
+        ssd_bwd_timing))
+    del qwen_params
+    gc.collect()
+    torch.cuda.empty_cache()
 
     ft = flash_timing["monolithic"]
     kernels = {"kernels": [

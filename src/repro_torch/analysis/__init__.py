@@ -10,6 +10,11 @@
 * :mod:`repro_torch.analysis.fuzz` — randomized replay fuzzer that drives
   the router under the sanitizer (``python -m repro_torch.analysis.fuzz``);
   ``--compile-audit`` also arms the compile tracker per round.
+* :mod:`repro_torch.analysis.jitaudit` — the step auditor: in place,
+  capture hazards and a static roofline over every step ``Engine.warmup``
+  runs and the kernels' targets (``python -m repro_torch.analysis.jitaudit``).
+* :mod:`repro_torch.analysis.lint` — the port's AST lint
+  (``python -m repro_torch.analysis.lint``).
 
 The first two are copies of the reference's pure-Python modules; the
 tracker counts graph captures where the reference counted jit lowerings. This

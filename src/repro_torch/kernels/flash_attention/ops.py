@@ -36,14 +36,20 @@ dimension and alignment alone, never on a failure: ``tensor_core`` (bf16,
 D in 32, 64, 128, every row start 16-byte aligned: ``mma.sync`` passes)
 and ``cuda_core`` (everything else: the first version's f32 tiles).
 ``KERNEL.backward_kernel.routes`` counts the backward's launches by route.
+
+``flash_cost``, ``prefill_cost`` and ``backward_cost`` count one call's
+work for the roofline (:mod:`repro_torch.kernels.roofline`);
+``audit_spec`` gives the step auditor (:mod:`repro_torch.analysis.jitaudit`)
+a prefill call at two sequence lengths.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import _nvcc
+from repro_torch.kernels import _nvcc, leaf, roofline
 from repro_torch.kernels.flash_attention import _build
 from repro_torch.kernels.flash_attention.ref import blockwise_attention, flash_attention_ref
 
@@ -219,6 +225,73 @@ class _FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+def visible_pairs(Sq: int, Skv: int, *, causal: bool, window=None, q_offset: int = 0,
+                  kv_hole=None, kv_length=None) -> int:
+    """(query, key) pairs one head of one row attends: query ``i`` sits at
+    position ``q_offset + i``; it sees keys up to it when ``causal``, the
+    last ``window`` positions when windowed, none in ``kv_hole``'s
+    ``[lo, hi)`` and none at or past ``kv_length``."""
+    pos = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(Skv, pos + 1) if causal else np.full(Sq, Skv, np.int64)
+    if kv_length is not None:
+        hi = np.minimum(hi, int(kv_length))
+    lo = np.maximum(0, pos - window + 1) if window else np.zeros(Sq, np.int64)
+    n = np.maximum(0, hi - lo)
+    if kv_hole is not None:
+        h_lo, h_hi = int(kv_hole[0]), int(kv_hole[1])
+        n -= np.maximum(0, np.minimum(hi, h_hi) - np.maximum(lo, h_lo))
+    return int(n.sum())
+
+
+def cost(q, k, v, *, seq_dim: int, head_dim: int, causal: bool, window=None,
+         q_offset: int = 0, kv_hole=None, kv_lengths=None) -> dict:
+    """One forward call's work: ``{"flops", "bytes", "op_type"}``. Bytes: q,
+    k and v read once and the output written once. Operations: q·kᵀ and
+    p·v over the visible (query, key) pairs (:func:`visible_pairs`).
+    ``kv_lengths`` are host values (a CUDA tensor is read, a sync).
+    Operands are tensors or anything with their ``shape`` and ``dtype``."""
+    B, D = q.shape[0], q.shape[3]
+    H, Sq = q.shape[head_dim], q.shape[seq_dim]
+    KH, Skv = k.shape[head_dim], k.shape[seq_dim]
+    if kv_lengths is None:
+        rows = [None] * B
+    else:
+        if isinstance(kv_lengths, torch.Tensor):
+            kv_lengths = kv_lengths.detach().cpu()
+        rows = np.asarray(kv_lengths, np.int64).reshape(B).tolist()
+    visible = sum(visible_pairs(Sq, Skv, causal=causal, window=window, q_offset=q_offset,
+                                kv_hole=kv_hole, kv_length=r) for r in rows)
+    n_bytes = (2 * B * Sq * H * D + 2 * B * Skv * KH * D) * q.dtype.itemsize
+    return dict(flops=4 * H * D * visible, bytes=n_bytes, op_type=roofline.op_type(q.dtype))
+
+
+def flash_cost(q, k, v, *, causal=True, window=None, softcap=None, q_offset=0) -> dict:
+    """:func:`cost` of a :func:`flash_attention` call (``[B, H, S, D]``)."""
+    return cost(q, k, v, seq_dim=2, head_dim=1, causal=causal, window=window,
+                q_offset=q_offset)
+
+
+def prefill_cost(q, k, v, *, causal: bool, window=None, cap=None, q_offset: int = 0,
+                 kv_lengths=None, kv_hole=None) -> dict:
+    """:func:`cost` of a :func:`prefill_attention` call (``[B, S, H, D]``)."""
+    return cost(q, k, v, seq_dim=1, head_dim=2, causal=causal, window=window,
+                q_offset=q_offset, kv_hole=kv_hole, kv_lengths=kv_lengths)
+
+
+def backward_cost(q, k, v, *, seq_dim: int, head_dim: int, causal: bool, window=None) -> dict:
+    """One backward call's work (``KERNEL.backward``): bytes, q, k, v, the
+    output, its gradient and the log-sum-exp read once, dq, dk and dv
+    written once; operations, the five products (the scores, dP, dV, dK
+    and dQ) over the visible pairs."""
+    B, D = q.shape[0], q.shape[3]
+    H, Sq = q.shape[head_dim], q.shape[seq_dim]
+    KH, Skv = k.shape[head_dim], k.shape[seq_dim]
+    visible = B * H * visible_pairs(Sq, Skv, causal=causal, window=window)
+    n_bytes = ((4 * B * Sq * H * D + 4 * B * Skv * KH * D) * q.dtype.itemsize
+               + 4 * B * H * Sq)
+    return dict(flops=5 * 2 * D * visible, bytes=n_bytes, op_type=roofline.op_type(q.dtype))
+
+
 def _refuse_grad(q_offset=0, kv_lengths=None, kv_hole=None) -> None:
     """The backward kernel's refusals: its queries start at position 0 and
     every key up to the mask is real."""
@@ -230,6 +303,7 @@ def _refuse_grad(q_offset=0, kv_lengths=None, kv_hole=None) -> None:
                 "(ROADMAP, kernel work on flash_attention)")
 
 
+@leaf.entry("flash_attention.flash_attention", flash_cost, host_operands=("q_offset",))
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, q_offset=0):
     """Sequence attention, q [B,H,Sq,D]; k, v [B,KH,Skv,D] -> [B,H,Sq,D]."""
     if q.is_cuda:
@@ -242,6 +316,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, q_offset
                                q_offset=q_offset)
 
 
+@leaf.entry("flash_attention.prefill_attention", prefill_cost,
+            host_operands=("q_offset", "kv_hole"))
 def prefill_attention(q, k, v, *, causal: bool, window=None, cap=None, q_offset: int = 0,
                       kv_lengths=None, kv_hole=None):
     """Prefill attention in the model's layout, q [B,Sq,H,D]; k, v
@@ -255,3 +331,30 @@ def prefill_attention(q, k, v, *, causal: bool, window=None, cap=None, q_offset:
                       kv_hole=kv_hole)
     return blockwise_attention(q, k, v, causal=causal, window=window, cap=cap,
                                q_offset=q_offset, kv_lengths=kv_lengths, kv_hole=kv_hole)
+
+
+def audit_spec(device=None) -> dict:
+    """The step auditor's kernel target: one causal bf16 prefill call in the
+    model's layout (``[B, S, H, D]``, the layout the engine's prefill
+    passes) at 64 tokens of 4 heads of 64, probed against 128 (the op
+    sequence must not depend on the length). Inputs on ``device``, drawn
+    from a seed; ``None`` is the card."""
+    from repro_torch.serving.engine import resolve_device
+
+    device = resolve_device(device)
+
+    def make(seq: int):
+        def args():
+            g = torch.Generator().manual_seed(0)
+            return tuple(torch.randn((1, seq, 4, 64), generator=g).to(device, torch.bfloat16)
+                         for _ in range(3))
+
+        return args
+
+    return {
+        "name": "kernels.flash_attention",
+        "fn": lambda q, k, v: prefill_attention(q, k, v, causal=True),
+        "make_args": make(64),
+        "probe_args": make(128),
+        "bucket": {"seq": 64, "heads": 4, "head_dim": 64},
+    }

@@ -27,12 +27,18 @@ Beside the wrapper's count of its launches (``KERNEL.launches``), the
 kernel counts the launches the card ran in one int32 on each device
 (``KERNEL.device_launches``): a replayed CUDA graph calls no wrapper, and
 this count still sees its kernels.
+
+``cost`` counts one call's work for the roofline
+(:mod:`repro_torch.kernels.roofline`); ``audit_spec`` gives the step
+auditor (:mod:`repro_torch.analysis.jitaudit`) a decode call at two table
+buckets.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import _nvcc
+from repro_torch.kernels import _nvcc, leaf, roofline
 from repro_torch.kernels.paged_attention import _build
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_decode_ref,
@@ -193,6 +199,52 @@ def _refuse_grad(*operands) -> None:
             "on the card would be lost; CPU tensors train through the plain version")
 
 
+def cost(q, k_pages, block_tables, lengths=None, *, k_new=None, k_scales=None,
+         window=None) -> dict:
+    """One call's work: ``{"flops", "bytes", "op_type"}``. Each row reads
+    the pool at the positions its length makes visible (the new token's
+    from ``k_new``/``v_new`` instead, when given), once for k and once for
+    v, with each page's scale on an int8 pool; q and the output, the new
+    token's k and v, the whole block table and the lengths once. The
+    products are q·kᵀ and p·v over the visible positions. ``lengths`` are
+    host values (a sequence, an array or a CPU tensor; a CUDA tensor is
+    read, a sync); ``None`` counts every column of the table as visible.
+    Operands are tensors or anything with their ``shape`` and ``dtype``."""
+    B, H, D = q.shape
+    _, T, KH, _ = k_pages.shape
+    P = block_tables.shape[1]
+    if lengths is None:
+        lens = np.full(B, P * T, np.int64)
+    else:
+        if isinstance(lengths, torch.Tensor):
+            lengths = lengths.detach().cpu()
+        lens = np.asarray(lengths, np.int64).reshape(B)
+    visible = np.minimum(lens, window) if window else lens
+    from_pool = visible - 1 if k_new is not None else visible
+    elem_q, elem_kv = q.dtype.itemsize, k_pages.dtype.itemsize
+    kv_bytes = 2 * int(from_pool.sum()) * KH * D * elem_kv
+    if k_scales is not None:
+        kv_bytes += 2 * 4 * int((-(-from_pool // T)).sum())
+    io_bytes = (2 * B * H * D + (2 * B * KH * D if k_new is not None else 0)) * elem_q
+    meta_bytes = 4 * (B * P + B)
+    return dict(flops=int(4 * H * D * visible.sum()), bytes=kv_bytes + io_bytes + meta_bytes,
+                op_type=roofline.op_type(q.dtype))
+
+
+def _attention_cost(q, k_pages, v_pages, block_tables, lengths, k_scales=None,
+                    v_scales=None, *, softcap=None, window=None) -> dict:
+    """:func:`cost` of a :func:`paged_attention` call."""
+    return cost(q, k_pages, block_tables, lengths, k_scales=k_scales, window=window)
+
+
+def _decode_cost(q, k_new, v_new, k_pages, v_pages, block_tables, lengths, k_scales=None,
+                 v_scales=None, *, softcap=None, window=None) -> dict:
+    """:func:`cost` of a :func:`paged_attention_decode` call."""
+    return cost(q, k_pages, block_tables, lengths, k_new=k_new, k_scales=k_scales,
+                window=window)
+
+
+@leaf.entry("paged_attention.paged_attention", _attention_cost)
 def paged_attention(
     q, k_pages, v_pages, block_tables, lengths,
     k_scales=None, v_scales=None, *, softcap=None, window=None,
@@ -210,6 +262,7 @@ def paged_attention(
     )
 
 
+@leaf.entry("paged_attention.paged_attention_decode", _decode_cost)
 def paged_attention_decode(
     q, k_new, v_new, k_pages, v_pages, block_tables, lengths,
     k_scales=None, v_scales=None, *, softcap=None, window=None,
@@ -225,3 +278,37 @@ def paged_attention_decode(
         q, k_new, v_new, k_pages, v_pages, block_tables, lengths,
         k_scales, v_scales, softcap=softcap, window=window,
     )
+
+
+def audit_spec(device=None) -> dict:
+    """The step auditor's kernel target: one decode call over a bf16 paged
+    pool in the kernel's own layout (q ``[B, H, D]``, pages ``[N, T, KH,
+    D]``, tables ``[B, P]``), the new token as operands, at a table bucket
+    of 4 pages, probed against 8 (the op sequence must not depend on the
+    table's width). Inputs on ``device``, drawn from a seed;
+    ``None`` is the card."""
+    from repro_torch.serving.engine import resolve_device
+
+    device = resolve_device(device)
+
+    def make(table_pages: int):
+        def args():
+            g = torch.Generator().manual_seed(0)
+
+            def randn(*shape):
+                return torch.randn(shape, generator=g).to(device, torch.bfloat16)
+
+            tables = torch.arange(2 * table_pages, dtype=torch.int32).view(2, table_pages)
+            return (randn(2, 4, 64), randn(2, 4, 64), randn(2, 4, 64),
+                    randn(16, 8, 4, 64), randn(16, 8, 4, 64), tables.to(device),
+                    torch.tensor([5, 12], dtype=torch.int32).to(device))
+
+        return args
+
+    return {
+        "name": "kernels.paged_attention",
+        "fn": paged_attention_decode,
+        "make_args": make(4),
+        "probe_args": make(8),
+        "bucket": {"batch": 2, "table_pages": 4, "page_tokens": 8},
+    }

@@ -55,6 +55,10 @@ Two routes inside the kernel library, chosen by dtype and shape alone
 
 ``KERNEL.launches`` counts forward launches, one per call whatever the
 route (a recording call's too); ``KERNEL.routes`` counts them by route.
+
+``cost`` and ``backward_cost`` count one call's work for the roofline
+(:mod:`repro_torch.kernels.roofline`); ``audit_spec`` gives the step
+auditor (:mod:`repro_torch.analysis.jitaudit`) a scan at two lengths.
 """
 from __future__ import annotations
 
@@ -63,7 +67,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _nvcc
+from repro_torch.kernels import _nvcc, leaf, roofline
 from repro_torch.kernels.ssd import _build
 from repro_torch.kernels.ssd.ref import ssd_reference
 
@@ -380,6 +384,62 @@ class _SsdFn(torch.autograd.Function):
         return dx, ddt, dA, dB, dC, None
 
 
+def _widths(x, Bm) -> tuple[int, int, int, int, int]:
+    """``(B, S, H, P, N)`` of a scan's operands (B/C ``[B, S, N]`` or
+    ``[B, S, 1, N]``)."""
+    b, S, h, p = x.shape
+    return b, S, h, p, Bm.shape[-1]
+
+
+def cost(x, dt, A, Bm, Cm, *, chunk: int = 128) -> dict:
+    """One forward call's work: ``{"flops", "bytes", "op_type"}``. Bytes: x,
+    dt, A, B and C read once, y and the final state written once.
+    Operations this run's data needs, per (row, head, chunk of q valid
+    positions): C·Bᵀ and its product with x·dt over the causal triangle,
+    C·stateᵀ for every chunk after the first (the first state is 0), and
+    the state update. Operands are tensors or anything with their
+    ``shape`` and ``dtype``."""
+    b, S, h, p, n = _widths(x, Bm)
+    ex, eb = x.dtype.itemsize, Bm.dtype.itemsize
+    n_bytes = (2 * b * S * h * p * ex + b * S * h * 4 + h * 4 + 2 * b * S * n * eb
+               + b * h * p * n * 4)
+    n_ops = 0
+    for c0 in range(0, S, chunk):
+        q = min(chunk, S - c0)
+        tri = q * (q + 1) // 2
+        macs = tri * n + tri * p + q * p * n + (q * p * n if c0 else 0)
+        n_ops += 2 * macs * b * h
+    return dict(flops=n_ops, bytes=n_bytes, op_type=roofline.op_type(x.dtype))
+
+
+def backward_cost(x, dt, A, Bm, Cm, *, chunk: int = 128, with_dfinal: bool = False) -> dict:
+    """One backward call's work (``KERNEL.backward``). Bytes: x, dy, dt, A,
+    B, C (and the final state's gradient) read once; dx, ddt, dA, dB, dC
+    written once. Operations this data needs, per (row, head, chunk of q
+    valid positions): C·Bᵀ and dy·uᵀ over the causal triangle and the three
+    products with them (du, dC, dB); the state before every chunk but the
+    first and, for every chunk with a state gradient after it, the chunk's
+    share of it and the products with it (du, dB); h_inᵀ dy for every
+    chunk after the first."""
+    b, S, h, p, n = _widths(x, Bm)
+    ex, eb = x.dtype.itemsize, Bm.dtype.itemsize
+    n_bytes = (3 * b * S * h * p * ex + 2 * b * S * h * 4 + 2 * h * 4 + 4 * b * S * n * eb
+               + (b * h * p * n * 4 if with_dfinal else 0))
+    chunks = -(-S // chunk)
+    n_ops = 0
+    for ci in range(chunks):
+        q = min(chunk, S - ci * chunk)
+        tri = q * (q + 1) // 2
+        has_h, has_dh = ci > 0, ci < chunks - 1 or with_dfinal
+        macs = tri * (n + p + p + n + n)
+        macs += (q * p * n if ci < chunks - 1 else 0)          # the state it passes on
+        macs += (q * p * n if ci > 0 else 0)                   # its share of dh_in
+        macs += (2 * q * p * n if has_dh else 0) + (q * p * n if has_h else 0)
+        n_ops += 2 * macs * b * h
+    return dict(flops=n_ops, bytes=n_bytes, op_type=roofline.op_type(x.dtype))
+
+
+@leaf.entry("ssd.ssd", cost)
 def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128):
     """Mamba-2 SSD scan. x [B,S,H,P]; B/C [B,S,N] or [B,S,1,N] (one group)."""
     if Bm.dim() == 4:
@@ -392,3 +452,34 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128):
             return _SsdFn.apply(x, dt, A, Bm, Cm, chunk)
         return KERNEL(x, dt, A, Bm, Cm, chunk=chunk)
     return ssd_reference(x, dt, A, Bm[:, :, None, :], Cm[:, :, None, :], chunk=chunk)
+
+
+def audit_spec(device=None) -> dict:
+    """The step auditor's kernel target: one bf16 scan of 128 positions at
+    4 heads of 64, state 64, chunk 64 (shapes the tensor-core route
+    takes), probed against 256 positions (the op sequence must not depend
+    on the length). Inputs on ``device``, drawn from a seed;
+    ``None`` is the card."""
+    from repro_torch.serving.engine import resolve_device
+
+    device = resolve_device(device)
+
+    def make(seq: int):
+        def args():
+            g = torch.Generator().manual_seed(0)
+            x = torch.randn((1, seq, 4, 64), generator=g).to(device, torch.bfloat16)
+            dt = (torch.rand((1, seq, 4), generator=g) * 0.1).to(device)
+            A = -torch.rand(4, generator=g).to(device)
+            Bm = torch.randn((1, seq, 64), generator=g).to(device, torch.bfloat16)
+            Cm = torch.randn((1, seq, 64), generator=g).to(device, torch.bfloat16)
+            return x, dt, A, Bm, Cm
+
+        return args
+
+    return {
+        "name": "kernels.ssd",
+        "fn": lambda x, dt, A, Bm, Cm: ssd(x, dt, A, Bm, Cm, chunk=64),
+        "make_args": make(128),
+        "probe_args": make(256),
+        "bucket": {"seq": 128, "heads": 4, "head_dim": 64, "state": 64, "chunk": 64},
+    }

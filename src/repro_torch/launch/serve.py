@@ -24,6 +24,12 @@ from repro_torch.serving.state_io import restore_snapshot, save_snapshot
 from repro_torch.traces import TraceGenConfig, generate_corpus
 
 
+#: the launcher's engine geometry: 16-token pages, 72 device and 160 host
+#: pages, 3 decode slots of up to 384 tokens
+ENGINE_POOLS = dict(page_tokens=16, n_device_pages=72, n_host_pages=160, max_slots=3,
+                    max_seq=384)
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b")
@@ -56,8 +62,7 @@ def build_router(args: argparse.Namespace):
     check_servable(cfg)      # before any weight is drawn
     params = materialize(Model(cfg).describe(), seed=0, device=device)
     engines = [
-        Engine(cfg, params, device=device, page_tokens=16, n_device_pages=72,
-               n_host_pages=160, max_slots=3, max_seq=384)
+        Engine(cfg, params, device=device, **ENGINE_POOLS)
         for _ in range(args.replicas)
     ]
     router = MoriRouter(

@@ -32,8 +32,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import leaf
 from repro_torch.kernels.flash_attention.ops import prefill_attention
 from repro_torch.kernels.flash_attention.ref import blockwise_attention  # noqa: F401 (re-export)
+from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ops import paged_attention, paged_attention_decode
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.kernels.ssd.ref import ssd_decode_step
@@ -168,6 +170,18 @@ def dividing_page_tokens(seq: int) -> int:
     return t
 
 
+def _decode_attention_cost(q, k_cache, v_cache, *, lengths, window=None, cap=None,
+                           page_tokens: int = 16) -> dict:
+    """The paged kernel's cost over the slot cache read as pages, as
+    :func:`decode_attention` reads it on the card."""
+    B, S, KH, D = k_cache.shape
+    T = page_tokens
+    pages = torch.empty((-(-B * S // T), T, KH, D), dtype=k_cache.dtype, device="meta")
+    table = torch.empty((B, -(-S // T)), dtype=torch.int32, device="meta")
+    return paged_ops.cost(q, pages, table, lengths, window=window)
+
+
+@leaf.entry("layers.decode_attention", _decode_attention_cost)
 def decode_attention(q, k_cache, v_cache, *, lengths, window=None, cap=None,
                      page_tokens: int = 16):
     """Single-token attention over a slot cache.
@@ -182,7 +196,8 @@ def decode_attention(q, k_cache, v_cache, *, lengths, window=None, cap=None,
     raises where the kernel refuses the shapes. On CPU tensors this is the
     reference's masked softmax in plain PyTorch: scores and the weighted
     sum in f32, the weights rounded to q's dtype before the sum, as the
-    reference's einsums take them.
+    reference's einsums take them. Either way the step auditor sees one
+    call of the paged kernel over the slot pages (:mod:`repro_torch.kernels.leaf`).
     """
     B, S, KH, D = k_cache.shape
     H = q.shape[1]

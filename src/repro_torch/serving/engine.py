@@ -26,6 +26,8 @@ The reference compiles one ``jax.jit`` per shape bucket; the port
 captures the decode step once per table bucket as a CUDA graph
 (:class:`repro_torch.serving.graphs.StepGraphs`) and replays it.
 :meth:`Engine.warmup_specs` lists the reference's buckets,
+:meth:`Engine.spec_step` makes one runnable (what warmup runs and the step
+auditor, :mod:`repro_torch.analysis.jitaudit`, traces),
 :meth:`Engine.warmup` captures every decode bucket before traffic, and a
 bucket first met later is captured then, which the compile tracker
 (``REPRO_JITAUDIT=1``) counts as a post-warmup capture. The dense-slot
@@ -161,6 +163,19 @@ class WarmupSpec:
     make_args: object            # () -> the spec's inputs
     bucket: dict = field(default_factory=dict)
     probe_group: str = ""
+
+
+@dataclass
+class SpecStep:
+    """One warmup spec made runnable (:meth:`Engine.spec_step`).
+
+    ``run`` is the step, a function of no arguments. ``buffers`` names the
+    tensors the step must update in place and leave where they are (the
+    pool's pages and scales, the dense slots, the bucket's staged input
+    vector), read afresh at each call so that a rebinding shows."""
+
+    run: object
+    buffers: object
 
 
 def greedy_token(logits: torch.Tensor) -> torch.Tensor:
@@ -425,14 +440,36 @@ class Engine:
         tracker = compile_tracker.get_tracker()
         with tracker.phase("warmup"):
             for spec in self.warmup_specs(prefill_chunks=prefill_chunks):
-                if spec.kind == "dense":
-                    self._decode(DENSE_KEY, spec.make_args())
-                elif spec.kind == "paged_decode":
-                    self._decode(spec.bucket["table_pages"], spec.make_args())
-                else:
-                    _chunk_prefill(self.model, self.pool, **spec.make_args())
+                self.spec_step(spec).run()
         if compile_tracker.enabled():
             tracker.mark_warm(tuple(self.graph_functions()))
+
+    def spec_step(self, spec: WarmupSpec, eager: bool = False) -> SpecStep:
+        """``spec`` as a step to run: what :meth:`warmup` runs and the step
+        auditor (:mod:`repro_torch.analysis.jitaudit`) traces. The spec's
+        inputs are built now. A decode spec's step stages them and replays
+        its bucket's graph, capturing it first if the bucket has none; with
+        ``eager`` they are staged now into the bucket's static vector and
+        the step is the function the graph captures, run op by op. A chunk
+        spec's step is one eager chunk over the pool."""
+        def pool_buffers() -> dict:
+            return dict(zip(("k", "v", "k_scale", "v_scale"), self.pool.device_tensors()))
+
+        args = spec.make_args()
+        if spec.kind == "chunk_prefill":
+            return SpecStep(lambda: _chunk_prefill(self.model, self.pool, **args),
+                            pool_buffers)
+        key = DENSE_KEY if spec.kind == "dense" else spec.bucket["table_pages"]
+
+        def buffers() -> dict:
+            out = ({"slot_k": self.slot_k, "slot_v": self.slot_v} if self.dense_slots
+                   else pool_buffers())
+            out["staged"] = self._staging[key][1]
+            return out
+
+        if not eager:
+            return SpecStep(lambda: self._decode(key, args), buffers)
+        return SpecStep(self._step_fn(key, self._stage(key, args)), buffers)
 
     def _pack(self, tokens, lengths, *paged) -> np.ndarray:
         """A decode step's inputs as one int32 vector, the layout of a
@@ -464,15 +501,28 @@ class Engine:
         the bucket's graph (capturing it first if the bucket has none) and
         return the graph's static ``(logits [B, V] f32, greedy tokens
         [B])``, valid until the next replay."""
+        static = self._static(key, len(packed))
+        if key not in self.graphs:
+            self._capture_decode(key, static, packed)
+        self._stage(key, packed)
+        return self.graphs.replay(key)
+
+    def _static(self, key, n: int) -> torch.Tensor:
+        """Bucket ``key``'s static input vector of ``n`` int32, made at
+        first use with its host vector: pinned on the card, so that the
+        copy out of it is asynchronous."""
         if key not in self._staging:
-            n = len(packed)
             self._staging[key] = (
                 torch.zeros(n, dtype=torch.int32, pin_memory=self.device.type == "cuda"),
                 torch.zeros(n, dtype=torch.int32, device=self.device),
             )
-        host, static = self._staging[key]
-        if key not in self.graphs:
-            self._capture_decode(key, static, packed)
+        return self._staging[key][1]
+
+    def _stage(self, key, packed: np.ndarray) -> torch.Tensor:
+        """Copy ``packed`` into bucket ``key``'s static input vector through
+        its host vector; returns the static vector."""
+        static = self._static(key, len(packed))
+        host = self._staging[key][0]
         if self._staged is not None:
             # the last asynchronous copy out of a staging buffer has been
             # read before any staging buffer is written again
@@ -481,7 +531,15 @@ class Engine:
         static.copy_(host, non_blocking=True)
         if self._staged is not None:
             self._staged.record()
-        return self.graphs.replay(key)
+        return static
+
+    def _step_fn(self, key, static: torch.Tensor):
+        """Bucket ``key``'s decode step over its static input vector
+        ``static``, as a function of no arguments: what its graph
+        captures."""
+        if key == DENSE_KEY:
+            return lambda: self.decode_dense(static)
+        return lambda: self.decode_packed(static, key)
 
     def _capture_decode(self, key, static: torch.Tensor, packed: np.ndarray) -> None:
         """Capture bucket ``key``'s decode step over ``static``. The
@@ -491,12 +549,9 @@ class Engine:
         ``packed``, whose eager run rewrites the KV each row's replay then
         writes again, the same values at the same positions (and, on an
         idle engine, slot position 0)."""
-        if key == DENSE_KEY:
-            static.copy_(torch.from_numpy(packed))
-            self.graphs.capture(key, lambda: self.decode_dense(static))
-            return
-        static.copy_(torch.from_numpy(self._scratch_decode_inputs(key)))
-        self.graphs.capture(key, lambda: self.decode_packed(static, key))
+        static.copy_(torch.from_numpy(
+            packed if key == DENSE_KEY else self._scratch_decode_inputs(key)))
+        self.graphs.capture(key, self._step_fn(key, static))
 
     def decode_dense(self, staged: torch.Tensor, slot_tensors=None):
         """The dense-slot decode step run op by op: the function its graph
