@@ -171,7 +171,18 @@ on failure (a failure exits non-zero and prints no final line):
    captures nothing after warmup); the account: every timing line's
    bytes, operations and bound equal what the kernels' ``cost`` gives at
    its shapes (the bounds PERF.md records among them); and the port's
-   lint over its default paths, clean. One ``jitaudit`` line holds it.
+   lint over its default paths, clean. One ``jitaudit`` line holds it;
+12. the placement path, run right after phase 4 on its engines: the
+   launcher's replica set (its mesh shape, device, the one rules object
+   both replicas share and its fallbacks), every weight of both replicas
+   on the card as a plain tensor and one copy shared leaf for leaf, no
+   process group made; phase 4's corpus replayed through engines built
+   without a placement (no profiler): the same greedy tokens and the same
+   paged and flash launches; ``python -m repro_torch.examples.quickstart``
+   on the card; the train and decode rules of every architecture at full
+   width on both H100 production layouts (32 x 8 and 2 x 32 x 8, no
+   devices needed), every leaf's block dividing, each layout's fallbacks
+   printed.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 hold the per-kernel JSON record and the card's name and power limit. The
@@ -3657,6 +3668,123 @@ def audit_on_card(cfg, params, timings: dict) -> dict:
     return record
 
 
+# ------------------------------------------------------------ phase 12: placement
+def check_placement(args, engines, mono: dict, serve_log: dict) -> dict:
+    """Phase 4's replicas (``serve.build_router``: one replica set, one
+    engine a placement): one rules object, every weight on the card as a
+    plain tensor, one copy shared leaf for leaf, no process group; then
+    phase 4's corpus through engines built without a placement, which must
+    give the same greedy tokens and the same paged and flash launches."""
+    import torch.distributed as dist
+
+    from repro_torch.models.params import flatten_tree
+
+    placements = [e.placement for e in engines]
+    if any(p is None for p in placements):
+        raise AssertionError("a launcher engine has no placement")
+    rules = placements[0].rules
+    card = torch.device("cuda", 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    trees = [list(flatten_tree(_param_tree(e.model))) for e in engines]
+    on_card = all(t.device == card and type(t) is torch.Tensor for tree in trees for _, t in tree)
+    shared = sum(len({t.data_ptr() for t in leaf}) == 1
+                 for leaf in zip(*([t for _, t in tree] for tree in trees)))
+    record = {
+        "replicas": len(placements),
+        "replica_ids": [p.replica_id for p in placements],
+        "mesh_shape": dict(placements[0].mesh.shape),
+        "devices": [str(p.mesh.device()) for p in placements],
+        "engine_devices": [str(e.device) for e in engines],
+        "rules_shared": all(p.rules is rules for p in placements),
+        "rules": {k: list(v) for k, v in rules.rules.items()},
+        "fallbacks": [list(f) for f in rules.fallbacks],
+        "weight_leaves": len(trees[0]), "shared_weight_leaves": shared,
+        "weight_gib_one_copy": sum(t.nbytes for _, t in trees[0]) / 2**30,
+        "weights_on_card_plain": on_card,
+        "process_group": dist.is_available() and dist.is_initialized(),
+    }
+    cfg, params = engines[0].cfg, _param_tree(engines[0].model)
+    unplaced, unplaced_engines, router = replay_paged(
+        args, chunked=False, cfg=cfg, params=params, label="serve_unplaced", profile=False)
+    got = {pid: list(toks) for pid, toks in router.output_log.items()}
+    record.update(
+        unplaced_engines_without_placement=all(e.placement is None for e in unplaced_engines),
+        tokens_equal=got == serve_log, tokens=sum(map(len, got.values())),
+        kernel_launches=[mono["kernel_launches"], unplaced["kernel_launches"]],
+        flash_launches=[mono["flash_launches"], unplaced["flash_launches"]])
+    log("placement " + json.dumps(record))
+    if not (record["rules_shared"] and record["replica_ids"] == list(range(args.replicas))
+            and record["devices"] == [str(card)] * args.replicas
+            and record["engine_devices"] == [str(card)] * args.replicas):
+        raise AssertionError(f"the replicas are not one rules object on {card}: {record}")
+    if not on_card or shared != len(trees[0]) or record["process_group"]:
+        raise AssertionError(
+            f"the replicas do not share one plain weight copy on {card}, or a process group "
+            f"was made: {record}")
+    if not (record["unplaced_engines_without_placement"] and record["tokens_equal"]):
+        raise AssertionError("engines built without a placement gave other tokens than the "
+                             "launcher's placed replicas")
+    if len(set(record["kernel_launches"])) != 1 or len(set(record["flash_launches"])) != 1:
+        raise AssertionError(f"the paged or flash launches moved: {record}")
+    return record
+
+
+def run_quickstart() -> dict:
+    """``python -m repro_torch.examples.quickstart`` on the card, in a
+    process of its own (the kernels it launches are already built)."""
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p)}
+    res = subprocess.run([sys.executable, "-m", "repro_torch.examples.quickstart"],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    lines = res.stdout.strip().splitlines()
+    record = {"exit": res.returncode, "seconds": time.perf_counter() - t0,
+              "lines": [l.strip() for l in lines if ":" in l or "mesh" in l]}
+    log("quickstart " + json.dumps(record))
+    if res.returncode != 0 or not lines or not lines[-1].startswith("ok"):
+        raise AssertionError(f"the quickstart failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return record
+
+
+def resolve_production_rules() -> dict:
+    """Train and decode rules for every architecture at full width on both
+    H100 production layouts (no devices behind them): the parameters and
+    the caches at each of ``SHAPES``; every leaf's local block must divide
+    (``shard_shape`` raises otherwise) and each rule set must shard some
+    leaf. Returns each layout's leaves, sharded leaves and fallbacks."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.dist import make_decode_rules, make_train_rules
+    from repro_torch.launch.mesh import production_layout
+    from repro_torch.models import Model
+    from repro_torch.models.config import SHAPES
+    from repro_torch.models.params import flatten_tree, leaves, sharding_tree
+
+    out = {}
+    for multi_pod in (False, True):
+        mesh = production_layout(multi_pod)
+        layout = {}
+        for arch in ARCH_IDS:
+            cfg = get_config(arch)
+            model = Model(cfg)
+            trees = [model.describe()] + [model.describe_cache(s.global_batch, s.seq_len)
+                                          for s in SHAPES.values()]
+            for kind, rules in (("train", make_train_rules(mesh)),
+                                ("decode", make_decode_rules(mesh, cfg.num_kv_heads))):
+                n = sharded = 0
+                for tree in trees:
+                    shardings = dict(flatten_tree(sharding_tree(tree, mesh, rules)))
+                    for name, l in leaves(tree):
+                        n += 1
+                        sharded += shardings[name].shard_shape(l.shape) != l.shape
+                if not sharded:
+                    raise AssertionError(f"{kind} rules shard no leaf of {arch} on {mesh}")
+                layout[f"{arch} {kind}"] = {"leaves": n, "sharded": sharded,
+                                            "fallbacks": [list(f) for f in rules.fallbacks]}
+        name = " x ".join(f"{k}={v}" for k, v in mesh.shape.items())
+        out[name] = layout
+        log(f"placement rules {name} " + json.dumps(layout))
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -3709,6 +3837,13 @@ def main(argv=None) -> int:
     # phase 7 serves the same weights again
     qwen_cfg, qwen_params = engines[0].cfg, _param_tree(engines[0].model)
     serve_log = {pid: list(toks) for pid, toks in serve_router.output_log.items()}
+    # phase 12 on phase 4's replicas: the placement path, its replay
+    # without placements, the quickstart and the production layouts' rules
+    check_placement(args, engines, mono, serve_log)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_quickstart()
+    resolve_production_rules()
     del engines, serve_router
     gc.collect()
     torch.cuda.empty_cache()

@@ -6,9 +6,12 @@
 The counterpart of ``repro.launch.serve``, with the same defaults. It runs
 the full-width configuration on the GPU by default; ``--reduced`` serves
 the smoke-test size and ``--device cpu`` runs on the CPU (with no CUDA
-device and no ``--device cpu`` it raises). Replicas are engines on one
-device sharing one parameter set. ``--snapshot`` persists the control
-plane each run; ``--resume`` restores it first.
+device and no ``--device cpu`` it raises). The replicas come from one
+:func:`~repro_torch.dist.make_replica_set`, one engine a placement, all
+under one rules object: on one card (or ``--device cpu``) every replica
+aliases that device and the engines share one copy of the weights.
+``--snapshot`` persists the control plane each run; ``--resume`` restores
+it first.
 """
 from __future__ import annotations
 
@@ -17,9 +20,11 @@ from pathlib import Path
 
 from repro_torch.configs import get_config
 from repro_torch.core.types import SchedulerConfig
+from repro_torch.dist import make_replica_set
+from repro_torch.launch.mesh import devices_for
 from repro_torch.models import Model, materialize
 from repro_torch.serving import Engine, MoriRouter
-from repro_torch.serving.engine import check_servable, resolve_device
+from repro_torch.serving.engine import check_servable
 from repro_torch.serving.state_io import restore_snapshot, save_snapshot
 from repro_torch.traces import TraceGenConfig, generate_corpus
 
@@ -54,17 +59,24 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build_router(args: argparse.Namespace):
     """Config, shared weights, engines and router for ``args``; returns
-    ``(cfg, engines, router)``."""
-    device = resolve_device(args.device)
+    ``(cfg, engines, router)``. ``--device cuda`` (the default) places the
+    replicas on the cards, any other device on that device alone."""
+    # the devices first: no card and no --device cpu raises
+    devices = devices_for(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     check_servable(cfg)      # before any weight is drawn
-    params = materialize(Model(cfg).describe(), seed=0, device=device)
-    engines = [
-        Engine(cfg, params, device=device, **ENGINE_POOLS)
-        for _ in range(args.replicas)
-    ]
+    # one rules object shared by all replicas: a program migrated between
+    # replicas lands on an identical layout
+    replica_set = make_replica_set(args.replicas, num_kv_heads=cfg.num_kv_heads,
+                                   devices=devices)
+    # drawn onto the first replica's device, where every aliasing replica
+    # takes the tensors as they are
+    params = materialize(Model(cfg).describe(), seed=0,
+                         device=replica_set.placement(0).mesh.device())
+    engines = [Engine(cfg, params, placement=placement, **ENGINE_POOLS)
+               for placement in replica_set]
     router = MoriRouter(
         engines,
         scheduler=args.scheduler,

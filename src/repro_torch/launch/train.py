@@ -7,8 +7,10 @@ The counterpart of ``repro.launch.train``, with its flags, defaults and
 output lines, plus ``--device`` (default ``cuda``; with no CUDA device and
 no ``--device cpu`` it raises). ``--reduced`` swaps in the architecture's
 smoke-scale config. Restart the same command after a crash and it resumes
-from the newest valid checkpoint. There is no mesh: ``dist/`` is not
-ported, and ``--production-mesh`` raises.
+from the newest valid checkpoint. The trainer gets ``make_host_mesh`` on
+``--device``, or with ``--production-mesh`` the H100 fleet's 32 x 8 mesh
+(:mod:`repro_torch.launch.mesh`), which needs 256 cards: with fewer it
+raises, and the trainer steps only a mesh of one device so far.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import argparse
 import json
 
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.train.data import DataConfig
 from repro_torch.train.loop import (
     FaultInjector,
@@ -39,7 +42,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-scale model config (CPU-runnable)")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="16x16 mesh of the reference (not ported: raises)")
+                    help="32x8 H100 mesh (requires 256 devices)")
     ap.add_argument("--fail-at", type=int, nargs="*", default=[],
                     help="inject a crash at these steps (fault-tolerance demo)")
     ap.add_argument("--device", default="cuda")
@@ -48,10 +51,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build_trainer(args: argparse.Namespace) -> Trainer:
     """The :class:`Trainer` the flags describe."""
-    if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh needs dist/ (sharding over a device mesh), which the port "
-            "has not ported yet (ROADMAP)")
+    mesh = make_production_mesh() if args.production_mesh else make_host_mesh(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -64,7 +64,7 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
     )
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                       global_batch=args.global_batch)
-    return Trainer(cfg, tcfg, data, device=args.device)
+    return Trainer(cfg, tcfg, data, mesh=mesh)
 
 
 def train(trainer: Trainer, state: TrainState, fault: FaultInjector | None = None) -> TrainState:
@@ -84,7 +84,7 @@ def main(argv=None) -> None:
     fault = FaultInjector(tuple(args.fail_at)) if args.fail_at else None
     state = trainer.resume_or_init()
     print(f"training {trainer.cfg.name} from step {state.step} to {trainer.tcfg.steps} "
-          f"on {trainer.device}")
+          f"on mesh {dict(trainer.mesh.shape)} ({trainer.device})")
     state = train(trainer, state, fault)
     for m in trainer.metrics:
         print(json.dumps(m))

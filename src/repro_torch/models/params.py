@@ -9,6 +9,9 @@ float32 times the leaf's std, then a round-to-nearest-even cast to the
 leaf's dtype. Both packages therefore hold identical weights with no
 checkpoint. :func:`load_jax_params` carries a tree of numpy arrays (the
 reference's parameters after ``np.asarray``) across leaf for leaf.
+:func:`spec_tree` and :func:`sharding_tree` resolve a descriptor tree
+under :mod:`repro_torch.dist` rules on a mesh, and :func:`device_put_tree`
+places a tensor tree by a sharding tree.
 """
 from __future__ import annotations
 
@@ -50,6 +53,46 @@ def _unflatten(pairs) -> dict:
         for key in path:
             node = node.setdefault(key, {})
         node[last] = value
+    return out
+
+
+def _map(fn, tree) -> dict:
+    """``fn`` over every :class:`Leaf` of a nested dict, in sorted-key
+    order (the reference's ``jax.tree.map`` order, so fallbacks are
+    recorded alike)."""
+    return {k: fn(tree[k]) if isinstance(tree[k], Leaf) else _map(fn, tree[k])
+            for k in sorted(tree)}
+
+
+def spec_tree(tree, mesh, rules) -> dict:
+    """Each leaf's :class:`~repro_torch.dist.sharding.PartitionSpec`."""
+    return _map(lambda l: rules.spec(mesh, l.axes, l.shape), tree)
+
+
+def sharding_tree(tree, mesh, rules) -> dict:
+    """Each leaf's :class:`~repro_torch.dist.sharding.NamedSharding`."""
+    return _map(lambda l: rules.sharding(mesh, l.axes, l.shape), tree)
+
+
+def device_put_tree(values: dict, shardings: dict) -> dict:
+    """Place a nested dict of tensors by a sharding tree of the same keys.
+    On a mesh of one device a tensor is moved there (``.to``: a tensor
+    already there is returned as it is, so replicas that alias one device
+    share one copy); on a larger mesh it becomes a DTensor over
+    ``mesh.device_mesh()``, which needs a process group."""
+    if set(values) != set(shardings):
+        raise ValueError(f"tree keys differ: {sorted(set(values) ^ set(shardings))}")
+    out = {}
+    for k, v in values.items():
+        sh = shardings[k]
+        if isinstance(v, dict):
+            out[k] = device_put_tree(v, sh)
+        elif sh.mesh.size == 1:
+            out[k] = v.to(sh.mesh.device())
+        else:
+            from torch.distributed.tensor import distribute_tensor
+
+            out[k] = distribute_tensor(v, sh.mesh.device_mesh(), sh.placements())
     return out
 
 

@@ -51,8 +51,11 @@ import torch
 from repro_torch.analysis import compile_tracker
 from repro_torch.core.radix_tree import TypedRadixTree
 from repro_torch.core.types import Tier, TypeLabel
+from repro_torch.dist.placement import ReplicaPlacement
+from repro_torch.launch.mesh import one_device, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import PAGED_FAMILIES, Model
+from repro_torch.models.params import device_put_tree, sharding_tree
 from repro_torch.serving.kvpool import (
     PagePool,
     gather_token_run,
@@ -66,17 +69,6 @@ from repro_torch.serving.graphs import StepGraphs
 _ENGINE_IDS = itertools.count()
 #: the graph key of the dense-slot decode step (paged buckets are ints)
 DENSE_KEY = "dense"
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the GPU. A CUDA device with no GPU present raises:
-    nothing here carries on silently on the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU"
-        )
-    return dev
 
 
 def check_servable(cfg: ModelConfig) -> None:
@@ -255,6 +247,7 @@ class Engine:
         n_host_pages: int = 256,
         max_slots: int = 4,
         max_seq: int = 512,
+        placement: ReplicaPlacement | None = None,
         dense_slots: bool = False,
         table_bucket_pages: int = 4,
         prefill_bucket_tokens: int = 32,
@@ -272,8 +265,16 @@ class Engine:
                 f"dense_slots needs max_seq ({max_seq}) to be a multiple of "
                 f"page_tokens ({page_tokens}): the decode kernel reads each "
                 "slot as whole pages")
-        self.device = resolve_device(device)
         self.cfg = cfg
+        self.placement = placement
+        if placement is not None:
+            # the replica's weights go onto its mesh slice under the shared
+            # rules; on one device that is a move, which returns a tensor
+            # already there as it is, so aliased replicas share one copy
+            device = one_device(placement.mesh, device)
+            params = device_put_tree(params, sharding_tree(
+                Model(cfg).describe(), placement.mesh, placement.rules))
+        self.device = resolve_device(device)
         # the model holds ``params`` without copying them when they are
         # already on the device, so replicas share one set of weights
         self.model = Model(cfg, {

@@ -241,7 +241,7 @@ class Simulation:
         corpus: list[ProgramTrace],
         *,
         num_replicas: int = 1,
-        placement: "object | None" = None,   # anything with ``num_replicas``
+        placement: "object | None" = None,   # repro_torch.dist.ReplicaSet
         concurrency_per_replica: int = 20,
         cpu_ratio: float = 1.0,
         ssd_ratio: float = 0.0,
@@ -253,9 +253,10 @@ class Simulation:
         reuse_corpus: bool = True,
         record_plans: bool = False,
     ):
-        # a placement (the reference's ReplicaSet; the port has no
-        # ``dist`` package yet) pins the simulated fleet's replica count;
-        # it stays on the Simulation beside the SimResult
+        # a ReplicaSet pins the simulated fleet to a concrete device layout:
+        # replica count comes from the placement; the set stays on the
+        # Simulation so callers can read layout provenance (e.g.
+        # sim.placement.rules.fallbacks) alongside the SimResult
         self.placement = placement
         if placement is not None:
             num_replicas = placement.num_replicas

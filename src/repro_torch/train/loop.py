@@ -1,7 +1,12 @@
 """Training loop of the port: gradient accumulation, checkpoint/restart,
-fault injection. The counterpart of ``repro/train/loop.py`` without its
-mesh (``dist/`` is not ported): one device, the card unless the caller
-asks for the CPU.
+fault injection. The counterpart of ``repro/train/loop.py``: the trainer
+takes a mesh and places its state by :func:`make_train_rules` (FSDP over
+"data", tensor-parallel over "model") through
+:func:`~repro_torch.models.params.sharding_tree`, as the reference does.
+Its step runs on one device: a mesh of more than one device raises (the
+step on sharded tensors is ROADMAP's next item). With no mesh it trains
+on ``make_host_mesh(device)``, the card unless the caller asks for the
+CPU.
 
 * every ``ckpt_every`` steps the full (params, opt, step) state is written
   atomically (:mod:`repro_torch.train.checkpoint`, the reference's format);
@@ -27,9 +32,10 @@ from dataclasses import dataclass
 import torch
 from torch.profiler import record_function
 
+from repro_torch.dist.sharding import make_train_rules
+from repro_torch.launch.mesh import make_host_mesh, one_device
 from repro_torch.models import Model, ModelConfig, materialize
-from repro_torch.models.params import flatten_tree
-from repro_torch.serving.engine import resolve_device
+from repro_torch.models.params import device_put_tree, flatten_tree, sharding_tree
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.data import DataConfig, TokenPipeline
 from repro_torch.train.optimizer import adamw_update, describe_opt_state
@@ -76,15 +82,20 @@ def _leaves(tree) -> list:
 
 
 class Trainer:
-    """The accumulating train step on one device. ``device`` None means the
-    card; a CUDA device with no card present raises (nothing here carries
-    on silently on the CPU)."""
+    """The accumulating train step on ``mesh``, which must be of one
+    device. Without a mesh, ``make_host_mesh(device)``: ``device`` None
+    means the card, and a CUDA device with no card present raises (nothing
+    here carries on silently on the CPU). ``mesh`` is a keyword here, where
+    the reference takes it third, so that ``Trainer(cfg, tcfg, data,
+    device=...)`` keeps working."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, data: DataConfig | None = None,
-                 device=None):
+                 device=None, *, mesh=None):
         self.cfg = cfg
         self.tcfg = tcfg
-        self.device = resolve_device(device)
+        self.mesh = make_host_mesh(device) if mesh is None else mesh
+        self.device = one_device(self.mesh, device)
+        self.rules = make_train_rules(self.mesh)
         self.param_tree = Model(cfg).describe()
         self.opt_tree = describe_opt_state(self.param_tree, bf16_moments=cfg.bf16_moments)
         self.data_cfg = data
@@ -100,13 +111,23 @@ class Trainer:
             if t.dtype.is_floating_point:
                 t.requires_grad_(True)
         if opt is None:
-            opt = materialize(self.opt_tree, device=self.device)
+            opt = device_put_tree(materialize(self.opt_tree, device=self.device),
+                                  self.shardings()[1])
         return TrainState(params, opt, step)
 
     def init_state(self) -> TrainState:
         """Fresh parameters from ``tcfg.seed`` (the reference's stream,
-        :func:`materialize`) and zeroed optimizer state, on the device."""
-        return self.adopt(materialize(self.param_tree, seed=self.tcfg.seed, device=self.device))
+        :func:`materialize`) and zeroed optimizer state, placed on the
+        mesh."""
+        # drawn leaf by leaf onto the mesh's one device, where placing
+        # them moves nothing
+        params = materialize(self.param_tree, seed=self.tcfg.seed, device=self.device)
+        return self.adopt(device_put_tree(params, self.shardings()[0]))
+
+    def shardings(self) -> tuple[dict, dict]:
+        """The parameter and optimizer trees' shardings on the mesh."""
+        return (sharding_tree(self.param_tree, self.mesh, self.rules),
+                sharding_tree(self.opt_tree, self.mesh, self.rules))
 
     # -------------------------------------------------------------- step
     def train_step(self, state: TrainState, tokens: torch.Tensor, model: Model | None = None):

@@ -33,7 +33,11 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "repro_torch.kernels.flash_attention.ref", "repro_torch.kernels._nvcc",
                 "repro_torch.analysis.compile_tracker", "repro_torch.serving.graphs",
                 "repro_torch.sim", "repro_torch.sim.engine", "repro_torch.sim.hardware",
-                "repro_torch.sim.metrics", "repro_torch.analysis.fuzz"):
+                "repro_torch.sim.metrics", "repro_torch.analysis.fuzz",
+                "repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.dist.placement",
+                "repro_torch.launch.mesh", "repro_torch.examples.quickstart",
+                "repro_torch.examples.multi_replica_sim", "repro_torch.examples.serve_agents",
+                "repro_torch.examples.train_lm"):
         assert mod in mods, mod
     code = (
         "import importlib, json, sys\n"

@@ -429,6 +429,12 @@ class TestDriver:
         paths = lint.default_paths(str(REPO))
         assert str(REPO / "chip_smoke.py") in paths
         assert str(REPO / "tests" / "test_torch_lint.py") in paths
+        port = REPO / "src" / "repro_torch"
+        gathered = set(lint._gather(paths))
+        for rel in ("dist/sharding.py", "dist/placement.py", "launch/mesh.py",
+                    "examples/quickstart.py", "examples/multi_replica_sim.py",
+                    "examples/serve_agents.py", "examples/train_lm.py"):
+            assert str(port / rel) in gathered, rel
         vs = lint.run(paths)
         assert vs == [], "\n".join(str(v) for v in vs)
 
