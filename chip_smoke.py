@@ -182,7 +182,22 @@ on failure (a failure exits non-zero and prints no final line):
    on the card; the train and decode rules of every architecture at full
    width on both H100 production layouts (32 x 8 and 2 x 32 x 8, no
    devices needed), every leaf's block dividing, each layout's fallbacks
-   printed.
+   printed;
+13. tensor-parallel paged serving (``serve_tp``, after phase 12): two
+   ranks on the one card, spawned processes under ``gloo`` over a file
+   store (this process makes no process group), each loading the kernels
+   the earlier phases built. Each rank probes which ``gloo`` collectives
+   run on CUDA tensors, draws the seed-0 full-width qwen weights and
+   keeps its own blocks of them, and serves the launcher's corpus on two
+   replicas aliasing a ``(1, 2)`` mesh through ``MoriRouter.replay``,
+   monolithic and chunked: half the KV heads in its pool and half the
+   heads in each kernel call, the paged and flash launches of phase 4,
+   no graph captured (steps run eagerly on a mesh), the whole page
+   billed, greedy tokens as phase 4's or parting only at a near tie;
+   then a decode step, a prefill and a chunk over a prefix against a
+   one-device engine on the same weights and pool, within the model
+   band. On one card the ranks' collectives go through host memory, so
+   its times say nothing of tensor-parallel speed.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 hold the per-kernel JSON record and the card's name and power limit. The
@@ -2235,14 +2250,20 @@ def check_dense_slot_view() -> float:
     return err
 
 
-def record_top_logits(engines, tops: dict) -> None:
+def record_top_logits(engines, tops: dict, contexts: dict | None = None) -> None:
     """Wrap each engine so that every token it samples (a prefill's, and
     each advancing row's at a decode step) appends that pass's ``TOP_K``
     largest logits and their token ids to ``tops[program id]``: the order
-    in which the router logs the program's tokens."""
-    def keep(pid, logits):
-        vals, ids = torch.topk(logits.float(), TOP_K)
+    in which the router logs the program's tokens. With ``contexts`` each
+    pass's context (the tokens before the one sampled) is kept there
+    alike. Logits sharded by vocabulary (a mesh) are gathered first."""
+    from repro_torch.models.layers import ShardCtx
+
+    def keep(pid, logits, context):
+        vals, ids = torch.topk(ShardCtx.full(logits).float(), TOP_K)
         tops.setdefault(pid, []).append((vals.tolist(), ids.tolist()))
+        if contexts is not None:
+            contexts.setdefault(pid, []).append(list(context))
 
     for e in engines:
         last = {}
@@ -2259,20 +2280,29 @@ def record_top_logits(engines, tops: dict) -> None:
 
         def submit(req, _f=e.submit, _last=last):
             sid = _f(req)
-            keep(req.program_id, _last.pop("prefill"))
+            keep(req.program_id, _last.pop("prefill"), req.tokens)
             return sid
 
         def step(active=None, _f=e.step, _e=e, _last=last):
             pids = {sid: slot.request.program_id for sid, slot in _e.slots.items()}
+            ctxs = {sid: slot.request.tokens + slot.produced for sid, slot in _e.slots.items()}
             rows = [sid for sid in (pids if active is None else active) if sid in pids]
             done = _f(active)
             if "decode" in _last:
                 logits = _last.pop("decode")
                 for sid in rows:
-                    keep(pids[sid], logits[sid])
+                    keep(pids[sid], logits[sid], ctxs[sid])
+            return done
+
+        def prefill_step(job, *a, _f=e.prefill_step, _last=last, **kw):
+            done = _f(job, *a, **kw)
+            logits = _last.pop("prefill")
+            if done:
+                keep(job.request.program_id, logits, job.request.tokens)
             return done
 
         e.model.prefill, e._decode, e.submit, e.step = prefill, decode, submit, step
+        e.prefill_step = prefill_step
 
 
 def compare_logs(got: dict, want: dict, tops: dict) -> dict:
@@ -2832,6 +2862,10 @@ FLASH_BWD_CASES = {
     "whisper_cross": dict(B=2, Sq=64, Skv=1500, H=16, KH=16, D=64, causal=False),
     "ragged_gqa_d128": dict(B=1, Sq=1000, Skv=1000, H=32, KH=8, D=128, causal=True),
 }
+#: zamba2-2.7b's shared attention block at its training shape (phase 9's
+#: ``train zamba2-2.7b``: 2 x 1024 tokens a microbatch, 32 heads of 160),
+#: the largest kernel loss of any training step; timed, not a check case
+FLASH_BWD_ZAMBA2 = dict(B=2, Sq=1024, Skv=1024, H=32, KH=32, D=160, causal=True)
 #: the backward's kernels, three a call: Di = rowsum(dO ∘ O), then dK/dV
 #: and dQ on the tensor cores (``_mma_``) or the CUDA cores
 FLASH_BWD_KERNELS = ("flash_bwd_dot_kernel", "flash_bwd_dkdv_mma_kernel",
@@ -2947,12 +2981,25 @@ def time_flash_bwd() -> dict:
     bound (the five products' operations over the visible pairs at the
     bf16 peak, or the bytes: q, k, v, O, dO and the log-sum-exp read, dq,
     dk, dv written), and SDPA's backward through autograd at the same
-    shape, its device time by the events behind a spin kernel."""
+    shape, its device time by the events behind a spin kernel. Under
+    ``zamba2_train`` the same at zamba2's training shape
+    (``FLASH_BWD_ZAMBA2``: D = 160, which takes the CUDA cores)."""
+    rec = _time_flash_bwd_case("qwen_train", FLASH_BWD_CASES["qwen_train"], "tensor_core",
+                               seed=12, other_route="cuda_core")
+    rec["zamba2_train"] = _time_flash_bwd_case("zamba2_train", FLASH_BWD_ZAMBA2, "cuda_core",
+                                               seed=13)
+    return rec
+
+
+def _time_flash_bwd_case(name: str, c: dict, route: str, seed: int,
+                         other_route: str | None = None) -> dict:
+    """One case of :func:`time_flash_bwd`: the backward on ``route``
+    (asserted), and with ``other_route`` also forced onto that route on
+    the same input."""
     from repro_torch.kernels.flash_attention import ops, ref
 
-    c = FLASH_BWD_CASES["qwen_train"]
     B, S, H, D = c["B"], c["Sq"], c["H"], c["D"]
-    q, k, v, do = flash_bwd_inputs(c, torch.bfloat16, seed=12)
+    q, k, v, do = flash_bwd_inputs(c, torch.bfloat16, seed=seed)
     out, lse = ops.KERNEL(q, k, v, seq_dim=1, head_dim=2, causal=True, window=None,
                           softcap=None, q_offset=0, with_lse=True)
 
@@ -2974,18 +3021,19 @@ def time_flash_bwd() -> dict:
 
     lib_grads = [g.transpose(1, 2) for g in library()]
     routes = dict(ops.KERNEL.backward_kernel.routes)
-    for name, got, want in zip("qkv", kernel(), lib_grads):
-        check_yardstick(f"SDPA backward d{name} (qwen_train)", want, got)
-    if DEVICE == "cuda" and (ops.KERNEL.backward_kernel.routes["tensor_core"]
-                             != routes["tensor_core"] + 1):
-        raise AssertionError("the timed backward did not take the tensor-core route")
-    cuda_core = device_ms_per_call(lambda: kernel_calls("cuda_core"), 10, FLASH_BWD_KERNELS)
-    return dict(B=B, S=S, H=H, D=D, causal=True, route="tensor_core",
+    for g, got, want in zip("qkv", kernel(), lib_grads):
+        check_yardstick(f"SDPA backward d{g} ({name})", want, got)
+    if DEVICE == "cuda" and (ops.KERNEL.backward_kernel.routes[route] != routes[route] + 1):
+        raise AssertionError(f"the timed backward ({name}) did not take the {route} route")
+    extra = {}
+    if other_route is not None:
+        other = device_ms_per_call(lambda: kernel_calls(other_route), 10, FLASH_BWD_KERNELS)
+        extra = {f"{other_route}_device_ms": other["device_ms"],
+                 f"{other_route}_device_kernels_ms": other["device_kernels_ms"]}
+    return dict(B=B, S=S, H=H, D=D, causal=True, route=route,
                 ms=time_call(kernel, 10),
                 **device_ms_per_call(kernel_calls, 10, FLASH_BWD_KERNELS),
-                device_ms_behind_spin=device_ms_behind_spin(kernel, 20),
-                cuda_core_device_ms=cuda_core["device_ms"],
-                cuda_core_device_kernels_ms=cuda_core["device_kernels_ms"],
+                device_ms_behind_spin=device_ms_behind_spin(kernel, 20), **extra,
                 plain_ms=time_call(lambda: ref.flash_attention_bwd_ref(q, k, v, do, causal=True),
                                    3),
                 library="scaled_dot_product_attention backward (autograd)",
@@ -3529,6 +3577,7 @@ RECORDED_BOUND_MS = {
     "flash monolithic": 0.00094, "flash dbrx": 0.00329, "flash d160": 0.00470,
     "flash d256": 0.00282, "flash gemma2_local": 0.17320, "flash whisper_encoder": 0.00932,
     "flash whisper_cross": 0.00191, "flash internvl2": 0.00911, "flash backward": 0.02173,
+    "flash backward zamba2_train": 0.05434,
     f"ssd S={SSD_MAIN_S}": 0.00241, "ssd zamba2": 0.00280, "ssd backward": 0.02282,
 }
 
@@ -3564,10 +3613,11 @@ def account_costs(paged_timing, paged_d160, paged_cross, flash_timing, ssd_timin
             meta(r["B"], r["Sq"], r["H"], r["D"]), meta(r["B"], r["Skv"], r["KH"], r["D"]),
             meta(r["B"], r["Skv"], r["KH"], r["D"]), causal=r["causal"], window=r["window"],
             q_offset=r["q_offset"], kv_hole=r["kv_hole"]), r)
-    b = bwd_timing
-    q = meta(b["B"], b["S"], b["H"], b["D"])
-    out["flash backward"] = (flash_ops.backward_cost(q, q, q, seq_dim=1, head_dim=2,
-                                                     causal=b["causal"]), b)
+    for line, b in (("flash backward", bwd_timing),
+                    ("flash backward zamba2_train", bwd_timing["zamba2_train"])):
+        q = meta(b["B"], b["S"], b["H"], b["D"])
+        out[line] = (flash_ops.backward_cost(q, q, q, seq_dim=1, head_dim=2,
+                                             causal=b["causal"]), b)
 
     def ssd_operands(bsz, S, h, p, n):
         return (meta(bsz, S, h, p), meta(bsz, S, h, dtype=torch.float32),
@@ -3785,12 +3835,415 @@ def resolve_production_rules() -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 13
+#: the model axis of phase 13's mesh: two ranks on the one card
+TP = 2
+#: the parent waits this long for its ranks, then kills them and fails
+TP_DEADLINE_S = 600
+#: the collectives phase 13 probes on CUDA tensors under gloo, in each dtype
+TP_PROBE = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
+TP_PROBE_DTYPES = (torch.bfloat16, torch.float32)
+#: the fixed decode step of the logits check: context lengths of its rows
+TP_DECODE_LENGTHS = (200, 97, 33)
+#: the layers (of 24) over which phase 13 holds every logit to the band
+TP_BAND_LAYERS = 4
+#: the fixed prefill of the logits check, and the chunk over a prefix
+TP_PREFILL_TOKENS = 100
+TP_CHUNK = dict(prefix_pages=4, take=40)
+
+
+def probe_gloo(dev) -> dict:
+    """Which collectives this process group's ``gloo`` runs on CUDA
+    tensors, in each dtype: ``ok``, ``wrong`` or the error."""
+    import torch.distributed as dist
+
+    rank, n = dist.get_rank(), dist.get_world_size()
+    out = {}
+    for dtype in TP_PROBE_DTYPES:
+        for op in TP_PROBE:
+            key = f"{op}[{str(dtype).split('.')[-1]}]"
+            try:
+                if op == "all_reduce":
+                    t = torch.full((1000,), rank + 1, dtype=dtype, device=dev)
+                    dist.all_reduce(t)
+                    ok = bool((t == n * (n + 1) // 2).all())
+                elif op == "all_gather_into_tensor":
+                    t = torch.full((4,), rank, dtype=dtype, device=dev)
+                    got = torch.empty(4 * n, dtype=dtype, device=dev)
+                    dist.all_gather_into_tensor(got, t)
+                    ok = got.tolist() == [float(r) for r in range(n) for _ in range(4)]
+                else:
+                    t = torch.arange(4 * n, device=dev).to(dtype)
+                    got = torch.empty(4, dtype=dtype, device=dev)
+                    dist.reduce_scatter_tensor(got, t)
+                    ok = got.tolist() == [float(n * (4 * rank + i)) for i in range(4)]
+                out[key] = "ok" if ok else "wrong"
+            except Exception as exc:  # noqa: BLE001 (the probe's answer)
+                out[key] = f"{type(exc).__name__}: {exc}"[:200]
+    return out
+
+
+def _heads_seen(seen: dict):
+    """Wrap the attention entry points' module globals (what each rank's
+    ``local_map`` body calls on its local shards) so that each call adds
+    the query, KV and page head counts it saw to ``seen``."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+
+    def wrap(mod, name, heads):
+        fn = getattr(mod, name)
+
+        def call(*args, **kwargs):
+            seen.setdefault(name, set()).add(heads(*args))
+            return fn(*args, **kwargs)
+
+        setattr(mod, name, call)
+
+    wrap(paged_ops, "paged_attention_decode",
+         lambda q, kn, vn, kp, *rest: (q.shape[1], kn.shape[1], kp.shape[2]))
+    wrap(flash_ops, "prefill_attention", lambda q, k, v, *rest: (q.shape[2], k.shape[2]))
+
+
+def tp_replay(args, cfg, placed, rs, chunked: bool, want_log: dict) -> dict:
+    """One replay of the launcher's corpus through ``rs``'s replicas on
+    this rank (every rank runs the same control plane), with the weights
+    ``placed`` once for all of them; the output log against phase 4's
+    ``want_log`` (:func:`compare_logs`)."""
+    from repro_torch.core.types import SchedulerConfig
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.launch import serve
+    from repro_torch.serving import Engine, MoriRouter
+
+    t0 = time.perf_counter()
+    engines = [Engine(cfg, placed, placement=p, **serve.ENGINE_POOLS) for p in rs]
+    router = MoriRouter(
+        engines, scheduler=args.scheduler,
+        gpu_capacity_bytes=engines[0].pool.page_bytes * args.gpu_pages,  # lint: kv008-ok (the whole page, as the reference bills it)
+        cpu_capacity_bytes=engines[0].pool.host_page_bytes * args.cpu_pages,
+        config=SchedulerConfig(tick_interval_s=1.0), chunked_prefill=chunked)
+    for e in engines:
+        e.warmup(prefill_chunks=chunked)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    passes = {"prefill": 0}
+    for e in engines:
+        _count_calls(e.model, "prefill", passes, "prefill")
+        e.graphs.replays = 0
+    tops, contexts = {}, {}
+    record_top_logits(engines, tops, contexts)
+    paged_ops.KERNEL.launches = 0
+    flash_ops.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    m = router.replay(serve.corpus_for(args), vocab_size=cfg.vocab_size,
+                      max_new_tokens=args.max_new_tokens)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    rec = dict(
+        chunked_prefill=chunked, steps_completed=m.steps_completed,
+        tokens_generated=m.tokens_generated, offloaded_pages=m.offloaded_pages,
+        reloaded_pages=m.reloaded_pages, offload_bytes=m.offload_bytes,
+        reload_bytes=m.reload_bytes, prefill_chunks=m.prefill_chunks,
+        engine_steps=sum(e.steps for e in engines), prefill_passes=passes["prefill"],
+        paged_launches=paged_ops.KERNEL.launches, flash_launches=flash_ops.KERNEL.launches,
+        captures=sum(e.graphs.captured for e in engines),
+        graph_entries=sum(e.graphs.cache_size() for e in engines),
+        eager_steps=sum(e.graphs.replays for e in engines),
+        page_bytes=engines[0].pool.page_bytes, host_page_bytes=engines[0].pool.host_page_bytes,
+        rank_page_bytes=engines[0].pool.rank_page_bytes,
+        pool_bytes_held=sum(t.nbytes for e in engines for t in (
+            e.pool.k, e.pool.v, e.pool.host_k, e.pool.host_v)),
+        pool_heads=engines[0].pool.local_kv_heads, setup_s=setup_s, replay_s=replay_s,
+        against_phase4=compare_logs(router.output_log, want_log, tops))
+    rec["first_differences"] = [
+        dict(d, context=contexts[d["program"]][d["index"]])
+        for d in rec["against_phase4"].pop("first_differences")]
+    return rec
+
+
+def tp_logits_check(cfg, params, placed, rs, dev) -> tuple[dict, object]:
+    """One decode step, one prefill and one chunk over a prefix on a
+    sharded engine against a one-device engine on this card, on the same
+    weights, pool contents and tokens: for the logits (gathered) and the
+    pool's pages after the step (this rank's heads), the largest
+    difference and its excess over the model band, and each row's top-1
+    token (equal, or a near tie: :func:`compare_greedy`). Returns the
+    record and the one-device engine."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import Engine
+    from repro_torch.serving.engine import _chunk_prefill
+
+    tp = Engine(cfg, placed, placement=rs.placement(0), **serve.ENGINE_POOLS)
+    one = Engine(cfg, params, device=dev, **serve.ENGINE_POOLS)
+    r = rs.meshes[0].coordinates()[1]
+    n = tp.pool.local_kv_heads
+    g = torch.Generator(device=dev).manual_seed(7)
+    for name in ("k", "v"):
+        full = torch.randn(getattr(one.pool, name).shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+        getattr(one.pool, name).copy_(full)
+        getattr(tp.pool, name).copy_(full[..., r * n:(r + 1) * n, :])
+    T, B = one.page_tokens, one.max_slots
+    lens = np.asarray(TP_DECODE_LENGTHS, np.int32)
+    p_used = -(-int(lens.max()) // T)
+    p_pad = -(-p_used // one._table_bucket) * one._table_bucket
+    tables = (np.arange(B * p_pad, dtype=np.int32).reshape(B, p_pad)
+              % one.pool.n_device_pages)
+    rng = np.random.default_rng(7)
+    toks = rng.integers(2, cfg.vocab_size, B)
+    pos = lens - 1
+    staged = torch.from_numpy(one._pack(toks, lens, tables[np.arange(B), pos // T], pos % T,
+                                        tables)).to(dev)
+
+    def compare(what, got, want):
+        got, want = tp.ctx.full(got).float(), want.float()
+        return dict(band_excess(got, want),
+                    **compare_greedy(f"sharded {what}", got[None], want[None]))
+
+    out = {}
+    want, _ = one.decode_packed(staged, p_pad)
+    got, _ = tp.decode_packed(staged, p_pad)
+    out["decode"] = compare("decode", got, want)
+    out["pool_after_decode"] = max(
+        (band_excess(getattr(tp.pool, name), getattr(one.pool, name)[..., r * n:(r + 1) * n, :])
+         for name in ("k", "v")), key=lambda d: d["excess_over_band"])
+    tokens = torch.as_tensor(rng.integers(2, cfg.vocab_size, (1, TP_PREFILL_TOKENS)),
+                             device=dev)
+    want, _ = one.model.prefill({"tokens": tokens})
+    got, _ = tp.model.prefill({"tokens": tokens}, ctx=tp.ctx)
+    out["prefill"] = compare("prefill", got, want)
+    c = TP_CHUNK
+    prefix = tables[0, :c["prefix_pages"]].tolist()
+    pos0 = c["prefix_pages"] * T
+    chunk = tokens[:, :one.prefill_bucket * -(-c["take"] // one.prefill_bucket)]
+    write = tables[1, :-(-chunk.shape[1] // T)].tolist()
+    kw = dict(prefix_valid=pos0, pos0=pos0, take=c["take"], logit_idx=c["take"] - 1)
+    want = _chunk_prefill(one.model, one.pool, prefix, write, chunk, **kw)
+    got = _chunk_prefill(tp.model, tp.pool, prefix, write, chunk, **kw, ctx=tp.ctx)
+    out["chunk_prefill"] = compare("chunk prefill", got[None], want[None])
+    return out, one
+
+
+def first_layers(cfg, params, layers: int):
+    """``cfg`` and ``params`` cut to their first ``layers`` layers."""
+    from repro_torch.models.params import _unflatten, flatten_tree
+
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    return cut, _unflatten([(n, t[:layers] if n.startswith("blocks.") else t)
+                            for n, t in flatten_tree(params)])
+
+
+def band_excess(got, want) -> dict:
+    """The largest difference of ``got`` from ``want`` and its excess over
+    the model band (``MODEL_ATOL + MODEL_RTOL * |want|``; > 0 fails)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    return dict(max_abs_diff=diff.max().item(),
+                excess_over_band=(diff - MODEL_ATOL - MODEL_RTOL * want.abs()).max().item())
+
+
+def tie_check(one, firsts: list) -> list:
+    """Each first difference of a sharded replay from phase 4: the
+    one-device engine's prefill at that context, its bf16-rounded logits,
+    whether the sharded run's token is in their tie set (rounds to the
+    largest), and its gap from the largest against the model band."""
+    out = []
+    for d in firsts:
+        tokens = torch.as_tensor([d["context"]], device=one.device)
+        logits, _ = one.model.prefill({"tokens": tokens})
+        rounded = logits[0].to(torch.bfloat16).float()
+        top = rounded.max().item()
+        gap = top - rounded[d["token"]].item()
+        out.append(dict(program=d["program"], index=d["index"], token=d["token"],
+                        phase4_token=d["other_token"], in_tie_set=gap == 0.0,
+                        one_device_gap=gap, band=MODEL_ATOL + MODEL_RTOL * abs(top)))
+    return out
+
+
+def serve_tp_rank(rank: int, store: str, work: str, logs: dict) -> None:
+    """One rank of phase 13, in a process of its own on ``cuda:0``:
+    ``gloo`` over a file store, every collective of the sharded step
+    through ``torch.distributed`` (DTensor's functional collectives refused),
+    its record written to ``work/rank<r>.json``. An exception ends the
+    process with a non-zero code, which fails the phase."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import make_replica_set
+    from repro_torch.dist.local import no_functional_collectives
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, materialize
+    from repro_torch.models.params import device_put_tree, flatten_tree, sharding_tree
+
+    t_start = time.perf_counter()
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=TP)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seen: dict = {}
+    _heads_seen(seen)
+    rec = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+           "world": dist.get_world_size(), "gloo_on_cuda": probe_gloo(dev)}
+    with no_functional_collectives():
+        args = serve.parse_args([])
+        cfg = get_config(args.arch)
+        rec["heads"] = [cfg.num_heads, cfg.num_kv_heads]
+        t0 = time.perf_counter()
+        params = materialize(Model(cfg).describe(), seed=0)
+        rec["materialize_s"] = time.perf_counter() - t0
+        rs = make_replica_set(args.replicas, mesh_shape=(1, TP), devices=[dev] * TP,
+                              num_kv_heads=cfg.num_kv_heads)
+        mesh = rs.meshes[0]
+        rec.update(mesh=dict(mesh.shape), coordinates=mesh.coordinates(),
+                   replicas_share_mesh=all(m is mesh for m in rs.meshes),
+                   fallbacks=[list(f) for f in rs.rules.fallbacks])
+        # this rank's blocks of the seed's weights, placed once for every
+        # replica (aliased replicas share them)
+        placed = device_put_tree(params, sharding_tree(Model(cfg).describe(), mesh, rs.rules))
+        rec["weight_bytes_held"] = sum(t.to_local().nbytes for _, t in flatten_tree(placed))
+        rec["weight_bytes_whole"] = sum(t.nbytes for _, t in flatten_tree(params))
+        rec["serve"] = tp_replay(args, cfg, placed, rs, False, logs["serve"])
+        rec["serve_chunked"] = tp_replay(args, cfg, placed, rs, True, logs["serve_chunked"])
+        rec["heads_seen"] = {k: sorted(v) for k, v in seen.items()}
+        params = _to(params, dev)
+        rec["logits"], one = tp_logits_check(cfg, params, placed, rs, dev)
+        # at full depth the random weights grow each rounding difference
+        # layer by layer; the band holds over the first TP_BAND_LAYERS
+        cut, cut_params = first_layers(cfg, params, TP_BAND_LAYERS)
+        rec[f"logits_{TP_BAND_LAYERS}_layers"], _ = tp_logits_check(
+            cut, cut_params, device_put_tree(cut_params, sharding_tree(
+                Model(cut).describe(), mesh, rs.rules)), rs, dev)
+        for mode in ("serve", "serve_chunked"):
+            rec[mode]["ties"] = tie_check(one, rec[mode].pop("first_differences"))
+    dist.barrier()
+    dist.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t_start
+    Path(work, f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def serve_tp(mono: dict, chunked: dict, logs: dict, phase4: dict) -> dict:
+    """Phase 13: tensor-parallel paged serving of full-width qwen on a
+    ``(1, TP)`` mesh, as ``TP`` ranks on the one card under ``gloo`` (this
+    process starts them and makes no process group). Each rank serves the
+    launcher's corpus on two replicas aliasing the mesh, monolithic and
+    chunked, through ``MoriRouter.replay``. Fails unless every rank exits
+    0 with: half the KV heads in its pool and the kernels seeing half the
+    heads, its paged and flash launches equal to phase 4's (``mono``,
+    ``chunked``), no graph captured, the whole page billed, greedy tokens
+    equal to phase 4's (``logs``) or parting only at a near tie (the
+    sharded run's own top logits within the model band, and a one-device
+    prefill at that context within the band too), and the sharded
+    engine's decode, prefill and chunk logits within the model band of a
+    one-device engine's. ``phase4`` holds phase 4's weight bytes, pool
+    bytes (both replicas' device and host tiers) and page bytes."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="serve_tp_", dir=ROOT / "build"))
+    store = work / "store"
+    ctx = mp.get_context("spawn")
+    ranks = [ctx.Process(target=serve_tp_rank, args=(r, str(store), str(work), logs))
+             for r in range(TP)]
+    for p in ranks:
+        p.start()
+    deadline = time.monotonic() + TP_DEADLINE_S
+    for p in ranks:
+        p.join(max(1.0, deadline - time.monotonic()))
+    late = [p for p in ranks if p.is_alive()]
+    for p in late:
+        p.kill()
+        p.join()
+    codes = [p.exitcode for p in ranks]
+    if late or any(codes):
+        raise AssertionError(f"phase 13's ranks exited {codes}"
+                             + (f", {len(late)} killed at the deadline" if late else ""))
+    recs = [json.loads((work / f"rank{r}.json").read_text()) for r in range(TP)]
+    shutil.rmtree(work, ignore_errors=True)
+    record = dict(
+        world=recs[0]["world"], backend=recs[0]["backend"], mesh=recs[0]["mesh"],
+        devices=[r["device"] for r in recs], coordinates=[r["coordinates"] for r in recs],
+        gloo_on_cuda=recs[0]["gloo_on_cuda"], fallbacks=recs[0]["fallbacks"],
+        weight_bytes_held=[r["weight_bytes_held"] for r in recs],
+        weight_bytes_phase4=phase4["weight_bytes"],
+        pool_bytes_held=[r["serve"]["pool_bytes_held"] for r in recs],
+        pool_bytes_phase4=phase4["pool_bytes"], pool_heads=[r["serve"]["pool_heads"] for r in recs],
+        page_bytes_billed=recs[0]["serve"]["page_bytes"],
+        rank_page_bytes=recs[0]["serve"]["rank_page_bytes"],
+        heads_seen=[r["heads_seen"] for r in recs],
+        materialize_s=[r["materialize_s"] for r in recs],
+        rank_s=[r["seconds"] for r in recs])
+    for mode, want in (("serve", mono), ("serve_chunked", chunked)):
+        got = [r[mode] for r in recs]
+        record[mode] = dict(
+            {k: got[0][k] for k in (
+                "steps_completed", "tokens_generated", "engine_steps", "prefill_passes",
+                "offloaded_pages", "reloaded_pages", "offload_bytes", "reload_bytes",
+                "prefill_chunks", "captures", "graph_entries", "eager_steps",
+                "against_phase4", "ties")},
+            paged_launches=[g["paged_launches"] for g in got],
+            flash_launches=[g["flash_launches"] for g in got],
+            phase4_paged=want["kernel_launches"], phase4_flash=want["flash_launches"],
+            setup_s=[g["setup_s"] for g in got], replay_s=[g["replay_s"] for g in got])
+    record["logits"] = [r["logits"] for r in recs]
+    band_key = f"logits_{TP_BAND_LAYERS}_layers"
+    record[band_key] = [r[band_key] for r in recs]
+    record["seconds"] = time.perf_counter() - t0
+    log("serve_tp " + json.dumps(record))
+    heads, kv_heads = recs[0]["heads"]
+    half = recs[0]["serve"]["pool_heads"]
+    if record["world"] != TP or record["backend"] != "gloo" or half * TP != kv_heads:
+        raise AssertionError(f"phase 13 ran {record['world']} ranks under "
+                             f"{record['backend']} with {half} KV heads a rank")
+    for r in recs:
+        held = r["weight_bytes_held"]
+        if not held < 0.6 * phase4["weight_bytes"]:
+            raise AssertionError(f"rank {r['rank']} holds {held} weight bytes of "
+                                 f"{phase4['weight_bytes']}")
+        if r["serve"]["pool_heads"] != half or r["serve"]["rank_page_bytes"] * TP != r[
+                "serve"]["page_bytes"]:
+            raise AssertionError(f"rank {r['rank']}'s pool does not hold half of each page")
+        local = heads // TP
+        if r["heads_seen"] != {"paged_attention_decode": [[local, half, half]],
+                               "prefill_attention": [[local, half]]}:
+            raise AssertionError(f"rank {r['rank']}'s kernels saw heads {r['heads_seen']}")
+        for mode, want in (("serve", mono), ("serve_chunked", chunked)):
+            g = r[mode]
+            if (g["paged_launches"], g["flash_launches"]) != (
+                    want["kernel_launches"], want["flash_launches"]):
+                raise AssertionError(
+                    f"rank {r['rank']} {mode}: {g['paged_launches']} paged and "
+                    f"{g['flash_launches']} flash launches, phase 4 "
+                    f"{want['kernel_launches']} and {want['flash_launches']}")
+            if g["captures"] != 0 or g["eager_steps"] != g["engine_steps"]:
+                raise AssertionError(f"rank {r['rank']} {mode}: {g['captures']} captures, "
+                                     f"{g['eager_steps']} eager steps of {g['engine_steps']}")
+            if g["page_bytes"] != phase4["page_bytes"]:
+                raise AssertionError(f"{mode} billed {g['page_bytes']} a page, phase 4 "
+                                     f"{phase4['page_bytes']}")
+            for t in g["ties"]:
+                if not (t["in_tie_set"] or t["one_device_gap"] <= t["band"]):
+                    raise AssertionError(f"rank {r['rank']} {mode} parts from phase 4 "
+                                         f"beyond a near tie: {t}")
+        # at full depth each row's top-1 is held (compare_greedy raised in
+        # the rank); over the first layers every logit is held to the band
+        for name, d in r[band_key].items():
+            if not d["excess_over_band"] <= 0:
+                raise AssertionError(f"rank {r['rank']}: sharded {name} ({TP_BAND_LAYERS} "
+                                     f"layers) off the one-device engine's beyond the model "
+                                     f"band: {d}")
+    return record
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from repro_torch.launch import serve
+    from repro_torch.models.params import flatten_tree
 
     # arm the compile tracker: a replay that captures a graph after its
     # engine's warmup raises at its end
@@ -3830,8 +4283,11 @@ def main(argv=None) -> int:
     check_mamba_small()
     args = serve.parse_args([])          # the launcher's defaults: full width, cuda
     mono, engines, serve_router = replay_paged(args, chunked=False)
-    chunked, _, _ = replay_paged(args, chunked=True, cfg=engines[0].cfg,
-                                 params=_param_tree(engines[0].model), label="serve_chunked")
+    chunked, _, chunked_router = replay_paged(args, chunked=True, cfg=engines[0].cfg,
+                                              params=_param_tree(engines[0].model),
+                                              label="serve_chunked")
+    chunked_log = {pid: list(toks) for pid, toks in chunked_router.output_log.items()}
+    del chunked_router
     parity = graph_parity_paged(engines[0].cfg, _param_tree(engines[0].model))
     log("decode breakdown " + json.dumps(decode_breakdown(engines[0])))
     # phase 7 serves the same weights again
@@ -3844,7 +4300,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     run_quickstart()
     resolve_production_rules()
-    del engines, serve_router
+    # phase 13: the same serving on a (1, 2) mesh, as two ranks on the card
+    pool = engines[0].pool
+    serve_tp(mono, chunked, {"serve": serve_log, "serve_chunked": chunked_log}, dict(
+        weight_bytes=sum(t.nbytes for _, t in flatten_tree(_param_tree(engines[0].model))),
+        pool_bytes=len(engines) * sum(t.nbytes for t in (
+            pool.k, pool.v, pool.host_k, pool.host_v)),
+        page_bytes=pool.page_bytes))
+    del engines, serve_router, pool
     gc.collect()
     torch.cuda.empty_cache()
     ssm, ssm_engine = serve_ssm()
@@ -4016,6 +4479,10 @@ def main(argv=None) -> int:
             "library_device_ms": bwd_timing["library_device_ms"],
             "library_device_ms_by": bwd_timing["library_device_ms_by"],
             "shape": {k: bwd_timing[k] for k in ("B", "S", "H", "D", "causal", "route")},
+            "zamba2_train": {k: bwd_timing["zamba2_train"][k] for k in (
+                "B", "S", "H", "D", "causal", "route", "ms", "device_ms", "device_ms_behind_spin",
+                "device_kernels_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_device_ms")},
         },
         {
             "name": "ssd_scan",

@@ -11,7 +11,8 @@ device fleet. The invariants this module keeps:
 * replica device groups are disjoint slices of the fleet when enough
   devices exist, and alias the first group otherwise: on one card, N
   replicas share ``cuda:0`` (and one copy of the weights), as the
-  reference's replicas share its one CPU device.
+  reference's replicas share its one CPU device. Aliasing replicas share
+  one :class:`~repro_torch.launch.mesh.Mesh` object.
 
 Consumers: :class:`repro_torch.serving.engine.Engine` (one placement a
 replica), :mod:`repro_torch.launch.serve` (builds the set),
@@ -96,12 +97,16 @@ def make_replica_set(
         starts = [0] * num_replicas
     else:
         raise ValueError(f"need {per} devices for mesh {mesh_shape}, have {len(devices)}")
-    meshes = []
+    # replicas that alias one device group share its Mesh (and so its
+    # DeviceMesh, built once, and the DTensors placed on it)
+    by_start: dict[int, Mesh] = {}
     for s in starts:
-        grid = np.empty(per, dtype=object)
-        grid[:] = devices[s:s + per]
-        meshes.append(Mesh(axis_names, grid.reshape(mesh_shape),
-                           ranks=np.arange(s, s + per)))
+        if s not in by_start:
+            grid = np.empty(per, dtype=object)
+            grid[:] = devices[s:s + per]
+            by_start[s] = Mesh(axis_names, grid.reshape(mesh_shape),
+                               ranks=np.arange(s, s + per))
+    meshes = [by_start[s] for s in starts]
     if rules is None:
         rules = make_decode_rules(meshes[0], num_kv_heads)
     return ReplicaSet(meshes, rules)

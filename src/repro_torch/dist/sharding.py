@@ -20,7 +20,9 @@ torch has no ``PartitionSpec``; :class:`PartitionSpec` here is a small
 immutable tuple of one entry per tensor dimension (``None``, a mesh-axis
 name, or a tuple of names), equal entry for entry to the reference's.
 :class:`NamedSharding` pairs it with a mesh and gives the local shard
-shape and the DTensor placements, one per mesh dimension.
+shape, a rank's own block of a tensor (so each rank places its weights
+from the same full tensor with no collective) and the DTensor
+placements, one per mesh dimension.
 
 Two rule sets cover the two regimes:
 
@@ -106,6 +108,23 @@ class NamedSharding:
             if dim % n:
                 raise ValueError(f"dimension {dim} is not divisible by {n} ({entry!r})")
             out.append(dim // n)
+        return tuple(out)
+
+    def local_slices(self, global_shape, coords) -> tuple[slice, ...]:
+        """The index ranges of the block that the device at mesh position
+        ``coords`` (one index a mesh axis, :meth:`Mesh.coordinates`) holds
+        of a tensor of ``global_shape``. A dimension sharded over a tuple
+        of axes is split outermost axis first, as the reference's blocks
+        and DTensor's are."""
+        sizes = dict(self.mesh.shape)
+        at = dict(zip(sizes, coords))
+        block = self.shard_shape(global_shape)
+        out = []
+        for n, entry in zip(block, self.spec):
+            i = 0
+            for m in _names(entry):
+                i = i * sizes[m] + at[m]
+            out.append(slice(i * n, (i + 1) * n))
         return tuple(out)
 
     def placements(self) -> tuple:

@@ -49,6 +49,7 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.dist.local import is_dtensor, on_local_heads
 from repro_torch.kernels import _nvcc, leaf, roofline
 from repro_torch.kernels.flash_attention import _build
 from repro_torch.kernels.flash_attention.ref import blockwise_attention, flash_attention_ref
@@ -321,7 +322,19 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, q_offset
 def prefill_attention(q, k, v, *, causal: bool, window=None, cap=None, q_offset: int = 0,
                       kv_lengths=None, kv_hole=None):
     """Prefill attention in the model's layout, q [B,Sq,H,D]; k, v
-    [B,Skv,KH,D] -> [B,Sq,H,D] (arguments as ``blockwise_attention``)."""
+    [B,Skv,KH,D] -> [B,Sq,H,D] (arguments as ``blockwise_attention``).
+
+    On a mesh of more than one device q, k and v are DTensors placed by
+    heads: each rank runs this on its local heads under ``local_map``
+    (:func:`repro_torch.dist.local.on_local_heads`), with ``q_offset``,
+    ``kv_hole`` and ``kv_lengths`` as they are."""
+    if is_dtensor(q):
+        def local(q_l, k_l, v_l):
+            return prefill_attention(q_l, k_l, v_l, causal=causal, window=window, cap=cap,
+                                     q_offset=q_offset, kv_lengths=kv_lengths,
+                                     kv_hole=kv_hole)
+
+        return on_local_heads(local, q, (k, v), head_dim=2)
     if q.is_cuda:
         if _nvcc.records_grad(q, k, v):
             _refuse_grad(q_offset, kv_lengths, kv_hole)

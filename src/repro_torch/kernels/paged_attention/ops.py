@@ -38,6 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.dist.local import is_dtensor, on_local_heads
 from repro_torch.kernels import _nvcc, leaf, roofline
 from repro_torch.kernels.paged_attention import _build
 from repro_torch.kernels.paged_attention.ref import (
@@ -267,7 +268,19 @@ def paged_attention_decode(
     q, k_new, v_new, k_pages, v_pages, block_tables, lengths,
     k_scales=None, v_scales=None, *, softcap=None, window=None,
 ):
-    """Decode attention for a token whose KV is not yet in the pool."""
+    """Decode attention for a token whose KV is not yet in the pool.
+
+    On a mesh of more than one device ``q``, ``k_new`` and ``v_new`` are
+    DTensors placed by heads and the pages are the rank's own pool
+    tensors: each rank runs this on its local heads under ``local_map``
+    (:func:`repro_torch.dist.local.on_local_heads`), and the output is
+    placed as ``q`` is."""
+    if is_dtensor(q):
+        def local(q_l, kn, vn, kp, vp):
+            return paged_attention_decode(q_l, kn, vn, kp, vp, block_tables, lengths,
+                                          k_scales, v_scales, softcap=softcap, window=window)
+
+        return on_local_heads(local, q, (k_new, v_new), (k_pages, v_pages), head_dim=1)
     if q.is_cuda:
         _refuse_grad(q, k_new, v_new, k_pages, v_pages)
         return KERNEL(

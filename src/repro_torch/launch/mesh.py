@@ -7,7 +7,13 @@ layout the rules are resolved on without a fleet). ``Mesh.shape`` maps
 each axis name to its size, as the reference's meshes do, and that is all
 :class:`~repro_torch.dist.sharding.ShardingRules` reads.
 :meth:`Mesh.device_mesh` builds a ``torch.distributed.DeviceMesh`` over
-the same layout, and only when asked.
+the same layout, once and only when asked.
+
+A mesh of more than one device is stepped SPMD: one process a device,
+each started by the caller with a process group (its rank names its
+position through ``Mesh.ranks``). :func:`mesh_device` gives the device
+this process steps on, :func:`one_device` the device of a one-device
+mesh, which is all a trainer runs on yet.
 
 The reference's production meshes are TPU pods (16 x 16 chips, and 2 x 16
 x 16). The port's production layout is an H100 fleet: ``("data",
@@ -85,6 +91,7 @@ class Mesh:
         self.size = int(np.prod(tuple(self.shape.values())))
         self.ranks = (np.arange(self.size) if ranks is None
                       else np.asarray(ranks)).reshape(tuple(self.shape.values()))
+        self._device_mesh = None
 
     def __repr__(self) -> str:
         where = "no devices" if self.devices is None else str(self.devices.flat[0])
@@ -98,34 +105,72 @@ class Mesh:
 
     def device_mesh(self):
         """The ``torch.distributed.DeviceMesh`` of this layout, over the
-        process group that must already be up (one rank a device)."""
-        import torch.distributed as dist
+        process group that must already be up (one rank a device). Built
+        at the first call and kept: each of its dimensions is a process
+        sub-group, which is not free to make."""
+        if self._device_mesh is None:
+            _process_group(self)
+            from torch.distributed.device_mesh import DeviceMesh
 
-        if not (dist.is_available() and dist.is_initialized()):
-            raise RuntimeError(
-                f"{self} as a DeviceMesh needs a process group: call "
-                "torch.distributed.init_process_group (one rank a device) first")
-        from torch.distributed.device_mesh import DeviceMesh
+            self._device_mesh = DeviceMesh(self.device_type, torch.as_tensor(self.ranks),
+                                           mesh_dim_names=self.axis_names)
+        return self._device_mesh
 
-        return DeviceMesh(self.device_type, torch.as_tensor(self.ranks),
-                          mesh_dim_names=self.axis_names)
+    def coordinates(self) -> tuple[int, ...]:
+        """This process's position on the mesh, one index an axis, from its
+        rank in the process group (which must be up)."""
+        rank = _process_group(self).get_rank()
+        where = np.argwhere(self.ranks == rank)
+        if len(where) != 1:
+            raise ValueError(f"rank {rank} is not on {self} (ranks {self.ranks.tolist()})")
+        return tuple(int(i) for i in where[0])
+
+    def rank_device(self) -> torch.device:
+        """The device of this process's rank on the mesh."""
+        if self.devices is None:
+            raise ValueError(f"{self} has no devices behind it")
+        return self.devices[self.coordinates()]
+
+
+def _process_group(mesh: Mesh):
+    """``torch.distributed``, which must have a process group up for
+    ``mesh``."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"{mesh} as a DeviceMesh needs a process group: call "
+            "torch.distributed.init_process_group (one rank a device) first")
+    return dist
+
+
+def _check_names(dev: torch.device, device, what: str) -> torch.device:
+    """``dev``, which ``device`` (when given) must name: a name with no
+    index names any device of its type."""
+    want = None if device is None else torch.device(device)
+    if want is not None and not (want.type == dev.type and want.index in (None, dev.index)):
+        raise ValueError(f"device {device} is not {what} {dev}")
+    return dev
 
 
 def one_device(mesh: Mesh, device=None) -> torch.device:
-    """The device an engine's or a trainer's step runs on: the one device
-    of ``mesh``. ``device``, when given, must name it (a name with no index
-    names any device of its type). A mesh of more than one device raises:
-    the step on sharded tensors is not ported yet."""
+    """The device a trainer's step runs on: the one device of ``mesh``.
+    ``device``, when given, must name it. A mesh of more than one device
+    raises: training on sharded tensors is not ported yet."""
     if mesh.size != 1:
         raise NotImplementedError(
-            f"{mesh} has {mesh.size} devices: the step on sharded tensors (the "
-            "tensor-parallel step, ROADMAP's next item) is not ported; engines and "
-            "trainers run on one device")
-    dev = mesh.device()
-    want = None if device is None else torch.device(device)
-    if want is not None and not (want.type == dev.type and want.index in (None, dev.index)):
-        raise ValueError(f"device {device} is not the mesh's device {dev}")
-    return dev
+            f"{mesh} has {mesh.size} devices: training on sharded tensors (FSDP + "
+            "TP, ROADMAP section 1 item 5) is not ported; trainers run on one device")
+    return _check_names(mesh.device(), device, "the mesh's device")
+
+
+def mesh_device(mesh: Mesh, device=None) -> torch.device:
+    """The device this process steps ``mesh`` on: the one device of a
+    one-device mesh, else the device of this process's rank (which needs
+    the process group up). ``device``, when given, must name it."""
+    if mesh.size == 1:
+        return _check_names(mesh.device(), device, "the mesh's device")
+    return _check_names(mesh.rank_device(), device, "this rank's device on the mesh,")
 
 
 def make_host_mesh(device=None) -> Mesh:

@@ -27,11 +27,32 @@ reference. The large projections (QKV, wo, FFN, in/out_proj) and the MoE
 layer's dispatch, expert and combine products stay ``torch.matmul`` /
 ``torch.bmm``, as the reference leaves them (plain jnp einsums, no Pallas
 kernel) to XLA.
+
+On a mesh of more than one device the weights are DTensors and a
+:class:`ShardCtx` places the activations by the rules at the reference's
+sites on the dense path (q/k/v, the FFN hidden, the block outputs);
+where a row-parallel product leaves partial sums (``wo``, ``w_down``) it
+reduces them in f32 before they join the residual stream. The attention
+entry points run each rank's heads under ``local_map``. The mamba and
+MoE sites come with those families' slices.
 """
 from __future__ import annotations
 
-import torch
+import contextlib
+from dataclasses import dataclass
 
+import torch
+import torch.nn.functional as F
+
+from repro_torch.dist.local import (
+    full,
+    is_dtensor,
+    on_blocks,
+    place_block,
+    redistribute,
+    vocab_embedding,
+)
+from repro_torch.dist.sharding import ShardingRules
 from repro_torch.kernels import leaf
 from repro_torch.kernels.flash_attention.ops import prefill_attention
 from repro_torch.kernels.flash_attention.ref import blockwise_attention  # noqa: F401 (re-export)
@@ -45,6 +66,81 @@ from repro_torch.models.params import Leaf
 F32 = torch.float32
 
 
+@dataclass
+class ShardCtx:
+    """Mesh + rules for activation sharding constraints: the counterpart of
+    the reference's ``ShardCtx``. An engine makes one only for a mesh of
+    more than one device, where its weights are DTensors; :data:`NULL_CTX`
+    (no mesh) changes nothing, and every method passes a plain tensor as
+    it is."""
+
+    mesh: object | None = None
+    rules: ShardingRules | None = None
+
+    def constrain(self, x, logical):
+        """``x`` redistributed to the placements the rules give
+        ``logical`` at ``x``'s shape (partial sums are reduced, shards
+        gathered or split)."""
+        if self.mesh is None or self.rules is None or not is_dtensor(x):
+            return x
+        want = self.rules.sharding(self.mesh, logical, tuple(x.shape)).placements()
+        return x if tuple(x.placements) == want else redistribute(x, want)
+
+    def split_heads(self, x, n: int, hd: int, logical):
+        """``x [B, S, n*hd]`` as ``[B, S, n, hd]`` placed by ``logical``
+        (heads at dimension 2). The flat tensor is placed first, since a
+        shard of the flat columns that splits a head (``n`` not divisible
+        by the model axis, which the rules then replicate) cannot be
+        viewed as whole heads."""
+        shape = (*x.shape[:2], n, hd)
+        if self.mesh is not None and is_dtensor(x):
+            want = self.rules.sharding(self.mesh, logical, shape).placements()
+            if tuple(x.placements) != want:
+                x = redistribute(x, want)
+        return x.reshape(shape)
+
+    def from_local(self, t, logical, shape):
+        """``t``, this rank's block of a tensor of ``shape`` placed by
+        ``logical`` (the page pool's heads), as a DTensor."""
+        if self.mesh is None:
+            return t
+        sh = self.rules.sharding(self.mesh, logical, tuple(shape))
+        return place_block(t, self.mesh.device_mesh(), sh.placements(), shape)
+
+    @staticmethod
+    def local(x):
+        """This rank's block of ``x`` (a plain tensor as it is)."""
+        return x.to_local() if is_dtensor(x) else x
+
+    @staticmethod
+    def full(x):
+        """The whole of ``x`` on every rank (a plain tensor as it is)."""
+        return full(x) if is_dtensor(x) else x
+
+    def embedding(self, tokens, table, logical):
+        """``F.embedding(tokens, table)`` placed by ``logical``: on a mesh
+        each rank looks up the rows it holds and the partial sums are
+        reduced (the table is never gathered)."""
+        if not is_dtensor(table):
+            return F.embedding(tokens, table)
+        return self.constrain(vocab_embedding(tokens, table), logical)
+
+    def scope(self):
+        """The context a step on this mesh runs in: plain tensors that every
+        rank holds whole (tokens, positions, lengths) act as replicated
+        DTensors beside the sharded ones. The page pool's tensors are the
+        rank's own blocks, and enter only through :meth:`from_local` or a
+        kernel entry point's ``local_map``."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        return implicit_replication()
+
+
+NULL_CTX = ShardCtx()
+
+
 def stack(tree, n: int):
     """Add a leading stacked-layers dim to every Leaf."""
     if isinstance(tree, Leaf):
@@ -54,6 +150,7 @@ def stack(tree, n: int):
 
 
 # =========================================================== tiny primitives
+@on_blocks
 def rmsnorm(x, w, eps=1e-6):
     xf = x.to(F32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -78,6 +175,7 @@ def softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+@on_blocks
 def rope(x, positions, theta: float):
     """x: [..., S, H, D]; positions broadcastable to [..., S]."""
     d = x.shape[-1]
@@ -124,17 +222,16 @@ def promote(x, w):
     return x.to(torch.promote_types(x.dtype, w.dtype))
 
 
-def _project_qkv(p, x, h, kh, hd, positions, theta):
-    B, S, _ = x.shape
+def _project_qkv(p, x, h, kh, hd, positions, theta, ctx=NULL_CTX):
     x = promote(x, p["wq"])
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, h, hd)
-    k = k.reshape(B, S, kh, hd)
-    v = v.reshape(B, S, kh, hd)
+    q = ctx.split_heads(q, h, hd, ("batch", None, "heads_act", None))
+    k = ctx.split_heads(k, kh, hd, ("batch", None, "kv_heads_act", None))
+    v = ctx.split_heads(v, kh, hd, ("batch", None, "kv_heads_act", None))
     return rope(q, positions, theta), rope(k, positions, theta), v
 
 
@@ -199,6 +296,10 @@ def decode_attention(q, k_cache, v_cache, *, lengths, window=None, cap=None,
     reference's einsums take them. Either way the step auditor sees one
     call of the paged kernel over the slot pages (:mod:`repro_torch.kernels.leaf`).
     """
+    if is_dtensor(q):
+        raise NotImplementedError(
+            "slot-cache decode on a mesh of more than one device is not ported: dense "
+            "slots on a mesh (ROADMAP section 1 item 5) come after the paged step")
     B, S, KH, D = k_cache.shape
     H = q.shape[1]
     if q.is_cuda:
@@ -241,9 +342,24 @@ def describe_ffn(cfg: ModelConfig, d_in: int | None = None, d_ff: int | None = N
     }
 
 
-def apply_ffn(p, x):
+def apply_ffn(p, x, ctx=NULL_CTX):
     h = silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    h = ctx.constrain(h, ("batch", None, "ffn_act"))
+    return _row_parallel(ctx, h, p["w_down"])
+
+
+def _row_parallel(ctx, h, w):
+    """``h @ w``. On a mesh, where ``w`` is sharded by its rows, each rank's
+    partial sum is taken and reduced in f32 and rounded once to ``h``'s
+    dtype, as the one-device product rounds its f32 accumulator once: bf16
+    partial sums, rounded twice, drift from the one-device result through
+    the layers (0.19 in full-width qwen's logits over 24 layers, beyond
+    the model band). The output is replicated, as the residual stream
+    is."""
+    if not is_dtensor(w):
+        return h @ w
+    y = ctx.constrain(h.float() @ w.float(), ("batch", "seq", "embed_act"))
+    return y.to(h.dtype)
 
 
 # ======================================================================= MoE
@@ -341,13 +457,13 @@ def apply_moe(p, x, cfg: ModelConfig):
     return y, aux
 
 
-def apply_ffn_or_moe(p, x, cfg: ModelConfig):
+def apply_ffn_or_moe(p, x, cfg: ModelConfig, ctx=NULL_CTX):
     """A block's feed-forward: the MoE layer where ``cfg.num_experts`` is
     set, else the FFN. Returns ``(y, aux)``, the MoE layer's load-balance
     loss or 0.0 for the FFN, as the reference's blocks return it."""
     if cfg.num_experts:
         return apply_moe(p, x, cfg)
-    return apply_ffn(p, x), 0.0
+    return apply_ffn(p, x, ctx), 0.0
 
 
 # ================================================================ dense block
@@ -364,6 +480,7 @@ def apply_dense_block(
     p, x, cfg: ModelConfig, *, positions, window=None, cache=None, lengths=None,
     prefix=None, prefix_valid=None, page_tokens: int = 16,
     ring_window: int | None = None, causal: bool = True, with_aux: bool = False,
+    ctx=NULL_CTX,
 ):
     """One transformer block. Modes (with ``with_aux`` each returns
     ``(x, kv, aux)``, ``aux`` the MoE layer's load-balance loss or 0.0, as the
@@ -389,10 +506,13 @@ def apply_dense_block(
       of its keys). On the card the slots are read as pages, so a ring
       that fills its cache must be a whole number of ``page_tokens``-token
       pages (:func:`slot_pages` raises otherwise).
+
+    ``ctx`` places the activations on a mesh (sequence mode only: the
+    slot-cache decode takes plain tensors).
     """
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     a_in = rmsnorm(x, p["ln1"])
-    q, k, v = _project_qkv(p["attn"], a_in, h, kh, hd, positions, cfg.rope_theta)
+    q, k, v = _project_qkv(p["attn"], a_in, h, kh, hd, positions, cfg.rope_theta, ctx)
     if cache is None:
         k_att, v_att, q_off, hole = k, v, 0, None
         if prefix is not None:
@@ -425,9 +545,9 @@ def apply_dense_block(
             cap=cfg.attn_logit_softcap, page_tokens=page_tokens,
         )[:, None, :]
         new_kv = (k_cache, v_cache)
-    x = x + (attn @ p["attn"]["wo"])
-    f_out, aux = apply_ffn_or_moe(p["ffn"], rmsnorm(x, p["ln2"]), cfg)
-    x = x + f_out
+    x = x + _row_parallel(ctx, attn, p["attn"]["wo"])
+    f_out, aux = apply_ffn_or_moe(p["ffn"], rmsnorm(x, p["ln2"]), cfg, ctx)
+    x = ctx.constrain(x + f_out, ("batch", "seq", "embed_act"))
     return (x, new_kv, aux) if with_aux else (x, new_kv)
 
 
@@ -440,7 +560,7 @@ def _write_slot(cache, new, idx):
 
 def apply_dense_block_paged(
     p, x, cfg: ModelConfig, *, k_pages, v_pages, block_tables, lengths,
-    k_scales=None, v_scales=None, window=None,
+    k_scales=None, v_scales=None, window=None, ctx=NULL_CTX,
 ):
     """Decode mode of :func:`apply_dense_block` over a *paged* KV pool.
 
@@ -453,20 +573,22 @@ def apply_dense_block_paged(
     int8-resident pool ``k_scales``/``v_scales`` carry this layer's
     per-page dequant sidecar (``[N]``).
     Returns ``(x', (k_new, v_new))`` with k_new/v_new ``[B, KH, HD]``.
+    On a mesh (``ctx``) the pages are the rank's own blocks of the pool
+    and k_new/v_new DTensors placed by KV heads.
     """
     h_, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     B = x.shape[0]
     a_in = rmsnorm(x, p["ln1"])
     positions = (lengths - 1)[:, None]
-    q, k, v = _project_qkv(p["attn"], a_in, h_, kh, hd, positions, cfg.rope_theta)
+    q, k, v = _project_qkv(p["attn"], a_in, h_, kh, hd, positions, cfg.rope_theta, ctx)
     k_new, v_new = k[:, 0], v[:, 0]
     attn = paged_attention_decode(
         q[:, 0], k_new, v_new, k_pages, v_pages, block_tables, lengths,
         k_scales, v_scales, softcap=cfg.attn_logit_softcap, window=window,
     )                                                      # [B, H, D]
-    x = x + (attn.reshape(B, 1, h_ * hd) @ p["attn"]["wo"])
-    f_out, _ = apply_ffn_or_moe(p["ffn"], rmsnorm(x, p["ln2"]), cfg)
-    x = x + f_out
+    x = x + _row_parallel(ctx, attn.reshape(B, 1, h_ * hd), p["attn"]["wo"])
+    f_out, _ = apply_ffn_or_moe(p["ffn"], rmsnorm(x, p["ln2"]), cfg, ctx)
+    x = ctx.constrain(x + f_out, ("batch", "seq", "embed_act"))
     return x, (k_new, v_new)
 
 

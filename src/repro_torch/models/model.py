@@ -16,6 +16,12 @@ name (``blocks.attn.wq`` holds the stacked ``[L, d, H*hd]`` weight).
 PyTorch runs eagerly: the reference's ``lax.scan`` over stacked layers is
 a Python loop over the layer index, and its functional pool update under
 donation is an in-place ``index_put_`` on the pool tensors.
+
+On a mesh of more than one device (the dense family's serving path:
+``prefill``, ``sequence`` and ``decode_paged`` with a
+:class:`~repro_torch.models.layers.ShardCtx`) the weights are DTensors,
+the residual stream is replicated, the logits are sharded by vocabulary,
+and the page pool's tensors are each rank's own block of the KV heads.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from repro_torch.kernels import kv_quant
 from repro_torch.kernels.flash_attention.ops import prefill_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
+    NULL_CTX,
     _project_qkv,
     _write_slot,
     apply_dense_block,
@@ -67,6 +74,15 @@ def _check_prefix(cfg: ModelConfig, prefix) -> None:
                                or cfg.local_global_alternating):
         kind = "local/global alternation" if cfg.local_global_alternating else cfg.family
         raise ValueError(f"{cfg.name} ({kind}) has no prefix to attend over")
+
+
+def _check_ctx(cfg: ModelConfig, ctx) -> None:
+    """Only the dense family steps on a mesh so far."""
+    if ctx.mesh is not None and (cfg.family != "dense" or cfg.local_global_alternating):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on a mesh of more than one device is not ported: "
+            "the dense family serves there; MoE and the other families on a mesh are "
+            "ROADMAP section 1 item 5's next steps")
 
 
 def _stack_layers(cols) -> tuple:
@@ -247,14 +263,17 @@ class Model(nn.Module):
                          (*lead_axes, "batch", None, "ssm_heads_act"), init="zeros"),
         }
 
-    def _logits(self, h):
+    def _logits(self, h, ctx=NULL_CTX):
+        """f32 logits; on a mesh sharded by vocabulary (``[..., V]``), and
+        the softcap, elementwise, runs on each rank's shard."""
         p = self.params
         h = rmsnorm(h, p.ln_f)
-        return softcap((h @ p.head).to(F32), self.cfg.final_logit_softcap)
+        logits = softcap((h @ p.head).to(F32), self.cfg.final_logit_softcap)
+        return ctx.constrain(logits, ("batch", *[None] * (logits.dim() - 2), "vocab_act"))
 
     # ------------------------------------------------------- sequence mode
     def sequence(self, x, positions, prefix=None, prefix_valid=None, frames=None,
-                 collect_cache: bool = False):
+                 collect_cache: bool = False, ctx=NULL_CTX):
         """Run the full stack over a token-embedded sequence ``x`` [B,S,d].
 
         ``prefix``: optional {"k","v"} [L,B,Sp,KH,HD] radix-cached KV for
@@ -274,10 +293,13 @@ class Model(nn.Module):
         and the cross caches {"ck","cv"} [L,B,S_enc,KH,HD], the decoder
         attending over the encoder's output on ``frames`` [B,S_enc,d].
         With ``cfg.remat`` a recording forward recomputes each block (each
-        (local, global) pair, each hybrid group) in the backward.
+        (local, global) pair, each hybrid group) in the backward. ``ctx``
+        places the dense family's activations on a mesh (a prefix is then
+        a DTensor placed by KV heads); any other family refuses one.
         """
         cfg = self.cfg
         _check_prefix(cfg, prefix)
+        _check_ctx(cfg, ctx)
         layers, enc_layers = self._layer_slices()
         keep = collect_cache   # a block returns its cache only when it is collected
         steps = [(p,) for p in layers]   # each block's arguments after the hidden state
@@ -324,7 +346,7 @@ class Model(nn.Module):
             def body(h, p, pre=None):
                 h, kv, a = apply_dense_block(
                     p, h, cfg, positions=positions, window=cfg.sliding_window,
-                    prefix=pre, prefix_valid=prefix_valid, with_aux=True)
+                    prefix=pre, prefix_valid=prefix_valid, with_aux=True, ctx=ctx)
                 return h, kv if keep else None, a
 
         aux = 0.0   # a tensor once an MoE layer adds to it
@@ -400,7 +422,7 @@ class Model(nn.Module):
     # ------------------------------------------------------------ prefill
     @torch.no_grad()
     def prefill(self, batch: dict, prefix=None, logit_index=None,
-                positions_offset=None, prefix_valid=None):
+                positions_offset=None, prefix_valid=None, ctx=NULL_CTX):
         """Full- or suffix-context forward; returns ``(logits, cache)``.
 
         With ``prefix`` (stacked radix-cached KV), this is chunked prefill:
@@ -418,10 +440,24 @@ class Model(nn.Module):
         ``lengths`` count the image tokens, and ``logit_index`` counts
         from the first text token. The encdec family takes
         ``batch["frames"]`` [B, S_enc, d] for its encoder.
+
+        On a mesh (``ctx``) a ``prefix`` is each rank's own block of the
+        KV heads, as the page pool holds it; the cache returned is a
+        DTensor placed by KV heads and the logits are sharded by
+        vocabulary.
         """
         _check_prefix(self.cfg, prefix)
+        with ctx.scope():
+            return self._prefill(batch, prefix, logit_index, positions_offset,
+                                 prefix_valid, ctx)
+
+    def _prefill(self, batch, prefix, logit_index, positions_offset, prefix_valid, ctx):
         tokens = batch["tokens"]
-        x = self.params.embed[tokens]
+        # a lookup that a vocabulary-sharded table answers with a masked
+        # partial sum, where indexing would gather the whole table
+        x = ctx.embedding(tokens, self.params.embed, ("batch", "seq", "embed_act"))
+        if prefix is not None and ctx.mesh is not None:
+            prefix = {n: ctx.from_local(t, KV_AXES, self._kv_shape(t)) for n, t in prefix.items()}
         n_img = 0
         if self.cfg.family == "vlm":
             img = batch["image_embeds"].to(x.dtype)
@@ -432,9 +468,14 @@ class Model(nn.Module):
         pos0 = q_off if positions_offset is None else positions_offset
         positions = pos0 + torch.arange(S, device=x.device)[None, :]
         h, cache, _ = self.sequence(x, positions, prefix=prefix, prefix_valid=prefix_valid,
-                                    frames=batch.get("frames"), collect_cache=True)
+                                    frames=batch.get("frames"), collect_cache=True, ctx=ctx)
         idx = -1 if logit_index is None else n_img + logit_index
-        return self._logits(h[:, idx, :]), cache
+        return self._logits(h[:, idx, :], ctx), cache
+
+    def _kv_shape(self, t) -> tuple[int, ...]:
+        """The whole shape of a KV stack ``[L, B, S, KH, HD]`` of which
+        ``t`` is one rank's block (its heads)."""
+        return (*t.shape[:3], self.cfg.num_kv_heads, t.shape[4])
 
     # -------------------------------------------------------------- train
     def loss(self, batch: dict):
@@ -565,7 +606,7 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_paged(
         self, k_pages, v_pages, tokens, lengths, block_tables,
-        tail_pages, tail_offsets, k_scales=None, v_scales=None,
+        tail_pages, tail_offsets, k_scales=None, v_scales=None, ctx=NULL_CTX,
     ):
         """One block-table decode step over the pool's tensors.
 
@@ -580,14 +621,28 @@ class Model(nn.Module):
         kernel's dequant, and the commit requantizes the tail pages in
         place (their scales may grow to admit the new token).
         Returns ``logits [B, V]`` (f32).
+
+        On a mesh (``ctx``) the pool's tensors are this rank's own blocks
+        of the KV heads: each layer's kernel reads them on the rank's
+        heads, and the commit writes the rank's block of the new KV. The
+        logits are sharded by vocabulary.
         """
         cfg = self.cfg
         if cfg.family not in PAGED_FAMILIES or cfg.local_global_alternating:
             raise NotImplementedError(
                 f"paged decode serves the {'/'.join(PAGED_FAMILIES)} families without "
                 f"local/global alternation, not {cfg.name}")
+        _check_ctx(cfg, ctx)
+        with ctx.scope():
+            return self._decode_paged(k_pages, v_pages, tokens, lengths, block_tables,
+                                      tail_pages, tail_offsets, k_scales, v_scales, ctx)
+
+    def _decode_paged(self, k_pages, v_pages, tokens, lengths, block_tables,
+                      tail_pages, tail_offsets, k_scales, v_scales, ctx):
+        cfg = self.cfg
         quantized = k_scales is not None
-        x = self.params.embed[tokens][:, None, :]           # [B,1,d]
+        x = ctx.embedding(tokens[:, None], self.params.embed,
+                          ("batch", "seq", "embed_act"))    # [B,1,d]
         k_news, v_news = [], []
         for l, p in enumerate(self._layers):
             x, (k_new, v_new) = apply_dense_block_paged(
@@ -595,10 +650,10 @@ class Model(nn.Module):
                 block_tables=block_tables, lengths=lengths,
                 k_scales=k_scales[l] if quantized else None,
                 v_scales=v_scales[l] if quantized else None,
-                window=cfg.sliding_window,
+                window=cfg.sliding_window, ctx=ctx,
             )
-            k_news.append(k_new)
-            v_news.append(v_new)
+            k_news.append(ctx.local(k_new))
+            v_news.append(ctx.local(v_new))
         k_news = torch.stack(k_news)                       # [L, B, KH, HD]
         v_news = torch.stack(v_news)
         pages, offs = tail_pages.long(), tail_offsets.long()
@@ -608,5 +663,5 @@ class Model(nn.Module):
         else:
             k_pages[:, pages, offs] = k_news.to(k_pages.dtype)
             v_pages[:, pages, offs] = v_news.to(v_pages.dtype)
-        return self._logits(x[:, 0, :])
+        return self._logits(x[:, 0, :], ctx)
 

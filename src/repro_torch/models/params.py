@@ -78,8 +78,12 @@ def device_put_tree(values: dict, shardings: dict) -> dict:
     """Place a nested dict of tensors by a sharding tree of the same keys.
     On a mesh of one device a tensor is moved there (``.to``: a tensor
     already there is returned as it is, so replicas that alias one device
-    share one copy); on a larger mesh it becomes a DTensor over
-    ``mesh.device_mesh()``, which needs a process group."""
+    share one copy). On a larger mesh each rank holds the same full tensor
+    (drawn from the same seed, or loaded alike) and keeps its own block:
+    the tensor becomes a DTensor over ``mesh.device_mesh()`` (which needs
+    a process group) through ``DTensor.from_local``, with no collective.
+    A DTensor already on that mesh with those placements is returned as
+    it is, so aliased replicas share one copy there too."""
     if set(values) != set(shardings):
         raise ValueError(f"tree keys differ: {sorted(set(values) ^ set(shardings))}")
     out = {}
@@ -90,10 +94,25 @@ def device_put_tree(values: dict, shardings: dict) -> dict:
         elif sh.mesh.size == 1:
             out[k] = v.to(sh.mesh.device())
         else:
-            from torch.distributed.tensor import distribute_tensor
-
-            out[k] = distribute_tensor(v, sh.mesh.device_mesh(), sh.placements())
+            out[k] = _put_block(v, sh)
     return out
+
+
+def _put_block(v: torch.Tensor, sh) -> torch.Tensor:
+    """This rank's block of the full tensor ``v`` as a DTensor on
+    ``sh.mesh``, on the rank's device (on ``v``'s own for a layout with no
+    devices behind it)."""
+    from repro_torch.dist.local import is_dtensor, place_block
+
+    mesh, placements = sh.mesh.device_mesh(), sh.placements()
+    if is_dtensor(v):
+        if v.device_mesh is mesh and tuple(v.placements) == placements:
+            return v
+        raise ValueError(f"a DTensor on {v.device_mesh} {v.placements} is placed "
+                         f"by {sh.spec} on {sh.mesh}")
+    dev = v.device if sh.mesh.devices is None else sh.mesh.rank_device()
+    local = v[sh.local_slices(v.shape, sh.mesh.coordinates())].to(dev).contiguous()
+    return place_block(local, mesh, placements, v.shape)
 
 
 def materialize(tree, seed: int = 0, device="cpu") -> dict:

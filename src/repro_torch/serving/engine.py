@@ -39,6 +39,18 @@ host integers. Where the reference donated buffers, the decode step and
 the chunk prefill update the pool tensors in place. On the CPU the same
 buckets run eagerly. The engine runs on the GPU unless the caller asks for
 the CPU (``device="cpu"``); with no CUDA device it raises.
+
+**Tensor-parallel serving.** With a ``placement`` on a ``(1, tp)`` mesh
+(``make_replica_set(n, mesh_shape=(1, tp), num_kv_heads=...)``), every
+rank of the caller's process group builds the same engine and runs the
+same control plane, SPMD: the weights are DTensors placed by the shared
+rules (each rank keeps its own block of the same full tensors), the
+steps pass a :class:`~repro_torch.models.layers.ShardCtx`, the page pool
+holds the rank's block of the KV heads, and the steps run eagerly (no
+graph is captured on such a mesh). The greedy token is taken from the
+gathered logits, so every rank samples the same one. Dense slots, int8
+page formats, a data axis larger than one and the MoE family still raise
+``NotImplementedError`` there.
 """
 from __future__ import annotations
 
@@ -52,9 +64,10 @@ from repro_torch.analysis import compile_tracker
 from repro_torch.core.radix_tree import TypedRadixTree
 from repro_torch.core.types import Tier, TypeLabel
 from repro_torch.dist.placement import ReplicaPlacement
-from repro_torch.launch.mesh import one_device, resolve_device
+from repro_torch.launch.mesh import mesh_device, resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import PAGED_FAMILIES, Model
+from repro_torch.models.layers import NULL_CTX, ShardCtx
+from repro_torch.models.model import KV_AXES, PAGED_FAMILIES, Model
 from repro_torch.models.params import device_put_tree, sharding_tree
 from repro_torch.serving.kvpool import (
     PagePool,
@@ -85,6 +98,31 @@ def check_servable(cfg: ModelConfig) -> None:
         raise ValueError(
             f"{cfg.name} ({kind}): the real engine serves dense-cache families "
             f"({'/'.join(PAGED_FAMILIES)} without local/global alternation)")
+
+
+def check_mesh_servable(cfg: ModelConfig, mesh, *, dense_slots: bool,
+                        offload_format: str, device_format: str) -> None:
+    """What an engine serves on a mesh of more than one device: the dense
+    family, bf16 pages, paged decode, over a model axis alone. Raises
+    ``NotImplementedError`` for the rest, each a later step of ROADMAP
+    section 1 item 5."""
+    later = []
+    wide = {a: n for a, n in mesh.shape.items() if a != "model" and n > 1}
+    if wide:
+        later.append(f"a mesh axis other than 'model' larger than one ({wide}: "
+                     "data-parallel batches inside a replica)")
+    if dense_slots:
+        later.append("dense_slots=True (the slot-cache decode on sharded tensors)")
+    if "int8" in (offload_format, device_format):
+        later.append("int8 page formats (each rank's per-page scale covers its own "
+                     "heads; the whole page's needs an all-reduce of the amax)")
+    if cfg.family != "dense" or cfg.num_experts:
+        later.append(f"the {'moe' if cfg.num_experts else cfg.family} family")
+    if later:
+        raise NotImplementedError(
+            f"serving {cfg.name} on {mesh}: " + "; ".join(later) + " not ported on a "
+            "mesh yet (ROADMAP section 1 item 5: the paged dense step on a model axis "
+            "is done, these come next)")
 
 
 @dataclass
@@ -181,12 +219,15 @@ def greedy_token(logits: torch.Tensor) -> torch.Tensor:
 
 
 def _chunk_prefill(model: Model, pool: PagePool, prefix_idx, write_idx, tokens,
-                   prefix_valid: int, pos0: int, take: int, logit_idx: int):
+                   prefix_valid: int, pos0: int, take: int, logit_idx: int,
+                   ctx=NULL_CTX):
     """One chunk of prefill, pool in, pool updated in place. ``prefix_idx``
     is padded to a page bucket (its garbage tail masked via
     ``prefix_valid``); ``write_idx`` is padded with a scratch page; chunk
     KV past ``take`` is zeroed so the written tail page is byte-identical
-    to the monolithic path's. Returns the logits at ``logit_idx``."""
+    to the monolithic path's. Returns the logits at ``logit_idx``. On a
+    mesh (``ctx``) the pool is the rank's block of the KV heads, and so
+    are the prefix it reads and the chunk KV it writes."""
     prefix = None
     if prefix_idx:
         if pool.quantized_device:
@@ -199,10 +240,10 @@ def _chunk_prefill(model: Model, pool: PagePool, prefix_idx, write_idx, tokens,
     logits, cache = model.prefill(
         {"tokens": tokens}, prefix=prefix, logit_index=logit_idx,
         positions_offset=pos0,
-        prefix_valid=prefix_valid if prefix is not None else None,
+        prefix_valid=prefix_valid if prefix is not None else None, ctx=ctx,
     )
-    k_c = cache["k"][:, 0]                                      # [L,C_pad,KH,HD]
-    v_c = cache["v"][:, 0]
+    k_c = ctx.local(cache["k"])[:, 0]                           # [L,C_pad,KH,HD]
+    v_c = ctx.local(cache["v"])[:, 0]
     k_c[:, take:] = 0
     v_c[:, take:] = 0
     if pool.quantized_device:
@@ -267,13 +308,24 @@ class Engine:
                 "slot as whole pages")
         self.cfg = cfg
         self.placement = placement
+        self.ctx = NULL_CTX
+        local_kv_heads = cfg.num_kv_heads
         if placement is not None:
+            mesh = placement.mesh
+            if mesh.size > 1:
+                check_mesh_servable(cfg, mesh, dense_slots=dense_slots,
+                                    offload_format=offload_format,
+                                    device_format=device_format)
+                self.ctx = ShardCtx(mesh, placement.rules)
+                shape = (cfg.num_layers, 1, page_tokens, cfg.num_kv_heads, cfg.head_dim)
+                local_kv_heads = placement.rules.sharding(
+                    mesh, KV_AXES, shape).shard_shape(shape)[3]
             # the replica's weights go onto its mesh slice under the shared
             # rules; on one device that is a move, which returns a tensor
             # already there as it is, so aliased replicas share one copy
-            device = one_device(placement.mesh, device)
+            device = mesh_device(mesh, device)
             params = device_put_tree(params, sharding_tree(
-                Model(cfg).describe(), placement.mesh, placement.rules))
+                Model(cfg).describe(), mesh, placement.rules))
         self.device = resolve_device(device)
         # the model holds ``params`` without copying them when they are
         # already on the device, so replicas share one set of weights
@@ -309,6 +361,7 @@ class Engine:
             device=self.device,
             offload_format=offload_format,
             device_format=device_format,
+            local_kv_heads=local_kv_heads,
         )
         self.quantized = self.pool.quantized_device
         self.tree = TypedRadixTree(page_tokens)
@@ -341,7 +394,7 @@ class Engine:
         self._audit_id = next(_ENGINE_IDS)
         self.graphs = StepGraphs(
             f"engine{self._audit_id}.{'decode' if dense_slots else 'paged_decode'}",
-            self.device)
+            self.device, capture=self.ctx.mesh is None)
         self._staging: dict = {}             # graph key -> (host, static)
         self._staged = torch.cuda.Event() if self.device.type == "cuda" else None
         # metrics
@@ -458,7 +511,8 @@ class Engine:
 
         args = spec.make_args()
         if spec.kind == "chunk_prefill":
-            return SpecStep(lambda: _chunk_prefill(self.model, self.pool, **args),
+            return SpecStep(lambda: _chunk_prefill(self.model, self.pool, **args,
+                                                   ctx=self.ctx),
                             pool_buffers)
         key = DENSE_KEY if spec.kind == "dense" else spec.bucket["table_pages"]
 
@@ -572,14 +626,17 @@ class Engine:
         vector in :meth:`_pack`'s layout; ``pool_tensors`` the k, v (and,
         int8-resident, the scales) it reads and appends to, by default
         the pool's own (:meth:`PagePool.device_tensors`). Returns the
-        logits ``[B, V]`` f32 and the greedy tokens ``[B]``."""
+        logits ``[B, V]`` f32 and the greedy tokens ``[B]``; on a mesh the
+        model's vocabulary-sharded logits are gathered first, so both are
+        the same plain tensors on every rank."""
         B = self.max_slots
         toks, lens, tails, offs = staged[: 4 * B].view(4, B)
         k, v, *scales = pool_tensors or self.pool.device_tensors()
         logits = self.model.decode_paged(
             k, v, toks.long(), lens, staged[4 * B:].view(B, p_pad), tails, offs,
-            *(scales or (None, None)),
+            *(scales or (None, None)), ctx=self.ctx,
         )
+        logits = self.ctx.full(logits)
         return logits, greedy_token(logits)
 
     # ------------------------------------------------------------- kvsan
@@ -663,9 +720,9 @@ class Engine:
         pad = (-len(suffix)) % self.prefill_bucket
         tokens = self._tensor([suffix + [0] * pad], torch.long)
         logits, cache = self.model.prefill(
-            {"tokens": tokens}, prefix=prefix, logit_index=len(suffix) - 1,
+            {"tokens": tokens}, prefix=prefix, logit_index=len(suffix) - 1, ctx=self.ctx,
         )
-        first_token = int(greedy_token(logits[0]))
+        first_token = int(greedy_token(self.ctx.full(logits[0])))
 
         # 3. install into a decode slot
         sid = self._free_slots.pop()
@@ -679,8 +736,8 @@ class Engine:
             prefilled_tokens=len(suffix),
             reloaded_pages=reloaded,
         )
-        k_suf = cache["k"][:, 0, : len(suffix)]                 # [L,Ssuf,KH,HD]
-        v_suf = cache["v"][:, 0, : len(suffix)]
+        k_suf = self.ctx.local(cache["k"])[:, 0, : len(suffix)]   # [L,Ssuf,KH,HD]
+        v_suf = self.ctx.local(cache["v"])[:, 0, : len(suffix)]
         if self.dense_slots:
             # the slot holds the whole context: cached prefix, then suffix
             k_ctx, v_ctx = k_suf, v_suf
@@ -789,13 +846,13 @@ class Engine:
         pos0 = job.cached_tokens + job.cursor    # absolute chunk start
         logits = _chunk_prefill(
             self.model, self.pool, prefix_idx, write_idx, tokens,
-            prefix_valid=pos0, pos0=pos0, take=take, logit_idx=take - 1,
+            prefix_valid=pos0, pos0=pos0, take=take, logit_idx=take - 1, ctx=self.ctx,
         )
         job.cursor += take
         job.chunks_run += 1
         if job.cursor < len(job.suffix):
             return False
-        job.first_token = int(greedy_token(logits))
+        job.first_token = int(greedy_token(self.ctx.full(logits)))
         self._install_job(job)
         return True
 

@@ -23,6 +23,14 @@ them.
 * **On the CPU** an entry holds no graph: :meth:`replay` runs the step
   eagerly. The bucket bookkeeping is the same, so the capture budget of
   :mod:`repro_torch.analysis.compile_tracker` is testable without a card.
+* **On a mesh of more than one device** (``capture=False``) an entry holds
+  no graph either, whatever the device and the process group's backend:
+  the step runs eagerly at every :meth:`replay`, and :attr:`captured`
+  stays 0. A step there runs collectives, and one rule for every such
+  mesh keeps the ranks' steps alike: a ``gloo`` collective cannot be
+  captured at all, and capture under NCCL waits for a machine with two
+  or more cards. This is the rule for such meshes, not a fallback after a
+  failed capture.
 
 A kernel wrapper runs only while a step is captured (its eager warm-up run
 and the capture itself); a replay calls no wrapper, so a wrapper's launch
@@ -52,9 +60,10 @@ def _warmup_stream() -> torch.cuda.Stream:
 class StepGraphs:
     """A cache of captured steps keyed by bucket, for one engine."""
 
-    def __init__(self, name: str, device: torch.device):
+    def __init__(self, name: str, device: torch.device, capture: bool = True):
         self.name = name
         self.device = torch.device(device)
+        self._capture = capture and self.device.type == "cuda"
         self._graphs: dict = {}            # key -> CUDAGraph
         self._outputs: dict = {}           # key -> the graph's static outputs
         self._steps: dict = {}             # key -> the step (CPU: run eagerly)
@@ -67,6 +76,11 @@ class StepGraphs:
     def keys(self) -> list:
         return list(self._steps)
 
+    @property
+    def captured(self) -> int:
+        """CUDA graphs captured (0 on the CPU and on a mesh)."""
+        return len(self._graphs)
+
     def cache_size(self) -> int:
         """Buckets captured: what the compile tracker budgets, as it read
         jit's ``_cache_size()``."""
@@ -75,11 +89,12 @@ class StepGraphs:
     def capture(self, key, step) -> None:
         """Capture ``step`` (no arguments; returns its static outputs) as
         the entry for ``key``. On a CUDA device ``step`` runs once eagerly
-        first, on whatever the static inputs hold."""
+        first, on whatever the static inputs hold; with ``capture=False``
+        it is kept to run eagerly."""
         if key in self._steps:
             raise KeyError(f"{self.name}: bucket {key!r} is already captured")
         t0 = time.perf_counter()
-        if self.device.type == "cuda":
+        if self._capture:
             self._capture_cuda(key, step)
             step = None
         self._steps[key] = step

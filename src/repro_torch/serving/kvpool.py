@@ -21,6 +21,14 @@ resident pool too and requires ``offload_format="int8"``.
 :attr:`page_bytes` and :attr:`host_page_bytes` are the only numbers
 billing and tier budgets may use, and every verb that writes a page in a
 given format reports the transition to KVSAN (``on_format``).
+
+**On a mesh** whose model axis shards the KV heads, each rank's pool holds
+``local_kv_heads`` of the ``kv_heads`` (its own block, in the device and
+in its own pinned host memory), and every verb acts on that block alone.
+:attr:`page_bytes` and :attr:`host_page_bytes` stay the whole page's
+bytes, the reference's figure, so the router plans and bills the moves
+the reference plans; :attr:`rank_page_bytes` is what one rank holds of a
+page on the device.
 """
 from __future__ import annotations
 
@@ -116,9 +124,12 @@ class PagePool:
         device,
         offload_format: str = "bf16",
         device_format: str = "bf16",
+        local_kv_heads: int | None = None,
     ):
         self.layers = layers
         self.kv_heads = kv_heads
+        # the heads this rank's tensors hold: all of them off a mesh
+        self.local_kv_heads = kv_heads if local_kv_heads is None else local_kv_heads
         self.head_dim = head_dim
         self.page_tokens = page_tokens
         self.device = torch.device(device)
@@ -133,7 +144,7 @@ class PagePool:
             )
         self.quantized_device = self.device_format == "int8"
         dev = self.device
-        shape = (layers, n_device_pages, page_tokens, kv_heads, head_dim)
+        shape = (layers, n_device_pages, page_tokens, self.local_kv_heads, head_dim)
         if self.quantized_device:
             self.k = torch.zeros(shape, dtype=torch.int8, device=dev)
             self.v = torch.zeros(shape, dtype=torch.int8, device=dev)
@@ -146,7 +157,7 @@ class PagePool:
             self.v = torch.zeros(shape, dtype=self.dtype, device=dev)
             self.k_scale = None
             self.v_scale = None
-        hshape = (layers, n_host_pages, page_tokens, kv_heads, head_dim)
+        hshape = (layers, n_host_pages, page_tokens, self.local_kv_heads, head_dim)
         # pinned host memory only exists alongside a GPU
         pin = dev.type == "cuda"
 
@@ -196,6 +207,15 @@ class PagePool:
         return kv_quant.page_wire_bytes(
             self.layers, self.page_tokens, self.kv_heads, self.head_dim,
             self.offload_format,
+        )
+
+    @property
+    def rank_page_bytes(self) -> int:
+        """Device bytes this rank holds of one page (its KV heads); the
+        whole page's :attr:`page_bytes` off a mesh."""
+        return kv_quant.page_wire_bytes(
+            self.layers, self.page_tokens, self.local_kv_heads, self.head_dim,
+            self.device_format,
         )
 
     def _fmt_event(self, tier: str, page: int, fmt: str) -> None:
