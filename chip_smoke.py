@@ -183,21 +183,38 @@ on failure (a failure exits non-zero and prints no final line):
    width on both H100 production layouts (32 x 8 and 2 x 32 x 8, no
    devices needed), every leaf's block dividing, each layout's fallbacks
    printed;
-13. tensor-parallel paged serving (``serve_tp``, after phase 12): two
-   ranks on the one card, spawned processes under ``gloo`` over a file
-   store (this process makes no process group), each loading the kernels
-   the earlier phases built. Each rank probes which ``gloo`` collectives
-   run on CUDA tensors, draws the seed-0 full-width qwen weights and
-   keeps its own blocks of them, and serves the launcher's corpus on two
-   replicas aliasing a ``(1, 2)`` mesh through ``MoriRouter.replay``,
-   monolithic and chunked: half the KV heads in its pool and half the
-   heads in each kernel call, the paged and flash launches of phase 4,
-   no graph captured (steps run eagerly on a mesh), the whole page
-   billed, greedy tokens as phase 4's or parting only at a near tie;
-   then a decode step, a prefill and a chunk over a prefix against a
-   one-device engine on the same weights and pool, within the model
-   band. On one card the ranks' collectives go through host memory, so
-   its times say nothing of tensor-parallel speed.
+13. tensor-parallel paged serving (``serve_tp``, after phase 7, whose
+   replays and phase 6's it is held against): two ranks on the one
+   card, spawned processes under ``gloo`` over a file store (this
+   process makes no process group), each loading the kernels the earlier
+   phases built. Each rank probes which ``gloo`` collectives run on CUDA
+   tensors, draws the seed-0 full-width qwen weights and keeps its own
+   blocks of them, and serves the launcher's corpus on two replicas
+   aliasing a ``(1, 2)`` mesh through ``MoriRouter.replay``, monolithic
+   and chunked: half the KV heads in its pool and half the heads in each
+   kernel call, the paged and flash launches of phase 4, no graph
+   captured (steps run eagerly on a mesh), the whole page billed, greedy
+   tokens as phase 4's or parting only at a near tie; then, on the first
+   ``TP_PROGRAMS`` programs, dense slots with int8 offload
+   (``serve_tp_dense_slots``: one paged launch over the slots a layer a
+   step on half the heads, offloads billed at the whole int8 page, both
+   ranks' host scales bit-equal, tokens as phase 7's or at a near tie)
+   and int8 pages with chunked prefill (``serve_tp_int8``: both ranks'
+   device and host scales bit-equal, one full-width page through each
+   quantize site bit-equal to the one-device quantizer's); a decode
+   step, a prefill and a chunk over a prefix against a one-device engine
+   on the same weights and pool (bf16 and int8), within the model band;
+   then qwen's weights freed, dbrx-132b at 4 of 40 layers
+   (``serve_tp_moe``: the seed-0 weights drawn on the card as phase 6
+   drew them, each rank keeping half of every expert weight's hidden
+   dimension and the whole router; one paged and one flash launch a
+   layer a step and a prefill pass, no collective moving as many
+   elements as one expert's block of one layer, the peak under weights
+   and pools plus 3 GiB, tokens as phase 6's or at a near tie in phase
+   6's own logits, and a decode step and a prefill within the model band
+   of the logits phase 6's one-device engine gave on the same inputs).
+   On one card the ranks' collectives go through host memory, so its
+   times say nothing of tensor-parallel speed.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 hold the per-kernel JSON record and the card's name and power limit. The
@@ -455,11 +472,12 @@ def device_ms_per_call(fn, calls: int, names: tuple | None) -> dict:
             f"{ {k[:40]: counts[k] for k in kernels} } instances of the kernels named {names} "
             f"and {pads} of {2 * PROFILE_PADS} pads")
     else:
-        if names is not None or not kernels:
+        if names is not None:
             raise AssertionError(f"no whole profile of the kernels named {names}")
         # a library's profile still short after every attempt (after
-        # torch.compile, 32 of 50 flex records three times over): its time
-        # is not known, only the instances the profile held
+        # torch.compile, 32 of 50 flex records three times over, and none of
+        # 50 six times over): its time is not known, only the instances the
+        # profile held
         return dict(device_ms=None, device_kernels_ms=None,
                     profiled_instances={k[:60]: counts[k] for k in kernels},
                     profiled_calls=calls)
@@ -838,16 +856,21 @@ def time_cross_decode() -> dict:
                 **bound_of(ops.cost(q, k_pages, table, lens)))
 
 
-def time_kernel(layers: int, shape=MAIN_SHAPE, lengths=MAIN_LENGTHS):
+def time_kernel(layers: int, shape=MAIN_SHAPE, lengths=MAIN_LENGTHS, quantized=False):
     """Kernel, plain version and SDPA at ``shape`` (the serving path's by
     default) and ``lengths``, over ``layers`` distinct layer slices of the
     pool per call round (as one decode step walks the layers, so the pages
-    do not sit in L2)."""
+    do not sit in L2). ``quantized``: on an int8 pool with its per-page
+    scales, where no single PyTorch call dequantizes and attends, so no
+    library time."""
     from repro_torch.kernels.paged_attention import ops, ref
 
     rng = np.random.default_rng(1)
-    c = make_case(rng, shape, torch.bfloat16, lengths=lengths, layers=layers)
+    c = make_case(rng, shape, torch.bfloat16, lengths=lengths, layers=layers,
+                  quantized=quantized)
     B, H, KH, D, T, P = shape
+    if quantized:
+        return _time_paged_int8(c, layers, shape, lengths)
 
     def kernel_round():
         for l in range(layers):
@@ -914,6 +937,36 @@ def time_kernel(layers: int, shape=MAIN_SHAPE, lengths=MAIN_LENGTHS):
                 library_kernels_ms=library_device["device_kernels_ms"],
                 **bound_of(ops.cost(c["q"], c["k"][0], c["tables"], lengths,
                                     k_new=c["k_new"])))
+
+
+def _time_paged_int8(c, layers: int, shape, lengths) -> dict:
+    """:func:`time_kernel`'s timing of the paged kernel on an int8 pool
+    (case ``c``): the wrapper's events, the kernels' device time, the
+    plain version, and the bound of ``ops.cost`` with the pages' scales."""
+    from repro_torch.kernels.paged_attention import ops, ref
+
+    def kernel_round():
+        for l in range(layers):
+            run_kernel(ops, c, layer=l)
+
+    def plain_round():
+        for l in range(layers):
+            run_plain(ref, c, layer=l)
+
+    def kernel_rounds():
+        for _ in range(20):
+            kernel_round()
+
+    kernel_ms = time_call(kernel_round, 50) / layers
+    plain_ms = time_call(plain_round, 5) / layers
+    device = device_ms_per_call(kernel_rounds, 20 * layers,
+                                ("paged_split_kernel", "paged_combine_kernel"))
+    return dict(shape=shape, lengths=np.asarray(lengths).tolist(), layers=layers,
+                page_format="int8", ms=kernel_ms, **device, plain_ms=plain_ms,
+                library_ms=None, library_device_ms=None,
+                library_note="no single PyTorch call dequantizes int8 pages and attends",
+                **bound_of(ops.cost(c["q"], c["k"][0], c["tables"], np.asarray(lengths),
+                                    k_new=c["k_new"], k_scales=c["ks"][0])))
 
 
 # ------------------------------------------------------------ phase 2: flash
@@ -1228,8 +1281,10 @@ def time_flex_yardstick(timing: dict) -> None:
     """The library time of gemma2's local layer (``timing``'s
     ``gemma2_local`` entry gains it): compiled ``flex_attention`` with the
     softcap and the causal window, on the inputs ``time_flash`` timed the
-    kernel on. Run it after every other profile: once ``torch.compile``
-    has run, a profile has come back one or two kernel records short."""
+    kernel on. Its device time comes from CUDA events behind a spin kernel,
+    not from a profile: after ``torch.compile`` the profiles of this loop
+    came back short in every run, and once empty six times over. Run it
+    after every other profile, which it could make short too."""
     from repro_torch.kernels.flash_attention import ops
 
     q, k, v, kw = gemma2_local_case()
@@ -1241,16 +1296,11 @@ def time_flex_yardstick(timing: dict) -> None:
     compile_s = time.perf_counter() - t0
     check_yardstick("flex_attention (gemma2_local)", lib, ops.prefill_attention(q, k, v, **kw))
 
-    def library_calls():
-        for _ in range(50):
-            library(qt, kt, vt)
-
-    device = device_ms_per_call(library_calls, 50, None)
     rec = dict(library="flex_attention (torch.compile)", library_compile_s=compile_s,
                library_ms=time_call(lambda: library(qt, kt, vt), 50),
-               library_device_ms=device["device_ms"],
-               library_kernels_ms=device["device_kernels_ms"],
-               library_profiled_instances=device["profiled_instances"])
+               library_device_ms=device_ms_behind_spin(lambda: library(qt, kt, vt), 20),
+               library_device_ms_by="CUDA events around one call queued behind a "
+                                    f"torch.cuda._sleep({SPIN_CYCLES}) spin, median of 20")
     timing["gemma2_local"].update(rec)
     log("flash gemma2_local library " + json.dumps(rec))
 
@@ -1556,11 +1606,10 @@ def device_kernel_counts(fn, names: tuple) -> tuple[object, dict]:
         torch.cuda.synchronize()
         fn_s = time.perf_counter() - t0
     counts = dict.fromkeys(names, 0)
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            for name in names:
-                if name in ev.key:
-                    counts[name] += ev.count
+    for key, _ in device_events(prof):
+        for name in names:
+            if name in key:
+                counts[name] += 1
     counts.update(fn_s=fn_s, processing_s=time.perf_counter() - t0 - fn_s)
     return result, counts
 
@@ -1955,21 +2004,30 @@ def graph_parity_ssm(engine) -> list:
              "tokens_equal": tokens_equal, "state_equal": state_equal}]
 
 
+def device_events(prof):
+    """Each device-side event of a finished profile as (name, µs), read
+    from the profiler's raw records: ``key_averages()`` first builds a
+    ``FunctionEvent`` for every record, CPU ones included, which made the
+    profiles of whole replays the slowest part of their phases."""
+    for ev in prof.profiler.kineto_results.events():
+        # what the parse behind key_averages() leaves out: memory records
+        # and hidden events
+        if ev.device_type() != torch.autograd.DeviceType.CUDA or ev.name() in (
+                "[memory]", "[OutOfMemory]") or getattr(ev, "is_hidden_event", bool)():
+            continue
+        yield ev.name(), ev.duration_ns() / 1e3
+
+
 def device_kernel_us(prof, counts: dict | None = None) -> dict:
     """Device time by kernel name from a profile: device-side events only
     (the CPU ops that launched them carry the same time again as their own
     device total). ``counts``, if given, receives each name's instances."""
     kernels = {}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
+    for key, dev_us in device_events(prof):
         if dev_us > 0:
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us
+            kernels[key] = kernels.get(key, 0.0) + dev_us
             if counts is not None:
-                counts[ev.key] = counts.get(ev.key, 0) + ev.count
+                counts[key] = counts.get(key, 0) + 1
     return kernels
 
 
@@ -2065,19 +2123,22 @@ def serve_ssm():
 
 
 # ------------------------------------------------------------ phase 6
-def draw_on_card(tree, seed: int) -> dict:
+def draw_on_card(tree, seed: int, keep=None, device=None) -> dict:
     """Random weights for the descriptor tree ``tree``, drawn on the card
     from one seeded ``torch.Generator``, leaf by leaf in sorted-key order,
     with ``materialize``'s initialisers: zeros, ones, or a normal of the
     leaf's std (its scale, else 1/sqrt(fan_in) with the reference's
     fan-in, ``shape[-2]``). Not ``materialize``'s numbers: its stream runs
-    on the host, one value at a time."""
+    on the host, one value at a time. ``keep(name, t)`` (phase 13's ranks:
+    a rank's own block) replaces each leaf as soon as it is drawn, so no
+    more than one whole leaf is held at a time."""
     from repro_torch.models.params import leaves
 
-    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    device = device or DEVICE
+    g = torch.Generator(device=device).manual_seed(seed)
     out: dict = {}
     for name, l in leaves(tree):
-        t = torch.empty(l.shape, dtype=l.dtype, device=DEVICE)
+        t = torch.empty(l.shape, dtype=l.dtype, device=device)
         if l.init == "zeros" or l.scale == 0.0:
             t.zero_()
         elif l.init == "ones":
@@ -2086,6 +2147,8 @@ def draw_on_card(tree, seed: int) -> dict:
             fan_in = l.shape[-2] if len(l.shape) >= 2 else max(1, l.shape[-1])
             t.normal_(0.0, l.scale if l.scale is not None else 1.0 / math.sqrt(fan_in),
                       generator=g)
+        if keep is not None:
+            t = keep(name, t)
         *path, last = name.split(".")
         node = out
         for key in path:
@@ -2201,20 +2264,34 @@ def serve_moe(args, host_rate: float):
     """dbrx-132b at full width, cut to ``MOE_LAYERS`` layers, behind
     MoriRouter.replay as the qwen replay is served; then the full-width
     MoE layer check, every bucket's decode graph against its eager step,
-    and the decode step's breakdown."""
+    and the decode step's breakdown. Returns the record, the graph parity
+    cases and what phase 13 holds its sharded dbrx against: the replay's
+    output log, each sampled token's top logits, and the logits of the
+    fixed decode step and prefill (:func:`fixed_logits`)."""
     from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.serving import Engine
 
     torch.cuda.reset_peak_memory_stats()
     cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
     params, draw = moe_weights(cfg, host_rate)
-    record, engines, _ = replay_paged(args, chunked=False, cfg=cfg, params=params,
-                                      label="serve_moe")
+    tops: dict = {}
+    record, engines, router = replay_paged(
+        args, chunked=False, cfg=cfg, params=params, label="serve_moe",
+        watch=lambda engines: record_top_logits(engines, tops, k=MOE_TOP_K))
     record["weights"] = draw
     layer = check_moe_layer(cfg, params)
     log("moe layer " + json.dumps(layer))
     parity = graph_parity_paged(cfg, params, formats=(("bf16", None),))
     log("moe breakdown " + json.dumps(moe_breakdown(engines[0])))
-    return record, parity
+    # the same fixed step on the first TP_MOE_BAND_LAYERS layers (views of
+    # the same weights), where phase 13 holds every logit to the band
+    cut_cfg, cut_params = first_layers(cfg, params, TP_MOE_BAND_LAYERS)
+    cut = Engine(cut_cfg, cut_params, device=DEVICE, **serve.ENGINE_POOLS)
+    phase13 = dict(log={pid: list(t) for pid, t in router.output_log.items()}, tops=tops,
+                   fixed=fixed_logits(engines[0]), fixed_cut=fixed_logits(cut))
+    return record, parity, phase13
+
 
 
 # ------------------------------------------------------------ phase 7
@@ -2225,6 +2302,9 @@ REPLICA_FAULT = (20.0, 80.0)
 SSD_PAGES = 40
 #: the logits kept of each sampled token when comparing two replays
 TOP_K = 8
+#: the logits kept of each sampled token where dbrx's replays are compared:
+#: over its 100,352-token vocabulary random weights leave many near the top
+MOE_TOP_K = 64
 
 
 def check_dense_slot_view() -> float:
@@ -2250,37 +2330,52 @@ def check_dense_slot_view() -> float:
     return err
 
 
-def record_top_logits(engines, tops: dict, contexts: dict | None = None) -> None:
+def record_top_logits(engines, tops: dict, contexts: dict | None = None,
+                      k: int = TOP_K, route=None, margins: dict | None = None) -> None:
     """Wrap each engine so that every token it samples (a prefill's, and
-    each advancing row's at a decode step) appends that pass's ``TOP_K``
+    each advancing row's at a decode step) appends that pass's ``k``
     largest logits and their token ids to ``tops[program id]``: the order
     in which the router logs the program's tokens. With ``contexts`` each
     pass's context (the tokens before the one sampled) is kept there
-    alike. Logits sharded by vocabulary (a mesh) are gathered first."""
+    alike; with a :class:`RouteRecorder` ``route``, the sampled token's
+    routing margin (the least over the MoE layers) in ``margins``. Logits
+    sharded by vocabulary (a mesh) are gathered first."""
     from repro_torch.models.layers import ShardCtx
 
-    def keep(pid, logits, context):
-        vals, ids = torch.topk(ShardCtx.full(logits).float(), TOP_K)
+    def keep(pid, logits, context, margin=None):
+        vals, ids = torch.topk(ShardCtx.full(logits).float(), k)
         tops.setdefault(pid, []).append((vals.tolist(), ids.tolist()))
         if contexts is not None:
             contexts.setdefault(pid, []).append(list(context))
+        if margins is not None:
+            margins.setdefault(pid, []).append(margin)
 
     for e in engines:
         last = {}
 
         def prefill(*a, _f=e.model.prefill, _last=last, **kw):
+            if route is not None:
+                route.start()
             logits, cache = _f(*a, **kw)
             _last["prefill"] = logits[0]
+            if route is not None:
+                at = kw.get("logit_index")
+                _last["prefill_margin"] = route.stop()[-1 if at is None else at]
             return logits, cache
 
         def decode(key, packed, _f=e._decode, _last=last):
+            if route is not None:
+                route.start()
             out = _f(key, packed)
             _last["decode"] = out[0]
+            if route is not None:
+                _last["decode_margins"] = route.stop()
             return out
 
         def submit(req, _f=e.submit, _last=last):
             sid = _f(req)
-            keep(req.program_id, _last.pop("prefill"), req.tokens)
+            keep(req.program_id, _last.pop("prefill"), req.tokens,
+                 _last.pop("prefill_margin", None))
             return sid
 
         def step(active=None, _f=e.step, _e=e, _last=last):
@@ -2290,26 +2385,30 @@ def record_top_logits(engines, tops: dict, contexts: dict | None = None) -> None
             done = _f(active)
             if "decode" in _last:
                 logits = _last.pop("decode")
+                rm = _last.pop("decode_margins", None)
                 for sid in rows:
-                    keep(pids[sid], logits[sid], ctxs[sid])
+                    keep(pids[sid], logits[sid], ctxs[sid], None if rm is None else rm[sid])
             return done
 
         def prefill_step(job, *a, _f=e.prefill_step, _last=last, **kw):
             done = _f(job, *a, **kw)
             logits = _last.pop("prefill")
+            margin = _last.pop("prefill_margin", None)
             if done:
-                keep(job.request.program_id, logits, job.request.tokens)
+                keep(job.request.program_id, logits, job.request.tokens, margin)
             return done
 
         e.model.prefill, e._decode, e.submit, e.step = prefill, decode, submit, step
         e.prefill_step = prefill_step
 
 
-def compare_logs(got: dict, want: dict, tops: dict) -> dict:
+def compare_logs(got: dict, want: dict, tops: dict, strict: bool = True) -> dict:
     """``got``'s output log against ``want``'s, program by program. Where
     they part, the first differing token must be a near tie in ``got``'s
     run: ``want``'s token among its top logits, within the model band
-    (MODEL_ATOL + MODEL_RTOL·|top logit|) of the largest."""
+    (MODEL_ATOL + MODEL_RTOL·|top logit|) of the largest. Without
+    ``strict`` each gap is recorded for the caller to hold and nothing
+    raises."""
     if set(got) != set(want):
         raise AssertionError("the two replays served different programs")
     firsts = []
@@ -2326,20 +2425,20 @@ def compare_logs(got: dict, want: dict, tops: dict) -> dict:
         gap = vals[0] - vals[ids.index(b[i])] if b[i] in ids else math.inf
         firsts.append(dict(program=pid, index=i, token=a[i], other_token=b[i],
                            logit_gap=gap, band=band))
-        if gap > band:
+        if strict and gap > band:
             raise AssertionError(f"{pid} parts from the other replay at token {i} "
                                  f"by a logit gap {gap} beyond the band {band}")
     return dict(output_log_equal=not firsts, programs_differing=len(firsts),
                 first_differences=firsts)
 
 
-def serve_dense_slots(args, cfg, params, serve_log: dict) -> dict:
+def serve_dense_slots(args, cfg, params, serve_log: dict) -> tuple[dict, dict]:
     """Two warmed ``Engine(dense_slots=True)`` replicas behind
     ``MoriRouter.replay`` with the launcher's pools, corpus and scheduler
     (monolithic prefill): one decode graph an engine, captured in warmup,
     replayed at every step; paged kernels (over the slots seen as pages)
     = layers x decode steps on the device; the output log against phase
-    4's ``serve`` log."""
+    4's ``serve`` log. Returns the record and the output log."""
     tops: dict = {}
     record, engines, router = replay_paged(
         args, chunked=False, cfg=cfg, params=params, label="serve_dense_slots",
@@ -2354,7 +2453,7 @@ def serve_dense_slots(args, cfg, params, serve_log: dict) -> dict:
                reloaded_pages=m.reloaded_pages, decode_reserve_pages=engines[0].decode_reserve_pages)
     log("serve_dense_slots against serve " + json.dumps(out))
     record.update(out)
-    return record
+    return record, {pid: list(toks) for pid, toks in router.output_log.items()}
 
 
 def serve_replicas(args, cfg, params) -> dict:
@@ -2504,9 +2603,10 @@ def near_tie(logits, want: int, got: int) -> float:
     return (top - logits[got].item()) - (MODEL_ATOL + MODEL_RTOL * abs(top))
 
 
-def compare_greedy(what: str, logits, want_logits) -> dict:
+def compare_greedy(what: str, logits, want_logits, strict: bool = True) -> dict:
     """Two runs' logits [steps, B, V] on the same fed tokens: the largest
-    difference, and each step's top-1 equal or a near tie in ``want``."""
+    difference, and each step's top-1 equal or a near tie in ``want``
+    (without ``strict`` recorded, not raised)."""
     diff = (logits - want_logits).abs().max().item()
     parted = []
     for i, b in zip(*torch.nonzero(logits.argmax(-1) != want_logits.argmax(-1),
@@ -2515,7 +2615,7 @@ def compare_greedy(what: str, logits, want_logits) -> dict:
         parted.append(dict(step=int(i), row=int(b), tokens=[got, want],
                            excess_over_band=near_tie(want_logits[i, b], want, got)))
     rec = dict(max_abs_logit_diff=diff, top1_parted=parted)
-    if not math.isfinite(diff) or any(p["excess_over_band"] > 0 for p in parted):
+    if strict and (not math.isfinite(diff) or any(p["excess_over_band"] > 0 for p in parted)):
         raise AssertionError(f"{what}: top-1 parts beyond a near tie: {rec}")
     return rec
 
@@ -3574,6 +3674,7 @@ def train_restore() -> dict:
 #: digits it gives (the account of ``ops.cost``; moved there unchanged)
 RECORDED_BOUND_MS = {
     "paged main": 0.00090, "paged d160": 0.00358, "paged whisper cross": 0.00367,
+    "paged int8": 0.00045,
     "flash monolithic": 0.00094, "flash dbrx": 0.00329, "flash d160": 0.00470,
     "flash d256": 0.00282, "flash gemma2_local": 0.17320, "flash whisper_encoder": 0.00932,
     "flash whisper_cross": 0.00191, "flash internvl2": 0.00911, "flash backward": 0.02173,
@@ -3588,21 +3689,24 @@ def meta(*shape, dtype=torch.bfloat16):
 
 
 def account_costs(paged_timing, paged_d160, paged_cross, flash_timing, ssd_timing,
-                  bwd_timing, ssd_bwd_timing) -> dict:
+                  bwd_timing, ssd_bwd_timing, paged_int8) -> dict:
     """Each timing line's shapes, as the line prints them, through the
     kernels' ``cost``: ``{line: (cost, the line's record)}``."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
 
-    def paged(rec):
+    def paged(rec, quantized=False):
         B, H, KH, D, T, P = rec["shape"]
-        return paged_ops.cost(meta(B, H, D), meta(1, T, KH, D),
+        return paged_ops.cost(meta(B, H, D),
+                              meta(1, T, KH, D, dtype=torch.int8 if quantized else torch.bfloat16),
                               meta(B, P, dtype=torch.int32), rec["lengths"],
-                              k_new=meta(B, KH, D))
+                              k_new=meta(B, KH, D),
+                              k_scales=meta(1, dtype=torch.float32) if quantized else None)
 
     c = paged_cross
     out = {"paged main": (paged(paged_timing), paged_timing),
+           "paged int8": (paged(paged_int8, quantized=True), paged_int8),
            "paged d160": (paged(paged_d160), paged_d160),
            "paged whisper cross": (paged_ops.cost(
                meta(c["B"], c["H"], c["D"]), meta(1, c["page_tokens"], c["KH"], c["D"]),
@@ -3839,7 +3943,7 @@ def resolve_production_rules() -> dict:
 #: the model axis of phase 13's mesh: two ranks on the one card
 TP = 2
 #: the parent waits this long for its ranks, then kills them and fails
-TP_DEADLINE_S = 600
+TP_DEADLINE_S = 720
 #: the collectives phase 13 probes on CUDA tensors under gloo, in each dtype
 TP_PROBE = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
 TP_PROBE_DTYPES = (torch.bfloat16, torch.float32)
@@ -3850,11 +3954,24 @@ TP_BAND_LAYERS = 4
 #: the fixed prefill of the logits check, and the chunk over a prefix
 TP_PREFILL_TOKENS = 100
 TP_CHUNK = dict(prefix_pages=4, take=40)
+#: the dense-slot and int8 replays serve the first 4 of the launcher's 8
+#: programs: the phase's time (an eager step on the mesh takes ~400 ms)
+TP_PROGRAMS = 4
+#: the dense-slot replay: dense slots with int8 offload; the int8 replay:
+#: both tiers int8, chunked prefill
+TP_DENSE_KW = dict(dense_slots=True, offload_format="int8")
+TP_INT8_KW = dict(offload_format="int8", device_format="int8")
+#: a rank's peak in the MoE replay stays under its weights and pools plus this
+TP_MOE_HEADROOM = 3 * 2**30
+#: the layers (of dbrx's 4) over which phase 13 holds every logit of the
+#: fixed step routed alike to the band; at 4 each one's top-1
+TP_MOE_BAND_LAYERS = 2
 
 
 def probe_gloo(dev) -> dict:
     """Which collectives this process group's ``gloo`` runs on CUDA
-    tensors, in each dtype: ``ok``, ``wrong`` or the error."""
+    tensors, in each dtype: ``ok``, ``wrong`` or the error; and the max
+    all-reduce that an int8 page's scale takes over the ranks' heads."""
     import torch.distributed as dist
 
     rank, n = dist.get_rank(), dist.get_world_size()
@@ -3880,35 +3997,87 @@ def probe_gloo(dev) -> dict:
                 out[key] = "ok" if ok else "wrong"
             except Exception as exc:  # noqa: BLE001 (the probe's answer)
                 out[key] = f"{type(exc).__name__}: {exc}"[:200]
+    try:
+        t = torch.tensor([rank + 0.5, -rank], dtype=torch.float32, device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        out["all_reduce_max[float32]"] = "ok" if t.tolist() == [n - 0.5, 0.0] else "wrong"
+    except Exception as exc:  # noqa: BLE001 (the probe's answer)
+        out["all_reduce_max[float32]"] = f"{type(exc).__name__}: {exc}"[:200]
     return out
 
 
 def _heads_seen(seen: dict):
     """Wrap the attention entry points' module globals (what each rank's
     ``local_map`` body calls on its local shards) so that each call adds
-    the query, KV and page head counts it saw to ``seen``."""
+    the query, KV and page head counts it saw to ``seen``: the paged
+    decode over the pool, the slot-cache read (``layers.paged_attention``,
+    the dense-slot decode's kernel over the slots seen as pages) and the
+    prefill."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.models import layers
 
-    def wrap(mod, name, heads):
+    def wrap(mod, name, heads, key=None):
         fn = getattr(mod, name)
 
         def call(*args, **kwargs):
-            seen.setdefault(name, set()).add(heads(*args))
+            seen.setdefault(key or name, set()).add(heads(*args))
             return fn(*args, **kwargs)
 
         setattr(mod, name, call)
 
     wrap(paged_ops, "paged_attention_decode",
          lambda q, kn, vn, kp, *rest: (q.shape[1], kn.shape[1], kp.shape[2]))
+    wrap(layers, "paged_attention", lambda q, kp, *rest: (q.shape[1], kp.shape[2]),
+         key="paged_attention_slots")
     wrap(flash_ops, "prefill_attention", lambda q, k, v, *rest: (q.shape[2], k.shape[2]))
 
 
-def tp_replay(args, cfg, placed, rs, chunked: bool, want_log: dict) -> dict:
-    """One replay of the launcher's corpus through ``rs``'s replicas on
-    this rank (every rank runs the same control plane), with the weights
-    ``placed`` once for all of them; the output log against phase 4's
-    ``want_log`` (:func:`compare_logs`)."""
+class _Collectives:
+    """Counts the elements each ``torch.distributed`` all-reduce and
+    all-gather moves (the tensor the rank sends) while armed: the check
+    that no collective moves a weight."""
+
+    NAMES = ("all_reduce", "all_gather", "all_gather_into_tensor")
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.moved: list = []
+        self.armed = False
+        for name in self.NAMES:
+            fn = getattr(dist, name)
+
+            def call(*args, _fn=fn, _name=name, **kwargs):
+                if self.armed:
+                    t = args[0] if _name == "all_reduce" else args[1]
+                    self.moved.append(int(t.numel()))
+                return _fn(*args, **kwargs)
+
+            setattr(dist, name, call)
+
+
+def _digest(tensors) -> str:
+    """One digest of ``tensors``' bytes, in order: equal on two ranks only
+    if every tensor is bit-equal."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_replay(args, cfg, placed, rs, chunked: bool, want_log: dict | None,
+              engine_kw=None, label="phase4", top_k=TOP_K, strict=True, route=None) -> dict:
+    """One replay of the launcher's corpus (``args.programs`` of it)
+    through ``rs``'s replicas on this rank (every rank runs the same
+    control plane), with the weights ``placed`` once for all of them and
+    ``engine_kw`` for each engine; the output log against ``want_log``
+    (:func:`compare_logs` with ``strict``, over the programs served,
+    ``top_k`` logits kept a sampled token) under ``against_<label>``;
+    with a :class:`RouteRecorder` ``route``, each first difference's
+    routing margin in this run."""
     from repro_torch.core.types import SchedulerConfig
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.paged_attention import ops as paged_ops
@@ -3916,7 +4085,8 @@ def tp_replay(args, cfg, placed, rs, chunked: bool, want_log: dict) -> dict:
     from repro_torch.serving import Engine, MoriRouter
 
     t0 = time.perf_counter()
-    engines = [Engine(cfg, placed, placement=p, **serve.ENGINE_POOLS) for p in rs]
+    engines = [Engine(cfg, placed, placement=p, **serve.ENGINE_POOLS, **(engine_kw or {}))
+               for p in rs]
     router = MoriRouter(
         engines, scheduler=args.scheduler,
         gpu_capacity_bytes=engines[0].pool.page_bytes * args.gpu_pages,  # lint: kv008-ok (the whole page, as the reference bills it)
@@ -3930,8 +4100,8 @@ def tp_replay(args, cfg, placed, rs, chunked: bool, want_log: dict) -> dict:
     for e in engines:
         _count_calls(e.model, "prefill", passes, "prefill")
         e.graphs.replays = 0
-    tops, contexts = {}, {}
-    record_top_logits(engines, tops, contexts)
+    tops, contexts, margins = {}, {}, {}
+    record_top_logits(engines, tops, contexts, k=top_k, route=route, margins=margins)
     paged_ops.KERNEL.launches = 0
     flash_ops.KERNEL.launches = 0
     t0 = time.perf_counter()
@@ -3939,8 +4109,9 @@ def tp_replay(args, cfg, placed, rs, chunked: bool, want_log: dict) -> dict:
                       max_new_tokens=args.max_new_tokens)
     torch.cuda.synchronize()
     replay_s = time.perf_counter() - t0
+    pools = [e.pool for e in engines]
     rec = dict(
-        chunked_prefill=chunked, steps_completed=m.steps_completed,
+        chunked_prefill=chunked, programs=args.programs, steps_completed=m.steps_completed,
         tokens_generated=m.tokens_generated, offloaded_pages=m.offloaded_pages,
         reloaded_pages=m.reloaded_pages, offload_bytes=m.offload_bytes,
         reload_bytes=m.reload_bytes, prefill_chunks=m.prefill_chunks,
@@ -3949,51 +4120,164 @@ def tp_replay(args, cfg, placed, rs, chunked: bool, want_log: dict) -> dict:
         captures=sum(e.graphs.captured for e in engines),
         graph_entries=sum(e.graphs.cache_size() for e in engines),
         eager_steps=sum(e.graphs.replays for e in engines),
-        page_bytes=engines[0].pool.page_bytes, host_page_bytes=engines[0].pool.host_page_bytes,
-        rank_page_bytes=engines[0].pool.rank_page_bytes,
-        pool_bytes_held=sum(t.nbytes for e in engines for t in (
-            e.pool.k, e.pool.v, e.pool.host_k, e.pool.host_v)),
-        pool_heads=engines[0].pool.local_kv_heads, setup_s=setup_s, replay_s=replay_s,
-        against_phase4=compare_logs(router.output_log, want_log, tops))
-    rec["first_differences"] = [
-        dict(d, context=contexts[d["program"]][d["index"]])
-        for d in rec["against_phase4"].pop("first_differences")]
+        page_bytes=pools[0].page_bytes, host_page_bytes=pools[0].host_page_bytes,
+        rank_page_bytes=pools[0].rank_page_bytes,
+        pool_bytes_held=sum(t.nbytes for q in pools for t in (q.k, q.v, q.host_k, q.host_v)),
+        device_pool_bytes=sum(t.nbytes for q in pools for t in q.device_tensors()) + sum(
+            e.slot_k.nbytes + e.slot_v.nbytes for e in engines if e.dense_slots),
+        pool_heads=pools[0].local_kv_heads, setup_s=setup_s, replay_s=replay_s)
+    if pools[0].quantized_device:
+        rec["device_scale_digest"] = _digest(t for q in pools for t in (q.k_scale, q.v_scale))
+    if pools[0].host_k_scale is not None:
+        rec["host_scale_digest"] = _digest(
+            t for q in pools for t in (q.host_k_scale, q.host_v_scale))
+    if want_log is not None:
+        against = compare_logs(router.output_log, {pid: want_log[pid] for pid in router.output_log},
+                               tops, strict=strict)
+        rec["first_differences"] = [
+            dict(d, context=contexts[d["program"]][d["index"]],
+                 route_margin=margins[d["program"]][d["index"]])
+            for d in against.pop("first_differences")]
+        rec[f"against_{label}"] = against
     return rec
 
 
-def tp_logits_check(cfg, params, placed, rs, dev) -> tuple[dict, object]:
+def seed_fixed(engine, r: int = 0, n: int | None = None) -> tuple:
+    """Fill ``engine``'s pool with its block (KV heads ``[r n, (r + 1) n)``)
+    of a pool drawn from seed 7 in bf16 (on an int8 pool each page
+    quantized whole: the one-device payload's block and its scales), and
+    return the fixed decode step's staged inputs, its table bucket and
+    tables, and the fixed prefill's tokens: the same on every engine of
+    one configuration and pool geometry."""
+    from repro_torch.kernels import kv_quant
+
+    cfg, pool, dev = engine.cfg, engine.pool, engine.device
+    n = cfg.num_kv_heads if n is None else n
+    g = torch.Generator(device=dev).manual_seed(7)
+    whole = (*pool.k.shape[:3], cfg.num_kv_heads, cfg.head_dim)
+    for name in ("k", "v"):
+        full = torch.randn(whole, generator=g, device=dev, dtype=torch.bfloat16)
+        if pool.quantized_device:
+            full, scales = kv_quant.quantize_pages(full)
+            getattr(pool, f"{name}_scale").copy_(scales)
+        getattr(pool, name).copy_(full[..., r * n:(r + 1) * n, :])
+    T, B = engine.page_tokens, engine.max_slots
+    lens = np.asarray(TP_DECODE_LENGTHS, np.int32)
+    p_used = -(-int(lens.max()) // T)
+    p_pad = -(-p_used // engine._table_bucket) * engine._table_bucket
+    tables = (np.arange(B * p_pad, dtype=np.int32).reshape(B, p_pad) % pool.n_device_pages)
+    rng = np.random.default_rng(7)
+    toks = rng.integers(2, cfg.vocab_size, B)
+    pos = lens - 1
+    staged = torch.from_numpy(engine._pack(toks, lens, tables[np.arange(B), pos // T], pos % T,
+                                           tables)).to(dev)
+    tokens = torch.as_tensor(rng.integers(2, cfg.vocab_size, (1, TP_PREFILL_TOKENS)),
+                             device=dev)
+    return staged, p_pad, tables, tokens
+
+
+class RouteRecorder:
+    """Wraps ``layers.moe_route`` (the experts' products untouched) so
+    that, between :meth:`start` and :meth:`stop`, each MoE layer's router
+    gates are kept, one row a token. MoE routing is discontinuous: where a
+    token's k-th and (k+1)-th gates nearly tie, a rounding difference in
+    the router's input picks another expert, and the layer's output moves
+    by far more than the model band. The gates say where that happened."""
+
+    def __init__(self, k: int):
+        from repro_torch.models import layers
+
+        self.k, self.calls, self.armed = k, [], False
+        fn = layers.moe_route
+
+        def call(p, xg, cfg):
+            out = fn(p, xg, cfg)
+            if self.armed:
+                self.calls.append(out[0].reshape(-1, out[0].shape[-1]).float())
+            return out
+
+        layers.moe_route = call
+        self.restore = lambda: setattr(layers, "moe_route", fn)
+
+    def start(self) -> None:
+        self.calls, self.armed = [], True
+
+    def stop(self) -> list:
+        """Each token's routing margin, the least over the layers of the
+        gap between its k-th and (k+1)-th gates."""
+        self.armed = False
+        return torch.stack([route_margins(g, self.k) for g in self.calls]).amin(0).tolist()
+
+    def gates(self, fn):
+        """``fn()``'s result and its gates ``[layers, tokens, E]``."""
+        self.start()
+        out = fn()
+        self.armed = False
+        return out, torch.stack(self.calls)
+
+
+def route_margins(gates, k: int):
+    """The gap between each row's k-th and (k+1)-th largest gate."""
+    top = gates.topk(k + 1, dim=-1).values
+    return top[..., k - 1] - top[..., k]
+
+
+def route_flips(gates, want, k: int) -> dict:
+    """Two runs' gates ``[layers, tokens, E]`` on the same inputs: the
+    tokens whose chosen experts differ in some layer (``flipped``), the
+    largest gate difference over the tokens routed alike in every layer
+    (``eps``, what rounding alone moved a gate), and each flipped token's
+    least margin in ``want`` over the layers where its experts differ."""
+    chosen = gates.topk(k, dim=-1).indices.sort(-1).values
+    chosen_want = want.topk(k, dim=-1).indices.sort(-1).values
+    differ = (chosen != chosen_want).any(-1)                     # [layers, tokens]
+    flipped = differ.any(0)
+    diff = (gates - want).abs().amax(-1)                         # [layers, tokens]
+    eps = diff[:, ~flipped].max().item() if (~flipped).any() else 0.0
+    margin = route_margins(want, k).masked_fill(~differ, math.inf).amin(0)
+    return dict(eps=eps, flipped=flipped.nonzero()[:, 0].tolist(),
+                flip_margins=margin[flipped].tolist())
+
+
+def fixed_logits(engine) -> dict:
+    """The fixed decode step's and prefill's logits (:func:`seed_fixed`)
+    on a one-device ``engine``, f32 on the host, with the router's gates
+    of each (MoE): what phase 13 holds the sharded engine of the same
+    weights against, without a third copy of the weights on the card."""
+    route = RouteRecorder(engine.cfg.top_k)
+    try:
+        staged, p_pad, _, tokens = seed_fixed(engine)
+        (logits, _), decode_gates = route.gates(lambda: engine.decode_packed(staged, p_pad))
+        (prefill, _), prefill_gates = route.gates(
+            lambda: engine.model.prefill({"tokens": tokens}))
+    finally:
+        route.restore()
+    return dict(decode=logits.float().cpu().numpy(), prefill=prefill[0].float().cpu().numpy(),
+                decode_gates=decode_gates.cpu().numpy(),
+                prefill_gates=prefill_gates.cpu().numpy())
+
+
+def tp_logits_check(cfg, params, placed, rs, dev, engine_kw=None) -> tuple[dict, object]:
     """One decode step, one prefill and one chunk over a prefix on a
     sharded engine against a one-device engine on this card, on the same
     weights, pool contents and tokens: for the logits (gathered) and the
     pool's pages after the step (this rank's heads), the largest
     difference and its excess over the model band, and each row's top-1
-    token (equal, or a near tie: :func:`compare_greedy`). Returns the
-    record and the one-device engine."""
+    token (equal, or a near tie: :func:`compare_greedy`). With
+    ``engine_kw`` (int8 pools) the decode step and the chunk, whose pool
+    reads and writes the format changes. Returns the record and the
+    one-device engine."""
     from repro_torch.launch import serve
     from repro_torch.serving import Engine
     from repro_torch.serving.engine import _chunk_prefill
 
-    tp = Engine(cfg, placed, placement=rs.placement(0), **serve.ENGINE_POOLS)
-    one = Engine(cfg, params, device=dev, **serve.ENGINE_POOLS)
+    kw = engine_kw or {}
+    tp = Engine(cfg, placed, placement=rs.placement(0), **serve.ENGINE_POOLS, **kw)
+    one = Engine(cfg, params, device=dev, **serve.ENGINE_POOLS, **kw)
     r = rs.meshes[0].coordinates()[1]
     n = tp.pool.local_kv_heads
-    g = torch.Generator(device=dev).manual_seed(7)
-    for name in ("k", "v"):
-        full = torch.randn(getattr(one.pool, name).shape, generator=g, device=dev,
-                           dtype=torch.bfloat16)
-        getattr(one.pool, name).copy_(full)
-        getattr(tp.pool, name).copy_(full[..., r * n:(r + 1) * n, :])
-    T, B = one.page_tokens, one.max_slots
-    lens = np.asarray(TP_DECODE_LENGTHS, np.int32)
-    p_used = -(-int(lens.max()) // T)
-    p_pad = -(-p_used // one._table_bucket) * one._table_bucket
-    tables = (np.arange(B * p_pad, dtype=np.int32).reshape(B, p_pad)
-              % one.pool.n_device_pages)
-    rng = np.random.default_rng(7)
-    toks = rng.integers(2, cfg.vocab_size, B)
-    pos = lens - 1
-    staged = torch.from_numpy(one._pack(toks, lens, tables[np.arange(B), pos // T], pos % T,
-                                        tables)).to(dev)
+    staged, p_pad, tables, tokens = seed_fixed(one)
+    seed_fixed(tp, r, n)
 
     def compare(what, got, want):
         got, want = tp.ctx.full(got).float(), want.float()
@@ -4004,14 +4288,15 @@ def tp_logits_check(cfg, params, placed, rs, dev) -> tuple[dict, object]:
     want, _ = one.decode_packed(staged, p_pad)
     got, _ = tp.decode_packed(staged, p_pad)
     out["decode"] = compare("decode", got, want)
-    out["pool_after_decode"] = max(
-        (band_excess(getattr(tp.pool, name), getattr(one.pool, name)[..., r * n:(r + 1) * n, :])
-         for name in ("k", "v")), key=lambda d: d["excess_over_band"])
-    tokens = torch.as_tensor(rng.integers(2, cfg.vocab_size, (1, TP_PREFILL_TOKENS)),
-                             device=dev)
-    want, _ = one.model.prefill({"tokens": tokens})
-    got, _ = tp.model.prefill({"tokens": tokens}, ctx=tp.ctx)
-    out["prefill"] = compare("prefill", got, want)
+    if not one.pool.quantized_device:
+        out["pool_after_decode"] = max(
+            (band_excess(getattr(tp.pool, name),
+                         getattr(one.pool, name)[..., r * n:(r + 1) * n, :])
+             for name in ("k", "v")), key=lambda d: d["excess_over_band"])
+        want, _ = one.model.prefill({"tokens": tokens})
+        got, _ = tp.model.prefill({"tokens": tokens}, ctx=tp.ctx)
+        out["prefill"] = compare("prefill", got, want)
+    T = one.page_tokens
     c = TP_CHUNK
     prefix = tables[0, :c["prefix_pages"]].tolist()
     pos0 = c["prefix_pages"] * T
@@ -4022,6 +4307,83 @@ def tp_logits_check(cfg, params, placed, rs, dev) -> tuple[dict, object]:
     got = _chunk_prefill(tp.model, tp.pool, prefix, write, chunk, **kw, ctx=tp.ctx)
     out["chunk_prefill"] = compare("chunk prefill", got[None], want[None])
     return out, one
+
+
+def tp_quant_sites(cfg, rs, dev) -> dict:
+    """One full-width page through each int8 quantize site of a pool that
+    holds this rank's half of the KV heads (the prefill's scatter into an
+    int8 pool, the decode commit's requantize of that page, the int8
+    offload's host copy from a bf16 pool), against the one-device
+    quantizers on the whole page on this card: the ranks' payload blocks
+    gathered side by side and this rank's scales, bit for bit. The page's
+    amax lies on rank 0's heads in even layers and rank 1's in odd ones."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.local import max_reducer
+    from repro_torch.kernels import kv_quant
+    from repro_torch.models.model import KV_AXES
+    from repro_torch.serving.kvpool import PagePool
+
+    mesh = rs.meshes[0]
+    L, T, KH, HD = cfg.num_layers, 16, cfg.num_kv_heads, cfg.head_dim
+    sh = rs.rules.sharding(mesh, KV_AXES, (L, 1, T, KH, HD))
+    n, r = sh.shard_shape((L, 1, T, KH, HD))[3], mesh.coordinates()[1]
+    reduce_amax = max_reducer(mesh.device_mesh(), sh.placements(), 3)
+    group = mesh.device_mesh().get_group(1)
+    g = torch.Generator(device=dev).manual_seed(9)
+    up = torch.ones((L, 1, KH, 1), device=dev)
+    up[0::2, :, : KH // 2] = up[1::2, :, KH // 2:] = 3.0
+    full = {name: (torch.randn((L, T + 5, KH, HD), generator=g, device=dev) * up).bfloat16()
+            for name in ("k", "v", "new_k", "new_v")}
+    full["new_k"], full["new_v"] = full["new_k"][:, :1] * 4, full["new_v"][:, :1] * 4
+    own = {k: v[..., r * n:(r + 1) * n, :].contiguous() for k, v in full.items()}
+
+    def side_by_side(t):
+        parts = [torch.empty_like(t, dtype=torch.float32) for _ in range(TP)]
+        dist.all_gather(parts, t.float().contiguous(), group=group)
+        return torch.cat(parts, dim=-2)
+
+    def pool(**kw):
+        return PagePool(layers=L, kv_heads=KH, head_dim=HD, page_tokens=T, n_device_pages=4,
+                        n_host_pages=2, device=dev, local_kv_heads=n,
+                        reduce_amax=reduce_amax, **kw)
+
+    out = {}
+
+    def check(site, got_q, got_s, want_q, want_s):
+        rec = dict(payload_equal=torch.equal(side_by_side(got_q), want_q.float()),
+                   scales_equal=torch.equal(got_s, want_s), elements=want_q.numel(),
+                   pages=want_s.numel())
+        out[site] = rec
+        if not (rec["payload_equal"] and rec["scales_equal"]):
+            raise AssertionError(f"int8 {site} on the mesh is not the whole page's "
+                                 f"quantization: {rec}")
+
+    q = pool(**TP_INT8_KW)
+    q.write_device_pages([1, 2], own["k"], own["v"])
+    pad = torch.nn.functional.pad
+    want = {name: kv_quant.quantize_pages(
+        pad(full[name], (0, 0, 0, 0, 0, 2 * T - full[name].shape[1])).reshape(L, 2, T, KH, HD))
+        for name in ("k", "v")}
+    for name in ("k", "v"):
+        check(f"prefill_{name}", getattr(q, name)[:, 1:3], getattr(q, f"{name}_scale")[:, 1:3],
+              *want[name])
+    pages, offs = torch.tensor([2], device=dev), torch.tensor([3], device=dev)
+    for name in ("k", "v"):
+        kv_quant.requantize_insert_run(getattr(q, name), getattr(q, f"{name}_scale"), pages,
+                                       offs, own[f"new_{name}"], reduce_amax)
+        wq, ws = (t.clone() for t in want[name])
+        kv_quant.requantize_insert_run(wq, ws, pages - 1, offs, full[f"new_{name}"])
+        check(f"decode_{name}", getattr(q, name)[:, 2], getattr(q, f"{name}_scale")[:, 2],
+              wq[:, 1], ws[:, 1])
+    b = pool(offload_format="int8")
+    b.write_device_pages([0], own["k"][:, :T], own["v"][:, :T])
+    hp = b.copy_page_to_host(0)
+    for name in ("k", "v"):
+        check(f"offload_{name}", getattr(b, f"host_{name}")[:, hp].to(dev),
+              getattr(b, f"host_{name}_scale")[:, hp].to(dev),
+              *kv_quant.quantize_pages(full[name][:, :T]))
+    return out
 
 
 def first_layers(cfg, params, layers: int):
@@ -4060,12 +4422,147 @@ def tie_check(one, firsts: list) -> list:
     return out
 
 
+def tops_tie_check(firsts: list, tops: dict) -> list:
+    """Each first difference of the sharded MoE replay from phase 6's
+    ``serve_moe``, held in phase 6's own top logits at that index (the
+    contexts are equal up to it): the sharded token's gap from the largest
+    (``inf`` outside the top ``MOE_TOP_K``) beside phase 6's token's gap
+    in the sharded run's logits (``logit_gap``) and the model band."""
+    out = []
+    for d in firsts:
+        vals, ids = tops[d["program"]][d["index"]]
+        gap = vals[0] - vals[ids.index(d["token"])] if d["token"] in ids else math.inf
+        out.append(dict(program=d["program"], index=d["index"], token=d["token"],
+                        phase4_token=d["other_token"], in_tie_set=gap == 0.0,
+                        one_device_gap=gap, logit_gap=d["logit_gap"],
+                        route_margin=d["route_margin"],
+                        band=MODEL_ATOL + MODEL_RTOL * abs(vals[0])))
+    return out
+
+
+def _block_keeper(tree, mesh, rules):
+    """``draw_on_card``'s ``keep`` for a rank: each leaf's block (a copy,
+    so the whole leaf is freed) as a DTensor placed by ``rules``."""
+    from repro_torch.dist.local import place_block
+    from repro_torch.models.params import flatten_tree, sharding_tree
+
+    shardings = dict(flatten_tree(sharding_tree(tree, mesh, rules)))
+
+    def keep(name, t):
+        sh = shardings[name]
+        local = t[sh.local_slices(t.shape, mesh.coordinates())].clone()
+        return place_block(local, mesh.device_mesh(), sh.placements(), t.shape)
+
+    return keep
+
+
+def tp_moe(args, logs: dict, dev, seen: dict, collectives: _Collectives) -> dict:
+    """Phase 13's MoE replay on this rank: dbrx-132b at full width, cut to
+    ``MOE_LAYERS`` layers as phase 4's ``serve_moe``, the seed-0 weights
+    drawn on the card as phase 4 drew them, this rank's blocks kept leaf
+    by leaf; the launcher's corpus over two replicas aliasing the mesh,
+    every collective's size counted; then the fixed decode step and
+    prefill against the logits phase 4's one-device engine gave."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import make_replica_set
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.models.params import flatten_tree
+    from repro_torch.serving import Engine
+
+    if not logs["moe"]["drawn"].startswith("on the card"):
+        raise AssertionError(f"phase 4 drew dbrx's weights {logs['moe']['drawn']}: phase 13 "
+                             "draws them on the card and would hold other weights")
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    rs = make_replica_set(args.replicas, mesh_shape=(1, TP), devices=[dev] * TP,
+                          num_kv_heads=cfg.num_kv_heads)
+    mesh = rs.meshes[0]
+    tree = Model(cfg).describe()
+    t0 = time.perf_counter()
+    placed = draw_on_card(tree, seed=0, keep=_block_keeper(tree, mesh, rs.rules), device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    leaves = dict(flatten_tree(placed))
+    held = sum(t.to_local().nbytes for t in leaves.values())
+    experts = {n: t for n, t in leaves.items()
+               if n.split(".")[-1] in ("w_gate", "w_up", "w_down") and ".ffn." in f".{n}."}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    seen.clear()
+    collectives.moved.clear()
+    collectives.armed = True
+    route = RouteRecorder(cfg.top_k)
+    rec = tp_replay(args, cfg, placed, rs, False, logs["moe"]["log"], label="phase4",
+                    top_k=MOE_TOP_K, strict=False, route=route)
+    collectives.armed = False
+    peak = torch.cuda.max_memory_allocated(dev)
+    rec.update(
+        weights=dict(drawn="on the card (torch.Generator, seed 0), this rank's block of each "
+                           "leaf kept as it was drawn", draw_s=draw_s),
+        weight_bytes_held=held, weight_bytes_whole=sum(
+            math.prod(t.shape) * t.element_size() for t in leaves.values()),
+        expert_bytes_held=sum(t.to_local().nbytes for t in experts.values()),
+        expert_shapes={n: [list(t.shape), list(t.to_local().shape)]
+                       for n, t in experts.items()},
+        router_whole=all(list(t.shape) == list(t.to_local().shape)
+                         for n, t in leaves.items() if n.endswith(".router")),
+        heads_seen={k: sorted(v) for k, v in seen.items()},
+        collectives=len(collectives.moved),
+        largest_collective_elements=max(collectives.moved, default=0),
+        # one expert's block of one layer's weight (d x f / 2)
+        smallest_expert_block_elements=min(
+            math.prod(t.to_local().shape[2:]) for t in experts.values()),
+        peak_bytes=peak, headroom_bytes=peak - held - rec["device_pool_bytes"])
+    rec["logits"] = moe_fixed_check(cfg, placed, rs, route, logs["moe"]["fixed"], dev)
+    cut_cfg, cut_placed = first_layers(cfg, placed, TP_MOE_BAND_LAYERS)
+    rec[f"logits_{TP_MOE_BAND_LAYERS}_layers"] = moe_fixed_check(
+        cut_cfg, cut_placed, rs, route, logs["moe"]["fixed_cut"], dev)
+    # what rounding alone moved a gate, on the tokens routed alike
+    rec["route_eps"] = max(rec["logits"][n]["routing"]["eps"] for n in ("decode", "prefill"))
+    rec["ties"] = tops_tie_check(rec.pop("first_differences"), logs["moe"]["tops"])
+    route.restore()
+    return rec
+
+
+def moe_fixed_check(cfg, placed, rs, route, fixed: dict, dev) -> dict:
+    """The fixed decode step and prefill on a sharded dbrx engine against
+    the logits and router gates phase 6's one-device engine gave
+    (``fixed``), recorded here and held by the parent after it has
+    printed them: the routing of both passes, and the logits of the rows
+    and positions routed alike in every layer."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import Engine
+
+    tp = Engine(cfg, placed, placement=rs.placement(0), **serve.ENGINE_POOLS)
+    staged, p_pad, _, tokens = seed_fixed(tp, rs.meshes[0].coordinates()[1],
+                                          tp.pool.local_kv_heads)
+    want = {k: torch.from_numpy(v).to(dev) for k, v in fixed.items()}
+    (got, _), gates = route.gates(lambda: tp.decode_packed(staged, p_pad))
+    flips = route_flips(gates, want["decode_gates"], cfg.top_k)
+    same = [b for b in range(got.shape[0]) if b not in flips["flipped"]]
+    out = {"decode": dict(
+        band_excess(got[same], want["decode"][same]) if same else {}, held=bool(same),
+        rows_routed_alike=same, routing=flips, **compare_greedy(
+            "sharded dbrx decode", got[None].float(), want["decode"][None], strict=False))}
+    (got, _), gates = route.gates(lambda: tp.model.prefill({"tokens": tokens}, ctx=tp.ctx))
+    got = tp.ctx.full(got)[0].float()
+    flips = route_flips(gates, want["prefill_gates"], cfg.top_k)
+    out["prefill"] = dict(
+        band_excess(got, want["prefill"]), routing=flips, rows_routed_alike=[0],
+        held=TP_PREFILL_TOKENS - 1 not in flips["flipped"], **compare_greedy(
+            "sharded dbrx prefill", got[None, None], want["prefill"][None, None], strict=False))
+    return out
+
+
 def serve_tp_rank(rank: int, store: str, work: str, logs: dict) -> None:
     """One rank of phase 13, in a process of its own on ``cuda:0``:
     ``gloo`` over a file store, every collective of the sharded step
     through ``torch.distributed`` (DTensor's functional collectives refused),
     its record written to ``work/rank<r>.json``. An exception ends the
     process with a non-zero code, which fails the phase."""
+    import argparse
+
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -4083,10 +4580,12 @@ def serve_tp_rank(rank: int, store: str, work: str, logs: dict) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     seen: dict = {}
     _heads_seen(seen)
+    collectives = _Collectives()
     rec = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
            "world": dist.get_world_size(), "gloo_on_cuda": probe_gloo(dev)}
     with no_functional_collectives():
         args = serve.parse_args([])
+        few = argparse.Namespace(**{**vars(args), "programs": TP_PROGRAMS})
         cfg = get_config(args.arch)
         rec["heads"] = [cfg.num_heads, cfg.num_kv_heads]
         t0 = time.perf_counter()
@@ -4106,40 +4605,100 @@ def serve_tp_rank(rank: int, store: str, work: str, logs: dict) -> None:
         rec["serve"] = tp_replay(args, cfg, placed, rs, False, logs["serve"])
         rec["serve_chunked"] = tp_replay(args, cfg, placed, rs, True, logs["serve_chunked"])
         rec["heads_seen"] = {k: sorted(v) for k, v in seen.items()}
+        for mode, kw, chunked, want in (
+                ("serve_tp_dense_slots", TP_DENSE_KW, False, logs["dense_slots"]),
+                ("serve_tp_int8", TP_INT8_KW, True, None)):
+            seen.clear()
+            rec[mode] = tp_replay(few, cfg, placed, rs, chunked, want, engine_kw=kw,
+                                  label="phase7")
+            rec[mode]["heads_seen"] = {k: sorted(v) for k, v in seen.items()}
+        rec["serve_tp_int8"]["quant_sites"] = tp_quant_sites(cfg, rs, dev)
         params = _to(params, dev)
         rec["logits"], one = tp_logits_check(cfg, params, placed, rs, dev)
         # at full depth the random weights grow each rounding difference
         # layer by layer; the band holds over the first TP_BAND_LAYERS
         cut, cut_params = first_layers(cfg, params, TP_BAND_LAYERS)
+        cut_placed = device_put_tree(cut_params, sharding_tree(Model(cut).describe(), mesh,
+                                                               rs.rules))
         rec[f"logits_{TP_BAND_LAYERS}_layers"], _ = tp_logits_check(
-            cut, cut_params, device_put_tree(cut_params, sharding_tree(
-                Model(cut).describe(), mesh, rs.rules)), rs, dev)
-        for mode in ("serve", "serve_chunked"):
+            cut, cut_params, cut_placed, rs, dev)
+        rec["serve_tp_int8"]["logits"], _ = tp_logits_check(
+            cfg, params, placed, rs, dev, engine_kw=TP_INT8_KW)
+        rec["serve_tp_int8"][f"logits_{TP_BAND_LAYERS}_layers"], _ = tp_logits_check(
+            cut, cut_params, cut_placed, rs, dev, engine_kw=TP_INT8_KW)
+        for mode in ("serve", "serve_chunked", "serve_tp_dense_slots"):
             rec[mode]["ties"] = tie_check(one, rec[mode].pop("first_differences"))
+        # the MoE replay holds dbrx alone on the card: qwen's weights go first
+        del params, placed, one, cut_params, cut_placed
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["serve_tp_moe"] = tp_moe(args, logs, dev, seen, collectives)
     dist.barrier()
     dist.destroy_process_group()
     rec["seconds"] = time.perf_counter() - t_start
     Path(work, f"rank{rank}.json").write_text(json.dumps(rec))
 
 
+def _check_counts(r: dict, mode: str, layers: int, heads: dict) -> None:
+    """A rank's replay ``mode`` ran its kernels once a layer a decode step
+    and a prefill pass, each on the heads ``heads``, eagerly."""
+    g = r[mode]
+    if (g["paged_launches"], g["flash_launches"]) != (
+            layers * g["engine_steps"], layers * g["prefill_passes"]) or not g["engine_steps"]:
+        raise AssertionError(
+            f"rank {r['rank']} {mode}: {g['paged_launches']} paged and {g['flash_launches']} "
+            f"flash launches for {g['engine_steps']} decode steps and {g['prefill_passes']} "
+            f"prefill passes of {layers} layers")
+    if g["captures"] != 0 or g["eager_steps"] != g["engine_steps"]:
+        raise AssertionError(f"rank {r['rank']} {mode}: {g['captures']} captures, "
+                             f"{g['eager_steps']} eager steps of {g['engine_steps']}")
+    if g["heads_seen"] != heads:
+        raise AssertionError(f"rank {r['rank']} {mode}: the kernels saw heads "
+                             f"{g['heads_seen']}, not {heads}")
+
+
+def _check_ties(r: dict, mode: str) -> None:
+    for t in r[mode]["ties"]:
+        if not (t["in_tie_set"] or t["one_device_gap"] <= t["band"]):
+            raise AssertionError(f"rank {r['rank']} {mode} parts from the one-device run "
+                                 f"beyond a near tie: {t}")
+
+
+def _check_band(r: dict, rec: dict, what: str) -> None:
+    for name, d in rec.items():
+        if not d["excess_over_band"] <= 0:
+            raise AssertionError(f"rank {r['rank']}: sharded {name} ({what}) off the "
+                                 f"one-device engine's beyond the model band: {d}")
+
+
 def serve_tp(mono: dict, chunked: dict, logs: dict, phase4: dict) -> dict:
-    """Phase 13: tensor-parallel paged serving of full-width qwen on a
-    ``(1, TP)`` mesh, as ``TP`` ranks on the one card under ``gloo`` (this
-    process starts them and makes no process group). Each rank serves the
-    launcher's corpus on two replicas aliasing the mesh, monolithic and
-    chunked, through ``MoriRouter.replay``. Fails unless every rank exits
-    0 with: half the KV heads in its pool and the kernels seeing half the
-    heads, its paged and flash launches equal to phase 4's (``mono``,
-    ``chunked``), no graph captured, the whole page billed, greedy tokens
-    equal to phase 4's (``logs``) or parting only at a near tie (the
-    sharded run's own top logits within the model band, and a one-device
-    prefill at that context within the band too), and the sharded
-    engine's decode, prefill and chunk logits within the model band of a
-    one-device engine's. ``phase4`` holds phase 4's weight bytes, pool
-    bytes (both replicas' device and host tiers) and page bytes."""
+    """Phase 13: tensor-parallel paged serving on a ``(1, TP)`` mesh, as
+    ``TP`` ranks on the one card under ``gloo`` (this process starts them
+    and makes no process group). Each rank serves the launcher's corpus on
+    two replicas aliasing the mesh through ``MoriRouter.replay``: full-
+    width qwen, monolithic and chunked (``serve_tp``); on the first
+    ``TP_PROGRAMS`` programs on dense slots with int8 offload
+    (``serve_tp_dense_slots``) and on int8 pages with chunked prefill
+    (``serve_tp_int8``); and dbrx-132b at 4 of 40 layers
+    (``serve_tp_moe``). Fails unless every rank exits 0 with: half the KV
+    heads in its pool and the kernels seeing half the heads, its paged
+    and flash launches one a layer a step and a prefill pass (phase 4's
+    for qwen, ``mono`` and ``chunked``), no graph captured, the whole page
+    billed, greedy tokens equal to the one-device replays' (phase 4's and
+    phase 7's in ``logs``) or parting only at a near tie, int8 scales
+    bit-equal on both ranks and each quantize site's page bit-equal to the
+    one-device quantizer's, the decode, prefill and chunk logits within
+    the model band of a one-device engine's (dbrx's: of the logits phase 4
+    saved), half of each expert weight a rank and no collective moving
+    one. ``phase4`` holds phase 4's weight bytes, pool bytes (both
+    replicas' device and host tiers) and page bytes."""
     import multiprocessing as mp
     import shutil
     import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import kv_quant
+    from repro_torch.launch import serve
 
     t0 = time.perf_counter()
     work = Path(tempfile.mkdtemp(prefix="serve_tp_", dir=ROOT / "build"))
@@ -4192,11 +4751,30 @@ def serve_tp(mono: dict, chunked: dict, logs: dict, phase4: dict) -> dict:
     record[band_key] = [r[band_key] for r in recs]
     record["seconds"] = time.perf_counter() - t0
     log("serve_tp " + json.dumps(record))
+    per_rank = ("paged_launches", "flash_launches", "setup_s", "replay_s", "heads_seen")
+    lines = {}
+    for mode in ("serve_tp_dense_slots", "serve_tp_int8", "serve_tp_moe"):
+        got = [r[mode] for r in recs]
+        lines[mode] = dict({k: v for k, v in got[0].items() if k not in per_rank},
+                           **{k: [g[k] for g in got] for k in per_rank})
+        for k in ("logits", f"logits_{TP_BAND_LAYERS}_layers",
+                  f"logits_{TP_MOE_BAND_LAYERS}_layers", "peak_bytes", "headroom_bytes",
+                  "weight_bytes_held", "quant_sites", "device_scale_digest",
+                  "host_scale_digest"):
+            if k in got[0]:
+                lines[mode][k] = [g[k] for g in got]
+        log(f"{mode} " + json.dumps(lines[mode]))
     heads, kv_heads = recs[0]["heads"]
     half = recs[0]["serve"]["pool_heads"]
     if record["world"] != TP or record["backend"] != "gloo" or half * TP != kv_heads:
         raise AssertionError(f"phase 13 ran {record['world']} ranks under "
                              f"{record['backend']} with {half} KV heads a rank")
+    qwen = get_config(serve.parse_args([]).arch)
+    moe_cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    # the whole int8 page the router bills: payload and a scale a layer for
+    # K and for V, where a rank holds half of the payload
+    int8_page = kv_quant.page_wire_bytes(qwen.num_layers, serve.ENGINE_POOLS["page_tokens"],
+                                         qwen.num_kv_heads, qwen.head_dim, "int8")
     for r in recs:
         held = r["weight_bytes_held"]
         if not held < 0.6 * phase4["weight_bytes"]:
@@ -4223,17 +4801,87 @@ def serve_tp(mono: dict, chunked: dict, logs: dict, phase4: dict) -> dict:
             if g["page_bytes"] != phase4["page_bytes"]:
                 raise AssertionError(f"{mode} billed {g['page_bytes']} a page, phase 4 "
                                      f"{phase4['page_bytes']}")
-            for t in g["ties"]:
-                if not (t["in_tie_set"] or t["one_device_gap"] <= t["band"]):
-                    raise AssertionError(f"rank {r['rank']} {mode} parts from phase 4 "
-                                         f"beyond a near tie: {t}")
+            _check_ties(r, mode)
         # at full depth each row's top-1 is held (compare_greedy raised in
         # the rank); over the first layers every logit is held to the band
-        for name, d in r[band_key].items():
-            if not d["excess_over_band"] <= 0:
-                raise AssertionError(f"rank {r['rank']}: sharded {name} ({TP_BAND_LAYERS} "
-                                     f"layers) off the one-device engine's beyond the model "
-                                     f"band: {d}")
+        _check_band(r, r[band_key], f"{TP_BAND_LAYERS} layers")
+        # dense slots with int8 offload, on 4 programs
+        _check_counts(r, "serve_tp_dense_slots", qwen.num_layers, {
+            "paged_attention_slots": [[local, half]], "prefill_attention": [[local, half]]})
+        d = r["serve_tp_dense_slots"]
+        _check_ties(r, "serve_tp_dense_slots")
+        if d["host_page_bytes"] != int8_page or d["offload_bytes"] != (
+                d["offloaded_pages"] * int8_page) or d["offloaded_pages"] <= 0:
+            raise AssertionError(f"rank {r['rank']} dense slots: {d['offloaded_pages']} pages "
+                                 f"offloaded, {d['offload_bytes']} bytes, not the whole int8 "
+                                 f"page of {int8_page} each")
+        # int8 pages, chunked prefill, on 4 programs
+        _check_counts(r, "serve_tp_int8", qwen.num_layers, {
+            "paged_attention_decode": [[local, half, half]],
+            "prefill_attention": [[local, half]]})
+        q = r["serve_tp_int8"]
+        if q["prefill_chunks"] <= 0 or q["page_bytes"] != int8_page:
+            raise AssertionError(f"rank {r['rank']} int8: {q['prefill_chunks']} chunks, "
+                                 f"{q['page_bytes']} bytes a page")
+        _check_band(r, q[f"logits_{TP_BAND_LAYERS}_layers"], f"int8, {TP_BAND_LAYERS} layers")
+        # dbrx at 4 of 40 layers
+        m = r["serve_tp_moe"]
+        moe_local = moe_cfg.num_heads // TP, moe_cfg.num_kv_heads // TP
+        _check_counts(r, "serve_tp_moe", MOE_LAYERS, {
+            "paged_attention_decode": [[moe_local[0], moe_local[1], moe_local[1]]],
+            "prefill_attention": [[moe_local[0], moe_local[1]]]})
+        # where a program parts from phase 6, at a near tie: each run's
+        # token within the model band of the top of the other's logits, or
+        # the sampled token's routing within twice what rounding alone
+        # moved a gate (route_eps) of a flip, so either expert is the
+        # function's own choice
+        near_flip = 2 * m["route_eps"]
+        for t in m["ties"]:
+            if not ((t["one_device_gap"] <= t["band"] and t["logit_gap"] <= t["band"])
+                    or t["route_margin"] <= near_flip):
+                raise AssertionError(f"rank {r['rank']} serve_tp_moe parts from phase 6 beyond "
+                                     f"a near tie of the logits or the routing: {t}")
+        cut_key = f"logits_{TP_MOE_BAND_LAYERS}_layers"
+        for layers, key in ((MOE_LAYERS, "logits"), (TP_MOE_BAND_LAYERS, cut_key)):
+            for name, d in m[key].items():
+                flips = d["routing"]
+                if any(mg > near_flip for mg in flips["flip_margins"]):
+                    raise AssertionError(f"rank {r['rank']}: sharded dbrx {name} ({layers} "
+                                         f"layers) routes a token otherwise than phase 6 away "
+                                         f"from a near tie: {flips}")
+                # what was routed alike in every layer keeps its top-1 (a
+                # flipped token is held by its margin above), and over the
+                # first TP_MOE_BAND_LAYERS layers every logit of it the band
+                if not d["held"]:
+                    continue
+                if (key == cut_key and d["excess_over_band"] > 0) or any(
+                        p["excess_over_band"] > 0 and p["row"] in d["rows_routed_alike"]
+                        for p in d["top1_parted"]):
+                    raise AssertionError(f"rank {r['rank']}: sharded dbrx {name} ({layers} "
+                                         f"layers) off phase 6's one-device logits: {d}")
+        # each expert weight's hidden dimension split in two, nothing else
+        # ([L, E, d, f] for w_gate and w_up, [L, E, f, d] for w_down)
+        halves = True
+        for name, (whole, local) in m["expert_shapes"].items():
+            f = 2 if name.endswith("w_down") else 3
+            halves &= local == whole[:f] + [whole[f] // TP] + whole[f + 1:] and whole[f] % TP == 0
+        if not (halves and m["router_whole"] and 2 * m["weight_bytes_held"] < 1.05 * m[
+                "weight_bytes_whole"]):
+            raise AssertionError(f"rank {r['rank']} does not hold half of each expert weight "
+                                 f"and the whole router: {m['expert_shapes']}")
+        if not 0 < m["largest_collective_elements"] < m["smallest_expert_block_elements"]:
+            raise AssertionError(f"rank {r['rank']}: a collective moved "
+                                 f"{m['largest_collective_elements']} elements, an expert "
+                                 f"weight block a layer holds {m['smallest_expert_block_elements']}")
+        if m["headroom_bytes"] > TP_MOE_HEADROOM:
+            raise AssertionError(f"rank {r['rank']}'s peak {m['peak_bytes']} exceeds its weights "
+                                 f"and pools by {m['headroom_bytes']} bytes")
+    for mode, key in (("serve_tp_dense_slots", "host_scale_digest"),
+                      ("serve_tp_int8", "device_scale_digest"),
+                      ("serve_tp_int8", "host_scale_digest")):
+        if len({r[mode][key] for r in recs}) != 1:
+            raise AssertionError(f"{mode}: the ranks' {key.split('_')[0]} scales differ")
+    record.update(lines)
     return record
 
 
@@ -4260,6 +4908,8 @@ def main(argv=None) -> int:
     paged_err = check_kernel_cases()
     paged_timing = time_kernel(layers=24)
     log("paged_attention timing " + json.dumps(paged_timing))
+    paged_int8 = time_kernel(layers=24, quantized=True)
+    log("paged timing int8 " + json.dumps(paged_int8))
     paged_d160 = time_kernel(D160_LAYERS, D160_SHAPE, D160_LENGTHS)
     log("paged timing d160 " + json.dumps(paged_d160))
     paged_cross = time_cross_decode()
@@ -4300,13 +4950,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     run_quickstart()
     resolve_production_rules()
-    # phase 13: the same serving on a (1, 2) mesh, as two ranks on the card
+    # what phase 13 holds its sharded qwen replays against, of phase 4's
     pool = engines[0].pool
-    serve_tp(mono, chunked, {"serve": serve_log, "serve_chunked": chunked_log}, dict(
+    phase4 = dict(
         weight_bytes=sum(t.nbytes for _, t in flatten_tree(_param_tree(engines[0].model))),
         pool_bytes=len(engines) * sum(t.nbytes for t in (
             pool.k, pool.v, pool.host_k, pool.host_v)),
-        page_bytes=pool.page_bytes))
+        page_bytes=pool.page_bytes)
     del engines, serve_router, pool
     gc.collect()
     torch.cuda.empty_cache()
@@ -4316,7 +4966,7 @@ def main(argv=None) -> int:
     del ssm_engine
     gc.collect()
     torch.cuda.empty_cache()
-    moe, moe_parity = serve_moe(args, host_rate=ssm["params"] / ssm["materialize_s"])
+    moe, moe_parity, moe_log = serve_moe(args, host_rate=ssm["params"] / ssm["materialize_s"])
     parity += moe_parity
     log("graph parity " + json.dumps({"cases": parity}))
     for case in parity:
@@ -4331,11 +4981,20 @@ def main(argv=None) -> int:
     # phase 7: the reference's other serving modes at qwen's full width
     torch.cuda.reset_peak_memory_stats()
     paged_err = max(paged_err, check_dense_slot_view())
-    dense = serve_dense_slots(args, qwen_cfg, qwen_params, serve_log)
+    dense, dense_log = serve_dense_slots(args, qwen_cfg, qwen_params, serve_log)
     torch.cuda.reset_peak_memory_stats()
     replicas = serve_replicas(args, qwen_cfg, qwen_params)
     # phase 11 audits engines on these weights: they wait on the host
     qwen_params = _to(qwen_params, "cpu")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 13: the paged serving of phases 4, 6 and 7 on a (1, 2) mesh, as
+    # two ranks on the card, held against those phases' replays
+    tp = serve_tp(mono, chunked, dict(
+        serve=serve_log, serve_chunked=chunked_log, dense_slots=dense_log,
+        moe=dict(moe_log, drawn=moe["weights"]["drawn"])), phase4)
+    del moe_log
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4382,7 +5041,7 @@ def main(argv=None) -> int:
     # phase 11: the audit of the step graphs, the account and the lint
     audit_on_card(qwen_cfg, _to(qwen_params, DEVICE), account_costs(
         paged_timing, paged_d160, paged_cross, flash_timing, ssd_timing, bwd_timing,
-        ssd_bwd_timing))
+        ssd_bwd_timing, paged_int8))
     del qwen_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4399,6 +5058,9 @@ def main(argv=None) -> int:
             "launches_moe_replay": moe["kernel_launches"],
             "launches_dense_slots_replay": dense["kernel_launches"],
             "launches_replicas_replay": replicas["kernel_launches"],
+            "launches_a_rank_tp_dense_slots": tp["serve_tp_dense_slots"]["paged_launches"],
+            "launches_a_rank_tp_int8": tp["serve_tp_int8"]["paged_launches"],
+            "launches_a_rank_tp_moe": tp["serve_tp_moe"]["paged_launches"],
             "launches_gemma2_decode": gemma2["paged_kernel_launches_ring"],
             "launches_gemma2_full_cache_decode": gemma2["paged_kernel_launches_full"],
             "launches_zamba2_decode": zamba2["paged_kernel_launches"],
@@ -4414,6 +5076,9 @@ def main(argv=None) -> int:
             "bound_by": paged_timing["bound_by"],
             "library_ms": paged_timing["library_ms"],
             "library_device_ms": paged_timing["library_device_ms"],
+            "int8": {k: paged_int8[k] for k in (
+                "shape", "lengths", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_note")},
             "d160": {k: paged_d160[k] for k in (
                 "shape", "lengths", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_device_ms")},
@@ -4432,6 +5097,9 @@ def main(argv=None) -> int:
             "launches_moe_replay": moe["flash_launches"],
             "launches_dense_slots_replay": dense["flash_launches"],
             "launches_replicas_replay": replicas["flash_launches"],
+            "launches_a_rank_tp_dense_slots": tp["serve_tp_dense_slots"]["flash_launches"],
+            "launches_a_rank_tp_int8": tp["serve_tp_int8"]["flash_launches"],
+            "launches_a_rank_tp_moe": tp["serve_tp_moe"]["flash_launches"],
             "launches_gemma2_prefills": gemma2["flash_launches"],
             "launches_zamba2_prefills": zamba2["flash_launches"],
             "launches_whisper_prefills": whisper["flash_launches"],

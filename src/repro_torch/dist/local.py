@@ -32,6 +32,11 @@ places every activation explicitly before an op would need it moved, and
 :func:`no_functional_collectives` turns any path that would still reach
 them into an error.
 
+The int8 page format takes one scale a page over all its heads. Where a
+rank's pool holds its block of a page's heads, :func:`max_reducer` gives
+the all-reduce of each rank's amax over the mesh dimension that shards
+them, so every rank derives the whole page's scale.
+
 Nothing here is imported on the one-device path: :func:`is_dtensor`
 reads ``sys.modules`` and imports no DTensor.
 """
@@ -190,6 +195,27 @@ def redistribute(x, want):
         elif new.is_partial():
             raise ValueError(f"a tensor is not made partial: {x.placements} -> {want}")
     return place_block(t, mesh, want, x.shape, x.stride())
+
+
+def max_reducer(mesh, placements, dim: int):
+    """A function that takes this rank's ``t`` to its elementwise max over
+    the ranks of every mesh dimension whose placement shards tensor
+    dimension ``dim`` (an all-reduce on that dimension's group, in
+    place), or ``None`` when no placement shards it: the blocks are then
+    whole and a rank's own max is already everyone's. ``mesh`` is a
+    DeviceMesh, ``placements`` one a mesh dimension (a page pool's)."""
+    import torch.distributed as dist
+
+    groups = [mesh.get_group(i) for i, p in enumerate(placements) if p.is_shard(dim)]
+    if not groups:
+        return None
+
+    def reduce(t: torch.Tensor) -> torch.Tensor:
+        for group in groups:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        return t
+
+    return reduce
 
 
 def full(x) -> torch.Tensor:

@@ -20,6 +20,17 @@ half to even like ``np.rint``. So device-side and host-side quantization
 of the same page give identical bytes, as :func:`quantize_np` requires.
 The pool's int8 appends update the pool tensors in place, where the
 reference returned new arrays.
+
+**On a mesh** whose model axis shards the KV heads, each rank holds its
+block of a page's heads, and the reference's scale is still the whole
+page's (XLA reduces the max over every rank's heads). The quantizing
+transforms take an optional ``reduce_amax``: it takes this rank's amax
+of each page (f32, one a page) to the max over all of the page's heads,
+in place (:func:`repro_torch.dist.local.max_reducer`). Every rank then
+derives the same scale and quantizes its own heads with it, so the
+ranks' payload blocks side by side are the one-device payload, bit for
+bit. Without it (one device, or heads whole on every rank) nothing
+changes.
 """
 from __future__ import annotations
 
@@ -70,22 +81,27 @@ def token_wire_bytes(layers: int, kv_heads: int, head_dim: int, fmt: str) -> int
 
 
 # ------------------------------------------------------------- tensor side
-def _quantize_f32(xf: torch.Tensor):
-    """``xf`` f32 ``[..., T, KH, HD]`` -> (int8 payload, f32 scales)."""
+def _quantize_f32(xf: torch.Tensor, reduce_amax=None):
+    """``xf`` f32 ``[..., T, KH, HD]`` -> (int8 payload, f32 scales);
+    ``reduce_amax`` (on a mesh) makes each page's amax the whole page's."""
     amax = xf.abs().amax(dim=(-3, -2, -1))
+    if reduce_amax is not None:
+        amax = reduce_amax(amax)
     scales = torch.clamp_min(amax, SCALE_EPS) / QMAX
     q = torch.round(xf / scales[..., None, None, None])
     return torch.clamp(q, -QMAX, QMAX).to(torch.int8), scales
 
 
-def quantize_pages(x: torch.Tensor):
+def quantize_pages(x: torch.Tensor, reduce_amax=None):
     """Quantize pages to int8 with one scale per page.
 
     ``x``: ``[..., T, KH, HD]`` — any number of leading axes (the pool uses
     ``[L, N, T, KH, HD]``, the kernel's layer slice ``[N, T, KH, HD]``).
     Returns ``(q int8 same-shape, scales f32 over the leading axes)``.
+    On a mesh ``x`` is this rank's block of the heads and ``reduce_amax``
+    makes each scale the whole page's.
     """
-    return _quantize_f32(x.to(F32))
+    return _quantize_f32(x.to(F32), reduce_amax)
 
 
 def dequantize_pages(q: torch.Tensor, scales: torch.Tensor, dtype=torch.bfloat16):
@@ -93,7 +109,7 @@ def dequantize_pages(q: torch.Tensor, scales: torch.Tensor, dtype=torch.bfloat16
     return (q.to(F32) * scales[..., None, None, None]).to(dtype)
 
 
-def requantize_insert_run(q_k, s_k, pages, offsets, new_vals) -> None:
+def requantize_insert_run(q_k, s_k, pages, offsets, new_vals, reduce_amax=None) -> None:
     """Insert one new token per batch row into quantized pages, all layers
     at once, **in place**.
 
@@ -102,13 +118,15 @@ def requantize_insert_run(q_k, s_k, pages, offsets, new_vals) -> None:
     (each batch row owns its tail page); ``new_vals`` ``[L, B, KH, HD]``.
     The touched pages are dequantized, the token written, each page's
     scale re-derived (the new token may exceed the old amax) and the
-    page requantized — the paged decode step's post-loop commit.
+    page requantized — the paged decode step's post-loop commit. On a
+    mesh ``q_k`` and ``new_vals`` hold this rank's heads and
+    ``reduce_amax`` makes each re-derived scale the whole page's.
     """
     B = pages.shape[0]
     tiles = q_k[:, pages].to(F32) * s_k[:, pages][..., None, None, None]
     rows = torch.arange(B, device=tiles.device)
     tiles[:, rows, offsets] = new_vals.to(F32)
-    q, new_s = _quantize_f32(tiles)
+    q, new_s = _quantize_f32(tiles, reduce_amax)
     q_k[:, pages] = q
     s_k[:, pages] = new_s
 

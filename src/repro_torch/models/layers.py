@@ -33,8 +33,12 @@ On a mesh of more than one device the weights are DTensors and a
 sites on the dense path (q/k/v, the FFN hidden, the block outputs);
 where a row-parallel product leaves partial sums (``wo``, ``w_down``) it
 reduces them in f32 before they join the residual stream. The attention
-entry points run each rank's heads under ``local_map``. The mamba and
-MoE sites come with those families' slices.
+entry points run each rank's heads under ``local_map``, over the page
+pool or the dense slot caches, each rank's block of the KV heads. The
+MoE layer runs on each rank's columns of every expert's hidden
+dimension with the routed tokens replicated, and reduces its partial sum
+once, in f32 (:func:`apply_moe`): no expert weight is gathered. The mamba
+sites come with that family's slice.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from repro_torch.dist.local import (
     full,
     is_dtensor,
     on_blocks,
+    on_local_heads,
     place_block,
     redistribute,
     vocab_embedding,
@@ -64,6 +69,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Leaf
 
 F32 = torch.float32
+#: the logical axes of one layer's slot cache ``[B, S, KH, HD]``
+SLOT_AXES = ("batch", "kv_seq", "kv_heads_act", "head_dim")
 
 
 @dataclass
@@ -101,7 +108,8 @@ class ShardCtx:
 
     def from_local(self, t, logical, shape):
         """``t``, this rank's block of a tensor of ``shape`` placed by
-        ``logical`` (the page pool's heads), as a DTensor."""
+        ``logical`` (the page pool's or the slot caches' heads), as a
+        DTensor."""
         if self.mesh is None:
             return t
         sh = self.rules.sharding(self.mesh, logical, tuple(shape))
@@ -295,11 +303,26 @@ def decode_attention(q, k_cache, v_cache, *, lengths, window=None, cap=None,
     sum in f32, the weights rounded to q's dtype before the sum, as the
     reference's einsums take them. Either way the step auditor sees one
     call of the paged kernel over the slot pages (:mod:`repro_torch.kernels.leaf`).
+
+    On a mesh ``q`` is a DTensor placed by heads and the caches are
+    DTensors placed by KV heads (dimension 2), each rank's block its own
+    slot buffers: the body runs on each rank's heads under ``local_map``
+    (:func:`~repro_torch.dist.local.on_local_heads`), and the output is
+    placed as ``q``'s heads are. Where the rank's query heads read other
+    KV heads than it holds in order (the KV replicated because the model
+    axis does not divide them, e.g. GQA 6/3), the slot caches are
+    narrowed to those heads: a copy of both caches a call.
     """
     if is_dtensor(q):
-        raise NotImplementedError(
-            "slot-cache decode on a mesh of more than one device is not ported: dense "
-            "slots on a mesh (ROADMAP section 1 item 5) come after the paged step")
+        B, H, D = q.shape
+
+        def body(q_l, k_l, v_l):
+            out = decode_attention(q_l[:, 0], k_l, v_l, lengths=lengths, window=window,
+                                   cap=cap, page_tokens=page_tokens)
+            return out.view(q_l.shape)
+
+        out = on_local_heads(body, q.unsqueeze(1), (k_cache, v_cache), head_dim=2)
+        return out[:, 0].reshape(B, H * D)
     B, S, KH, D = k_cache.shape
     H = q.shape[1]
     if q.is_cuda:
@@ -408,7 +431,7 @@ def moe_route(p, xg, cfg: ModelConfig):
     return gates, top_vals, top_idx, pos, pos < moe_capacity(cfg, g)
 
 
-def apply_moe(p, x, cfg: ModelConfig):
+def apply_moe(p, x, cfg: ModelConfig, ctx=NULL_CTX):
     """GShard-style capacity dispatch (top-k, grouped tokens), as the
     reference's ``apply_moe``: tokens are grouped ``[B*S/g, g]`` with
     ``g = min(4096, S)``; per group each expert takes
@@ -420,8 +443,37 @@ def apply_moe(p, x, cfg: ModelConfig):
     reference takes ``one_hot`` (which gives a zero row past ``cap``). The
     dispatch and combine products run in ``x.dtype``: dispatch holds 0/1,
     combine each kept entry's gate rounded to ``x.dtype``, as the
-    reference casts them.
+    reference casts them. arctic's dense residual FFN runs beside the
+    experts on the same input.
+
+    On a mesh (the weights DTensors) the layer runs on each rank's own
+    blocks (:func:`_apply_moe_sharded`): no expert weight is gathered.
     """
+    if is_dtensor(p["w_gate"]):
+        y, aux = _apply_moe_sharded(p, x, cfg, ctx)
+    else:
+        y, aux = _moe_experts(p, x, cfg)
+    if "dense" in p:
+        y = y + apply_ffn(p["dense"], x, ctx)
+    return y, aux
+
+
+def _bmm_f32(a, b):
+    """``a @ b`` batched, accumulated and returned in f32 without a
+    rounding to ``a``'s type: on the card cuBLAS writes the f32
+    accumulator out (``out_dtype``), with no f32 copy of ``b`` (an expert
+    weight block); elsewhere both are cast up exactly."""
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=F32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _moe_experts(p, x, cfg: ModelConfig, partial: bool = False):
+    """The routed experts of :func:`apply_moe` on plain tensors. With
+    ``partial`` ``p``'s expert weights are one rank's columns of every
+    expert's hidden dimension (``w_gate``/``w_up`` by columns,
+    ``w_down`` by rows): ``y`` is then that rank's partial sum in f32, the
+    down and combine products accumulated in f32 and not rounded."""
     B, S, d = x.shape
     e = cfg.num_experts
     g = min(4096, S)
@@ -441,7 +493,10 @@ def apply_moe(p, x, cfg: ModelConfig):
     xe = torch.bmm(dispatch.reshape(n_groups, g, e * cap).transpose(1, 2), xg)
     xe = xe.reshape(n_groups, e, cap, d).transpose(0, 1).reshape(e, n_groups * cap, d)
     h = silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
-    ye = torch.bmm(h, p["w_down"])                                    # [E, G*C, d]
+    if partial:
+        ye, combine = _bmm_f32(h, p["w_down"]), combine.float()
+    else:
+        ye = torch.bmm(h, p["w_down"])                                # [E, G*C, d]
     ye = ye.reshape(e, n_groups, cap, d).transpose(0, 1).reshape(n_groups, e * cap, d)
     y = torch.bmm(combine.reshape(n_groups, g, e * cap), ye).reshape(B, S, d)
 
@@ -451,10 +506,41 @@ def apply_moe(p, x, cfg: ModelConfig):
     density = counts.mean(1)
     router_prob = gates.mean(1)
     aux = (density * router_prob).sum(-1).mean() * (e / cfg.top_k)
-
-    if "dense" in p:
-        y = y + apply_ffn(p["dense"], x)
     return y, aux
+
+
+def _apply_moe_sharded(p, x, cfg: ModelConfig, ctx):
+    """The routed experts on a mesh, where the decode rules shard each
+    expert's hidden dimension (``expert_ffn``) over the model axis and
+    leave the experts and the router whole. The reference's constraints
+    put the dispatched tokens' expert dimension on the model axis, which
+    under placements as explicit as the port's would gather every expert
+    weight (6.34 GB a layer and a step for dbrx-132b). Here the routed
+    tokens stay replicated instead: every rank routes all tokens alike
+    (the router is whole), runs ``w_gate``/``w_up`` on its columns and
+    ``w_down`` on its rows, and the partial sums are reduced once, in
+    f32, after the combine product (the smaller tensor, ``[B, S, d]``),
+    then rounded once to ``x``'s type, as :func:`_row_parallel` does. A
+    hidden dimension the model axis does not divide is whole on every
+    rank (the rules' fallback), and the layer is then one rank's whole
+    result."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    w_down = p["w_down"]
+    mesh = w_down.device_mesh
+    rows = {i for i, pl in enumerate(w_down.placements) if pl.is_shard(1)}
+    for name, dim in (("w_gate", 2), ("w_up", 2), ("w_down", 1), ("router", None)):
+        placed = p[name].placements
+        if any(not (pl.is_replicate() or (dim is not None and pl.is_shard(dim) and i in rows))
+               for i, pl in enumerate(placed)):
+            raise ValueError(f"the MoE layer on a mesh shards each expert's hidden "
+                             f"dimension alone; {name} is placed {placed}")
+    local = {k: p[k].to_local() for k in ("router", "w_gate", "w_up", "w_down")}
+    y, aux = _moe_experts(local, ctx.full(x), cfg, partial=bool(rows))
+    placements = [Partial() if i in rows else Replicate() for i in range(mesh.ndim)]
+    y = ctx.constrain(place_block(y, mesh, placements, y.shape),
+                      ("batch", "seq", "embed_act"))
+    return y.to(x.dtype), aux
 
 
 def apply_ffn_or_moe(p, x, cfg: ModelConfig, ctx=NULL_CTX):
@@ -462,7 +548,7 @@ def apply_ffn_or_moe(p, x, cfg: ModelConfig, ctx=NULL_CTX):
     set, else the FFN. Returns ``(y, aux)``, the MoE layer's load-balance
     loss or 0.0 for the FFN, as the reference's blocks return it."""
     if cfg.num_experts:
-        return apply_moe(p, x, cfg)
+        return apply_moe(p, x, cfg, ctx)
     return apply_ffn(p, x, ctx), 0.0
 
 
@@ -507,8 +593,10 @@ def apply_dense_block(
       that fills its cache must be a whole number of ``page_tokens``-token
       pages (:func:`slot_pages` raises otherwise).
 
-    ``ctx`` places the activations on a mesh (sequence mode only: the
-    slot-cache decode takes plain tensors).
+    ``ctx`` places the activations on a mesh; in decode mode the slot
+    buffers are then this rank's own block of the KV heads (plain
+    tensors), written with the rank's block of the new token's KV and
+    read through :func:`decode_attention` as DTensors placed by KV heads.
     """
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     a_in = rmsnorm(x, p["ln1"])
@@ -538,10 +626,12 @@ def apply_dense_block(
         else:
             idx = lengths - 1                                  # write position
             attn_lengths = lengths
-        _write_slot(k_cache, k[:, 0], idx)
-        _write_slot(v_cache, v[:, 0], idx)
+        _write_slot(k_cache, ctx.local(k)[:, 0], idx)
+        _write_slot(v_cache, ctx.local(v)[:, 0], idx)
+        shape = (*k_cache.shape[:2], kh, hd)
         attn = decode_attention(
-            q[:, 0], k_cache, v_cache, lengths=attn_lengths, window=window,
+            q[:, 0], ctx.from_local(k_cache, SLOT_AXES, shape),
+            ctx.from_local(v_cache, SLOT_AXES, shape), lengths=attn_lengths, window=window,
             cap=cfg.attn_logit_softcap, page_tokens=page_tokens,
         )[:, None, :]
         new_kv = (k_cache, v_cache)

@@ -17,11 +17,12 @@ PyTorch runs eagerly: the reference's ``lax.scan`` over stacked layers is
 a Python loop over the layer index, and its functional pool update under
 donation is an in-place ``index_put_`` on the pool tensors.
 
-On a mesh of more than one device (the dense family's serving path:
-``prefill``, ``sequence`` and ``decode_paged`` with a
-:class:`~repro_torch.models.layers.ShardCtx`) the weights are DTensors,
-the residual stream is replicated, the logits are sharded by vocabulary,
-and the page pool's tensors are each rank's own block of the KV heads.
+On a mesh of more than one device (the dense and moe families' serving
+path: ``prefill``, ``sequence``, ``decode_paged`` and the slot-cache
+``decode_into`` with a :class:`~repro_torch.models.layers.ShardCtx`) the
+weights are DTensors, the residual stream is replicated, the logits are
+sharded by vocabulary, and the page pool's tensors (or the slot caches)
+are each rank's own block of the KV heads.
 """
 from __future__ import annotations
 
@@ -76,13 +77,18 @@ def _check_prefix(cfg: ModelConfig, prefix) -> None:
         raise ValueError(f"{cfg.name} ({kind}) has no prefix to attend over")
 
 
+#: the families whose step runs on a mesh of more than one device
+MESH_FAMILIES = ("dense", "moe")
+
+
 def _check_ctx(cfg: ModelConfig, ctx) -> None:
-    """Only the dense family steps on a mesh so far."""
-    if ctx.mesh is not None and (cfg.family != "dense" or cfg.local_global_alternating):
+    """Only the dense and moe families step on a mesh so far."""
+    if ctx.mesh is not None and (cfg.family not in MESH_FAMILIES
+                                 or cfg.local_global_alternating):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) on a mesh of more than one device is not ported: "
-            "the dense family serves there; MoE and the other families on a mesh are "
-            "ROADMAP section 1 item 5's next steps")
+            f"the {'/'.join(MESH_FAMILIES)} families serve there; the other families on a "
+            "mesh are later steps of ROADMAP section 1 item 5")
 
 
 def _stack_layers(cols) -> tuple:
@@ -525,7 +531,8 @@ class Model(nn.Module):
         return self.decode_into(new_cache, tokens, lengths, page_tokens=page_tokens), new_cache
 
     @torch.no_grad()
-    def decode_into(self, state, tokens, lengths=None, *, page_tokens: int = 16):
+    def decode_into(self, state, tokens, lengths=None, *, page_tokens: int = 16,
+                    ctx=NULL_CTX):
         """:meth:`decode` updating ``state`` in place, where the reference
         returned new arrays: a captured decode graph reads and writes one
         static cache at fixed addresses. Returns ``logits [B, V]`` (f32).
@@ -543,8 +550,16 @@ class Model(nn.Module):
         the shared block over the group's slot buffers, fed the token's
         embedding. encdec: each decoder layer writes its slots as dense
         does and reads the cross caches ``ck``/``cv`` whole, without
-        writing them. vlm: as dense (``lengths`` count the image tokens)."""
+        writing them. vlm: as dense (``lengths`` count the image tokens).
+
+        On a mesh (``ctx``, the dense and moe families) the slot buffers
+        are this rank's own block of the KV heads, and the logits are
+        sharded by vocabulary."""
         cfg = self.cfg
+        _check_ctx(cfg, ctx)
+        if cfg.family in PAGED_FAMILIES and not cfg.local_global_alternating:
+            with ctx.scope():
+                return self._decode_slots(state, tokens, lengths, page_tokens, ctx)
         x = self.params.embed[tokens][:, None, :]           # [B,1,d]
         if cfg.local_global_alternating:
             positions = (lengths - 1)[:, None]
@@ -560,15 +575,6 @@ class Model(nn.Module):
                 x, _ = apply_dense_block(
                     p["global"], x, cfg, positions=positions, window=None,
                     cache=(glob["k"][l], glob["v"][l]), lengths=lengths,
-                    page_tokens=page_tokens,
-                )
-            return self._logits(x[:, 0, :])
-        if cfg.family in PAGED_FAMILIES:
-            positions = (lengths - 1)[:, None]
-            for l, p in enumerate(self._layers):
-                x, _ = apply_dense_block(
-                    p, x, cfg, positions=positions, window=cfg.sliding_window,
-                    cache=(state["k"][l], state["v"][l]), lengths=lengths,
                     page_tokens=page_tokens,
                 )
             return self._logits(x[:, 0, :])
@@ -595,6 +601,21 @@ class Model(nn.Module):
             x = self._mamba_step(p, x, state["ssm"][l], state["conv"][l])
         return self._logits(x[:, 0, :])
 
+    def _decode_slots(self, state, tokens, lengths, page_tokens, ctx):
+        """:meth:`decode_into` for the paged families without alternation,
+        over slot buffers ``{"k", "v"}``."""
+        cfg = self.cfg
+        x = ctx.embedding(tokens[:, None], self.params.embed,
+                          ("batch", "seq", "embed_act"))        # [B,1,d]
+        positions = (lengths - 1)[:, None]
+        for l, p in enumerate(self._layers):
+            x, _ = apply_dense_block(
+                p, x, cfg, positions=positions, window=cfg.sliding_window,
+                cache=(state["k"][l], state["v"][l]), lengths=lengths,
+                page_tokens=page_tokens, ctx=ctx,
+            )
+        return self._logits(x[:, 0, :], ctx)
+
     def _mamba_step(self, p, x, ssm, conv):
         """One mamba layer's decode step, its state updated in place."""
         x, (st, cv) = apply_mamba_block(p, x, self.cfg, cache=(ssm, conv))
@@ -607,6 +628,7 @@ class Model(nn.Module):
     def decode_paged(
         self, k_pages, v_pages, tokens, lengths, block_tables,
         tail_pages, tail_offsets, k_scales=None, v_scales=None, ctx=NULL_CTX,
+        reduce_amax=None,
     ):
         """One block-table decode step over the pool's tensors.
 
@@ -624,8 +646,9 @@ class Model(nn.Module):
 
         On a mesh (``ctx``) the pool's tensors are this rank's own blocks
         of the KV heads: each layer's kernel reads them on the rank's
-        heads, and the commit writes the rank's block of the new KV. The
-        logits are sharded by vocabulary.
+        heads, and the commit writes the rank's block of the new KV (on an
+        int8 pool each tail page's new scale is the whole page's, through
+        ``reduce_amax``, the pool's). The logits are sharded by vocabulary.
         """
         cfg = self.cfg
         if cfg.family not in PAGED_FAMILIES or cfg.local_global_alternating:
@@ -635,10 +658,11 @@ class Model(nn.Module):
         _check_ctx(cfg, ctx)
         with ctx.scope():
             return self._decode_paged(k_pages, v_pages, tokens, lengths, block_tables,
-                                      tail_pages, tail_offsets, k_scales, v_scales, ctx)
+                                      tail_pages, tail_offsets, k_scales, v_scales, ctx,
+                                      reduce_amax)
 
     def _decode_paged(self, k_pages, v_pages, tokens, lengths, block_tables,
-                      tail_pages, tail_offsets, k_scales, v_scales, ctx):
+                      tail_pages, tail_offsets, k_scales, v_scales, ctx, reduce_amax):
         cfg = self.cfg
         quantized = k_scales is not None
         x = ctx.embedding(tokens[:, None], self.params.embed,
@@ -658,8 +682,8 @@ class Model(nn.Module):
         v_news = torch.stack(v_news)
         pages, offs = tail_pages.long(), tail_offsets.long()
         if quantized:
-            kv_quant.requantize_insert_run(k_pages, k_scales, pages, offs, k_news)
-            kv_quant.requantize_insert_run(v_pages, v_scales, pages, offs, v_news)
+            kv_quant.requantize_insert_run(k_pages, k_scales, pages, offs, k_news, reduce_amax)
+            kv_quant.requantize_insert_run(v_pages, v_scales, pages, offs, v_news, reduce_amax)
         else:
             k_pages[:, pages, offs] = k_news.to(k_pages.dtype)
             v_pages[:, pages, offs] = v_news.to(v_pages.dtype)

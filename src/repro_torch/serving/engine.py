@@ -46,11 +46,14 @@ rank of the caller's process group builds the same engine and runs the
 same control plane, SPMD: the weights are DTensors placed by the shared
 rules (each rank keeps its own block of the same full tensors), the
 steps pass a :class:`~repro_torch.models.layers.ShardCtx`, the page pool
-holds the rank's block of the KV heads, and the steps run eagerly (no
-graph is captured on such a mesh). The greedy token is taken from the
-gathered logits, so every rank samples the same one. Dense slots, int8
-page formats, a data axis larger than one and the MoE family still raise
-``NotImplementedError`` there.
+(and with ``dense_slots`` the slot caches) holds the rank's block of the
+KV heads, and the steps run eagerly (no graph is captured on such a
+mesh). The greedy token is taken from the gathered logits, so every rank
+samples the same one. An int8 pool takes each page's scale over all its
+heads: every quantizing site all-reduces the ranks' amax
+(:func:`repro_torch.dist.local.max_reducer`). The dense and moe families
+serve there; a data axis larger than one and the other families still
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -63,11 +66,12 @@ import torch
 from repro_torch.analysis import compile_tracker
 from repro_torch.core.radix_tree import TypedRadixTree
 from repro_torch.core.types import Tier, TypeLabel
+from repro_torch.dist.local import max_reducer
 from repro_torch.dist.placement import ReplicaPlacement
 from repro_torch.launch.mesh import mesh_device, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import NULL_CTX, ShardCtx
-from repro_torch.models.model import KV_AXES, PAGED_FAMILIES, Model
+from repro_torch.models.model import KV_AXES, MESH_FAMILIES, PAGED_FAMILIES, Model
 from repro_torch.models.params import device_put_tree, sharding_tree
 from repro_torch.serving.kvpool import (
     PagePool,
@@ -100,29 +104,23 @@ def check_servable(cfg: ModelConfig) -> None:
             f"({'/'.join(PAGED_FAMILIES)} without local/global alternation)")
 
 
-def check_mesh_servable(cfg: ModelConfig, mesh, *, dense_slots: bool,
-                        offload_format: str, device_format: str) -> None:
+def check_mesh_servable(cfg: ModelConfig, mesh) -> None:
     """What an engine serves on a mesh of more than one device: the dense
-    family, bf16 pages, paged decode, over a model axis alone. Raises
-    ``NotImplementedError`` for the rest, each a later step of ROADMAP
-    section 1 item 5."""
+    and moe families, paged or on dense slots, in either page format,
+    over a model axis alone. Raises ``NotImplementedError`` for the rest,
+    each a later step of ROADMAP section 1 item 5."""
     later = []
     wide = {a: n for a, n in mesh.shape.items() if a != "model" and n > 1}
     if wide:
         later.append(f"a mesh axis other than 'model' larger than one ({wide}: "
                      "data-parallel batches inside a replica)")
-    if dense_slots:
-        later.append("dense_slots=True (the slot-cache decode on sharded tensors)")
-    if "int8" in (offload_format, device_format):
-        later.append("int8 page formats (each rank's per-page scale covers its own "
-                     "heads; the whole page's needs an all-reduce of the amax)")
-    if cfg.family != "dense" or cfg.num_experts:
-        later.append(f"the {'moe' if cfg.num_experts else cfg.family} family")
+    if cfg.family not in MESH_FAMILIES:
+        later.append(f"the {cfg.family} family")
     if later:
         raise NotImplementedError(
             f"serving {cfg.name} on {mesh}: " + "; ".join(later) + " not ported on a "
-            "mesh yet (ROADMAP section 1 item 5: the paged dense step on a model axis "
-            "is done, these come next)")
+            "mesh yet (ROADMAP section 1 item 5: the dense and moe families on a model "
+            "axis are done, these come later)")
 
 
 @dataclass
@@ -249,7 +247,7 @@ def _chunk_prefill(model: Model, pool: PagePool, prefix_idx, write_idx, tokens,
     if pool.quantized_device:
         scatter_token_run_q(
             pool.k, pool.k_scale, pool.v, pool.v_scale, write_idx, k_c, v_c,
-            pool.page_tokens,
+            pool.page_tokens, pool.reduce_amax,
         )
     else:
         scatter_token_run(pool.k, pool.v, write_idx, k_c, v_c, pool.page_tokens)
@@ -310,16 +308,18 @@ class Engine:
         self.placement = placement
         self.ctx = NULL_CTX
         local_kv_heads = cfg.num_kv_heads
+        reduce_amax = None
         if placement is not None:
             mesh = placement.mesh
             if mesh.size > 1:
-                check_mesh_servable(cfg, mesh, dense_slots=dense_slots,
-                                    offload_format=offload_format,
-                                    device_format=device_format)
+                check_mesh_servable(cfg, mesh)
                 self.ctx = ShardCtx(mesh, placement.rules)
                 shape = (cfg.num_layers, 1, page_tokens, cfg.num_kv_heads, cfg.head_dim)
-                local_kv_heads = placement.rules.sharding(
-                    mesh, KV_AXES, shape).shard_shape(shape)[3]
+                kv = placement.rules.sharding(mesh, KV_AXES, shape)
+                local_kv_heads = kv.shard_shape(shape)[3]
+                # an int8 page's scale is the whole page's: the ranks that
+                # split its heads all-reduce their amax
+                reduce_amax = max_reducer(mesh.device_mesh(), kv.placements(), 3)
             # the replica's weights go onto its mesh slice under the shared
             # rules; on one device that is a move, which returns a tensor
             # already there as it is, so aliased replicas share one copy
@@ -362,6 +362,7 @@ class Engine:
             offload_format=offload_format,
             device_format=device_format,
             local_kv_heads=local_kv_heads,
+            reduce_amax=reduce_amax,
         )
         self.quantized = self.pool.quantized_device
         self.tree = TypedRadixTree(page_tokens)
@@ -377,7 +378,8 @@ class Engine:
         self.slots: dict[int, _Slot] = {}
         self._free_slots = list(range(max_slots))
         if dense_slots:
-            L, KH, HD = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+            # on a mesh the rank's block of the KV heads, as the pool's
+            L, KH, HD = cfg.num_layers, local_kv_heads, cfg.head_dim
             self.slot_k = torch.zeros((L, max_slots, max_seq, KH, HD),
                                       dtype=torch.bfloat16, device=self.device)
             self.slot_v = torch.zeros_like(self.slot_k)
@@ -613,11 +615,13 @@ class Engine:
         captures. ``staged`` is a device int32 vector ``[tokens |
         lengths]``; ``slot_tensors`` the k and v slot buffers it writes and
         reads, by default the engine's own. Returns the logits ``[B, V]``
-        f32 and the greedy tokens ``[B]``."""
+        f32 and the greedy tokens ``[B]``; on a mesh the logits are
+        gathered first, as :meth:`decode_packed` does."""
         toks, lens = staged.view(2, self.max_slots)
         k, v = slot_tensors or (self.slot_k, self.slot_v)
         logits = self.model.decode_into({"k": k, "v": v}, toks.long(), lens,
-                                        page_tokens=self.page_tokens)
+                                        page_tokens=self.page_tokens, ctx=self.ctx)
+        logits = self.ctx.full(logits)
         return logits, greedy_token(logits)
 
     def decode_packed(self, staged: torch.Tensor, p_pad: int, pool_tensors=None):
@@ -634,7 +638,7 @@ class Engine:
         k, v, *scales = pool_tensors or self.pool.device_tensors()
         logits = self.model.decode_paged(
             k, v, toks.long(), lens, staged[4 * B:].view(B, p_pad), tails, offs,
-            *(scales or (None, None)), ctx=self.ctx,
+            *(scales or (None, None)), ctx=self.ctx, reduce_amax=self.pool.reduce_amax,
         )
         logits = self.ctx.full(logits)
         return logits, greedy_token(logits)

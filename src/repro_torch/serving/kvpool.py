@@ -28,7 +28,11 @@ in its own pinned host memory), and every verb acts on that block alone.
 :attr:`page_bytes` and :attr:`host_page_bytes` stay the whole page's
 bytes, the reference's figure, so the router plans and bills the moves
 the reference plans; :attr:`rank_page_bytes` is what one rank holds of a
-page on the device.
+page on the device. An int8 page keeps the reference's one scale a page
+over all its heads: the pool's ``reduce_amax`` (the mesh's max
+all-reduce, :func:`repro_torch.dist.local.max_reducer`) goes into every
+quantizing verb, so each rank holds its heads' payload under the whole
+page's scale, on the device and on the host.
 """
 from __future__ import annotations
 
@@ -76,15 +80,17 @@ def gather_token_run(k_arr, v_arr, page_idx):
 
 
 def scatter_token_run_q(
-    k_arr, k_scale, v_arr, v_scale, page_idx, k_tokens, v_tokens, page_tokens
+    k_arr, k_scale, v_arr, v_scale, page_idx, k_tokens, v_tokens, page_tokens,
+    reduce_amax=None,
 ) -> None:
     """Quantizing twin of :func:`scatter_token_run` for an int8-resident
-    pool: each page of the run is quantized with its own scale, and
-    payload and sidecars land in one update apiece."""
+    pool: each page of the run is quantized with its own scale (on a mesh
+    the whole page's, through ``reduce_amax``), and payload and sidecars
+    land in one update apiece."""
     idx = _index(page_idx, k_arr.device)
     kc, vc = _pad_run(k_tokens, v_tokens, idx.shape[0], page_tokens)
-    kq, ks = kv_quant.quantize_pages(kc)
-    vq, vs = kv_quant.quantize_pages(vc)
+    kq, ks = kv_quant.quantize_pages(kc, reduce_amax)
+    vq, vs = kv_quant.quantize_pages(vc, reduce_amax)
     k_arr[:, idx] = kq
     k_scale[:, idx] = ks
     v_arr[:, idx] = vq
@@ -125,11 +131,15 @@ class PagePool:
         offload_format: str = "bf16",
         device_format: str = "bf16",
         local_kv_heads: int | None = None,
+        reduce_amax=None,
     ):
         self.layers = layers
         self.kv_heads = kv_heads
         # the heads this rank's tensors hold: all of them off a mesh
         self.local_kv_heads = kv_heads if local_kv_heads is None else local_kv_heads
+        # what makes a rank's per-page amax the whole page's (None: the
+        # heads are whole here)
+        self.reduce_amax = reduce_amax
         self.head_dim = head_dim
         self.page_tokens = page_tokens
         self.device = torch.device(device)
@@ -306,7 +316,7 @@ class PagePool:
         if self.quantized_device:
             scatter_token_run_q(
                 self.k, self.k_scale, self.v, self.v_scale,
-                pages, k_tokens, v_tokens, self.page_tokens,
+                pages, k_tokens, v_tokens, self.page_tokens, self.reduce_amax,
             )
             return
         scatter_token_run(self.k, self.v, pages, k_tokens, v_tokens, self.page_tokens)
@@ -349,8 +359,8 @@ class PagePool:
                 kq, ks = self.k[:, dev_page], self.k_scale[:, dev_page]
                 vq, vs = self.v[:, dev_page], self.v_scale[:, dev_page]
             else:
-                kq, ks = kv_quant.quantize_pages(self.k[:, dev_page])
-                vq, vs = kv_quant.quantize_pages(self.v[:, dev_page])
+                kq, ks = kv_quant.quantize_pages(self.k[:, dev_page], self.reduce_amax)
+                vq, vs = kv_quant.quantize_pages(self.v[:, dev_page], self.reduce_amax)
             self.host_k_scale[:, hp].copy_(ks)
             self.host_v_scale[:, hp].copy_(vs)
         else:

@@ -1,7 +1,9 @@
-"""What ``tests/test_torch_tp.py``'s two sides share: the engine and router
-settings, the contexts, the corpus and the kernel cases. Plain Python and
-numpy: the reference's subprocess (``_tp_reference.py``) and the port's
-ranks (``_tp_ranks.py``) each build their own objects from these."""
+"""What the two sides of ``tests/test_torch_tp.py`` and
+``tests/test_torch_tp_serving.py`` share: the engine and router settings,
+the contexts, the corpus, the kernel cases and the serving suite's
+configurations, engines and inputs. Plain Python and numpy: the
+reference's subprocess (``_tp_reference.py``) and the port's ranks
+(``_tp_ranks.py``) each build their own objects from these."""
 from __future__ import annotations
 
 import numpy as np
@@ -110,3 +112,82 @@ def kernel_inputs(case) -> dict:
         lengths=np.array([P * T - 3, T + 2][:B], np.int32),
         pq=f(1, PREFILL_S, H, D), pk=f(1, PREFIX_S + PREFILL_S, KH, D),
         pv=f(1, PREFIX_S + PREFILL_S, KH, D))
+
+
+# ------------------------------------------------- the serving suite
+#: the serving suite's configurations: (architecture, overrides of its
+#: reduced config). Reduced dbrx-132b has 4 query heads over 1 KV head (the
+#: model axis does not divide it: the KV fallback); its ``kv2`` variant
+#: shards 2 KV heads; reduced arctic-480b adds the dense residual FFN
+SERVING_CONFIGS = {
+    "qwen": (ARCH, {}),
+    "dbrx": ("dbrx-132b", {}),
+    "dbrx_kv2": ("dbrx-132b", {"num_kv_heads": 2}),
+    "arctic": ("arctic-480b", {}),
+}
+
+#: the int8 formats of both tiers, and dense slots with int8 offload on a
+#: pool small enough that finished programs' pages are offloaded
+INT8 = dict(offload_format="int8", device_format="int8")
+DENSE_SLOTS = dict(dense_slots=True, offload_format="int8", n_device_pages=6)
+
+#: the serving suite's engines on the mesh: name -> (configuration, engine
+#: keywords over ``ENGINE_KW``, chunked prefill)
+SERVING_ENGINES = {
+    "qwen int8 monolithic": ("qwen", INT8, False),
+    "qwen int8 chunked": ("qwen", INT8, True),
+    "qwen dense_slots": ("qwen", DENSE_SLOTS, False),
+    "dbrx monolithic": ("dbrx", {}, False),
+    "dbrx chunked": ("dbrx", {}, True),
+    "dbrx_kv2 monolithic": ("dbrx_kv2", {}, False),
+    "dbrx_kv2 chunked": ("dbrx_kv2", {}, True),
+    "arctic monolithic": ("arctic", {}, False),
+}
+
+
+def engine_kw(name: str) -> dict:
+    """``ENGINE_KW`` with the serving engine ``name``'s keywords."""
+    return {**ENGINE_KW, **SERVING_ENGINES[name][1]}
+
+
+def kv_rows(engine, ctxs: dict, served: dict, sids: dict) -> dict:
+    """Where each served program's KV lies in ``engine`` (of either
+    package): the decode slot it had and the device page of each full page
+    of its context in the radix tree (``None`` for a page on the host)."""
+    return {pid: {"slot": sids[pid], "pages": [
+        n.device_page for n in engine.tree.match_prefix_any_tier(ctx + served[pid][:-1])]}
+        for pid, ctx in ctxs.items()}
+
+
+#: the quantize sites held one page each: the prefill's scatter into an
+#: int8 pool, the decode commit's requantize, the int8 offload's host copy
+QUANT_SITES = ("prefill", "decode", "offload")
+#: a quantize case's pool: layers, page tokens, KV heads (split two ways),
+#: head dim; the prefill's run spans one page and 3 tokens of the next
+QUANT_SHAPE = dict(L=2, T=8, KH=4, HD=64)
+QUANT_RUN = 11
+
+
+def quant_inputs() -> dict:
+    """The quantize cases' tokens ``[L, S, KH, HD]`` (f32, rounded to bf16
+    by both sides), the decode's new token ``[L, 1, KH, HD]`` and its
+    offset in the page. Each layer scales one half of the heads up, the
+    first half in layer 0 and the second in layer 1, so a page's amax lies
+    on either rank."""
+    L, KH, HD = QUANT_SHAPE["L"], QUANT_SHAPE["KH"], QUANT_SHAPE["HD"]
+    rng = np.random.default_rng(5)
+    scale = np.ones((L, 1, KH, 1), np.float32)
+    scale[0, :, : KH // 2] = scale[1, :, KH // 2:] = 3.0
+    x = rng.standard_normal((L, QUANT_RUN, KH, HD)).astype(np.float32) * scale
+    new = rng.standard_normal((L, 1, KH, HD)).astype(np.float32) * 4.0 * scale
+    return dict(k=x, v=-0.5 * x, new_k=new, new_v=-new, offset=np.array([5], np.int64))
+
+
+#: the MoE layer alone, in f32 on bit-equal inputs: (configuration, B, S)
+MOE_CASES = [("dbrx", 3, 1), ("dbrx", 2, 24), ("arctic", 2, 24)]
+
+
+def moe_input(case) -> np.ndarray:
+    name, B, S = case
+    rng = np.random.default_rng(B * 100 + S)
+    return rng.standard_normal((B, S, 256)).astype(np.float32)

@@ -1,5 +1,6 @@
-"""The port's side of ``tests/test_torch_tp.py``: two ``gloo`` ranks on the
-CPU, one a position of a ``(1, 2)`` mesh, each in a process of its own.
+"""The port's side of ``tests/test_torch_tp.py`` and
+``tests/test_torch_tp_serving.py``: two ``gloo`` ranks on the CPU, one a
+position of a ``(1, 2)`` mesh, each in a process of its own.
 
 :func:`start` spawns them over a file store in the caller's work
 directory (no TCP port, so parallel test workers never collide), and
@@ -8,12 +9,16 @@ seed-0 weights (``params_<config>.npz``, written by ``_tp_reference.py``),
 carries them across with ``load_jax_params`` and runs the same jobs as
 the reference: the kernel entry points on DTensors under ``local_map``,
 the sharded engine (monolithic and chunked, reduced qwen and its GQA 6/3
-variant) and the router's replay over two replicas aliasing the mesh.
-Every collective goes through ``torch.distributed`` (DTensor's functional
-collectives are refused). Imports torch, numpy and the port, never JAX.
+variant) and the router's replay over two replicas aliasing the mesh. The
+``serving`` suite runs the int8 quantize sites on one page each, the
+int8, dense-slot and MoE engines, the router's replay with int8 offload
+and the MoE layer alone in f32. Every collective goes through
+``torch.distributed`` (DTensor's functional collectives are refused).
+Imports torch, numpy and the port, never JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import multiprocessing as mp
@@ -28,13 +33,52 @@ import _tp_common as C
 WORLD = 2
 
 
-def start(work: Path) -> list:
-    """Spawn the ranks over a file store in ``work``."""
+def start(work: Path, suite: str = "tp") -> list:
+    """Spawn the ranks of ``suite`` (``"tp"``, ``tests/test_torch_tp.py``'s,
+    or ``"serving"``, ``tests/test_torch_tp_serving.py``'s) over a file
+    store in ``work``."""
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_rank, args=(r, str(work))) for r in range(WORLD)]
+    procs = [ctx.Process(target=_rank, args=(r, str(work), suite)) for r in range(WORLD)]
     for p in procs:
         p.start()
     return procs
+
+
+def run_both(work: Path, suite: str, deadline_s: float) -> tuple:
+    """Both sides of ``suite``, started together: the reference's
+    subprocess (``_tp_reference.py``, which sets ``XLA_FLAGS`` for two CPU
+    devices before it imports JAX) and the port's ranks. Returns the
+    reference's results and pools and each rank's ``(results, arrays)``;
+    fails the calling test if either side exits badly or outlives
+    ``deadline_s``."""
+    import os
+    import subprocess
+    import sys
+
+    import pytest
+
+    here = Path(__file__).resolve().parent
+    env = {**os.environ, "XLA_FLAGS": "--xla_force_host_platform_device_count=2",
+           "JAX_PLATFORMS": "cpu", "PYTHONPATH": str(here.parent / "src")}
+    ref = subprocess.Popen([sys.executable, str(here / "_tp_reference.py"), str(work), suite],
+                           env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    t0 = time.monotonic()
+    procs = start(work, suite)
+    try:
+        ref_out, _ = ref.communicate(timeout=deadline_s)
+    except subprocess.TimeoutExpired:
+        ref.kill()
+        ref_out, _ = ref.communicate()
+    if ref.returncode != 0:
+        join(procs, 0)
+        pytest.fail(f"the reference exited {ref.returncode}:\n{ref_out[-3000:]}")
+    codes = join(procs, max(1.0, deadline_s - (time.monotonic() - t0)))
+    errs = "".join(p.read_text() for p in sorted(work.glob("rank*.err")))
+    assert codes == [0] * WORLD, f"ranks exited {codes}:\n{errs[-4000:]}"
+    ranks = [(json.loads((work / f"rank{r}.json").read_text()),
+              dict(np.load(work / f"rank{r}.npz"))) for r in range(WORLD)]
+    return (json.loads((work / "results.json").read_text()),
+            dict(np.load(work / "pools.npz")), ranks)
 
 
 def join(procs: list, deadline_s: float) -> list:
@@ -54,10 +98,10 @@ def join(procs: list, deadline_s: float) -> list:
     return codes
 
 
-def _rank(rank: int, work: str) -> None:
+def _rank(rank: int, work: str, suite: str) -> None:
     work = Path(work)
     try:
-        out, arrays = _jobs(rank, work)
+        out, arrays = (_serving_jobs if suite == "serving" else _jobs)(rank, work)
     except BaseException:
         (work / f"rank{rank}.err").write_text(traceback.format_exc())
         raise
@@ -171,18 +215,22 @@ def _kernel_case(case, dev) -> dict:
             "paged local heads": np.array(out.to_local().shape[1])}
 
 
-def _serve(cfg, params, rs, chunked: bool):
+def _serve(cfg, params, rs, chunked: bool, kw=C.ENGINE_KW, sids: dict | None = None):
+    """The engine and each context's tokens; ``sids`` collects each
+    program's slot."""
     from repro_torch.serving import Engine, EngineRequest
 
-    engine = Engine(cfg, params, placement=rs.placement(0), **C.ENGINE_KW)
+    sids = {} if sids is None else sids
+    engine = Engine(cfg, params, placement=rs.placement(0), **kw)
     for pid, ctx in C.contexts(cfg.vocab_size).items():
         req = EngineRequest(pid, ctx, max_new_tokens=C.NEW_TOKENS)
         if chunked:
             job = engine.begin_submit(req)
+            sids[pid] = job.slot_id
             while not engine.prefill_step(job):
                 pass
         else:
-            engine.submit(req)
+            sids[pid] = engine.submit(req)
     return engine, {c.program_id: list(c.output_tokens) for c in engine.run_to_completion()}
 
 
@@ -221,7 +269,7 @@ def _replica_set(cfg, dev, replicas: int = 1):
                             num_kv_heads=cfg.num_kv_heads)
 
 
-def _replay(cfg, params, dev) -> dict:
+def _replay(cfg, params, dev, **engine_kw) -> dict:
     from repro_torch.core.actions import action_to_json
     from repro_torch.core.types import ProgramTrace, RequestRecord, SchedulerConfig, TransferCost
     from repro_torch.kernels import kv_quant
@@ -234,7 +282,8 @@ def _replay(cfg, params, dev) -> dict:
     # placed once: both replicas alias the mesh and take the same DTensors
     placed = device_put_tree(params, sharding_tree(Model(cfg).describe(), rs.meshes[0],
                                                    rs.rules))
-    engines = [Engine(cfg, placed, placement=p, **C.ROUTER_ENGINE_KW) for p in rs]
+    engines = [Engine(cfg, placed, placement=p, **C.ROUTER_ENGINE_KW, **engine_kw)
+               for p in rs]
     kvb = kv_quant.token_wire_bytes(cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, "bf16")
     router = MoriRouter(engines, **C.router_kw(kvb, TransferCost, SchedulerConfig))
     router.sched = C.PlanRecorder(router.sched)
@@ -249,4 +298,182 @@ def _replay(cfg, params, dev) -> dict:
                     flatten_tree(engines[0].model._stacked),
                     flatten_tree(engines[1].model._stacked))),
                 page_bytes=engines[0].pool.page_bytes,
-                rank_page_bytes=engines[0].pool.rank_page_bytes)
+                host_page_bytes=engines[0].pool.host_page_bytes,
+                rank_page_bytes=engines[0].pool.rank_page_bytes,
+                host_scales=[e.pool.host_k_scale.numpy().tolist() for e in engines]
+                if engines[0].pool.host_k_scale is not None else None)
+
+
+# ------------------------------------------------- the serving suite
+def _serving_jobs(rank: int, work: Path):
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.local import no_functional_collectives
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}", rank=rank,
+                            world_size=WORLD)
+    cfgs = {name: get_config(arch).reduced(**kw)
+            for name, (arch, kw) in C.SERVING_CONFIGS.items()}
+    out, arrays = {"rank": rank}, {}
+    cpu = torch.device("cpu")
+    with no_functional_collectives():
+        arrays.update(_quant_sites(cpu))
+        for key, (name, _, chunked) in C.SERVING_ENGINES.items():
+            cfg = cfgs[name]
+            params = _params(work, name, cfg)
+            rs = _replica_set(cfg, cpu)
+            out[f"{name} fallbacks"] = [list(f) for f in rs.rules.fallbacks]
+            sids: dict = {}
+            with _collectives() as moved:
+                engine, tokens = _serve(cfg, params, rs, chunked, C.engine_kw(key), sids)
+            out[key] = tokens
+            out[f"{key} rows"] = C.kv_rows(engine, C.contexts(cfg.vocab_size), tokens, sids)
+            out[f"{key} captured"] = engine.graphs.captured
+            out[f"{key} pool heads"] = engine.pool.local_kv_heads
+            out[f"{key} offloaded"] = engine.pool.offload_bytes
+            out[f"{key} offloaded pages"] = engine.pool.offload_bytes // engine.pool.host_page_bytes
+            out[f"{key} collectives"] = moved
+            for kv, a in _pool_arrays(engine).items():
+                arrays[f"{key} {kv}"] = a
+            if cfg.num_experts:
+                ffn = engine.model._stacked["blocks"]["ffn"]
+                out[f"{key} expert weights"] = {
+                    n: [list(ffn[n].shape), list(ffn[n].to_local().shape)]
+                    for n in ("router", "w_gate", "w_up", "w_down")}
+        out["router int8"] = _replay(cfgs["qwen"], _params(work, "qwen", cfgs["qwen"]), cpu,
+                                     offload_format="int8")
+        for case in C.MOE_CASES:
+            arrays[f"moe {case}"] = _moe_layer(cfgs[case[0]], _params(work, case[0],
+                                                                       cfgs[case[0]]), case, cpu)
+    dist.barrier()
+    dist.destroy_process_group()
+    return out, arrays
+
+
+@contextlib.contextmanager
+def _collectives():
+    """Record the elements every ``torch.distributed`` all-reduce and
+    all-gather moves while the block runs (each call's tensor, the one
+    the rank sends), in the list it yields."""
+    import torch.distributed as dist
+
+    moved: list = []
+    saved = {n: getattr(dist, n) for n in ("all_reduce", "all_gather", "all_gather_into_tensor")}
+
+    def record(name):
+        def call(*args, **kwargs):
+            t = args[1] if name != "all_reduce" else args[0]
+            moved.append(int(t.numel()))
+            return saved[name](*args, **kwargs)
+        return call
+
+    for n in saved:
+        setattr(dist, n, record(n))
+    try:
+        yield moved
+    finally:
+        for n, f in saved.items():
+            setattr(dist, n, f)
+
+
+def _pool_arrays(engine) -> dict:
+    """The rank's slot caches (dense slots) or device pool, dequantized
+    (int8) to f32, with the int8 pool's device and host scales."""
+    import torch
+
+    from repro_torch.kernels import kv_quant
+
+    pool = engine.pool
+    if engine.dense_slots:
+        out = {"k": engine.slot_k.float().numpy(), "v": engine.slot_v.float().numpy()}
+    elif pool.k_scale is None:
+        out = {"k": pool.k.float().numpy(), "v": pool.v.float().numpy()}
+    else:
+        out = {kv: kv_quant.dequantize_pages(getattr(pool, kv), getattr(pool, f"{kv}_scale"),
+                                             torch.float32).numpy() for kv in ("k", "v")}
+        out.update(k_scale=pool.k_scale.numpy(), v_scale=pool.v_scale.numpy())
+    if pool.host_k_scale is not None:
+        out.update(host_k_scale=pool.host_k_scale.numpy(), host_v_scale=pool.host_v_scale.numpy())
+    return out
+
+
+def _quant_sites(dev) -> dict:
+    """One page through each int8 quantize site of a pool holding this
+    rank's half of the KV heads: the prefill's scatter into an int8 pool,
+    the decode commit's requantize of that page, and the int8 offload of
+    the same page from a bf16 pool. Returns each site's payload block and
+    scales (K and V)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import make_decode_rules
+    from repro_torch.dist.local import max_reducer
+    from repro_torch.kernels import kv_quant
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.serving.kvpool import PagePool
+
+    sh = C.QUANT_SHAPE
+    L, T, KH, HD = sh["L"], sh["T"], sh["KH"], sh["HD"]
+    x = {k: torch.from_numpy(v) for k, v in C.quant_inputs().items()}
+    r, n = dist.get_rank(), KH // WORLD
+    own = {k: x[k][..., r * n:(r + 1) * n, :].bfloat16() for k in ("k", "v", "new_k", "new_v")}
+    mesh = Mesh(("data", "model"), np.array([[dev] * WORLD], dtype=object))
+    shape = (L, 1, T, KH, HD)
+    kv = make_decode_rules(mesh, KH).sharding(mesh, ("layers", "batch", "kv_seq",
+                                                     "kv_heads_act", "head_dim"), shape)
+    reduce_amax = max_reducer(mesh.device_mesh(), kv.placements(), 3)
+
+    def pool(**kw):
+        return PagePool(layers=L, kv_heads=KH, head_dim=HD, page_tokens=T, n_device_pages=4,
+                        n_host_pages=4, device=dev, local_kv_heads=n, reduce_amax=reduce_amax,
+                        **kw)
+
+    out = {}
+    q = pool(offload_format="int8", device_format="int8")
+    q.write_device_pages([1, 2], own["k"], own["v"])
+    for name in ("k", "v"):
+        # copies: the decode commit below rewrites page 2 in place
+        out[f"quant prefill {name}"] = getattr(q, name)[:, 1:3].clone().numpy()
+        out[f"quant prefill {name}_scale"] = getattr(q, f"{name}_scale")[:, 1:3].clone().numpy()
+    pages, offs = torch.tensor([2]), x["offset"]
+    for name in ("k", "v"):
+        kv_quant.requantize_insert_run(getattr(q, name), getattr(q, f"{name}_scale"), pages,
+                                       offs, own[f"new_{name}"], reduce_amax)
+        out[f"quant decode {name}"] = getattr(q, name)[:, 2].numpy()
+        out[f"quant decode {name}_scale"] = getattr(q, f"{name}_scale")[:, 2].numpy()
+    b = pool(offload_format="int8")
+    b.write_device_pages([0], own["k"][:, :T], own["v"][:, :T])
+    hp = b.copy_page_to_host(0)
+    for name in ("k", "v"):
+        out[f"quant offload {name}"] = getattr(b, f"host_{name}")[:, hp].numpy()
+        out[f"quant offload {name}_scale"] = getattr(b, f"host_{name}_scale")[:, hp].numpy()
+    return out
+
+
+def _moe_layer(cfg, params, case, dev) -> np.ndarray:
+    """Layer 0's MoE in f32 (the weights cast up exactly) on DTensors
+    placed by the decode rules, on a replicated input; the output
+    gathered."""
+    import torch
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.dist.local import place_block
+    from repro_torch.models import Model
+    from repro_torch.models.layers import ShardCtx, apply_moe
+    from repro_torch.models.params import _unflatten, device_put_tree, flatten_tree, sharding_tree
+
+    rs = _replica_set(cfg, dev)
+    mesh, rules = rs.meshes[0], rs.rules
+    ffn = _unflatten([(n, t.float()) for n, t in flatten_tree(params["blocks"]["ffn"])])
+    placed = device_put_tree(ffn, sharding_tree(Model(cfg).describe()["blocks"]["ffn"],
+                                                mesh, rules))
+    layer0 = _unflatten([(n, t[0]) for n, t in flatten_tree(placed)])
+    x = torch.from_numpy(C.moe_input(case))
+    x = place_block(x, mesh.device_mesh(), [Replicate()] * 2, x.shape)
+    ctx = ShardCtx(mesh, rules)
+    with ctx.scope():
+        y, _ = apply_moe(layer0, x, cfg, ctx)
+    return ctx.full(y).numpy()

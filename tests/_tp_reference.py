@@ -1,14 +1,20 @@
-"""The reference side of ``tests/test_torch_tp.py``, run as a script in a
-process of its own: ``python _tp_reference.py <work dir>``.
+"""The reference side of ``tests/test_torch_tp.py`` and
+``tests/test_torch_tp_serving.py``, run as a script in a process of its
+own: ``python _tp_reference.py <work dir> [tp|serving]`` (the suite,
+``tp`` by default).
 
 JAX sees two CPU devices only if ``XLA_FLAGS`` is set before it is first
 imported (as ``src/repro/launch/dryrun.py`` does), so this runs apart from
 the test process, which imports JAX already. On a ``(1, 2)`` mesh it
 serves reduced qwen1.5-0.5b (and its GQA 6/3 variant) through the
 reference's ``Engine(placement=...)``, monolithic and chunked, and replays
-the router corpus over two replicas aliasing the mesh. It writes the
-seed-0 weights first (``params_<config>.npz``, bf16 as its bits), so the
-port's ranks can start on them, then ``results.json`` and ``pools.npz``.
+the router corpus over two replicas aliasing the mesh. The ``serving``
+suite serves the int8 formats, dense slots with int8 offload and the MoE
+family (reduced dbrx-132b, its 2-KV-head variant and arctic-480b) on the
+mesh, replays the router with int8 offload, and runs the MoE layer alone
+in f32 on the mesh. It writes the seed-0 weights first
+(``params_<config>.npz``, bf16 as its bits), so the port's ranks can
+start on them, then ``results.json`` and ``pools.npz``.
 """
 from __future__ import annotations
 
@@ -30,12 +36,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 import _tp_common as C  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 import repro.dist as jdist  # noqa: E402
 from repro.configs import get_config  # noqa: E402
 from repro.core.actions import action_to_json  # noqa: E402
 from repro.core.types import ProgramTrace, RequestRecord, SchedulerConfig, TransferCost  # noqa: E402
 from repro.kernels import kv_quant  # noqa: E402
 from repro.models import Model, materialize  # noqa: E402
+from repro.models.layers import ShardCtx, apply_moe  # noqa: E402
+from repro.models.params import sharding_tree  # noqa: E402
 from repro.serving import Engine, EngineRequest, MoriRouter  # noqa: E402
 from repro.sim import FaultPlan  # noqa: E402
 
@@ -67,21 +76,25 @@ def save_params(work: Path, name: str, params) -> None:
     os.replace(work / f"params_{name}.tmp.npz", work / f"params_{name}.npz")
 
 
-def serve(engine, chunked: bool, ctxs: dict) -> dict:
+def serve(engine, chunked: bool, ctxs: dict, sids: dict | None = None) -> dict:
+    """Each context's tokens; ``sids`` collects each program's slot."""
+    sids = {} if sids is None else sids
     for pid, ctx in ctxs.items():
         req = EngineRequest(pid, ctx, max_new_tokens=C.NEW_TOKENS)
         if chunked:
             job = engine.begin_submit(req)
+            sids[pid] = job.slot_id
             while not engine.prefill_step(job):
                 pass
         else:
-            engine.submit(req)
+            sids[pid] = engine.submit(req)
     return {c.program_id: list(c.output_tokens) for c in engine.run_to_completion()}
 
 
-def replay(cfg, params) -> dict:
+def replay(cfg, params, **engine_kw) -> dict:
     rs = jdist.make_replica_set(2, mesh_shape=C.MESH, num_kv_heads=cfg.num_kv_heads)
-    engines = [Engine(cfg, params, placement=p, **C.ROUTER_ENGINE_KW) for p in rs]
+    engines = [Engine(cfg, params, placement=p, **C.ROUTER_ENGINE_KW, **engine_kw)
+               for p in rs]
     kvb = kv_quant.token_wire_bytes(cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, "bf16")
     router = MoriRouter(engines, **C.router_kw(kvb, TransferCost, SchedulerConfig))
     router.sched = C.PlanRecorder(router.sched)
@@ -92,6 +105,69 @@ def replay(cfg, params) -> dict:
     return dict(metrics=metrics, actions=[action_to_json(a) for a in router.sched.actions],
                 lengths={pid: len(t) for pid, t in router.output_log.items()},
                 steps=[e.steps for e in engines])
+
+
+def serving_configs() -> dict:
+    return {name: get_config(arch).reduced(**kw) for name, (arch, kw) in C.SERVING_CONFIGS.items()}
+
+
+def pool_arrays(engine) -> dict:
+    """What the serving suite holds of an engine: its slot caches (dense
+    slots) or its device pool, dequantized (int8) to f32."""
+    if engine.dense_slots:
+        return {"k": np.asarray(engine.slot_k, np.float32),
+                "v": np.asarray(engine.slot_v, np.float32)}
+    pool = engine.pool
+    if pool.k_scale is None:
+        return {"k": np.asarray(pool.k, np.float32), "v": np.asarray(pool.v, np.float32)}
+    return {kv: np.asarray(kv_quant.dequantize_pages(getattr(pool, kv), getattr(pool, f"{kv}_scale"),
+                                                     jnp.float32))
+            for kv in ("k", "v")}
+
+
+def moe_layer(cfg, params, case) -> np.ndarray:
+    """Layer 0's MoE in f32 (the weights cast up exactly) on the mesh, as
+    the engine places its weights."""
+    rs = jdist.make_replica_set(1, mesh_shape=C.MESH, num_kv_heads=cfg.num_kv_heads)
+    mesh, rules = rs.meshes[0], rs.rules
+    ffn = {k: v[0].astype(jnp.float32) if not isinstance(v, dict) else
+           {kk: vv[0].astype(jnp.float32) for kk, vv in v.items()}
+           for k, v in params["blocks"]["ffn"].items()}
+    desc = Model(cfg).describe()["blocks"]["ffn"]
+    sh = sharding_tree(desc, mesh, rules)
+    # the stacked leaves' shardings less their layer dimension
+    sh = jax.tree.map(lambda s: jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec(
+        *s.spec[1:])), sh)
+    ffn = jax.tree.map(jax.device_put, ffn, sh)
+    ctx = ShardCtx(mesh, rules)
+    y, _ = jax.jit(lambda p, x: apply_moe(p, x, cfg, ctx))(ffn, jnp.asarray(C.moe_input(case)))
+    return np.asarray(y, np.float32)
+
+
+def serving(work: Path) -> None:
+    """The serving suite."""
+    cfgs = serving_configs()
+    params = {}
+    for name, cfg in cfgs.items():
+        params[name] = materialize(Model(cfg).describe(), seed=0)
+        save_params(work, name, params[name])
+    out, pools = {"devices": len(jax.devices())}, {}
+    for key, (name, kw, chunked) in C.SERVING_ENGINES.items():
+        cfg = cfgs[name]
+        rs = jdist.make_replica_set(1, mesh_shape=C.MESH, num_kv_heads=cfg.num_kv_heads)
+        out[f"{name} fallbacks"] = [list(f) for f in rs.rules.fallbacks]
+        engine = Engine(cfg, params[name], placement=rs.placement(0), **C.engine_kw(key))
+        ctxs, sids = C.contexts(cfg.vocab_size), {}
+        out[key] = serve(engine, chunked, ctxs, sids)
+        out[f"{key} rows"] = C.kv_rows(engine, ctxs, out[key], sids)
+        out[f"{key} offloaded"] = engine.pool.stats().offload_bytes
+        for kv, a in pool_arrays(engine).items():
+            pools[f"{key} {kv}"] = a
+    out["router int8"] = replay(cfgs["qwen"], params["qwen"], offload_format="int8")
+    for case in C.MOE_CASES:
+        pools[f"moe {case}"] = moe_layer(cfgs[case[0]], params[case[0]], case)
+    np.savez(work / "pools.npz", **pools)
+    (work / "results.json").write_text(json.dumps(out))
 
 
 def main(work: Path) -> None:
@@ -117,4 +193,6 @@ def main(work: Path) -> None:
 
 
 if __name__ == "__main__":
-    main(Path(sys.argv[1]))
+    assert len(jax.devices()) == 2, jax.devices()
+    suite = sys.argv[2] if len(sys.argv) > 2 else "tp"
+    (serving if suite == "serving" else main)(Path(sys.argv[1]))

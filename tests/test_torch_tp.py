@@ -22,17 +22,16 @@ Both start together once per module and are read by every test here:
   pressure migration on and replica 1 failing and recovering: metrics
   (but the wall clock) and action streams equal to the reference's,
   pages offloaded, reloaded and migrated;
-* the refusals that remain on a mesh (a data axis, dense slots, int8
-  pages, the MoE family, ``Trainer``), each naming ROADMAP.
+* the refusals that remain on a mesh (a data axis, the vlm family,
+  ``Trainer``), each naming ROADMAP. Dense slots, int8 pages and the MoE
+  family on the mesh are ``tests/test_torch_tp_serving.py``'s.
 """
 from __future__ import annotations
 
 import dataclasses
-import json
 import os
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -68,28 +67,7 @@ MODEL_ATOL, MODEL_RTOL = 2**-4, 2**-6
 def runs(tmp_path_factory):
     """Both sides, started together: the reference's results and pools,
     and each rank's results and arrays."""
-    work = tmp_path_factory.mktemp("tp")
-    env = {**os.environ, "XLA_FLAGS": "--xla_force_host_platform_device_count=2",
-           "JAX_PLATFORMS": "cpu", "PYTHONPATH": str(HERE.parent / "src")}
-    ref = subprocess.Popen([sys.executable, str(HERE / "_tp_reference.py"), str(work)],
-                           env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    t0 = time.monotonic()
-    procs = _tp_ranks.start(work)
-    try:
-        ref_out, _ = ref.communicate(timeout=DEADLINE_S)
-    except subprocess.TimeoutExpired:
-        ref.kill()
-        ref_out, _ = ref.communicate()
-    if ref.returncode != 0:
-        _tp_ranks.join(procs, 0)
-        pytest.fail(f"the reference exited {ref.returncode}:\n{ref_out[-3000:]}")
-    codes = _tp_ranks.join(procs, max(1.0, DEADLINE_S - (time.monotonic() - t0)))
-    errs = "".join(p.read_text() for p in sorted(work.glob("rank*.err")))
-    assert codes == [0] * _tp_ranks.WORLD, f"ranks exited {codes}:\n{errs[-4000:]}"
-    ranks = [(json.loads((work / f"rank{r}.json").read_text()),
-              dict(np.load(work / f"rank{r}.npz"))) for r in range(_tp_ranks.WORLD)]
-    return (json.loads((work / "results.json").read_text()),
-            dict(np.load(work / "pools.npz")), ranks)
+    return _tp_ranks.run_both(tmp_path_factory.mktemp("tp"), "tp", DEADLINE_S)
 
 
 # ------------------------------------------------------------- kernels
@@ -243,21 +221,14 @@ def _placement(shape):
                             num_kv_heads=4).placement(0)
 
 
-@pytest.mark.parametrize("what", ["data axis", "dense slots", "int8 offload", "int8 device",
-                                  "moe"])
+@pytest.mark.parametrize("what", ["data axis", "vlm"])
 def test_engine_refuses_what_a_mesh_does_not_serve_yet(what):
-    cfg = get_config("dbrx-132b" if what == "moe" else C.ARCH).reduced()
-    kw = dict(C.ENGINE_KW)
+    # vlm is the one family beside dense and moe that Engine admits at all
+    cfg = get_config("internvl2-26b" if what == "vlm" else C.ARCH).reduced()
     shape = (2, 1) if what == "data axis" else C.MESH
-    if what == "dense slots":
-        kw["dense_slots"] = True
-    elif what == "int8 offload":
-        kw["offload_format"] = "int8"
-    elif what == "int8 device":
-        kw.update(offload_format="int8", device_format="int8")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(cfg, materialize(Model(cfg).describe(), seed=0), placement=_placement(shape),
-               **kw)
+               **C.ENGINE_KW)
 
 
 def test_trainer_refuses_a_mesh():
