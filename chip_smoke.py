@@ -5,6 +5,8 @@ port starts on the GPU and that its main paths run through its kernels.
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # phases 1-2, 9's kernel cases and 10, no final line
                                           # (and not phase 11)
+    python3 chip_smoke.py --train-tp      # the build, phase 9's full-width training and
+                                          # phase 14, no final line
 
 Needs one CUDA card (Hopper: the kernels are built for sm_90a) and
 ``nvcc``; it builds every kernel from the sources in ``src/repro_torch``
@@ -214,7 +216,32 @@ on failure (a failure exits non-zero and prints no final line):
    6's own logits, and a decode step and a prefill within the model band
    of the logits phase 6's one-device engine gave on the same inputs).
    On one card the ranks' collectives go through host memory, so its
-   times say nothing of tensor-parallel speed.
+   times say nothing of tensor-parallel speed;
+14. training on a mesh (``train_tp``, after phase 9, whose losses it is
+   held against): two ranks on the one card under ``gloo``, spawned as
+   phase 13's are, each drawing phase 9's seed-0 full-width qwen weights
+   on the card and keeping its blocks (FSDP: "embed" over "data"; tensor
+   parallel: heads, FFN and vocabulary over "model"). Each rank holds its
+   block of the step-1 gradient to a one-device gradient on the card on
+   the same weights and tokens (the bf16 band), then trains through
+   ``Trainer(mesh=...)`` with the launcher's data (phase 9's batch, 2
+   microbatches, lr 3e-4, remat) for 3 steps on a ``(2, 1)`` mesh, writes
+   a checkpoint (whole leaves, rank 0), restores it on a ``(1, 2)`` mesh
+   (the elastic re-mesh, each rank's blocks bit-equal to the leaves
+   written) and trains
+   steps 4-6; this process then restores the same checkpoint onto the
+   card, bit-equal. The losses finite, the sixth below the first, step 1
+   in the bf16 band of phase 9's; a rank's flash forwards 2 x layers x
+   microbatches x steps on each mesh (remat) and its backwards layers x
+   microbatches x steps, all on the tensor cores; no functional
+   collective reached (they raise in the ranks, over every backward).
+   Each mesh's parameter and moment bytes a rank, its largest collective,
+   peak memory and step times are recorded; the collectives go through
+   host memory, so the times are of correctness, not speed. Then, in
+   this process, the embedding's gradient at phase 9's step 0 against
+   the exact f32 sum of its rows (``embedding gradient``): the loss's
+   lookup within twice the bf16 rounding of it, autograd's own indexing
+   backward beside it.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 hold the per-kernel JSON record and the card's name and power limit. The
@@ -3944,8 +3971,10 @@ def resolve_production_rules() -> dict:
 TP = 2
 #: the parent waits this long for its ranks, then kills them and fails
 TP_DEADLINE_S = 720
-#: the collectives phase 13 probes on CUDA tensors under gloo, in each dtype
-TP_PROBE = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
+#: the collectives phases 13 and 14 probe on CUDA tensors under gloo, in
+#: each dtype: serving's, and the backward's (the list all-gather, the
+#: reduce-scatter of a summed gradient)
+TP_PROBE = ("all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatter_tensor")
 TP_PROBE_DTYPES = (torch.bfloat16, torch.float32)
 #: the fixed decode step of the logits check: context lengths of its rows
 TP_DECODE_LENGTHS = (200, 97, 33)
@@ -3984,6 +4013,11 @@ def probe_gloo(dev) -> dict:
                     t = torch.full((1000,), rank + 1, dtype=dtype, device=dev)
                     dist.all_reduce(t)
                     ok = bool((t == n * (n + 1) // 2).all())
+                elif op == "all_gather":
+                    t = torch.full((4,), rank, dtype=dtype, device=dev)
+                    parts = [torch.empty_like(t) for _ in range(n)]
+                    dist.all_gather(parts, t)
+                    ok = torch.cat(parts).tolist() == [float(r) for r in range(n) for _ in range(4)]
                 elif op == "all_gather_into_tensor":
                     t = torch.full((4,), rank, dtype=dtype, device=dev)
                     got = torch.empty(4 * n, dtype=dtype, device=dev)
@@ -4034,11 +4068,12 @@ def _heads_seen(seen: dict):
 
 
 class _Collectives:
-    """Counts the elements each ``torch.distributed`` all-reduce and
-    all-gather moves (the tensor the rank sends) while armed: the check
-    that no collective moves a weight."""
+    """Counts the elements each ``torch.distributed`` all-reduce,
+    all-gather and reduce-scatter moves (the tensor the rank sends) while
+    armed: the check that no collective moves a weight (phase 13), the
+    largest collective of a training step (phase 14)."""
 
-    NAMES = ("all_reduce", "all_gather", "all_gather_into_tensor")
+    NAMES = ("all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatter_tensor")
 
     def __init__(self):
         import torch.distributed as dist
@@ -4639,6 +4674,36 @@ def serve_tp_rank(rank: int, store: str, work: str, logs: dict) -> None:
     Path(work, f"rank{rank}.json").write_text(json.dumps(rec))
 
 
+def run_ranks(target, args: tuple, deadline_s: float, prefix: str, phase: str):
+    """``TP`` spawned processes running ``target(rank, store, work,
+    *args)`` over a file store in a new directory under ``build/`` (this
+    process makes no process group); killed past ``deadline_s``. A rank's
+    exception or a non-zero exit fails the phase. Returns the directory and
+    each rank's record (``work/rank<r>.json``)."""
+    import multiprocessing as mp
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix=f"{prefix}_", dir=ROOT / "build"))
+    ctx = mp.get_context("spawn")
+    ranks = [ctx.Process(target=target, args=(r, str(work / "store"), str(work), *args))
+             for r in range(TP)]
+    for p in ranks:
+        p.start()
+    deadline = time.monotonic() + deadline_s
+    for p in ranks:
+        p.join(max(1.0, deadline - time.monotonic()))
+    late = [p for p in ranks if p.is_alive()]
+    for p in late:
+        p.kill()
+        p.join()
+    codes = [p.exitcode for p in ranks]
+    if late or any(codes):
+        raise AssertionError(f"phase {phase}'s ranks exited {codes}"
+                             + (f", {len(late)} killed at the deadline" if late else ""))
+    return work, [json.loads((work / f"rank{r}.json").read_text()) for r in range(TP)]
+
+
 def _check_counts(r: dict, mode: str, layers: int, heads: dict) -> None:
     """A rank's replay ``mode`` ran its kernels once a layer a decode step
     and a prefill pass, each on the heads ``heads``, eagerly."""
@@ -4692,34 +4757,14 @@ def serve_tp(mono: dict, chunked: dict, logs: dict, phase4: dict) -> dict:
     saved), half of each expert weight a rank and no collective moving
     one. ``phase4`` holds phase 4's weight bytes, pool bytes (both
     replicas' device and host tiers) and page bytes."""
-    import multiprocessing as mp
     import shutil
-    import tempfile
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import kv_quant
     from repro_torch.launch import serve
 
     t0 = time.perf_counter()
-    work = Path(tempfile.mkdtemp(prefix="serve_tp_", dir=ROOT / "build"))
-    store = work / "store"
-    ctx = mp.get_context("spawn")
-    ranks = [ctx.Process(target=serve_tp_rank, args=(r, str(store), str(work), logs))
-             for r in range(TP)]
-    for p in ranks:
-        p.start()
-    deadline = time.monotonic() + TP_DEADLINE_S
-    for p in ranks:
-        p.join(max(1.0, deadline - time.monotonic()))
-    late = [p for p in ranks if p.is_alive()]
-    for p in late:
-        p.kill()
-        p.join()
-    codes = [p.exitcode for p in ranks]
-    if late or any(codes):
-        raise AssertionError(f"phase 13's ranks exited {codes}"
-                             + (f", {len(late)} killed at the deadline" if late else ""))
-    recs = [json.loads((work / f"rank{r}.json").read_text()) for r in range(TP)]
+    work, recs = run_ranks(serve_tp_rank, (logs,), TP_DEADLINE_S, "serve_tp", "13")
     shutil.rmtree(work, ignore_errors=True)
     record = dict(
         world=recs[0]["world"], backend=recs[0]["backend"], mesh=recs[0]["mesh"],
@@ -4885,6 +4930,356 @@ def serve_tp(mono: dict, chunked: dict, logs: dict, phase4: dict) -> dict:
     return record
 
 
+# ------------------------------------------------------------ phase 14
+#: phase 14's meshes in order: FSDP over "data", then tensor parallel over
+#: "model" after an elastic restore
+TRAIN_TP_MESHES = ((TP, 1), (1, TP))
+#: the steps each mesh runs
+TRAIN_TP_STEPS = 3
+#: the parent waits this long for its ranks, then kills them and fails
+TRAIN_TP_DEADLINE_S = 600
+#: the bands of tests/test_torch_loss.py in bf16: the loss (relative) and
+#: each gradient (relative Frobenius)
+LOSS_BAND, GRAD_BAND = 1e-2, 5e-2
+
+
+def _flash_counts() -> dict:
+    from repro_torch.kernels.flash_attention import ops
+
+    return dict(flash_launches=ops.KERNEL.launches,
+                backward_launches=ops.KERNEL.backward_launches,
+                backward_routes=dict(ops.KERNEL.backward_kernel.routes))
+
+
+def _zero_flash_counts() -> None:
+    from repro_torch.kernels.flash_attention import ops
+
+    ops.KERNEL.launches = 0
+    ops.KERNEL.backward_launches = 0
+    routes = ops.KERNEL.backward_kernel.routes
+    routes.update(dict.fromkeys(routes, 0))
+
+
+def _block_digests(tree, shardings, coords: list) -> dict:
+    """Each leaf's digest of the block that each mesh position of
+    ``coords`` holds of it under ``shardings`` (the leaves whole): every
+    block bit-equal means the whole leaf is."""
+    from repro_torch.models.params import flatten_tree
+
+    by_name = dict(flatten_tree(shardings))
+    return {name: [_digest([t[by_name[name].local_slices(t.shape, at)].reshape(-1)])
+                   for at in coords]
+            for name, t in flatten_tree(tree)}
+
+
+def _train_shardings(trainer, mesh) -> dict:
+    """The state tree's shardings on ``mesh`` (a layout is enough)."""
+    from repro_torch.models.params import sharding_tree
+
+    return {"params": sharding_tree(trainer.param_tree, mesh, trainer.rules),
+            "opt": sharding_tree(trainer.opt_tree, mesh, trainer.rules)}
+
+
+def _train_run(trainer, state, collectives) -> tuple:
+    """``trainer.run`` from ``state`` with the flash counts zeroed just
+    before and read just after, the collectives' sizes and the peak
+    recorded: the main path's record of one mesh."""
+    from repro_torch.dist.local import is_dtensor
+    from repro_torch.models.params import flatten_tree
+
+    def held(tree):
+        return sum((t.to_local() if is_dtensor(t) else t).nbytes for _, t in flatten_tree(tree))
+
+    first = state.step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    collectives.moved.clear()
+    collectives.armed = True
+    _zero_flash_counts()
+    t0 = time.perf_counter()
+    state = trainer.run(state)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    collectives.armed = False
+    counts = _flash_counts()
+    walls = [0.0] + [m["wall_s"] for m in trainer.metrics]
+    rec = dict(mesh=dict(trainer.mesh.shape), steps=[first + 1, state.step],
+               losses=[m["loss"] for m in trainer.metrics], run_s=run_s,
+               step_host_s=[b - a for a, b in zip(walls, walls[1:])],
+               param_bytes_held=held(state.params),
+               moment_bytes_held=held({"m": state.opt["m"], "v": state.opt["v"]}),
+               largest_collective_elements=max(collectives.moved, default=0),
+               collectives=len(collectives.moved),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, **counts)
+    trainer.metrics.clear()
+    return state, rec
+
+
+def train_tp_rank(rank: int, store: str, work: str) -> None:
+    """One rank of phase 14, in a process of its own on ``cuda:0``: ``gloo``
+    over a file store, every collective through ``torch.distributed``
+    (DTensor's functional collectives refused, over every backward too),
+    its record written to ``work/rank<r>.json``. An exception ends the
+    process with a non-zero code, which fails the phase."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    from repro_torch.dist.local import no_functional_collectives
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.params import flatten_tree
+    from repro_torch.train.loop import Trainer, TrainState
+
+    t_start = time.perf_counter()
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=TP)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    collectives = _Collectives()
+    rec = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+           "world": dist.get_world_size(), "gloo_on_cuda": probe_gloo(dev)}
+    one = launch_train.build_trainer(launch_train.parse_args(TRAIN_ARGS + ["--device", DEVICE]))
+    cfg, data = one.cfg, one.data_cfg
+    tcfg = dataclasses.replace(one.tcfg, steps=TRAIN_TP_STEPS, ckpt_every=0, log_every=1,
+                               ckpt_dir=str(Path(work) / "ckpt"))
+    meshes = [Mesh(("data", "model"), np.array([dev] * TP, dtype=object).reshape(shape))
+              for shape in TRAIN_TP_MESHES]
+    coords = [tuple(int(i) for i in at) for at in np.argwhere(np.ones(TRAIN_TP_MESHES[1]))]
+    with no_functional_collectives():
+        rec["functional_collectives_refused"] = "refuse" in funcol.all_reduce.__qualname__
+        trainer = Trainer(cfg, tcfg, data, mesh=meshes[0])
+        t0 = time.perf_counter()
+        state = trainer.adopt(draw_on_card(
+            trainer.param_tree, seed=0,
+            keep=_block_keeper(trainer.param_tree, meshes[0], trainer.rules)))
+        rec["draw_s"] = time.perf_counter() - t0
+        # a one-device gradient on the card of step 1's tokens on the same
+        # weights (drawn again whole), the rank's blocks of it kept
+        t0 = time.perf_counter()
+        whole = draw_on_card(one.param_tree, seed=0)
+        for _, t in flatten_tree(whole):
+            t.requires_grad_(True)
+        acc1, losses1 = one.gradients(TrainState(whole, None), one._tokens_for(0))
+        at = meshes[0].coordinates()
+        shardings = dict(flatten_tree(trainer.shardings()[0]))
+        want = [a[shardings[name].local_slices(a.shape, at)].clone()
+                for (name, _), a in zip(flatten_tree(whole), acc1)]
+        del whole, acc1, one
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["one_device_gradient_s"] = time.perf_counter() - t0
+        # the main path's step 1 keeps its gradient for the check
+        captured: list = []
+        gradients = trainer.gradients
+
+        def first_gradients(*a, **kw):
+            got = gradients(*a, **kw)
+            if not captured:
+                captured.append(got)
+            return got
+
+        trainer.gradients = first_gradients
+        # the main path: 3 steps on (2, 1), a checkpoint, 3 on (1, 2) after
+        # the elastic restore
+        state, rec["fsdp"] = _train_run(trainer, state, collectives)
+        (acc, losses), = captured
+        rels = {name: ((a - w).norm() / w.norm().clamp_min(1e-30)).item()
+                for (name, _), a, w in zip(flatten_tree(state.params), acc, want)}
+        worst = max(rels, key=rels.get)
+        rec["gradient_check"] = dict(
+            mesh=dict(meshes[0].shape), mesh_losses=[float(x) for x in losses],
+            one_device_losses=[float(x) for x in losses1], worst_leaf=worst,
+            worst_rel_frobenius=rels[worst], rel_frobenius=rels, band=GRAD_BAND)
+        del captured, acc, want
+        written: dict = {}
+        if rank == 0:
+            write = trainer._write
+            layout = _train_shardings(trainer, meshes[1])
+
+            def recording(tree, step):
+                written.update(_block_digests(tree, layout, coords))
+                write(tree, step)
+
+            trainer._write = recording
+        t0 = time.perf_counter()
+        trainer.save(state)
+        rec["save_s"] = time.perf_counter() - t0
+        rec["written_digests"] = written
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = Trainer(cfg, dataclasses.replace(tcfg, steps=2 * TRAIN_TP_STEPS), data,
+                          mesh=meshes[1])
+        t0 = time.perf_counter()
+        state = trainer.resume_or_init()
+        rec["restore_s"] = time.perf_counter() - t0
+        rec["restored_step"] = state.step
+        here = coords.index(meshes[1].coordinates())
+        rec["restored_digests"] = {
+            name: _digest([t.to_local().reshape(-1)]) for name, t in flatten_tree(
+                {"params": state.params, "opt": state.opt})}
+        rec["restored_position"] = here
+        state, rec["tp"] = _train_run(trainer, state, collectives)
+    dist.barrier()
+    dist.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t_start
+    Path(work, f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def embedding_grad_check() -> dict:
+    """The embedding's gradient at phase 9's step 0 (full-width qwen,
+    seed-0 weights drawn on the card, each microbatch's real gradient at
+    the lookup's output): what the loss's lookup (``lookup_rows``, a
+    token's duplicate rows summed in f32) gives, against the exact sum
+    (f32) and against autograd's own ``embed[idx]`` backward, which adds
+    each duplicate into the bf16 gradient; relative Frobenius errors. The
+    lookup's must stay within twice the bf16 rounding of the exact sum."""
+    from repro_torch.dist.local import lookup_rows
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import Model
+
+    one = launch_train.build_trainer(launch_train.parse_args(TRAIN_ARGS + ["--device", DEVICE]))
+    params = draw_on_card(one.param_tree, seed=0)
+    model, table = Model(one.cfg, params), params["embed"]
+    out = []
+    for tok in one._tokens_for(0):
+        inputs, labels = tok[:, :-1].long(), tok[:, 1:].long()
+        x = table[inputs].detach().requires_grad_(True)
+        h, _, _ = model.sequence(x, torch.arange(x.shape[1], device=x.device)[None, :])
+        logits = model._logits(h)
+        ce = (torch.logsumexp(logits, -1)
+              - torch.gather(logits, -1, labels[..., None])[..., 0]).mean()
+        (g,) = torch.autograd.grad(ce, x)
+        idx = inputs.reshape(-1)
+        exact = torch.zeros(table.shape, device=g.device).index_put_(
+            (idx,), g.reshape(-1, table.shape[1]).float(), accumulate=True)
+
+        def rel(lookup):
+            w = table.detach().clone().requires_grad_(True)
+            (got,) = torch.autograd.grad((lookup(w, inputs) * g).sum(), w)
+            return ((got.float() - exact).norm() / exact.norm()).item()
+
+        out.append(dict(tokens=int(idx.numel()), distinct=int(idx.unique().numel()),
+                        most_repeated=int(torch.bincount(idx).max()),
+                        lookup_rows=rel(lookup_rows), autograd_index=rel(lambda w, i: w[i]),
+                        exact_rounded=((exact.bfloat16().float() - exact).norm()
+                                       / exact.norm()).item()))
+    log("embedding gradient " + json.dumps(out))
+    if not all(r["lookup_rows"] <= 2 * r["exact_rounded"] for r in out):
+        raise AssertionError(f"the loss's embedding gradient is off the exact sum: {out}")
+    return {"microbatches": out}
+
+
+def train_tp(train: dict) -> dict:
+    """Phase 14: training on a mesh, as ``TP`` ranks on the one card under
+    ``gloo`` (this process starts them and makes no process group). Each
+    rank draws phase 9's seed-0 weights on the card and keeps its blocks,
+    holds its block of the step-1 gradient to a one-device gradient on the
+    same weights and tokens, trains ``TRAIN_TP_STEPS`` steps on a ``(2,
+    1)`` mesh (FSDP over "data"), writes a checkpoint (rank 0, whole
+    leaves), restores it on a ``(1, 2)`` mesh (tensor parallel over
+    "model") and trains ``TRAIN_TP_STEPS`` more; then this process restores
+    the same checkpoint onto the card. Fails unless every loss is finite,
+    the sixth below the first and the first in the bf16 band of phase 9's
+    (``train``), every rank's gradient block in the bf16 band, each mesh's
+    flash launches a rank 2 x layers x microbatches x steps forward and
+    layers x microbatches x steps backward, every backward on the tensor
+    cores, and every restored leaf (on the mesh, gathered, and on one
+    device) bit-equal to the leaf written."""
+    import shutil
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train import checkpoint as ck
+
+    t0 = time.perf_counter()
+    disk_free_gib = shutil.disk_usage(ROOT).free / 2**30
+    work, recs = run_ranks(train_tp_rank, (), TRAIN_TP_DEADLINE_S, "train_tp", "14")
+    args = launch_train.parse_args(TRAIN_ARGS + ["--device", DEVICE])
+    one = launch_train.build_trainer(args)
+    cfg = one.cfg
+    t1 = time.perf_counter()
+    tree, step, _ = ck.restore(work / "ckpt", {"params": one.param_tree, "opt": one.opt_tree},
+                               device=DEVICE)
+    # the blocks the (1, 2) ranks hold, of the whole leaves restored here
+    layout = Mesh(("data", "model"), sizes=TRAIN_TP_MESHES[1])
+    coords = [tuple(int(i) for i in at) for at in np.argwhere(np.ones(TRAIN_TP_MESHES[1]))]
+    one_digests = _block_digests(tree, _train_shardings(one, layout), coords)
+    restore_one_s = time.perf_counter() - t1
+    ckpt_bytes = sum(f.stat().st_size for f in (work / "ckpt").rglob("*") if f.is_file())
+    del tree
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    written = recs[0]["written_digests"]
+    runs = TRAIN_TP_STEPS * args.microbatches
+    want = dict(flash_launches=2 * cfg.num_layers * runs,
+                backward_launches=cfg.num_layers * runs)
+    losses = recs[0]["fsdp"]["losses"] + recs[0]["tp"]["losses"]
+    per_rank = ("param_bytes_held", "moment_bytes_held", "largest_collective_elements",
+                "collectives", "peak_gib", "step_host_s", "run_s", "flash_launches",
+                "backward_launches", "backward_routes")
+    record = dict(
+        arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, remat=cfg.remat,
+        world=recs[0]["world"], backend=recs[0]["backend"],
+        devices=[r["device"] for r in recs], gloo_on_cuda=recs[0]["gloo_on_cuda"],
+        global_batch=args.global_batch, seq_len=args.seq_len,
+        microbatches=args.microbatches, lr=args.lr,
+        weights="drawn on the card (torch.Generator, seed 0), each rank keeping its blocks",
+        losses=losses, losses_phase9=train["losses"],
+        step1_rel_to_phase9=abs(losses[0] - train["losses"][0]) / abs(train["losses"][0]),
+        gradient_check=[r["gradient_check"] for r in recs],
+        **{name: dict({k: v for k, v in recs[0][name].items() if k not in per_rank},
+                      **{k: [r[name][k] for r in recs] for k in per_rank})
+           for name in ("fsdp", "tp")},
+        launches_expected_per_mesh=want,
+        functional_collectives_refused=[r["functional_collectives_refused"] for r in recs],
+        draw_s=[r["draw_s"] for r in recs], save_s=recs[0]["save_s"],
+        restore_s=[r["restore_s"] for r in recs], restore_one_device_s=restore_one_s,
+        restored_step=[r["restored_step"] for r in recs], checkpoint_step=step,
+        checkpoint_bytes=ckpt_bytes, disk_free_gib_before=disk_free_gib,
+        leaves_written=len(written),
+        restored_bit_equal_mesh=[{n: d[r["restored_position"]] for n, d in written.items()}
+                                 == r["restored_digests"] for r in recs],
+        restored_bit_equal_one_device=one_digests == written,
+        rank_s=[r["seconds"] for r in recs], seconds=time.perf_counter() - t0,
+        note="both ranks on one card: every collective goes through host memory under "
+             "gloo, so these times measure correctness, not tensor-parallel speed")
+    log("train_tp " + json.dumps(record))
+    if not (len(losses) == 2 * TRAIN_TP_STEPS and all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 14's losses are missing, not finite or not falling: "
+                             f"{losses}")
+    if not record["step1_rel_to_phase9"] <= LOSS_BAND:
+        raise AssertionError(f"phase 14's step 1 ({losses[0]}) is off phase 9's "
+                             f"({train['losses'][0]}) beyond the bf16 band")
+    if any(r["fsdp"]["losses"] != recs[0]["fsdp"]["losses"]
+           or r["tp"]["losses"] != recs[0]["tp"]["losses"] for r in recs):
+        raise AssertionError("phase 14's ranks logged different losses")
+    for g in record["gradient_check"]:
+        if not g["worst_rel_frobenius"] <= GRAD_BAND:
+            raise AssertionError(f"a rank's step-1 gradient block is off the one-device "
+                                 f"gradient beyond the bf16 band: {g}")
+    if not all(record["functional_collectives_refused"]):
+        raise AssertionError("phase 14 ran without the functional collectives refused")
+    for name in ("fsdp", "tp"):
+        for r in recs:
+            got = r[name]
+            if DEVICE == "cuda" and (
+                    (got["flash_launches"], got["backward_launches"]) != (
+                        want["flash_launches"], want["backward_launches"])
+                    or got["backward_routes"]["tensor_core"] != got["backward_launches"]):
+                raise AssertionError(f"rank {r['rank']} {name}: {got['flash_launches']} flash "
+                                     f"forwards, {got['backward_launches']} backwards "
+                                     f"({got['backward_routes']}), against {want}")
+    if not (all(record["restored_bit_equal_mesh"]) and record["restored_bit_equal_one_device"]
+            and record["restored_step"] == [TRAIN_TP_STEPS] * TP and step == TRAIN_TP_STEPS
+            and written):
+        raise AssertionError(f"phase 14's checkpoint did not restore bit-equal: {record}")
+    return record
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -4904,6 +5299,10 @@ def main(argv=None) -> int:
     identity = gpu_identity()
     log(f"gpu: {identity}; torch {torch.__version__}, cuda {torch.version.cuda}")
     build_kernels()
+    if "--train-tp" in argv:
+        train_tp(train_full())
+        embedding_grad_check()
+        return 0
 
     paged_err = check_kernel_cases()
     paged_timing = time_kernel(layers=24)
@@ -5028,6 +5427,14 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_restore()
+    # phase 14: training on (2, 1) and (1, 2) meshes, as two ranks on the
+    # card, held against phase 9's losses
+    train_mesh = train_tp(train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    embedding_grad_check()
+    gc.collect()
+    torch.cuda.empty_cache()
     train_mamba2 = train_ssm("mamba2-2.7b")
     gc.collect()
     torch.cuda.empty_cache()
@@ -5105,6 +5512,8 @@ def main(argv=None) -> int:
             "launches_whisper_prefills": whisper["flash_launches"],
             "launches_internvl2_prefills": internvl2["flash_launches"],
             "launches_training": train["flash_launches"],
+            "launches_a_rank_training_fsdp": train_mesh["fsdp"]["flash_launches"],
+            "launches_a_rank_training_tp": train_mesh["tp"]["flash_launches"],
             "launches_zamba2_training": train_zamba2["flash_launches"],
             "max_abs_err": flash_err,
             "ms": ft["ms"],
@@ -5129,6 +5538,8 @@ def main(argv=None) -> int:
                              "through plain jnp (blockwise_attention); no Pallas kernel has a "
                              "backward",
             "launches": train["backward_launches"],
+            "launches_a_rank_training_fsdp": train_mesh["fsdp"]["backward_launches"],
+            "launches_a_rank_training_tp": train_mesh["tp"]["backward_launches"],
             "launches_zamba2_training": train_zamba2["flash_backward_launches"],
             "launches_zamba2_training_by_route": train_zamba2["flash_backward_routes"],
             "max_abs_err": bwd_err,

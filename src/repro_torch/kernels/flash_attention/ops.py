@@ -325,9 +325,10 @@ def prefill_attention(q, k, v, *, causal: bool, window=None, cap=None, q_offset:
     [B,Skv,KH,D] -> [B,Sq,H,D] (arguments as ``blockwise_attention``).
 
     On a mesh of more than one device q, k and v are DTensors placed by
-    heads: each rank runs this on its local heads under ``local_map``
-    (:func:`repro_torch.dist.local.on_local_heads`), with ``q_offset``,
-    ``kv_hole`` and ``kv_lengths`` as they are."""
+    heads (and, in training, by rows): each rank runs this on its local
+    heads (:func:`repro_torch.dist.local.on_local_heads`), with
+    ``q_offset``, ``kv_hole`` and ``kv_lengths`` as they are; under
+    autograd on the card that is the kernel's ``_FlashAttentionFn``."""
     if is_dtensor(q):
         def local(q_l, k_l, v_l):
             return prefill_attention(q_l, k_l, v_l, causal=causal, window=window, cap=cap,

@@ -272,7 +272,7 @@ def paged_attention_decode(
 
     On a mesh of more than one device ``q``, ``k_new`` and ``v_new`` are
     DTensors placed by heads and the pages are the rank's own pool
-    tensors: each rank runs this on its local heads under ``local_map``
+    tensors: each rank runs this on its local heads
     (:func:`repro_torch.dist.local.on_local_heads`), and the output is
     placed as ``q`` is."""
     if is_dtensor(q):

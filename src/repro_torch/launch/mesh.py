@@ -12,8 +12,7 @@ the same layout, once and only when asked.
 A mesh of more than one device is stepped SPMD: one process a device,
 each started by the caller with a process group (its rank names its
 position through ``Mesh.ranks``). :func:`mesh_device` gives the device
-this process steps on, :func:`one_device` the device of a one-device
-mesh, which is all a trainer runs on yet.
+this process steps on (a trainer's and a serving engine's).
 
 The reference's production meshes are TPU pods (16 x 16 chips, and 2 x 16
 x 16). The port's production layout is an H100 fleet: ``("data",
@@ -151,17 +150,6 @@ def _check_names(dev: torch.device, device, what: str) -> torch.device:
     if want is not None and not (want.type == dev.type and want.index in (None, dev.index)):
         raise ValueError(f"device {device} is not {what} {dev}")
     return dev
-
-
-def one_device(mesh: Mesh, device=None) -> torch.device:
-    """The device a trainer's step runs on: the one device of ``mesh``.
-    ``device``, when given, must name it. A mesh of more than one device
-    raises: training on sharded tensors is not ported yet."""
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"{mesh} has {mesh.size} devices: training on sharded tensors (FSDP + "
-            "TP, ROADMAP section 1 item 5) is not ported; trainers run on one device")
-    return _check_names(mesh.device(), device, "the mesh's device")
 
 
 def mesh_device(mesh: Mesh, device=None) -> torch.device:

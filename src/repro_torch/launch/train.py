@@ -10,7 +10,11 @@ smoke-scale config. Restart the same command after a crash and it resumes
 from the newest valid checkpoint. The trainer gets ``make_host_mesh`` on
 ``--device``, or with ``--production-mesh`` the H100 fleet's 32 x 8 mesh
 (:mod:`repro_torch.launch.mesh`), which needs 256 cards: with fewer it
-raises, and the trainer steps only a mesh of one device so far.
+raises. On a mesh of more than one device the trainer steps SPMD, one
+process a card with its process group up (FSDP over "data", tensor
+parallel over "model", the dense family); this launcher starts one
+process and makes no process group, so it runs the one-device mesh, as
+the reference's launcher runs on the devices its one process sees.
 """
 from __future__ import annotations
 

@@ -33,12 +33,16 @@ On a mesh of more than one device the weights are DTensors and a
 sites on the dense path (q/k/v, the FFN hidden, the block outputs);
 where a row-parallel product leaves partial sums (``wo``, ``w_down``) it
 reduces them in f32 before they join the residual stream. The attention
-entry points run each rank's heads under ``local_map``, over the page
+entry points run each rank's heads on its local shards, over the page
 pool or the dense slot caches, each rank's block of the KV heads. The
 MoE layer runs on each rank's columns of every expert's hidden
 dimension with the routed tokens replicated, and reduces its partial sum
-once, in f32 (:func:`apply_moe`): no expert weight is gathered. The mamba
-sites come with that family's slice.
+once, in f32 (:func:`apply_moe`): no expert weight is gathered. In
+training (the dense family) the batch is sharded over "data" as well and
+:meth:`ShardCtx.param` gathers each weight's FSDP-sharded "embed"
+dimension before use; every collective has its transpose in the backward
+(:mod:`repro_torch.dist.local`). The mamba sites come with that family's
+slice.
 """
 from __future__ import annotations
 
@@ -128,17 +132,45 @@ class ShardCtx:
     def embedding(self, tokens, table, logical):
         """``F.embedding(tokens, table)`` placed by ``logical``: on a mesh
         each rank looks up the rows it holds and the partial sums are
-        reduced (the table is never gathered)."""
+        reduced (the table's vocabulary is never gathered; its width is,
+        where FSDP shards it, :meth:`param`). ``tokens`` may be a DTensor
+        sharded by rows (a batch over "data")."""
         if not is_dtensor(table):
             return F.embedding(tokens, table)
-        return self.constrain(vocab_embedding(tokens, table), logical)
+        return self.constrain(vocab_embedding(tokens, self.param(table)), logical)
+
+    def param(self, w):
+        """A parameter as the step uses it. On a mesh, a weight whose
+        "embed" dimension FSDP shards over an axis of :data:`FSDP_AXES` is
+        gathered there first (the reference has no such call: XLA inserts
+        the all-gather); under remat the gather runs again in the
+        recompute, in the forward's order on every rank. Under autograd
+        every parameter goes through it, gathered or not: its gradient comes
+        back in the parameter's own placements, reduce-scattered where it
+        was gathered and all-reduced over the axes whose ranks each hold a
+        partial sum of it (their rows of the batch)."""
+        if self.mesh is None or not is_dtensor(w):
+            return w
+        from torch.distributed.tensor import Replicate
+
+        names = self.mesh.axis_names
+        want = tuple(Replicate() if names[i] in FSDP_AXES and p.is_shard() else p
+                     for i, p in enumerate(w.placements))
+        return redistribute(w, want)
+
+    def params(self, tree):
+        """:meth:`param` over a nested dict of parameters (one layer's)."""
+        if self.mesh is None:
+            return tree
+        return {k: self.params(v) if isinstance(v, dict) else self.param(v)
+                for k, v in tree.items()}
 
     def scope(self):
         """The context a step on this mesh runs in: plain tensors that every
         rank holds whole (tokens, positions, lengths) act as replicated
         DTensors beside the sharded ones. The page pool's tensors are the
         rank's own blocks, and enter only through :meth:`from_local` or a
-        kernel entry point's ``local_map``."""
+        kernel entry point's local shards."""
         if self.mesh is None:
             return contextlib.nullcontext()
         from torch.distributed.tensor.experimental import implicit_replication
@@ -147,6 +179,9 @@ class ShardCtx:
 
 
 NULL_CTX = ShardCtx()
+#: the mesh axes over which the train rules shard a weight's "embed"
+#: dimension (FSDP): :meth:`ShardCtx.param` gathers them before use
+FSDP_AXES = ("data",)
 
 
 def stack(tree, n: int):
@@ -306,7 +341,7 @@ def decode_attention(q, k_cache, v_cache, *, lengths, window=None, cap=None,
 
     On a mesh ``q`` is a DTensor placed by heads and the caches are
     DTensors placed by KV heads (dimension 2), each rank's block its own
-    slot buffers: the body runs on each rank's heads under ``local_map``
+    slot buffers: the body runs on each rank's heads
     (:func:`~repro_torch.dist.local.on_local_heads`), and the output is
     placed as ``q``'s heads are. Where the rank's query heads read other
     KV heads than it holds in order (the KV replicated because the model

@@ -22,7 +22,9 @@ path: ``prefill``, ``sequence``, ``decode_paged`` and the slot-cache
 ``decode_into`` with a :class:`~repro_torch.models.layers.ShardCtx`) the
 weights are DTensors, the residual stream is replicated, the logits are
 sharded by vocabulary, and the page pool's tensors (or the slot caches)
-are each rank's own block of the KV heads.
+are each rank's own block of the KV heads. :meth:`Model.loss` takes a
+``ctx`` too, for the dense family's training step on a mesh (FSDP over
+"data", tensor parallel over "model").
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.local import lookup_rows, vocab_cross_entropy
 from repro_torch.kernels import kv_quant
 from repro_torch.kernels.flash_attention.ops import prefill_attention
 from repro_torch.models.config import ModelConfig
@@ -89,6 +92,21 @@ def _check_ctx(cfg: ModelConfig, ctx) -> None:
             f"{cfg.name} ({cfg.family}) on a mesh of more than one device is not ported: "
             f"the {'/'.join(MESH_FAMILIES)} families serve there; the other families on a "
             "mesh are later steps of ROADMAP section 1 item 5")
+
+
+#: the families whose training step runs on a mesh of more than one device
+TRAIN_MESH_FAMILIES = ("dense",)
+
+
+def check_train_mesh(cfg: ModelConfig) -> None:
+    """Only the dense family (without alternation) trains on a mesh so
+    far."""
+    if cfg.family not in TRAIN_MESH_FAMILIES or cfg.local_global_alternating:
+        raise NotImplementedError(
+            f"training {cfg.name} ({cfg.family}) on a mesh of more than one device is not "
+            f"ported: the {'/'.join(TRAIN_MESH_FAMILIES)} family trains there; MoE, mamba2/"
+            "zamba2 and the other families on a mesh are later steps of ROADMAP section 1 "
+            "item 5")
 
 
 def _stack_layers(cols) -> tuple:
@@ -273,8 +291,8 @@ class Model(nn.Module):
         """f32 logits; on a mesh sharded by vocabulary (``[..., V]``), and
         the softcap, elementwise, runs on each rank's shard."""
         p = self.params
-        h = rmsnorm(h, p.ln_f)
-        logits = softcap((h @ p.head).to(F32), self.cfg.final_logit_softcap)
+        h = rmsnorm(h, ctx.param(p.ln_f))
+        logits = softcap((h @ ctx.param(p.head)).to(F32), self.cfg.final_logit_softcap)
         return ctx.constrain(logits, ("batch", *[None] * (logits.dim() - 2), "vocab_act"))
 
     # ------------------------------------------------------- sequence mode
@@ -350,8 +368,10 @@ class Model(nn.Module):
                 steps = [(p, (prefix["k"][l], prefix["v"][l])) for l, p in enumerate(layers)]
 
             def body(h, p, pre=None):
+                # on a mesh each weight is gathered where FSDP shards it,
+                # inside the block so that remat gathers it again
                 h, kv, a = apply_dense_block(
-                    p, h, cfg, positions=positions, window=cfg.sliding_window,
+                    ctx.params(p), h, cfg, positions=positions, window=cfg.sliding_window,
                     prefix=pre, prefix_valid=prefix_valid, with_aux=True, ctx=ctx)
                 return h, kv if keep else None, a
 
@@ -484,7 +504,7 @@ class Model(nn.Module):
         return (*t.shape[:3], self.cfg.num_kv_heads, t.shape[4])
 
     # -------------------------------------------------------------- train
-    def loss(self, batch: dict):
+    def loss(self, batch: dict, ctx=NULL_CTX):
         """The training loss on ``batch["tokens"]`` [B, S+1]: next-token
         cross-entropy of ``tokens[:, :-1]`` predicting ``tokens[:, 1:]``
         (logits and their log-sum-exp in f32), plus 0.01 x the summed MoE
@@ -492,22 +512,43 @@ class Model(nn.Module):
         only the text positions; encdec takes ``batch["frames"]``. Returns
         ``(loss, {"ce": ce, "aux": aux})`` as the reference's ``Model.loss``;
         differentiate it with ``torch.autograd``. On the card every
-        attention layer runs the flash kernel forward and backward."""
+        attention layer runs the flash kernel forward and backward.
+
+        On a mesh (``ctx``; the dense family without alternation) the
+        weights are DTensors placed by the train rules, ``tokens`` a DTensor
+        sharded by rows over the batch's axes ("data"), each rank's rows its
+        own. The embedding is looked up on each rank's vocabulary rows, the
+        residual stream is sharded by rows and whole over "model", the
+        logits are sharded by vocabulary and the cross-entropy is taken on
+        them (:func:`~repro_torch.dist.local.vocab_cross_entropy`): the
+        mean over the whole batch, a plain tensor equal on every rank."""
+        if ctx.mesh is not None:
+            check_train_mesh(self.cfg)
+        with ctx.scope():
+            return self._loss(batch, ctx)
+
+    def _loss(self, batch: dict, ctx):
         cfg = self.cfg
         tokens = batch["tokens"].long()
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
-        x = self.params.embed[inputs]
+        if ctx.mesh is None:
+            x = lookup_rows(self.params.embed, inputs)
+        else:
+            x = ctx.embedding(inputs, self.params.embed, ("batch", "seq", "embed_act"))
         n_img = 0
         if cfg.family == "vlm":
             img = batch["image_embeds"].to(x.dtype)
             n_img = img.shape[1]
             x = torch.cat([img, x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        h, _, aux = self.sequence(x, positions, frames=batch.get("frames"))
+        h, _, aux = self.sequence(x, positions, frames=batch.get("frames"), ctx=ctx)
         aux = torch.as_tensor(aux, dtype=F32, device=h.device)
         if n_img:
             h = h[:, n_img:, :]
-        logits = self._logits(h)
+        logits = self._logits(h, ctx)
+        if ctx.mesh is not None:
+            ce = vocab_cross_entropy(logits, labels)
+            return ce + 0.01 * aux, {"ce": ce, "aux": aux}
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[..., None])[..., 0]
         ce = (logz - gold).mean()

@@ -10,8 +10,9 @@ leaf's dtype. Both packages therefore hold identical weights with no
 checkpoint. :func:`load_jax_params` carries a tree of numpy arrays (the
 reference's parameters after ``np.asarray``) across leaf for leaf.
 :func:`spec_tree` and :func:`sharding_tree` resolve a descriptor tree
-under :mod:`repro_torch.dist` rules on a mesh, and :func:`device_put_tree`
-places a tensor tree by a sharding tree.
+under :mod:`repro_torch.dist` rules on a mesh, :func:`device_put_tree`
+places a tensor tree by a sharding tree (each rank keeping its block) and
+:func:`gather_tree` gathers a placed tree whole onto the host.
 """
 from __future__ import annotations
 
@@ -89,19 +90,18 @@ def device_put_tree(values: dict, shardings: dict) -> dict:
     out = {}
     for k, v in values.items():
         sh = shardings[k]
-        if isinstance(v, dict):
-            out[k] = device_put_tree(v, sh)
-        elif sh.mesh.size == 1:
-            out[k] = v.to(sh.mesh.device())
-        else:
-            out[k] = _put_block(v, sh)
+        out[k] = device_put_tree(v, sh) if isinstance(v, dict) else put_block(v, sh)
     return out
 
 
-def _put_block(v: torch.Tensor, sh) -> torch.Tensor:
-    """This rank's block of the full tensor ``v`` as a DTensor on
-    ``sh.mesh``, on the rank's device (on ``v``'s own for a layout with no
-    devices behind it)."""
+def put_block(v: torch.Tensor, sh) -> torch.Tensor:
+    """The full tensor ``v`` placed by the sharding ``sh``: on a mesh of
+    one device moved there (``.to``), else this rank's block as a DTensor
+    on ``sh.mesh``, on the rank's device (on ``v``'s own for a layout with
+    no devices behind it). Train rules shard a weight's "embed" dimension
+    over "data" (FSDP) as well as its heads over "model"."""
+    if sh.mesh.size == 1:
+        return v.to(sh.mesh.device())
     from repro_torch.dist.local import is_dtensor, place_block
 
     mesh, placements = sh.mesh.device_mesh(), sh.placements()
@@ -111,13 +111,31 @@ def _put_block(v: torch.Tensor, sh) -> torch.Tensor:
         raise ValueError(f"a DTensor on {v.device_mesh} {v.placements} is placed "
                          f"by {sh.spec} on {sh.mesh}")
     dev = v.device if sh.mesh.devices is None else sh.mesh.rank_device()
-    local = v[sh.local_slices(v.shape, sh.mesh.coordinates())].to(dev).contiguous()
+    # a copy, so that the whole tensor is not held through a view of it
+    local = v[sh.local_slices(v.shape, sh.mesh.coordinates())].to(dev, copy=True)
+    local = local.contiguous()
     return place_block(local, mesh, placements, v.shape)
 
 
-def materialize(tree, seed: int = 0, device="cpu") -> dict:
+def gather_tree(tree: dict) -> dict:
+    """A nested dict of tensors with every DTensor gathered whole (an
+    all-gather on every rank of its mesh, leaf by leaf in sorted-key
+    order), each leaf on the host: what a checkpoint writes and a test
+    compares."""
+    from repro_torch.dist.local import full, is_dtensor
+
+    with torch.no_grad():
+        return {k: gather_tree(v) if isinstance(v, dict)
+                else (full(v) if is_dtensor(v) else v).detach().cpu()
+                for k, v in sorted(tree.items())}
+
+
+def materialize(tree, seed: int = 0, device="cpu", keep=None) -> dict:
     """Initialize real parameter values: a nested dict of tensors on
-    ``device`` with the same keys as ``tree``."""
+    ``device`` with the same keys as ``tree``. ``keep(name, t)`` (a rank
+    on a mesh: its own block, :func:`put_block`) replaces each leaf as
+    soon as it is drawn, so no more than one whole leaf is held at a
+    time; the stream is the same whatever it keeps."""
     rng = np.random.default_rng(seed)
     out = []
     for name, l in leaves(tree):
@@ -137,7 +155,8 @@ def materialize(tree, seed: int = 0, device="cpu") -> dict:
             for out_slice in t if len(l.shape) >= 3 else t[None]:
                 vals = rng.standard_normal(tuple(out_slice.shape), dtype=np.float32) * std
                 out_slice.copy_(torch.from_numpy(np.asarray(vals, np.float32)))
-        out.append((name, t.to(device)))
+        t = t.to(device)
+        out.append((name, t if keep is None else keep(name, t)))
     return _unflatten(out)
 
 

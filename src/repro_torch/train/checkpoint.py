@@ -69,7 +69,7 @@ def save(ckpt_dir: str | os.PathLike, step: int, tree, *, host_id: int = 0,
     flat = {key: _to_numpy(leaf) for key, leaf in _flat(tree)}
     shard_file = tmp / f"host{host_id:02d}.npz"
     np.savez(shard_file, **flat)
-    crc = zlib.crc32(shard_file.read_bytes())
+    crc = _crc32(shard_file)
 
     if host_id == 0:
         manifest = {
@@ -119,6 +119,16 @@ def latest_step(ckpt_dir: str | os.PathLike) -> int | None:
     return None
 
 
+def _crc32(path: Path, block: int = 1 << 26) -> int:
+    """The file's CRC32, read a block at a time (the value of
+    ``zlib.crc32`` over its whole bytes, without holding them)."""
+    crc = 0
+    with open(path, "rb") as f:
+        while chunk := f.read(block):
+            crc = zlib.crc32(chunk, crc)
+    return crc
+
+
 def _verify(ckpt: Path) -> bool:
     try:
         manifest = json.loads((ckpt / "manifest.json").read_text())
@@ -126,7 +136,7 @@ def _verify(ckpt: Path) -> bool:
         return False
     for shard, crc in manifest["shards"].items():
         f = ckpt / shard
-        if not f.exists() or zlib.crc32(f.read_bytes()) != crc:
+        if not f.exists() or _crc32(f) != crc:
             return False
     return True
 
@@ -149,11 +159,14 @@ def _unflatten(pairs) -> dict:
 
 
 def restore(ckpt_dir: str | os.PathLike, tree, *, step: int | None = None, host_id: int = 0,
-            device="cpu"):
+            device="cpu", place=None):
     """Restore ``tree``-structured tensors from the newest valid checkpoint
     (or ``step``), passing over corrupt ones for older ones. ``tree`` is a
     nested dict of :class:`Leaf` descriptors or tensors naming the leaves
-    and their types. Returns ``(tree_of_tensors on device, step, extra)``."""
+    and their types. Leaves are read one at a time; ``place(key, t)``
+    (a rank on a mesh: its block of the whole leaf ``t``, keyed as
+    ``params/blocks/attn/wq``) replaces each as it is read, else it is
+    moved to ``device``. Returns ``(tree_of_tensors, step, extra)``."""
     ckpt_dir = Path(ckpt_dir)
     if step is not None:
         order = [ckpt_dir / f"step_{step:08d}"]
@@ -163,14 +176,13 @@ def restore(ckpt_dir: str | os.PathLike, tree, *, step: int | None = None, host_
         if not _verify(ckpt):
             continue
         manifest = json.loads((ckpt / "manifest.json").read_text())
-        with np.load(ckpt / f"host{host_id:02d}.npz") as z:
-            flat = {k: z[k] for k in z.files}
         vals = []
-        for key, ref in _flat(tree):
-            t = _from_numpy(flat[key])
-            want = _dtype_of(ref)
-            if want is not None and t.dtype != want:
-                t = t.to(want)
-            vals.append((key, t.to(device)))
+        with np.load(ckpt / f"host{host_id:02d}.npz") as z:
+            for key, ref in _flat(tree):
+                t = _from_numpy(z[key])
+                want = _dtype_of(ref)
+                if want is not None and t.dtype != want:
+                    t = t.to(want)
+                vals.append((key, t.to(device) if place is None else place(key, t)))
         return _unflatten(vals), manifest["step"], manifest.get("extra", {})
     raise FileNotFoundError(f"no valid checkpoint under {ckpt_dir}")

@@ -191,3 +191,21 @@ def moe_input(case) -> np.ndarray:
     name, B, S = case
     rng = np.random.default_rng(B * 100 + S)
     return rng.standard_normal((B, S, 256)).astype(np.float32)
+
+
+# ------------------------------------------------- the train suite
+#: the meshes the train suite trains on: FSDP over "data", then tensor
+#: parallel over "model"
+TRAIN_MESHES = ((2, 1), (1, 2))
+#: the launcher's data settings at a reduced size: 2 microbatches of 2 rows
+TRAIN_DATA = dict(seq_len=32, global_batch=4)
+TRAIN_STEPS = 3
+TRAIN_MICRO = 2
+#: every (configuration, mesh, dtype) the suite holds against the
+#: reference: f32 trains TRAIN_STEPS steps, bf16 takes the step-1 gradient
+TRAIN_CASES = [(name, mesh, dtype) for dtype in ("f32", "bf16") for name in ("qwen", "gqa")
+               for mesh in TRAIN_MESHES]
+
+
+def train_key(name: str, mesh, dtype: str) -> str:
+    return f"{name} {mesh[0]}x{mesh[1]} {dtype}"

@@ -12,9 +12,12 @@ the sharded engine (monolithic and chunked, reduced qwen and its GQA 6/3
 variant) and the router's replay over two replicas aliasing the mesh. The
 ``serving`` suite runs the int8 quantize sites on one page each, the
 int8, dense-slot and MoE engines, the router's replay with int8 offload
-and the MoE layer alone in f32. Every collective goes through
-``torch.distributed`` (DTensor's functional collectives are refused).
-Imports torch, numpy and the port, never JAX.
+and the MoE layer alone in f32. The ``train`` suite trains on ``(2, 1)``
+and ``(1, 2)`` meshes (``_tp_common.TRAIN_CASES``) beside the port on one
+device, crashes and resumes on ``(2, 1)``, restores that run's checkpoint
+on ``(1, 2)``, and shows what raises. Every collective goes through
+``torch.distributed`` (DTensor's functional collectives are refused,
+over every backward too). Imports torch, numpy and the port, never JAX.
 """
 from __future__ import annotations
 
@@ -35,8 +38,8 @@ WORLD = 2
 
 def start(work: Path, suite: str = "tp") -> list:
     """Spawn the ranks of ``suite`` (``"tp"``, ``tests/test_torch_tp.py``'s,
-    or ``"serving"``, ``tests/test_torch_tp_serving.py``'s) over a file
-    store in ``work``."""
+    ``"serving"``, ``tests/test_torch_tp_serving.py``'s, or ``"train"``,
+    ``tests/test_torch_tp_train.py``'s) over a file store in ``work``."""
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank, args=(r, str(work), suite)) for r in range(WORLD)]
     for p in procs:
@@ -100,8 +103,9 @@ def join(procs: list, deadline_s: float) -> list:
 
 def _rank(rank: int, work: str, suite: str) -> None:
     work = Path(work)
+    jobs = {"serving": _serving_jobs, "train": _train_jobs}.get(suite, _jobs)
     try:
-        out, arrays = (_serving_jobs if suite == "serving" else _jobs)(rank, work)
+        out, arrays = jobs(rank, work)
     except BaseException:
         (work / f"rank{rank}.err").write_text(traceback.format_exc())
         raise
@@ -477,3 +481,213 @@ def _moe_layer(cfg, params, case, dev) -> np.ndarray:
     with ctx.scope():
         y, _ = apply_moe(layer0, x, cfg, ctx)
     return ctx.full(y).numpy()
+
+
+# ------------------------------------------------- the train suite
+def _train_jobs(rank: int, work: Path):
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.local import no_functional_collectives
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}", rank=rank,
+                            world_size=WORLD)
+    cpu = torch.device("cpu")
+    out, arrays = {"rank": rank}, {}
+    with no_functional_collectives():
+        for name, shape, dtype in C.TRAIN_CASES:
+            key = C.train_key(name, shape, dtype)
+            got, a = _train_case(name, shape, dtype, cpu)
+            out.update({f"{key} {k}": v for k, v in got.items()})
+            arrays.update({f"{key} {k}": v for k, v in a.items()})
+        for shape in C.TRAIN_MESHES:
+            key = C.train_key("qwen", shape, "bf16")
+            for m in (1, 2):
+                params = _gathered(_run(_train_trainer("qwen", shape, "bf16", cpu, steps=1,
+                                                       micro=m)).params)
+                arrays.update({f"{key} micro{m} param {n}": v for n, v in params.items()})
+        a, got = _crash_and_restore(work, cpu)
+        arrays.update(a)
+        out.update(got)
+        out["indivisible batch"] = _raises(lambda: _train_trainer(
+            "qwen", (2, 1), "bf16", cpu, batch=2)._tokens_for(0), ValueError)
+        out["functional collective in a backward"] = _functional_in_backward(cpu)
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank:
+        arrays = {}     # rank 0's gathered arrays are both ranks'
+    return out, arrays
+
+
+def _train_cfg(name: str):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(C.ARCH).reduced()
+    return dataclasses.replace(cfg, **C.GQA) if name == "gqa" else cfg
+
+
+def _train_mesh(shape, dev):
+    from repro_torch.launch.mesh import Mesh
+
+    return Mesh(("data", "model"), np.array([dev] * WORLD, dtype=object).reshape(shape))
+
+
+def _f32_tree(tree):
+    """The descriptor tree with every floating leaf in f32 (the reference
+    side's ``f32_tree``)."""
+    import torch
+
+    return {k: _f32_tree(v) if isinstance(v, dict) else
+            dataclasses.replace(v, dtype=torch.float32) if v.dtype.is_floating_point else v
+            for k, v in tree.items()}
+
+
+def _train_trainer(name: str, shape, dtype: str, dev, *, steps: int = C.TRAIN_STEPS,
+                   micro: int = C.TRAIN_MICRO, batch: int | None = None, **tcfg):
+    """The port's trainer of a case: on the mesh ``shape``, or on ``dev``
+    alone for ``shape`` None."""
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.optimizer import describe_opt_state
+
+    cfg = _train_cfg(name)
+    data = {**C.TRAIN_DATA, **({} if batch is None else {"global_batch": batch})}
+    kw = dict(device=dev) if shape is None else dict(mesh=_train_mesh(shape, dev))
+    tr = Trainer(cfg, TrainConfig(steps=steps, microbatches=micro, log_every=1, **tcfg),
+                 DataConfig(vocab_size=cfg.vocab_size, **data), **kw)
+    if dtype == "f32":
+        tr.param_tree = _f32_tree(tr.param_tree)
+        tr.opt_tree = describe_opt_state(tr.param_tree, bf16_moments=cfg.bf16_moments)
+    return tr
+
+
+def _run(tr, state=None, fault=None):
+    return tr.run(tr.init_state() if state is None else state, fault)
+
+
+def _gathered(tree) -> dict:
+    """Leaf name -> the whole leaf in f32 (numpy)."""
+    from repro_torch.models.params import flatten_tree, gather_tree
+
+    return {n: t.float().numpy() for n, t in flatten_tree(gather_tree(tree))}
+
+
+def _gathered_grads(tr, state) -> tuple[dict, list]:
+    """The step-1 gradient (each leaf's mean over the microbatches, whole)
+    and the microbatches' losses."""
+    from repro_torch.dist.local import full, is_dtensor, place_block
+    from repro_torch.models.params import flatten_tree
+
+    acc, losses = tr.gradients(state, tr._tokens_for(0))
+    out = {}
+    for (n, leaf), a in zip(flatten_tree(state.params), acc):
+        if is_dtensor(leaf):
+            a = full(place_block(a, leaf.device_mesh, leaf.placements, leaf.shape))
+        out[n] = a.numpy()
+    return out, [float(x) for x in losses]
+
+
+def _held_bytes(tree) -> int:
+    from repro_torch.dist.local import is_dtensor
+    from repro_torch.models.params import flatten_tree
+
+    return sum((t.to_local() if is_dtensor(t) else t).nbytes for _, t in flatten_tree(tree))
+
+
+def _train_case(name: str, shape, dtype: str, dev) -> tuple[dict, dict]:
+    """One case on the mesh and on one device: the step-1 gradient and
+    losses; in f32 ``C.TRAIN_STEPS`` steps' losses and final parameters;
+    the bytes the rank holds."""
+    import torch.distributed as dist
+
+    out, arrays = {}, {}
+    # the one-device side needs no collective: rank 0 runs it alone
+    sides = (("mesh", shape), ("one", None))[:1 if dist.get_rank() else 2]
+    for side, where in sides:
+        tr = _train_trainer(name, where, dtype, dev)
+        state = tr.init_state()
+        grads, out[f"{side} losses1"] = _gathered_grads(tr, state)
+        arrays.update({f"{side} grad {n}": g for n, g in grads.items()})
+        if side == "mesh":
+            out["param bytes"] = _held_bytes(state.params)
+            out["moment bytes"] = _held_bytes({"m": state.opt["m"], "v": state.opt["v"]})
+        if dtype == "f32":
+            state = _run(tr, state)
+            out[f"{side} losses"] = [m["loss"] for m in tr.metrics]
+            arrays.update({f"{side} param {n}": p for n, p in _gathered(state.params).items()})
+    return out, arrays
+
+
+def _crash_and_restore(work: Path, dev) -> tuple[dict, dict]:
+    """A crash at step 2 of 4 on ``(2, 1)`` (a checkpoint every step),
+    resumed, against the run without one; then the resumed run's last
+    checkpoint restored on ``(1, 2)``."""
+    from repro_torch.models.params import flatten_tree
+    from repro_torch.train.loop import FaultInjector, InjectedFailure
+
+    ckpt = work / "ckpt"
+    kw = dict(steps=4, ckpt_every=1, ckpt_dir=str(ckpt))
+    out, arrays = {}, {}
+    tr = _train_trainer("qwen", (2, 1), "bf16", dev, **kw)
+    out["crashed"] = _raises(lambda: _run(tr, fault=FaultInjector((2,))), InjectedFailure)
+    tr = _train_trainer("qwen", (2, 1), "bf16", dev, **kw)
+    state = tr.resume_or_init()
+    out["resumed at"] = state.step
+    state = _run(tr, state)
+    whole = _gathered({"params": state.params, "opt": state.opt})
+    clean = _run(_train_trainer("qwen", (2, 1), "bf16", dev, steps=4))
+    arrays.update({f"resumed {n}": v for n, v in whole.items()})
+    arrays.update({f"clean {n}": v for n, v in _gathered({"params": clean.params}).items()})
+    out["resumed losses"] = [m["loss"] for m in tr.metrics]
+    re = _train_trainer("qwen", (1, 2), "bf16", dev, **kw)
+    state = re.resume_or_init()
+    out["restored 1x2 step"] = state.step
+    out["restored 1x2 local shapes"] = {
+        n: list(t.to_local().shape) for n, t in flatten_tree({"params": state.params})}
+    arrays.update({f"restored 1x2 {n}": v
+                   for n, v in _gathered({"params": state.params, "opt": state.opt}).items()})
+    return arrays, out
+
+
+def _raises(fn, exc) -> str | None:
+    """The message of the ``exc`` that ``fn()`` raises, else ``None``."""
+    try:
+        fn()
+    except exc as e:
+        return str(e)
+    return None
+
+
+def _functional_in_backward(dev) -> dict:
+    """The same product under autograd on a ``(1, 2)`` mesh, a replicated
+    input times a weight sharded by columns, its input a DTensor made by
+    ``DTensor.from_local`` and by the port's ``place_block``: the first's
+    backward asks DTensor to all-reduce the input's partial gradient (a
+    functional collective, which raises here), the port's all-reduces it
+    through ``torch.distributed``. Returns the first's error and the
+    port's gradient against the product's."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.dist.local import place_block
+
+    mesh = _train_mesh((1, 2), dev).device_mesh()
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 8, generator=g)
+    w = torch.randn(8, 6, generator=g)
+    w_d = place_block(w.chunk(2, dim=1)[mesh.get_local_rank(1)], mesh, (Replicate(), Shard(1)),
+                      w.shape)
+    out = {}
+    for how in ("DTensor.from_local", "place_block"):
+        t = x.clone().requires_grad_(True)
+        x_d = (DTensor.from_local(t, mesh, (Replicate(), Replicate()), run_check=False)
+               if how == "DTensor.from_local" else
+               place_block(t, mesh, (Replicate(), Replicate()), x.shape))
+        y = x_d @ w_d
+        try:
+            (grad,) = torch.autograd.grad(y.to_local().sum(), t)
+            out[how] = float((grad - w.sum(1)).abs().max())
+        except RuntimeError as e:
+            out[how] = f"RuntimeError: {e}"
+    return out

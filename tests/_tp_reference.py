@@ -1,7 +1,7 @@
 """The reference side of ``tests/test_torch_tp.py`` and
 ``tests/test_torch_tp_serving.py``, run as a script in a process of its
 own: ``python _tp_reference.py <work dir> [tp|serving]`` (the suite,
-``tp`` by default).
+``tp`` by default, ``serving`` or ``train``).
 
 JAX sees two CPU devices only if ``XLA_FLAGS`` is set before it is first
 imported (as ``src/repro/launch/dryrun.py`` does), so this runs apart from
@@ -170,6 +170,62 @@ def serving(work: Path) -> None:
     (work / "results.json").write_text(json.dumps(out))
 
 
+def f32_tree(tree):
+    """A descriptor tree with every floating leaf in f32: both packages
+    draw the same f32 values from it (the seed's stream before the cast)."""
+    return {k: f32_tree(v) if isinstance(v, dict) else
+            dataclasses.replace(v, dtype=jnp.float32) if jnp.issubdtype(v.dtype, jnp.floating)
+            else v for k, v in tree.items()}
+
+
+def train_suite(work: Path) -> None:
+    """The train suite: for each case of ``C.TRAIN_CASES`` the reference's
+    ``Trainer`` on the mesh, its step-1 gradient (the mean over the
+    microbatches of a jitted ``value_and_grad(model.loss)`` on the train
+    rules' shardings) and, in f32, the losses and parameters of
+    ``C.TRAIN_STEPS`` steps."""
+    from jax.sharding import Mesh, NamedSharding
+    from repro.train.data import DataConfig
+    from repro.train.loop import TrainConfig, Trainer
+    from repro.train.optimizer import describe_opt_state
+
+    cfgs = configs()
+    out, arrays = {"devices": len(jax.devices())}, {}
+    for name, shape, dtype in C.TRAIN_CASES:
+        key = C.train_key(name, shape, dtype)
+        cfg = cfgs[name]
+        mesh = Mesh(np.array(jax.devices()).reshape(shape), ("data", "model"))
+        tr = Trainer(cfg, TrainConfig(steps=C.TRAIN_STEPS, microbatches=C.TRAIN_MICRO,
+                                      log_every=1),
+                     mesh, DataConfig(vocab_size=cfg.vocab_size, **C.TRAIN_DATA))
+        if dtype == "f32":
+            tr.param_tree = f32_tree(tr.param_tree)
+            tr.opt_tree = describe_opt_state(tr.param_tree, bf16_moments=cfg.bf16_moments)
+        state = tr.init_state()
+        p_sh, _ = tr.shardings()
+        tok_sh = NamedSharding(mesh, tr.rules.spec(mesh, ("batch", None)))
+        grad_fn = jax.jit(jax.value_and_grad(
+            lambda p, t: tr.model.loss(p, {"tokens": t}, tr.ctx), has_aux=True),
+            in_shardings=(p_sh, tok_sh))
+        tokens = tr._tokens_for(0)
+        acc, losses = None, []
+        for tok in tokens:
+            (loss, _), g = grad_fn(state.params, tok)
+            g = jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)), g)
+            acc = g if acc is None else jax.tree.map(np.add, acc, g)
+            losses.append(float(loss))
+        out[f"{key} losses1"] = losses
+        for leaf, g in flatten_tree(acc):
+            arrays[f"{key} grad {leaf}"] = g / tokens.shape[0]
+        if dtype == "f32":
+            state = tr.run(state)
+            out[f"{key} losses"] = [m["loss"] for m in tr.metrics]
+            for leaf, p in flatten_tree(state.params):
+                arrays[f"{key} param {leaf}"] = np.asarray(p.astype(jnp.float32))
+    np.savez(work / "pools.npz", **arrays)
+    (work / "results.json").write_text(json.dumps(out))
+
+
 def main(work: Path) -> None:
     assert len(jax.devices()) == 2, jax.devices()
     cfgs = configs()
@@ -195,4 +251,4 @@ def main(work: Path) -> None:
 if __name__ == "__main__":
     assert len(jax.devices()) == 2, jax.devices()
     suite = sys.argv[2] if len(sys.argv) > 2 else "tp"
-    (serving if suite == "serving" else main)(Path(sys.argv[1]))
+    {"serving": serving, "train": train_suite}.get(suite, main)(Path(sys.argv[1]))

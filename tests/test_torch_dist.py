@@ -593,8 +593,18 @@ def test_trainer_on_a_host_mesh_is_the_device_trainer():
     losses = _losses(on_mesh)
     assert len(losses) == 3 and all(np.isfinite(losses))
     assert losses == _losses(make(device="cpu"))
-    with pytest.raises(NotImplementedError, match="sharded tensors"):
-        make(mesh=Mesh(("data", "model"), np.array([[CPU, CPU]], dtype=object)))
+    # a mesh of more than one device steps SPMD, one process a rank: the
+    # trainer steps this rank's device, which needs a process group (the
+    # module's fake group may still be up in this worker)
+    import torch.distributed as dist
+
+    two = Mesh(("data", "model"), np.array([[CPU, CPU]], dtype=object))
+    if dist.is_initialized():
+        on_two = make(mesh=two)
+        assert on_two.device == CPU and on_two.ctx.mesh is two
+    else:
+        with pytest.raises(RuntimeError, match="needs a process group"):
+            make(mesh=two)
     with pytest.raises(ValueError, match="not the mesh's device"):
         make(mesh=make_host_mesh("cpu"), device="cuda:0")
 

@@ -23,7 +23,7 @@ Both start together once per module and are read by every test here:
   (but the wall clock) and action streams equal to the reference's,
   pages offloaded, reloaded and migrated;
 * the refusals that remain on a mesh (a data axis, the vlm family,
-  ``Trainer``), each naming ROADMAP. Dense slots, int8 pages and the MoE
+  ``Trainer`` for a family other than dense), each naming ROADMAP. Dense slots, int8 pages and the MoE
   family on the mesh are ``tests/test_torch_tp_serving.py``'s.
 """
 from __future__ import annotations
@@ -232,7 +232,9 @@ def test_engine_refuses_what_a_mesh_does_not_serve_yet(what):
 
 
 def test_trainer_refuses_a_mesh():
-    cfg = get_config(C.ARCH).reduced()
+    # the dense family trains on a mesh (tests/test_torch_tp_train.py); the
+    # others refuse one, before any process group is asked for
+    cfg = get_config("mamba2-2.7b").reduced()
     mesh = Mesh(("data", "model"), np.array([[CPU, CPU]], dtype=object))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, TrainConfig(), DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
