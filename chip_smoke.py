@@ -25,6 +25,10 @@ on failure (a failure exits non-zero and prints no final line):
    whisper's 1500-position cross cache read as such pages), flash
    attention (the reference's shapes and variants, ragged lengths,
    q_offset chunks, kv_hole, kv_lengths, GQA, MQA, D=128, both layouts,
+   the serving chunk's hole with its lower end an int32 on the card (as
+   a captured chunk reads it), bit-equal to the host integer with the
+   hole inside a 64-key tile, straddling a tile edge, on one and over the
+   whole prefix, in bf16 and f32,
    gemma2's 4600-token local layer with window 4096 and softcap 50,
    whisper's 1500-position bidirectional encoder and its cross-attention
    from a 64-token prompt, internvl2's 856-token prefill at 48/8 heads of
@@ -53,18 +57,27 @@ on failure (a failure exits non-zero and prints no final line):
    from a seed, served by two engines behind ``MoriRouter.replay`` with the
    launcher's defaults (monolithic prefill), then again with chunked
    prefill, each engine warmed first (``Engine.warmup``: one CUDA graph of
-   the decode step per table bucket) with the compile tracker armed, each
-   replay run under ``torch.profiler``; no graph may be captured during a
-   replay, every decode step must be one replay, no paged wrapper may be
-   called (a replay calls none), the paged kernels the device ran (the
-   kernel's own count on the device, one a launch; the profiler's count
-   of ``paged_split_kernel`` instances beside it) must equal layers x
-   decode steps, the flash kernel's launches layers x
-   prefill passes, and pages must move between the tiers; then each table
-   bucket's graph (bf16, and one on an int8 pool) against the same step
-   run eagerly on a clone of the pool, bit for bit, each replay running
-   one paged kernel a layer; then where a full-width decode step's time
-   goes, graphed and eager;
+   the decode step per table bucket, and in the chunked replay one of the
+   chunk prefill per (prefix-page bucket x chunk bucket)) with the
+   compile tracker armed, each replay run under ``torch.profiler``; no
+   graph may be captured during a replay (over both caches), every decode
+   step and every prefill chunk must be one replay, no paged wrapper and
+   no flash wrapper but the monolithic prefills' may be called (a replay
+   calls none), the paged kernels the device ran (the kernel's own count
+   on the device, one a launch; the profiler's count of
+   ``paged_split_kernel`` instances beside it) must equal layers x decode
+   steps, the flash kernels the device ran (its own count) layers x
+   prefill passes (the monolithic prefills and the chunk graphs'
+   replays), and pages must move between the tiers; then the chunked
+   replay again with every chunk's staged step run eagerly, whose tokens
+   the graphed replay's must equal or part from only at a near tie; then
+   each table bucket's graph (bf16, and one on an int8 pool) and each
+   chunk bucket's graph (bf16 and int8 pools, a real prefix, a ragged
+   chunk) against the same step run eagerly on a clone of the pool, bit
+   for bit, each decode replay running one paged kernel a layer and each
+   chunk replay one flash kernel a layer; then where a full-width
+   chunk's time goes (64 tokens over a 12-page prefix and over none) and
+   a decode step's, graphed and eager; and the phase's seconds;
 5. the SSM main path: ``mamba2-2.7b`` at full width with random weights
    from a seed, served by a warmed ``SsmEngine`` behind
    ``MoriRouter.replay``; the SSD kernel's launches must equal layers x
@@ -80,7 +93,9 @@ on failure (a failure exits non-zero and prints no final line):
    the same checks; one full-width MoE layer in bf16 against the same
    function in f32 on the card (decode and a 384-token prefill: chosen
    experts and kept slots equal, the output in the model band); every
-   table bucket's dbrx decode graph against its eager step, bit for bit;
+   table bucket's dbrx decode graph and one chunk bucket's graph (the
+   MoE layer inside a captured chunk) against its eager step, bit for
+   bit;
    and where a decode step's time goes, the MoE products against the
    bytes of expert weights they must read;
 7. the reference's other serving modes, at qwen's full width on phase
@@ -166,9 +181,10 @@ on failure (a failure exits non-zero and prints no final line):
 11. the audit plane on the card: the step auditor's seeded selftest
    (``repro_torch.analysis.jitaudit``); the audit of full-width qwen
    engines on phase 4's weights with the launcher's pools (every paged
-   decode bucket, every chunk-prefill spec, the dense-slot spec) and of
+   decode bucket, every chunk-prefill bucket, the dense-slot spec) and of
    the three kernels' targets: no violation, and each captured bucket's
-   replay timed against its static bound (roofline share in (0, 1.05]);
+   replay, decode and chunk, timed against its static bound (roofline
+   share in (0, 1.05]);
    the replay gate (a warmed engine behind the router's chunked pump
    captures nothing after warmup); the account: every timing line's
    bytes, operations and bound equal what the kernels' ``cost`` gives at
@@ -244,9 +260,10 @@ on failure (a failure exits non-zero and prints no final line):
    backward beside it.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
-hold the per-kernel JSON record and the card's name and power limit. The
-``graph parity`` line holds each graph's largest logit difference from
-the eager step (qwen, mamba2 and dbrx).
+hold the per-kernel JSON record and the card's name and power limit,
+after the command's seconds. The ``graph parity`` line holds each graph's
+largest logit difference from the eager step (qwen's decode and chunk
+graphs, mamba2 and dbrx).
 """
 from __future__ import annotations
 
@@ -1014,6 +1031,39 @@ def chunk_prefill_case(rng, dtype=torch.bfloat16):
     return q, k, v, kw
 
 
+#: the hole's lower ends of phase 2's device-operand case at the serving
+#: chunk (prefix 128 = two kv tiles of 64): inside the last prefix tile,
+#: straddling the tile edge at 64, on it (a whole tile skipped inside the
+#: hole) and the whole prefix
+DEVICE_HOLE_LOS = (FLASH_CHUNK["prefix_valid"], FLASH_KV_TILE - 14, FLASH_KV_TILE, 0)
+
+
+def check_device_hole_lo(rng) -> None:
+    """The serving chunk's hole with its lower end an int32 on the card, as
+    a captured chunk replays it (the kernel reads it there): bit-equal to
+    the same call with a host integer, and in the band of the plain
+    version, in bf16 (tensor cores) and f32 (CUDA cores), at each of
+    :data:`DEVICE_HOLE_LOS`."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    Sp = FLASH_CHUNK["Sp"]
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, _ = chunk_prefill_case(rng, dtype)
+        for lo in DEVICE_HOLE_LOS:
+            kw = dict(causal=True, q_offset=Sp)
+            host = ops.prefill_attention(q, k, v, kv_hole=(lo, Sp), **kw)
+            lo_dev = torch.tensor(lo, dtype=torch.int32, device=DEVICE)
+            dev = ops.prefill_attention(q, k, v, kv_hole=(lo_dev, Sp), **kw)
+            torch.cuda.synchronize()
+            name = f"prefill chunk hole [{lo}, {Sp}) lower end on the device {dtype}"
+            if not torch.equal(dev, host):
+                raise AssertionError(f"{name}: not bit-equal to the host integer, max "
+                                     f"{(dev.float() - host.float()).abs().max().item()}")
+            check_close(f"{name} (bit-equal to the host integer)", dev,
+                        ref.blockwise_attention(q, k, v, kv_hole=(lo, Sp), **kw),
+                        ATOL[str(dtype).removeprefix("torch.")])
+
+
 def check_flash_cases():
     """Flash attention against its plain versions: ``flash_attention``
     ([B,H,S,D]) against ``flash_attention_ref`` and ``prefill_attention``
@@ -1085,6 +1135,7 @@ def check_flash_cases():
     torch.cuda.synchronize()
     err = check_close("prefill main chunk over a bucketed prefix", out,
                       ref.blockwise_attention(q, k, v, **kw), ATOL["bfloat16"])
+    check_device_hole_lo(rng)
     # the layouts share the kernel: [B,H,S,D] views of the same data agree
     out_bhsd = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                    causal=True, q_offset=kw["q_offset"])
@@ -1655,6 +1706,15 @@ def paged_device_launches() -> int:
     return ops.KERNEL.device_launches(DEVICE)
 
 
+def flash_device_launches() -> int:
+    """The flash kernel's own count of the launches the card ran (its first
+    block adds one to an int32 on the device at each launch, inside a
+    replayed chunk graph too)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    return ops.KERNEL.device_launches(DEVICE)
+
+
 def _count_calls(obj, attr: str, counter: dict, key: str, when=lambda result: True):
     """Wrap ``obj.attr`` so that each call whose result passes ``when``
     adds one to ``counter[key]``."""
@@ -1672,7 +1732,7 @@ def _count_calls(obj, attr: str, counter: dict, key: str, when=lambda result: Tr
 # ------------------------------------------------------------ phase 4
 def replay_paged(args, chunked: bool, cfg=None, params=None, label="serve", *,
                  engine_kw=None, router_kw=None, replay_kw=None, profile=True,
-                 watch=None):
+                 watch=None, eager_chunks=False):
     """One full-width replay of a paged family through the router; returns
     the record, the engines and the router. Without ``cfg`` the launcher
     builds the engines and the router (``serve.build_router``, qwen); with
@@ -1683,13 +1743,21 @@ def replay_paged(args, chunked: bool, cfg=None, params=None, label="serve", *,
     prefill; ``replay_kw`` goes to ``replay`` (faults). With ``profile``
     the replay runs under ``torch.profiler``, which counts the paged
     kernels beside their own device count; ``watch(engines)`` runs after
-    warmup, before the replay."""
+    warmup, before the replay. A chunked replay warms and replays every
+    chunk bucket's graph; with ``eager_chunks`` each engine's chunk cache
+    is replaced, before warmup, by one that captures nothing (the rule a
+    mesh's engines follow), so every chunk runs its staged step eagerly:
+    the path the graphs are held against. Flash launches are the kernel's
+    own count on the device (a replayed chunk calls no wrapper); prefill
+    passes are the model's eager prefills plus the chunk graphs'
+    replays."""
     from repro_torch.configs import get_config
     from repro_torch.core.types import SchedulerConfig
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.launch import serve
     from repro_torch.serving import Engine, MoriRouter
+    from repro_torch.serving.graphs import StepGraphs
 
     t0 = time.perf_counter()
     if cfg is None:
@@ -1709,9 +1777,11 @@ def replay_paged(args, chunked: bool, cfg=None, params=None, label="serve", *,
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     # one decode graph per table bucket on every engine before traffic
-    # (the chunked replay also runs each chunk bucket once, eagerly)
+    # (the chunked replay also one chunk graph per chunk bucket)
     t0 = time.perf_counter()
     for e in engines:
+        if eager_chunks:
+            e.chunk_graphs = StepGraphs(e.chunk_graphs.name, e.device, capture=False)
         e.warmup(prefill_chunks=chunked)
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
@@ -1724,8 +1794,8 @@ def replay_paged(args, chunked: bool, cfg=None, params=None, label="serve", *,
     flash_ops.KERNEL.launches = 0
     warm_captures = 0
     for e in engines:
-        e.graphs.replays = 0
-        warm_captures += e.graphs.cache_size()
+        e.graphs.replays = e.chunk_graphs.replays = 0
+        warm_captures += sum(c.cache_size() for c in e.graph_functions().values())
     # a replayed graph calls no wrapper: the paged kernel counts the
     # launches the card ran on the device itself, and the profiler counts
     # its instances by name beside it
@@ -1736,7 +1806,7 @@ def replay_paged(args, chunked: bool, cfg=None, params=None, label="serve", *,
         return router.replay(corpus, vocab_size=cfg.vocab_size,
                              max_new_tokens=args.max_new_tokens, **(replay_kw or {}))
 
-    ran_before = paged_device_launches()
+    ran_before, flash_before = paged_device_launches(), flash_device_launches()
     if profile:
         m, device_counts = device_kernel_counts(run, PAGED_KERNEL_NAMES)
     else:
@@ -1745,12 +1815,17 @@ def replay_paged(args, chunked: bool, cfg=None, params=None, label="serve", *,
         torch.cuda.synchronize()
         device_counts = {"fn_s": time.perf_counter() - t0, "processing_s": None,
                          **dict.fromkeys(PAGED_KERNEL_NAMES)}
-    paged_eager, flash = paged_ops.KERNEL.launches, flash_ops.KERNEL.launches
+    paged_eager, flash_eager = paged_ops.KERNEL.launches, flash_ops.KERNEL.launches
     paged = paged_device_launches() - ran_before
+    flash = flash_device_launches() - flash_before
     paged_profiled = device_counts["paged_split_kernel"]
-    captures = sum(e.graphs.cache_size() for e in engines)
+    captures = sum(c.cache_size() for e in engines for c in e.graph_functions().values())
     replays = sum(e.graphs.replays for e in engines)
     engine_steps = sum(e.steps for e in engines)
+    # a replayed chunk graph calls no model.prefill; an eager chunk does
+    chunk_replays = sum(e.chunk_graphs.replays for e in engines)
+    graphed_chunks = sum(e.chunk_graphs.replays for e in engines if e.chunk_graphs.captured)
+    prefill_passes = passes["prefill"] + graphed_chunks
     full_layers = get_config(cfg.name).num_layers
     record = {
         "arch": cfg.name, "d_model": cfg.d_model,
@@ -1768,8 +1843,12 @@ def replay_paged(args, chunked: bool, cfg=None, params=None, label="serve", *,
         "graph_captures": captures, "post_warmup_captures": captures - warm_captures,
         "graph_replays": replays, "graph_buckets": sorted(
             {k for e in engines for k in e.graphs.keys()}),
-        "prefill_passes": passes["prefill"],
-        "flash_launches": flash, "setup_s": setup_s, "warmup_s": warmup_s,
+        "chunk_graph_buckets": sorted({k for e in engines for k in e.chunk_graphs.keys()}),
+        "chunk_graph_replays": chunk_replays, "chunk_graphs_captured": sum(
+            e.chunk_graphs.captured for e in engines),
+        "prefill_passes": prefill_passes, "prefill_passes_eager": passes["prefill"],
+        "flash_launches": flash, "flash_launches_eager": flash_eager,
+        "setup_s": setup_s, "warmup_s": warmup_s,
         ("replay_s_profiled" if profile else "replay_s"): device_counts["fn_s"],
         "profiler_processing_s": device_counts["processing_s"], "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
@@ -1786,7 +1865,7 @@ def replay_paged(args, chunked: bool, cfg=None, params=None, label="serve", *,
     if m.offloaded_pages + m.reloaded_pages <= 0:
         raise AssertionError("no page moved between the tiers")
     if captures != warm_captures:
-        raise AssertionError(f"{captures - warm_captures} decode graphs captured after warmup")
+        raise AssertionError(f"{captures - warm_captures} graphs captured after warmup")
     if replays != engine_steps or paged_eager != 0:
         raise AssertionError(
             f"{replays} graph replays and {paged_eager} eager paged launches for "
@@ -1795,17 +1874,41 @@ def replay_paged(args, chunked: bool, cfg=None, params=None, label="serve", *,
         raise AssertionError(
             f"paged kernels the device ran {paged} != layers {cfg.num_layers} x decode "
             f"steps {engine_steps}: decode did not go through the kernel")
-    if flash != cfg.num_layers * passes["prefill"] or flash == 0:
+    if flash != cfg.num_layers * prefill_passes or flash == 0:
         raise AssertionError(
-            f"flash kernel launches {flash} != layers {cfg.num_layers} x prefill passes "
-            f"{passes['prefill']}: prefill did not go through the kernel")
+            f"flash kernels the device ran {flash} != layers {cfg.num_layers} x prefill "
+            f"passes {prefill_passes}: prefill did not go through the kernel")
+    if DEVICE == "cuda" and flash_eager != cfg.num_layers * passes["prefill"]:
+        raise AssertionError(
+            f"{flash_eager} flash wrapper calls for {passes['prefill']} eager prefill passes: "
+            "a chunk graph's replay called a wrapper, or a chunk ran eagerly")
     if chunked and m.prefill_chunks <= 0:
         raise AssertionError("the chunked replay ran no prefill chunk")
+    if chunked and chunk_replays != m.prefill_chunks:
+        raise AssertionError(f"{chunk_replays} chunk graph replays for {m.prefill_chunks} "
+                             "prefill chunks: a chunk did not run through its bucket's graph")
     produced = [t for toks in router.output_log.values() for t in toks]
     if len(produced) != m.tokens_generated or not all(
             0 <= t < cfg.vocab_size for t in produced):
         raise AssertionError("generated tokens are missing or out of the vocabulary")
     return record, engines, router
+
+
+def check_chunked_eager(args, cfg, params, chunked_log: dict) -> dict:
+    """Phase 4's chunked replay again with every chunk's staged step run
+    eagerly (``replay_paged(eager_chunks=True)``, no profiler): the
+    replayed chunk graphs' output log must equal it, or part from it only
+    at a near tie of the eager run's logits (:func:`compare_logs`)."""
+    tops: dict = {}
+    record, _, router = replay_paged(
+        args, chunked=True, cfg=cfg, params=params, label="serve_chunked_eager",
+        profile=False, eager_chunks=True,
+        watch=lambda engines: record_top_logits(engines, tops))
+    if record["chunk_graphs_captured"]:
+        raise AssertionError("the eager chunked replay captured a chunk graph")
+    against = compare_logs(router.output_log, chunked_log, tops)
+    log("serve_chunked against eager chunks " + json.dumps(against))
+    return against
 
 
 def profile_window(fn, n: int) -> tuple[dict, float]:
@@ -1962,13 +2065,71 @@ def random_pool(engine, seed: int) -> None:
             sc.copy_(torch.rand(sc.shape, generator=g, device=DEVICE) * 0.02 + 0.002)
 
 
-def graph_parity_paged(cfg, params, formats=(("bf16", None), ("int8", 24))) -> list:
+def chunk_inputs(engine, key, rng, p_real=None, take=None) -> np.ndarray:
+    """Staged inputs of one chunk of bucket ``key = (p_pad, c_pad)``: a
+    prefix of ``p_real`` real pages (default: drawn in the bucket's last
+    four; none in bucket 0) padded with the first scratch page, and
+    ``take`` tokens (default: drawn in the chunk bucket's last
+    ``prefill_bucket``) written to fresh pages, the pad lanes to the
+    scratch page."""
+    p_pad, c_pad = key
+    T, sp = engine.page_tokens, engine._scratch_pages[0]
+    live = [p for p in range(engine.pool.k.shape[1]) if p not in engine._scratch_pages]
+    if p_real is None:
+        p_real = int(rng.integers(p_pad - 3, p_pad + 1)) if p_pad else 0
+    if take is None:
+        take = int(rng.integers(c_pad - engine.prefill_bucket + 1, c_pad + 1))
+    pages = rng.permutation(live)
+    w_real = -(-take // T)
+    return engine._pack(
+        rng.integers(2, engine.cfg.vocab_size, take).tolist() + [0] * (c_pad - take),
+        pages[:p_real].tolist() + [sp] * (p_pad - p_real),
+        pages[p_real:p_real + w_real].tolist() + [sp] * (-(-c_pad // T) - w_real),
+        (p_real * T, take))
+
+
+def chunk_parity(engine, keys, rng, fmt: str) -> list:
+    """Each chunk bucket of ``keys``, its graph replayed (captured first
+    where warmup did not), against ``Engine.chunk_packed`` run eagerly on
+    a clone of the pool, with a real prefix and a ragged chunk: logits,
+    the greedy token and the pool bytes (pages and scales) written; the
+    flash kernels a replay ran, by the kernel's own count on the
+    device."""
+    cfg, T = engine.cfg, engine.page_tokens
+    cases = []
+    for key in keys:
+        packed = chunk_inputs(engine, key, rng)
+        pos0, take = packed[-2:].tolist()
+        clones = [t.clone() for t in engine.pool.device_tensors()]
+        with torch.no_grad():
+            ran_before = flash_device_launches()
+            logits, token = (t.clone() for t in engine._chunk(key, packed))
+            ran = flash_device_launches() - ran_before
+            want, want_token = engine.chunk_packed(torch.from_numpy(packed).to(DEVICE), key,
+                                                   clones)
+        torch.cuda.synchronize()
+        cases.append({
+            "case": f"{cfg.name} {fmt} chunk prefix_pages={key[0]} chunk={key[1]} "
+                    f"prefix_valid={pos0} take={take}",
+            "max_abs_logit_diff": (logits - want).abs().max().item(),
+            "tokens_equal": torch.equal(token, want_token),
+            "pool_equal": all(torch.equal(a, b)
+                              for a, b in zip(engine.pool.device_tensors(), clones)),
+            "layers": cfg.num_layers, "flash_kernels_replayed": ran,
+        })
+    return cases
+
+
+def graph_parity_paged(cfg, params, formats=(("bf16", None), ("int8", 24)),
+                       chunk_buckets=None) -> list:
     """Each table bucket's decode graph, on a pool of each format (every
     bucket where ``formats`` names none, else that one), against the same
     step run eagerly on a clone of the pool: logits, greedy tokens and the
     pool bytes written. Fresh engines on the main path's weights, their
     pools filled from a seed, each row's length in its bucket's last four
-    pages."""
+    pages. Then the chunk prefill's graphs (:func:`chunk_parity`): every
+    chunk bucket of each format, captured in warmup, or only
+    ``chunk_buckets``, captured here."""
     from repro_torch.serving import Engine
 
     rng = np.random.default_rng(8)
@@ -1978,7 +2139,7 @@ def graph_parity_paged(cfg, params, formats=(("bf16", None), ("int8", 24))) -> l
                         n_host_pages=4, max_slots=3, max_seq=384, device_format=fmt,
                         offload_format=fmt)
         random_pool(engine, seed=len(cases))
-        engine.warmup()
+        engine.warmup(prefill_chunks=chunk_buckets is None)
         B, T = engine.max_slots, engine.page_tokens
         live = [p for p in range(engine.pool.k.shape[1]) if p not in engine._scratch_pages]
         for p_pad in engine.graphs.keys() if only is None else [only]:
@@ -2004,8 +2165,72 @@ def graph_parity_paged(cfg, params, formats=(("bf16", None), ("int8", 24))) -> l
                 "layers": cfg.num_layers,
                 "paged_kernels_replayed": ran,
             })
+        keys = engine.chunk_graphs.keys() if chunk_buckets is None else chunk_buckets
+        for key in keys:
+            if key not in engine.chunk_graphs:
+                # captured first, on the scratch page: the capture's eager
+                # run is not the replay held against the eager step
+                engine._chunk(key, engine._scratch_chunk_inputs(*key))
+        cases += chunk_parity(engine, keys, rng, fmt)
         del engine
+        gc.collect()
     return cases
+
+
+#: the chunk breakdown's two chunks: 64 tokens over a 12-page prefix, and
+#: 64 tokens with none
+CHUNK_BREAKDOWN = ((12, 64), (0, 64))
+
+
+def chunk_breakdown(cfg, params, steps: int = 20) -> dict:
+    """Where a full-width chunk prefill's time goes: an engine with the
+    launcher's pools warmed with its chunk buckets, its pool from a seed.
+    For each of :data:`CHUNK_BREAKDOWN` (every prefix page real, every
+    token real): the graphed chunk (staging, one replay, the token read
+    back, as ``prefill_step``'s final chunk) on the host clock, then a
+    profiled window of them for the device's time a chunk; then the same
+    inputs through the eager function the graph captured
+    (``Engine.chunk_packed``, the token read back) on a clone of the pool,
+    timed and profiled the same way. Its launches are not in any replay's
+    count."""
+    from repro_torch.launch.serve import ENGINE_POOLS
+    from repro_torch.serving import Engine
+
+    engine = Engine(cfg, params, device=DEVICE, **ENGINE_POOLS)
+    random_pool(engine, seed=12)
+    engine.warmup(prefill_chunks=True)
+    rng = np.random.default_rng(13)
+    T = engine.page_tokens
+    out = {"page_tokens": T}
+    for key in CHUNK_BREAKDOWN:
+        packed = chunk_inputs(engine, key, rng, p_real=key[0], take=key[1])
+        staged = torch.from_numpy(packed).to(DEVICE)
+        clones = [t.clone() for t in engine.pool.device_tensors()]
+
+        def graphed():
+            return int(engine._chunk(key, packed)[1])
+
+        def eager():
+            return int(engine.chunk_packed(staged, key, clones)[1])
+
+        rec = {"prefix_tokens": key[0] * T, "chunk_tokens": key[1]}
+        with torch.no_grad():
+            for name, fn in (("graphed", graphed), ("eager", eager)):
+                ms = host_ms(fn, steps)
+                kernels, window_us = profile_window(fn, 5)
+                busy_ms = sum(kernels.values()) / 5e3
+                rec[name] = {
+                    "host_ms": ms, "device_ms": busy_ms, "device_share": busy_ms / ms,
+                    "flash_ms": sum(v for k, v in kernels.items() if "flash" in k) / 5e3,
+                    "window_ms": window_us / 1e3,
+                }
+        rec["graphed_over_eager"] = rec["graphed"]["host_ms"] / rec["eager"]["host_ms"]
+        if DEVICE == "cuda" and not rec["graphed"]["flash_ms"] > 0:
+            raise AssertionError(f"the profiler saw no flash kernel in the replayed chunk {key}")
+        out[f"prefix_pages={key[0]} chunk={key[1]}"] = rec
+    del engine
+    gc.collect()
+    return out
 
 
 def graph_parity_ssm(engine) -> list:
@@ -2309,7 +2534,8 @@ def serve_moe(args, host_rate: float):
     record["weights"] = draw
     layer = check_moe_layer(cfg, params)
     log("moe layer " + json.dumps(layer))
-    parity = graph_parity_paged(cfg, params, formats=(("bf16", None),))
+    parity = graph_parity_paged(cfg, params, formats=(("bf16", None),),
+                                chunk_buckets=[MOE_CHUNK_BUCKET])
     log("moe breakdown " + json.dumps(moe_breakdown(engines[0])))
     # the same fixed step on the first TP_MOE_BAND_LAYERS layers (views of
     # the same weights), where phase 13 holds every logit to the band
@@ -2319,6 +2545,11 @@ def serve_moe(args, host_rate: float):
                    fixed=fixed_logits(engines[0]), fixed_cut=fixed_logits(cut))
     return record, parity, phase13
 
+
+
+#: the one dbrx chunk bucket held against its eager step in ``graph
+#: parity``: a 64-token chunk over an 8-page prefix bucket
+MOE_CHUNK_BUCKET = (8, 64)
 
 
 # ------------------------------------------------------------ phase 7
@@ -3790,9 +4021,10 @@ def check_account(timings: dict) -> dict:
 def audit_on_card(cfg, params, timings: dict) -> dict:
     """Phase 11: the step auditor and the lint on the card. The seeded
     selftest; the audit of full-width qwen engines with the launcher's
-    pools (every paged decode bucket, every chunk-prefill spec, the
+    pools (every paged decode bucket, every chunk-prefill bucket, the
     dense-slot spec) and of the three kernel targets, with every captured
-    bucket's replay timed against its bound: no violation; the replay
+    bucket's replay (decode and chunk) timed against its bound: no
+    violation, each share in (0, 1.05]; the replay
     gate: no capture after warmup; the timing lines' account; the port's
     lint over its default paths: clean."""
     from repro_torch.analysis import jitaudit, lint
@@ -3814,11 +4046,14 @@ def audit_on_card(cfg, params, timings: dict) -> dict:
     if violations:
         raise AssertionError("jitaudit: " + "; ".join(str(v) for v in violations))
     decode = [r for r in rows if r["kind"] in ("paged_decode", "dense")]
-    shares = [r.get("replay_share") for r in decode]
+    chunk = [r for r in rows if r["kind"] == "chunk_prefill"]
     n_buckets = -(-paged.pages_per_slot // paged._table_bucket)
-    if len(decode) != n_buckets + 1 or DEVICE == "cuda" and not all(
-            s is not None and 0 < s <= jitaudit.REPLAY_SHARE_LIMIT for s in shares):
-        raise AssertionError(f"decode buckets' roofline shares: {shares}")
+    for kind, got, want in (("decode", decode, n_buckets + 1),
+                            ("chunk", chunk, len(paged.chunk_graphs.keys()))):
+        shares = [r.get("replay_share") for r in got]
+        if len(got) != want or DEVICE == "cuda" and not all(
+                s is not None and 0 < s <= jitaudit.REPLAY_SHARE_LIMIT for s in shares):
+            raise AssertionError(f"{kind} buckets' roofline shares: {shares}")
     del paged, dense
     gate = jitaudit.replay_gate(cfg, params, device=DEVICE, log=log)
     if gate["post_warmup_captures"] or gate["captures_by_phase"]["replay"]:
@@ -3828,20 +4063,21 @@ def audit_on_card(cfg, params, timings: dict) -> dict:
     lint_violations = lint.run(lint_files)
     if lint_violations:
         raise AssertionError("lint: " + "; ".join(str(v) for v in lint_violations))
-    blockers = jitaudit.blocker_sites(rows)
+    def buckets(rs):
+        return {r["target"]: dict(
+            bucket=r["bucket"], flops=r["static"]["flops"], hbm_bytes=r["static"]["hbm_bytes"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], replay_ms=r.get("replay_ms"),
+            replay_share=r.get("replay_share"), ratios=r["ratios"]) for r in rs}
+
     record = dict(
         selftest_failures=failures, targets=len(rows), violations=len(violations),
         kinds={k: sum(r["kind"] == k for r in rows) for k in sorted({r["kind"] for r in rows})},
-        decode_buckets={r["target"]: dict(
-            bucket=r["bucket"], flops=r["static"]["flops"], hbm_bytes=r["static"]["hbm_bytes"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], replay_ms=r.get("replay_ms"),
-            replay_share=r.get("replay_share"), ratios=r["ratios"]) for r in decode},
+        decode_buckets=buckets(decode), chunk_buckets=buckets(chunk),
         ratio_ranges={k: [min(r["ratios"][k] for r in rows), max(r["ratios"][k] for r in rows)]
                       for k in jitaudit.TOLERANCES},
-        chunk_specs=sum(r["kind"] == "chunk_prefill" for r in rows),
-        capture_blockers=blockers,
+        chunk_specs=len(chunk),
         replay_gate={k: gate[k] for k in ("post_warmup_captures", "captures_by_phase",
-                                          "graph_replays")},
+                                          "graph_replays", "chunk_graph_replays")},
         account_lines=len(account), account_recorded=len(RECORDED_BOUND_MS),
         lint_files=len(lint_files), lint_violations=len(lint_violations),
         seconds=time.perf_counter() - t0)
@@ -4304,7 +4540,6 @@ def tp_logits_check(cfg, params, placed, rs, dev, engine_kw=None) -> tuple[dict,
     one-device engine."""
     from repro_torch.launch import serve
     from repro_torch.serving import Engine
-    from repro_torch.serving.engine import _chunk_prefill
 
     kw = engine_kw or {}
     tp = Engine(cfg, placed, placement=rs.placement(0), **serve.ENGINE_POOLS, **kw)
@@ -4334,12 +4569,12 @@ def tp_logits_check(cfg, params, placed, rs, dev, engine_kw=None) -> tuple[dict,
     T = one.page_tokens
     c = TP_CHUNK
     prefix = tables[0, :c["prefix_pages"]].tolist()
-    pos0 = c["prefix_pages"] * T
-    chunk = tokens[:, :one.prefill_bucket * -(-c["take"] // one.prefill_bucket)]
-    write = tables[1, :-(-chunk.shape[1] // T)].tolist()
-    kw = dict(prefix_valid=pos0, pos0=pos0, take=c["take"], logit_idx=c["take"] - 1)
-    want = _chunk_prefill(one.model, one.pool, prefix, write, chunk, **kw)
-    got = _chunk_prefill(tp.model, tp.pool, prefix, write, chunk, **kw, ctx=tp.ctx)
+    c_pad = one.prefill_bucket * -(-c["take"] // one.prefill_bucket)
+    key = (len(prefix), c_pad)
+    chunk = one._pack(tokens[0, :c_pad].tolist(), prefix, tables[1, :-(-c_pad // T)].tolist(),
+                      (c["prefix_pages"] * T, c["take"]))
+    want, _ = one.chunk_packed(torch.from_numpy(chunk).to(dev), key)
+    got, _ = tp.chunk_packed(torch.from_numpy(chunk).to(tp.device), key)
     out["chunk_prefill"] = compare("chunk prefill", got[None], want[None])
     return out, one
 
@@ -5285,6 +5520,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    t_command = time.perf_counter()
     from repro_torch.launch import serve
     from repro_torch.models.params import flatten_tree
 
@@ -5331,14 +5567,23 @@ def main(argv=None) -> int:
     check_model_small()
     check_mamba_small()
     args = serve.parse_args([])          # the launcher's defaults: full width, cuda
+    t_phase4 = time.perf_counter()
     mono, engines, serve_router = replay_paged(args, chunked=False)
     chunked, _, chunked_router = replay_paged(args, chunked=True, cfg=engines[0].cfg,
                                               params=_param_tree(engines[0].model),
                                               label="serve_chunked")
     chunked_log = {pid: list(toks) for pid, toks in chunked_router.output_log.items()}
     del chunked_router
+    t_chunk_lines = time.perf_counter()
+    check_chunked_eager(args, engines[0].cfg, _param_tree(engines[0].model), chunked_log)
     parity = graph_parity_paged(engines[0].cfg, _param_tree(engines[0].model))
+    log("chunk breakdown " + json.dumps(chunk_breakdown(engines[0].cfg,
+                                                        _param_tree(engines[0].model))))
+    chunk_lines_s = time.perf_counter() - t_chunk_lines
     log("decode breakdown " + json.dumps(decode_breakdown(engines[0])))
+    log("phase 4 seconds " + json.dumps({
+        "phase4_s": time.perf_counter() - t_phase4,
+        "chunk_lines_s (serve_chunked_eager, graph parity, chunk breakdown)": chunk_lines_s}))
     # phase 7 serves the same weights again
     qwen_cfg, qwen_params = engines[0].cfg, _param_tree(engines[0].model)
     serve_log = {pid: list(toks) for pid, toks in serve_router.output_log.items()}
@@ -5372,8 +5617,10 @@ def main(argv=None) -> int:
         if not (case["max_abs_logit_diff"] == 0.0 and case["tokens_equal"]
                 and case.get("pool_equal", True) and case.get("state_equal", True)):
             raise AssertionError(f"a replayed graph differs from its eager step: {case}")
-        if DEVICE == "cuda" and case.get("paged_kernels_replayed", 0) != case.get("layers", 0):
-            raise AssertionError(f"a decode graph did not run one paged kernel a layer: {case}")
+        replayed = case.get("paged_kernels_replayed", case.get("flash_kernels_replayed"))
+        if DEVICE == "cuda" and "layers" in case and replayed != case["layers"]:
+            raise AssertionError(f"a graph did not run one paged (decode) or flash (chunk) "
+                                 f"kernel a layer: {case}")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5616,6 +5863,7 @@ def main(argv=None) -> int:
                                                      "route")},
         },
     ]}
+    log("command seconds " + json.dumps({"seconds": time.perf_counter() - t_command}))
     log(json.dumps(kernels))
     log(gpu_identity())
     log(json.dumps({"ok": True, "device": {

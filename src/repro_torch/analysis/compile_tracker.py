@@ -4,13 +4,15 @@ The port's counterpart of ``repro/analysis/compile_tracker.py``. The
 reference compiles one jit per shape bucket and counts lowerings; the port
 captures one CUDA graph per bucket (:class:`repro_torch.serving.graphs.StepGraphs`)
 and counts captures. The serving fast path holds its latency numbers only
-while every decode step replays a graph captured before traffic: a capture
-mid-replay stalls the pump for an eager run and a capture, and the tokens
-come out right all the same, so nothing else would notice. This module
-makes "the replay captured nothing new" a checkable property:
+while every decode step and every prefill chunk replays a graph captured
+before traffic: a capture mid-replay stalls the pump for an eager run and
+a capture, and the tokens come out right all the same, so nothing else
+would notice. This module makes "the replay captured nothing new" a
+checkable property:
 
 * every hot-path graph cache registers here by name (``Engine.__init__``
-  does this when the tracker is armed);
+  does this when the tracker is armed: a paged engine's decode and
+  chunk-prefill caches, ``Engine.graph_functions``);
 * ``Engine.warmup()`` calls :meth:`CompileTracker.mark_warm` once it has
   run every bucket, snapshotting each cache's size (``cache_size()``: the
   number of buckets it holds, where the reference read jit's

@@ -4,10 +4,11 @@ The counterpart of ``repro/analysis/jitaudit.py``. The serving numbers
 hold only while three properties of the step graphs do, none of which a
 token-equivalence test observes:
 
-1. **in place** — a decode step is captured once per bucket as a CUDA
-   graph (:class:`repro_torch.serving.graphs.StepGraphs`) over static
-   buffers: the pool's pages and scales, the dense slots, the bucket's
-   staged input vector. The graph writes them where they were at capture.
+1. **in place** — a decode step and a chunk prefill are each captured
+   once per bucket as a CUDA graph
+   (:class:`repro_torch.serving.graphs.StepGraphs`) over static buffers:
+   the pool's pages and scales, the dense slots, the bucket's staged input
+   vector. The graph writes them where they were at capture.
    A step that rebinds one (a new tensor in its place) or builds a copy of
    one is a step whose replay writes a buffer nobody reads, or that copies
    the pool every step. The reference got this from buffer donation.
@@ -43,13 +44,15 @@ under a :class:`~torch.utils._python_dispatch.TorchDispatchMode`:
   made a tensor inside the step (``aten.lift_fresh``: on the card a tensor
   built from a Python list is copied there inside that one op), a
   host-to-device copy inside the step, or a kernel entry point given a
-  host operand it reads on the host (flash's ``q_offset`` and
-  ``kv_hole``). In captured steps (``paged_decode``, ``dense`` and the
-  kernel targets) these are violations; the chunk prefill runs eagerly,
-  and there they are reported as ``capture_blockers``, the list a capture
-  of it would have to clear. The reference's weak-type class has no
-  counterpart: a Python scalar reaching an aten op retraces nothing in
-  PyTorch, and what a capture freezes of it is the baked-host-value class.
+  host operand it reads on the host that its operands' shapes do not fix
+  (:func:`repro_torch.kernels.leaf.host_values`: flash's ``q_offset`` and
+  the hole's upper end pass when they equal the padded prefix ``Skv -
+  Sq``, checked at every call; the hole's lower end passes only as a
+  device tensor). Every target's hazards are violations: the decode
+  buckets, the chunk-prefill buckets and the kernel targets are all
+  captured steps. The reference's weak-type class has no counterpart: a
+  Python scalar reaching an aten op retraces nothing in PyTorch, and what
+  a capture freezes of it is the baked-host-value class.
 * **static roofline** (:func:`static_cost`) — FLOPs: the products (``mm``,
   ``bmm``, ``addmm``, ``baddbmm``; ``linear`` and ``matmul`` dispatch to
   them) at 2·M·N·K, plus each leaf's cost. Bytes: the reference's
@@ -97,7 +100,8 @@ CLI::
 
 audits qwen1.5-0.5b (reduced, or at full width with the launcher's
 pools): a paged engine's warmup set (every decode bucket and chunk-prefill
-spec), a dense-slot engine's and the three kernel targets, runs the
+bucket, each replay timed on the card), a dense-slot engine's and the
+three kernel targets, runs the
 seeded-violation selftest (the auditor audits itself), then replays a
 small corpus through the pump under the compile tracker and fails on any
 capture after warmup. Exit 1 on a violation. ``--device`` defaults to
@@ -209,9 +213,9 @@ class AuditTarget:
     ``make_step`` builds the step lazily: a
     :class:`~repro_torch.serving.engine.SpecStep`, ``run`` (no arguments)
     and ``buffers`` (() -> the static buffers by name).
-    ``kind`` is the spec's (the chunk prefill runs eagerly; the others are
-    captured) or ``kernel``. ``probe`` builds a second bucket of the same
-    branch class, traced for its op sequence only; engine targets are
+    ``kind`` is the spec's (every one a captured step) or ``kernel``.
+    ``probe`` builds a second bucket of the same branch class, traced for
+    its op sequence only; engine targets are
     instead paired inside their ``probe_group``, as the reference pairs
     them. ``replay``, on the card, is a captured bucket's graph replay.
     """
@@ -310,8 +314,7 @@ class _Recorder(TorchDispatchMode):
                 out = fn(*args, **kwargs)
         finally:
             self._in_leaf = False
-        host = {k: kwargs[k] for k in call.host_operands
-                if kwargs.get(k) not in (None, 0)}
+        host = leaf.host_values(call, args, kwargs)
         rec = OpRecord(f"leaf:{call.leaf_name}", [_meta(t) for t in _tensors((args, kwargs))],
                        [_meta(t) for t in _tensors(out)], leaf=(call, args, kwargs))
         if host:
@@ -550,13 +553,6 @@ def check_roofline(target: AuditTarget, row: dict) -> list[AuditViolation]:
     return out
 
 
-def blocker_sites(rows: list[dict]) -> list[str]:
-    """The chunk prefill's capture blockers over every row, one line a
-    (class, op, site)."""
-    return sorted({f"{b['class']}: {b['op']} at {b['site']}"
-                   for r in rows for b in r.get("capture_blockers", [])})
-
-
 def time_replay(replay, n: int = REPLAYS) -> float:
     """Mean ms of one graph replay over ``n``, by CUDA events, after two
     untimed replays."""
@@ -577,12 +573,12 @@ def time_replay(replay, n: int = REPLAYS) -> float:
 # --------------------------------------------------------------------------
 def engine_targets(engine, prefill_chunks: bool = True) -> list[AuditTarget]:
     """A target for every spec ``Engine.warmup`` runs, paired inside each
-    probe group. On the card a captured bucket's target also replays its
-    graph (captured here first if the engine was not warmed)."""
+    probe group. On the card each target also replays its bucket's graph
+    (captured here first if the engine was not warmed)."""
     out: list[AuditTarget] = []
     for spec in engine.warmup_specs(prefill_chunks=prefill_chunks):
         replay = None
-        if spec.kind != "chunk_prefill" and engine.device.type == "cuda":
+        if engine.device.type == "cuda":
             replay = _graph_replay(engine, spec)
         out.append(AuditTarget(
             name=f"engine{engine._audit_id}.{spec.name}",
@@ -595,15 +591,14 @@ def engine_targets(engine, prefill_chunks: bool = True) -> list[AuditTarget]:
 def _graph_replay(engine, spec):
     """A function that replays ``spec``'s bucket graph over whatever its
     static vector holds (the spec's scratch inputs after the trace)."""
-    from repro_torch.serving.engine import DENSE_KEY
-
-    key = DENSE_KEY if spec.kind == "dense" else spec.bucket["table_pages"]
+    key = engine.spec_key(spec)
+    cache = engine.graph_cache(key)
 
     def replay():
-        if key not in engine.graphs:
+        if key not in cache:
             with torch.no_grad():
                 engine.spec_step(spec).run()
-        return engine.graphs.replay(key)
+        return cache.replay(key)
 
     return replay
 
@@ -637,9 +632,7 @@ def kernel_targets(device=None) -> list[AuditTarget]:
 
 def audit(targets: list[AuditTarget]) -> tuple[list[dict], list[AuditViolation]]:
     """The three passes over ``targets``; returns (roofline rows,
-    violations). A chunk-prefill target's hazards go into its row's
-    ``capture_blockers``, not into the violations: the port runs that
-    step eagerly."""
+    violations)."""
     traces: dict[str, Trace] = {}
     for t in targets:
         traces[t.name] = trace_target(t)
@@ -662,10 +655,7 @@ def audit(targets: list[AuditTarget]) -> tuple[list[dict], list[AuditViolation]]
         if t.replay is not None:
             row["replay_ms"] = time_replay(t.replay)
             row["replay_share"] = row["bound_ms"] / row["replay_ms"]
-        if t.kind == "chunk_prefill":
-            row["capture_blockers"] = hazards(trace, probe)
-        else:
-            violations += capture_hazards(t, trace, probe)
+        violations += capture_hazards(t, trace, probe)
         violations += check_in_place(t, trace)
         violations += check_roofline(t, row)
         rows.append(row)
@@ -685,6 +675,8 @@ _zero_bytes_leaf = leaf.entry(
 def _seeded_targets(device) -> dict:
     """One target a seeded class, and one honored in-place step: ``{name:
     (target, probe target or None, the pass that must fire or None)}``."""
+    from repro_torch.kernels.flash_attention.ops import prefill_attention
+
     dev = torch.device(device)
     # a pool of 2 layers, as the engine's pages lead with theirs
     held = {"pool": torch.zeros((2, 8, 16), dtype=torch.bfloat16, device=dev)}
@@ -708,6 +700,8 @@ def _seeded_targets(device) -> dict:
 
     x8, x16 = torch.zeros(8, device=dev), torch.zeros(16, device=dev)
     x4 = torch.zeros(4, device=dev)
+    q8 = torch.zeros((1, 8, 2, 32), device=dev)
+    kv16 = torch.zeros((1, 16, 2, 32), device=dev)
 
     def steps(run, buffers=dict):
         return lambda: SpecStep(run, buffers)
@@ -731,6 +725,11 @@ def _seeded_targets(device) -> dict:
         "host-value": (target("selftest-host-value", steps(
             lambda: x4 + torch.as_tensor(np.arange(4.0, dtype=np.float32), device=dev))),
             None, "capture-hazard"),
+        # a prefill whose q_offset is not the padded prefix its shapes give
+        # (16 keys, 8 queries: 8): the claim must be checked, not trusted
+        "host-operand": (target("selftest-host-operand", steps(
+            lambda: prefill_attention(q8, kv16, kv16, causal=True, q_offset=3))),
+            None, "capture-hazard"),
         "zero-bytes-leaf": (target("selftest-zero-bytes-leaf",
                                    steps(lambda: _zero_bytes_leaf(x16))), None, "roofline"),
     }
@@ -738,8 +737,9 @@ def _seeded_targets(device) -> dict:
 
 def selftest(device=None) -> list[str]:
     """Plant one instance of each class (a rebound buffer, a per-layer
-    copy of one, a shape branch, a host sync, a baked host value, a leaf
-    costed at zero bytes) and run one honored in-place step; returns
+    copy of one, a shape branch, a host sync, a baked host value, a kernel
+    operand read on the host that the shapes do not give, a leaf costed at
+    zero bytes) and run one honored in-place step; returns
     failure descriptions (empty: every class fires its pass alone and the
     honored step stays clean). ``device``: ``None`` is the card."""
     failures: list[str] = []
@@ -804,6 +804,7 @@ def replay_gate(cfg, params, *, device=None, log=print) -> dict:
             "captures_by_phase": {ph: len(tracker.events_in(ph))
                                   for ph in ("engine-build", "warmup", "replay")},
             "graph_replays": engine.graphs.replays,
+            "chunk_graph_replays": engine.chunk_graphs.replays,
         }
     finally:
         if not was_armed:

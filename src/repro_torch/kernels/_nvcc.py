@@ -73,7 +73,10 @@ class Kernel:
     counts the wrapper's launches of the kernel and nothing else: calls
     that took the plain version on CPU tensors do not count. A kernel with
     several routes names them (``routes``), and its wrapper counts its
-    launches by route there too."""
+    launches by route there too. A kernel that counts its own launches on
+    the device takes :meth:`counter`'s address, and
+    :meth:`device_launches` reads it: a replayed graph calls no wrapper,
+    so only the device sees its launches."""
 
     def __init__(self, loader, routes=()):
         self.launches = 0
@@ -82,11 +85,34 @@ class Kernel:
         self.build_log = ""
         self._lib = None
         self._loader = loader
+        self._counters: dict[int, torch.Tensor] = {}
 
     def load(self):
         if self._lib is None:
             self._lib, self.build_log = self._loader()
         return self._lib
+
+    def counter(self, dev: torch.device) -> torch.Tensor:
+        """The device's launch counter: one int32, allocated at the first
+        launch on the device and kept, so a captured graph's kernels add to
+        the same address at every replay. A graph captures a launch only
+        after its eager warm-up run, which allocates the counter first."""
+        idx = _device_index(dev)
+        if idx not in self._counters:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("the launch counter must exist before a capture")
+            self._counters[idx] = torch.zeros(1, dtype=torch.int32, device=dev)
+        return self._counters[idx]
+
+    def device_launches(self, dev) -> int:
+        """Launches the card ran on ``dev`` since the counter's first
+        launch, in or out of graphs (reads the device: a sync)."""
+        counter = self._counters.get(_device_index(torch.device(dev)))
+        return 0 if counter is None else int(counter.item())
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def aligned(t: torch.Tensor) -> bool:

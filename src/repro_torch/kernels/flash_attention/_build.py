@@ -24,6 +24,7 @@ def load() -> tuple[ctypes.CDLL, str]:
         *[i64] * 12,                            # strides of q, k, v, out
         f32, f32,                               # scale, softcap
         i32, i32, i32, i32, i32,                # causal window q_offset hole_lo hole_hi
+        ptr, ptr,                               # hole_lo on the device, launch counter
         ptr,                                    # stream
     ]
     lib.flash_attention_fwd.restype = i32

@@ -10,7 +10,12 @@
 // Pallas kernel it takes ragged Sq and Skv (the tails are masked; there is
 // no divisibility requirement), an optional per-row valid KV length
 // `kv_lengths [B]` and a KV "hole" [hole_lo, hole_hi) masked for every query
-// (the padding between a bucketed prefix's real and padded length).
+// (the padding between a bucketed prefix's real and padded length). The hole's
+// lower end may instead be read from an int32 on the device (`hole_lo_dev`):
+// a captured chunk prefill replays with the prefix's real length as a device
+// operand, while its upper end and `q_offset`, the padded prefix length, are
+// fixed per bucket. Each block reads it once, before any tile is skipped or
+// masked, so the skip and the masks use one value.
 // Probabilities are rounded to the input type before the P·V product, as
 // `blockwise_attention` does; the softmax denominator sums them unrounded.
 //
@@ -86,6 +91,10 @@
 // Both skip kv tiles that causality, the window, kv_lengths or the hole
 // mask entirely before they are loaded, as the Pallas `pl.when(live)` does.
 //
+// Counting: given `launch_counter` (one int32 on the device), the first
+// thread of block (0, 0, 0) adds one to it at each launch, so the launches a
+// replayed CUDA graph ran are counted on the device too.
+//
 // Training: given an `lse` pointer (f32 [B, H, Sq], contiguous), both
 // kernels also write each query row's natural log-sum-exp of its scaled
 // (and capped) scores, -inf for a row that sees no key; the backward kernel
@@ -128,11 +137,29 @@ struct Params {
   int causal, window, q_offset, hole_lo, hole_hi;
 };
 
+// Device pointers beside the launch arguments, each optional (null): the
+// hole's lower end, and the launch counter.
+struct Extra {
+  const int32_t* hole_lo;
+  int* counter;
+};
+
+// The hole's lower end this block uses (read once from the device when
+// given, else the launch argument); the first thread of block (0, 0, 0)
+// counts the launch.
+__device__ __forceinline__ int block_prologue(const int32_t* hole_lo_dev, int* launch_counter,
+                                              int hole_lo) {
+  if (launch_counter != nullptr && threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 &&
+      blockIdx.z == 0)
+    atomicAdd(launch_counter, 1);
+  return hole_lo_dev != nullptr ? *hole_lo_dev : hole_lo;
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int32_t* __restrict__ kv_lengths, T* __restrict__ out, float* __restrict__ lse,
-    Params pr) {
+    const int32_t* __restrict__ hole_lo_dev, int* __restrict__ launch_counter, Params pr) {
   constexpr int DP = D + 1;    // padded row stride of the q and K tiles
   constexpr int PP = kBK + 1;  // padded row stride of the probability tile
   constexpr int DC = D / 16;   // accumulator columns per thread
@@ -153,6 +180,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   const T* kb = k + b * pr.k_b + kh * pr.k_h;
   const T* vb = v + b * pr.v_b + kh * pr.v_h;
   const int kv_len = kv_lengths != nullptr ? kv_lengths[b] : pr.Skv;
+  const int hole_lo = block_prologue(hole_lo_dev, launch_counter, pr.hole_lo);
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
@@ -176,7 +204,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   }
 
   for (int k0 = (kv_begin / kBK) * kBK; k0 < kv_end; k0 += kBK) {
-    if (pr.hole_hi > pr.hole_lo && k0 >= pr.hole_lo && k0 + kBK <= pr.hole_hi) continue;
+    if (pr.hole_hi > hole_lo && k0 >= hole_lo && k0 + kBK <= pr.hole_hi) continue;
     __syncthreads();  // q_s written; k_s, v_s and p_s free
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int r = i / D, d = i - r * D;
@@ -222,7 +250,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
         if (pr.softcap > 0.f) sv = pr.softcap * tanhf(sv / pr.softcap);
         ok[c] = kpos < pr.Skv && kpos < kv_len && (!pr.causal || qpos >= kpos) &&
                 (pr.window <= 0 || qpos - kpos < pr.window) &&
-                !(kpos >= pr.hole_lo && kpos < pr.hole_hi);
+                !(kpos >= hole_lo && kpos < pr.hole_hi);
         s[r][c] = sv;
         if (ok[c]) mx = fmaxf(mx, sv);
       }
@@ -354,7 +382,8 @@ template <int D>
 __global__ void __launch_bounds__(mma_groups<D>() * kMmaWarps * 32) flash_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ kv_lengths,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, Params pr) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+    const int32_t* __restrict__ hole_lo_dev, int* __restrict__ launch_counter, Params pr) {
   constexpr int RW = D + 8;       // padded shared row, elements
   constexpr int CH = D / 8;       // 16-byte chunks a row
   constexpr int KS = D / 16;      // k-steps of Q·Kᵀ
@@ -382,6 +411,7 @@ __global__ void __launch_bounds__(mma_groups<D>() * kMmaWarps * 32) flash_mma_ke
   const __nv_bfloat16* vb = v + b * pr.v_b + kh * pr.v_h;
   const int kv_len = kv_lengths != nullptr ? kv_lengths[b] : pr.Skv;
   const int kv_valid = min(pr.Skv, kv_len);
+  const int hole_lo = block_prologue(hole_lo_dev, launch_counter, pr.hole_lo);
 
   // the kv positions any row of this tile can see
   const int q_first = pr.q_offset + q0;
@@ -389,10 +419,10 @@ __global__ void __launch_bounds__(mma_groups<D>() * kMmaWarps * 32) flash_mma_ke
   int kv_end = kv_valid;
   if (pr.causal) kv_end = min(kv_end, q_last + 1);
   const int kv_begin = pr.window > 0 ? max(0, q_first - pr.window + 1) : 0;
-  const bool has_hole = pr.hole_hi > pr.hole_lo;
-  const unsigned hole_w = has_hole ? pr.hole_hi - pr.hole_lo : 0;  // keys in the hole
+  const bool has_hole = pr.hole_hi > hole_lo;
+  const unsigned hole_w = has_hole ? pr.hole_hi - hole_lo : 0;  // keys in the hole
   auto next_live = [&](int k0) {
-    while (k0 < kv_end && has_hole && k0 >= pr.hole_lo && k0 + kMBK <= pr.hole_hi) k0 += kMBK;
+    while (k0 < kv_end && has_hole && k0 >= hole_lo && k0 + kMBK <= pr.hole_hi) k0 += kMBK;
     return k0;
   };
   auto load_kv = [&](int k0, int stage) {
@@ -492,7 +522,7 @@ __global__ void __launch_bounds__(mma_groups<D>() * kMmaWarps * 32) flash_mma_ke
     }
     const bool full = k0 + kMBK <= kv_valid && (!pr.causal || k0 + kMBK - 1 <= q_first) &&
                       (pr.window <= 0 || q_last - k0 < pr.window) &&
-                      !(has_hole && k0 < pr.hole_hi && k0 + kMBK > pr.hole_lo);
+                      !(has_hole && k0 < pr.hole_hi && k0 + kMBK > hole_lo);
     if (!full) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -505,7 +535,7 @@ __global__ void __launch_bounds__(mma_groups<D>() * kMmaWarps * 32) flash_mma_ke
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int kpos = k0 + t * 8 + (lane & 3) * 2 + c;
-            const bool ok = kpos >= lo && kpos < hi && (unsigned)(kpos - pr.hole_lo) >= hole_w;
+            const bool ok = kpos >= lo && kpos < hi && (unsigned)(kpos - hole_lo) >= hole_w;
             s[t][2 * r + c] = ok ? s[t][2 * r + c] : -INFINITY;
           }
       }
@@ -620,7 +650,8 @@ __global__ void __launch_bounds__(mma_groups<D>() * kMmaWarps * 32) flash_mma_ke
 
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* kv_lengths,
-                       void* out, float* lse, int B, const Params& pr, cudaStream_t stream) {
+                       void* out, float* lse, const Extra& ex, int B, const Params& pr,
+                       cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D>();
   auto kernel = flash_mma_kernel<D>;
   cudaError_t err =
@@ -630,7 +661,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   kernel<<<grid, mma_groups<D>() * kMmaWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(kv_lengths),
-      static_cast<__nv_bfloat16*>(out), lse, pr);
+      static_cast<__nv_bfloat16*>(out), lse, ex.hole_lo, ex.counter, pr);
   return cudaGetLastError();
 }
 
@@ -646,19 +677,19 @@ bool mma_aligned(const void* q, const void* k, const void* v, const void* out, c
 }
 
 cudaError_t dispatch_mma(int D, const void* q, const void* k, const void* v,
-                         const void* kv_lengths, void* out, float* lse, int B, const Params& pr,
-                         cudaStream_t stream) {
+                         const void* kv_lengths, void* out, float* lse, const Extra& ex, int B,
+                         const Params& pr, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch_mma<32>(q, k, v, kv_lengths, out, lse, B, pr, stream);
+      return launch_mma<32>(q, k, v, kv_lengths, out, lse, ex, B, pr, stream);
     case 64:
-      return launch_mma<64>(q, k, v, kv_lengths, out, lse, B, pr, stream);
+      return launch_mma<64>(q, k, v, kv_lengths, out, lse, ex, B, pr, stream);
     case 128:
-      return launch_mma<128>(q, k, v, kv_lengths, out, lse, B, pr, stream);
+      return launch_mma<128>(q, k, v, kv_lengths, out, lse, ex, B, pr, stream);
     case 160:
-      return launch_mma<160>(q, k, v, kv_lengths, out, lse, B, pr, stream);
+      return launch_mma<160>(q, k, v, kv_lengths, out, lse, ex, B, pr, stream);
     case 256:
-      return launch_mma<256>(q, k, v, kv_lengths, out, lse, B, pr, stream);
+      return launch_mma<256>(q, k, v, kv_lengths, out, lse, ex, B, pr, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -671,7 +702,7 @@ size_t smem_bytes(int D) {
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_lengths, void* out,
-                   float* lse, int B, const Params& pr, cudaStream_t stream) {
+                   float* lse, const Extra& ex, int B, const Params& pr, cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   auto kernel = flash_attention_kernel<T, D>;
   cudaError_t err =
@@ -680,25 +711,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_l
   const dim3 grid((pr.Sq + kBQ - 1) / kBQ, pr.H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int32_t*>(kv_lengths), static_cast<T*>(out), lse, pr);
+      static_cast<const int32_t*>(kv_lengths), static_cast<T*>(out), lse, ex.hole_lo, ex.counter,
+      pr);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       const void* kv_lengths, void* out, float* lse, int B, const Params& pr,
-                       cudaStream_t stream) {
+                       const void* kv_lengths, void* out, float* lse, const Extra& ex, int B,
+                       const Params& pr, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, kv_lengths, out, lse, B, pr, stream);
+      return launch<T, 32>(q, k, v, kv_lengths, out, lse, ex, B, pr, stream);
     case 64:
-      return launch<T, 64>(q, k, v, kv_lengths, out, lse, B, pr, stream);
+      return launch<T, 64>(q, k, v, kv_lengths, out, lse, ex, B, pr, stream);
     case 128:
-      return launch<T, 128>(q, k, v, kv_lengths, out, lse, B, pr, stream);
+      return launch<T, 128>(q, k, v, kv_lengths, out, lse, ex, B, pr, stream);
     case 160:
-      return launch<T, 160>(q, k, v, kv_lengths, out, lse, B, pr, stream);
+      return launch<T, 160>(q, k, v, kv_lengths, out, lse, ex, B, pr, stream);
     case 256:
-      return launch<T, 256>(q, k, v, kv_lengths, out, lse, B, pr, stream);
+      return launch<T, 256>(q, k, v, kv_lengths, out, lse, ex, B, pr, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -730,7 +762,9 @@ extern "C" size_t flash_attention_mma_smem(int D) {
 // (the tensor-core kernel when every row start is 16-byte aligned).
 // Strides in elements; kv_lengths and lse may be null (lse: f32 [B, H, Sq],
 // written when given); softcap <= 0 and window <= 0 mean none; hole_lo >=
-// hole_hi means no hole. Returns the launch's
+// hole_hi means no hole. `hole_lo_dev` (one int32 on the device, or null)
+// replaces `hole_lo` when given; `launch_counter` (one int32 on the device,
+// or null) counts the launches the device ran. Returns the launch's
 // cudaGetLastError() (or the error of setting the shared-memory limit).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* kv_lengths, void* out, void* lse, int B, int H,
@@ -740,7 +774,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    long long k_s, long long v_b, long long v_h, long long v_s,
                                    long long o_b, long long o_h, long long o_s, float sm_scale,
                                    float softcap, int causal, int window, int q_offset,
-                                   int hole_lo, int hole_hi, void* stream) {
+                                   int hole_lo, int hole_hi, const void* hole_lo_dev,
+                                   void* launch_counter, void* stream) {
   if (B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || Sq <= 0 || Skv <= 0)
     return cudaErrorInvalidValue;
   const Params pr{H,   KH,  Sq,  Skv,      q_b,     q_h,    q_s,    k_b,     k_h,     k_s,
@@ -748,13 +783,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                   q_offset, hole_lo, hole_hi};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  const Extra ex{static_cast<const int32_t*>(hole_lo_dev), static_cast<int*>(launch_counter)};
   switch (dtype) {
     case 0:
-      return dispatch_d<float>(D, q, k, v, kv_lengths, out, l, B, pr, s);
+      return dispatch_d<float>(D, q, k, v, kv_lengths, out, l, ex, B, pr, s);
     case 1:
       if (mma_aligned(q, k, v, out, pr))
-        return dispatch_mma(D, q, k, v, kv_lengths, out, l, B, pr, s);
-      return dispatch_d<__nv_bfloat16>(D, q, k, v, kv_lengths, out, l, B, pr, s);
+        return dispatch_mma(D, q, k, v, kv_lengths, out, l, ex, B, pr, s);
+      return dispatch_d<__nv_bfloat16>(D, q, k, v, kv_lengths, out, l, ex, B, pr, s);
     default:
       return cudaErrorInvalidValue;
   }

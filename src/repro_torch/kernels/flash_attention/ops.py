@@ -128,11 +128,12 @@ class FlashAttentionKernel(_nvcc.Kernel):
             raise ValueError(f"softcap must be positive, not {softcap}")
         if q_offset < 0:
             raise ValueError(f"q_offset must be non-negative, not {q_offset}")
-        hole_lo, hole_hi = (0, 0) if kv_hole is None else (int(kv_hole[0]), int(kv_hole[1]))
+        hole_lo, hole_hi, hole_lo_dev = _hole(kv_hole, dev)
 
         lib = self.load()
         out = torch.empty(q.shape, dtype=q.dtype, device=dev)
         lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev) if with_lse else None
+        counter = self.counter(dev)
 
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -143,7 +144,7 @@ class FlashAttentionKernel(_nvcc.Kernel):
                 B, H, KH, Sq, Skv, D, _DTYPE_CODES[q.dtype],
                 *(s for t in (q, k, v, out) for s in _strides(t, seq_dim, head_dim)),
                 D ** -0.5, softcap or 0.0, int(causal), window or 0, int(q_offset),
-                hole_lo, hole_hi, stream,
+                hole_lo, hole_hi, hole_lo_dev, counter.data_ptr(), stream,
             )
         _nvcc.check_status(err, "flash_attention_fwd")
         self.launches += 1
@@ -195,13 +196,34 @@ class FlashAttentionKernel(_nvcc.Kernel):
         return dq, dk, dv
 
 
+def _hole(kv_hole, dev) -> tuple[int, int, int | None]:
+    """``kv_hole`` as the kernel takes it: ``(lo, hi, lo's device
+    address)``. ``hi`` is a host integer; ``lo`` a host integer or an int32
+    tensor of one element on ``dev``, which the kernel reads on the device
+    (its address returned, the host ``lo`` then 0) and nothing here reads
+    on the host."""
+    if kv_hole is None:
+        return 0, 0, None
+    lo, hi = kv_hole
+    if isinstance(hi, torch.Tensor):
+        raise TypeError("kv_hole's upper end is a host integer (the padded prefix "
+                        "length, fixed by the operands' shapes), not a tensor")
+    if not isinstance(lo, torch.Tensor):
+        return int(lo), int(hi), None
+    if lo.dtype != torch.int32 or lo.numel() != 1 or lo.device != dev:
+        raise ValueError(f"kv_hole's lower end must be one int32 on {dev}, not "
+                         f"{lo.dtype} of shape {tuple(lo.shape)} on {lo.device}")
+    return 0, int(hi), lo.data_ptr()
+
+
 def _strides(t, seq_dim: int, head_dim: int) -> tuple[int, int, int]:
     """(batch, head, sequence) strides of a 4-D operand, in elements."""
     return t.stride(0), t.stride(head_dim), t.stride(seq_dim)
 
 
-#: the one kernel instance both wrappers launch; its ``launches`` is the
-#: count a run reads to show that prefill went through the kernel
+#: the one kernel instance both wrappers launch; its ``launches`` counts
+#: the wrappers' launches, ``device_launches(dev)`` every launch the card
+#: ran, inside replayed graphs too (the chunk prefill's)
 KERNEL = FlashAttentionKernel()
 
 
@@ -249,8 +271,9 @@ def cost(q, k, v, *, seq_dim: int, head_dim: int, causal: bool, window=None,
     """One forward call's work: ``{"flops", "bytes", "op_type"}``. Bytes: q,
     k and v read once and the output written once. Operations: q·kᵀ and
     p·v over the visible (query, key) pairs (:func:`visible_pairs`).
-    ``kv_lengths`` are host values (a CUDA tensor is read, a sync).
-    Operands are tensors or anything with their ``shape`` and ``dtype``."""
+    ``kv_lengths`` and ``kv_hole``'s lower end are host values or tensors
+    (a CUDA tensor is read, a sync). Operands are tensors or anything with
+    their ``shape`` and ``dtype``."""
     B, D = q.shape[0], q.shape[3]
     H, Sq = q.shape[head_dim], q.shape[seq_dim]
     KH, Skv = k.shape[head_dim], k.shape[seq_dim]
@@ -317,12 +340,24 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, q_offset
                                q_offset=q_offset)
 
 
+def padded_prefix(q, k, v, **_) -> int:
+    """Keys before the first query in a prefill call: ``Skv - Sq``, the
+    padded prefix of a chunk (or a cached prefix) that the model passes
+    as ``q_offset`` and as the hole's upper end. The operands' shapes fix
+    it, so a step captured per shape bucket may bake it."""
+    return k.shape[1] - q.shape[1]
+
+
 @leaf.entry("flash_attention.prefill_attention", prefill_cost,
-            host_operands=("q_offset", "kv_hole"))
+            host_operands=("q_offset", "kv_hole"),
+            shape_derived={"q_offset": padded_prefix, "kv_hole[1]": padded_prefix})
 def prefill_attention(q, k, v, *, causal: bool, window=None, cap=None, q_offset: int = 0,
                       kv_lengths=None, kv_hole=None):
     """Prefill attention in the model's layout, q [B,Sq,H,D]; k, v
     [B,Skv,KH,D] -> [B,Sq,H,D] (arguments as ``blockwise_attention``).
+    ``kv_hole``'s lower end may be an int32 tensor of one element on q's
+    device: the kernel reads it there, so a captured chunk replays with
+    each call's prefix length.
 
     On a mesh of more than one device q, k and v are DTensors placed by
     heads (and, in training, by rows): each rank runs this on its local

@@ -72,7 +72,6 @@ class PagedAttentionKernel(_nvcc.Kernel):
     def __init__(self):
         super().__init__(_build.load)
         self._n_sm: dict[int, int] = {}
-        self._counters: dict[int, torch.Tensor] = {}
 
     def sm_count(self, dev: torch.device) -> int:
         """The card's SM count, read once per device."""
@@ -80,26 +79,6 @@ class PagedAttentionKernel(_nvcc.Kernel):
         if idx not in self._n_sm:
             self._n_sm[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
         return self._n_sm[idx]
-
-    def _counter(self, dev: torch.device) -> torch.Tensor:
-        """The device's launch counter: one int32, allocated at the first
-        launch on the device and kept, so a captured graph's kernels add to
-        the same address at every replay. A graph captures a launch only
-        after its eager warm-up run, which allocates the counter first."""
-        idx = dev.index if dev.index is not None else torch.cuda.current_device()
-        if idx not in self._counters:
-            if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError("the launch counter must exist before a capture")
-            self._counters[idx] = torch.zeros(1, dtype=torch.int32, device=dev)
-        return self._counters[idx]
-
-    def device_launches(self, dev) -> int:
-        """Launches the card ran on ``dev`` since the counter's first
-        launch, in or out of graphs (reads the device: a sync)."""
-        dev = torch.device(dev)
-        idx = dev.index if dev.index is not None else torch.cuda.current_device()
-        counter = self._counters.get(idx)
-        return 0 if counter is None else int(counter.item())
 
     def __call__(self, q, k_new, v_new, k_pages, v_pages, block_tables, lengths,
                  k_scales, v_scales, *, softcap, window):
@@ -158,7 +137,7 @@ class PagedAttentionKernel(_nvcc.Kernel):
         out = torch.empty_like(q)
         ws = (torch.empty((B, H, splits, D + 2), dtype=torch.float32, device=dev)
               if splits > 1 else None)
-        counter = self._counter(dev)
+        counter = self.counter(dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.paged_attention_decode(

@@ -613,7 +613,10 @@ def apply_dense_block(
       attention runs over concat(prefix, current) — positions must
       already be offset by the prefix length. ``prefix_valid`` marks how
       many prefix positions are real when the prefix is padded to a
-      bucket; positions in ``[prefix_valid, Sp)`` are masked.
+      bucket; positions in ``[prefix_valid, Sp)`` are masked. It may be a
+      0-dim int32 tensor on the device, which goes to the flash kernel as
+      the hole's lower end as it is (the upper end and ``q_offset`` are
+      ``Sp``, fixed by the shapes).
     * decode mode (``cache = (k_cache, v_cache)`` slot buffers
       ``[B, S, KH, HD]``): writes the new token at ``lengths - 1`` in
       place, where the reference returned updated buffers, then attends

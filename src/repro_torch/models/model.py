@@ -458,7 +458,12 @@ class Model(nn.Module):
         (default: the last). ``positions_offset``/``prefix_valid`` support
         a prefix padded past its real length: the first is the real
         absolute position of the first suffix token (RoPE uses true
-        positions), the second masks the padded prefix tail.
+        positions), the second masks the padded prefix tail. Each of
+        ``logit_index``, ``positions_offset`` and ``prefix_valid`` may be a
+        0-dim integer tensor on the device (a captured chunk's operands):
+        the positions are then made there, the logit row taken with
+        ``index_select`` and the hole's lower end read by the kernel, so no
+        value is read on the host; with ints the bits are the same.
 
         The vlm family prepends ``batch["image_embeds"]`` [B, n_img, d]
         (cast to the embedding's type) to the tokens, as the reference
@@ -496,7 +501,11 @@ class Model(nn.Module):
         h, cache, _ = self.sequence(x, positions, prefix=prefix, prefix_valid=prefix_valid,
                                     frames=batch.get("frames"), collect_cache=True, ctx=ctx)
         idx = -1 if logit_index is None else n_img + logit_index
-        return self._logits(h[:, idx, :], ctx), cache
+        if isinstance(idx, torch.Tensor):
+            row = h.index_select(1, idx.reshape(1).long())[:, 0]
+        else:
+            row = h[:, idx, :]
+        return self._logits(row, ctx), cache
 
     def _kv_shape(self, t) -> tuple[int, ...]:
         """The whole shape of a KV stack ``[L, B, S, KH, HD]`` of which

@@ -23,22 +23,31 @@ execution plane the MORI scheduler drives:
   MORI router.
 
 The reference compiles one ``jax.jit`` per shape bucket; the port
-captures the decode step once per table bucket as a CUDA graph
-(:class:`repro_torch.serving.graphs.StepGraphs`) and replays it.
+captures a step once per bucket as a CUDA graph
+(:class:`repro_torch.serving.graphs.StepGraphs`) and replays it, in two
+caches an engine: the decode step per table bucket (``graphs``; the
+dense-slot step has one shape, so one graph) and the chunk prefill per
+(prefix-page bucket x chunk bucket) (``chunk_graphs``, the counterpart of
+the reference's ``_chunk_prefill_fn``; paged engines only). The
+reference's chunk jit is one process-wide cache; a captured graph binds
+one pool's addresses, so the port keeps one cache an engine.
 :meth:`Engine.warmup_specs` lists the reference's buckets,
 :meth:`Engine.spec_step` makes one runnable (what warmup runs and the step
 auditor, :mod:`repro_torch.analysis.jitaudit`, traces),
-:meth:`Engine.warmup` captures every decode bucket before traffic, and a
-bucket first met later is captured then, which the compile tracker
-(``REPRO_JITAUDIT=1``) counts as a post-warmup capture. The dense-slot
-step has one shape, so one graph. A step stages its
-inputs in one pinned host buffer, copies them to the bucket's static
-buffer, replays, and reads back the greedy tokens the graph sampled. The
-chunk prefill runs eagerly: its flash launch takes the chunk's offsets as
-host integers. Where the reference donated buffers, the decode step and
-the chunk prefill update the pool tensors in place. On the CPU the same
-buckets run eagerly. The engine runs on the GPU unless the caller asks for
-the CPU (``device="cpu"``); with no CUDA device it raises.
+:meth:`Engine.warmup` captures every bucket before traffic, and a bucket
+first met later is captured then, which the compile tracker
+(``REPRO_JITAUDIT=1``) counts as a post-warmup capture. A step stages
+every per-call value (tokens, lengths, page tables and lists, the chunk's
+start and length) in one pinned host buffer, copies it to the bucket's
+static int32 vector, replays, and reads back what the graph sampled; every
+kernel it reaches reads those values on the device (flash the prefix's
+real length, the hole's lower end; its upper end and the chunk's
+``q_offset`` are the padded prefix, fixed per bucket). A chunk that is not
+a job's last reads nothing back. Where the reference donated buffers, the
+decode step and the chunk prefill update the pool tensors in place. On
+the CPU the same buckets run eagerly. The engine runs on the GPU unless
+the caller asks for the CPU (``device="cpu"``); with no CUDA device it
+raises.
 
 **Tensor-parallel serving.** With a ``placement`` on a ``(1, tp)`` mesh
 (``make_replica_set(n, mesh_shape=(1, tp), num_kv_heads=...)``), every
@@ -47,10 +56,10 @@ same control plane, SPMD: the weights are DTensors placed by the shared
 rules (each rank keeps its own block of the same full tensors), the
 steps pass a :class:`~repro_torch.models.layers.ShardCtx`, the page pool
 (and with ``dense_slots`` the slot caches) holds the rank's block of the
-KV heads, and the steps run eagerly (no graph is captured on such a
-mesh). The greedy token is taken from the gathered logits, so every rank
-samples the same one. An int8 pool takes each page's scale over all its
-heads: every quantizing site all-reduces the ranks' amax
+KV heads, and the same staged steps run eagerly (no graph is captured on
+such a mesh). The greedy token is taken from the gathered logits, so
+every rank samples the same one. An int8 pool takes each page's scale
+over all its heads: every quantizing site all-reduces the ranks' amax
 (:func:`repro_torch.dist.local.max_reducer`). The dense and moe families
 serve there; a data axis larger than one and the other families still
 raise ``NotImplementedError``.
@@ -179,11 +188,9 @@ class WarmupSpec:
 
     ``make_args`` is lazy, as in the reference: it builds the inputs at
     call time, on the engine's scratch pages or, for the ``dense`` spec,
-    slot position 0. A ``dense`` or ``paged_decode`` spec's inputs are the
-    step's staged int32 vector (:meth:`Engine._pack`); a
-    ``chunk_prefill`` spec's are the keyword arguments of one eager
-    chunk. ``probe_group`` names the structural equivalence class the
-    reference's audit pairs specs by.
+    slot position 0. They are the step's staged int32 vector
+    (:meth:`Engine._pack`), whatever the kind. ``probe_group`` names the
+    structural equivalence class the reference's audit pairs specs by.
     """
 
     name: str
@@ -214,44 +221,6 @@ def greedy_token(logits: torch.Tensor) -> torch.Tensor:
     ``torch.argmax`` breaks exact ties by the lowest index — the sampled
     token is a function of the context, not of the code path."""
     return torch.argmax(logits.to(torch.bfloat16).to(torch.float32), dim=-1)
-
-
-def _chunk_prefill(model: Model, pool: PagePool, prefix_idx, write_idx, tokens,
-                   prefix_valid: int, pos0: int, take: int, logit_idx: int,
-                   ctx=NULL_CTX):
-    """One chunk of prefill, pool in, pool updated in place. ``prefix_idx``
-    is padded to a page bucket (its garbage tail masked via
-    ``prefix_valid``); ``write_idx`` is padded with a scratch page; chunk
-    KV past ``take`` is zeroed so the written tail page is byte-identical
-    to the monolithic path's. Returns the logits at ``logit_idx``. On a
-    mesh (``ctx``) the pool is the rank's block of the KV heads, and so
-    are the prefix it reads and the chunk KV it writes."""
-    prefix = None
-    if prefix_idx:
-        if pool.quantized_device:
-            pk, pv = gather_token_run_q(
-                pool.k, pool.k_scale, pool.v, pool.v_scale, prefix_idx, torch.bfloat16
-            )
-        else:
-            pk, pv = gather_token_run(pool.k, pool.v, prefix_idx)
-        prefix = {"k": pk[:, None], "v": pv[:, None]}            # [L,1,Sp,KH,HD]
-    logits, cache = model.prefill(
-        {"tokens": tokens}, prefix=prefix, logit_index=logit_idx,
-        positions_offset=pos0,
-        prefix_valid=prefix_valid if prefix is not None else None, ctx=ctx,
-    )
-    k_c = ctx.local(cache["k"])[:, 0]                           # [L,C_pad,KH,HD]
-    v_c = ctx.local(cache["v"])[:, 0]
-    k_c[:, take:] = 0
-    v_c[:, take:] = 0
-    if pool.quantized_device:
-        scatter_token_run_q(
-            pool.k, pool.k_scale, pool.v, pool.v_scale, write_idx, k_c, v_c,
-            pool.page_tokens, pool.reduce_amax,
-        )
-    else:
-        scatter_token_run(pool.k, pool.v, write_idx, k_c, v_c, pool.page_tokens)
-    return logits[0]
 
 
 @dataclass
@@ -397,6 +366,11 @@ class Engine:
         self.graphs = StepGraphs(
             f"engine{self._audit_id}.{'decode' if dense_slots else 'paged_decode'}",
             self.device, capture=self.ctx.mesh is None)
+        # one chunk-prefill graph per (prefix-page bucket, chunk bucket):
+        # the reference's process-wide chunk jit, one cache an engine here
+        # (a graph binds this pool's addresses)
+        self.chunk_graphs = StepGraphs(f"engine{self._audit_id}.chunk_prefill",
+                                       self.device, capture=self.ctx.mesh is None)
         self._staging: dict = {}             # graph key -> (host, static)
         self._staged = torch.cuda.Event() if self.device.type == "cuda" else None
         # metrics
@@ -415,11 +389,13 @@ class Engine:
     # ------------------------------------------------------- compile plane
     def graph_functions(self) -> dict:
         """The hot-path graph caches by tracker name: the counterpart of
-        the reference's ``jit_functions``. The chunk prefill runs eagerly,
-        so only the decode cache is listed."""
+        the reference's ``jit_functions``. A paged engine's decode and
+        chunk-prefill caches; the dense-slot engine's one decode graph
+        (it takes no chunked prefill)."""
         if self.dense_slots:
             return {f"engine{self._audit_id}.decode_graphs": self.graphs}
-        return {f"engine{self._audit_id}.paged_decode_graphs": self.graphs}
+        return {f"engine{self._audit_id}.paged_decode_graphs": self.graphs,
+                f"engine{self._audit_id}.chunk_prefill_graphs": self.chunk_graphs}
 
     def warmup_specs(self, prefill_chunks: bool = False) -> list[WarmupSpec]:
         """Every shape the serving hot path can dispatch, as lazy-argument
@@ -452,18 +428,6 @@ class Engine:
         T = self.page_tokens
         cap = max(T, (self.prefill_chunk_tokens // T) * T)
         cap_pad = -(-cap // self.prefill_bucket) * self.prefill_bucket
-        sp = self._scratch_pages[0]
-
-        def chunk_args(p_pad: int, c_pad: int):
-            def make():
-                return dict(
-                    prefix_idx=[sp] * p_pad, write_idx=[sp] * -(-c_pad // T),
-                    tokens=torch.zeros((1, c_pad), dtype=torch.long, device=self.device),
-                    prefix_valid=0, pos0=0, take=c_pad, logit_idx=c_pad - 1,
-                )
-
-            return make
-
         for pb in range(n_buckets + 1):
             p_pad = pb * self._table_bucket
             # the prefix gather exists only when prefix pages do, so the
@@ -472,7 +436,8 @@ class Engine:
             for c_pad in range(self.prefill_bucket, cap_pad + 1, self.prefill_bucket):
                 specs.append(WarmupSpec(
                     name=f"chunk_prefill_fn[prefix_pages={p_pad},chunk={c_pad}]",
-                    kind="chunk_prefill", make_args=chunk_args(p_pad, c_pad),
+                    kind="chunk_prefill",
+                    make_args=lambda key=(p_pad, c_pad): self._scratch_chunk_inputs(*key),
                     bucket={"prefix_pages": p_pad, "chunk_tokens": c_pad},
                     probe_group=f"engine{self._audit_id}/chunk_prefill/{group}",
                 ))
@@ -488,9 +453,11 @@ class Engine:
         graph is captured on slot position 0. Must run on an idle engine
         (the dummy steps write garbage KV into the scratch pages or slot
         position 0, which the first real submit or step overwrites).
-        ``prefill_chunks=True`` also runs every chunked-prefill bucket
-        once, eagerly, against the scratch pages. When the compile tracker is armed (``REPRO_JITAUDIT=1``)
-        the caches' sizes then become this engine's capture budget."""
+        ``prefill_chunks=True`` also captures every chunked-prefill bucket
+        and replays it once, on the first scratch page, which is all its
+        steps write. When the compile tracker is armed
+        (``REPRO_JITAUDIT=1``) the caches' sizes then become this engine's
+        capture budget."""
         if self.slots:
             raise RuntimeError("warmup must run on an idle engine")
         tracker = compile_tracker.get_tracker()
@@ -503,40 +470,49 @@ class Engine:
     def spec_step(self, spec: WarmupSpec, eager: bool = False) -> SpecStep:
         """``spec`` as a step to run: what :meth:`warmup` runs and the step
         auditor (:mod:`repro_torch.analysis.jitaudit`) traces. The spec's
-        inputs are built now. A decode spec's step stages them and replays
-        its bucket's graph, capturing it first if the bucket has none; with
+        inputs are built now. The step stages them and replays its
+        bucket's graph, capturing it first if the bucket has none; with
         ``eager`` they are staged now into the bucket's static vector and
-        the step is the function the graph captures, run op by op. A chunk
-        spec's step is one eager chunk over the pool."""
-        def pool_buffers() -> dict:
-            return dict(zip(("k", "v", "k_scale", "v_scale"), self.pool.device_tensors()))
-
+        the step is the function the graph captures, run op by op."""
         args = spec.make_args()
-        if spec.kind == "chunk_prefill":
-            return SpecStep(lambda: _chunk_prefill(self.model, self.pool, **args,
-                                                   ctx=self.ctx),
-                            pool_buffers)
-        key = DENSE_KEY if spec.kind == "dense" else spec.bucket["table_pages"]
+        key = self.spec_key(spec)
 
         def buffers() -> dict:
             out = ({"slot_k": self.slot_k, "slot_v": self.slot_v} if self.dense_slots
-                   else pool_buffers())
+                   else dict(zip(("k", "v", "k_scale", "v_scale"),
+                                 self.pool.device_tensors())))
             out["staged"] = self._staging[key][1]
             return out
 
         if not eager:
-            return SpecStep(lambda: self._decode(key, args), buffers)
+            run = self._chunk if spec.kind == "chunk_prefill" else self._decode
+            return SpecStep(lambda: run(key, args), buffers)
         return SpecStep(self._step_fn(key, self._stage(key, args)), buffers)
 
-    def _pack(self, tokens, lengths, *paged) -> np.ndarray:
-        """A decode step's inputs as one int32 vector, the layout of a
-        bucket's staging buffers: ``[tokens | lengths]`` (``max_slots``
-        each); for paged decode (``paged = (tail_pages, tail_offsets,
-        tables)``) then the tail pages and offsets, and ``tables`` row by
-        row."""
-        return np.concatenate([
-            np.asarray(a, np.int32).reshape(-1) for a in (tokens, lengths, *paged)
-        ])
+    @staticmethod
+    def spec_key(spec: WarmupSpec):
+        """The graph key of ``spec``'s bucket: :data:`DENSE_KEY`, a decode
+        table bucket's pages, or a chunk's ``(prefix pages, chunk
+        tokens)``."""
+        if spec.kind == "dense":
+            return DENSE_KEY
+        if spec.kind == "chunk_prefill":
+            return spec.bucket["prefix_pages"], spec.bucket["chunk_tokens"]
+        return spec.bucket["table_pages"]
+
+    def graph_cache(self, key) -> StepGraphs:
+        """The cache that holds bucket ``key``'s graph."""
+        return self.chunk_graphs if isinstance(key, tuple) else self.graphs
+
+    @staticmethod
+    def _pack(*parts) -> np.ndarray:
+        """A step's inputs as one int32 vector, the layout of a bucket's
+        staging buffers, ``parts`` flattened in order. A decode step's are
+        ``(tokens, lengths)`` (``max_slots`` each), for paged decode then
+        the tail pages and offsets and the tables row by row; a chunk's
+        are ``(tokens [c_pad], prefix pages [p_pad], write pages
+        [ceil(c_pad / T)], (pos0, take))``."""
+        return np.concatenate([np.asarray(a, np.int32).reshape(-1) for a in parts])
 
     def _scratch_dense_inputs(self) -> np.ndarray:
         """The dense step's inputs with every row at slot position 0:
@@ -552,6 +528,15 @@ class Engine:
         return self._pack(np.zeros(B), np.ones(B), scratch, np.zeros(B),
                           np.repeat(scratch[:, None], p_pad, axis=1))
 
+    def _scratch_chunk_inputs(self, p_pad: int, c_pad: int) -> np.ndarray:
+        """Chunk bucket ``(p_pad, c_pad)``'s inputs on the first scratch
+        page: token 0 at every position, a prefix of the scratch page with
+        no real position (all of it in the hole) and every page of the
+        chunk written to the scratch page."""
+        sp = self._scratch_pages[0]
+        return self._pack(np.zeros(c_pad), [sp] * p_pad, [sp] * -(-c_pad // self.page_tokens),
+                          (0, c_pad))
+
     def _decode(self, key, packed: np.ndarray):
         """One decode step of table bucket ``key`` (the dense-slot step:
         :data:`DENSE_KEY`) over ``packed`` (:meth:`_pack`): stage it, replay
@@ -560,9 +545,20 @@ class Engine:
         [B])``, valid until the next replay."""
         static = self._static(key, len(packed))
         if key not in self.graphs:
-            self._capture_decode(key, static, packed)
+            self._capture(key, static, packed)
         self._stage(key, packed)
         return self.graphs.replay(key)
+
+    def _chunk(self, key, packed: np.ndarray):
+        """One chunk prefill of bucket ``key = (p_pad, c_pad)`` over
+        ``packed`` (:meth:`_pack`), as :meth:`_decode` runs a decode step:
+        returns the graph's static ``(logits [V] f32, greedy token)``,
+        valid until the bucket's next replay."""
+        static = self._static(key, len(packed))
+        if key not in self.chunk_graphs:
+            self._capture(key, static, packed)
+        self._stage(key, packed)
+        return self.chunk_graphs.replay(key)
 
     def _static(self, key, n: int) -> torch.Tensor:
         """Bucket ``key``'s static input vector of ``n`` int32, made at
@@ -591,24 +587,30 @@ class Engine:
         return static
 
     def _step_fn(self, key, static: torch.Tensor):
-        """Bucket ``key``'s decode step over its static input vector
-        ``static``, as a function of no arguments: what its graph
-        captures."""
+        """Bucket ``key``'s step over its static input vector ``static``, as
+        a function of no arguments: what its graph captures."""
         if key == DENSE_KEY:
             return lambda: self.decode_dense(static)
+        if isinstance(key, tuple):
+            return lambda: self.chunk_packed(static, key)
         return lambda: self.decode_packed(static, key)
 
-    def _capture_decode(self, key, static: torch.Tensor, packed: np.ndarray) -> None:
-        """Capture bucket ``key``'s decode step over ``static``. The
-        capture's eager run on the card reads ``static``, so it is filled
-        first: for a paged bucket with the warmup spec's scratch-page
+    def _capture(self, key, static: torch.Tensor, packed: np.ndarray) -> None:
+        """Capture bucket ``key``'s step over ``static``. The capture's
+        eager run on the card reads ``static``, so it is filled first: for
+        a paged decode or chunk bucket with the warmup spec's scratch-page
         inputs; for the dense-slot step with the step's own inputs
         ``packed``, whose eager run rewrites the KV each row's replay then
         writes again, the same values at the same positions (and, on an
         idle engine, slot position 0)."""
-        static.copy_(torch.from_numpy(
-            packed if key == DENSE_KEY else self._scratch_decode_inputs(key)))
-        self.graphs.capture(key, self._step_fn(key, static))
+        if key == DENSE_KEY:
+            scratch = packed
+        elif isinstance(key, tuple):
+            scratch = self._scratch_chunk_inputs(*key)
+        else:
+            scratch = self._scratch_decode_inputs(key)
+        static.copy_(torch.from_numpy(scratch))
+        self.graph_cache(key).capture(key, self._step_fn(key, static))
 
     def decode_dense(self, staged: torch.Tensor, slot_tensors=None):
         """The dense-slot decode step run op by op: the function its graph
@@ -641,6 +643,56 @@ class Engine:
             *(scales or (None, None)), ctx=self.ctx, reduce_amax=self.pool.reduce_amax,
         )
         logits = self.ctx.full(logits)
+        return logits, greedy_token(logits)
+
+    def chunk_packed(self, staged: torch.Tensor, key, pool_tensors=None):
+        """The chunk prefill of bucket ``key = (p_pad, c_pad)`` run op by
+        op: the function a chunk bucket's graph captures, the counterpart
+        of the reference's ``_chunk_prefill_impl(_q)``. ``staged`` is a
+        device int32 vector in :meth:`_pack`'s chunk layout: the chunk's
+        tokens padded to ``c_pad``, the prefix pages padded to ``p_pad``
+        with a scratch page, the pages the chunk writes padded to
+        ``ceil(c_pad / T)`` with a scratch page, then ``pos0`` (the chunk's
+        absolute start, which is also the prefix's real length) and
+        ``take`` (its real tokens). ``pool_tensors`` are the k, v (and,
+        int8-resident, the scales) it reads and writes, by default the
+        pool's own. The prefix is gathered and masked past ``pos0`` (the
+        flash kernel reads the hole's lower end from ``staged``), RoPE
+        takes positions ``pos0 + arange``, the chunk's KV past ``take`` is
+        zeroed so the written tail page is byte-identical to the
+        monolithic path's, and the pages are written (quantized) in place.
+        Returns the logits ``[V]`` f32 at the chunk's last real token and
+        their greedy token; on a mesh (``ctx``) the pool holds the rank's
+        block of the KV heads and the logits are gathered first."""
+        p_pad, c_pad = key
+        T = self.page_tokens
+        tokens, prefix_idx, write_idx, scalars = staged.split(
+            [c_pad, p_pad, -(-c_pad // T), 2])
+        pos0, take = scalars.unbind()
+        k, v, *scales = pool_tensors or self.pool.device_tensors()
+        ctx = self.ctx
+        prefix = None
+        if p_pad:
+            if scales:
+                pk, pv = gather_token_run_q(k, scales[0], v, scales[1], prefix_idx,
+                                            torch.bfloat16)
+            else:
+                pk, pv = gather_token_run(k, v, prefix_idx)
+            prefix = {"k": pk[:, None], "v": pv[:, None]}            # [L,1,Sp,KH,HD]
+        logits, cache = self.model.prefill(
+            {"tokens": tokens[None].long()}, prefix=prefix, logit_index=take - 1,
+            positions_offset=pos0, prefix_valid=pos0 if prefix is not None else None,
+            ctx=ctx,
+        )
+        keep = (torch.arange(c_pad, device=staged.device) < take)[None, :, None, None]
+        k_c = torch.where(keep, ctx.local(cache["k"])[:, 0], 0)       # [L,C_pad,KH,HD]
+        v_c = torch.where(keep, ctx.local(cache["v"])[:, 0], 0)
+        if scales:
+            scatter_token_run_q(k, scales[0], v, scales[1], write_idx, k_c, v_c, T,
+                                self.pool.reduce_amax)
+        else:
+            scatter_token_run(k, v, write_idx, k_c, v_c, T)
+        logits = ctx.full(logits[0])
         return logits, greedy_token(logits)
 
     # ------------------------------------------------------------- kvsan
@@ -817,7 +869,9 @@ class Engine:
 
         The chunk pads to ``prefill_bucket`` tokens and the page-gathered
         prefix pads to the table bucket (tail masked via ``prefix_valid``),
-        the same shapes the reference computes on.
+        the same shapes the reference computes on. The chunk's inputs are
+        staged into its bucket's static vector and its graph replayed
+        (:meth:`chunk_packed`); only the final chunk reads its token back.
         """
         if job.done:
             raise RuntimeError("prefill job already completed")
@@ -846,17 +900,14 @@ class Engine:
         write_idx = write_idx + [scratch] * (w_pad - len(write_idx))
 
         chunk = job.suffix[job.cursor : job.cursor + take]
-        tokens = self._tensor([chunk + [0] * (c_pad - take)], torch.long)
         pos0 = job.cached_tokens + job.cursor    # absolute chunk start
-        logits = _chunk_prefill(
-            self.model, self.pool, prefix_idx, write_idx, tokens,
-            prefix_valid=pos0, pos0=pos0, take=take, logit_idx=take - 1, ctx=self.ctx,
-        )
+        _, token = self._chunk((p_pad, c_pad), self._pack(
+            chunk + [0] * (c_pad - take), prefix_idx, write_idx, (pos0, take)))
         job.cursor += take
         job.chunks_run += 1
         if job.cursor < len(job.suffix):
             return False
-        job.first_token = int(greedy_token(self.ctx.full(logits)))
+        job.first_token = int(token)
         self._install_job(job)
         return True
 

@@ -2,10 +2,16 @@
 
 The port's counterpart of the reference's per-bucket ``jax.jit`` caches
 (``Engine.jit_functions``). PyTorch dispatches every op of a step from
-Python, and a decode step is hundreds of small ops: on the card the step
-waits on the host, not on its kernels. :class:`StepGraphs` captures a step
-once per bucket into a ``torch.cuda.CUDAGraph`` and replays it, so a step
-costs one launch from the host.
+Python, and a decode step or a prefill chunk is hundreds of small ops: on
+the card the step waits on the host, not on its kernels.
+:class:`StepGraphs` captures a step once per bucket into a
+``torch.cuda.CUDAGraph`` and replays it, so a step costs one launch from
+the host. A paged engine keeps two caches: its decode step per table
+bucket and its chunk prefill per (prefix-page bucket x chunk bucket)
+(``Engine.graph_functions``); the dense-slot engine and ``SsmEngine`` one
+decode cache each. Each cache has its own memory pool; two caches of one
+engine never replay at once (one stream), and each graph's static outputs
+stay referenced by its cache, so no replay reuses another's outputs.
 
 A step is a function of no arguments over *static* tensors that its owner
 keeps at fixed addresses (staged inputs, the page pool, a decode state):
@@ -34,8 +40,10 @@ them.
 
 A kernel wrapper runs only while a step is captured (its eager warm-up run
 and the capture itself); a replay calls no wrapper, so a wrapper's launch
-count does not see the kernels a replay runs. Count those on the device
-(``torch.profiler``).
+count does not see the kernels a replay runs. Count those on the device:
+the paged and flash kernels count their own launches there
+(``ops.KERNEL.device_launches``), and ``torch.profiler`` sees every
+kernel.
 """
 from __future__ import annotations
 

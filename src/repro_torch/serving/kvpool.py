@@ -45,6 +45,11 @@ from repro_torch.kernels import kv_quant
 
 
 def _index(page_idx, device) -> torch.Tensor:
+    """Page ids as an index tensor on ``device``: a tensor already there as
+    it is (an integer tensor, no copy: a captured step's staged page
+    list), anything else (a list) made one."""
+    if isinstance(page_idx, torch.Tensor) and page_idx.device == device:
+        return page_idx
     return torch.as_tensor(page_idx, dtype=torch.long, device=device)
 
 

@@ -444,8 +444,9 @@ class MoriRouter:
     def _jitaudit_end_of_replay(self) -> None:
         """Capture-budget gate (no-op unless ``REPRO_JITAUDIT=1`` and some
         engine ran ``warmup()``): a replay that captured a step graph past
-        an engine's warm snapshot stalled the pump for an eager run and a
-        capture — fail it loudly with the per-cache counts."""
+        an engine's warm snapshot (a decode bucket, or a chunk-prefill
+        bucket first met by a prefill chunk) stalled the pump for an eager
+        run and a capture — fail it loudly with the per-cache counts."""
         if not compile_tracker.enabled():
             return
         tracker = compile_tracker.get_tracker()

@@ -102,18 +102,28 @@ class TestWarmupSpecs:
             assert (packed[4 * B:].reshape(B, p_pad) == np.asarray(scratch)[:, None]).all()
 
     def test_warmup_captures_exactly_the_decode_specs(self, cfg, params):
+        """Warmup captures one entry per decode bucket and, with
+        ``prefill_chunks``, one per chunk bucket in the second cache,
+        replaying each once; both caches are budgeted."""
         eng = make_engine(cfg, params)
         specs = eng.warmup_specs(prefill_chunks=True)
         decode = [s.bucket["table_pages"] for s in specs if s.kind == "paged_decode"]
+        chunk = [(s.bucket["prefix_pages"], s.bucket["chunk_tokens"])
+                 for s in specs if s.kind == "chunk_prefill"]
+        assert len(chunk) == 6
+        assert set(eng.graph_functions().values()) == {eng.graphs, eng.chunk_graphs}
         eng.warmup(prefill_chunks=True)
-        # one entry per decode bucket; the chunk prefill runs eagerly
         assert eng.graphs.cache_size() == len(decode)
         assert eng.graphs.keys() == decode
         assert eng.graphs.replays == len(decode)
+        assert eng.chunk_graphs.keys() == chunk
+        assert eng.chunk_graphs.replays == len(chunk)
         # idempotence: a second warmup replays every bucket, captures none
         eng.warmup(prefill_chunks=True)
         assert eng.graphs.cache_size() == len(decode)
         assert eng.graphs.replays == 2 * len(decode)
+        assert eng.chunk_graphs.cache_size() == len(chunk)
+        assert eng.chunk_graphs.replays == 2 * len(chunk)
 
     def test_warmup_refuses_a_busy_engine(self, cfg, params):
         eng = make_engine(cfg, params)
@@ -149,12 +159,13 @@ class TestCompileBudget:
         assert set(eng.graph_functions()) <= set(tracker.registered())
         eng.warmup(prefill_chunks=True)       # marks the warm baseline
         assert tracker.marked()
-        replays = eng.graphs.replays
+        replays, chunk_replays = eng.graphs.replays, eng.chunk_graphs.replays
         _, m = self._replay(cfg, eng)         # raises via the router hook
         assert tracker.post_warmup_compiles() == {}
-        # every decode step replayed one graph
+        # every decode step and every prefill chunk replayed one graph
         assert m.steps_completed == 6
         assert eng.graphs.replays - replays == eng.steps > 0
+        assert eng.chunk_graphs.replays - chunk_replays == m.prefill_chunks > 0
 
     def test_post_warmup_capture_detected_and_replay_fails(self, cfg, params, tracker):
         eng = make_engine(cfg, params)

@@ -9,7 +9,11 @@ the device) and calls no wrapper. So does
 every bucket's MoE decode graph of a reduced dbrx-132b engine. The
 reduced mamba2 decode graph equals ``Model.decode_into`` on a clone of
 the state, logits and state, bit for bit. ``PagePool.adopt`` copies into
-the pool's tensors, so the next replay reads the adopted bytes.
+the pool's tensors, so the next replay reads the adopted bytes. Every
+chunk-prefill bucket's graph, on a bf16 and an int8 pool, with a real
+prefix and a ragged chunk, equals ``Engine.chunk_packed`` on a clone of
+the pool, logits, token and pool bit for bit, each replay one flash
+kernel a layer by the kernel's own count on the device.
 
 Every test here is marked ``cuda`` and skips where there is no card. The
 file imports neither JAX nor the JAX package::
@@ -25,6 +29,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models import Model, materialize
 from repro_torch.serving import Engine, EngineRequest, SsmEngine
@@ -133,6 +138,69 @@ def test_every_bucket_replays_the_eager_step_bit_for_bit(card, qwen, fmt):
         assert torch.equal(tokens, want_tokens), p_pad
         for got, want in zip(eng.pool.device_tensors(), clones):
             assert torch.equal(got, want), p_pad
+
+
+#: the chunk buckets of ENGINE_KW with the launcher's prefill bucket (32)
+#: and chunk (64): prefix pages 0 to 24 in steps of 4, chunks of 32 and 64
+CHUNK_BUCKETS = [(p, c) for p in range(0, 25, 4) for c in (32, 64)]
+
+
+def chunk_inputs(eng, key, rng) -> np.ndarray:
+    """Staged inputs of one chunk in bucket ``key``: a prefix of real pages
+    in the bucket's last four (none in bucket 0) padded with a scratch
+    page, a ragged ``take`` in the chunk bucket's last 32 tokens written to
+    fresh pages."""
+    p_pad, c_pad = key
+    T, sp = eng.page_tokens, eng._scratch_pages[0]
+    live = [p for p in range(eng.pool.k.shape[1]) if p not in eng._scratch_pages]
+    p_real = int(rng.integers(p_pad - 3, p_pad + 1)) if p_pad else 0
+    take = int(rng.integers(c_pad - 31, c_pad + 1))
+    pages = rng.permutation(live)
+    w_real = -(-take // T)
+    return eng._pack(
+        rng.integers(2, eng.cfg.vocab_size, take).tolist() + [0] * (c_pad - take),
+        pages[:p_real].tolist() + [sp] * (p_pad - p_real),
+        pages[p_real:p_real + w_real].tolist() + [sp] * (-(-c_pad // T) - w_real),
+        (p_real * T, take))
+
+
+def check_chunk_graphs(eng, card, buckets, seed: int) -> None:
+    """Each chunk bucket's replay against ``Engine.chunk_packed`` on a clone
+    of the pool: logits, the greedy token and every pool tensor bit for
+    bit; the replay runs one flash kernel a layer on the device and calls
+    no wrapper."""
+    rng = np.random.default_rng(seed)
+    for key in buckets:
+        packed = chunk_inputs(eng, key, rng)
+        clones = [t.clone() for t in eng.pool.device_tensors()]
+        launches = flash_ops.KERNEL.launches
+        counted = flash_ops.KERNEL.device_launches(card)
+        logits, token = (t.clone() for t in eng._chunk(key, packed))
+        assert flash_ops.KERNEL.device_launches(card) - counted == eng.cfg.num_layers, key
+        assert flash_ops.KERNEL.launches == launches, key      # no wrapper ran
+        with torch.no_grad():
+            want_logits, want_token = eng.chunk_packed(
+                torch.from_numpy(packed).to(card), key, clones)
+        torch.cuda.synchronize()
+        assert torch.equal(logits, want_logits), (key, (logits - want_logits).abs().max())
+        assert torch.equal(token, want_token), key
+        for got, want in zip(eng.pool.device_tensors(), clones):
+            assert torch.equal(got, want), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+def test_every_chunk_bucket_replays_the_eager_step_bit_for_bit(card, qwen, fmt):
+    """The chunk prefill captured per (prefix-page bucket x chunk bucket)
+    with a real prefix and a ragged chunk, on a bf16 and an int8 pool."""
+    cfg, params = qwen
+    eng = Engine(cfg, params, device=card, device_format=fmt, offload_format=fmt, **ENGINE_KW)
+    random_pool(eng, np.random.default_rng(46))
+    eng.warmup(prefill_chunks=True)
+    assert eng.graphs.keys() == BUCKETS
+    assert eng.chunk_graphs.keys() == CHUNK_BUCKETS
+    check_chunk_graphs(eng, card, CHUNK_BUCKETS, seed=47)
+    assert eng.chunk_graphs.keys() == CHUNK_BUCKETS
 
 
 @pytest.mark.cuda

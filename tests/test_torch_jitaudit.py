@@ -4,10 +4,11 @@
   one, a shape branch, a host sync, a baked host value and a leaf costed
   at zero bytes each fire their pass alone, and an honored in-place step
   stays clean.
-* Every decode spec of a reduced-qwen paged engine and of a dense-slot
-  engine is clean in all three passes and inside the documented bands;
-  each probe group traces one op sequence; the chunk specs' capture
-  blockers name the host data their step copies in.
+* Every decode and chunk-prefill spec of a reduced-qwen paged engine and
+  the dense-slot engine's spec are clean in all three passes and inside
+  the documented bands; each probe group traces one op sequence; the chunk
+  specs, captured steps now, trace no capture hazard, and a flash call
+  whose host offsets the shapes do not give is still one.
 * Each kernel's ``cost`` against a hand count at a small shape, and a
   leaf's plain-version ops kept out of the walk.
 * Parity with the live reference: the static FLOPs of one decode bucket
@@ -76,7 +77,8 @@ class TestSelftest:
         assert jitaudit.selftest("cpu") == []
 
     @pytest.mark.parametrize("cls", ["in-place", "per-layer-copy", "honored", "shape-branch",
-                                     "host-sync", "host-value", "zero-bytes-leaf"])
+                                     "host-sync", "host-value", "host-operand",
+                                     "zero-bytes-leaf"])
     def test_each_class_fires_alone(self, cls):
         target, probe_t, want = jitaudit._seeded_targets("cpu")[cls]
         trace = jitaudit.trace_target(target)
@@ -88,7 +90,8 @@ class TestSelftest:
         text = " ".join(v.msg + v.provenance for v in found)
         expect = {"in-place": "rebound", "per-layer-copy": "one layer of static buffer `pool`",
                   "shape-branch": "diverges at op 0", "host-sync": "_local_scalar_dense",
-                  "host-value": "lift_fresh", "zero-bytes-leaf": "bytes_vs_whole_operands"}
+                  "host-value": "lift_fresh", "host-operand": "q_offset",
+                  "zero-bytes-leaf": "bytes_vs_whole_operands"}
         if cls in expect:
             assert expect[cls] in text
 
@@ -159,37 +162,65 @@ class TestEngineSpecs:
                 assert all(s == sigs[0] for s in sigs), group
                 assert len(sigs[0]) > 100
 
-    def test_chunk_specs_name_their_capture_blockers(self, audited):
-        _, rows, _ = audited
+    def test_chunk_specs_name_their_capture_blockers(self, audited, engines):
+        """The chunk prefill's capture blockers are gone: every chunk spec
+        is a captured step whose trace has no hazard (the page lists, the
+        RoPE positions, the hole's lower end and the logit row are device
+        operands of the staged vector; flash's q_offset and the hole's
+        upper end equal the padded prefix) and no in-place violation, and
+        the rows carry no blocker field."""
+        targets, rows, violations = audited
         chunk = {k: r for k, r in rows.items() if r["kind"] == "chunk_prefill"}
         assert len(chunk) == 6
+        assert all("capture_blockers" not in r for r in rows.values())
+        assert not hasattr(jitaudit, "blocker_sites")
+        assert [str(v) for v in violations if "chunk_prefill" in v.target] == []
+        paged = engines[0]
+        by_name = {t.name: t for t in targets}
         for name, row in chunk.items():
-            blockers = row["capture_blockers"]
-            assert blockers, name
-            assert all(b["class"] == "host-value" for b in blockers), blockers
-            # the page-index lists become tensors inside the step (on the
-            # card then copied to it)
-            assert any(b["op"] == "aten::lift_fresh" and "serving/kvpool.py" in b["site"]
-                       and "(_index)" in b["site"] for b in blockers), blockers
-            if row["bucket"]["prefix_pages"]:
-                # flash reads the chunk's offset and the prefix's hole on the host
-                assert any(b["op"] == "leaf:flash_attention.prefill_attention"
-                           and "q_offset" in b["detail"] and "kv_hole" in b["detail"]
-                           and "models/layers.py" in b["site"] for b in blockers), blockers
-        sites = jitaudit.blocker_sites(list(rows.values()))
-        assert len(sites) == 2, sites
+            target = by_name[f"engine{paged._audit_id}.{name}"]
+            trace = jitaudit.trace_target(target)
+            assert jitaudit.hazards(trace) == [], name
+            assert jitaudit.check_in_place(target, trace) == [], name
+            leaves = row["static"]["leaves"]
+            assert leaves == ["leaf:flash_attention.prefill_attention"] * 4, leaves
+            for key, (lo, hi) in jitaudit.TOLERANCES.items():
+                assert lo <= row["ratios"][key] <= hi, (name, key, row["ratios"])
+
+    @pytest.mark.parametrize("q_offset, hole, hazard", [
+        (8, None, None), (8, (torch.tensor(3, dtype=torch.int32), 8), None),
+        (3, None, "q_offset"), (8, (3, 8), "kv_hole[0]"), (8, (torch.tensor(3), 5), "kv_hole[1]"),
+    ])
+    def test_flash_host_operands_checked_against_the_shapes(self, q_offset, hole, hazard):
+        """A prefill call's ``q_offset`` and the hole's upper end pass when
+        they equal the padded prefix its shapes give (16 keys, 8 queries:
+        8), checked at the call; the hole's lower end only as a tensor."""
+        q, kv = torch.zeros((1, 8, 2, 32)), torch.zeros((1, 16, 2, 32))
+        step = SpecStep(lambda: flash_ops.prefill_attention(
+            q, kv, kv, causal=True, q_offset=q_offset, kv_hole=hole), dict)
+        trace = jitaudit.trace_target(jitaudit.AuditTarget("flash", lambda: step, "kernel"))
+        found = jitaudit.hazards(trace)
+        if hazard is None:
+            assert found == []
+        else:
+            assert [h["class"] for h in found] == ["host-value"]
+            assert hazard in found[0]["detail"], found
 
     def test_spec_step_runs_what_warmup_runs(self, qwen):
         cfg, params = qwen
         eng = Engine(cfg, params, device="cpu", **PAGED_KW)
         eng.warmup(prefill_chunks=True)
+        specs = eng.warmup_specs(prefill_chunks=True)
         assert eng.graphs.keys() == [4, 8]
-        spec = eng.warmup_specs()[0]
-        step = eng.spec_step(spec, eager=True)
-        assert set(step.buffers()) == {"k", "v", "staged"}
-        logits, tok = step.run()
-        want_logits, want_tok = eng.spec_step(spec).run()
-        assert torch.equal(logits, want_logits) and torch.equal(tok, want_tok)
+        assert eng.chunk_graphs.keys() == [
+            (p, c) for p in (0, 4, 8) for c in (32, 64)] == [
+            eng.spec_key(s) for s in specs if s.kind == "chunk_prefill"]
+        for spec in (specs[0], specs[-1]):
+            step = eng.spec_step(spec, eager=True)
+            assert set(step.buffers()) == {"k", "v", "staged"}
+            logits, tok = (t.clone() for t in step.run())
+            want_logits, want_tok = eng.spec_step(spec).run()
+            assert torch.equal(logits, want_logits) and torch.equal(tok, want_tok)
 
 
 # -------------------------------------------------------------- kernel costs
@@ -357,25 +388,29 @@ class TestCli:
         verdict = jitaudit.replay_gate(cfg, params, device="cpu", log=lambda s: None)
         assert verdict["post_warmup_captures"] == {}
         assert verdict["captures_by_phase"]["replay"] == 0
-        assert verdict["captures_by_phase"]["warmup"] == 2
+        # 2 decode buckets and 6 chunk buckets, all captured in warmup
+        assert verdict["captures_by_phase"]["warmup"] == 8
         assert verdict["graph_replays"] > 2
+        assert verdict["chunk_graph_replays"] > 6
         assert tracker.armed == armed
 
 
 # -------------------------------------------------------------------- card
 @pytest.mark.cuda
 def test_audit_on_the_card(qwen):
-    """The audit of a reduced engine on the card: clean, each decode
-    bucket's replay timed and its share of the bound in (0, 1.05]."""
+    """The audit of a reduced engine on the card: clean, each decode and
+    chunk bucket's replay timed and its share of the bound in (0, 1.05]."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the audit replays captured graphs")
     cfg, params = qwen
     eng = Engine(cfg, params, device="cuda", **PAGED_KW)
-    eng.warmup()
+    eng.warmup(prefill_chunks=True)
     assert jitaudit.selftest("cuda") == []
     rows, violations = jitaudit.audit(jitaudit.engine_targets(eng, prefill_chunks=True)
                                       + jitaudit.kernel_targets("cuda"))
     assert [str(v) for v in violations] == []
     shares = [r["replay_share"] for r in rows if r["kind"] == "paged_decode"]
     assert len(shares) == 2 and all(0 < s <= jitaudit.REPLAY_SHARE_LIMIT for s in shares)
+    shares = [r["replay_share"] for r in rows if r["kind"] == "chunk_prefill"]
+    assert len(shares) == 6 and all(0 < s <= jitaudit.REPLAY_SHARE_LIMIT for s in shares)
     assert np.isfinite(shares).all()

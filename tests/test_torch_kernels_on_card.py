@@ -5,7 +5,9 @@ f32 and int8 pages) and over 30-token pages (whisper's cross cache of
 1500 encoder positions, also read as a slot cache); the bf16 tensor-core
 flash kernel at every head dimension (32 to 256; 160 and 256 also on the
 f32 CUDA-core kernel), with GQA, ragged tails and a hole behind a query
-offset, and at whisper's encoder, its cross-attention prefill and
+offset (its lower end also read on the device, in and out of a captured
+graph, bit-equal to the host integer, with the kernel's launch counter),
+and at whisper's encoder, its cross-attention prefill and
 internvl2-26b's prefill in bf16 and f32; and
 the SSD scan's tensor-core passes at mamba2's widths (one chunk, ragged
 and long sequences, other chunk sizes, two rows, strided slices of one
@@ -138,6 +140,59 @@ def test_paged_kernel_counts_its_launches_on_the_device(card):
         graph.replay()
     assert paged_ops.KERNEL.device_launches(card) == counted + 3
     assert paged_ops.KERNEL.launches == launches
+
+
+#: a chunk behind a bucketed prefix, the hole's lower end read on the
+#: device: name -> (B, Sq, Sp, H, KH, D, the lower end); q_offset and the
+#: upper end are Sp. Kv tiles are 64 keys: a lower end inside a tile, one
+#: that makes the hole straddle a tile edge, one on an edge (a whole tile
+#: skipped) and the whole prefix in the hole
+FLASH_DEVICE_HOLE_CASES = {
+    "inside a tile gqa": (2, 64, 128, 8, 2, 64, 100),
+    "across a tile edge": (1, 64, 128, 8, 8, 64, 50),
+    "on a tile edge d32 ragged": (1, 33, 128, 4, 4, 32, 64),
+    "whole prefix d128 gqa 6:1": (1, 64, 192, 48, 8, 128, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name", sorted(FLASH_DEVICE_HOLE_CASES))
+def test_flash_kernel_reads_the_hole_lo_on_the_device(card, name, dtype):
+    """The hole's lower end as an int32 on the card gives the bits of the
+    same call with it as a host integer, in a direct call and in a
+    captured graph replayed after the value changes; each launch adds one
+    to the kernel's own count on the device, a replay to that count
+    only."""
+    B, Sq, Sp, H, KH, D, lo = FLASH_DEVICE_HOLE_CASES[name]
+    rng = np.random.default_rng(37)
+    q = randn(rng, (B, Sq, H, D), dtype, card)
+    k, v = (randn(rng, (B, Sp + Sq, KH, D), dtype, card) for _ in range(2))
+
+    def call(lo_value):
+        return flash_ops.prefill_attention(q, k, v, causal=True, q_offset=Sp,
+                                           kv_hole=(lo_value, Sp))
+
+    lo_dev = torch.tensor(lo, dtype=torch.int32, device=card)
+    want = call(lo)
+    counted = flash_ops.KERNEL.device_launches(card)
+    got = call(lo_dev)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+    assert flash_ops.KERNEL.device_launches(card) == counted + 1
+    torch.testing.assert_close(want.float(), flash_ref.blockwise_attention(
+        q, k, v, causal=True, q_offset=Sp, kv_hole=(lo, Sp)).float(), **BANDS[dtype])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call(lo_dev)
+    launches, counted = flash_ops.KERNEL.launches, flash_ops.KERNEL.device_launches(card)
+    for other in (Sp - 1, lo, (lo + Sp) // 2):
+        lo_dev.fill_(other)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call(other)), other
+    assert flash_ops.KERNEL.launches == launches + 3          # the three direct calls
+    assert flash_ops.KERNEL.device_launches(card) == counted + 6
 
 
 FLASH_CASES = {
