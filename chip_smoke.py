@@ -7,6 +7,8 @@ port starts on the GPU and that its main paths run through its kernels.
                                           # (and not phase 11)
     python3 chip_smoke.py --train-tp      # the build, phase 9's full-width training and
                                           # phase 14, no final line
+    python3 chip_smoke.py --train-moe-tp  # the build, dbrx's flash backward timing and
+                                          # phase 15, no final line
 
 Needs one CUDA card (Hopper: the kernels are built for sm_90a) and
 ``nvcc``; it builds every kernel from the sources in ``src/repro_torch``
@@ -233,10 +235,10 @@ on failure (a failure exits non-zero and prints no final line):
    of the logits phase 6's one-device engine gave on the same inputs).
    On one card the ranks' collectives go through host memory, so its
    times say nothing of tensor-parallel speed;
-14. training on a mesh (``train_tp``, after phase 9, whose losses it is
-   held against): two ranks on the one card under ``gloo``, spawned as
-   phase 13's are, each drawing phase 9's seed-0 full-width qwen weights
-   on the card and keeping its blocks (FSDP: "embed" over "data"; tensor
+14. training on a mesh (``train_tp``, after phase 9): two ranks on the
+   one card under ``gloo``, spawned as phase 13's are, each drawing phase
+   9's seed-0 full-width qwen weights, cut to 12 of its 24 layers (for
+   the command's time), on the card and keeping its blocks (FSDP: "embed" over "data"; tensor
    parallel: heads, FFN and vocabulary over "model"). Each rank holds its
    block of the step-1 gradient to a one-device gradient on the card on
    the same weights and tokens (the bf16 band), then trains through
@@ -247,7 +249,7 @@ on failure (a failure exits non-zero and prints no final line):
    written) and trains
    steps 4-6; this process then restores the same checkpoint onto the
    card, bit-equal. The losses finite, the sixth below the first, step 1
-   in the bf16 band of phase 9's; a rank's flash forwards 2 x layers x
+   in the bf16 band of the one-device run's; a rank's flash forwards 2 x layers x
    microbatches x steps on each mesh (remat) and its backwards layers x
    microbatches x steps, all on the tensor cores; no functional
    collective reached (they raise in the ranks, over every backward).
@@ -257,7 +259,28 @@ on failure (a failure exits non-zero and prints no final line):
    this process, the embedding's gradient at phase 9's step 0 against
    the exact f32 sum of its rows (``embedding gradient``): the loss's
    lookup within twice the bf16 rounding of it, autograd's own indexing
-   backward beside it.
+   backward beside it;
+15. MoE training on a mesh (``train_moe_tp``, after phase 14): dbrx-132b
+   at full width, 1 of its 40 layers, remat and bf16 moments, 3 steps of
+   4 x 1024 tokens in 2 microbatches. Each rank's peak reckoned on ``(1,
+   2)`` and ``(2, 1)`` (FSDP would gather the layer's experts whole and
+   reduce-scatter their gradient in f32: two such ranks do not fit on one
+   card); one device in this process first (seed-0 weights drawn on the
+   card, 3 steps, step 1's gradient and router gates kept on the host:
+   leaves under 1 GB whole, the experts, embed and head by each ``(1,
+   2)`` block's norm and inner products with seeded tensors), the card
+   freed; then two ranks on a ``(1, 2)`` mesh under ``gloo``, spawned as
+   phase 14's, each keeping its blocks of the same weights (half of every
+   expert's hidden dimension, the router whole) and training through
+   ``Trainer(mesh=...)``. Step 1 held by routing: with no token routed
+   otherwise than on one device, the loss and every block in the bf16
+   band; with some, each such token's margin within twice the rounding
+   that the tokens routed alike show (the flipped tokens printed). The
+   losses finite and equal on both ranks, a rank's flash forwards 2 x
+   layers x microbatches x steps and backwards layers x microbatches x
+   steps, all on the tensor cores, no collective as large as one expert's
+   block, the functional collectives refused; each rank's parameter and
+   moment bytes, peak and step times printed.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 hold the per-kernel JSON record and the card's name and power limit,
@@ -3224,6 +3247,9 @@ FLASH_BWD_CASES = {
 #: ``train zamba2-2.7b``: 2 x 1024 tokens a microbatch, 32 heads of 160),
 #: the largest kernel loss of any training step; timed, not a check case
 FLASH_BWD_ZAMBA2 = dict(B=2, Sq=1024, Skv=1024, H=32, KH=32, D=160, causal=True)
+#: dbrx-132b's attention at phase 15's training shape (2 x 1024 tokens a
+#: microbatch, 48 query heads over 8 KV heads of 128): the tensor cores
+FLASH_BWD_DBRX = dict(B=2, Sq=1024, Skv=1024, H=48, KH=8, D=128, causal=True)
 #: the backward's kernels, three a call: Di = rowsum(dO ∘ O), then dK/dV
 #: and dQ on the tensor cores (``_mma_``) or the CUDA cores
 FLASH_BWD_KERNELS = ("flash_bwd_dot_kernel", "flash_bwd_dkdv_mma_kernel",
@@ -3341,11 +3367,15 @@ def time_flash_bwd() -> dict:
     dk, dv written), and SDPA's backward through autograd at the same
     shape, its device time by the events behind a spin kernel. Under
     ``zamba2_train`` the same at zamba2's training shape
-    (``FLASH_BWD_ZAMBA2``: D = 160, which takes the CUDA cores)."""
+    (``FLASH_BWD_ZAMBA2``: D = 160, which takes the CUDA cores), under
+    ``dbrx_train`` at dbrx-132b's (``FLASH_BWD_DBRX``: GQA 6:1 at D = 128,
+    the tensor cores)."""
     rec = _time_flash_bwd_case("qwen_train", FLASH_BWD_CASES["qwen_train"], "tensor_core",
                                seed=12, other_route="cuda_core")
     rec["zamba2_train"] = _time_flash_bwd_case("zamba2_train", FLASH_BWD_ZAMBA2, "cuda_core",
                                                seed=13)
+    rec["dbrx_train"] = _time_flash_bwd_case("dbrx_train", FLASH_BWD_DBRX, "tensor_core",
+                                             seed=14)
     return rec
 
 
@@ -3356,7 +3386,7 @@ def _time_flash_bwd_case(name: str, c: dict, route: str, seed: int,
     the same input."""
     from repro_torch.kernels.flash_attention import ops, ref
 
-    B, S, H, D = c["B"], c["Sq"], c["H"], c["D"]
+    B, S, H, KH, D = c["B"], c["Sq"], c["H"], c["KH"], c["D"]
     q, k, v, do = flash_bwd_inputs(c, torch.bfloat16, seed=seed)
     out, lse = ops.KERNEL(q, k, v, seq_dim=1, head_dim=2, causal=True, window=None,
                           softcap=None, q_offset=0, with_lse=True)
@@ -3371,7 +3401,7 @@ def _time_flash_bwd_case(name: str, c: dict, route: str, seed: int,
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
-    lib_out = sdpa(qt, kt, vt, is_causal=True)
+    lib_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=KH != H)
     dot = do.transpose(1, 2).contiguous()
 
     def library():
@@ -3388,7 +3418,7 @@ def _time_flash_bwd_case(name: str, c: dict, route: str, seed: int,
         other = device_ms_per_call(lambda: kernel_calls(other_route), 10, FLASH_BWD_KERNELS)
         extra = {f"{other_route}_device_ms": other["device_ms"],
                  f"{other_route}_device_kernels_ms": other["device_kernels_ms"]}
-    return dict(B=B, S=S, H=H, D=D, causal=True, route=route,
+    return dict(B=B, S=S, H=H, KH=KH, D=D, causal=True, route=route,
                 ms=time_call(kernel, 10),
                 **device_ms_per_call(kernel_calls, 10, FLASH_BWD_KERNELS),
                 device_ms_behind_spin=device_ms_behind_spin(kernel, 20), **extra,
@@ -3936,7 +3966,7 @@ RECORDED_BOUND_MS = {
     "flash monolithic": 0.00094, "flash dbrx": 0.00329, "flash d160": 0.00470,
     "flash d256": 0.00282, "flash gemma2_local": 0.17320, "flash whisper_encoder": 0.00932,
     "flash whisper_cross": 0.00191, "flash internvl2": 0.00911, "flash backward": 0.02173,
-    "flash backward zamba2_train": 0.05434,
+    "flash backward zamba2_train": 0.05434, "flash backward dbrx_train": 0.06520,
     f"ssd S={SSD_MAIN_S}": 0.00241, "ssd zamba2": 0.00280, "ssd backward": 0.02282,
 }
 
@@ -3976,9 +4006,10 @@ def account_costs(paged_timing, paged_d160, paged_cross, flash_timing, ssd_timin
             meta(r["B"], r["Skv"], r["KH"], r["D"]), causal=r["causal"], window=r["window"],
             q_offset=r["q_offset"], kv_hole=r["kv_hole"]), r)
     for line, b in (("flash backward", bwd_timing),
-                    ("flash backward zamba2_train", bwd_timing["zamba2_train"])):
-        q = meta(b["B"], b["S"], b["H"], b["D"])
-        out[line] = (flash_ops.backward_cost(q, q, q, seq_dim=1, head_dim=2,
+                    ("flash backward zamba2_train", bwd_timing["zamba2_train"]),
+                    ("flash backward dbrx_train", bwd_timing["dbrx_train"])):
+        q, kv = meta(b["B"], b["S"], b["H"], b["D"]), meta(b["B"], b["S"], b["KH"], b["D"])
+        out[line] = (flash_ops.backward_cost(q, kv, kv, seq_dim=1, head_dim=2,
                                              causal=b["causal"]), b)
 
     def ssd_operands(bsz, S, h, p, n):
@@ -5169,6 +5200,8 @@ def serve_tp(mono: dict, chunked: dict, logs: dict, phase4: dict) -> dict:
 #: phase 14's meshes in order: FSDP over "data", then tensor parallel over
 #: "model" after an elastic restore
 TRAIN_TP_MESHES = ((TP, 1), (1, TP))
+#: phase 14's qwen cut from its 24 layers (full width): the command's time
+TRAIN_TP_LAYERS = 12
 #: the steps each mesh runs
 TRAIN_TP_STEPS = 3
 #: the parent waits this long for its ranks, then kills them and fails
@@ -5250,6 +5283,17 @@ def _train_run(trainer, state, collectives) -> tuple:
     return state, rec
 
 
+def train_tp_one_device():
+    """Phase 14's trainer on one device: the launcher's (phase 9's flags),
+    qwen cut to ``TRAIN_TP_LAYERS`` layers."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.loop import Trainer
+
+    one = launch_train.build_trainer(launch_train.parse_args(TRAIN_ARGS + ["--device", DEVICE]))
+    cfg = dataclasses.replace(one.cfg, num_layers=TRAIN_TP_LAYERS)
+    return Trainer(cfg, one.tcfg, one.data_cfg, DEVICE)
+
+
 def train_tp_rank(rank: int, store: str, work: str) -> None:
     """One rank of phase 14, in a process of its own on ``cuda:0``: ``gloo``
     over a file store, every collective through ``torch.distributed``
@@ -5260,7 +5304,6 @@ def train_tp_rank(rank: int, store: str, work: str) -> None:
     import torch.distributed._functional_collectives as funcol
 
     from repro_torch.dist.local import no_functional_collectives
-    from repro_torch.launch import train as launch_train
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models.params import flatten_tree
     from repro_torch.train.loop import Trainer, TrainState
@@ -5274,7 +5317,7 @@ def train_tp_rank(rank: int, store: str, work: str) -> None:
     collectives = _Collectives()
     rec = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
            "world": dist.get_world_size(), "gloo_on_cuda": probe_gloo(dev)}
-    one = launch_train.build_trainer(launch_train.parse_args(TRAIN_ARGS + ["--device", DEVICE]))
+    one = train_tp_one_device()
     cfg, data = one.cfg, one.data_cfg
     tcfg = dataclasses.replace(one.tcfg, steps=TRAIN_TP_STEPS, ckpt_every=0, log_every=1,
                                ckpt_dir=str(Path(work) / "ckpt"))
@@ -5406,18 +5449,19 @@ def embedding_grad_check() -> dict:
     return {"microbatches": out}
 
 
-def train_tp(train: dict) -> dict:
+def train_tp() -> dict:
     """Phase 14: training on a mesh, as ``TP`` ranks on the one card under
     ``gloo`` (this process starts them and makes no process group). Each
-    rank draws phase 9's seed-0 weights on the card and keeps its blocks,
-    holds its block of the step-1 gradient to a one-device gradient on the
-    same weights and tokens, trains ``TRAIN_TP_STEPS`` steps on a ``(2,
-    1)`` mesh (FSDP over "data"), writes a checkpoint (rank 0, whole
-    leaves), restores it on a ``(1, 2)`` mesh (tensor parallel over
-    "model") and trains ``TRAIN_TP_STEPS`` more; then this process restores
-    the same checkpoint onto the card. Fails unless every loss is finite,
-    the sixth below the first and the first in the bf16 band of phase 9's
-    (``train``), every rank's gradient block in the bf16 band, each mesh's
+    rank draws phase 9's seed-0 weights (qwen cut to ``TRAIN_TP_LAYERS``
+    layers) on the card and keeps its blocks, holds its block of the
+    step-1 gradient to a one-device gradient on the same weights and
+    tokens, trains ``TRAIN_TP_STEPS`` steps on a ``(2, 1)`` mesh (FSDP
+    over "data"), writes a checkpoint (rank 0, whole leaves), restores it
+    on a ``(1, 2)`` mesh (tensor parallel over "model") and trains
+    ``TRAIN_TP_STEPS`` more; then this process restores the same
+    checkpoint onto the card. Fails unless every loss is finite, the sixth
+    below the first and the first in the bf16 band of the one-device
+    run's, every rank's gradient block in the bf16 band, each mesh's
     flash launches a rank 2 x layers x microbatches x steps forward and
     layers x microbatches x steps backward, every backward on the tensor
     cores, and every restored leaf (on the mesh, gathered, and on one
@@ -5432,7 +5476,7 @@ def train_tp(train: dict) -> dict:
     disk_free_gib = shutil.disk_usage(ROOT).free / 2**30
     work, recs = run_ranks(train_tp_rank, (), TRAIN_TP_DEADLINE_S, "train_tp", "14")
     args = launch_train.parse_args(TRAIN_ARGS + ["--device", DEVICE])
-    one = launch_train.build_trainer(args)
+    one = train_tp_one_device()
     cfg = one.cfg
     t1 = time.perf_counter()
     tree, step, _ = ck.restore(work / "ckpt", {"params": one.param_tree, "opt": one.opt_tree},
@@ -5452,18 +5496,20 @@ def train_tp(train: dict) -> dict:
     want = dict(flash_launches=2 * cfg.num_layers * runs,
                 backward_launches=cfg.num_layers * runs)
     losses = recs[0]["fsdp"]["losses"] + recs[0]["tp"]["losses"]
+    one_losses1 = recs[0]["gradient_check"]["one_device_losses"]
+    step1_one = sum(one_losses1) / len(one_losses1)
     per_rank = ("param_bytes_held", "moment_bytes_held", "largest_collective_elements",
                 "collectives", "peak_gib", "step_host_s", "run_s", "flash_launches",
                 "backward_launches", "backward_routes")
     record = dict(
-        arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, remat=cfg.remat,
+        arch=cfg.name, layers=f"{cfg.num_layers} of 24", d_model=cfg.d_model, remat=cfg.remat,
         world=recs[0]["world"], backend=recs[0]["backend"],
         devices=[r["device"] for r in recs], gloo_on_cuda=recs[0]["gloo_on_cuda"],
         global_batch=args.global_batch, seq_len=args.seq_len,
         microbatches=args.microbatches, lr=args.lr,
         weights="drawn on the card (torch.Generator, seed 0), each rank keeping its blocks",
-        losses=losses, losses_phase9=train["losses"],
-        step1_rel_to_phase9=abs(losses[0] - train["losses"][0]) / abs(train["losses"][0]),
+        losses=losses, step1_one_device=step1_one,
+        step1_rel_to_one_device=abs(losses[0] - step1_one) / abs(step1_one),
         gradient_check=[r["gradient_check"] for r in recs],
         **{name: dict({k: v for k, v in recs[0][name].items() if k not in per_rank},
                       **{k: [r[name][k] for r in recs] for k in per_rank})
@@ -5486,9 +5532,9 @@ def train_tp(train: dict) -> dict:
             and losses[-1] < losses[0]):
         raise AssertionError(f"phase 14's losses are missing, not finite or not falling: "
                              f"{losses}")
-    if not record["step1_rel_to_phase9"] <= LOSS_BAND:
-        raise AssertionError(f"phase 14's step 1 ({losses[0]}) is off phase 9's "
-                             f"({train['losses'][0]}) beyond the bf16 band")
+    if not record["step1_rel_to_one_device"] <= LOSS_BAND:
+        raise AssertionError(f"phase 14's step 1 ({losses[0]}) is off the one-device run's "
+                             f"({step1_one}) beyond the bf16 band")
     if any(r["fsdp"]["losses"] != recs[0]["fsdp"]["losses"]
            or r["tp"]["losses"] != recs[0]["tp"]["losses"] for r in recs):
         raise AssertionError("phase 14's ranks logged different losses")
@@ -5515,6 +5561,382 @@ def train_tp(train: dict) -> dict:
     return record
 
 
+# ------------------------------------------- phase 15: MoE training on a mesh
+#: dbrx-132b at full width cut from 40 layers to this many, with remat and
+#: bf16 moments (the reference's option for the giant MoEs)
+MOE_TRAIN_LAYERS = 1
+#: the batch: 4 x 1024 tokens a step in 2 microbatches, for 3 steps
+MOE_TRAIN_DATA = dict(global_batch=4, seq_len=1024)
+MOE_TRAIN_MICRO, MOE_TRAIN_STEPS, MOE_TRAIN_LR = 2, 3, 3e-4
+#: a leaf whose f32 gradient is smaller is held whole on the host; a larger
+#: one (the experts, embed, head) by each (1, TP) block's Frobenius norm and
+#: its inner products with MOE_PROBES seeded Gaussian tensors
+MOE_WHOLE_BYTES = 1 << 30
+MOE_PROBES = 8
+TRAIN_MOE_DEADLINE_S = 600
+
+
+def moe_train_cfg():
+    """Phase 15's configuration: full-width dbrx-132b, ``MOE_TRAIN_LAYERS``
+    of its layers, remat on, bf16 moments."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS, remat=True,
+                               bf16_moments=True)
+
+
+def moe_train_trainer(cfg, device=None, mesh=None):
+    """Phase 15's trainer: on ``device`` alone, or on ``mesh``."""
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.loop import TrainConfig, Trainer
+
+    tcfg = TrainConfig(steps=MOE_TRAIN_STEPS, microbatches=MOE_TRAIN_MICRO, lr=MOE_TRAIN_LR,
+                       log_every=1)
+    return Trainer(cfg, tcfg, DataConfig(vocab_size=cfg.vocab_size, **MOE_TRAIN_DATA), device,
+                   mesh=mesh)
+
+
+def moe_train_peak(cfg) -> dict:
+    """The bytes (GiB) a rank holds at the peak of a step of ``cfg``, as
+    reckoned from the parameter count: bf16 weights, bf16 moments, the
+    trainer's f32 accumulators and one microbatch's bf16 gradients, each
+    rank's half, plus AdamW's f32 temporaries of one chunk (activations
+    left out: remat keeps a block's input alone). Under FSDP, ``(TP, 1)``,
+    a rank also gathers the layer's experts whole (bf16), takes their
+    gradient whole and reduce-scatters it in f32 (an f32 copy and its
+    block)."""
+    from repro_torch.models import Model
+    from repro_torch.models.params import leaves
+    from repro_torch.train.optimizer import _CHUNK_ELEMENTS
+
+    n = {name: math.prod(l.shape) for name, l in leaves(Model(cfg).describe())}
+    whole = sum(n.values())
+    experts = sum(v for k, v in n.items() if k.rsplit(".", 1)[-1] in ("w_gate", "w_up", "w_down"))
+    gib = 2 ** 30
+    state = whole / TP * (2 + 2 + 2 + 4) / gib
+    grads = whole / TP * 2 / gib
+    adamw = 6 * 4 * min(_CHUNK_ELEMENTS, max(n.values()) // TP) / gib
+    tp = state + grads + adamw
+    gathered = experts * (2 + 2 + 4 + 4 / TP) / gib
+    card = torch.cuda.get_device_properties(0).total_memory / gib if DEVICE == "cuda" else None
+    return dict(params=whole, expert_params=experts, state_gib=state, gradient_gib=grads,
+                adamw_temporaries_gib=adamw,
+                **{f"mesh_1x{TP}_gib": tp, f"mesh_{TP}x1_gib": tp + gathered,
+                   f"mesh_{TP}x1_expert_gather_and_reduce_gib": gathered},
+                card_gib=card,
+                **{f"{TP}_ranks_fit_1x{TP}": None if card is None else TP * tp < card,
+                   f"{TP}_ranks_fit_{TP}x1": None if card is None else TP * (tp + gathered) < card},
+                why_not_2x1=f"under FSDP a rank gathers the layer's {experts / 1e9:.3f} G expert "
+                            "parameters whole (bf16), takes their gradient whole and "
+                            f"reduce-scatters it in f32: {gathered:.1f} GiB a rank more than on "
+                            f"(1, {TP}), for {TP} ranks on one card")
+
+
+def _probe(name: str, position: int, i: int, like):
+    """The ``i``-th seeded Gaussian tensor of block ``position`` of leaf
+    ``name``, shaped and placed as ``like`` (f32): the same numbers on
+    every process that asks."""
+    import zlib
+
+    g = torch.Generator(device=like.device).manual_seed(
+        zlib.crc32(f"{name} {position} {i}".encode()))
+    return torch.randn(like.shape, generator=g, device=like.device, dtype=torch.float32)
+
+
+def _block_summary(name: str, position: int, block) -> dict:
+    b = block.float()
+    return dict(norm=b.norm().item(),
+                probes=[(b * _probe(name, position, i, b)).sum().item()
+                        for i in range(MOE_PROBES)])
+
+
+def _first_gradients(trainer, route, keep):
+    """Wrap ``trainer.gradients`` so that on its first call the router
+    gates of its forwards (not remat's recompute) are recorded by
+    ``route`` and ``keep(acc, losses, gates)`` (what a check needs of step
+    1, on the host: the step's f32 gradient is as large as the weights'
+    moments, and the next step makes its own) is appended to the list it
+    returns."""
+    from repro_torch.models import Model
+
+    captured: list = []
+    gradients, loss = trainer.gradients, Model.loss
+
+    def recording_loss(self, *a, **kw):
+        route.armed = True
+        try:
+            return loss(self, *a, **kw)
+        finally:
+            route.armed = False
+
+    def first(*a, **kw):
+        if captured:
+            return gradients(*a, **kw)
+        route.calls = []
+        Model.loss = recording_loss
+        try:
+            got = gradients(*a, **kw)
+        finally:
+            Model.loss = loss
+        captured.append(keep(*got, torch.stack(route.calls).cpu()))
+        return got
+
+    trainer.gradients = first
+    return captured
+
+
+def _by_layer(gates, layers: int):
+    """The gates of the first step's forwards ``[microbatches x layers,
+    tokens, E]`` as ``[layers, microbatches x tokens, E]``: one row a
+    token of the step."""
+    calls, t, e = gates.shape
+    return gates.reshape(calls // layers, layers, t, e).transpose(0, 1).reshape(layers, -1, e)
+
+
+def moe_one_device(cfg) -> tuple[dict, dict]:
+    """Phase 15's one-device run in this process: the seed-0 weights drawn
+    on the card, ``MOE_TRAIN_STEPS`` steps, the first step's gradient and
+    router gates kept. Returns what the ranks' check needs, on the host
+    (each leaf under ``MOE_WHOLE_BYTES`` in f32 whole, each larger one's
+    ``(1, TP)`` blocks summarised, the gates, the losses), and its record.
+    Frees the card before it returns."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.params import flatten_tree
+
+    one = moe_train_trainer(cfg, device=DEVICE)
+    layout = Mesh(("data", "model"), sizes=(1, TP))
+    shardings = dict(flatten_tree(_train_shardings(one, layout)["params"]))
+    names = [name for name, _ in flatten_tree(one.param_tree)]
+
+    def keep(acc, losses1, gates):
+        whole, blocks = {}, {}
+        for name, a in zip(names, acc):
+            if a.numel() * 4 < MOE_WHOLE_BYTES:
+                whole[name] = a.float().cpu()
+                continue
+            blocks[name] = [_block_summary(name, p, a[shardings[name].local_slices(
+                a.shape, (0, p))]) for p in range(TP)]
+        return dict(losses1=[float(x) for x in losses1], gates=_by_layer(gates, cfg.num_layers),
+                    whole=whole, blocks=blocks)
+
+    route = RouteRecorder(cfg.top_k)
+    try:
+        t0 = time.perf_counter()
+        state = one.adopt(draw_on_card(one.param_tree, seed=0))
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        captured = _first_gradients(one, route, keep)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = one.run(state)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        route.restore()
+    (summary,) = captured
+    summary["losses"] = [m["loss"] for m in one.metrics]
+    rec = dict(draw_s=draw_s, run_s=run_s, losses=summary["losses"], losses1=summary["losses1"],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda" else None,
+               whole_leaves=sorted(summary["whole"]), summarised_leaves=sorted(summary["blocks"]))
+    del state, captured, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, rec
+
+
+def _moe_gradient_check(names, acc, mesh, shardings, want: dict) -> dict:
+    """This rank's blocks of the step-1 gradient against the one-device
+    run's: a leaf held whole by its relative Frobenius error, a summarised
+    one by its block's norm and, over the seeded probes, the root mean
+    square of the inner products' differences (whose square's mean is the
+    squared Frobenius norm of the difference), each relative to the
+    one-device block's norm."""
+    at = mesh.coordinates()
+    position = at[mesh.axis_names.index("model")]
+    out = {}
+    for name, a in zip(names, acc):
+        a = a.float()
+        if name in want["whole"]:
+            w = want["whole"][name][shardings[name].local_slices(want["whole"][name].shape, at)]
+            w = w.to(a.device)
+            out[name] = dict(rel_frobenius=((a - w).norm() / w.norm().clamp_min(1e-30)).item())
+            continue
+        got = _block_summary(name, position, a)
+        w = want["blocks"][name][position]
+        diffs = [(g - x) ** 2 for g, x in zip(got["probes"], w["probes"])]
+        out[name] = dict(rel_norm=abs(got["norm"] - w["norm"]) / max(w["norm"], 1e-30),
+                         rel_probe_rms=math.sqrt(sum(diffs) / len(diffs)) / max(w["norm"], 1e-30))
+    return out
+
+
+def train_moe_tp_rank(rank: int, store: str, work: str, one_path: str) -> None:
+    """One rank of phase 15, in a process of its own on ``cuda:0``:
+    ``gloo`` over a file store, every collective through
+    ``torch.distributed`` (DTensor's functional collectives refused, over
+    every backward too). Draws the seed-0 weights on the card keeping its
+    blocks, trains ``MOE_TRAIN_STEPS`` steps on the ``(1, TP)`` mesh with
+    the first step's gradient and router gates kept, and holds them to the
+    one-device run's (``one_path``); its record goes to
+    ``work/rank<r>.json``."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    from repro_torch.dist.local import no_functional_collectives
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.params import flatten_tree
+
+    t_start = time.perf_counter()
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=TP)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    collectives = _Collectives()
+    cfg = moe_train_cfg()
+    mesh = Mesh(("data", "model"), np.array([[dev] * TP], dtype=object))
+    rec = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+           "world": dist.get_world_size(), "coordinates": list(mesh.coordinates())}
+    with no_functional_collectives():
+        rec["functional_collectives_refused"] = "refuse" in funcol.all_reduce.__qualname__
+        trainer = moe_train_trainer(cfg, mesh=mesh)
+        t0 = time.perf_counter()
+        state = trainer.adopt(draw_on_card(
+            trainer.param_tree, seed=0,
+            keep=_block_keeper(trainer.param_tree, mesh, trainer.rules)))
+        torch.cuda.synchronize()
+        rec["draw_s"] = time.perf_counter() - t0
+        want = torch.load(one_path, weights_only=False)
+        shardings = dict(flatten_tree(trainer.shardings()[0]))
+        names = [name for name, _ in flatten_tree(trainer.param_tree)]
+
+        def keep(acc, losses1, gates):
+            return dict(losses1=[float(x) for x in losses1],
+                        gradient=_moe_gradient_check(names, acc, mesh, shardings, want),
+                        routes=route_flips(_by_layer(gates, cfg.num_layers), want["gates"],
+                                           cfg.top_k))
+
+        route = RouteRecorder(cfg.top_k)
+        try:
+            captured = _first_gradients(trainer, route, keep)
+            state, rec["tp"] = _train_run(trainer, state, collectives)
+        finally:
+            route.restore()
+        (step1,) = captured
+        rec.update(step1)
+        ffn = state.params["blocks"]["ffn"]
+        rec["expert_block_elements"] = ffn["w_gate"].to_local()[0, 0].numel()
+        rec["expert_weights"] = {n: [list(ffn[n].shape), list(ffn[n].to_local().shape)]
+                                 for n in ("router", "w_gate", "w_up", "w_down")}
+        del captured, want
+    dist.barrier()
+    dist.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t_start
+    Path(work, f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def train_moe_tp() -> dict:
+    """Phase 15: MoE training on a mesh. Reckons each rank's peak on
+    ``(1, TP)`` and ``(TP, 1)`` (the second does not fit two ranks on one
+    card), runs full-width dbrx-132b (``MOE_TRAIN_LAYERS`` of 40 layers) on
+    one device in this process and then as ``TP`` ranks on a ``(1, TP)``
+    mesh on the card under ``gloo``, both from the seed-0 weights drawn on
+    the card, and holds step 1 by routing: where no token's experts differ
+    between the two runs, the loss in the bf16 band and every block of the
+    gradient in it; where some differ, each such token's margin (the gap
+    between its k-th and (k+1)-th gate in the one-device run) within twice
+    the largest gate difference of the tokens routed alike, and the loss
+    in the band. Fails unless every loss is finite and equal on the ranks,
+    each rank ran 2 x layers x microbatches x steps flash forwards (remat)
+    and layers x microbatches x steps backwards, all on the tensor cores,
+    moved no collective as large as one expert's block (no expert weight
+    gathered) and had the functional collectives refused."""
+    t0 = time.perf_counter()
+    cfg = moe_train_cfg()
+    peak = moe_train_peak(cfg)
+    log("train_moe_tp peak " + json.dumps(peak))
+    summary, one = moe_one_device(cfg)
+    (ROOT / "build").mkdir(exist_ok=True)
+    one_path = ROOT / "build" / f"train_moe_one_device_{os.getpid()}.pt"
+    torch.save(summary, one_path)
+    try:
+        work, recs = run_ranks(train_moe_tp_rank, (str(one_path),), TRAIN_MOE_DEADLINE_S,
+                               "train_moe_tp", "15")
+    finally:
+        one_path.unlink(missing_ok=True)
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    runs = MOE_TRAIN_STEPS * MOE_TRAIN_MICRO
+    want = dict(flash_launches=2 * cfg.num_layers * runs, backward_launches=cfg.num_layers * runs)
+    per_rank = ("param_bytes_held", "moment_bytes_held", "largest_collective_elements",
+                "collectives", "peak_gib", "step_host_s", "run_s", "flash_launches",
+                "backward_launches", "backward_routes")
+    losses = recs[0]["tp"]["losses"]
+    step1 = sum(recs[0]["losses1"]) / len(recs[0]["losses1"])
+    step1_one = sum(summary["losses1"]) / len(summary["losses1"])
+    flips = [r["routes"] for r in recs]
+    record = dict(
+        arch=cfg.name, layers=f"{cfg.num_layers} of 40", d_model=cfg.d_model,
+        experts=cfg.num_experts, top_k=cfg.top_k, moe_d_ff=cfg.moe_d_ff, remat=cfg.remat,
+        bf16_moments=cfg.bf16_moments, mesh={"data": 1, "model": TP}, world=recs[0]["world"],
+        backend=recs[0]["backend"], devices=[r["device"] for r in recs],
+        global_batch=MOE_TRAIN_DATA["global_batch"], seq_len=MOE_TRAIN_DATA["seq_len"],
+        microbatches=MOE_TRAIN_MICRO, steps=MOE_TRAIN_STEPS, lr=MOE_TRAIN_LR,
+        weights="drawn on the card (torch.Generator, seed 0); each rank keeps its blocks",
+        reckoned_peak=peak, one_device=one, losses=losses, losses1=recs[0]["losses1"],
+        step1_rel_to_one_device=abs(step1 - step1_one) / abs(step1_one),
+        routes=flips, gradient=[r["gradient"] for r in recs],
+        worst_gradient=[max(max(v.values()) for v in r["gradient"].values()) for r in recs],
+        expert_weights=recs[0]["expert_weights"],
+        expert_block_elements=recs[0]["expert_block_elements"],
+        **{k: [r["tp"][k] for r in recs] for k in per_rank},
+        launches_expected=want,
+        functional_collectives_refused=[r["functional_collectives_refused"] for r in recs],
+        draw_s=[r["draw_s"] for r in recs], rank_s=[r["seconds"] for r in recs],
+        seconds=time.perf_counter() - t0,
+        note="both ranks on one card: every collective goes through host memory under gloo, "
+             "so these times measure correctness, not tensor-parallel speed")
+    for r in recs:
+        log(f"train_moe_tp rank {r['rank']} " + json.dumps({
+            k: r["tp"][k] for k in ("param_bytes_held", "moment_bytes_held", "peak_gib",
+                                    "step_host_s")}))
+    for f in flips:
+        if f["flipped"]:
+            log("train_moe_tp flipped tokens " + json.dumps(f))
+    log("train_moe_tp " + json.dumps(record))
+    if not (len(losses) == MOE_TRAIN_STEPS and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"phase 15's losses are missing or not finite: {losses}")
+    if any(r["tp"]["losses"] != losses or r["losses1"] != recs[0]["losses1"] for r in recs):
+        raise AssertionError("phase 15's ranks logged different losses")
+    if not record["step1_rel_to_one_device"] <= LOSS_BAND:
+        raise AssertionError(f"phase 15's step 1 ({step1}) is off the one-device run's "
+                             f"({step1_one}) beyond the bf16 band")
+    for r, f in zip(recs, flips):
+        if f["flipped"]:
+            if not all(m <= 2 * f["eps"] for m in f["flip_margins"]):
+                raise AssertionError(f"rank {r['rank']}: a token's experts differ from the "
+                                     f"one-device run's away from a near tie: {f}")
+        elif not max(max(v.values()) for v in r["gradient"].values()) <= GRAD_BAND:
+            raise AssertionError(f"rank {r['rank']}: a block of the step-1 gradient is off the "
+                                 f"one-device run's beyond the bf16 band: {r['gradient']}")
+    if not all(record["functional_collectives_refused"]):
+        raise AssertionError("phase 15 ran without the functional collectives refused")
+    for r in recs:
+        got = r["tp"]
+        if got["largest_collective_elements"] >= r["expert_block_elements"]:
+            raise AssertionError(f"rank {r['rank']} moved {got['largest_collective_elements']} "
+                                 f"elements in one collective, an expert's block is "
+                                 f"{r['expert_block_elements']}")
+        if DEVICE == "cuda" and (
+                (got["flash_launches"], got["backward_launches"]) != (
+                    want["flash_launches"], want["backward_launches"])
+                or got["backward_routes"]["tensor_core"] != got["backward_launches"]):
+            raise AssertionError(f"rank {r['rank']}: {got['flash_launches']} flash forwards, "
+                                 f"{got['backward_launches']} backwards "
+                                 f"({got['backward_routes']}), against {want}")
+    return record
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -5536,8 +5958,15 @@ def main(argv=None) -> int:
     log(f"gpu: {identity}; torch {torch.__version__}, cuda {torch.version.cuda}")
     build_kernels()
     if "--train-tp" in argv:
-        train_tp(train_full())
+        train_full()
+        train_tp()
         embedding_grad_check()
+        return 0
+    if "--train-moe-tp" in argv:
+        log("flash_attention_bwd timing dbrx_train " + json.dumps(_time_flash_bwd_case(
+            "dbrx_train", FLASH_BWD_DBRX, "tensor_core", seed=14)))
+        train_moe_tp()
+        log("command seconds " + json.dumps({"seconds": time.perf_counter() - t_command}))
         return 0
 
     paged_err = check_kernel_cases()
@@ -5675,11 +6104,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     train_restore()
     # phase 14: training on (2, 1) and (1, 2) meshes, as two ranks on the
-    # card, held against phase 9's losses
-    train_mesh = train_tp(train)
+    # card, held against one device
+    train_mesh = train_tp()
     gc.collect()
     torch.cuda.empty_cache()
     embedding_grad_check()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 15: full-width dbrx-132b's MoE layer trained on a (1, 2) mesh,
+    # held to one device by routing
+    train_moe = train_moe_tp()
     gc.collect()
     torch.cuda.empty_cache()
     train_mamba2 = train_ssm("mamba2-2.7b")
@@ -5761,6 +6195,7 @@ def main(argv=None) -> int:
             "launches_training": train["flash_launches"],
             "launches_a_rank_training_fsdp": train_mesh["fsdp"]["flash_launches"],
             "launches_a_rank_training_tp": train_mesh["tp"]["flash_launches"],
+            "launches_a_rank_training_moe_tp": train_moe["flash_launches"][0],
             "launches_zamba2_training": train_zamba2["flash_launches"],
             "max_abs_err": flash_err,
             "ms": ft["ms"],
@@ -5787,6 +6222,7 @@ def main(argv=None) -> int:
             "launches": train["backward_launches"],
             "launches_a_rank_training_fsdp": train_mesh["fsdp"]["backward_launches"],
             "launches_a_rank_training_tp": train_mesh["tp"]["backward_launches"],
+            "launches_a_rank_training_moe_tp": train_moe["backward_launches"][0],
             "launches_zamba2_training": train_zamba2["flash_backward_launches"],
             "launches_zamba2_training_by_route": train_zamba2["flash_backward_routes"],
             "max_abs_err": bwd_err,
@@ -5805,10 +6241,10 @@ def main(argv=None) -> int:
             "library_device_ms": bwd_timing["library_device_ms"],
             "library_device_ms_by": bwd_timing["library_device_ms_by"],
             "shape": {k: bwd_timing[k] for k in ("B", "S", "H", "D", "causal", "route")},
-            "zamba2_train": {k: bwd_timing["zamba2_train"][k] for k in (
-                "B", "S", "H", "D", "causal", "route", "ms", "device_ms", "device_ms_behind_spin",
-                "device_kernels_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "library_device_ms")},
+            **{name: {k: bwd_timing[name][k] for k in (
+                "B", "S", "H", "KH", "D", "causal", "route", "ms", "device_ms",
+                "device_ms_behind_spin", "device_kernels_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms")} for name in ("zamba2_train", "dbrx_train")},
         },
         {
             "name": "ssd_scan",

@@ -34,8 +34,11 @@ whose backward reduce-scatters the summed gradient; partial -> whole is an
 all-reduce, whose backward passes the gradient as it is; whole -> shard
 is a slice, whose backward all-gathers), :func:`place_block` (a local
 block as a DTensor; its backward brings the gradient to the block's
-placements) and :func:`vocab_cross_entropy`. A partial sum is reduced in
-f32 whatever its type, so bf16 partial gradients round once. DTensor's
+placements), :func:`vocab_cross_entropy`, and the MoE layer's two
+(:func:`summed_gradient`: a tensor whose gradient each rank takes as a
+partial sum; :func:`row_mean`: the aux loss's mean over the rows' ranks,
+its backward local). A partial sum is reduced in f32 whatever its type,
+so bf16 partial gradients round once. DTensor's
 own redistribution (``DTensor.redistribute``, the implicit one an op's
 sharding rule may ask for, and the one ``DTensor.from_local``'s backward
 runs when a gradient comes back placed otherwise) goes through the
@@ -368,6 +371,74 @@ def full(x) -> torch.Tensor:
     from torch.distributed.tensor import Replicate
 
     return redistribute(x, [Replicate()] * x.device_mesh.ndim).to_local()
+
+
+class _SumGradient(torch.autograd.Function):
+    """The identity, whose backward all-reduces the gradient over
+    ``groups`` in f32 and rounds it once to its type (Megatron's "copy to
+    the tensor-parallel region")."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        w = _sum_type(g)
+        for group in ctx.groups:
+            dist.all_reduce(w, group=group)
+        return w.to(g.dtype), None
+
+
+def summed_gradient(t: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """``t``, a plain tensor every rank of the mesh dimensions ``dims``
+    holds alike, through which each of those ranks takes only its partial
+    sum of the gradient (its columns of a product sharded over them): the
+    backward sums the partials over their groups in f32, so each rank's
+    gradient of ``t`` is the whole one. Without recording autograd, or
+    with no such dimension, ``t`` as it is."""
+    if not dims or not (torch.is_grad_enabled() and t.requires_grad):
+        return t
+    return _SumGradient.apply(t, [mesh.get_group(i) for i in dims])
+
+
+class _RowMean(torch.autograd.Function):
+    """The mean of 0-d shares over ``groups``: each share divided by ``n``
+    and all-reduced. The backward is local, the gradient over ``n`` on
+    the rank's own share: every rank backpropagates the same loss, so an
+    all-reduce there would count each share ``n`` times."""
+
+    @staticmethod
+    def forward(ctx, t, groups, n):
+        import torch.distributed as dist
+
+        ctx.n = n
+        out = t / n
+        for group in groups:
+            dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+def row_mean(t: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """The mean over the ranks of the mesh dimensions ``dims`` (those that
+    shard the batch's rows) of ``t``, a 0-d tensor each computes as the
+    mean over its own rows: with every rank holding as many rows, the mean
+    over all of them, a plain tensor equal on every rank. Under autograd
+    each rank's ``t`` takes its own share of the gradient (no
+    collective)."""
+    if not dims:
+        return t
+    n = 1
+    for i in dims:
+        n *= mesh.size(i)
+    return _RowMean.apply(t, [mesh.get_group(i) for i in dims], n)
 
 
 class _LookupRows(torch.autograd.Function):

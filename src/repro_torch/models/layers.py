@@ -38,9 +38,10 @@ pool or the dense slot caches, each rank's block of the KV heads. The
 MoE layer runs on each rank's columns of every expert's hidden
 dimension with the routed tokens replicated, and reduces its partial sum
 once, in f32 (:func:`apply_moe`): no expert weight is gathered. In
-training (the dense family) the batch is sharded over "data" as well and
-:meth:`ShardCtx.param` gathers each weight's FSDP-sharded "embed"
-dimension before use; every collective has its transpose in the backward
+training (the dense and MoE families) the batch is sharded over "data"
+as well, each rank running its own rows, and :meth:`ShardCtx.param`
+gathers each weight's FSDP-sharded "embed" dimension before use; every
+collective has its transpose in the backward
 (:mod:`repro_torch.dist.local`). The mamba sites come with that family's
 slice.
 """
@@ -59,6 +60,8 @@ from repro_torch.dist.local import (
     on_local_heads,
     place_block,
     redistribute,
+    row_mean,
+    summed_gradient,
     vocab_embedding,
 )
 from repro_torch.dist.sharding import ShardingRules
@@ -484,31 +487,59 @@ def apply_moe(p, x, cfg: ModelConfig, ctx=NULL_CTX):
     On a mesh (the weights DTensors) the layer runs on each rank's own
     blocks (:func:`_apply_moe_sharded`): no expert weight is gathered.
     """
-    if is_dtensor(p["w_gate"]):
-        y, aux = _apply_moe_sharded(p, x, cfg, ctx)
-    else:
+    if not is_dtensor(p["w_gate"]):
         y, aux = _moe_experts(p, x, cfg)
+    else:
+        y, aux = _apply_moe_sharded(p, x, cfg, ctx)
     if "dense" in p:
+        if is_dtensor(x):
+            # the dense FFN's gradient of x is a partial sum over "model",
+            # the experts' a whole one: made whole before autograd adds them
+            x = redistribute(x, x.placements)
         y = y + apply_ffn(p["dense"], x, ctx)
     return y, aux
 
 
-def _bmm_f32(a, b):
+class _BmmF32(torch.autograd.Function):
     """``a @ b`` batched, accumulated and returned in f32 without a
     rounding to ``a``'s type: on the card cuBLAS writes the f32
-    accumulator out (``out_dtype``), with no f32 copy of ``b`` (an expert
-    weight block); elsewhere both are cast up exactly."""
-    if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=F32)
-    return torch.bmm(a.float(), b.float())
+    accumulator out (``out_dtype``, which autograd does not
+    differentiate), with no f32 copy of ``b`` (an expert weight block);
+    elsewhere both are cast up exactly. The backward rounds the f32
+    gradient once to ``a``'s type and takes the two products in it, as
+    autograd's backward of the product in ``a``'s type (whose output it
+    would have rounded) takes them."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.is_cuda:
+            return torch.bmm(a, b, out_dtype=F32)
+        return torch.bmm(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = torch.bmm(g, b.transpose(1, 2)) if ctx.needs_input_grad[0] else None
+        gb = torch.bmm(a.transpose(1, 2), g) if ctx.needs_input_grad[1] else None
+        return ga, gb
 
 
-def _moe_experts(p, x, cfg: ModelConfig, partial: bool = False):
+def _same(t):
+    return t
+
+
+def _moe_experts(p, x, cfg: ModelConfig, partial: bool = False, whole_grad=_same):
     """The routed experts of :func:`apply_moe` on plain tensors. With
     ``partial`` ``p``'s expert weights are one rank's columns of every
     expert's hidden dimension (``w_gate``/``w_up`` by columns,
     ``w_down`` by rows): ``y`` is then that rank's partial sum in f32, the
-    down and combine products accumulated in f32 and not rounded."""
+    down and combine products accumulated in f32 and not rounded.
+    ``whole_grad`` takes the tokens where they enter the dispatch product
+    and the gates where they enter the combine product: their gradients
+    there are then partial sums, which it makes whole
+    (:func:`~repro_torch.dist.local.summed_gradient`)."""
     B, S, d = x.shape
     e = cfg.num_experts
     g = min(4096, S)
@@ -522,14 +553,14 @@ def _moe_experts(p, x, cfg: ModelConfig, partial: bool = False):
           & (pos[..., None, None] == torch.arange(cap, device=dev))
           & keep[..., None, None])
     dispatch = at.sum(2, dtype=x.dtype)                               # [G,g,E,C]
-    combine = (at * top_vals[..., None, None]).sum(2).to(x.dtype)     # [G,g,E,C]
+    combine = (at * whole_grad(top_vals)[..., None, None]).sum(2).to(x.dtype)  # [G,g,E,C]
 
     # expert inputs [E, G*C, d]: every slot's token (0 where empty)
-    xe = torch.bmm(dispatch.reshape(n_groups, g, e * cap).transpose(1, 2), xg)
+    xe = torch.bmm(dispatch.reshape(n_groups, g, e * cap).transpose(1, 2), whole_grad(xg))
     xe = xe.reshape(n_groups, e, cap, d).transpose(0, 1).reshape(e, n_groups * cap, d)
     h = silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
     if partial:
-        ye, combine = _bmm_f32(h, p["w_down"]), combine.float()
+        ye, combine = _BmmF32.apply(h, p["w_down"]), combine.float()
     else:
         ye = torch.bmm(h, p["w_down"])                                # [E, G*C, d]
     ye = ye.reshape(e, n_groups, cap, d).transpose(0, 1).reshape(n_groups, e * cap, d)
@@ -545,37 +576,65 @@ def _moe_experts(p, x, cfg: ModelConfig, partial: bool = False):
 
 
 def _apply_moe_sharded(p, x, cfg: ModelConfig, ctx):
-    """The routed experts on a mesh, where the decode rules shard each
-    expert's hidden dimension (``expert_ffn``) over the model axis and
-    leave the experts and the router whole. The reference's constraints
-    put the dispatched tokens' expert dimension on the model axis, which
-    under placements as explicit as the port's would gather every expert
-    weight (6.34 GB a layer and a step for dbrx-132b). Here the routed
-    tokens stay replicated instead: every rank routes all tokens alike
-    (the router is whole), runs ``w_gate``/``w_up`` on its columns and
-    ``w_down`` on its rows, and the partial sums are reduced once, in
+    """The routed experts on a mesh, where the rules shard each expert's
+    hidden dimension (``expert_ffn``) over the model axis, leave the
+    experts whole and, in training, shard the weights' ``embed`` over
+    "data" (FSDP: a block's body takes its weights through
+    :meth:`ShardCtx.param`, which gathers it inside the remat block, so
+    the recompute gathers it again; a weight still sharded over "data"
+    here raises). The reference's
+    constraints put the dispatched tokens' expert dimension on the model
+    axis, which under placements as explicit as the port's would gather
+    every expert weight (6.34 GB a layer and a step for dbrx-132b). Here
+    each rank runs the layer on its own rows of ``x`` (the batch over
+    "data"; a group is a sequence's tokens, so a rank's rows are whole
+    groups) and on all of them over "model": every rank routes its tokens
+    alike (the router is whole), runs ``w_gate``/``w_up`` on its columns
+    and ``w_down`` on its rows, and the partial sums are reduced once, in
     f32, after the combine product (the smaller tensor, ``[B, S, d]``),
     then rounded once to ``x``'s type, as :func:`_row_parallel` does. A
     hidden dimension the model axis does not divide is whole on every
     rank (the rules' fallback), and the layer is then one rank's whole
-    result."""
-    from torch.distributed.tensor import Partial, Replicate
+    result.
 
-    w_down = p["w_down"]
-    mesh = w_down.device_mesh
-    rows = {i for i, pl in enumerate(w_down.placements) if pl.is_shard(1)}
+    Under autograd the gradients of the tokens entering the dispatch
+    product and of the gates entering the combine product are each model
+    rank's partial sum (its columns): :func:`~repro_torch.dist.local.
+    summed_gradient` sums them there over "model", so the router's and
+    ``x``'s gradients come out whole and equal on every model rank, and
+    the aux loss, which every model rank computes alike, reaches the
+    router once. Each weight's gradient is a partial sum over the rows'
+    ranks, which :meth:`ShardCtx.param`'s backward reduces (scatters,
+    where FSDP shards it). The aux loss is the mean over every rank's
+    rows (:func:`~repro_torch.dist.local.row_mean`), a plain 0-d tensor
+    equal on every rank, as the reference's mean over all groups."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    w = {k: p[k] for k in ("router", "w_gate", "w_up", "w_down")}
+    mesh = w["w_down"].device_mesh
+    ffn = sorted(i for i, pl in enumerate(w["w_down"].placements) if pl.is_shard(1))
     for name, dim in (("w_gate", 2), ("w_up", 2), ("w_down", 1), ("router", None)):
-        placed = p[name].placements
-        if any(not (pl.is_replicate() or (dim is not None and pl.is_shard(dim) and i in rows))
+        placed = w[name].placements
+        if any(not (pl.is_replicate() or (dim is not None and pl.is_shard(dim) and i in ffn))
                for i, pl in enumerate(placed)):
             raise ValueError(f"the MoE layer on a mesh shards each expert's hidden "
                              f"dimension alone; {name} is placed {placed}")
-    local = {k: p[k].to_local() for k in ("router", "w_gate", "w_up", "w_down")}
-    y, aux = _moe_experts(local, ctx.full(x), cfg, partial=bool(rows))
-    placements = [Partial() if i in rows else Replicate() for i in range(mesh.ndim)]
-    y = ctx.constrain(place_block(y, mesh, placements, y.shape),
+    xp = tuple(x.placements)
+    rows = [i for i, pl in enumerate(xp) if pl.is_shard(0)]
+    if any(not (pl.is_replicate() or pl.is_shard(0)) for pl in xp) or set(rows) & set(ffn):
+        raise ValueError(f"the MoE layer on a mesh takes its input whole but for its "
+                         f"rows, on other mesh dimensions than the experts' hidden one; "
+                         f"got {xp}")
+    local = {k: t.to_local(grad_placements=tuple(
+                 Partial() if i in rows else pl for i, pl in enumerate(t.placements)))
+             for k, t in w.items()}
+    y, aux = _moe_experts(local, x.to_local(grad_placements=xp), cfg, partial=bool(ffn),
+                          whole_grad=lambda t: summed_gradient(t, mesh, ffn))
+    placements = [Shard(0) if i in rows else Partial() if i in ffn else Replicate()
+                  for i in range(mesh.ndim)]
+    y = ctx.constrain(place_block(y, mesh, placements, x.shape),
                       ("batch", "seq", "embed_act"))
-    return y.to(x.dtype), aux
+    return y.to(x.dtype), row_mean(aux, mesh, rows)
 
 
 def apply_ffn_or_moe(p, x, cfg: ModelConfig, ctx=NULL_CTX):

@@ -23,8 +23,8 @@ path: ``prefill``, ``sequence``, ``decode_paged`` and the slot-cache
 weights are DTensors, the residual stream is replicated, the logits are
 sharded by vocabulary, and the page pool's tensors (or the slot caches)
 are each rank's own block of the KV heads. :meth:`Model.loss` takes a
-``ctx`` too, for the dense family's training step on a mesh (FSDP over
-"data", tensor parallel over "model").
+``ctx`` too, for the dense and moe families' training step on a mesh
+(FSDP over "data", tensor parallel over "model").
 """
 from __future__ import annotations
 
@@ -95,18 +95,25 @@ def _check_ctx(cfg: ModelConfig, ctx) -> None:
 
 
 #: the families whose training step runs on a mesh of more than one device
-TRAIN_MESH_FAMILIES = ("dense",)
+TRAIN_MESH_FAMILIES = ("dense", "moe")
 
 
-def check_train_mesh(cfg: ModelConfig) -> None:
-    """Only the dense family (without alternation) trains on a mesh so
-    far."""
+def check_train_mesh(cfg: ModelConfig, mesh=None) -> None:
+    """Only the dense and moe families (without alternation) train on a
+    mesh so far, and moe only where no "pod" axis of more than one device
+    shards its experts (``mesh``, when given, is the training mesh)."""
     if cfg.family not in TRAIN_MESH_FAMILIES or cfg.local_global_alternating:
         raise NotImplementedError(
             f"training {cfg.name} ({cfg.family}) on a mesh of more than one device is not "
-            f"ported: the {'/'.join(TRAIN_MESH_FAMILIES)} family trains there; MoE, mamba2/"
+            f"ported: the {'/'.join(TRAIN_MESH_FAMILIES)} families train there; mamba2/"
             "zamba2 and the other families on a mesh are later steps of ROADMAP section 1 "
             "item 5")
+    if cfg.family == "moe" and mesh is not None and dict(mesh.shape).get("pod", 1) > 1:
+        raise NotImplementedError(
+            f"training {cfg.name} on a mesh whose \"pod\" axis has {dict(mesh.shape)['pod']} "
+            "devices is not ported: the train rules shard the experts over \"pod\", and "
+            "expert parallelism needs a token exchange between its ranks (ROADMAP section 1 "
+            "item 5)")
 
 
 def _stack_layers(cols) -> tuple:
@@ -523,16 +530,21 @@ class Model(nn.Module):
         differentiate it with ``torch.autograd``. On the card every
         attention layer runs the flash kernel forward and backward.
 
-        On a mesh (``ctx``; the dense family without alternation) the
-        weights are DTensors placed by the train rules, ``tokens`` a DTensor
-        sharded by rows over the batch's axes ("data"), each rank's rows its
-        own. The embedding is looked up on each rank's vocabulary rows, the
-        residual stream is sharded by rows and whole over "model", the
-        logits are sharded by vocabulary and the cross-entropy is taken on
-        them (:func:`~repro_torch.dist.local.vocab_cross_entropy`): the
-        mean over the whole batch, a plain tensor equal on every rank."""
+        On a mesh (``ctx``; the dense and moe families without
+        alternation) the weights are DTensors placed by the train rules,
+        ``tokens`` a DTensor sharded by rows over the batch's axes ("data"),
+        each rank's rows its own. The embedding is looked up on each rank's
+        vocabulary rows, the residual stream is sharded by rows and whole
+        over "model", the logits are sharded by vocabulary and the
+        cross-entropy is taken on them
+        (:func:`~repro_torch.dist.local.vocab_cross_entropy`): the mean over
+        the whole batch, a plain tensor equal on every rank. The MoE layers
+        run on each rank's rows and its columns of every expert
+        (:func:`~repro_torch.models.layers.apply_moe`), and ``aux`` is the
+        mean over the whole batch's groups as well: a plain 0-d tensor
+        equal on every rank, as ``ce`` is."""
         if ctx.mesh is not None:
-            check_train_mesh(self.cfg)
+            check_train_mesh(self.cfg, ctx.mesh)
         with ctx.scope():
             return self._loss(batch, ctx)
 

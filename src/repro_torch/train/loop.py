@@ -18,8 +18,9 @@ goes through the port's own collectives
 (:mod:`repro_torch.dist.local`), so each rank's gradient comes back as its
 block, summed over the ranks. AdamW then updates each rank's blocks in
 place: elementwise, each element as on one device given the same
-gradient. Only the dense family trains on a mesh yet; the others raise
-``NotImplementedError`` at construction.
+gradient. The dense and moe families train on a mesh (moe without a
+"pod" axis of more than one device, over which the rules would shard its
+experts); the others raise ``NotImplementedError`` at construction.
 
 * every ``ckpt_every`` steps the full (params, opt, step) state is written
   atomically (:mod:`repro_torch.train.checkpoint`, the reference's format);
@@ -126,7 +127,7 @@ class Trainer:
         self.tcfg = tcfg
         self.mesh = make_host_mesh(device) if mesh is None else mesh
         if self.mesh.size > 1:
-            check_train_mesh(cfg)
+            check_train_mesh(cfg, self.mesh)
         self.device = mesh_device(self.mesh, device)
         self.rules = make_train_rules(self.mesh)
         self.ctx = ShardCtx(self.mesh, self.rules) if self.mesh.size > 1 else NULL_CTX
@@ -202,6 +203,8 @@ class Trainer:
                 for a, g, t in zip(acc, grads, leaves):
                     a += self._block(g, t)
             losses.append(loss.detach())
+            # freed before the next microbatch's backward makes its own
+            del grads, loss
         m = tokens.shape[0]
         with record_function("train.optimizer"):
             for a in acc:

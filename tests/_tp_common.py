@@ -209,3 +209,25 @@ TRAIN_CASES = [(name, mesh, dtype) for dtype in ("f32", "bf16") for name in ("qw
 
 def train_key(name: str, mesh, dtype: str) -> str:
     return f"{name} {mesh[0]}x{mesh[1]} {dtype}"
+
+
+# ------------------------------------------------- the MoE train suite
+#: the MoE train suite's configurations: name -> architecture, each at its
+#: reduced size (dbrx: 4 query heads over 1 KV head, the KV replicated
+#: over "model"; arctic: the dense residual FFN beside the experts)
+TRAIN_MOE_CONFIGS = {"dbrx": "dbrx-132b", "arctic": "arctic-480b"}
+#: every (configuration, mesh, dtype) the MoE suite holds against the
+#: reference, as ``TRAIN_CASES``
+TRAIN_MOE_CASES = [(name, mesh, dtype) for dtype in ("f32", "bf16")
+                   for name in TRAIN_MOE_CONFIGS for mesh in TRAIN_MESHES]
+#: the MoE layer alone under autograd: rows and positions of its input
+MOE_GRAD_SHAPE = (4, 16)
+
+
+def moe_grad_inputs(d_model: int) -> dict:
+    """The layer-level gradient case's input ``x`` and the weights ``w``
+    of ``(apply_moe(x) * w).sum() + aux`` (f32)."""
+    rng = np.random.default_rng(11)
+    shape = (*MOE_GRAD_SHAPE, d_model)
+    return {"x": rng.standard_normal(shape).astype(np.float32),
+            "w": rng.standard_normal(shape).astype(np.float32)}

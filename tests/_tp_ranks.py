@@ -24,6 +24,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import multiprocessing as mp
 import time
 import traceback
@@ -103,7 +104,8 @@ def join(procs: list, deadline_s: float) -> list:
 
 def _rank(rank: int, work: str, suite: str) -> None:
     work = Path(work)
-    jobs = {"serving": _serving_jobs, "train": _train_jobs}.get(suite, _jobs)
+    jobs = {"serving": _serving_jobs, "train": _train_jobs,
+            "train_moe": _train_moe_jobs}.get(suite, _jobs)
     try:
         out, arrays = jobs(rank, work)
     except BaseException:
@@ -523,6 +525,8 @@ def _train_jobs(rank: int, work: Path):
 def _train_cfg(name: str):
     from repro_torch.configs import get_config
 
+    if name in C.TRAIN_MOE_CONFIGS:
+        return get_config(C.TRAIN_MOE_CONFIGS[name]).reduced()
     cfg = get_config(C.ARCH).reduced()
     return dataclasses.replace(cfg, **C.GQA) if name == "gqa" else cfg
 
@@ -607,8 +611,11 @@ def _train_case(name: str, shape, dtype: str, dev) -> tuple[dict, dict]:
     for side, where in sides:
         tr = _train_trainer(name, where, dtype, dev)
         state = tr.init_state()
-        grads, out[f"{side} losses1"] = _gathered_grads(tr, state)
+        with _gates() as gates:
+            grads, out[f"{side} losses1"] = _gathered_grads(tr, state)
         arrays.update({f"{side} grad {n}": g for n, g in grads.items()})
+        if gates:
+            arrays[f"{side} gates"] = _whole_gates(gates, tr)
         if side == "mesh":
             out["param bytes"] = _held_bytes(state.params)
             out["moment bytes"] = _held_bytes({"m": state.opt["m"], "v": state.opt["v"]})
@@ -617,6 +624,49 @@ def _train_case(name: str, shape, dtype: str, dev) -> tuple[dict, dict]:
             out[f"{side} losses"] = [m["loss"] for m in tr.metrics]
             arrays.update({f"{side} param {n}": p for n, p in _gathered(state.params).items()})
     return out, arrays
+
+
+@contextlib.contextmanager
+def _gates():
+    """Record the router gates of every MoE layer the block runs, each a
+    ``[groups, g, E]`` f32 tensor of the rank's rows, in the list it
+    yields."""
+    from repro_torch.models import layers
+
+    fn = layers.moe_route
+    calls: list = []
+
+    def call(p, xg, cfg):
+        out = fn(p, xg, cfg)
+        calls.append(out[0].detach().float())
+        return out
+
+    layers.moe_route = call
+    try:
+        yield calls
+    finally:
+        layers.moe_route = fn
+
+
+def _whole_gates(calls: list, tr) -> np.ndarray:
+    """The gates of every call ``[calls, groups, g, E]`` over the whole
+    batch: on a mesh each rank's rows (its groups) gathered in the order
+    of the ranks over "data", the ranks over "model" holding the same."""
+    import torch
+    import torch.distributed as dist
+
+    local = torch.stack(calls)
+    if tr.mesh.size == 1:
+        return local.numpy()
+    parts = [torch.empty_like(local) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, local.contiguous())
+    data = tr.mesh.axis_names.index("data")
+    by_row = {}
+    for r, t in enumerate(parts):
+        row = int(np.argwhere(tr.mesh.ranks == r)[0][data])
+        assert row not in by_row or torch.equal(by_row[row], t), "model ranks differ"
+        by_row.setdefault(row, t)
+    return torch.cat([by_row[i] for i in sorted(by_row)], dim=1).numpy()
 
 
 def _crash_and_restore(work: Path, dev) -> tuple[dict, dict]:
@@ -691,3 +741,93 @@ def _functional_in_backward(dev) -> dict:
         except RuntimeError as e:
             out[how] = f"RuntimeError: {e}"
     return out
+
+
+# ------------------------------------------------- the MoE train suite
+def _train_moe_jobs(rank: int, work: Path):
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.local import no_functional_collectives
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}", rank=rank,
+                            world_size=WORLD)
+    cpu = torch.device("cpu")
+    out, arrays = {"rank": rank}, {}
+    with no_functional_collectives():
+        for name in C.TRAIN_MOE_CONFIGS:
+            for shape in C.TRAIN_MESHES:
+                key = C.train_key(name, shape, "f32")
+                got, a = _moe_layer_grads(name, shape, cpu)
+                out.update({f"{key} layer {k}": v for k, v in got.items()})
+                arrays.update({f"{key} layer {k}": v for k, v in a.items()})
+        for name, shape, dtype in C.TRAIN_MOE_CASES:
+            key = C.train_key(name, shape, dtype)
+            got, a = _train_case(name, shape, dtype, cpu)
+            out.update({f"{key} {k}": v for k, v in got.items()})
+            arrays.update({f"{key} {k}": v for k, v in a.items()})
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank:
+        arrays = {}     # rank 0's gathered arrays are both ranks'
+    return out, arrays
+
+
+def _moe_layer_grads(name: str, shape, dev) -> tuple[dict, dict]:
+    """Layer 0's MoE in f32 under autograd: the gradient of
+    ``(apply_moe(x) * w).sum() + aux`` (the aux loss at weight 1, so its
+    path is not drowned) with respect to ``x`` and every weight of the
+    layer, on the mesh ``shape`` (the weights placed by the train rules,
+    ``x`` by the residual stream's) and, on rank 0, on one device. Returns
+    the loss on each side and each gradient, gathered whole."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.local import full, is_dtensor, row_mean
+    from repro_torch.dist.sharding import make_train_rules
+    from repro_torch.models import materialize
+    from repro_torch.models.layers import ShardCtx, apply_moe, describe_moe
+    from repro_torch.models.params import device_put_tree, flatten_tree, sharding_tree
+
+    cfg = _train_cfg(name)
+    desc = _f32_tree(describe_moe(cfg))
+    inputs = {k: torch.from_numpy(v) for k, v in C.moe_grad_inputs(cfg.d_model).items()}
+    mesh = _train_mesh(shape, dev)
+    rules = make_train_rules(mesh)
+    ctx = ShardCtx(mesh, rules)
+    dm = mesh.device_mesh()
+    sides = ("mesh", "one")[:1 if dist.get_rank() else 2]
+    out, arrays = {}, {}
+    for side in sides:
+        params = materialize(desc, seed=3)
+        x = inputs["x"]
+        if side == "mesh":
+            params = device_put_tree(params, sharding_tree(desc, mesh, rules))
+            x = device_put_tree({"x": x}, {"x": rules.sharding(
+                mesh, ("batch", "seq", "embed_act"), tuple(x.shape))})["x"]
+        leaves = [("x", x.requires_grad_(True))] + [
+            (n, t.requires_grad_(True)) for n, t in flatten_tree(params)]
+        with ctx.scope() if side == "mesh" else contextlib.nullcontext():
+            if side == "mesh":
+                params = ctx.params(params)     # as a block's body takes its weights
+            y, aux = apply_moe(params, x, cfg, ctx if side == "mesh" else ShardCtx())
+            if side == "mesh":
+                rows = [i for i, p in enumerate(y.placements) if p.is_shard(0)]
+                w = device_put_tree({"w": inputs["w"]}, {"w": rules.sharding(
+                    mesh, ("batch", "seq", "embed_act"), tuple(x.shape))})["w"].to_local()
+                part = (y.to_local(grad_placements=tuple(y.placements)) * w).sum()
+                # the sum over every rank's rows, its backward the identity
+                n = math.prod(mesh.device_mesh().size(i) for i in rows)
+                loss = row_mean(part, dm, rows) * n + aux
+            else:
+                loss = (y * inputs["w"]).sum() + aux
+        grads = torch.autograd.grad(loss, [t for _, t in leaves])
+        out[f"{side} loss"] = loss.item()
+        out[f"{side} aux"] = aux.item()
+        for (n, t), g in zip(leaves, grads):
+            if is_dtensor(t):
+                assert tuple(g.placements) == tuple(t.placements), (n, g.placements, t.placements)
+                g = full(g)
+            arrays[f"{side} grad {n}"] = g.detach().numpy()
+    return out, arrays

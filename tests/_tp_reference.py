@@ -1,7 +1,7 @@
 """The reference side of ``tests/test_torch_tp.py`` and
 ``tests/test_torch_tp_serving.py``, run as a script in a process of its
 own: ``python _tp_reference.py <work dir> [tp|serving]`` (the suite,
-``tp`` by default, ``serving`` or ``train``).
+``tp`` by default, ``serving``, ``train`` or ``train_moe``).
 
 JAX sees two CPU devices only if ``XLA_FLAGS`` is set before it is first
 imported (as ``src/repro/launch/dryrun.py`` does), so this runs apart from
@@ -178,20 +178,20 @@ def f32_tree(tree):
             else v for k, v in tree.items()}
 
 
-def train_suite(work: Path) -> None:
-    """The train suite: for each case of ``C.TRAIN_CASES`` the reference's
-    ``Trainer`` on the mesh, its step-1 gradient (the mean over the
-    microbatches of a jitted ``value_and_grad(model.loss)`` on the train
-    rules' shardings) and, in f32, the losses and parameters of
-    ``C.TRAIN_STEPS`` steps."""
+def train_suite(work: Path, cases=C.TRAIN_CASES, cfgs=None) -> None:
+    """The train suite: for each case of ``cases`` (``C.TRAIN_CASES`` on
+    ``configs()``) the reference's ``Trainer`` on the mesh, its step-1
+    gradient (the mean over the microbatches of a jitted
+    ``value_and_grad(model.loss)`` on the train rules' shardings) and, in
+    f32, the losses and parameters of ``C.TRAIN_STEPS`` steps."""
     from jax.sharding import Mesh, NamedSharding
     from repro.train.data import DataConfig
     from repro.train.loop import TrainConfig, Trainer
     from repro.train.optimizer import describe_opt_state
 
-    cfgs = configs()
+    cfgs = configs() if cfgs is None else cfgs
     out, arrays = {"devices": len(jax.devices())}, {}
-    for name, shape, dtype in C.TRAIN_CASES:
+    for name, shape, dtype in cases:
         key = C.train_key(name, shape, dtype)
         cfg = cfgs[name]
         mesh = Mesh(np.array(jax.devices()).reshape(shape), ("data", "model"))
@@ -209,11 +209,16 @@ def train_suite(work: Path) -> None:
             in_shardings=(p_sh, tok_sh))
         tokens = tr._tokens_for(0)
         acc, losses = None, []
-        for tok in tokens:
-            (loss, _), g = grad_fn(state.params, tok)
-            g = jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)), g)
-            acc = g if acc is None else jax.tree.map(np.add, acc, g)
-            losses.append(float(loss))
+        gates = [] if cfg.num_experts and dtype == "bf16" else None
+        with recording_gates(gates):
+            for tok in tokens:
+                (loss, _), g = grad_fn(state.params, tok)
+                g = jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)), g)
+                acc = g if acc is None else jax.tree.map(np.add, acc, g)
+                losses.append(float(loss))
+            jax.effects_barrier()
+        if gates:
+            arrays[f"{key} gates"] = np.stack(gates)
         out[f"{key} losses1"] = losses
         for leaf, g in flatten_tree(acc):
             arrays[f"{key} grad {leaf}"] = g / tokens.shape[0]
@@ -224,6 +229,46 @@ def train_suite(work: Path) -> None:
                 arrays[f"{key} param {leaf}"] = np.asarray(p.astype(jnp.float32))
     np.savez(work / "pools.npz", **arrays)
     (work / "results.json").write_text(json.dumps(out))
+
+
+class recording_gates:
+    """While active with a list, the reference's ``apply_moe`` hands each
+    call's router gates ``[groups, g, E]`` (f32, computed as it computes
+    them) to a host callback that appends them to the list: once a layer
+    of a scanned forward, in order. ``None`` records nothing."""
+
+    def __init__(self, store):
+        self.store = store
+
+    def __enter__(self):
+        import repro.models.layers as jlayers
+
+        self.mod, self.fn = jlayers, jlayers.apply_moe
+        if self.store is None:
+            return self
+        fn, store = self.fn, self.store
+
+        def apply(p, x, cfg, ctx=jlayers.NULL_CTX):
+            B, S, d = x.shape
+            g = min(4096, S)
+            xg = ctx.constrain(x.reshape(B * S // g, g, d), ("batch", None, None))
+            gates = jax.nn.softmax((xg @ p["router"].astype(jnp.float32)).astype(jnp.float32),
+                                   axis=-1)
+            jax.debug.callback(lambda a: store.append(np.asarray(a)), gates)
+            return fn(p, x, cfg, ctx)
+
+        jlayers.apply_moe = apply
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.apply_moe = self.fn
+
+
+def train_moe_suite(work: Path) -> None:
+    """The MoE train suite: ``train_suite`` over ``C.TRAIN_MOE_CASES``,
+    reduced dbrx-132b and arctic-480b."""
+    train_suite(work, C.TRAIN_MOE_CASES,
+                {name: get_config(arch).reduced() for name, arch in C.TRAIN_MOE_CONFIGS.items()})
 
 
 def main(work: Path) -> None:
@@ -251,4 +296,5 @@ def main(work: Path) -> None:
 if __name__ == "__main__":
     assert len(jax.devices()) == 2, jax.devices()
     suite = sys.argv[2] if len(sys.argv) > 2 else "tp"
-    {"serving": serving, "train": train_suite}.get(suite, main)(Path(sys.argv[1]))
+    {"serving": serving, "train": train_suite,
+     "train_moe": train_moe_suite}.get(suite, main)(Path(sys.argv[1]))
