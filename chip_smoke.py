@@ -9,6 +9,7 @@ port starts on the GPU and that its main paths run through its kernels.
                                           # phase 14, no final line
     python3 chip_smoke.py --train-moe-tp  # the build, dbrx's flash backward timing and
                                           # phase 15, no final line
+    python3 chip_smoke.py --train-ssm-tp  # the build and phase 16, no final line
 
 Needs one CUDA card (Hopper: the kernels are built for sm_90a) and
 ``nvcc``; it builds every kernel from the sources in ``src/repro_torch``
@@ -208,17 +209,21 @@ on failure (a failure exits non-zero and prints no final line):
    card, spawned processes under ``gloo`` over a file store (this
    process makes no process group), each loading the kernels the earlier
    phases built. Each rank probes which ``gloo`` collectives run on CUDA
-   tensors, draws the seed-0 full-width qwen weights and keeps its own
-   blocks of them, and serves the launcher's corpus on two replicas
-   aliasing a ``(1, 2)`` mesh through ``MoriRouter.replay``, monolithic
-   and chunked: half the KV heads in its pool and half the heads in each
-   kernel call, the paged and flash launches of phase 4, no graph
-   captured (steps run eagerly on a mesh), the whole page billed, greedy
-   tokens as phase 4's or parting only at a near tie; then, on the first
+   tensors, draws the seed-0 full-width qwen weights, cut to their first
+   8 of 24 layers (for the command's time; this process first replays
+   the same cut on one device, monolithic, chunked and on dense slots,
+   for the ranks to be held against), and keeps its own blocks of them,
+   and serves the launcher's corpus on two replicas aliasing a ``(1,
+   2)`` mesh through ``MoriRouter.replay``, monolithic and chunked: half
+   the KV heads in its pool and half the heads in each kernel call, the
+   one-device replays' paged and flash launches, no graph captured (steps
+   run eagerly on a mesh), the whole page billed, greedy tokens as the
+   one-device replays' or parting only at a near tie; then, on the first
    ``TP_PROGRAMS`` programs, dense slots with int8 offload
    (``serve_tp_dense_slots``: one paged launch over the slots a layer a
    step on half the heads, offloads billed at the whole int8 page, both
-   ranks' host scales bit-equal, tokens as phase 7's or at a near tie)
+   ranks' host scales bit-equal, tokens as the one-device dense slots' or
+   at a near tie)
    and int8 pages with chunked prefill (``serve_tp_int8``: both ranks'
    device and host scales bit-equal, one full-width page through each
    quantize site bit-equal to the one-device quantizer's); a decode
@@ -237,7 +242,7 @@ on failure (a failure exits non-zero and prints no final line):
    times say nothing of tensor-parallel speed;
 14. training on a mesh (``train_tp``, after phase 9): two ranks on the
    one card under ``gloo``, spawned as phase 13's are, each drawing phase
-   9's seed-0 full-width qwen weights, cut to 12 of its 24 layers (for
+   9's seed-0 full-width qwen weights, cut to 6 of its 24 layers (for
    the command's time), on the card and keeping its blocks (FSDP: "embed" over "data"; tensor
    parallel: heads, FFN and vocabulary over "model"). Each rank holds its
    block of the step-1 gradient to a one-device gradient on the card on
@@ -280,7 +285,33 @@ on failure (a failure exits non-zero and prints no final line):
    layers x microbatches x steps and backwards layers x microbatches x
    steps, all on the tensor cores, no collective as large as one expert's
    block, the functional collectives refused; each rank's parameter and
-   moment bytes, peak and step times printed.
+   moment bytes, peak and step times printed;
+16. mamba2 and zamba2 on a mesh (``train_ssm_tp``, after phase 9's
+   mamba2 and zamba2 training): full-width mamba2-2.7b at 8 of its 64
+   layers and zamba2-2.7b at one group (its 6 Mamba-2 blocks and the
+   shared block), remat, 3 steps of 4 x 1024 tokens in 2 microbatches.
+   One device in this process first (seed-0 weights drawn on the card,
+   step 1's gradient kept on the host), and mamba2 at model level (a
+   prefill of 2 x 256 tokens, 8 greedy decode steps); the card freed.
+   Then two ranks under ``gloo``, spawned as phase 14's: mamba2 on ``(1,
+   2)`` (each rank's Mamba-2 blocks on its 40 of 80 SSD heads) and on
+   ``(2, 1)`` (FSDP), zamba2 on ``(1, 2)`` (its shared block on 16 of 32
+   heads a rank), each from the seed-0 weights, each rank keeping its
+   blocks; and mamba2's model level on ``(1, 2)`` under the decode rules,
+   fed one device's tokens. The losses finite and equal on both ranks,
+   step 1 and every block of a rank's step-1 gradient in the bf16 band of
+   one device's; a rank's SSD forwards 2 x layers x microbatches x steps
+   and backwards layers x microbatches x steps, by one device's routes,
+   each scan on the rank's heads alone; zamba2's flash forwards and
+   backwards a rank as one device's; each step's logits within the model
+   band of one device's widened by one device's own spread when its
+   ``out_proj`` products are rounded once from f32, as a rank reduces
+   them (at 8 random full-width layers a one-ulp difference in some of
+   those products grows past the band), and the rank's greedy token in its tie
+   set; the rank's SSM state half of one device's bytes and, with its
+   conv state (its heads' ``x`` channels and all of ``B`` and ``C``),
+   held alike; the functional collectives refused. Each rank's parameter
+   and moment bytes, peak, step times and largest collective printed.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 hold the per-kernel JSON record and the card's name and power limit,
@@ -4245,7 +4276,12 @@ TP_PROBE = ("all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatte
 TP_PROBE_DTYPES = (torch.bfloat16, torch.float32)
 #: the fixed decode step of the logits check: context lengths of its rows
 TP_DECODE_LENGTHS = (200, 97, 33)
-#: the layers (of 24) over which phase 13 holds every logit to the band
+#: phase 13's qwen cut from its 24 layers (full width; phase 4's weights'
+#: first layers), held against one-device replays of the same cut: the
+#: command's time (an eager step on the mesh takes ~400 ms at 24 layers)
+TP_QWEN_LAYERS = 8
+#: the layers (of TP_QWEN_LAYERS) over which phase 13 holds every logit to
+#: the band
 TP_BAND_LAYERS = 4
 #: the fixed prefill of the logits check, and the chunk over a prefix
 TP_PREFILL_TOKENS = 100
@@ -4890,7 +4926,9 @@ def serve_tp_rank(rank: int, store: str, work: str, logs: dict) -> None:
         cfg = get_config(args.arch)
         rec["heads"] = [cfg.num_heads, cfg.num_kv_heads]
         t0 = time.perf_counter()
-        params = materialize(Model(cfg).describe(), seed=0)
+        # phase 4's weights, cut to their first TP_QWEN_LAYERS layers
+        cfg, params = first_layers(cfg, materialize(Model(cfg).describe(), seed=0),
+                                   TP_QWEN_LAYERS)
         rec["materialize_s"] = time.perf_counter() - t0
         rs = make_replica_set(args.replicas, mesh_shape=(1, TP), devices=[dev] * TP,
                               num_kv_heads=cfg.num_kv_heads)
@@ -4903,15 +4941,17 @@ def serve_tp_rank(rank: int, store: str, work: str, logs: dict) -> None:
         placed = device_put_tree(params, sharding_tree(Model(cfg).describe(), mesh, rs.rules))
         rec["weight_bytes_held"] = sum(t.to_local().nbytes for _, t in flatten_tree(placed))
         rec["weight_bytes_whole"] = sum(t.nbytes for _, t in flatten_tree(params))
-        rec["serve"] = tp_replay(args, cfg, placed, rs, False, logs["serve"])
-        rec["serve_chunked"] = tp_replay(args, cfg, placed, rs, True, logs["serve_chunked"])
+        rec["serve"] = tp_replay(args, cfg, placed, rs, False, logs["serve"],
+                                 label="one_device")
+        rec["serve_chunked"] = tp_replay(args, cfg, placed, rs, True, logs["serve_chunked"],
+                                         label="one_device")
         rec["heads_seen"] = {k: sorted(v) for k, v in seen.items()}
         for mode, kw, chunked, want in (
                 ("serve_tp_dense_slots", TP_DENSE_KW, False, logs["dense_slots"]),
                 ("serve_tp_int8", TP_INT8_KW, True, None)):
             seen.clear()
             rec[mode] = tp_replay(few, cfg, placed, rs, chunked, want, engine_kw=kw,
-                                  label="phase7")
+                                  label="one_device")
             rec[mode]["heads_seen"] = {k: sorted(v) for k, v in seen.items()}
         rec["serve_tp_int8"]["quant_sites"] = tp_quant_sites(cfg, rs, dev)
         params = _to(params, dev)
@@ -5002,26 +5042,66 @@ def _check_band(r: dict, rec: dict, what: str) -> None:
                                  f"one-device engine's beyond the model band: {d}")
 
 
-def serve_tp(mono: dict, chunked: dict, logs: dict, phase4: dict) -> dict:
+def tp_references(args, cfg, params) -> dict:
+    """What phase 13 holds its qwen replays against: phase 4's weights
+    (``params``, on the host) cut to their first ``TP_QWEN_LAYERS`` layers,
+    replayed on one device through the launcher's engines and pools,
+    monolithic and chunked over the launcher's corpus and on dense slots
+    (as phase 7's) over its first ``TP_PROGRAMS`` programs (each record
+    with its output ``log``), and ``one``: the cut's weight bytes, both
+    replicas' pool bytes and the page bytes."""
+    import argparse
+
+    from repro_torch.models.params import flatten_tree
+
+    cut, cut_params = first_layers(cfg, _to(params, DEVICE), TP_QWEN_LAYERS)
+    few = argparse.Namespace(**{**vars(args), "programs": TP_PROGRAMS})
+    out = {}
+    for name, run_args, chunked, kw in (("serve", args, False, None),
+                                        ("serve_chunked", args, True, None),
+                                        ("dense_slots", few, False, dict(dense_slots=True))):
+        rec, engines, router = replay_paged(run_args, chunked, cfg=cut, params=cut_params,
+                                            label=f"tp_reference {name}", engine_kw=kw,
+                                            profile=False)
+        rec["log"] = {pid: list(toks) for pid, toks in router.output_log.items()}
+        out[name] = rec
+        if name == "serve":
+            pool = engines[0].pool
+            out["one"] = dict(
+                weight_bytes=sum(t.nbytes for _, t in flatten_tree(cut_params)),
+                pool_bytes=len(engines) * sum(t.nbytes for t in (
+                    pool.k, pool.v, pool.host_k, pool.host_v)),
+                page_bytes=pool.page_bytes)
+            del pool
+        del engines, router
+    del cut_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_tp(mono: dict, chunked: dict, logs: dict, one: dict) -> dict:
     """Phase 13: tensor-parallel paged serving on a ``(1, TP)`` mesh, as
     ``TP`` ranks on the one card under ``gloo`` (this process starts them
     and makes no process group). Each rank serves the launcher's corpus on
     two replicas aliasing the mesh through ``MoriRouter.replay``: full-
-    width qwen, monolithic and chunked (``serve_tp``); on the first
+    width qwen cut to ``TP_QWEN_LAYERS`` layers (:func:`tp_references`),
+    monolithic and chunked (``serve_tp``); on the first
     ``TP_PROGRAMS`` programs on dense slots with int8 offload
     (``serve_tp_dense_slots``) and on int8 pages with chunked prefill
     (``serve_tp_int8``); and dbrx-132b at 4 of 40 layers
     (``serve_tp_moe``). Fails unless every rank exits 0 with: half the KV
     heads in its pool and the kernels seeing half the heads, its paged
-    and flash launches one a layer a step and a prefill pass (phase 4's
-    for qwen, ``mono`` and ``chunked``), no graph captured, the whole page
-    billed, greedy tokens equal to the one-device replays' (phase 4's and
-    phase 7's in ``logs``) or parting only at a near tie, int8 scales
+    and flash launches one a layer a step and a prefill pass (for qwen the
+    one-device replays' of the cut, ``mono`` and ``chunked``), no graph
+    captured, the whole page billed, greedy tokens equal to the one-device
+    replays' (of the cut, and phase 6's for dbrx, in ``logs``) or parting
+    only at a near tie, int8 scales
     bit-equal on both ranks and each quantize site's page bit-equal to the
     one-device quantizer's, the decode, prefill and chunk logits within
     the model band of a one-device engine's (dbrx's: of the logits phase 4
     saved), half of each expert weight a rank and no collective moving
-    one. ``phase4`` holds phase 4's weight bytes, pool bytes (both
+    one. ``one`` holds the cut's one-device weight bytes, pool bytes (both
     replicas' device and host tiers) and page bytes."""
     import shutil
 
@@ -5037,9 +5117,9 @@ def serve_tp(mono: dict, chunked: dict, logs: dict, phase4: dict) -> dict:
         devices=[r["device"] for r in recs], coordinates=[r["coordinates"] for r in recs],
         gloo_on_cuda=recs[0]["gloo_on_cuda"], fallbacks=recs[0]["fallbacks"],
         weight_bytes_held=[r["weight_bytes_held"] for r in recs],
-        weight_bytes_phase4=phase4["weight_bytes"],
+        weight_bytes_one_device=one["weight_bytes"],
         pool_bytes_held=[r["serve"]["pool_bytes_held"] for r in recs],
-        pool_bytes_phase4=phase4["pool_bytes"], pool_heads=[r["serve"]["pool_heads"] for r in recs],
+        pool_bytes_one_device=one["pool_bytes"], pool_heads=[r["serve"]["pool_heads"] for r in recs],
         page_bytes_billed=recs[0]["serve"]["page_bytes"],
         rank_page_bytes=recs[0]["serve"]["rank_page_bytes"],
         heads_seen=[r["heads_seen"] for r in recs],
@@ -5052,10 +5132,10 @@ def serve_tp(mono: dict, chunked: dict, logs: dict, phase4: dict) -> dict:
                 "steps_completed", "tokens_generated", "engine_steps", "prefill_passes",
                 "offloaded_pages", "reloaded_pages", "offload_bytes", "reload_bytes",
                 "prefill_chunks", "captures", "graph_entries", "eager_steps",
-                "against_phase4", "ties")},
+                "against_one_device", "ties")},
             paged_launches=[g["paged_launches"] for g in got],
             flash_launches=[g["flash_launches"] for g in got],
-            phase4_paged=want["kernel_launches"], phase4_flash=want["flash_launches"],
+            one_device_paged=want["kernel_launches"], one_device_flash=want["flash_launches"],
             setup_s=[g["setup_s"] for g in got], replay_s=[g["replay_s"] for g in got])
     record["logits"] = [r["logits"] for r in recs]
     band_key = f"logits_{TP_BAND_LAYERS}_layers"
@@ -5080,7 +5160,7 @@ def serve_tp(mono: dict, chunked: dict, logs: dict, phase4: dict) -> dict:
     if record["world"] != TP or record["backend"] != "gloo" or half * TP != kv_heads:
         raise AssertionError(f"phase 13 ran {record['world']} ranks under "
                              f"{record['backend']} with {half} KV heads a rank")
-    qwen = get_config(serve.parse_args([]).arch)
+    qwen = dataclasses.replace(get_config(serve.parse_args([]).arch), num_layers=TP_QWEN_LAYERS)
     moe_cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
     # the whole int8 page the router bills: payload and a scale a layer for
     # K and for V, where a rank holds half of the payload
@@ -5088,9 +5168,9 @@ def serve_tp(mono: dict, chunked: dict, logs: dict, phase4: dict) -> dict:
                                          qwen.num_kv_heads, qwen.head_dim, "int8")
     for r in recs:
         held = r["weight_bytes_held"]
-        if not held < 0.6 * phase4["weight_bytes"]:
+        if not held < 0.6 * one["weight_bytes"]:
             raise AssertionError(f"rank {r['rank']} holds {held} weight bytes of "
-                                 f"{phase4['weight_bytes']}")
+                                 f"{one['weight_bytes']}")
         if r["serve"]["pool_heads"] != half or r["serve"]["rank_page_bytes"] * TP != r[
                 "serve"]["page_bytes"]:
             raise AssertionError(f"rank {r['rank']}'s pool does not hold half of each page")
@@ -5104,14 +5184,14 @@ def serve_tp(mono: dict, chunked: dict, logs: dict, phase4: dict) -> dict:
                     want["kernel_launches"], want["flash_launches"]):
                 raise AssertionError(
                     f"rank {r['rank']} {mode}: {g['paged_launches']} paged and "
-                    f"{g['flash_launches']} flash launches, phase 4 "
+                    f"{g['flash_launches']} flash launches, one device "
                     f"{want['kernel_launches']} and {want['flash_launches']}")
             if g["captures"] != 0 or g["eager_steps"] != g["engine_steps"]:
                 raise AssertionError(f"rank {r['rank']} {mode}: {g['captures']} captures, "
                                      f"{g['eager_steps']} eager steps of {g['engine_steps']}")
-            if g["page_bytes"] != phase4["page_bytes"]:
-                raise AssertionError(f"{mode} billed {g['page_bytes']} a page, phase 4 "
-                                     f"{phase4['page_bytes']}")
+            if g["page_bytes"] != one["page_bytes"]:
+                raise AssertionError(f"{mode} billed {g['page_bytes']} a page, one device "
+                                     f"{one['page_bytes']}")
             _check_ties(r, mode)
         # at full depth each row's top-1 is held (compare_greedy raised in
         # the rank); over the first layers every logit is held to the band
@@ -5201,7 +5281,7 @@ def serve_tp(mono: dict, chunked: dict, logs: dict, phase4: dict) -> dict:
 #: "model" after an elastic restore
 TRAIN_TP_MESHES = ((TP, 1), (1, TP))
 #: phase 14's qwen cut from its 24 layers (full width): the command's time
-TRAIN_TP_LAYERS = 12
+TRAIN_TP_LAYERS = 6
 #: the steps each mesh runs
 TRAIN_TP_STEPS = 3
 #: the parent waits this long for its ranks, then kills them and fails
@@ -5937,6 +6017,480 @@ def train_moe_tp() -> dict:
     return record
 
 
+# ------------------------------- phase 16: mamba2 and zamba2 on a mesh
+#: phase 16's architectures at full width, each cut to this many layers
+#: (zamba2: one group, its 6 Mamba-2 blocks and the shared block)
+SSM_TP_LAYERS = {"mamba2-2.7b": 8, "zamba2-2.7b": 6}
+#: the meshes each trains on, in order: tensor parallel over "model", then
+#: FSDP over "data"
+SSM_TP_MESHES = {"mamba2-2.7b": ((1, TP), (TP, 1)), "zamba2-2.7b": ((1, TP),)}
+#: the batch: 4 x 1024 tokens a step in 2 microbatches, 3 steps, at the lr
+#: of phase 9's SSM runs
+SSM_TP_DATA = dict(global_batch=4, seq_len=1024)
+SSM_TP_MICRO, SSM_TP_STEPS, SSM_TP_LR = 2, 3, 1e-4
+#: model level, mamba2 on (1, TP) under the decode rules: a prefill of rows
+#: x tokens, then greedy decode steps
+SSM_TP_MODEL_ARCH = "mamba2-2.7b"
+SSM_TP_PROMPT, SSM_TP_DECODE = (2, 256), 8
+TRAIN_SSM_DEADLINE_S = 600
+
+
+def ssm_tp_cfg(arch: str):
+    """Phase 16's configuration of ``arch``: full width, ``SSM_TP_LAYERS``
+    of its layers, remat on."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=SSM_TP_LAYERS[arch], remat=True)
+
+
+def ssm_tp_trainer(cfg, device=None, mesh=None):
+    """Phase 16's trainer: on ``device`` alone, or on ``mesh``."""
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.loop import TrainConfig, Trainer
+
+    tcfg = TrainConfig(steps=SSM_TP_STEPS, microbatches=SSM_TP_MICRO, lr=SSM_TP_LR, log_every=1)
+    return Trainer(cfg, tcfg, DataConfig(vocab_size=cfg.vocab_size, **SSM_TP_DATA), device,
+                   mesh=mesh)
+
+
+def _ssd_counts() -> dict:
+    from repro_torch.kernels.ssd import ops
+
+    return dict(ssd_launches=ops.KERNEL.launches, ssd_routes=dict(ops.KERNEL.routes),
+                ssd_backward_launches=ops.KERNEL.backward_launches,
+                ssd_backward_routes=dict(ops.KERNEL.backward_kernel.routes))
+
+
+def _zero_ssd_counts() -> None:
+    from repro_torch.kernels.ssd import ops
+
+    ops.KERNEL.launches = 0
+    ops.KERNEL.backward_launches = 0
+    for routes in (ops.KERNEL.routes, ops.KERNEL.backward_kernel.routes):
+        routes.update(dict.fromkeys(routes, 0))
+
+
+def _ssm_run(trainer, state, collectives) -> tuple:
+    """:func:`_train_run` with the SSD counts zeroed just before and read
+    just after, and the head count of every SSD scan it ran (the main
+    path's record of one mesh)."""
+    from repro_torch.models import layers
+
+    scan, heads = layers.ssd, set()
+
+    def counting(x, *a, **kw):
+        heads.add(int(x.shape[2]))
+        return scan(x, *a, **kw)
+
+    layers.ssd = counting
+    _zero_ssd_counts()
+    try:
+        state, rec = _train_run(trainer, state, collectives)
+    finally:
+        layers.ssd = scan
+    rec.update(_ssd_counts(), ssd_heads_seen=sorted(heads))
+    return state, rec
+
+
+def _capture_first(trainer, keep) -> list:
+    """Wrap ``trainer.gradients`` so that its first call appends
+    ``keep(acc, losses)`` (what a check needs of step 1) to the list it
+    returns."""
+    captured: list = []
+    gradients = trainer.gradients
+
+    def first(*a, **kw):
+        got = gradients(*a, **kw)
+        if not captured:
+            captured.append(keep(*got))
+        return got
+
+    trainer.gradients = first
+    return captured
+
+
+def ssm_one_device(arch: str, path: Path) -> dict:
+    """Phase 16's one-device run of ``arch`` in this process: the seed-0
+    weights drawn on the card, ``SSM_TP_STEPS`` steps, step 1's gradient
+    (bf16, on the host) and losses saved to ``path`` for the ranks. Frees
+    the card before it returns its record."""
+    import types
+
+    from repro_torch.models.params import flatten_tree
+
+    cfg = ssm_tp_cfg(arch)
+    one = ssm_tp_trainer(cfg, device=DEVICE)
+    names = [name for name, _ in flatten_tree(one.param_tree)]
+
+    def keep(acc, losses):
+        return dict(losses1=[float(x) for x in losses],
+                    grads={n: a.to(torch.bfloat16).cpu() for n, a in zip(names, acc)})
+
+    t0 = time.perf_counter()
+    state = one.adopt(draw_on_card(one.param_tree, seed=0))
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    captured = _capture_first(one, keep)
+    state, rec = _ssm_run(one, state, types.SimpleNamespace(moved=[], armed=False))
+    (step1,) = captured
+    torch.save(step1, path)
+    rec.update(draw_s=draw_s, losses1=step1["losses1"])
+    for k in ("largest_collective_elements", "collectives"):
+        rec.pop(k)
+    del state, one, captured, step1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _mamba_out_rounded_once(p, x, cfg, *, cache=None, ctx=None):
+    """One device's Mamba-2 block with ``y @ out_proj`` taken in f32 and
+    rounded once to ``x``'s type, as a rank reduces its partial sums:
+    another valid rounding of the same product, which cuBLAS's bf16
+    product rounds otherwise in some elements (by one ulp)."""
+    from repro_torch.models import layers
+
+    y, new_cache = layers._mamba_body(p, x, cfg, cache)
+    return x + (y.float() @ p["out_proj"].float()).to(x.dtype), new_cache
+
+
+def _ssm_model_steps(model, prompt, tokens=None) -> dict:
+    """A prefill of ``prompt`` on one device, then ``SSM_TP_DECODE`` steps
+    fed ``tokens`` (each step's greedy token where ``tokens`` is None):
+    the logits of each, the tokens fed and copies of the prefill's
+    states, on the host."""
+    logits, cache = model.prefill({"tokens": prompt})
+    # copies: the decode steps below update the states in place
+    out = dict(logits=[logits.cpu()], tokens=[], ssm=cache["ssm"].to("cpu", copy=True),
+               conv=cache["conv"].to("cpu", copy=True))
+    rows, S = prompt.shape
+    for i in range(SSM_TP_DECODE):
+        tok = logits.argmax(-1) if tokens is None else tokens[i].to(prompt.device)
+        out["tokens"].append(tok.cpu())
+        lengths = torch.full((rows,), S + i + 1, dtype=torch.int32, device=prompt.device)
+        logits = model.decode_into(cache, tok, lengths)
+        out["logits"].append(logits.cpu())
+    out.update(ssm_state_bytes=cache["ssm"].nbytes, conv_state_bytes=cache["conv"].nbytes)
+    return out
+
+
+def ssm_model_one_device(path: Path) -> dict:
+    """Phase 16's model level on one device: ``SSM_TP_MODEL_ARCH``'s
+    seed-0 weights drawn on the card, a prefill of ``SSM_TP_PROMPT``
+    seeded tokens and ``SSM_TP_DECODE`` greedy steps; then the same tokens
+    again with each block's ``out_proj`` product rounded once from f32
+    (:func:`_mamba_out_rounded_once`). Each step's ``spread``, the largest
+    difference between the two runs' logits, and the states' spreads are
+    the one device's own departure under an equally valid rounding: at 8
+    random full-width layers it outgrows the model band, and the ranks
+    are held to the band plus them. The prompt, the logits, the tokens fed, the prefill's
+    states and the spreads saved to ``path``."""
+    from repro_torch.models import Model
+    from repro_torch.models import model as model_mod
+
+    cfg = ssm_tp_cfg(SSM_TP_MODEL_ARCH)
+    model = Model(cfg, draw_on_card(Model(cfg).describe(), seed=0))
+    rng = np.random.default_rng(16)
+    prompt = torch.as_tensor(rng.integers(2, cfg.vocab_size, SSM_TP_PROMPT), device=DEVICE)
+    t0 = time.perf_counter()
+    out = _ssm_model_steps(model, prompt)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    plain = model_mod.apply_mamba_block
+    model_mod.apply_mamba_block = _mamba_out_rounded_once
+    try:
+        other = _ssm_model_steps(model, prompt, out["tokens"])
+    finally:
+        model_mod.apply_mamba_block = plain
+    out.update(prompt=prompt.cpu(),
+               spread=[(a - b).abs().max().item() for a, b in zip(out["logits"], other["logits"])],
+               ssm_spread=(out["ssm"] - other["ssm"]).abs().max().item(),
+               conv_spread=(out["conv"].float() - other["conv"].float()).abs().max().item())
+    torch.save(out, path)
+    rec = dict(seconds=seconds, ssm_state_bytes=out["ssm_state_bytes"],
+               conv_state_bytes=out["conv_state_bytes"], spread=out["spread"],
+               ssm_spread=out["ssm_spread"], conv_spread=out["conv_spread"])
+    del model, out, other
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _tie_gap(got_logits, want_logits) -> list:
+    """For each row, the gap between the largest of ``want_logits``
+    (rounded to bf16) and its entry at ``got_logits``' largest: 0 where
+    that token is in the one-device run's tie set."""
+    rounded = want_logits.to(torch.bfloat16).float()
+    top = got_logits.argmax(-1)
+    return [float(rounded[b].max() - rounded[b, top[b]]) for b in range(rounded.shape[0])]
+
+
+def _held(got, want, spread: float) -> dict:
+    """:func:`band_excess` of ``got`` against ``want``, and its excess over
+    the band widened by ``spread`` (> 0 fails)."""
+    rec = band_excess(got, want)
+    rec.update(spread=spread, excess_over_band_and_spread=rec["excess_over_band"] - spread)
+    return rec
+
+
+def _ssm_model_rank(dev, one_dir: str) -> dict:
+    """Phase 16's model level on this rank: the weights of
+    :func:`ssm_model_one_device` placed by the decode rules on a ``(1,
+    TP)`` mesh (each rank keeping its blocks), ``Model.prefill`` and the
+    one-device run's tokens fed through ``Model.decode_into`` with a
+    ``ShardCtx``: the logits at each step against one device's (the model
+    band widened by the one device's own spread under the rounding a rank
+    reduces ``out_proj`` with; the rank's greedy token in one device's tie
+    set), the rank's SSM state against its heads of one device's and its
+    conv state against its columns of one device's
+    (:func:`~repro_torch.models.layers.mamba_columns`), and their bytes."""
+    from repro_torch.dist.sharding import make_decode_rules
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import Model
+    from repro_torch.models.layers import ShardCtx, mamba_columns
+
+    cfg = ssm_tp_cfg(SSM_TP_MODEL_ARCH)
+    mesh = Mesh(("data", "model"), np.array([[dev] * TP], dtype=object))
+    rules = make_decode_rules(mesh, cfg.num_kv_heads)
+    desc = Model(cfg).describe()
+    model = Model(cfg, draw_on_card(desc, seed=0, keep=_block_keeper(desc, mesh, rules)))
+    ctx = ShardCtx(mesh, rules)
+    want = torch.load(Path(one_dir) / "model.pt")
+    r = mesh.coordinates()[1]
+    heads = cfg.ssm_heads // TP
+    _zero_ssd_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": want["prompt"].to(dev)}, ctx=ctx)
+    prefill_ssd = _ssd_counts()
+    cache = {k: ctx.local(v) for k, v in cache.items()}
+    _, conv_idx = mamba_columns(cfg, r, TP)
+    state = dict(
+        ssm=_held(cache["ssm"].cpu(), want["ssm"][..., r * heads:(r + 1) * heads, :, :],
+                  want["ssm_spread"]),
+        conv=_held(cache["conv"].cpu(), want["conv"][..., conv_idx], want["conv_spread"]),
+        ssm_heads=cache["ssm"].shape[-3], conv_channels=cache["conv"].shape[-1],
+        ssm_state_bytes=cache["ssm"].nbytes, conv_state_bytes=cache["conv"].nbytes,
+        one_device_ssm_state_bytes=want["ssm_state_bytes"],
+        one_device_conv_state_bytes=want["conv_state_bytes"])
+    steps = []
+    rows, S = SSM_TP_PROMPT
+    for i in range(SSM_TP_DECODE + 1):
+        got = ctx.full(logits).cpu()
+        steps.append(dict(_held(got, want["logits"][i], want["spread"][i]),
+                          tie_gap=_tie_gap(got, want["logits"][i])))
+        if i == SSM_TP_DECODE:
+            break
+        lengths = torch.full((rows,), S + i + 1, dtype=torch.int32, device=dev)
+        logits = model.decode_into(cache, want["tokens"][i].to(dev), lengths, ctx=ctx)
+    torch.cuda.synchronize()
+    return dict(mesh={"data": 1, "model": TP}, prompt=list(SSM_TP_PROMPT),
+                decode_steps=SSM_TP_DECODE, seconds=time.perf_counter() - t0,
+                prefill_ssd_launches=prefill_ssd["ssd_launches"],
+                prefill_ssd_routes=prefill_ssd["ssd_routes"], state=state, steps=steps)
+
+
+def train_ssm_tp_rank(rank: int, store: str, work: str, one_dir: str) -> None:
+    """One rank of phase 16, in a process of its own on ``cuda:0``:
+    ``gloo`` over a file store, every collective through
+    ``torch.distributed`` (DTensor's functional collectives refused, over
+    every backward too). For each architecture and mesh of
+    ``SSM_TP_MESHES`` draws the seed-0 weights on the card keeping its
+    blocks, trains ``SSM_TP_STEPS`` steps through ``Trainer(mesh=...)``
+    and holds its blocks of the step-1 gradient to the one-device run's
+    (``one_dir``); then the model level (:func:`_ssm_model_rank`). Its
+    record goes to ``work/rank<r>.json``."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    from repro_torch.dist.local import no_functional_collectives
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.params import flatten_tree
+
+    t_start = time.perf_counter()
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=TP)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    collectives = _Collectives()
+    rec = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+           "world": dist.get_world_size()}
+    with no_functional_collectives():
+        rec["functional_collectives_refused"] = "refuse" in funcol.all_reduce.__qualname__
+        for arch, meshes in SSM_TP_MESHES.items():
+            cfg = ssm_tp_cfg(arch)
+            want = torch.load(Path(one_dir) / f"{arch}.pt", mmap=True)
+            for shape in meshes:
+                mesh = Mesh(("data", "model"), np.array([dev] * TP, dtype=object).reshape(shape))
+                trainer = ssm_tp_trainer(cfg, mesh=mesh)
+                t0 = time.perf_counter()
+                state = trainer.adopt(draw_on_card(
+                    trainer.param_tree, seed=0,
+                    keep=_block_keeper(trainer.param_tree, mesh, trainer.rules)))
+                torch.cuda.synchronize()
+                draw_s = time.perf_counter() - t0
+                shardings = dict(flatten_tree(trainer.shardings()[0]))
+                names = [name for name, _ in flatten_tree(trainer.param_tree)]
+                at = mesh.coordinates()
+
+                def keep(acc, losses, names=names, shardings=shardings, at=at):
+                    rels = {}
+                    for n, a in zip(names, acc):
+                        w = want["grads"][n]
+                        w = w[shardings[n].local_slices(w.shape, at)].to(a.device).float()
+                        rels[n] = ((a - w).norm() / w.norm().clamp_min(1e-30)).item()
+                    return dict(losses1=[float(x) for x in losses], rel_frobenius=rels)
+
+                captured = _capture_first(trainer, keep)
+                state, run = _ssm_run(trainer, state, collectives)
+                (step1,) = captured
+                rels = step1["rel_frobenius"]
+                worst = max(rels, key=rels.get)
+                rec[f"{arch} {shape[0]}x{shape[1]}"] = dict(
+                    run, draw_s=draw_s, losses1=step1["losses1"], worst_leaf=worst,
+                    worst_rel_frobenius=rels[worst], rel_frobenius=rels)
+                del trainer, state, captured, step1
+                gc.collect()
+                torch.cuda.empty_cache()
+            del want
+        rec["model"] = _ssm_model_rank(dev, one_dir)
+    dist.barrier()
+    dist.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t_start
+    Path(work, f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def train_ssm_tp() -> dict:
+    """Phase 16: mamba2 and zamba2 on a mesh. In this process, one device
+    first: full-width mamba2-2.7b (``SSM_TP_LAYERS`` of 64 layers) and
+    zamba2-2.7b (one group) each train ``SSM_TP_STEPS`` steps of 4 x 1024
+    tokens in 2 microbatches from the seed-0 weights drawn on the card
+    (step 1's gradient kept on the host), and mamba2 prefills and decodes
+    greedily; the card is freed. Then ``TP`` ranks on the card under
+    ``gloo`` (:func:`train_ssm_tp_rank`): mamba2 on ``(1, TP)`` and ``(TP,
+    1)``, zamba2 on ``(1, TP)``, and mamba2's model level on ``(1, TP)``
+    under the decode rules. Fails unless every loss is finite and equal on
+    the ranks, step 1 lies in the bf16 band of one device's and every
+    block of a rank's step-1 gradient in the bf16 band of one device's;
+    a rank ran 2 x layers x microbatches x steps SSD forwards (remat) and
+    layers x microbatches x steps backwards, by the routes one device's
+    run took, each scan on the rank's heads alone on ``(1, TP)``; zamba2's
+    shared block 2 x microbatches x steps flash forwards and microbatches
+    x steps backwards a rank, as on one device; at model level every
+    step's logits within the model band of one device's widened by the
+    one device's own spread under the rounding a rank reduces
+    ``out_proj`` with (:func:`ssm_model_one_device`), and the rank's
+    greedy token in its tie set, the rank's SSM state (half the bytes)
+    and conv state held alike to its heads' and columns' of one device's;
+    the functional collectives refused."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    one_dir = Path(tempfile.mkdtemp(prefix="train_ssm_one_", dir=ROOT / "build"))
+    try:
+        one = {arch: ssm_one_device(arch, one_dir / f"{arch}.pt") for arch in SSM_TP_MESHES}
+        model_one = ssm_model_one_device(one_dir / "model.pt")
+        one_s = time.perf_counter() - t0
+        work, recs = run_ranks(train_ssm_tp_rank, (str(one_dir),), TRAIN_SSM_DEADLINE_S,
+                               "train_ssm_tp", "16")
+    finally:
+        shutil.rmtree(one_dir, ignore_errors=True)
+    shutil.rmtree(work, ignore_errors=True)
+    per_rank = ("param_bytes_held", "moment_bytes_held", "largest_collective_elements",
+                "collectives", "peak_gib", "step_host_s", "run_s", "worst_leaf",
+                "worst_rel_frobenius", "ssd_heads_seen", "ssd_launches", "ssd_routes",
+                "ssd_backward_launches", "ssd_backward_routes", "flash_launches",
+                "backward_launches", "backward_routes")
+    runs = SSM_TP_MICRO * SSM_TP_STEPS
+    cases = {}
+    for arch, meshes in SSM_TP_MESHES.items():
+        cfg = ssm_tp_cfg(arch)
+        groups = cfg.num_layers // cfg.shared_attn_period if cfg.family == "hybrid" else 0
+        want = dict(ssd_launches=2 * cfg.num_layers * runs,
+                    ssd_backward_launches=cfg.num_layers * runs,
+                    flash_launches=2 * groups * runs, backward_launches=groups * runs)
+        step1_one = sum(one[arch]["losses1"]) / len(one[arch]["losses1"])
+        for shape in meshes:
+            key = f"{arch} {shape[0]}x{shape[1]}"
+            r0 = recs[0][key]
+            step1 = sum(r0["losses1"]) / len(r0["losses1"])
+            cases[key] = dict(
+                arch=arch, layers=f"{cfg.num_layers} of {get_config(arch).num_layers}",
+                mesh={"data": shape[0], "model": shape[1]}, losses=r0["losses"],
+                losses1=r0["losses1"], one_device_losses=one[arch]["losses"],
+                step1_rel_to_one_device=abs(step1 - step1_one) / abs(step1_one),
+                launches_expected=want, ssd_heads=cfg.ssm_heads,
+                **{k: [r[key][k] for r in recs] for k in per_rank})
+    model = [r["model"] for r in recs]
+    record = dict(
+        card=gpu_identity(), world=recs[0]["world"], backend=recs[0]["backend"],
+        devices=[r["device"] for r in recs], global_batch=SSM_TP_DATA["global_batch"],
+        seq_len=SSM_TP_DATA["seq_len"], microbatches=SSM_TP_MICRO, steps=SSM_TP_STEPS,
+        lr=SSM_TP_LR, remat=True,
+        weights="drawn on the card (torch.Generator, seed 0); each rank keeps its blocks",
+        one_device={arch: {k: v for k, v in rec.items()} for arch, rec in one.items()},
+        one_device_s=one_s, cases=cases, model_level=model, model_level_one_device=model_one,
+        functional_collectives_refused=[r["functional_collectives_refused"] for r in recs],
+        rank_s=[r["seconds"] for r in recs], seconds=time.perf_counter() - t0,
+        note="both ranks on one card: every collective goes through host memory under gloo, "
+             "so these times measure correctness, not tensor-parallel speed")
+    for r in recs:
+        log(f"train_ssm_tp rank {r['rank']} " + json.dumps({
+            key: {k: r[key][k] for k in ("param_bytes_held", "moment_bytes_held", "peak_gib",
+                                         "step_host_s", "largest_collective_elements")}
+            for key in cases}))
+    log("train_ssm_tp " + json.dumps(record))
+    log("phase 16 seconds " + json.dumps({"seconds": record["seconds"]}))
+    for key, c in cases.items():
+        arch = c["arch"]
+        losses = c["losses"]
+        if not (len(losses) == SSM_TP_STEPS and all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"phase 16 {key}: the losses are missing or not finite: "
+                                 f"{losses}")
+        if any(r[key]["losses"] != losses or r[key]["losses1"] != c["losses1"] for r in recs):
+            raise AssertionError(f"phase 16 {key}: the ranks logged different losses")
+        if not c["step1_rel_to_one_device"] <= LOSS_BAND:
+            raise AssertionError(f"phase 16 {key}: step 1 is off the one-device run's beyond "
+                                 f"the bf16 band: {c['losses1']} against "
+                                 f"{one[arch]['losses1']}")
+        if not max(c["worst_rel_frobenius"]) <= GRAD_BAND:
+            raise AssertionError(f"phase 16 {key}: a block of a rank's step-1 gradient is off "
+                                 f"the one-device run's beyond the bf16 band: "
+                                 f"{c['worst_leaf']} {c['worst_rel_frobenius']}")
+        tp = c["mesh"]["model"]
+        if c["ssd_heads_seen"] != [[c["ssd_heads"] // tp]] * TP:
+            raise AssertionError(f"phase 16 {key}: the ranks' SSD scans saw "
+                                 f"{c['ssd_heads_seen']} heads, not their own "
+                                 f"{c['ssd_heads'] // tp}")
+        if DEVICE == "cuda":
+            for i in range(TP):
+                got = {k: c[k][i] for k in c["launches_expected"]}
+                if got != c["launches_expected"]:
+                    raise AssertionError(f"phase 16 {key} rank {i}: launches {got} against "
+                                         f"{c['launches_expected']}")
+                for k in ("ssd_routes", "ssd_backward_routes", "backward_routes"):
+                    if c[k][i] != one[arch][k]:
+                        raise AssertionError(f"phase 16 {key} rank {i}: {k} {c[k][i]}, one "
+                                             f"device's {one[arch][k]}")
+    for m in model:
+        st = m["state"]
+        if not (st["ssm"]["excess_over_band_and_spread"] <= 0
+                and st["conv"]["excess_over_band_and_spread"] <= 0
+                and 2 * st["ssm_state_bytes"] == st["one_device_ssm_state_bytes"]):
+            raise AssertionError(f"phase 16's model level: a rank's states are not its heads' "
+                                 f"of one device's: {st}")
+        for i, step in enumerate(m["steps"]):
+            if not (step["excess_over_band_and_spread"] <= 0 and max(step["tie_gap"]) == 0.0):
+                raise AssertionError(f"phase 16's model level, step {i}: {step}")
+    if not all(record["functional_collectives_refused"]):
+        raise AssertionError("phase 16 ran without the functional collectives refused")
+    return record
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -5966,6 +6520,10 @@ def main(argv=None) -> int:
         log("flash_attention_bwd timing dbrx_train " + json.dumps(_time_flash_bwd_case(
             "dbrx_train", FLASH_BWD_DBRX, "tensor_core", seed=14)))
         train_moe_tp()
+        log("command seconds " + json.dumps({"seconds": time.perf_counter() - t_command}))
+        return 0
+    if "--train-ssm-tp" in argv:
+        train_ssm_tp()
         log("command seconds " + json.dumps({"seconds": time.perf_counter() - t_command}))
         return 0
 
@@ -6023,14 +6581,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     run_quickstart()
     resolve_production_rules()
-    # what phase 13 holds its sharded qwen replays against, of phase 4's
-    pool = engines[0].pool
-    phase4 = dict(
-        weight_bytes=sum(t.nbytes for _, t in flatten_tree(_param_tree(engines[0].model))),
-        pool_bytes=len(engines) * sum(t.nbytes for t in (
-            pool.k, pool.v, pool.host_k, pool.host_v)),
-        page_bytes=pool.page_bytes)
-    del engines, serve_router, pool
+    del engines, serve_router
     gc.collect()
     torch.cuda.empty_cache()
     ssm, ssm_engine = serve_ssm()
@@ -6056,7 +6607,7 @@ def main(argv=None) -> int:
     # phase 7: the reference's other serving modes at qwen's full width
     torch.cuda.reset_peak_memory_stats()
     paged_err = max(paged_err, check_dense_slot_view())
-    dense, dense_log = serve_dense_slots(args, qwen_cfg, qwen_params, serve_log)
+    dense, _ = serve_dense_slots(args, qwen_cfg, qwen_params, serve_log)
     torch.cuda.reset_peak_memory_stats()
     replicas = serve_replicas(args, qwen_cfg, qwen_params)
     # phase 11 audits engines on these weights: they wait on the host
@@ -6065,10 +6616,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # phase 13: the paged serving of phases 4, 6 and 7 on a (1, 2) mesh, as
-    # two ranks on the card, held against those phases' replays
-    tp = serve_tp(mono, chunked, dict(
-        serve=serve_log, serve_chunked=chunked_log, dense_slots=dense_log,
-        moe=dict(moe_log, drawn=moe["weights"]["drawn"])), phase4)
+    # two ranks on the card, qwen cut to TP_QWEN_LAYERS layers and held
+    # against one-device replays of the cut, dbrx against phase 6's
+    refs = tp_references(args, qwen_cfg, qwen_params)
+    tp = serve_tp(refs["serve"], refs["serve_chunked"], dict(
+        serve=refs["serve"]["log"], serve_chunked=refs["serve_chunked"]["log"],
+        dense_slots=refs["dense_slots"]["log"],
+        moe=dict(moe_log, drawn=moe["weights"]["drawn"])), refs["one"])
+    del refs
     del moe_log
     gc.collect()
     torch.cuda.empty_cache()
@@ -6120,6 +6675,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_zamba2 = train_ssm("zamba2-2.7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 16: mamba2 and zamba2 trained on (1, 2) and (2, 1) meshes and
+    # mamba2 at model level on (1, 2), held to one device
+    train_ssm_mesh = train_ssm_tp()
+    ssm_tp_cases = train_ssm_mesh["cases"]
     gc.collect()
     torch.cuda.empty_cache()
     # last: after torch.compile a profile can lose kernel records, and the
@@ -6197,6 +6758,8 @@ def main(argv=None) -> int:
             "launches_a_rank_training_tp": train_mesh["tp"]["flash_launches"],
             "launches_a_rank_training_moe_tp": train_moe["flash_launches"][0],
             "launches_zamba2_training": train_zamba2["flash_launches"],
+            "launches_a_rank_zamba2_training_tp": ssm_tp_cases["zamba2-2.7b 1x2"][
+                "flash_launches"][0],
             "max_abs_err": flash_err,
             "ms": ft["ms"],
             "device_ms": ft["device_ms"],
@@ -6225,6 +6788,8 @@ def main(argv=None) -> int:
             "launches_a_rank_training_moe_tp": train_moe["backward_launches"][0],
             "launches_zamba2_training": train_zamba2["flash_backward_launches"],
             "launches_zamba2_training_by_route": train_zamba2["flash_backward_routes"],
+            "launches_a_rank_zamba2_training_tp": ssm_tp_cases["zamba2-2.7b 1x2"][
+                "backward_launches"][0],
             "max_abs_err": bwd_err,
             "max_abs_err_note": "relative to each gradient's largest entry",
             "launches_by_route": train["backward_routes"],
@@ -6256,6 +6821,10 @@ def main(argv=None) -> int:
             "launches_zamba2_prefills": zamba2["ssd_launches"],
             "launches_mamba2_training": train_mamba2["ssd_launches"],
             "launches_zamba2_training": train_zamba2["ssd_launches"],
+            **{f"launches_a_rank_training_tp {key}": c["ssd_launches"][0]
+               for key, c in ssm_tp_cases.items()},
+            "launches_a_rank_model_level_tp": train_ssm_mesh["model_level"][0][
+                "prefill_ssd_launches"],
             "max_abs_err": ssd_err,
             "ms": ssd_timing["ms"],
             "device_ms": ssd_timing["device_ms"],
@@ -6281,6 +6850,8 @@ def main(argv=None) -> int:
             "launches_zamba2_training": train_zamba2["ssd_backward_launches"],
             "launches_by_route": train_mamba2["ssd_backward_routes"],
             "launches_zamba2_training_by_route": train_zamba2["ssd_backward_routes"],
+            **{f"launches_a_rank_training_tp {key}": c["ssd_backward_launches"][0]
+               for key, c in ssm_tp_cases.items()},
             "max_abs_err": ssd_bwd["max_rel_err"],
             "max_abs_err_note": "relative to each gradient's largest entry",
             "ms": ssd_bwd_timing["ms"],

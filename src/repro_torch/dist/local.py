@@ -34,11 +34,15 @@ whose backward reduce-scatters the summed gradient; partial -> whole is an
 all-reduce, whose backward passes the gradient as it is; whole -> shard
 is a slice, whose backward all-gathers), :func:`place_block` (a local
 block as a DTensor; its backward brings the gradient to the block's
-placements), :func:`vocab_cross_entropy`, and the MoE layer's two
+placements), :func:`vocab_cross_entropy`, the MoE layer's two
 (:func:`summed_gradient`: a tensor whose gradient each rank takes as a
 partial sum; :func:`row_mean`: the aux loss's mean over the rows' ranks,
-its backward local). A partial sum is reduced in f32 whatever its type,
-so bf16 partial gradients round once. DTensor's
+its backward local) and the Mamba-2 block's two
+(:func:`gather_columns`: chosen columns of a tensor split by columns
+over the ranks, whose backward sums each column's gradient over them
+once; :func:`mean_over_ranks`: the gated norm's mean over every rank's
+columns, whose backward all-reduces). A partial sum is reduced in f32
+whatever its type, so bf16 partial gradients round once. DTensor's
 own redistribution (``DTensor.redistribute``, the implicit one an op's
 sharding rule may ask for, and the one ``DTensor.from_local``'s backward
 runs when a gradient comes back placed otherwise) goes through the
@@ -403,6 +407,80 @@ def summed_gradient(t: torch.Tensor, mesh, dims) -> torch.Tensor:
     if not dims or not (torch.is_grad_enabled() and t.requires_grad):
         return t
     return _SumGradient.apply(t, [mesh.get_group(i) for i in dims])
+
+
+class _GatherColumns(torch.autograd.Function):
+    """The columns ``idx`` of the whole of ``t``, a rank's block of a
+    tensor split along its last dimension over ``group``: an all-gather,
+    then a selection. The backward scatters the gradient into the whole
+    width in f32, reduce-scatters it (each rank's block the sum over the
+    group of every rank's gradient there) and rounds it once to ``t``'s
+    type."""
+
+    @staticmethod
+    def forward(ctx, t, group, n, idx):
+        import torch.distributed as dist
+
+        parts = t.new_empty(n * t.numel())
+        dist.all_gather_into_tensor(parts, t.contiguous().view(-1), group=group)
+        whole = parts.view(n, *t.shape).movedim(0, -2).reshape(*t.shape[:-1], n * t.shape[-1])
+        ctx.save_for_backward(idx)
+        ctx.meta = (group, n, whole.shape, t.dtype)
+        return whole.index_select(-1, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        (idx,) = ctx.saved_tensors
+        group, n, shape, dtype = ctx.meta
+        acc = g.new_zeros(shape, dtype=torch.float32).index_add_(-1, idx, g.float())
+        src = acc.reshape(*shape[:-1], n, shape[-1] // n).movedim(-2, 0).contiguous()
+        out = src.new_empty(src.shape[1:])
+        dist.reduce_scatter_tensor(out.view(-1), src.view(-1), group=group)
+        return out.to(dtype), None, None, None
+
+
+def gather_columns(t: torch.Tensor, mesh, dim: int, idx: torch.Tensor) -> torch.Tensor:
+    """The columns ``idx`` (indices into the whole last dimension) of the
+    tensor of which ``t`` is this rank's block along mesh dimension
+    ``dim`` (contiguous blocks of the last dimension, in rank order), a
+    plain tensor. Under autograd ``t``'s gradient is its block of the sum
+    over that dimension's ranks of every rank's gradient (in f32, rounded
+    once): a column two ranks both select gets both shares, once."""
+    return _GatherColumns.apply(t, mesh.get_group(dim), mesh.size(dim), idx)
+
+
+class _MeanOverRanks(torch.autograd.Function):
+    """The mean over ``group`` of each rank's ``t`` (an f32 all-reduce
+    over ``n``), which every rank takes. Each rank's result feeds its own
+    share of the output, so the backward all-reduces the gradient too."""
+
+    @staticmethod
+    def forward(ctx, t, group, n):
+        import torch.distributed as dist
+
+        ctx.group, ctx.n = group, n
+        out = _sum_type(t)
+        dist.all_reduce(out, group=group)
+        return (out / n).to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        w = _sum_type(g)
+        dist.all_reduce(w, group=ctx.group)
+        return (w / ctx.n).to(g.dtype), None, None
+
+
+def mean_over_ranks(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """The mean of ``t`` over the ranks of mesh dimension ``dim``, summed
+    in f32, a plain tensor equal on each of them: with every rank's ``t``
+    the mean over an equal share of a dimension, the mean over all of it
+    (the Mamba-2 block's gated norm over its heads' columns). Under
+    autograd each rank's ``t`` takes the mean of every rank's gradient."""
+    return _MeanOverRanks.apply(t, mesh.get_group(dim), mesh.size(dim))
 
 
 class _RowMean(torch.autograd.Function):

@@ -42,8 +42,9 @@ training (the dense and MoE families) the batch is sharded over "data"
 as well, each rank running its own rows, and :meth:`ShardCtx.param`
 gathers each weight's FSDP-sharded "embed" dimension before use; every
 collective has its transpose in the backward
-(:mod:`repro_torch.dist.local`). The mamba sites come with that family's
-slice.
+(:mod:`repro_torch.dist.local`). The Mamba-2 block runs on each rank's
+SSD heads (:func:`apply_mamba_block`), zamba2's shared block as the dense
+block does.
 """
 from __future__ import annotations
 
@@ -55,7 +56,9 @@ import torch.nn.functional as F
 
 from repro_torch.dist.local import (
     full,
+    gather_columns,
     is_dtensor,
+    mean_over_ranks,
     on_blocks,
     on_local_heads,
     place_block,
@@ -197,9 +200,15 @@ def stack(tree, n: int):
 
 # =========================================================== tiny primitives
 @on_blocks
-def rmsnorm(x, w, eps=1e-6):
+def rmsnorm(x, w, eps=1e-6, *, group_mean=None):
+    """RMS norm over the last dimension. ``group_mean`` takes the mean of
+    squares over a rank's columns to the mean over every rank's
+    (:func:`~repro_torch.dist.local.mean_over_ranks`): the Mamba-2
+    block's gated norm on a rank's heads."""
     xf = x.to(F32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if group_mean is not None:
+        var = group_mean(var)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * (1.0 + w.to(x.dtype))
 
 
@@ -799,26 +808,85 @@ def describe_mamba_block(cfg: ModelConfig):
     }
 
 
-def _mamba_split(cfg: ModelConfig, zxbcdt):
-    inner = cfg.ssm_inner
-    n = cfg.ssm_state
-    z = zxbcdt[..., :inner]
-    xBC = zxbcdt[..., inner : 2 * inner + 2 * n]
-    dt = zxbcdt[..., 2 * inner + 2 * n :]
-    return z, xBC, dt
+def mamba_columns(cfg: ModelConfig, rank: int, size: int, device=None):
+    """The columns a rank at position ``rank`` of ``size`` over the model
+    axis takes of the Mamba-2 block's whole ``in_proj`` product ``[z | x |
+    B | C | dt]`` and of the conv's channels ``[x | B | C]``: its heads'
+    ``z``, ``x`` and ``dt`` and all of ``B`` and ``C`` (one group, which
+    every head reads). Returns ``(proj, conv)``, int64 indices. The
+    rank's conv state holds the conv channels in this order."""
+    inner, n, h = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads
+
+    def span(lo, hi):
+        return torch.arange(lo, hi, device=device)
+
+    heads = span(rank * inner // size, (rank + 1) * inner // size)
+    conv = torch.cat([heads, span(inner, inner + 2 * n)])
+    dt0 = 2 * inner + 2 * n
+    proj = torch.cat([heads, inner + conv, span(dt0 + rank * h // size,
+                                                dt0 + (rank + 1) * h // size)])
+    return proj, conv
 
 
-def apply_mamba_block(p, x, cfg: ModelConfig, *, cache=None):
+@dataclass(frozen=True)
+class _HeadShard:
+    """This rank's share of the Mamba-2 block's SSD heads: position
+    ``rank`` of ``size`` along mesh dimension ``dim``."""
+
+    mesh: object
+    dim: int
+    rank: int
+    size: int
+
+    def columns(self, t, idx):
+        return gather_columns(t, self.mesh, self.dim, idx)
+
+    def mean(self, t):
+        return mean_over_ranks(t, self.mesh, self.dim)
+
+
+def apply_mamba_block(p, x, cfg: ModelConfig, *, cache=None, ctx=NULL_CTX):
     """Mamba-2 block. Sequence mode: ``cache=None`` -> ``(y, (ssm_state,
     conv_state))``, the scan through :func:`repro_torch.kernels.ssd.ops.ssd`.
     Decode mode: ``cache=(ssm_state [B,H,P,N], conv_state [B,W-1,conv_dim])``,
-    one token through the plain ``ssd_decode_step``."""
+    one token through the plain ``ssd_decode_step``.
+
+    On a mesh (the weights DTensors, ``x`` the residual stream, whole but
+    for its rows) the block runs on each rank's rows and, where the rules
+    shard ``ssm_heads`` over the model axis, on its heads alone
+    (:func:`_apply_mamba_sharded`); the caches are then the rank's own
+    plain tensors: the state its heads', the conv state its heads' ``x``
+    channels and then all of ``B`` and ``C`` (:func:`mamba_columns`)."""
+    if is_dtensor(x):
+        return _apply_mamba_sharded(p, x, cfg, cache, ctx)
+    y, new_cache = _mamba_body(p, x, cfg, cache)
+    return x + y @ p["out_proj"], new_cache
+
+
+def _mamba_body(p, x, cfg: ModelConfig, cache, heads: _HeadShard | None = None):
+    """The Mamba-2 block up to ``out_proj`` on plain tensors: returns the
+    gated, normed ``y`` and the new cache. With ``heads`` ``p`` holds one
+    rank's blocks (``in_proj`` and the conv's leaves contiguous blocks of
+    their columns, the rest its heads') and ``y`` is its heads' columns:
+    the rank's columns of the ``in_proj`` product and of the conv's leaves
+    are gathered and selected (:func:`mamba_columns`), and the gated norm
+    takes its mean over every rank's columns."""
     inner, n, hh, w = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv_width
     hp = cfg.ssm_head_dim
-    res = x
     xn = rmsnorm(x, p["ln"])
-    zxbcdt = xn @ p["in_proj"]
-    z, xBC, dt = _mamba_split(cfg, zxbcdt)
+    conv_w, conv_b, mean = p["conv_w"], p["conv_b"], None
+    if heads is None:
+        zxbcdt = xn @ p["in_proj"]
+    else:
+        inner, hh, mean = inner // heads.size, hh // heads.size, heads.mean
+        proj, conv = mamba_columns(cfg, heads.rank, heads.size, x.device)
+        # xn's gradient along the rank's block of in_proj is its share
+        xn = summed_gradient(xn, heads.mesh, [heads.dim])
+        zxbcdt = heads.columns(xn @ p["in_proj"], proj)
+        conv_w, conv_b = heads.columns(conv_w, conv), heads.columns(conv_b, conv)
+    z = zxbcdt[..., :inner]
+    xBC = zxbcdt[..., inner:2 * inner + 2 * n]
+    dt = zxbcdt[..., 2 * inner + 2 * n:]
     A = -torch.exp(p["A_log"].to(F32))
 
     if cache is None:
@@ -826,7 +894,7 @@ def apply_mamba_block(p, x, cfg: ModelConfig, *, cache=None):
         # causal depthwise conv over [B,S,conv_dim]
         pad = torch.nn.functional.pad(xBC, (0, 0, w - 1, 0))
         conv_state = pad[:, -(w - 1):, :] if w > 1 else None
-        xBC = _causal_conv(pad, p["conv_w"], p["conv_b"], S)
+        xBC = _causal_conv(pad, conv_w, conv_b, S)
         xs, Bmat, Cmat = xBC[..., :inner], xBC[..., inner:inner + n], xBC[..., inner + n:]
         xs = xs.reshape(B_, S, hh, hp)
         dt = softplus(dt.to(F32) + p["dt_bias"].to(F32))
@@ -839,7 +907,7 @@ def apply_mamba_block(p, x, cfg: ModelConfig, *, cache=None):
         B_ = x.shape[0]
         xBC1 = xBC[:, 0]                                         # [B, conv_dim]
         window = torch.cat([conv_state, xBC1[:, None, :]], dim=1)   # [B, W, c]
-        xBC1 = torch.einsum("bwc,wc->bc", window, p["conv_w"]) + p["conv_b"]
+        xBC1 = torch.einsum("bwc,wc->bc", window, conv_w) + conv_b
         xBC1 = silu(xBC1)
         new_conv = window[:, 1:, :]
         xs = xBC1[..., :inner].reshape(B_, hh, hp)
@@ -852,9 +920,79 @@ def apply_mamba_block(p, x, cfg: ModelConfig, *, cache=None):
         new_cache = (new_state, new_conv)
 
     y = y * silu(z)
-    y = rmsnorm(y, p["norm"])
-    out = res + y @ p["out_proj"]
-    return out, new_cache
+    return rmsnorm(y, p["norm"], group_mean=mean), new_cache
+
+
+#: the Mamba-2 block's leaves and the dimension of each that the rules
+#: shard by heads (``None``: never sharded)
+_MAMBA_HEAD_DIMS = {"ln": None, "in_proj": 1, "conv_w": 1, "conv_b": 0, "dt_bias": 0,
+                    "A_log": 0, "D": 0, "norm": 0, "out_proj": 0}
+
+
+def _apply_mamba_sharded(p, x, cfg: ModelConfig, cache, ctx):
+    """The Mamba-2 block on a mesh. Each rank runs its own rows of ``x``
+    (the batch over "data") and, where the rules shard ``ssm_heads`` over
+    "model", its own heads: the SSD scan, forward and backward, sees
+    those alone, made contiguous. The leaves the rules shard by heads
+    split ``in_proj``'s product ``[z | x | B | C | dt]`` and the conv's
+    ``[x | B | C]`` in contiguous halves that are not a rank's heads (at
+    mamba2-2.7b's width rank 0's half of ``in_proj`` holds all of ``z``):
+    each rank takes its block of the product, ``xn @ in_proj`` on its
+    columns, and of the conv's leaves, and :func:`~repro_torch.dist.local.
+    gather_columns` gathers them and keeps the rank's heads' columns and
+    all of ``B`` and ``C``. The product is gathered, not ``in_proj``
+    (54 MB a layer at full width): in training a microbatch's product is
+    about the weight's size and a decode step's a few kB; the conv's
+    leaves are a few kB. Its backward sums each column's gradient over the
+    ranks once, in f32: the ``B``/``C`` columns' (every rank's heads read
+    them, so each rank's is a partial sum) and the heads' (one rank's,
+    zeros elsewhere). ``xn``'s gradient along the product is each rank's
+    partial sum, summed over "model" (:func:`~repro_torch.dist.local.
+    summed_gradient`). The gated norm's mean runs over every rank's
+    columns (:func:`~repro_torch.dist.local.mean_over_ranks`, forward and
+    backward), and ``y @ out_proj`` (its rows the rank's heads) is each
+    rank's partial sum, reduced in f32 and rounded once, as
+    :func:`_row_parallel` does. Where the model axis does not divide the
+    heads the rules replicate ``ssm_heads`` and the block runs whole on
+    every rank, as the reference's does.
+
+    Weights whose "embed" FSDP shards come here gathered
+    (:meth:`ShardCtx.param`); each leaf's gradient is a partial sum over
+    the rows' ranks, which that gather's backward reduces."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = p["in_proj"].device_mesh
+    tp = [i for i, pl in enumerate(p["in_proj"].placements) if pl.is_shard(1)]
+    for name, dim in _MAMBA_HEAD_DIMS.items():
+        placed = p[name].placements
+        if any(not (pl.is_replicate() or (dim is not None and pl.is_shard(dim) and i in tp))
+               for i, pl in enumerate(placed)) or (dim is not None and len(tp) != sum(
+                   pl.is_shard() for pl in placed)):
+            raise ValueError(f"the Mamba-2 block on a mesh shards every ssm_heads leaf by "
+                             f"its heads on one mesh dimension, or none; {name} is placed "
+                             f"{placed}, in_proj {p['in_proj'].placements}")
+    if len(tp) > 1:
+        raise ValueError(f"SSD heads sharded over more than one mesh dimension: "
+                         f"{p['in_proj'].placements}")
+    xp = tuple(x.placements)
+    rows = [i for i, pl in enumerate(xp) if pl.is_shard(0)]
+    if any(not (pl.is_replicate() or pl.is_shard(0)) for pl in xp) or set(rows) & set(tp):
+        raise ValueError(f"the Mamba-2 block on a mesh takes its input whole but for its "
+                         f"rows, on other mesh dimensions than its heads; got {xp}")
+    local = {k: p[k].to_local(grad_placements=tuple(
+                 Partial() if i in rows else pl for i, pl in enumerate(p[k].placements)))
+             for k in _MAMBA_HEAD_DIMS}
+    heads = (_HeadShard(mesh, tp[0], mesh.get_local_rank(tp[0]), mesh.size(tp[0]))
+             if tp else None)
+    y, new_cache = _mamba_body(local, x.to_local(grad_placements=xp), cfg, cache, heads)
+    if heads is None:
+        y = y @ local["out_proj"]
+    else:
+        y = y.float() @ local["out_proj"].float()
+    placements = [Shard(0) if i in rows else Partial() if i in tp else Replicate()
+                  for i in range(mesh.ndim)]
+    y = redistribute(place_block(y, mesh, placements, x.shape), xp)
+    return x + y.to(x.dtype), new_cache
 
 
 def _causal_conv(padded, w, b, out_len):
@@ -881,7 +1019,7 @@ def describe_shared_block(cfg: ModelConfig):
 
 
 def apply_shared_block(p, h, x0, cfg: ModelConfig, *, positions, cache=None,
-                       lengths=None, page_tokens: int = 16):
+                       lengths=None, page_tokens: int = 16, ctx=NULL_CTX):
     """h: hidden [B,S,d]; x0: initial embedding [B,S,d]. Returns ``(h', kv)``.
 
     Sequence mode (``cache`` None): causal attention through
@@ -889,11 +1027,16 @@ def apply_shared_block(p, h, x0, cfg: ModelConfig, *, positions, cache=None,
     call's ``(k, v)``. Decode mode (``cache = (k_cache, v_cache)`` slot
     buffers ``[B, S, KH, hybrid_head_dim]``): the token is written at
     ``lengths - 1`` in place and attends through :func:`decode_attention`
-    (the paged kernel over the slots on the card); ``kv`` is the caches."""
+    (the paged kernel over the slots on the card); ``kv`` is the caches.
+
+    On a mesh (``ctx``) the block runs as the dense block does: each rank
+    attends its own heads, ``wo`` and the FFN's ``w_down`` reduce their
+    partial sums in f32, and the slot buffers are the rank's own block of
+    the KV heads."""
     heads, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hybrid_head_dim
     xin = torch.cat([h, x0], dim=-1)                          # [B,S,2d]
     a_in = rmsnorm(xin, p["ln1"])
-    q, k, v = _project_qkv(p["attn"], a_in, heads, kh, hd, positions, cfg.rope_theta)
+    q, k, v = _project_qkv(p["attn"], a_in, heads, kh, hd, positions, cfg.rope_theta, ctx)
     if cache is None:
         attn = prefill_attention(q, k, v, causal=True)
         B, S = attn.shape[:2]
@@ -902,11 +1045,13 @@ def apply_shared_block(p, h, x0, cfg: ModelConfig, *, positions, cache=None,
     else:
         k_cache, v_cache = cache
         idx = lengths - 1
-        _write_slot(k_cache, k[:, 0], idx)
-        _write_slot(v_cache, v[:, 0], idx)
-        attn = decode_attention(q[:, 0], k_cache, v_cache, lengths=lengths,
+        _write_slot(k_cache, ctx.local(k)[:, 0], idx)
+        _write_slot(v_cache, ctx.local(v)[:, 0], idx)
+        shape = (*k_cache.shape[:2], kh, hd)
+        attn = decode_attention(q[:, 0], ctx.from_local(k_cache, SLOT_AXES, shape),
+                                ctx.from_local(v_cache, SLOT_AXES, shape), lengths=lengths,
                                 page_tokens=page_tokens)[:, None, :]
         new_kv = (k_cache, v_cache)
-    xin = xin + attn @ p["attn"]["wo"]
-    xin = xin + apply_ffn(p["ffn"], rmsnorm(xin, p["ln2"]))
-    return h + xin @ p["down"], new_kv
+    xin = xin + _row_parallel(ctx, attn, p["attn"]["wo"])
+    xin = xin + apply_ffn(p["ffn"], rmsnorm(xin, p["ln2"]), ctx)
+    return ctx.constrain(h + xin @ p["down"], ("batch", "seq", "embed_act")), new_kv

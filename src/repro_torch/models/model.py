@@ -17,14 +17,15 @@ PyTorch runs eagerly: the reference's ``lax.scan`` over stacked layers is
 a Python loop over the layer index, and its functional pool update under
 donation is an in-place ``index_put_`` on the pool tensors.
 
-On a mesh of more than one device (the dense and moe families' serving
-path: ``prefill``, ``sequence``, ``decode_paged`` and the slot-cache
-``decode_into`` with a :class:`~repro_torch.models.layers.ShardCtx`) the
-weights are DTensors, the residual stream is replicated, the logits are
-sharded by vocabulary, and the page pool's tensors (or the slot caches)
-are each rank's own block of the KV heads. :meth:`Model.loss` takes a
-``ctx`` too, for the dense and moe families' training step on a mesh
-(FSDP over "data", tensor parallel over "model").
+On a mesh of more than one device (the dense, moe, ssm and hybrid
+families: ``prefill``, ``sequence``, the dense families' ``decode_paged``
+and ``decode``/``decode_into`` with a
+:class:`~repro_torch.models.layers.ShardCtx`) the weights are DTensors,
+the residual stream is replicated, the logits are sharded by vocabulary,
+and the page pool's tensors, the slot caches and the SSM states are each
+rank's own block (of the KV heads, of the SSD heads). :meth:`Model.loss`
+takes a ``ctx`` too, for those families' training step on a mesh (FSDP
+over "data", tensor parallel over "model").
 """
 from __future__ import annotations
 
@@ -81,32 +82,33 @@ def _check_prefix(cfg: ModelConfig, prefix) -> None:
 
 
 #: the families whose step runs on a mesh of more than one device
-MESH_FAMILIES = ("dense", "moe")
+MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_ctx(cfg: ModelConfig, ctx) -> None:
-    """Only the dense and moe families step on a mesh so far."""
+    """The dense, moe, ssm and hybrid families step on a mesh; gemma2's
+    alternation, whisper and internvl2 not yet."""
     if ctx.mesh is not None and (cfg.family not in MESH_FAMILIES
                                  or cfg.local_global_alternating):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) on a mesh of more than one device is not ported: "
-            f"the {'/'.join(MESH_FAMILIES)} families serve there; the other families on a "
-            "mesh are later steps of ROADMAP section 1 item 5")
+            f"the {'/'.join(MESH_FAMILIES)} families run there; local/global alternation, "
+            "encdec and vlm on a mesh are later steps of ROADMAP section 1 item 5")
 
 
 #: the families whose training step runs on a mesh of more than one device
-TRAIN_MESH_FAMILIES = ("dense", "moe")
+TRAIN_MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_train_mesh(cfg: ModelConfig, mesh=None) -> None:
-    """Only the dense and moe families (without alternation) train on a
-    mesh so far, and moe only where no "pod" axis of more than one device
+    """The dense, moe, ssm and hybrid families (without alternation) train
+    on a mesh, moe only where no "pod" axis of more than one device
     shards its experts (``mesh``, when given, is the training mesh)."""
     if cfg.family not in TRAIN_MESH_FAMILIES or cfg.local_global_alternating:
         raise NotImplementedError(
             f"training {cfg.name} ({cfg.family}) on a mesh of more than one device is not "
-            f"ported: the {'/'.join(TRAIN_MESH_FAMILIES)} families train there; mamba2/"
-            "zamba2 and the other families on a mesh are later steps of ROADMAP section 1 "
+            f"ported: the {'/'.join(TRAIN_MESH_FAMILIES)} families train there; local/global "
+            "alternation, encdec and vlm on a mesh are later steps of ROADMAP section 1 "
             "item 5")
     if cfg.family == "moe" and mesh is not None and dict(mesh.shape).get("pod", 1) > 1:
         raise NotImplementedError(
@@ -325,8 +327,13 @@ class Model(nn.Module):
         attending over the encoder's output on ``frames`` [B,S_enc,d].
         With ``cfg.remat`` a recording forward recomputes each block (each
         (local, global) pair, each hybrid group) in the backward. ``ctx``
-        places the dense family's activations on a mesh (a prefix is then
-        a DTensor placed by KV heads); any other family refuses one.
+        places the activations of the families of :data:`MESH_FAMILIES`
+        on a mesh (a prefix is then a DTensor placed by KV heads); the
+        others refuse one. On a mesh the ssm and hybrid states are each
+        rank's own plain tensors (the SSM state its heads', the conv state
+        its heads' ``x`` channels and then all of ``B`` and ``C``,
+        :func:`~repro_torch.models.layers.mamba_columns`); the shared
+        block's K/V are DTensors placed by KV heads.
         """
         cfg = self.cfg
         _check_prefix(cfg, prefix)
@@ -347,7 +354,7 @@ class Model(nn.Module):
             names = ("ssm", "conv")
 
             def body(h, p):
-                h, st = apply_mamba_block(p, h, cfg)
+                h, st = apply_mamba_block(ctx.params(p), h, cfg, ctx=ctx)
                 return h, st if keep else None, 0.0
         elif cfg.family == "hybrid":
             x0 = x
@@ -356,9 +363,13 @@ class Model(nn.Module):
             def body(h, group):
                 sts = []
                 for p in group:
-                    h, st = apply_mamba_block(p, h, cfg)
+                    h, st = apply_mamba_block(ctx.params(p), h, cfg, ctx=ctx)
                     sts.append(st)
-                h, kv = apply_shared_block(self._shared, h, x0, cfg, positions=positions)
+                # gathered in each group's block, so that remat gathers it
+                # again: each group's use reduces its gradient, and autograd
+                # adds them in the leaf's type, as on one device
+                h, kv = apply_shared_block(ctx.params(self._shared), h, x0, cfg,
+                                           positions=positions, ctx=ctx)
                 return h, (*_stack_layers(sts), *kv) if keep else None, 0.0
         elif cfg.local_global_alternating:
             names = None
@@ -530,8 +541,8 @@ class Model(nn.Module):
         differentiate it with ``torch.autograd``. On the card every
         attention layer runs the flash kernel forward and backward.
 
-        On a mesh (``ctx``; the dense and moe families without
-        alternation) the weights are DTensors placed by the train rules,
+        On a mesh (``ctx``; the families of :data:`TRAIN_MESH_FAMILIES`
+        without alternation) the weights are DTensors placed by the train rules,
         ``tokens`` a DTensor sharded by rows over the batch's axes ("data"),
         each rank's rows its own. The embedding is looked up on each rank's
         vocabulary rows, the residual stream is sharded by rows and whole
@@ -542,7 +553,9 @@ class Model(nn.Module):
         run on each rank's rows and its columns of every expert
         (:func:`~repro_torch.models.layers.apply_moe`), and ``aux`` is the
         mean over the whole batch's groups as well: a plain 0-d tensor
-        equal on every rank, as ``ce`` is."""
+        equal on every rank, as ``ce`` is. The Mamba-2 blocks run on each
+        rank's rows and SSD heads
+        (:func:`~repro_torch.models.layers.apply_mamba_block`)."""
         if ctx.mesh is not None:
             check_train_mesh(self.cfg, ctx.mesh)
         with ctx.scope():
@@ -577,12 +590,13 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------- decode
     @torch.no_grad()
-    def decode(self, cache, tokens, lengths, *, page_tokens: int = 16):
+    def decode(self, cache, tokens, lengths, *, page_tokens: int = 16, ctx=NULL_CTX):
         """One decode step. ``tokens`` [B]; ``lengths`` [B] = context
         length including the new token. ``cache`` is the tree
         :meth:`describe_cache` describes (slot buffers, the alternating
         families' nested local/global slots, the ssm and hybrid states), or
-        the ssm family's {"ssm", "conv"} as :meth:`prefill` returns it.
+        the ssm family's {"ssm", "conv"} as :meth:`prefill` returns it; on
+        a mesh (``ctx``) each rank's own blocks (:meth:`decode_into`).
         Returns ``(logits [B, V] f32, new_cache)`` and leaves ``cache`` as
         it was (see :meth:`decode_into` for the in-place step)."""
         if self.cfg.family == "encdec":
@@ -590,7 +604,8 @@ class Model(nn.Module):
             new_cache = {k: t if k in _CROSS else t.clone() for k, t in cache.items()}
         else:
             new_cache = _clone_tree(cache)
-        return self.decode_into(new_cache, tokens, lengths, page_tokens=page_tokens), new_cache
+        return (self.decode_into(new_cache, tokens, lengths, page_tokens=page_tokens, ctx=ctx),
+                new_cache)
 
     @torch.no_grad()
     def decode_into(self, state, tokens, lengths=None, *, page_tokens: int = 16,
@@ -614,14 +629,20 @@ class Model(nn.Module):
         does and reads the cross caches ``ck``/``cv`` whole, without
         writing them. vlm: as dense (``lengths`` count the image tokens).
 
-        On a mesh (``ctx``, the dense and moe families) the slot buffers
-        are this rank's own block of the KV heads, and the logits are
-        sharded by vocabulary."""
+        On a mesh (``ctx``, the families of :data:`MESH_FAMILIES`) the
+        slot buffers are this rank's own block of the KV heads, the ssm
+        and hybrid states its own (the SSM state its heads', the conv state
+        its heads' ``x`` channels and all of ``B`` and ``C``, as
+        :meth:`prefill` returns them), and the logits are sharded by
+        vocabulary."""
         cfg = self.cfg
         _check_ctx(cfg, ctx)
         if cfg.family in PAGED_FAMILIES and not cfg.local_global_alternating:
             with ctx.scope():
                 return self._decode_slots(state, tokens, lengths, page_tokens, ctx)
+        if cfg.family in ("ssm", "hybrid") and ctx.mesh is not None:
+            with ctx.scope():
+                return self._decode_ssm(state, tokens, lengths, page_tokens, ctx)
         x = self.params.embed[tokens][:, None, :]           # [B,1,d]
         if cfg.local_global_alternating:
             positions = (lengths - 1)[:, None]
@@ -647,21 +668,30 @@ class Model(nn.Module):
                     p, x, positions, lengths=lengths, page_tokens=page_tokens,
                     cache=tuple(state[name][l] for name in ENCDEC_CACHE))
             return self._logits(x[:, 0, :])
+        return self._decode_ssm(state, tokens, lengths, page_tokens, ctx, x)
+
+    def _decode_ssm(self, state, tokens, lengths, page_tokens, ctx, x=None):
+        """:meth:`decode_into` for the ssm and hybrid families; ``x`` the
+        token's embedding where the caller looked it up."""
+        cfg = self.cfg
+        if x is None:
+            x = ctx.embedding(tokens[:, None], self.params.embed,
+                              ("batch", "seq", "embed_act"))    # [B,1,d]
         if cfg.family == "hybrid":
             x0 = x
             positions = (lengths - 1)[:, None]
             for g, group in enumerate(self._layers):
                 for j, p in enumerate(group):
-                    x = self._mamba_step(p, x, state["ssm"][g, j], state["conv"][g, j])
+                    x = self._mamba_step(p, x, state["ssm"][g, j], state["conv"][g, j], ctx)
                 x, _ = apply_shared_block(
                     self._shared, x, x0, cfg, positions=positions,
                     cache=(state["shared_k"][g], state["shared_v"][g]), lengths=lengths,
-                    page_tokens=page_tokens,
+                    page_tokens=page_tokens, ctx=ctx,
                 )
-            return self._logits(x[:, 0, :])
+            return self._logits(x[:, 0, :], ctx)
         for l, p in enumerate(self._layers):
-            x = self._mamba_step(p, x, state["ssm"][l], state["conv"][l])
-        return self._logits(x[:, 0, :])
+            x = self._mamba_step(p, x, state["ssm"][l], state["conv"][l], ctx)
+        return self._logits(x[:, 0, :], ctx)
 
     def _decode_slots(self, state, tokens, lengths, page_tokens, ctx):
         """:meth:`decode_into` for the paged families without alternation,
@@ -678,9 +708,9 @@ class Model(nn.Module):
             )
         return self._logits(x[:, 0, :], ctx)
 
-    def _mamba_step(self, p, x, ssm, conv):
+    def _mamba_step(self, p, x, ssm, conv, ctx=NULL_CTX):
         """One mamba layer's decode step, its state updated in place."""
-        x, (st, cv) = apply_mamba_block(p, x, self.cfg, cache=(ssm, conv))
+        x, (st, cv) = apply_mamba_block(p, x, self.cfg, cache=(ssm, conv), ctx=ctx)
         ssm.copy_(st)
         conv.copy_(cv)
         return x

@@ -80,7 +80,7 @@ from repro_torch.dist.placement import ReplicaPlacement
 from repro_torch.launch.mesh import mesh_device, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import NULL_CTX, ShardCtx
-from repro_torch.models.model import KV_AXES, MESH_FAMILIES, PAGED_FAMILIES, Model
+from repro_torch.models.model import KV_AXES, PAGED_FAMILIES, Model
 from repro_torch.models.params import device_put_tree, sharding_tree
 from repro_torch.serving.kvpool import (
     PagePool,
@@ -113,6 +113,10 @@ def check_servable(cfg: ModelConfig) -> None:
             f"({'/'.join(PAGED_FAMILIES)} without local/global alternation)")
 
 
+#: the families an engine serves on a mesh of more than one device
+SERVE_MESH_FAMILIES = ("dense", "moe")
+
+
 def check_mesh_servable(cfg: ModelConfig, mesh) -> None:
     """What an engine serves on a mesh of more than one device: the dense
     and moe families, paged or on dense slots, in either page format,
@@ -123,7 +127,7 @@ def check_mesh_servable(cfg: ModelConfig, mesh) -> None:
     if wide:
         later.append(f"a mesh axis other than 'model' larger than one ({wide}: "
                      "data-parallel batches inside a replica)")
-    if cfg.family not in MESH_FAMILIES:
+    if cfg.family not in SERVE_MESH_FAMILIES:
         later.append(f"the {cfg.family} family")
     if later:
         raise NotImplementedError(

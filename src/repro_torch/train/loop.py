@@ -18,9 +18,11 @@ goes through the port's own collectives
 (:mod:`repro_torch.dist.local`), so each rank's gradient comes back as its
 block, summed over the ranks. AdamW then updates each rank's blocks in
 place: elementwise, each element as on one device given the same
-gradient. The dense and moe families train on a mesh (moe without a
-"pod" axis of more than one device, over which the rules would shard its
-experts); the others raise ``NotImplementedError`` at construction.
+gradient. The dense, moe, ssm and hybrid families train on a mesh (moe
+without a "pod" axis of more than one device, over which the rules would
+shard its experts; mamba2's and zamba2's Mamba-2 blocks on each rank's
+SSD heads); gemma2's alternation, whisper and internvl2 raise
+``NotImplementedError`` at construction.
 
 * every ``ckpt_every`` steps the full (params, opt, step) state is written
   atomically (:mod:`repro_torch.train.checkpoint`, the reference's format);

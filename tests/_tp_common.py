@@ -231,3 +231,44 @@ def moe_grad_inputs(d_model: int) -> dict:
     shape = (*MOE_GRAD_SHAPE, d_model)
     return {"x": rng.standard_normal(shape).astype(np.float32),
             "w": rng.standard_normal(shape).astype(np.float32)}
+
+
+# ------------------------------------------------- the SSM train suite
+#: the SSM train suite's configurations: name -> architecture, each at its
+#: reduced size (mamba2: 4 Mamba-2 blocks of 16 SSD heads; zamba2: 2 groups
+#: of 2 Mamba-2 blocks, each group followed by the shared attention block)
+TRAIN_SSM_CONFIGS = {"mamba2": "mamba2-2.7b", "zamba2": "zamba2-2.7b"}
+#: every (configuration, mesh, dtype) the SSM suite holds against the
+#: reference, as ``TRAIN_CASES``
+TRAIN_SSM_CASES = [(name, mesh, dtype) for dtype in ("f32", "bf16")
+                   for name in TRAIN_SSM_CONFIGS for mesh in TRAIN_MESHES]
+#: the Mamba-2 block alone under autograd: rows and positions of its input
+SSM_GRAD_SHAPE = (4, 32)
+#: model level on ``MESH`` under the decode rules: prompt rows and tokens,
+#: teacher-forced decode steps after the prefill, zamba2's shared slots
+SSM_PROMPT = (2, 24)
+SSM_DECODE_STEPS = 4
+SSM_MAX_SEQ = 32
+#: every (configuration, dtype) held at model level
+SSM_MODEL_CASES = [(name, dtype) for name in TRAIN_SSM_CONFIGS for dtype in ("f32", "bf16")]
+
+
+def ssm_grad_inputs(d_model: int) -> dict:
+    """The block-level gradient case's input ``x`` and the weights ``w``
+    of ``(apply_mamba_block(x) * w).sum()`` (f32)."""
+    rng = np.random.default_rng(12)
+    shape = (*SSM_GRAD_SHAPE, d_model)
+    return {"x": rng.standard_normal(shape).astype(np.float32),
+            "w": rng.standard_normal(shape).astype(np.float32)}
+
+
+def ssm_tokens(vocab: int) -> dict:
+    """The model-level case's prompt ``[rows, tokens]`` and the tokens fed
+    at each decode step ``[steps, rows]``."""
+    rng = np.random.default_rng(13)
+    return {"prompt": rng.integers(2, vocab, SSM_PROMPT).astype(np.int64),
+            "steps": rng.integers(2, vocab, (SSM_DECODE_STEPS, SSM_PROMPT[0])).astype(np.int64)}
+
+
+def ssm_key(name: str, dtype: str) -> str:
+    return f"{name} model {dtype}"

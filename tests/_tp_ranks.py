@@ -39,8 +39,10 @@ WORLD = 2
 
 def start(work: Path, suite: str = "tp") -> list:
     """Spawn the ranks of ``suite`` (``"tp"``, ``tests/test_torch_tp.py``'s,
-    ``"serving"``, ``tests/test_torch_tp_serving.py``'s, or ``"train"``,
-    ``tests/test_torch_tp_train.py``'s) over a file store in ``work``."""
+    ``"serving"``, ``tests/test_torch_tp_serving.py``'s, ``"train"``,
+    ``tests/test_torch_tp_train.py``'s, ``"train_moe"`` or ``"train_ssm"``,
+    ``tests/test_torch_tp_train_{moe,ssm}.py``'s) over a file store in
+    ``work``."""
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank, args=(r, str(work), suite)) for r in range(WORLD)]
     for p in procs:
@@ -104,8 +106,8 @@ def join(procs: list, deadline_s: float) -> list:
 
 def _rank(rank: int, work: str, suite: str) -> None:
     work = Path(work)
-    jobs = {"serving": _serving_jobs, "train": _train_jobs,
-            "train_moe": _train_moe_jobs}.get(suite, _jobs)
+    jobs = {"serving": _serving_jobs, "train": _train_jobs, "train_moe": _train_moe_jobs,
+            "train_ssm": _train_ssm_jobs}.get(suite, _jobs)
     try:
         out, arrays = jobs(rank, work)
     except BaseException:
@@ -527,6 +529,8 @@ def _train_cfg(name: str):
 
     if name in C.TRAIN_MOE_CONFIGS:
         return get_config(C.TRAIN_MOE_CONFIGS[name]).reduced()
+    if name in C.TRAIN_SSM_CONFIGS:
+        return get_config(C.TRAIN_SSM_CONFIGS[name]).reduced()
     cfg = get_config(C.ARCH).reduced()
     return dataclasses.replace(cfg, **C.GQA) if name == "gqa" else cfg
 
@@ -831,3 +835,200 @@ def _moe_layer_grads(name: str, shape, dev) -> tuple[dict, dict]:
                 g = full(g)
             arrays[f"{side} grad {n}"] = g.detach().numpy()
     return out, arrays
+
+
+# ------------------------------------------------- the SSM train suite
+def _train_ssm_jobs(rank: int, work: Path):
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.local import no_functional_collectives
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}", rank=rank,
+                            world_size=WORLD)
+    cpu = torch.device("cpu")
+    out, arrays = {"rank": rank}, {}
+    with no_functional_collectives():
+        for name in C.TRAIN_SSM_CONFIGS:
+            for shape in C.TRAIN_MESHES:
+                key = C.train_key(name, shape, "f32")
+                got, a = _mamba_layer_grads(name, shape, cpu)
+                out.update({f"{key} layer {k}": v for k, v in got.items()})
+                arrays.update({f"{key} layer {k}": v for k, v in a.items()})
+        for name, dtype in C.SSM_MODEL_CASES:
+            key = C.ssm_key(name, dtype)
+            got, a = _ssm_model_level(name, dtype, cpu)
+            out.update({f"{key} {k}": v for k, v in got.items()})
+            arrays.update({f"{key} {k}": v for k, v in a.items()})
+        with _ssd_shapes() as seen:
+            for name, shape, dtype in C.TRAIN_SSM_CASES:
+                key = C.train_key(name, shape, dtype)
+                seen.clear()
+                got, a = _train_case(name, shape, dtype, cpu)
+                out.update({f"{key} {k}": v for k, v in got.items()})
+                out[f"{key} ssd heads"] = sorted(set(seen))
+                arrays.update({f"{key} {k}": v for k, v in a.items()})
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank:
+        arrays = {}     # rank 0's gathered arrays are both ranks'
+    return out, arrays
+
+
+@contextlib.contextmanager
+def _ssd_shapes():
+    """Record the head count of every SSD scan the block runs (``x``'s
+    dimension 2), in the list it yields."""
+    from repro_torch.models import layers
+
+    fn = layers.ssd
+    seen: list = []
+
+    def call(x, *args, **kwargs):
+        seen.append(int(x.shape[2]))
+        return fn(x, *args, **kwargs)
+
+    layers.ssd = call
+    try:
+        yield seen
+    finally:
+        layers.ssd = fn
+
+
+def _mamba_layer_grads(name: str, shape, dev) -> tuple[dict, dict]:
+    """Layer 0's Mamba-2 block in f32 under autograd: the gradient of
+    ``(apply_mamba_block(x) * w).sum()`` with respect to ``x`` and every
+    leaf of the block, on the mesh ``shape`` (the weights placed by the
+    train rules, ``x`` by the residual stream's) and, on rank 0, on one
+    device. Returns the loss on each side and each gradient, gathered
+    whole."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.local import full, is_dtensor, row_mean
+    from repro_torch.dist.sharding import make_train_rules
+    from repro_torch.models import materialize
+    from repro_torch.models.layers import ShardCtx, apply_mamba_block, describe_mamba_block
+    from repro_torch.models.params import device_put_tree, flatten_tree, sharding_tree
+
+    cfg = _train_cfg(name)
+    desc = _f32_tree(describe_mamba_block(cfg))
+    inputs = {k: torch.from_numpy(v) for k, v in C.ssm_grad_inputs(cfg.d_model).items()}
+    mesh = _train_mesh(shape, dev)
+    rules = make_train_rules(mesh)
+    ctx = ShardCtx(mesh, rules)
+    dm = mesh.device_mesh()
+    act = ("batch", "seq", "embed_act")
+    sides = ("mesh", "one")[:1 if dist.get_rank() else 2]
+    out, arrays = {}, {}
+    for side in sides:
+        params = materialize(desc, seed=4)
+        x = inputs["x"]
+        if side == "mesh":
+            params = device_put_tree(params, sharding_tree(desc, mesh, rules))
+            x = device_put_tree({"x": x}, {"x": rules.sharding(mesh, act, tuple(x.shape))})["x"]
+        leaves = [("x", x.requires_grad_(True))] + [
+            (n, t.requires_grad_(True)) for n, t in flatten_tree(params)]
+        with ctx.scope() if side == "mesh" else contextlib.nullcontext():
+            if side == "mesh":
+                y, _ = apply_mamba_block(ctx.params(params), x, cfg, ctx=ctx)
+                rows = [i for i, p in enumerate(y.placements) if p.is_shard(0)]
+                w = device_put_tree({"w": inputs["w"]}, {"w": rules.sharding(
+                    mesh, act, tuple(x.shape))})["w"].to_local()
+                part = (y.to_local(grad_placements=tuple(y.placements)) * w).sum()
+                # the sum over every rank's rows, its backward the identity
+                loss = row_mean(part, dm, rows) * math.prod(dm.size(i) for i in rows)
+            else:
+                y, _ = apply_mamba_block(params, x, cfg)
+                loss = (y * inputs["w"]).sum()
+        grads = torch.autograd.grad(loss, [t for _, t in leaves])
+        out[f"{side} loss"] = loss.item()
+        for (n, t), g in zip(leaves, grads):
+            if is_dtensor(t):
+                assert tuple(g.placements) == tuple(t.placements), (n, g.placements, t.placements)
+                g = full(g)
+            arrays[f"{side} grad {n}"] = g.detach().numpy()
+    return out, arrays
+
+
+def _ssm_model_level(name: str, dtype: str, dev) -> tuple[dict, dict]:
+    """The reference's ``ssm_model_level`` on the port: the seed-0 weights
+    placed by the decode rules on ``C.MESH``, ``Model.prefill`` and
+    ``C.SSM_DECODE_STEPS`` teacher-forced ``Model.decode`` steps with a
+    ``ShardCtx``; on rank 0 the same on one device. Returns the logits and
+    the last cache gathered whole (the conv state reassembled from each
+    rank's heads' channels and the shared ``B``/``C``), the bytes of the
+    rank's SSM state and the heads and channels it holds."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import make_decode_rules
+    from repro_torch.models import Model, materialize
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.params import device_put_tree, sharding_tree
+
+    cfg = _train_cfg(name)
+    desc = Model(cfg).describe()
+    desc = _f32_tree(desc) if dtype == "f32" else desc
+    tok = {k: torch.from_numpy(v) for k, v in C.ssm_tokens(cfg.vocab_size).items()}
+    mesh = _train_mesh(C.MESH, dev)
+    rules = make_decode_rules(mesh, cfg.num_kv_heads)
+    ctx = ShardCtx(mesh, rules)
+    out, arrays = {}, {}
+    sides = ("mesh", "one")[:1 if dist.get_rank() else 2]
+    for side in sides:
+        params = materialize(desc, seed=0)
+        c = ctx if side == "mesh" else ShardCtx()
+        if side == "mesh":
+            params = device_put_tree(params, sharding_tree(desc, mesh, rules))
+        model = Model(cfg, params)
+        logits, cache = model.prefill({"tokens": tok["prompt"]}, ctx=c)
+        arrays[f"{side} prefill logits"] = c.full(logits).numpy()
+        cache = {k: c.local(v) for k, v in cache.items()}
+        for kv in ("shared_k", "shared_v"):
+            if kv in cache:
+                t = cache[kv]
+                slots = t.new_zeros((*t.shape[:2], C.SSM_MAX_SEQ, *t.shape[3:]))
+                slots[:, :, :t.shape[2]] = t
+                cache[kv] = slots
+        S = C.SSM_PROMPT[1]
+        for i, t in enumerate(tok["steps"]):
+            lengths = torch.full((C.SSM_PROMPT[0],), S + i + 1, dtype=torch.int32)
+            logits, cache = model.decode(cache, t, lengths, ctx=c)
+            arrays[f"{side} step{i} logits"] = c.full(logits).numpy()
+        if side == "mesh":
+            out["ssm bytes"] = cache["ssm"].nbytes
+            out["ssm heads"] = cache["ssm"].shape[-3]
+            out["conv channels"] = cache["conv"].shape[-1]
+            cache = _whole_ssm_cache(cache, cfg, mesh)
+        arrays.update({f"{side} cache {k}": v.float().numpy() for k, v in cache.items()})
+    return out, arrays
+
+
+def _whole_ssm_cache(cache: dict, cfg, mesh) -> dict:
+    """Each rank's ssm/hybrid cache gathered whole over "model": the SSM
+    state and the shared slots by heads, the conv state reassembled in
+    the reference's channel order from each rank's heads' ``x`` channels
+    (``mamba_columns``) and the shared ``B``/``C``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models.layers import mamba_columns
+
+    def gathered(t):
+        parts = [torch.empty_like(t) for _ in range(WORLD)]
+        dist.all_gather(parts, t.contiguous())
+        return parts
+
+    out = {}
+    for name, t in cache.items():
+        parts = gathered(t)
+        if name == "conv":
+            whole = t.new_zeros((*t.shape[:-1], cfg.ssm_inner + 2 * cfg.ssm_state))
+            for r, part in enumerate(parts):
+                whole[..., mamba_columns(cfg, r, WORLD)[1]] = part
+            out[name] = whole
+        else:
+            out[name] = torch.cat(parts, dim=t.ndim - 3 if name == "ssm" else t.ndim - 2)
+    return out

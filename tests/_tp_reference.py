@@ -1,7 +1,7 @@
 """The reference side of ``tests/test_torch_tp.py`` and
 ``tests/test_torch_tp_serving.py``, run as a script in a process of its
 own: ``python _tp_reference.py <work dir> [tp|serving]`` (the suite,
-``tp`` by default, ``serving``, ``train`` or ``train_moe``).
+``tp`` by default, ``serving``, ``train``, ``train_moe`` or ``train_ssm``).
 
 JAX sees two CPU devices only if ``XLA_FLAGS`` is set before it is first
 imported (as ``src/repro/launch/dryrun.py`` does), so this runs apart from
@@ -178,19 +178,20 @@ def f32_tree(tree):
             else v for k, v in tree.items()}
 
 
-def train_suite(work: Path, cases=C.TRAIN_CASES, cfgs=None) -> None:
+def train_suite(work: Path, cases=C.TRAIN_CASES, cfgs=None, arrays=None) -> None:
     """The train suite: for each case of ``cases`` (``C.TRAIN_CASES`` on
     ``configs()``) the reference's ``Trainer`` on the mesh, its step-1
     gradient (the mean over the microbatches of a jitted
     ``value_and_grad(model.loss)`` on the train rules' shardings) and, in
-    f32, the losses and parameters of ``C.TRAIN_STEPS`` steps."""
+    f32, the losses and parameters of ``C.TRAIN_STEPS`` steps; written
+    with ``arrays`` (a suite's other arrays) to ``pools.npz``."""
     from jax.sharding import Mesh, NamedSharding
     from repro.train.data import DataConfig
     from repro.train.loop import TrainConfig, Trainer
     from repro.train.optimizer import describe_opt_state
 
     cfgs = configs() if cfgs is None else cfgs
-    out, arrays = {"devices": len(jax.devices())}, {}
+    out, arrays = {"devices": len(jax.devices())}, dict(arrays or {})
     for name, shape, dtype in cases:
         key = C.train_key(name, shape, dtype)
         cfg = cfgs[name]
@@ -271,6 +272,58 @@ def train_moe_suite(work: Path) -> None:
                 {name: get_config(arch).reduced() for name, arch in C.TRAIN_MOE_CONFIGS.items()})
 
 
+def ssm_configs() -> dict:
+    return {name: get_config(arch).reduced() for name, arch in C.TRAIN_SSM_CONFIGS.items()}
+
+
+def ssm_model_level(cfg, dtype: str, placed: bool = True) -> dict:
+    """Reduced ``cfg`` at model level on ``C.MESH`` under the decode rules
+    (``placed``; else on one device): the seed-0 weights (in f32 from an
+    f32 descriptor tree, or bf16) placed as an engine places them, a
+    jitted prefill of ``C.ssm_tokens``' prompt, then ``C.SSM_DECODE_STEPS``
+    jitted teacher-forced decode steps from its cache (zamba2's shared
+    slots padded to ``C.SSM_MAX_SEQ``). Returns the logits of the prefill
+    and of each step and the last cache, whole."""
+    model = Model(cfg)
+    desc = model.describe()
+    desc = f32_tree(desc) if dtype == "f32" else desc
+    params, ctx = materialize(desc, seed=0), ShardCtx()
+    if placed:
+        rs = jdist.make_replica_set(1, mesh_shape=C.MESH, num_kv_heads=cfg.num_kv_heads)
+        params = jax.device_put(params, sharding_tree(desc, rs.meshes[0], rs.rules))
+        ctx = ShardCtx(rs.meshes[0], rs.rules)
+    tok = C.ssm_tokens(cfg.vocab_size)
+    logits, cache = jax.jit(lambda p, t: model.prefill(p, {"tokens": t}, ctx=ctx))(
+        params, jnp.asarray(tok["prompt"], jnp.int32))
+    out = {"prefill logits": np.asarray(logits, np.float32)}
+    for name in ("shared_k", "shared_v"):
+        if name in cache:
+            pad = C.SSM_MAX_SEQ - cache[name].shape[2]
+            cache[name] = jnp.pad(cache[name], ((0, 0), (0, 0), (0, pad), (0, 0), (0, 0)))
+    decode = jax.jit(lambda p, c, t, l: model.decode(p, c, t, l, ctx=ctx))
+    S = C.SSM_PROMPT[1]
+    for i, t in enumerate(tok["steps"]):
+        lengths = jnp.full((C.SSM_PROMPT[0],), S + i + 1, jnp.int32)
+        logits, cache = decode(params, cache, jnp.asarray(t, jnp.int32), lengths)
+        out[f"step{i} logits"] = np.asarray(logits, np.float32)
+    out.update({f"cache {k}": np.asarray(v, np.float32) for k, v in cache.items()})
+    return out
+
+
+def train_ssm_suite(work: Path) -> None:
+    """The SSM suite: model level on the mesh under the decode rules
+    (``C.SSM_MODEL_CASES``; in bf16 on one device too, the spread of the
+    reference's own rounding), then ``train_suite`` over
+    ``C.TRAIN_SSM_CASES``, reduced mamba2-2.7b and zamba2-2.7b."""
+    cfgs = ssm_configs()
+    arrays = {}
+    for name, dtype in C.SSM_MODEL_CASES:
+        for side in ("mesh", "one")[:1 if dtype == "f32" else 2]:
+            got = ssm_model_level(cfgs[name], dtype, placed=side == "mesh")
+            arrays.update({f"{C.ssm_key(name, dtype)} {side} {k}": v for k, v in got.items()})
+    train_suite(work, C.TRAIN_SSM_CASES, cfgs, arrays)
+
+
 def main(work: Path) -> None:
     assert len(jax.devices()) == 2, jax.devices()
     cfgs = configs()
@@ -296,5 +349,5 @@ def main(work: Path) -> None:
 if __name__ == "__main__":
     assert len(jax.devices()) == 2, jax.devices()
     suite = sys.argv[2] if len(sys.argv) > 2 else "tp"
-    {"serving": serving, "train": train_suite,
-     "train_moe": train_moe_suite}.get(suite, main)(Path(sys.argv[1]))
+    {"serving": serving, "train": train_suite, "train_moe": train_moe_suite,
+     "train_ssm": train_ssm_suite}.get(suite, main)(Path(sys.argv[1]))

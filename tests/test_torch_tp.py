@@ -232,9 +232,10 @@ def test_engine_refuses_what_a_mesh_does_not_serve_yet(what):
 
 
 def test_trainer_refuses_a_mesh():
-    # the dense family trains on a mesh (tests/test_torch_tp_train.py); the
-    # others refuse one, before any process group is asked for
-    cfg = get_config("mamba2-2.7b").reduced()
+    # the dense, moe, ssm and hybrid families train on a mesh
+    # (tests/test_torch_tp_train*.py); the others refuse one, before any
+    # process group is asked for
+    cfg = get_config("whisper-medium").reduced()
     mesh = Mesh(("data", "model"), np.array([[CPU, CPU]], dtype=object))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, TrainConfig(), DataConfig(vocab_size=cfg.vocab_size, seq_len=16,

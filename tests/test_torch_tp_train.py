@@ -36,8 +36,9 @@ The tests read them:
   collective (``no_functional_collectives`` is armed over every backward
   in the ranks, and the port's ``place_block`` takes the same graph
   through ``torch.distributed``), a microbatch that "data" does not
-  divide, and every family but dense and moe on a mesh (MoE training on
-  a mesh is ``tests/test_torch_tp_train_moe.py``'s).
+  divide, and gemma2's alternation, whisper and internvl2 on a mesh (MoE
+  training on a mesh is ``tests/test_torch_tp_train_moe.py``'s, mamba2's
+  and zamba2's ``tests/test_torch_tp_train_ssm.py``'s).
 """
 from __future__ import annotations
 
@@ -272,12 +273,11 @@ def test_a_microbatch_that_data_does_not_divide_raises(runs):
         assert r["indivisible batch"] and "not divisible" in r["indivisible batch"]
 
 
-FAMILIES = {"ssm": "mamba2-2.7b", "hybrid": "zamba2-2.7b", "encdec": "whisper-medium",
-            "vlm": "internvl2-26b", "alternating": "gemma2-9b"}
+FAMILIES = {"encdec": "whisper-medium", "vlm": "internvl2-26b", "alternating": "gemma2-9b"}
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
-def test_every_family_but_dense_and_moe_refuses_a_mesh(family):
+def test_alternating_encdec_and_vlm_refuse_a_mesh(family):
     cfg = get_config(FAMILIES[family]).reduced()
     for shape in C.TRAIN_MESHES:
         mesh = Mesh(("data", "model"), np.array([CPU] * 2, dtype=object).reshape(shape))
