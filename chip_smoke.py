@@ -10,6 +10,7 @@ port starts on the GPU and that its main paths run through its kernels.
     python3 chip_smoke.py --train-moe-tp  # the build, dbrx's flash backward timing and
                                           # phase 15, no final line
     python3 chip_smoke.py --train-ssm-tp  # the build and phase 16, no final line
+    python3 chip_smoke.py --train-family-tp  # the build and phase 17, no final line
 
 Needs one CUDA card (Hopper: the kernels are built for sm_90a) and
 ``nvcc``; it builds every kernel from the sources in ``src/repro_torch``
@@ -312,6 +313,35 @@ on failure (a failure exits non-zero and prints no final line):
    conv state (its heads' ``x`` channels and all of ``B`` and ``C``),
    held alike; the functional collectives refused. Each rank's parameter
    and moment bytes, peak, step times and largest collective printed.
+17. gemma2's alternation, whisper's encoder-decoder and internvl2's image
+   prefix on a mesh (``train_family_tp``, after phase 16): full width,
+   gemma2-9b at one (local, global) pair of its 42 layers, whisper-medium
+   at 4 + 4 of its 24 + 24 layers, internvl2-26b at 2 of its 48, remat.
+   One device in this process first (seed-0 weights drawn on the card):
+   gemma2 trains 2 steps of 4 x 1024 tokens in 2 microbatches through
+   ``Trainer``; whisper (1500 frames, 128 tokens) and internvl2 (256 image
+   embeddings, 512 tokens) take ``Model.loss`` and its gradient on 2 rows
+   (their ``Trainer`` feeds no frames or images, as the reference's does
+   not); step 1's gradients kept on the host; each family at model level
+   (gemma2 on a 4600-token prompt that wraps its 4096-slot ring, whisper
+   on 1500 frames and 64 tokens, internvl2 on 256 embeddings and 600
+   tokens; 8 greedy steps), then again with every row-parallel product
+   rounded once from f32, as a rank reduces it; the card freed. Then two
+   ranks under ``gloo``, spawned once: gemma2 through
+   ``Trainer(mesh=...)`` and whisper's and internvl2's loss and gradient
+   on ``(1, 2)`` and ``(2, 1)``, and the three at model level on ``(1,
+   2)`` under the decode rules, fed one device's tokens. The losses finite
+   and equal on both ranks, step 1 within 1e-3 of one device's, every
+   block of a rank's step-1 gradient in the bf16 band of one device's; a
+   rank's flash forwards and backwards, by route, one device's (the
+   backward on the CUDA cores at gemma2's D = 256, on the tensor cores for
+   the others), and at model level its flash and paged launches; each
+   call on the rank's half of the heads on ``(1, 2)``; half the parameter
+   and cache bytes; each step's logits within the model band of one
+   device's (widened by one device's own spread under the rank's rounding
+   only where that spread parts beyond the band; the spread printed) and
+   the rank's greedy token in its tie set; the functional collectives
+   refused.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 hold the per-kernel JSON record and the card's name and power limit,
@@ -6491,6 +6521,621 @@ def train_ssm_tp() -> dict:
     return record
 
 
+# ----------------------------------- phase 17: gemma2, whisper, internvl2 on a mesh
+#: phase 17's architectures at full width, each cut to this many layers
+#: (gemma2: one (local, global) pair of its 42; whisper: 4 of its 24
+#: encoder and 4 of its 24 decoder layers; internvl2: 2 of its 48)
+FAMILY_TP_LAYERS = {"gemma2-9b": 2, "whisper-medium": 4, "internvl2-26b": 2}
+#: gemma2 trains through Trainer(mesh=...) on each mesh, in order: tensor
+#: parallel over "model", then FSDP over "data"; 2 steps of 4 x 1024 tokens
+#: in 2 microbatches (at 3 the whole command took 1082 s on one H100, near
+#: its 1200 s limit: FSDP's steps gather every weight and reduce-scatter its
+#: gradient through host memory)
+FAMILY_TP_TRAIN = "gemma2-9b"
+FAMILY_TP_MESHES = ((1, TP), (TP, 1))
+FAMILY_TP_DATA = dict(global_batch=4, seq_len=1024)
+FAMILY_TP_MICRO, FAMILY_TP_STEPS = 2, 2
+#: whisper and internvl2, whose Trainer feeds no frames or images (the
+#: reference's neither), take Model.loss and its gradient: rows x text
+#: tokens (and the label), with 1500 frames or 256 image embeddings a row
+FAMILY_TP_LOSS = {"whisper-medium": (2, 128), "internvl2-26b": (2, 512)}
+#: model level on (1, TP) under the decode rules: one row's prompt (gemma2's
+#: wraps its 4096-slot ring; internvl2's follows its 256 image embeddings,
+#: whisper's attends 1500 frames), then greedy decode steps
+FAMILY_TP_PROMPT = {"gemma2-9b": 4600, "whisper-medium": 64, "internvl2-26b": 600}
+FAMILY_TP_DECODE = 8
+TRAIN_FAMILY_DEADLINE_S = 600
+
+
+def family_tp_cfg(arch: str):
+    """Phase 17's configuration of ``arch``: full width,
+    ``FAMILY_TP_LAYERS`` of its layers (whisper's encoder cut alike),
+    remat on."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    kw = dict(num_layers=FAMILY_TP_LAYERS[arch], remat=True)
+    if cfg.family == "encdec":
+        kw["encoder_layers"] = FAMILY_TP_LAYERS[arch]
+    return dataclasses.replace(cfg, **kw)
+
+
+def family_tp_trainer(cfg, device=None, mesh=None):
+    """Phase 17's gemma2 trainer: on ``device`` alone, or on ``mesh``."""
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.loop import TrainConfig, Trainer
+
+    tcfg = TrainConfig(steps=FAMILY_TP_STEPS, microbatches=FAMILY_TP_MICRO, log_every=1)
+    return Trainer(cfg, tcfg, DataConfig(vocab_size=cfg.vocab_size, **FAMILY_TP_DATA), device,
+                   mesh=mesh)
+
+
+def family_batch(cfg, rows: int, tokens: int, seed: int, device) -> dict:
+    """A seeded batch of ``rows`` x ``tokens`` tokens, with whisper's
+    frames [rows, encoder_seq, d] or internvl2's image embeddings [rows,
+    num_image_tokens, d] (at the token embeddings' scale, std 0.02) drawn
+    on ``device``: the same on every process that draws it there."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(2, cfg.vocab_size, (rows, tokens)),
+                                       device=device)}
+    g = torch.Generator(device=device).manual_seed(seed)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((rows, cfg.encoder_seq, cfg.d_model), generator=g,
+                                      device=device)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = 0.02 * torch.randn((rows, cfg.num_image_tokens, cfg.d_model),
+                                                   generator=g, device=device)
+    return batch
+
+
+class _HeadsSeen:
+    """While active, records ``(kernel, query heads, KV heads)`` of every
+    attention call on plain tensors (on a mesh each rank's local call):
+    the flash entry point and the slot caches' decode attention (the paged
+    kernel over the slots). The DTensor entry points call these on each
+    rank's local shards by their module names."""
+
+    def __enter__(self):
+        from repro_torch.dist.local import is_dtensor
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.models import layers
+
+        self.seen: set = set()
+        self.saved = flash_ops.prefill_attention, layers.decode_attention
+        flash, decode = self.saved
+
+        def flash_call(q, k, v, **kw):
+            if not is_dtensor(q):
+                self.seen.add(("flash", int(q.shape[2]), int(k.shape[2])))
+            return flash(q, k, v, **kw)
+
+        def decode_call(q, k_cache, v_cache, **kw):
+            if not is_dtensor(q):
+                self.seen.add(("paged", int(q.shape[1]), int(k_cache.shape[2])))
+            return decode(q, k_cache, v_cache, **kw)
+
+        flash_ops.prefill_attention, layers.decode_attention = flash_call, decode_call
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.models import layers
+
+        flash_ops.prefill_attention, layers.decode_attention = self.saved
+
+    def heads(self) -> list:
+        return sorted(list(s) for s in self.seen)
+
+
+def _grad_keep(names, want=None, shardings=None, at=None):
+    """What step 1 keeps of a gradient ``acc`` (one tensor a leaf of
+    ``names``): without ``want`` the leaves in bf16 on the host (one
+    device's, saved for the ranks); with ``want`` (those) each leaf's
+    relative Frobenius error of the rank's block against its block of
+    ``want`` (``shardings`` at mesh position ``at``)."""
+    def keep(acc, losses):
+        out = dict(losses1=[float(x) for x in losses])
+        if want is None:
+            out["grads"] = {n: a.to(torch.bfloat16).cpu() for n, a in zip(names, acc)}
+            return out
+        rels = {}
+        for n, a in zip(names, acc):
+            w = want["grads"][n]
+            w = w[shardings[n].local_slices(w.shape, at)].to(a.device).float()
+            rels[n] = ((a.float() - w).norm() / w.norm().clamp_min(1e-30)).item()
+        worst = max(rels, key=rels.get)
+        out.update(rel_frobenius=rels, worst_leaf=worst, worst_rel_frobenius=rels[worst])
+        return out
+
+    return keep
+
+
+def _family_train(trainer, state, collectives, keep) -> dict:
+    """:func:`_train_run` of phase 17's gemma2 trainer with step 1's
+    gradient kept by ``keep`` and the heads each attention call saw."""
+    captured = _capture_first(trainer, keep)
+    with _HeadsSeen() as seen:
+        state, rec = _train_run(trainer, state, collectives)
+    (step1,) = captured
+    rec.update(step1, heads_seen=seen.heads())
+    del state
+    return rec
+
+
+def _family_loss(model, batch, ctx, keep) -> dict:
+    """``model.loss(batch, ctx)`` and its gradient of every leaf, the flash
+    counts zeroed just before and read just after, the heads each
+    attention call saw and the peak; step 1's record by ``keep`` (the
+    gradient as :meth:`Trainer.gradients` hands it over: each leaf's local
+    block in f32)."""
+    from repro_torch.dist.local import is_dtensor
+    from repro_torch.models.params import flatten_tree
+
+    leaves = [t for _, t in flatten_tree(model._stacked)]
+    for t in leaves:
+        t.requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts()
+    t0 = time.perf_counter()
+    with _HeadsSeen() as seen:
+        loss, _ = model.loss(batch, ctx)
+        grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _flash_counts()
+    acc = [(g.to_local() if is_dtensor(g) else g).float() for g in grads]
+    del grads
+    rec = dict(keep(acc, [loss.detach()]), seconds=seconds, heads_seen=seen.heads(),
+               param_bytes_held=sum((t.to_local() if is_dtensor(t) else t).nbytes
+                                    for t in leaves),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, **counts)
+    for t in leaves:
+        t.requires_grad_(False)
+    return rec
+
+
+def _decode_cache(cfg, cache: dict, length: int) -> dict:
+    """A prefill's cache of ``length`` positions (one device's, or a rank's
+    own blocks) as ``decode_into`` takes it: the K/V in slots of ``length
+    + FAMILY_TP_DECODE`` rounded up to whole 16-token pages, gemma2's local
+    layers in a ring of ``sliding_window`` slots (position p at slot p %
+    window: a prompt longer than the window wraps it), whisper's cross
+    caches as they are (1500 positions, read as 30-token pages)."""
+    slots = -(-(length + FAMILY_TP_DECODE) // 16) * 16
+
+    def pad(t):
+        out = t.new_zeros((*t.shape[:2], slots, *t.shape[3:]))
+        out[:, :, :t.shape[2]] = t
+        return out
+
+    if cfg.local_global_alternating:
+        W = cfg.sliding_window
+        pos = torch.arange(max(0, length - W), length, device=cache["local"]["k"].device)
+
+        def ring(t):
+            out = t.new_zeros((*t.shape[:2], W, *t.shape[3:]))
+            out[:, :, pos % W] = t[:, :, pos]
+            return out
+
+        return {"local": {n: ring(t) for n, t in cache["local"].items()},
+                "global": {n: pad(t) for n, t in cache["global"].items()}}
+    return {n: t if n in ("ck", "cv") else pad(t) for n, t in cache.items()}
+
+
+def _family_model_steps(model, cfg, batch, ctx, tokens=None) -> dict:
+    """A prefill of ``batch`` (its cache placed by :func:`_decode_cache`),
+    then ``FAMILY_TP_DECODE`` decode steps fed ``tokens`` (each step's
+    greedy token where ``tokens`` is None), with ``ctx``: the logits of
+    each (whole, on the host), the tokens fed, the flash launches of the
+    prefill and the paged kernel's device launches of the decode, the
+    heads each attention call saw and the caches' bytes."""
+    from repro_torch.models.params import _unflatten, flatten_tree
+
+    rows, n = batch["tokens"].shape
+    length = n + (cfg.num_image_tokens if cfg.family == "vlm" else 0)
+    dev = batch["tokens"].device
+    _zero_flash_counts()
+    with _HeadsSeen() as seen:
+        logits, cache = model.prefill(batch, ctx=ctx)
+        flash = _flash_counts()["flash_launches"]
+        cache = _decode_cache(cfg, _unflatten([(k, ctx.local(t)) for k, t in
+                                               flatten_tree(cache)]), length)
+        out = dict(logits=[ctx.full(logits).float().cpu()], tokens=[])
+        before = paged_device_launches() if DEVICE == "cuda" else 0
+        for i in range(FAMILY_TP_DECODE):
+            tok = logits.argmax(-1) if tokens is None else tokens[i].to(dev)
+            out["tokens"].append(tok.cpu())
+            lengths = torch.full((rows,), length + i + 1, dtype=torch.int32, device=dev)
+            logits = model.decode_into(cache, tok, lengths, ctx=ctx)
+            out["logits"].append(ctx.full(logits).float().cpu())
+        torch.cuda.synchronize()
+        paged = (paged_device_launches() if DEVICE == "cuda" else 0) - before
+    out.update(flash_launches=flash, paged_launches=paged, heads_seen=seen.heads(),
+               cache_bytes=sum(t.nbytes for _, t in flatten_tree(cache)), context=length)
+    return out
+
+
+def _row_parallel_rounded_once(ctx, h, w):
+    """One device's ``h @ w`` taken in f32 and rounded once to ``h``'s
+    type, as a rank reduces its partial sums of ``wo`` and ``w_down``:
+    another valid rounding of the same product."""
+    return (h.float() @ w.float()).to(h.dtype)
+
+
+def family_one_device(one_dir: Path) -> dict:
+    """Phase 17's one-device runs in this process, each on the seed-0
+    weights drawn on the card and freed before the next: gemma2 through
+    ``Trainer`` (step 1's gradient saved in bf16 on the host for the
+    ranks), whisper's and internvl2's ``Model.loss`` and gradient (saved
+    alike), and each family at model level (a prefill and
+    ``FAMILY_TP_DECODE`` greedy steps; then the same tokens again with
+    every row-parallel product rounded once from f32, as a rank reduces
+    it: each step's ``spread`` is one device's own departure under that
+    rounding). What the ranks need goes to ``one_dir``."""
+    import types
+
+    from repro_torch.models import Model
+    from repro_torch.models import layers
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.layers import NULL_CTX
+    from repro_torch.models.params import flatten_tree
+
+    none = types.SimpleNamespace(moved=[], armed=False)
+    rec = {}
+    cfg = family_tp_cfg(FAMILY_TP_TRAIN)
+    one = family_tp_trainer(cfg, device=DEVICE)
+    names = [n for n, _ in flatten_tree(one.param_tree)]
+    t0 = time.perf_counter()
+    state = one.adopt(draw_on_card(one.param_tree, seed=0))
+    run = _family_train(one, state, none, _grad_keep(names))
+    torch.save({"losses1": run["losses1"], "grads": run.pop("grads")},
+               one_dir / f"{FAMILY_TP_TRAIN}.pt")
+    for k in ("largest_collective_elements", "collectives"):
+        run.pop(k)
+    rec[FAMILY_TP_TRAIN] = dict(run, seconds=time.perf_counter() - t0)
+    del one, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, (rows, n) in FAMILY_TP_LOSS.items():
+        cfg = family_tp_cfg(arch)
+        desc = Model(cfg).describe()
+        model = Model(cfg, draw_on_card(desc, seed=0))
+        names = [n_ for n_, _ in flatten_tree(desc)]
+        got = _family_loss(model, family_batch(cfg, rows, n + 1, 31, DEVICE), NULL_CTX,
+                           _grad_keep(names))
+        torch.save({"losses1": got["losses1"], "grads": got.pop("grads")},
+                   one_dir / f"{arch}.pt")
+        rec[arch] = got
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, n in FAMILY_TP_PROMPT.items():
+        cfg = family_tp_cfg(arch)
+        model = Model(cfg, draw_on_card(Model(cfg).describe(), seed=0))
+        batch = family_batch(cfg, 1, n, 32, DEVICE)
+        t0 = time.perf_counter()
+        out = _family_model_steps(model, cfg, batch, NULL_CTX)
+        seconds = time.perf_counter() - t0
+        plain = layers._row_parallel, model_mod._row_parallel
+        layers._row_parallel = model_mod._row_parallel = _row_parallel_rounded_once
+        try:
+            other = _family_model_steps(model, cfg, batch, NULL_CTX, out["tokens"])
+        finally:
+            layers._row_parallel, model_mod._row_parallel = plain
+        spread = [(a - b).abs().max().item() for a, b in zip(out["logits"], other["logits"])]
+        # the spread widens the band only where it parts beyond the band itself
+        parts = [band_excess(b, a)["excess_over_band"] > 0
+                 for a, b in zip(out["logits"], other["logits"])]
+        out.update(batch={k: v.cpu() for k, v in batch.items()}, spread=spread,
+                   spread_parts_beyond_band=parts)
+        torch.save(out, one_dir / f"model {arch}.pt")
+        rec[f"model {arch}"] = dict(
+            {k: out[k] for k in ("flash_launches", "paged_launches", "heads_seen",
+                                 "cache_bytes", "context", "spread",
+                                 "spread_parts_beyond_band")},
+            seconds=seconds, tokens=[int(t[0]) for t in out["tokens"]],
+            param_bytes=sum(t.nbytes for _, t in flatten_tree(model._stacked)))
+        del model, out, other
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _family_model_rank(arch: str, dev, one_dir: str) -> dict:
+    """Phase 17's model level of ``arch`` on this rank: the seed-0 weights
+    placed by the decode rules on a ``(1, TP)`` mesh (each rank keeping
+    its blocks), ``Model.prefill`` of one device's batch and one device's
+    tokens fed through ``Model.decode_into`` with a ``ShardCtx`` over the
+    rank's own caches: each step's logits against one device's (the model
+    band, widened by one device's own spread where that parts beyond the
+    band; the rank's greedy token in one device's tie set, else within the
+    model band of its largest logit: a near tie), the launches, the heads
+    each call saw, and the bytes held beside what the rules give a rank
+    (a vocabulary the model axis does not divide stays whole)."""
+    from repro_torch.dist.sharding import make_decode_rules
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import Model
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.params import flatten_tree, leaves, sharding_tree
+
+    cfg = family_tp_cfg(arch)
+    mesh = Mesh(("data", "model"), np.array([[dev] * TP], dtype=object))
+    rules = make_decode_rules(mesh, cfg.num_kv_heads)
+    desc = Model(cfg).describe()
+    model = Model(cfg, draw_on_card(desc, seed=0, keep=_block_keeper(desc, mesh, rules)))
+    want = torch.load(Path(one_dir) / f"model {arch}.pt")
+    t0 = time.perf_counter()
+    got = _family_model_steps(model, cfg, {k: v.to(dev) for k, v in want["batch"].items()},
+                              ShardCtx(mesh, rules), want["tokens"])
+    seconds = time.perf_counter() - t0
+    steps = []
+    for i, (a, w) in enumerate(zip(got["logits"], want["logits"])):
+        widen = want["spread"][i] if want["spread_parts_beyond_band"][i] else 0.0
+        steps.append(dict(_held(a, w, widen), tie_gap=_tie_gap(a, w),
+                          tie_band=[MODEL_ATOL + MODEL_RTOL * abs(w[b].max().item())
+                                    for b in range(w.shape[0])]))
+    sh = dict(flatten_tree(sharding_tree(desc, mesh, rules)))
+    return dict(
+        mesh={"data": 1, "model": TP}, context=got["context"], decode_steps=FAMILY_TP_DECODE,
+        seconds=seconds, flash_launches=got["flash_launches"],
+        paged_launches=got["paged_launches"], heads_seen=got["heads_seen"],
+        cache_bytes=got["cache_bytes"], one_device_cache_bytes=want["cache_bytes"],
+        param_bytes_held=sum(t.to_local().nbytes for _, t in flatten_tree(model._stacked)),
+        param_bytes_by_rules=sum(math.prod(sh[n].shard_shape(l.shape)) * l.dtype.itemsize
+                                 for n, l in leaves(desc)),
+        fallbacks=[list(map(str, f)) for f in rules.fallbacks], steps=steps)
+
+
+def train_family_tp_rank(rank: int, store: str, work: str, one_dir: str) -> None:
+    """One rank of phase 17, in a process of its own on ``cuda:0``:
+    ``gloo`` over a file store, every collective through
+    ``torch.distributed`` (DTensor's functional collectives refused, over
+    every backward too). gemma2 trains through ``Trainer(mesh=...)`` on
+    each mesh of ``FAMILY_TP_MESHES``, whisper and internvl2 take
+    ``Model.loss`` and its gradient on each (the seed-0 weights drawn on
+    the card, each rank keeping its blocks; the tokens placed by rows,
+    the frames and image embeddings whole, placed by the model), each
+    rank's step-1 gradient blocks held to one device's (``one_dir``); then
+    each family at model level on ``(1, TP)``
+    (:func:`_family_model_rank`). Its record goes to
+    ``work/rank<r>.json``."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    from repro_torch.dist.local import no_functional_collectives
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import Model
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.params import flatten_tree, put_block, sharding_tree
+    from repro_torch.dist.sharding import make_train_rules
+
+    t_start = time.perf_counter()
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=TP)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    collectives = _Collectives()
+    rec = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+           "world": dist.get_world_size()}
+    with no_functional_collectives():
+        rec["functional_collectives_refused"] = "refuse" in funcol.all_reduce.__qualname__
+        cfg = family_tp_cfg(FAMILY_TP_TRAIN)
+        want = torch.load(Path(one_dir) / f"{FAMILY_TP_TRAIN}.pt", mmap=True)
+        for shape in FAMILY_TP_MESHES:
+            mesh = Mesh(("data", "model"), np.array([dev] * TP, dtype=object).reshape(shape))
+            trainer = family_tp_trainer(cfg, mesh=mesh)
+            state = trainer.adopt(draw_on_card(
+                trainer.param_tree, seed=0,
+                keep=_block_keeper(trainer.param_tree, mesh, trainer.rules)))
+            keep = _grad_keep([n for n, _ in flatten_tree(trainer.param_tree)], want,
+                              dict(flatten_tree(trainer.shardings()[0])), mesh.coordinates())
+            rec[f"{FAMILY_TP_TRAIN} {shape[0]}x{shape[1]}"] = _family_train(
+                trainer, state, collectives, keep)
+            del trainer, state
+            gc.collect()
+            torch.cuda.empty_cache()
+        del want
+        for arch, (rows, n) in FAMILY_TP_LOSS.items():
+            cfg = family_tp_cfg(arch)
+            desc = Model(cfg).describe()
+            want = torch.load(Path(one_dir) / f"{arch}.pt", mmap=True)
+            for shape in FAMILY_TP_MESHES:
+                mesh = Mesh(("data", "model"), np.array([dev] * TP, dtype=object).reshape(shape))
+                rules = make_train_rules(mesh)
+                model = Model(cfg, draw_on_card(desc, seed=0,
+                                                keep=_block_keeper(desc, mesh, rules)))
+                batch = family_batch(cfg, rows, n + 1, 31, dev)
+                tok = batch["tokens"]
+                batch["tokens"] = put_block(tok, rules.sharding(mesh, ("batch", None), tok.shape))
+                keep = _grad_keep([n_ for n_, _ in flatten_tree(desc)], want,
+                                  dict(flatten_tree(sharding_tree(desc, mesh, rules))),
+                                  mesh.coordinates())
+                collectives.moved.clear()
+                collectives.armed = True
+                got = _family_loss(model, batch, ShardCtx(mesh, rules), keep)
+                collectives.armed = False
+                got.update(largest_collective_elements=max(collectives.moved, default=0),
+                           collectives=len(collectives.moved))
+                rec[f"{arch} {shape[0]}x{shape[1]}"] = got
+                del model, batch
+                gc.collect()
+                torch.cuda.empty_cache()
+            del want
+        for arch in FAMILY_TP_PROMPT:
+            rec[f"model {arch}"] = _family_model_rank(arch, dev, one_dir)
+            gc.collect()
+            torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t_start
+    Path(work, f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def family_tp_peak() -> dict:
+    """A rank's reckoned peak in gemma2's training on each mesh (bytes,
+    before the activations but for the logits): its share of the weights
+    (bf16), the f32 moments and the f32 accumulated gradient, the bf16
+    gradient of a microbatch, and what a step holds whole at once: on
+    ``(TP, 1)`` the embedding and head gathered over "data" with their
+    bf16 gradients and the f32 sum a reduce-scatter takes; the f32 logits
+    of a microbatch's rows and their gradient."""
+    from repro_torch.models import Model
+    from repro_torch.models.params import leaves
+
+    cfg = family_tp_cfg(FAMILY_TP_TRAIN)
+    n = sum(math.prod(l.shape) for _, l in leaves(Model(cfg).describe()))
+    table = cfg.vocab_size * cfg.d_model
+    rows = FAMILY_TP_DATA["global_batch"] // FAMILY_TP_MICRO
+    out = {}
+    for shape in FAMILY_TP_MESHES:
+        share = n / TP
+        state = share * (2 + 8 + 4 + 2)
+        whole = 2 * table * (2 + 2) + table * 4 if shape[0] > 1 else 0
+        logits = 2 * 4 * (rows // shape[0]) * FAMILY_TP_DATA["seq_len"] * (
+            cfg.vocab_size // shape[1])
+        out[f"{shape[0]}x{shape[1]}"] = (state + whole + logits) / 2**30
+    return dict(parameters=n, rank_gib=out)
+
+
+def train_family_tp() -> dict:
+    """Phase 17: gemma2's alternation, whisper's encoder-decoder and
+    internvl2's image prefix on a mesh. In this process, one device first
+    (:func:`family_one_device`): gemma2-9b at one (local, global) pair of
+    its 42 layers trains ``FAMILY_TP_STEPS`` steps of 4 x 1024 tokens in 2
+    microbatches, whisper-medium (4 + 4 of 24 + 24 layers) and
+    internvl2-26b (2 of 48) take ``Model.loss`` and its gradient on 2 rows,
+    and each runs at model level; the card is freed. Then ``TP`` ranks on
+    the card under ``gloo`` (:func:`train_family_tp_rank`). Fails unless
+    every loss is finite and equal on the ranks, step 1 within 1e-3 of one
+    device's and every block of a rank's step-1 gradient within
+    ``GRAD_BAND`` of one device's; a rank ran as many flash forwards and
+    backwards, by route, as one device (the backward ``cuda_core`` at
+    gemma2's D = 256, ``tensor_core`` for whisper and internvl2), each
+    call on the rank's half of the query and KV heads on ``(1, TP)``; at
+    model level as many flash and paged launches as one device, on its
+    half of the heads, half of the cache bytes and the parameter bytes the
+    rules give it (the layers' half; embed and head whole where the model
+    axis does not divide the vocabulary, whisper's 51865 and internvl2's
+    92553), every step's logits within the model band of one device's
+    (widened by one device's own spread under a rank's rounding only where
+    that spread parts beyond the band) and the rank's greedy token in one
+    device's tie set or within the band of its largest logit (a near tie,
+    phase 13's rule); the functional collectives refused."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    peak = family_tp_peak()
+    log("train_family_tp peak " + json.dumps(peak))
+    (ROOT / "build").mkdir(exist_ok=True)
+    one_dir = Path(tempfile.mkdtemp(prefix="train_family_one_", dir=ROOT / "build"))
+    try:
+        one = family_one_device(one_dir)
+        one_s = time.perf_counter() - t0
+        work, recs = run_ranks(train_family_tp_rank, (str(one_dir),), TRAIN_FAMILY_DEADLINE_S,
+                               "train_family_tp", "17")
+    finally:
+        shutil.rmtree(one_dir, ignore_errors=True)
+    shutil.rmtree(work, ignore_errors=True)
+    cases = {}
+    per_rank = ("losses1", "worst_leaf", "worst_rel_frobenius", "heads_seen", "flash_launches",
+                "backward_launches", "backward_routes", "param_bytes_held", "peak_gib",
+                "largest_collective_elements", "collectives", "run_s", "seconds")
+    for arch in (FAMILY_TP_TRAIN, *FAMILY_TP_LOSS):
+        cfg = family_tp_cfg(arch)
+        for shape in FAMILY_TP_MESHES:
+            key = f"{arch} {shape[0]}x{shape[1]}"
+            r0 = recs[0][key]
+            step1 = sum(r0["losses1"]) / len(r0["losses1"])
+            want = sum(one[arch]["losses1"]) / len(one[arch]["losses1"])
+            cases[key] = dict(
+                arch=arch, kind="Trainer" if arch == FAMILY_TP_TRAIN else "Model.loss",
+                layers=f"{cfg.num_layers} of {get_config(arch).num_layers}",
+                mesh={"data": shape[0], "model": shape[1]}, losses=r0.get("losses"),
+                one_device_losses1=one[arch]["losses1"],
+                step1_rel_to_one_device=abs(step1 - want) / abs(want),
+                heads=[cfg.num_heads, cfg.num_kv_heads],
+                **{k: [r[key].get(k) for r in recs] for k in per_rank})
+    model = {arch: [r[f"model {arch}"] for r in recs] for arch in FAMILY_TP_PROMPT}
+    record = dict(
+        card=gpu_identity(), world=recs[0]["world"], backend=recs[0]["backend"],
+        devices=[r["device"] for r in recs], train_data=FAMILY_TP_DATA,
+        microbatches=FAMILY_TP_MICRO, steps=FAMILY_TP_STEPS, remat=True,
+        loss_batches={a: list(v) for a, v in FAMILY_TP_LOSS.items()},
+        prompts=FAMILY_TP_PROMPT, decode_steps=FAMILY_TP_DECODE,
+        weights="drawn on the card (torch.Generator, seed 0); each rank keeps its blocks",
+        one_device=one, one_device_s=one_s, cases=cases, model_level=model,
+        functional_collectives_refused=[r["functional_collectives_refused"] for r in recs],
+        rank_s=[r["seconds"] for r in recs], seconds=time.perf_counter() - t0,
+        note="both ranks on one card: every collective goes through host memory under gloo, "
+             "so these times measure correctness, not tensor-parallel speed")
+    log("train_family_tp " + json.dumps(record))
+    log("phase 17 seconds " + json.dumps({"seconds": record["seconds"]}))
+    for key, c in cases.items():
+        arch, tp = c["arch"], c["mesh"]["model"]
+        losses = c["losses"] or c["losses1"][0]
+        if not (all(math.isfinite(x) for x in losses)
+                and (c["kind"] == "Model.loss" or len(losses) == FAMILY_TP_STEPS)):
+            raise AssertionError(f"phase 17 {key}: the losses are missing or not finite: "
+                                 f"{losses}")
+        if any(r[key].get("losses") != c["losses"] or r[key]["losses1"] != c["losses1"][0]
+               for r in recs):
+            raise AssertionError(f"phase 17 {key}: the ranks logged different losses")
+        if not c["step1_rel_to_one_device"] <= 1e-3:
+            raise AssertionError(f"phase 17 {key}: step 1 {c['losses1'][0]} is off one "
+                                 f"device's {c['one_device_losses1']} beyond 1e-3")
+        if not max(c["worst_rel_frobenius"]) <= GRAD_BAND:
+            raise AssertionError(f"phase 17 {key}: a block of a rank's step-1 gradient is off "
+                                 f"one device's beyond the bf16 band: {c['worst_leaf']} "
+                                 f"{c['worst_rel_frobenius']}")
+        H, KH = c["heads"]
+        if tp > 1 and c["heads_seen"] != [[["flash", H // tp, KH // tp]]] * TP:
+            raise AssertionError(f"phase 17 {key}: the ranks' attention calls saw "
+                                 f"{c['heads_seen']}, not their {H // tp}/{KH // tp} heads")
+        if DEVICE == "cuda":
+            route = "cuda_core" if family_tp_cfg(arch).head_dim > 128 else "tensor_core"
+            for i in range(TP):
+                for k in ("flash_launches", "backward_launches", "backward_routes"):
+                    if c[k][i] != one[arch][k]:
+                        raise AssertionError(f"phase 17 {key} rank {i}: {k} {c[k][i]}, one "
+                                             f"device's {one[arch][k]}")
+                if set(k for k, v in c["backward_routes"][i].items() if v) != {route}:
+                    raise AssertionError(f"phase 17 {key} rank {i}: backward routes "
+                                         f"{c['backward_routes'][i]}, not {route}")
+    for arch, ranks in model.items():
+        cfg, want = family_tp_cfg(arch), one[f"model {arch}"]
+        H, KH = cfg.num_heads, cfg.num_kv_heads
+        heads = [["flash", H // TP, KH // TP], ["paged", H // TP, KH // TP]]
+        for i, m in enumerate(ranks):
+            if m["heads_seen"] != heads:
+                raise AssertionError(f"phase 17 model {arch} rank {i}: the attention calls saw "
+                                     f"{m['heads_seen']}, not {heads}")
+            if (2 * m["cache_bytes"] != m["one_device_cache_bytes"]
+                    or m["param_bytes_held"] != m["param_bytes_by_rules"]
+                    or not m["param_bytes_held"] < want["param_bytes"]):
+                raise AssertionError(f"phase 17 model {arch} rank {i}: holds {m['cache_bytes']}"
+                                     f" cache and {m['param_bytes_held']} parameter bytes "
+                                     f"(the rules' share {m['param_bytes_by_rules']}, one "
+                                     f"device {want['param_bytes']})")
+            if DEVICE == "cuda" and (m["flash_launches"], m["paged_launches"]) != (
+                    want["flash_launches"], want["paged_launches"]):
+                raise AssertionError(f"phase 17 model {arch} rank {i}: {m['flash_launches']} "
+                                     f"flash and {m['paged_launches']} paged launches, one "
+                                     f"device's {want['flash_launches']} and "
+                                     f"{want['paged_launches']}")
+            for s, step in enumerate(m["steps"]):
+                if not (step["excess_over_band_and_spread"] <= 0
+                        and all(g <= b for g, b in zip(step["tie_gap"], step["tie_band"]))):
+                    raise AssertionError(f"phase 17 model {arch} rank {i}, step {s}: {step}")
+    if not all(record["functional_collectives_refused"]):
+        raise AssertionError("phase 17 ran without the functional collectives refused")
+    return record
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -6524,6 +7169,10 @@ def main(argv=None) -> int:
         return 0
     if "--train-ssm-tp" in argv:
         train_ssm_tp()
+        log("command seconds " + json.dumps({"seconds": time.perf_counter() - t_command}))
+        return 0
+    if "--train-family-tp" in argv:
+        train_family_tp()
         log("command seconds " + json.dumps({"seconds": time.perf_counter() - t_command}))
         return 0
 
@@ -6683,6 +7332,13 @@ def main(argv=None) -> int:
     ssm_tp_cases = train_ssm_mesh["cases"]
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 17: gemma2 trained, whisper's and internvl2's loss and gradient
+    # on (1, 2) and (2, 1) meshes, and the three at model level on (1, 2),
+    # held to one device
+    train_family = train_family_tp()
+    family_cases, family_model = train_family["cases"], train_family["model_level"]
+    gc.collect()
+    torch.cuda.empty_cache()
     # last: after torch.compile a profile can lose kernel records, and the
     # replays' checks count kernels in profiles
     time_flex_yardstick(flash_timing)
@@ -6716,6 +7372,8 @@ def main(argv=None) -> int:
             "launches_whisper_decode": whisper["paged_kernel_launches"],
             "launches_internvl2_slot_decode": internvl2["paged_kernel_launches_slots"],
             "launches_internvl2_decode_paged": internvl2["paged_kernel_launches_pool"],
+            **{f"launches_a_rank_model_level_tp {arch}": ranks[0]["paged_launches"]
+               for arch, ranks in family_model.items()},
             "max_abs_err": paged_err,
             "ms": paged_timing["ms"],
             "device_ms": paged_timing["device_ms"],
@@ -6760,6 +7418,10 @@ def main(argv=None) -> int:
             "launches_zamba2_training": train_zamba2["flash_launches"],
             "launches_a_rank_zamba2_training_tp": ssm_tp_cases["zamba2-2.7b 1x2"][
                 "flash_launches"][0],
+            **{f"launches_a_rank {key}": c["flash_launches"][0]
+               for key, c in family_cases.items()},
+            **{f"launches_a_rank_model_level_tp {arch}": ranks[0]["flash_launches"]
+               for arch, ranks in family_model.items()},
             "max_abs_err": flash_err,
             "ms": ft["ms"],
             "device_ms": ft["device_ms"],
@@ -6790,6 +7452,10 @@ def main(argv=None) -> int:
             "launches_zamba2_training_by_route": train_zamba2["flash_backward_routes"],
             "launches_a_rank_zamba2_training_tp": ssm_tp_cases["zamba2-2.7b 1x2"][
                 "backward_launches"][0],
+            **{f"launches_a_rank {key}": c["backward_launches"][0]
+               for key, c in family_cases.items()},
+            **{f"launches_a_rank {key} by_route": c["backward_routes"][0]
+               for key, c in family_cases.items()},
             "max_abs_err": bwd_err,
             "max_abs_err_note": "relative to each gradient's largest entry",
             "launches_by_route": train["backward_routes"],

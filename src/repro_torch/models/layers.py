@@ -76,11 +76,14 @@ from repro_torch.kernels.paged_attention.ops import paged_attention, paged_atten
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.kernels.ssd.ref import ssd_decode_step
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import Leaf
+from repro_torch.models.params import Leaf, put_block
 
 F32 = torch.float32
 #: the logical axes of one layer's slot cache ``[B, S, KH, HD]``
 SLOT_AXES = ("batch", "kv_seq", "kv_heads_act", "head_dim")
+#: the logical axes of a sequence's queries and K/V ``[B, S, heads, HD]``
+HEADS_ACT = ("batch", None, "heads_act", None)
+KV_HEADS_ACT = ("batch", None, "kv_heads_act", None)
 
 
 @dataclass
@@ -124,6 +127,17 @@ class ShardCtx:
             return t
         sh = self.rules.sharding(self.mesh, logical, tuple(shape))
         return place_block(t, self.mesh.device_mesh(), sh.placements(), shape)
+
+    def place(self, t, logical):
+        """``t`` placed by ``logical``: a DTensor as :meth:`constrain`
+        places it; a plain tensor that every rank holds whole (a batch's
+        frames or image embeddings) as this rank's block of it, with no
+        collective."""
+        if self.mesh is None:
+            return t
+        if is_dtensor(t):
+            return self.constrain(t, logical)
+        return put_block(t, self.rules.sharding(self.mesh, logical, tuple(t.shape)))
 
     @staticmethod
     def local(x):
@@ -284,10 +298,18 @@ def _project_qkv(p, x, h, kh, hd, positions, theta, ctx=NULL_CTX):
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = ctx.split_heads(q, h, hd, ("batch", None, "heads_act", None))
-    k = ctx.split_heads(k, kh, hd, ("batch", None, "kv_heads_act", None))
-    v = ctx.split_heads(v, kh, hd, ("batch", None, "kv_heads_act", None))
+    q = ctx.split_heads(q, h, hd, HEADS_ACT)
+    k = ctx.split_heads(k, kh, hd, KV_HEADS_ACT)
+    v = ctx.split_heads(v, kh, hd, KV_HEADS_ACT)
     return rope(q, positions, theta), rope(k, positions, theta), v
+
+
+def slot_operands(ctx, k_cache, v_cache, kv_heads: int) -> tuple:
+    """A layer's slot buffers ``[B, S, KH, HD]`` as :func:`decode_attention`
+    takes them: on a mesh this rank's blocks of the ``kv_heads`` KV heads,
+    as DTensors of the whole shape (plain tensors as they are)."""
+    shape = (*k_cache.shape[:2], kv_heads, k_cache.shape[3])
+    return ctx.from_local(k_cache, SLOT_AXES, shape), ctx.from_local(v_cache, SLOT_AXES, shape)
 
 
 def slot_pages(cache, page_tokens: int):
@@ -734,11 +756,9 @@ def apply_dense_block(
             attn_lengths = lengths
         _write_slot(k_cache, ctx.local(k)[:, 0], idx)
         _write_slot(v_cache, ctx.local(v)[:, 0], idx)
-        shape = (*k_cache.shape[:2], kh, hd)
         attn = decode_attention(
-            q[:, 0], ctx.from_local(k_cache, SLOT_AXES, shape),
-            ctx.from_local(v_cache, SLOT_AXES, shape), lengths=attn_lengths, window=window,
-            cap=cfg.attn_logit_softcap, page_tokens=page_tokens,
+            q[:, 0], *slot_operands(ctx, k_cache, v_cache, kh), lengths=attn_lengths,
+            window=window, cap=cfg.attn_logit_softcap, page_tokens=page_tokens,
         )[:, None, :]
         new_kv = (k_cache, v_cache)
     x = x + _row_parallel(ctx, attn, p["attn"]["wo"])
@@ -1047,10 +1067,8 @@ def apply_shared_block(p, h, x0, cfg: ModelConfig, *, positions, cache=None,
         idx = lengths - 1
         _write_slot(k_cache, ctx.local(k)[:, 0], idx)
         _write_slot(v_cache, ctx.local(v)[:, 0], idx)
-        shape = (*k_cache.shape[:2], kh, hd)
-        attn = decode_attention(q[:, 0], ctx.from_local(k_cache, SLOT_AXES, shape),
-                                ctx.from_local(v_cache, SLOT_AXES, shape), lengths=lengths,
-                                page_tokens=page_tokens)[:, None, :]
+        attn = decode_attention(q[:, 0], *slot_operands(ctx, k_cache, v_cache, kh),
+                                lengths=lengths, page_tokens=page_tokens)[:, None, :]
         new_kv = (k_cache, v_cache)
     xin = xin + _row_parallel(ctx, attn, p["attn"]["wo"])
     xin = xin + apply_ffn(p["ffn"], rmsnorm(xin, p["ln2"]), ctx)

@@ -17,15 +17,16 @@ PyTorch runs eagerly: the reference's ``lax.scan`` over stacked layers is
 a Python loop over the layer index, and its functional pool update under
 donation is an in-place ``index_put_`` on the pool tensors.
 
-On a mesh of more than one device (the dense, moe, ssm and hybrid
-families: ``prefill``, ``sequence``, the dense families' ``decode_paged``
-and ``decode``/``decode_into`` with a
+On a mesh of more than one device (every family: ``prefill``,
+``sequence``, the paged families' ``decode_paged`` and
+``decode``/``decode_into`` with a
 :class:`~repro_torch.models.layers.ShardCtx`) the weights are DTensors,
 the residual stream is replicated, the logits are sharded by vocabulary,
-and the page pool's tensors, the slot caches and the SSM states are each
-rank's own block (of the KV heads, of the SSD heads). :meth:`Model.loss`
-takes a ``ctx`` too, for those families' training step on a mesh (FSDP
-over "data", tensor parallel over "model").
+and the page pool's tensors, the slot caches (gemma2's local ring and
+global slots, whisper's decoder slots and cross caches) and the SSM
+states are each rank's own block (of the KV heads, of the SSD heads).
+:meth:`Model.loss` takes a ``ctx`` too, for every family's training step
+on a mesh (FSDP over "data", tensor parallel over "model").
 """
 from __future__ import annotations
 
@@ -38,8 +39,11 @@ from repro_torch.kernels import kv_quant
 from repro_torch.kernels.flash_attention.ops import prefill_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
+    HEADS_ACT,
+    KV_HEADS_ACT,
     NULL_CTX,
     _project_qkv,
+    _row_parallel,
     _write_slot,
     apply_dense_block,
     apply_dense_block_paged,
@@ -53,6 +57,7 @@ from repro_torch.models.layers import (
     describe_shared_block,
     dividing_page_tokens,
     rmsnorm,
+    slot_operands,
     softcap,
     stack,
 )
@@ -81,35 +86,10 @@ def _check_prefix(cfg: ModelConfig, prefix) -> None:
         raise ValueError(f"{cfg.name} ({kind}) has no prefix to attend over")
 
 
-#: the families whose step runs on a mesh of more than one device
-MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def _check_ctx(cfg: ModelConfig, ctx) -> None:
-    """The dense, moe, ssm and hybrid families step on a mesh; gemma2's
-    alternation, whisper and internvl2 not yet."""
-    if ctx.mesh is not None and (cfg.family not in MESH_FAMILIES
-                                 or cfg.local_global_alternating):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on a mesh of more than one device is not ported: "
-            f"the {'/'.join(MESH_FAMILIES)} families run there; local/global alternation, "
-            "encdec and vlm on a mesh are later steps of ROADMAP section 1 item 5")
-
-
-#: the families whose training step runs on a mesh of more than one device
-TRAIN_MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
 def check_train_mesh(cfg: ModelConfig, mesh=None) -> None:
-    """The dense, moe, ssm and hybrid families (without alternation) train
-    on a mesh, moe only where no "pod" axis of more than one device
-    shards its experts (``mesh``, when given, is the training mesh)."""
-    if cfg.family not in TRAIN_MESH_FAMILIES or cfg.local_global_alternating:
-        raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family}) on a mesh of more than one device is not "
-            f"ported: the {'/'.join(TRAIN_MESH_FAMILIES)} families train there; local/global "
-            "alternation, encdec and vlm on a mesh are later steps of ROADMAP section 1 "
-            "item 5")
+    """Every family trains on a mesh of more than one device, moe only
+    where no "pod" axis of more than one device shards its experts
+    (``mesh``, when given, is the training mesh)."""
     if cfg.family == "moe" and mesh is not None and dict(mesh.shape).get("pod", 1) > 1:
         raise NotImplementedError(
             f"training {cfg.name} on a mesh whose \"pod\" axis has {dict(mesh.shape)['pod']} "
@@ -327,28 +307,29 @@ class Model(nn.Module):
         attending over the encoder's output on ``frames`` [B,S_enc,d].
         With ``cfg.remat`` a recording forward recomputes each block (each
         (local, global) pair, each hybrid group) in the backward. ``ctx``
-        places the activations of the families of :data:`MESH_FAMILIES`
-        on a mesh (a prefix is then a DTensor placed by KV heads); the
-        others refuse one. On a mesh the ssm and hybrid states are each
+        places the activations on a mesh (a prefix is then a DTensor
+        placed by KV heads, whisper's ``frames`` are placed by rows and
+        whole over "model"). On a mesh the ssm and hybrid states are each
         rank's own plain tensors (the SSM state its heads', the conv state
         its heads' ``x`` channels and then all of ``B`` and ``C``,
         :func:`~repro_torch.models.layers.mamba_columns`); the shared
-        block's K/V are DTensors placed by KV heads.
+        block's K/V, like every family's K/V and cross caches, are
+        DTensors placed by KV heads.
         """
         cfg = self.cfg
         _check_prefix(cfg, prefix)
-        _check_ctx(cfg, ctx)
         layers, enc_layers = self._layer_slices()
         keep = collect_cache   # a block returns its cache only when it is collected
         steps = [(p,) for p in layers]   # each block's arguments after the hidden state
         if cfg.family == "encdec":
             if frames is None:
                 raise ValueError(f"{cfg.name} (encdec) takes the encoder's frames")
-            enc_out = self._encode(frames, enc_layers)
+            enc_out = self._encode(frames, enc_layers, ctx)
             names = ENCDEC_CACHE
 
             def body(h, p):
-                h, kv, ckv = self._decoder_block(p, h, positions, enc_out=enc_out)
+                h, kv, ckv = self._decoder_block(ctx.params(p), h, positions, enc_out=enc_out,
+                                                 ctx=ctx)
                 return h, (*kv, *ckv) if keep else None, 0.0
         elif cfg.family == "ssm":
             names = ("ssm", "conv")
@@ -375,10 +356,12 @@ class Model(nn.Module):
             names = None
 
             def body(h, p):
-                h, kv_l, a_l = apply_dense_block(p["local"], h, cfg, positions=positions,
-                                                 window=cfg.sliding_window, with_aux=True)
-                h, kv_g, a_g = apply_dense_block(p["global"], h, cfg, positions=positions,
-                                                 window=None, with_aux=True)
+                h, kv_l, a_l = apply_dense_block(ctx.params(p["local"]), h, cfg,
+                                                 positions=positions, window=cfg.sliding_window,
+                                                 with_aux=True, ctx=ctx)
+                h, kv_g, a_g = apply_dense_block(ctx.params(p["global"]), h, cfg,
+                                                 positions=positions, window=None,
+                                                 with_aux=True, ctx=ctx)
                 return h, (*kv_l, *kv_g) if keep else None, a_l + a_g
         else:
             names = ("k", "v")
@@ -407,20 +390,24 @@ class Model(nn.Module):
             return x, {"local": {"k": lk, "v": lv}, "global": {"k": gk, "v": gv}}, aux
         return x, dict(zip(names, stacks)), aux
 
-    def _encode(self, frames, enc_layers=None):
+    def _encode(self, frames, enc_layers=None, ctx=NULL_CTX):
         """The encoder over ``frames`` [B, S_enc, d]: RoPE positions from 0,
         bidirectional attention, ``frames`` cast to bf16 whatever the
         weights' type, as the reference casts them. ``enc_layers``: the
-        encoder's layer slices (default: those cached at construction)."""
-        h = frames.to(torch.bfloat16)
+        encoder's layer slices (default: those cached at construction).
+        On a mesh ``frames`` are placed by rows over the batch's axes and
+        whole over "model", as the reference's ``batch_specs`` places
+        them (:meth:`~repro_torch.models.layers.ShardCtx.place`)."""
+        cfg = self.cfg
+        h = ctx.place(frames, ("batch", None, None)).to(torch.bfloat16)
         pos = torch.arange(h.shape[1], device=h.device)[None, :]
         for p in self._enc_layers if enc_layers is None else enc_layers:
-            h, _ = self._block(
-                lambda x, p=p: apply_dense_block(p, x, self.cfg, positions=pos, causal=False), h)
-        return rmsnorm(h, self.params.enc_ln_f)
+            h, _ = self._block(lambda x, p=p: apply_dense_block(
+                ctx.params(p), x, cfg, positions=pos, causal=False, ctx=ctx), h)
+        return rmsnorm(h, ctx.param(self.params.enc_ln_f))
 
     def _decoder_block(self, p, h, positions, *, enc_out=None, cache=None, lengths=None,
-                       page_tokens: int = 16):
+                       page_tokens: int = 16, ctx=NULL_CTX):
         """whisper's decoder block: self-attention, cross-attention (no RoPE,
         no bias), the FFN. Sequence mode (``cache`` None): causal
         self-attention and cross-attention over ``enc_out`` through the
@@ -429,39 +416,50 @@ class Model(nn.Module):
         K/V are written at ``lengths - 1`` in place and attended through
         :func:`decode_attention`; the cross caches are read whole, as pages
         of :func:`dividing_page_tokens` of the encoder length, never
-        written. Returns ``(h, (k, v), (ck, cv))`` with the caches."""
+        written. Returns ``(h, (k, v), (ck, cv))`` with the caches.
+
+        On a mesh (``ctx``) the block runs as the dense block does: each
+        rank attends its own heads, the cross queries and ``ck``/``cv`` are
+        column-parallel products on the rank's heads and KV heads, both
+        ``wo`` and the FFN's ``w_down`` reduce their partial sums in f32,
+        and in decode mode the slot buffers and the cross caches are the
+        rank's own blocks of the KV heads. ``enc_out``'s gradient through
+        ``ck``/``cv`` is each model rank's partial sum (its KV heads'
+        columns): autograd adds every layer's partials on the rank, and the
+        encoder's final norm (its ``on_blocks`` crossing) sums them over
+        the ranks once, in f32."""
         cfg = self.cfg
         H, KH, HD = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         B, S = h.shape[:2]
         a_in = rmsnorm(h, p["ln1"])
-        q, k, v = _project_qkv(p["attn"], a_in, H, KH, HD, positions, cfg.rope_theta)
+        q, k, v = _project_qkv(p["attn"], a_in, H, KH, HD, positions, cfg.rope_theta, ctx)
         cross = p["cross"]
         if cache is None:
             a = prefill_attention(q, k, v, causal=True)
-            h = h + a.reshape(B, S, H * HD) @ p["attn"]["wo"]
+            h = h + _row_parallel(ctx, a.reshape(B, S, H * HD), p["attn"]["wo"])
             xq = rmsnorm(h, p["lnx"])
-            q = (xq @ cross["wq"]).reshape(B, S, H, HD)
-            ck = (enc_out @ cross["wk"]).reshape(B, -1, KH, HD)
-            cv = (enc_out @ cross["wv"]).reshape(B, -1, KH, HD)
+            q = ctx.split_heads(xq @ cross["wq"], H, HD, HEADS_ACT)
+            ck = ctx.split_heads(enc_out @ cross["wk"], KH, HD, KV_HEADS_ACT)
+            cv = ctx.split_heads(enc_out @ cross["wv"], KH, HD, KV_HEADS_ACT)
             a = prefill_attention(q, ck, cv, causal=False)
             kv = (k, v)
         else:
             k_cache, v_cache, ck, cv = cache
-            _write_slot(k_cache, k[:, 0], lengths - 1)
-            _write_slot(v_cache, v[:, 0], lengths - 1)
-            a = decode_attention(q[:, 0], k_cache, v_cache, lengths=lengths,
-                                 page_tokens=page_tokens)
-            h = h + a[:, None, :] @ p["attn"]["wo"]
+            _write_slot(k_cache, ctx.local(k)[:, 0], lengths - 1)
+            _write_slot(v_cache, ctx.local(v)[:, 0], lengths - 1)
+            a = decode_attention(q[:, 0], *slot_operands(ctx, k_cache, v_cache, KH),
+                                 lengths=lengths, page_tokens=page_tokens)
+            h = h + _row_parallel(ctx, a[:, None, :], p["attn"]["wo"])
             xq = rmsnorm(h, p["lnx"])
-            q = (xq @ cross["wq"]).reshape(B, H, HD)
+            q = ctx.split_heads(xq @ cross["wq"], H, HD, HEADS_ACT)[:, 0]
             enc_seq = ck.shape[1]
             enc_len = torch.full((B,), enc_seq, dtype=torch.int32, device=h.device)
-            a = decode_attention(q, ck, cv, lengths=enc_len,
+            a = decode_attention(q, *slot_operands(ctx, ck, cv, KH), lengths=enc_len,
                                  page_tokens=dividing_page_tokens(enc_seq))
             kv = (k_cache, v_cache)
-        h = h + a.reshape(B, S, H * HD) @ cross["wo"]
-        h = h + apply_ffn(p["ffn"], rmsnorm(h, p["ln2"]))
-        return h, kv, (ck, cv)
+        h = h + _row_parallel(ctx, a.reshape(B, S, H * HD), cross["wo"])
+        h = h + apply_ffn(p["ffn"], rmsnorm(h, p["ln2"]), ctx)
+        return ctx.constrain(h, ("batch", "seq", "embed_act")), kv, (ck, cv)
 
     # ------------------------------------------------------------ prefill
     @torch.no_grad()
@@ -509,7 +507,7 @@ class Model(nn.Module):
             prefix = {n: ctx.from_local(t, KV_AXES, self._kv_shape(t)) for n, t in prefix.items()}
         n_img = 0
         if self.cfg.family == "vlm":
-            img = batch["image_embeds"].to(x.dtype)
+            img = self._image_embeds(batch, x, ctx)
             n_img = img.shape[1]
             x = torch.cat([img, x], dim=1)
         S = x.shape[1]
@@ -524,6 +522,13 @@ class Model(nn.Module):
         else:
             row = h[:, idx, :]
         return self._logits(row, ctx), cache
+
+    @staticmethod
+    def _image_embeds(batch, x, ctx):
+        """``batch["image_embeds"]`` [B, n_img, d] in the type of the token
+        embeddings ``x``, placed as ``x`` is (rows over the batch's axes,
+        whole over "model"), so that they are joined block to block."""
+        return ctx.place(batch["image_embeds"], ("batch", "seq", "embed_act")).to(x.dtype)
 
     def _kv_shape(self, t) -> tuple[int, ...]:
         """The whole shape of a KV stack ``[L, B, S, KH, HD]`` of which
@@ -541,10 +546,12 @@ class Model(nn.Module):
         differentiate it with ``torch.autograd``. On the card every
         attention layer runs the flash kernel forward and backward.
 
-        On a mesh (``ctx``; the families of :data:`TRAIN_MESH_FAMILIES`
-        without alternation) the weights are DTensors placed by the train rules,
-        ``tokens`` a DTensor sharded by rows over the batch's axes ("data"),
-        each rank's rows its own. The embedding is looked up on each rank's
+        On a mesh (``ctx``; every family, moe only without a "pod" axis of
+        more than one device, :func:`check_train_mesh`) the weights are
+        DTensors placed by the train rules, ``tokens`` a DTensor sharded by
+        rows over the batch's axes ("data"), each rank's rows its own, and
+        ``frames`` or ``image_embeds`` (whole on every rank, or DTensors)
+        placed so too. The embedding is looked up on each rank's
         vocabulary rows, the residual stream is sharded by rows and whole
         over "model", the logits are sharded by vocabulary and the
         cross-entropy is taken on them
@@ -555,7 +562,10 @@ class Model(nn.Module):
         mean over the whole batch's groups as well: a plain 0-d tensor
         equal on every rank, as ``ce`` is. The Mamba-2 blocks run on each
         rank's rows and SSD heads
-        (:func:`~repro_torch.models.layers.apply_mamba_block`)."""
+        (:func:`~repro_torch.models.layers.apply_mamba_block`); gemma2's
+        (local, global) pairs, whisper's encoder and decoder and internvl2's
+        image prefix as the dense block does, each rank attending its own
+        heads (:meth:`_decoder_block`)."""
         if ctx.mesh is not None:
             check_train_mesh(self.cfg, ctx.mesh)
         with ctx.scope():
@@ -571,7 +581,7 @@ class Model(nn.Module):
             x = ctx.embedding(inputs, self.params.embed, ("batch", "seq", "embed_act"))
         n_img = 0
         if cfg.family == "vlm":
-            img = batch["image_embeds"].to(x.dtype)
+            img = self._image_embeds(batch, x, ctx)
             n_img = img.shape[1]
             x = torch.cat([img, x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -629,23 +639,29 @@ class Model(nn.Module):
         does and reads the cross caches ``ck``/``cv`` whole, without
         writing them. vlm: as dense (``lengths`` count the image tokens).
 
-        On a mesh (``ctx``, the families of :data:`MESH_FAMILIES`) the
-        slot buffers are this rank's own block of the KV heads, the ssm
+        Every path looks the token up through ``ctx.embedding`` and takes
+        the logits through ``_logits(..., ctx)``. On a mesh (``ctx``) the
+        slot buffers (gemma2's local ring and global slots, whisper's
+        decoder slots and cross caches) are this rank's own block of the
+        KV heads, the ssm
         and hybrid states its own (the SSM state its heads', the conv state
         its heads' ``x`` channels and all of ``B`` and ``C``, as
         :meth:`prefill` returns them), and the logits are sharded by
         vocabulary."""
         cfg = self.cfg
-        _check_ctx(cfg, ctx)
-        if cfg.family in PAGED_FAMILIES and not cfg.local_global_alternating:
-            with ctx.scope():
-                return self._decode_slots(state, tokens, lengths, page_tokens, ctx)
-        if cfg.family in ("ssm", "hybrid") and ctx.mesh is not None:
-            with ctx.scope():
-                return self._decode_ssm(state, tokens, lengths, page_tokens, ctx)
-        x = self.params.embed[tokens][:, None, :]           # [B,1,d]
-        if cfg.local_global_alternating:
+        with ctx.scope():
+            x = self._embed_step(tokens, ctx)
+            if cfg.family in ("ssm", "hybrid"):
+                return self._decode_ssm(state, x, lengths, page_tokens, ctx)
             positions = (lengths - 1)[:, None]
+            if cfg.family == "encdec":
+                for l, p in enumerate(self._layers):
+                    x, _, _ = self._decoder_block(
+                        p, x, positions, lengths=lengths, page_tokens=page_tokens,
+                        cache=tuple(state[name][l] for name in ENCDEC_CACHE), ctx=ctx)
+                return self._logits(x[:, 0, :], ctx)
+            if not cfg.local_global_alternating:
+                return self._decode_slots(state, x, positions, lengths, page_tokens, ctx)
             local, glob = state["local"], state["global"]
             slots = local["k"].shape[2]
             ring = slots if slots < glob["k"].shape[2] else None
@@ -653,30 +669,25 @@ class Model(nn.Module):
                 x, _ = apply_dense_block(
                     p["local"], x, cfg, positions=positions, window=cfg.sliding_window,
                     cache=(local["k"][l], local["v"][l]), lengths=lengths,
-                    page_tokens=page_tokens, ring_window=ring,
+                    page_tokens=page_tokens, ring_window=ring, ctx=ctx,
                 )
                 x, _ = apply_dense_block(
                     p["global"], x, cfg, positions=positions, window=None,
                     cache=(glob["k"][l], glob["v"][l]), lengths=lengths,
-                    page_tokens=page_tokens,
+                    page_tokens=page_tokens, ctx=ctx,
                 )
-            return self._logits(x[:, 0, :])
-        if cfg.family == "encdec":
-            positions = (lengths - 1)[:, None]
-            for l, p in enumerate(self._layers):
-                x, _, _ = self._decoder_block(
-                    p, x, positions, lengths=lengths, page_tokens=page_tokens,
-                    cache=tuple(state[name][l] for name in ENCDEC_CACHE))
-            return self._logits(x[:, 0, :])
-        return self._decode_ssm(state, tokens, lengths, page_tokens, ctx, x)
+            return self._logits(x[:, 0, :], ctx)
 
-    def _decode_ssm(self, state, tokens, lengths, page_tokens, ctx, x=None):
-        """:meth:`decode_into` for the ssm and hybrid families; ``x`` the
-        token's embedding where the caller looked it up."""
+    def _embed_step(self, tokens, ctx):
+        """A decode step's token embeddings ``[B, 1, d]``: on a mesh each
+        rank looks up its vocabulary rows (indexing would gather a
+        vocabulary-sharded table); with a plain table the same lookup."""
+        return ctx.embedding(tokens[:, None], self.params.embed, ("batch", "seq", "embed_act"))
+
+    def _decode_ssm(self, state, x, lengths, page_tokens, ctx):
+        """:meth:`decode_into` for the ssm and hybrid families from the
+        token's embedding ``x``."""
         cfg = self.cfg
-        if x is None:
-            x = ctx.embedding(tokens[:, None], self.params.embed,
-                              ("batch", "seq", "embed_act"))    # [B,1,d]
         if cfg.family == "hybrid":
             x0 = x
             positions = (lengths - 1)[:, None]
@@ -693,16 +704,12 @@ class Model(nn.Module):
             x = self._mamba_step(p, x, state["ssm"][l], state["conv"][l], ctx)
         return self._logits(x[:, 0, :], ctx)
 
-    def _decode_slots(self, state, tokens, lengths, page_tokens, ctx):
+    def _decode_slots(self, state, x, positions, lengths, page_tokens, ctx):
         """:meth:`decode_into` for the paged families without alternation,
         over slot buffers ``{"k", "v"}``."""
-        cfg = self.cfg
-        x = ctx.embedding(tokens[:, None], self.params.embed,
-                          ("batch", "seq", "embed_act"))        # [B,1,d]
-        positions = (lengths - 1)[:, None]
         for l, p in enumerate(self._layers):
             x, _ = apply_dense_block(
-                p, x, cfg, positions=positions, window=cfg.sliding_window,
+                p, x, self.cfg, positions=positions, window=self.cfg.sliding_window,
                 cache=(state["k"][l], state["v"][l]), lengths=lengths,
                 page_tokens=page_tokens, ctx=ctx,
             )
@@ -747,7 +754,6 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"paged decode serves the {'/'.join(PAGED_FAMILIES)} families without "
                 f"local/global alternation, not {cfg.name}")
-        _check_ctx(cfg, ctx)
         with ctx.scope():
             return self._decode_paged(k_pages, v_pages, tokens, lengths, block_tables,
                                       tail_pages, tail_offsets, k_scales, v_scales, ctx,
@@ -757,8 +763,7 @@ class Model(nn.Module):
                       tail_pages, tail_offsets, k_scales, v_scales, ctx, reduce_amax):
         cfg = self.cfg
         quantized = k_scales is not None
-        x = ctx.embedding(tokens[:, None], self.params.embed,
-                          ("batch", "seq", "embed_act"))    # [B,1,d]
+        x = self._embed_step(tokens, ctx)                  # [B,1,d]
         k_news, v_news = [], []
         for l, p in enumerate(self._layers):
             x, (k_new, v_new) = apply_dense_block_paged(

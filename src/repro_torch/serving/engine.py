@@ -113,27 +113,20 @@ def check_servable(cfg: ModelConfig) -> None:
             f"({'/'.join(PAGED_FAMILIES)} without local/global alternation)")
 
 
-#: the families an engine serves on a mesh of more than one device
-SERVE_MESH_FAMILIES = ("dense", "moe")
-
-
 def check_mesh_servable(cfg: ModelConfig, mesh) -> None:
-    """What an engine serves on a mesh of more than one device: the dense
-    and moe families, paged or on dense slots, in either page format,
-    over a model axis alone. Raises ``NotImplementedError`` for the rest,
-    each a later step of ROADMAP section 1 item 5."""
-    later = []
+    """What an engine serves on a mesh of more than one device: every
+    family :func:`check_servable` admits (dense, moe and vlm; vlm, as the
+    reference's engine admits it with a placement, fails at its first
+    prefill as on one device), paged or on dense slots, in either page
+    format, over a model axis alone. Raises ``NotImplementedError`` for a
+    larger axis other than "model", a later step of ROADMAP section 1
+    item 5."""
     wide = {a: n for a, n in mesh.shape.items() if a != "model" and n > 1}
     if wide:
-        later.append(f"a mesh axis other than 'model' larger than one ({wide}: "
-                     "data-parallel batches inside a replica)")
-    if cfg.family not in SERVE_MESH_FAMILIES:
-        later.append(f"the {cfg.family} family")
-    if later:
         raise NotImplementedError(
-            f"serving {cfg.name} on {mesh}: " + "; ".join(later) + " not ported on a "
-            "mesh yet (ROADMAP section 1 item 5: the dense and moe families on a model "
-            "axis are done, these come later)")
+            f"serving {cfg.name} on {mesh}: a mesh axis other than 'model' larger than one "
+            f"({wide}: data-parallel batches inside a replica) not ported on a mesh yet "
+            "(ROADMAP section 1 item 5: a model axis is done, this comes later)")
 
 
 @dataclass

@@ -272,3 +272,91 @@ def ssm_tokens(vocab: int) -> dict:
 
 def ssm_key(name: str, dtype: str) -> str:
     return f"{name} model {dtype}"
+
+
+# ------------------------------------------------- the families suite
+#: the families suite's configurations: name -> architecture, each at its
+#: reduced size (gemma2: 2 (local, global) pairs, 4 query heads over 2 KV
+#: heads, window 64, softcaps 50 and 30; whisper: 2 encoder and 4 decoder
+#: layers of 4 heads over 24 encoder positions; internvl2: 4 query heads
+#: over 1 KV head, which the model axis does not divide, and 8 image
+#: tokens)
+TRAIN_FAMILY_CONFIGS = {"gemma2": "gemma2-9b", "whisper": "whisper-medium",
+                        "internvl2": "internvl2-26b"}
+#: gemma2 trains on sequences longer than its reduced window, so that the
+#: local layers' window binds
+TRAIN_DATA_OF = {"gemma2": dict(seq_len=96, global_batch=4)}
+#: gemma2 through both ``Trainer``s, as ``TRAIN_CASES``
+GEMMA2_TRAIN_CASES = [("gemma2", mesh, dtype) for dtype in ("f32", "bf16")
+                      for mesh in TRAIN_MESHES]
+#: ``Model.loss`` and its gradient, for the families whose ``Trainer``
+#: feeds no frames or images: (configuration, mesh, dtype)
+LOSS_CASES = [(name, mesh, dtype) for dtype in ("f32", "bf16") for name in ("whisper", "internvl2")
+              for mesh in TRAIN_MESHES]
+#: a loss case's rows and tokens (the text, plus the label shift)
+LOSS_BATCH = (4, 33)
+#: model level on ``MESH`` under the decode rules: prompt rows and tokens
+#: (gemma2's longer than its window of 64, so that its ring wraps), the
+#: teacher-forced decode steps, the slots (gemma2's global ones; its local
+#: ring holds ``RING_SLOTS``, the window)
+FAMILY_PROMPT = {"gemma2": (2, 80), "whisper": (2, 16), "internvl2": (2, 24)}
+FAMILY_DECODE_STEPS = 4
+FAMILY_MAX_SEQ = 96
+RING_SLOTS = 64
+#: every (configuration, dtype) held at model level
+FAMILY_MODEL_CASES = [(name, dtype) for name in TRAIN_FAMILY_CONFIGS for dtype in ("f32", "bf16")]
+#: the block-level cases: gemma2's (local, global) pair and whisper's
+#: decoder block under autograd, rows and positions of their input (the
+#: pair's longer than the window), whisper's encoder positions
+BLOCK_SHAPE = {"gemma2": (4, 80), "whisper": (4, 16)}
+BLOCK_CASES = [(name, mesh) for name in BLOCK_SHAPE for mesh in TRAIN_MESHES]
+
+
+def family_inputs(name: str, cfg, rows: int, tokens: int, seed: int) -> dict:
+    """A batch of ``name``: ``tokens`` [rows, tokens] (int64), whisper's
+    ``frames`` [rows, encoder_seq, d] and internvl2's ``image_embeds``
+    [rows, num_image_tokens, d] (f32; each package casts them)."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(2, cfg.vocab_size, (rows, tokens)).astype(np.int64)}
+    if name == "whisper":
+        out["frames"] = rng.standard_normal((rows, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if name == "internvl2":
+        out["image_embeds"] = rng.standard_normal(
+            (rows, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def loss_inputs(name: str, cfg) -> dict:
+    return family_inputs(name, cfg, *LOSS_BATCH, seed=21)
+
+
+def family_prompt(name: str, cfg) -> dict:
+    """The model-level case's prompt batch and the tokens fed at each
+    decode step (``steps`` [steps, rows])."""
+    rows, n = FAMILY_PROMPT[name]
+    out = family_inputs(name, cfg, rows, n, seed=22)
+    rng = np.random.default_rng(23)
+    out["steps"] = rng.integers(2, cfg.vocab_size, (FAMILY_DECODE_STEPS, rows)).astype(np.int64)
+    return out
+
+
+def prompt_length(name: str, cfg) -> int:
+    """The positions a prefill of ``name``'s prompt fills (internvl2's
+    count its image tokens)."""
+    return FAMILY_PROMPT[name][1] + (cfg.num_image_tokens if name == "internvl2" else 0)
+
+
+def block_inputs(name: str, cfg) -> dict:
+    """The block-level case's input ``x`` and output weights ``w`` (and
+    whisper's encoder output ``enc``), f32."""
+    rng = np.random.default_rng(24)
+    B, S = BLOCK_SHAPE[name]
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    out = {"x": f(B, S, cfg.d_model), "w": f(B, S, cfg.d_model)}
+    if name == "whisper":
+        out["enc"] = f(B, cfg.encoder_seq, cfg.d_model)
+    return out
+
+
+def family_key(name: str, dtype: str) -> str:
+    return f"{name} model {dtype}"

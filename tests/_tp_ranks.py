@@ -40,9 +40,9 @@ WORLD = 2
 def start(work: Path, suite: str = "tp") -> list:
     """Spawn the ranks of ``suite`` (``"tp"``, ``tests/test_torch_tp.py``'s,
     ``"serving"``, ``tests/test_torch_tp_serving.py``'s, ``"train"``,
-    ``tests/test_torch_tp_train.py``'s, ``"train_moe"`` or ``"train_ssm"``,
-    ``tests/test_torch_tp_train_{moe,ssm}.py``'s) over a file store in
-    ``work``."""
+    ``tests/test_torch_tp_train.py``'s, ``"train_moe"``, ``"train_ssm"`` or
+    ``"train_families"``, ``tests/test_torch_tp_{train_moe,train_ssm,
+    families}.py``'s) over a file store in ``work``."""
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank, args=(r, str(work), suite)) for r in range(WORLD)]
     for p in procs:
@@ -107,7 +107,7 @@ def join(procs: list, deadline_s: float) -> list:
 def _rank(rank: int, work: str, suite: str) -> None:
     work = Path(work)
     jobs = {"serving": _serving_jobs, "train": _train_jobs, "train_moe": _train_moe_jobs,
-            "train_ssm": _train_ssm_jobs}.get(suite, _jobs)
+            "train_ssm": _train_ssm_jobs, "train_families": _train_families_jobs}.get(suite, _jobs)
     try:
         out, arrays = jobs(rank, work)
     except BaseException:
@@ -531,6 +531,8 @@ def _train_cfg(name: str):
         return get_config(C.TRAIN_MOE_CONFIGS[name]).reduced()
     if name in C.TRAIN_SSM_CONFIGS:
         return get_config(C.TRAIN_SSM_CONFIGS[name]).reduced()
+    if name in C.TRAIN_FAMILY_CONFIGS:
+        return get_config(C.TRAIN_FAMILY_CONFIGS[name]).reduced()
     cfg = get_config(C.ARCH).reduced()
     return dataclasses.replace(cfg, **C.GQA) if name == "gqa" else cfg
 
@@ -560,7 +562,8 @@ def _train_trainer(name: str, shape, dtype: str, dev, *, steps: int = C.TRAIN_ST
     from repro_torch.train.optimizer import describe_opt_state
 
     cfg = _train_cfg(name)
-    data = {**C.TRAIN_DATA, **({} if batch is None else {"global_batch": batch})}
+    data = {**C.TRAIN_DATA_OF.get(name, C.TRAIN_DATA),
+            **({} if batch is None else {"global_batch": batch})}
     kw = dict(device=dev) if shape is None else dict(mesh=_train_mesh(shape, dev))
     tr = Trainer(cfg, TrainConfig(steps=steps, microbatches=micro, log_every=1, **tcfg),
                  DataConfig(vocab_size=cfg.vocab_size, **data), **kw)
@@ -1031,4 +1034,363 @@ def _whole_ssm_cache(cache: dict, cfg, mesh) -> dict:
             out[name] = whole
         else:
             out[name] = torch.cat(parts, dim=t.ndim - 3 if name == "ssm" else t.ndim - 2)
+    return out
+
+
+# ------------------------------------------------- the families suite
+def _train_families_jobs(rank: int, work: Path):
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.local import no_functional_collectives
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}", rank=rank,
+                            world_size=WORLD)
+    cpu = torch.device("cpu")
+    out, arrays = {"rank": rank}, {}
+
+    def add(key, got, a):
+        out.update({f"{key} {k}": v for k, v in got.items()})
+        arrays.update({f"{key} {k}": v for k, v in a.items()})
+
+    with no_functional_collectives():
+        for name, shape in C.BLOCK_CASES:
+            add(f"{C.train_key(name, shape, 'f32')} block", *_family_block(name, shape, cpu))
+        for name, dtype in C.FAMILY_MODEL_CASES:
+            add(C.family_key(name, dtype), *_family_model_level(name, dtype, cpu))
+        for name, shape, dtype in C.LOSS_CASES:
+            add(f"{C.train_key(name, shape, dtype)} loss", *_family_loss(name, shape, dtype, cpu))
+        for name, shape, dtype in C.GEMMA2_TRAIN_CASES:
+            key = C.train_key(name, shape, dtype)
+            with _heads_seen() as seen:
+                add(key, *_train_case(name, shape, dtype, cpu))
+            out[f"{key} heads seen"] = sorted(set(seen))
+        for name in ("whisper", "internvl2"):
+            for shape in (*C.TRAIN_MESHES, None):
+                where = "one" if shape is None else f"{shape[0]}x{shape[1]}"
+                out[f"{name} trainer {where}"] = _trainer_first_step(name, shape, cpu)
+        out["vlm engine"] = _vlm_engine(cpu)
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank:
+        arrays = {}     # rank 0's gathered arrays are both ranks'
+    return out, arrays
+
+
+@contextlib.contextmanager
+def _heads_seen():
+    """Record ``(kernel, query heads, KV heads)`` of every attention call on
+    plain tensors while the block runs (on a mesh, each rank's local call),
+    in the list it yields: the flash kernel's plain version and the slot
+    cache's decode attention (which on the card reads the slots with the
+    paged kernel)."""
+    from repro_torch.dist.local import is_dtensor
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import layers
+
+    flash, decode = flash_ops.blockwise_attention, layers.decode_attention
+    seen: list = []
+
+    def flash_call(q, k, v, **kw):
+        seen.append(("flash", int(q.shape[2]), int(k.shape[2])))
+        return flash(q, k, v, **kw)
+
+    def decode_call(q, k_cache, v_cache, **kw):
+        if not is_dtensor(q):
+            seen.append(("paged", int(q.shape[1]), int(k_cache.shape[2])))
+        return decode(q, k_cache, v_cache, **kw)
+
+    flash_ops.blockwise_attention, layers.decode_attention = flash_call, decode_call
+    try:
+        yield seen
+    finally:
+        flash_ops.blockwise_attention, layers.decode_attention = flash, decode
+
+
+def _layer_desc(tree):
+    """A stacked descriptor tree less its leading layer dimension."""
+    from repro_torch.models.params import Leaf
+
+    if isinstance(tree, Leaf):
+        return dataclasses.replace(tree, shape=tree.shape[1:], axes=tree.axes[1:])
+    return {k: _layer_desc(v) for k, v in tree.items()}
+
+
+def _family_block(name: str, shape, dev) -> tuple[dict, dict]:
+    """One block in f32 under autograd: gemma2's (local, global) pair over
+    a sequence longer than its window, or whisper's decoder block (self-
+    and cross-attention, the FFN) over an encoder output ``enc`` placed by
+    rows and whole over "model" (a rank's block entering through
+    ``place_block``, as the encoder's final norm hands it over). The
+    gradient of ``(block(x) * w).sum()`` with respect to ``x``, ``enc``
+    and every leaf, on the mesh ``shape`` (train rules) and, on rank 0,
+    one device, each gathered whole. On ``(1, 2)`` also 3 decode steps from
+    the sequence's caches (gemma2's local layer over a ring of
+    ``C.RING_SLOTS`` slots): each step's output, whole."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.local import full, is_dtensor, place_block, row_mean
+    from repro_torch.dist.sharding import make_train_rules
+    from repro_torch.models import Model, materialize
+    from repro_torch.models.layers import ShardCtx, apply_dense_block
+    from repro_torch.models.params import device_put_tree, flatten_tree, put_block, sharding_tree
+
+    cfg = _train_cfg(name)
+    desc = _f32_tree(_layer_desc(Model(cfg).describe()["blocks"]))
+    inputs = {k: torch.from_numpy(v) for k, v in C.block_inputs(name, cfg).items()}
+    mesh = _train_mesh(shape, dev)
+    rules = make_train_rules(mesh)
+    dm = mesh.device_mesh()
+    act = ("batch", "seq", "embed_act")
+    B, S = C.BLOCK_SHAPE[name]
+    positions = torch.arange(S)[None, :]
+    out, arrays = {}, {}
+    for side in ("mesh", "one")[:1 if dist.get_rank() else 2]:
+        on_mesh = side == "mesh"
+        ctx = ShardCtx(mesh, rules) if on_mesh else ShardCtx()
+        model = Model(cfg)
+
+        def put(t):
+            return put_block(t, rules.sharding(mesh, act, tuple(t.shape))) if on_mesh else t
+
+        params = materialize(desc, seed=5)
+        if on_mesh:
+            params = device_put_tree(params, sharding_tree(desc, mesh, rules))
+        x = put(inputs["x"]).requires_grad_(True)
+        leaves = [("x", x)] + [(n, t.requires_grad_(True)) for n, t in flatten_tree(params)]
+        enc_out = None
+        if name == "whisper":
+            enc = put(inputs["enc"])
+            e = (enc.to_local() if on_mesh else enc).requires_grad_(True)
+            leaves.append(("enc", e))
+            enc_out = place_block(e, dm, enc.placements, enc.shape) if on_mesh else e
+        with ctx.scope():
+            p = ctx.params(params)
+            if name == "gemma2":
+                h, kv_l = apply_dense_block(p["local"], x, cfg, positions=positions,
+                                            window=cfg.sliding_window, ctx=ctx)
+                y, kv_g = apply_dense_block(p["global"], h, cfg, positions=positions, ctx=ctx)
+                caches = (kv_l, kv_g)
+            else:
+                y, kv, ckv = model._decoder_block(p, x, positions, enc_out=enc_out, ctx=ctx)
+                caches = (kv, ckv)
+            w = put(inputs["w"])
+            if on_mesh:
+                rows = [i for i, pl in enumerate(y.placements) if pl.is_shard(0)]
+                part = (y.to_local(grad_placements=tuple(y.placements)) * w.to_local()).sum()
+                # the sum over every rank's rows, its backward the identity
+                loss = row_mean(part, dm, rows) * math.prod(dm.size(i) for i in rows)
+            else:
+                loss = (y * w).sum()
+        grads = torch.autograd.grad(loss, [t for _, t in leaves])
+        out[f"{side} loss"] = loss.item()
+        for (n, t), g in zip(leaves, grads):
+            if n == "enc" and on_mesh:
+                g = place_block(g, dm, enc.placements, enc.shape)
+            elif is_dtensor(t):
+                assert tuple(g.placements) == tuple(t.placements), (n, g.placements, t.placements)
+            arrays[f"{side} grad {n}"] = (full(g) if is_dtensor(g) else g).detach().numpy()
+        if on_mesh and shape[0] > 1:
+            continue        # a decode step takes its batch whole over "data"
+        with torch.no_grad(), ctx.scope():
+            caches = [tuple(ctx.local(t).detach() for t in kv) for kv in caches]
+            steps = [put(inputs["w"][:, i:i + 1]) for i in range(3)]
+            for i, xs in enumerate(steps):
+                lengths = torch.full((B,), S + i + 1, dtype=torch.int32)
+                pos = (lengths - 1)[:, None]
+                if name == "gemma2":
+                    if i == 0:
+                        (lk, lv), (gk, gv) = caches
+                        caches = ((_ring(lk, S, C.RING_SLOTS), _ring(lv, S, C.RING_SLOTS)),
+                                  (_padded(gk, S + 3), _padded(gv, S + 3)))
+                    (lk, lv), (gk, gv) = caches
+                    h, _ = apply_dense_block(p["local"], xs, cfg, positions=pos,
+                                             window=cfg.sliding_window, cache=(lk, lv),
+                                             lengths=lengths, ring_window=C.RING_SLOTS, ctx=ctx)
+                    y, _ = apply_dense_block(p["global"], h, cfg, positions=pos, cache=(gk, gv),
+                                             lengths=lengths, ctx=ctx)
+                else:
+                    if i == 0:
+                        (k, v), (ck, cv) = caches
+                        caches = (_padded(k, S + 3), _padded(v, S + 3), ck, cv)
+                    y, _, _ = model._decoder_block(p, xs, pos, cache=caches, lengths=lengths,
+                                                   ctx=ctx)
+                arrays[f"{side} step{i}"] = ctx.full(y).numpy()
+    return out, arrays
+
+
+def _ring(t, length: int, slots: int):
+    """Full-sequence K/V ``[..., B, S, KH, HD]`` (positions at dimension
+    -3) as a ring of ``slots``: position ``p`` of the last ``slots`` at
+    slot ``p % slots``."""
+    import torch
+
+    ring = t.new_zeros((*t.shape[:-3], slots, *t.shape[-2:]))
+    idx = torch.arange(length - slots, length)
+    ring[..., idx % slots, :, :] = t[..., length - slots:length, :, :]
+    return ring
+
+
+def _padded(t, slots: int):
+    """K/V ``[..., S, KH, HD]`` in the first ``S`` of ``slots`` zeroed slots."""
+    out = t.new_zeros((*t.shape[:-3], slots, *t.shape[-2:]))
+    out[..., :t.shape[-3], :, :] = t
+    return out
+
+
+def _family_slots(name: str, cfg, cache: dict) -> dict:
+    """The reference's ``family_cache`` on the port's tensors (a rank's own
+    blocks on a mesh)."""
+    S = C.prompt_length(name, cfg)
+    if name == "gemma2":
+        return {"local": {k: _ring(v, S, C.RING_SLOTS) for k, v in cache["local"].items()},
+                "global": {k: _padded(v, C.FAMILY_MAX_SEQ) for k, v in cache["global"].items()}}
+    return {k: v if k in ("ck", "cv") else _padded(v, C.FAMILY_MAX_SEQ) for k, v in cache.items()}
+
+
+def _whole_kv(t, kv_heads: int):
+    """A rank's block of K/V ``[..., KH/n, HD]`` gathered whole over the
+    ranks (as it is where the rank holds every KV head)."""
+    import torch
+    import torch.distributed as dist
+
+    if t.shape[-2] == kv_heads:
+        return t
+    parts = [torch.empty_like(t) for _ in range(WORLD)]
+    dist.all_gather(parts, t.contiguous())
+    return torch.cat(parts, dim=-2)
+
+
+def _family_model_level(name: str, dtype: str, dev) -> tuple[dict, dict]:
+    """The reference's ``family_model_level`` on the port: the seed-0
+    weights placed by the decode rules on ``C.MESH``, ``Model.prefill`` and
+    ``C.FAMILY_DECODE_STEPS`` teacher-forced ``Model.decode`` steps with a
+    ``ShardCtx`` over the rank's own caches; on rank 0 the same on one
+    device. Returns the logits and the last cache gathered whole, the
+    bytes of the rank's parameters and caches, and the heads every
+    attention call saw."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import make_decode_rules
+    from repro_torch.models import Model, materialize
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.params import _unflatten, device_put_tree, flatten_tree, sharding_tree
+
+    cfg = _train_cfg(name)
+    desc = Model(cfg).describe()
+    desc = _f32_tree(desc) if dtype == "f32" else desc
+    inp = {k: torch.from_numpy(v) for k, v in C.family_prompt(name, cfg).items()}
+    steps = inp.pop("steps")
+    mesh = _train_mesh(C.MESH, dev)
+    rules = make_decode_rules(mesh, cfg.num_kv_heads)
+    S = C.prompt_length(name, cfg)
+    out, arrays = {}, {}
+    for side in ("mesh", "one")[:1 if dist.get_rank() else 2]:
+        params = materialize(desc, seed=0)
+        c = ShardCtx(mesh, rules) if side == "mesh" else ShardCtx()
+        if side == "mesh":
+            params = device_put_tree(params, sharding_tree(desc, mesh, rules))
+        model = Model(cfg, params)
+        with _heads_seen() as seen:
+            logits, cache = model.prefill(inp, ctx=c)
+            arrays[f"{side} prefill logits"] = c.full(logits).numpy()
+            cache = _family_slots(name, cfg, _unflatten(
+                [(n, c.local(t)) for n, t in flatten_tree(cache)]))
+            for i, t in enumerate(steps):
+                lengths = torch.full((t.shape[0],), S + i + 1, dtype=torch.int32)
+                logits, cache = model.decode(cache, t, lengths, ctx=c)
+                arrays[f"{side} step{i} logits"] = c.full(logits).numpy()
+        flat = list(flatten_tree(cache))
+        if side == "mesh":
+            out["param bytes"] = _held_bytes(params)
+            out["cache bytes"] = sum(t.nbytes for _, t in flat)
+            out["heads seen"] = sorted(set(seen))
+            flat = [(n, _whole_kv(t, cfg.num_kv_heads)) for n, t in flat]
+        arrays.update({f"{side} cache {n}": t.float().numpy() for n, t in flat})
+    return out, arrays
+
+
+def _family_loss(name: str, shape, dtype: str, dev) -> tuple[dict, dict]:
+    """``Model.loss`` and its gradient on ``C.loss_inputs`` with a
+    ``ShardCtx`` on the mesh ``shape`` (the weights placed by the train
+    rules, the tokens by rows; ``frames``/``image_embeds`` whole on every
+    rank, placed by the model) and, on rank 0, on one device. Returns the
+    losses, each gradient gathered whole, and the heads every attention
+    call of the mesh's forward and backward saw."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.local import full, is_dtensor
+    from repro_torch.dist.sharding import make_train_rules
+    from repro_torch.models import Model, materialize
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.params import device_put_tree, flatten_tree, put_block, sharding_tree
+
+    cfg = _train_cfg(name)
+    desc = Model(cfg).describe()
+    desc = _f32_tree(desc) if dtype == "f32" else desc
+    inputs = {k: torch.from_numpy(v) for k, v in C.loss_inputs(name, cfg).items()}
+    mesh = _train_mesh(shape, dev)
+    rules = make_train_rules(mesh)
+    out, arrays = {}, {}
+    for side in ("mesh", "one")[:1 if dist.get_rank() else 2]:
+        params = materialize(desc, seed=0)
+        batch = dict(inputs)
+        ctx = ShardCtx()
+        if side == "mesh":
+            ctx = ShardCtx(mesh, rules)
+            params = device_put_tree(params, sharding_tree(desc, mesh, rules))
+            tok = batch["tokens"]
+            batch["tokens"] = put_block(tok, rules.sharding(mesh, ("batch", None), tok.shape))
+        leaves = [t.requires_grad_(True) for _, t in flatten_tree(params)]
+        with _heads_seen() as seen:
+            loss, _ = Model(cfg, params).loss(batch, ctx)
+            grads = torch.autograd.grad(loss, leaves)
+        out[side] = loss.item()
+        if side == "mesh":
+            out["heads seen"] = sorted(set(seen))
+        for (n, t), g in zip(flatten_tree(params), grads):
+            if is_dtensor(t):
+                assert tuple(g.placements) == tuple(t.placements), (n, g.placements, t.placements)
+                g = full(g)
+            arrays[f"{side} grad {n}"] = g.float().numpy()
+    return out, arrays
+
+
+def _trainer_first_step(name: str, shape, dev) -> str | None:
+    """A ``Trainer`` of ``name`` on the mesh ``shape`` (on ``dev`` alone
+    for ``shape`` None): built, then its first step; the error that step
+    raises (``repr``), else ``None``."""
+    tr = _train_trainer(name, shape, "bf16", dev, steps=1)
+    state = tr.init_state()
+    try:
+        tr.train_step(state, tr._tokens_for(0))
+    except Exception as e:  # noqa: BLE001 (the error is the result)
+        return repr(e)
+    return None
+
+
+def _vlm_engine(dev) -> dict:
+    """Reduced internvl2 in an ``Engine`` on ``C.MESH`` and on one device:
+    whether each is built, and the error its first prefill raises."""
+    from repro_torch.models import Model, materialize
+    from repro_torch.serving import Engine, EngineRequest
+
+    cfg = _train_cfg("internvl2")
+    params = materialize(Model(cfg).describe(), seed=0)
+    out = {}
+    for side in ("mesh", "one"):
+        kw = dict(placement=_replica_set(cfg, dev).placement(0)) if side == "mesh" else \
+            dict(device=dev)
+        engine = Engine(cfg, params, **kw, **C.ENGINE_KW)
+        out[f"{side} built"] = True
+        try:
+            engine.submit(EngineRequest("a", C.contexts(cfg.vocab_size)["a"], max_new_tokens=2))
+            engine.run_to_completion()
+            out[f"{side} first prefill"] = None
+        except Exception as e:  # noqa: BLE001 (the error is the result)
+            out[f"{side} first prefill"] = repr(e)
     return out

@@ -1,7 +1,8 @@
 """The reference side of ``tests/test_torch_tp.py`` and
 ``tests/test_torch_tp_serving.py``, run as a script in a process of its
 own: ``python _tp_reference.py <work dir> [tp|serving]`` (the suite,
-``tp`` by default, ``serving``, ``train``, ``train_moe`` or ``train_ssm``).
+``tp`` by default, ``serving``, ``train``, ``train_moe``, ``train_ssm`` or
+``train_families``).
 
 JAX sees two CPU devices only if ``XLA_FLAGS`` is set before it is first
 imported (as ``src/repro/launch/dryrun.py`` does), so this runs apart from
@@ -178,27 +179,30 @@ def f32_tree(tree):
             else v for k, v in tree.items()}
 
 
-def train_suite(work: Path, cases=C.TRAIN_CASES, cfgs=None, arrays=None) -> None:
+def train_suite(work: Path, cases=C.TRAIN_CASES, cfgs=None, arrays=None, out=None) -> None:
     """The train suite: for each case of ``cases`` (``C.TRAIN_CASES`` on
-    ``configs()``) the reference's ``Trainer`` on the mesh, its step-1
-    gradient (the mean over the microbatches of a jitted
-    ``value_and_grad(model.loss)`` on the train rules' shardings) and, in
-    f32, the losses and parameters of ``C.TRAIN_STEPS`` steps; written
-    with ``arrays`` (a suite's other arrays) to ``pools.npz``."""
+    ``configs()``) the reference's ``Trainer`` on the mesh (on the data of
+    ``C.TRAIN_DATA_OF``, else ``C.TRAIN_DATA``), its step-1 gradient (the
+    mean over the microbatches of a jitted ``value_and_grad(model.loss)``
+    on the train rules' shardings) and, in f32, the losses and parameters
+    of ``C.TRAIN_STEPS`` steps; written with ``arrays`` and ``out`` (a
+    suite's other arrays and results) to ``pools.npz`` and
+    ``results.json``."""
     from jax.sharding import Mesh, NamedSharding
     from repro.train.data import DataConfig
     from repro.train.loop import TrainConfig, Trainer
     from repro.train.optimizer import describe_opt_state
 
     cfgs = configs() if cfgs is None else cfgs
-    out, arrays = {"devices": len(jax.devices())}, dict(arrays or {})
+    out, arrays = {"devices": len(jax.devices()), **(out or {})}, dict(arrays or {})
     for name, shape, dtype in cases:
         key = C.train_key(name, shape, dtype)
         cfg = cfgs[name]
         mesh = Mesh(np.array(jax.devices()).reshape(shape), ("data", "model"))
         tr = Trainer(cfg, TrainConfig(steps=C.TRAIN_STEPS, microbatches=C.TRAIN_MICRO,
                                       log_every=1),
-                     mesh, DataConfig(vocab_size=cfg.vocab_size, **C.TRAIN_DATA))
+                     mesh, DataConfig(vocab_size=cfg.vocab_size,
+                                      **C.TRAIN_DATA_OF.get(name, C.TRAIN_DATA)))
         if dtype == "f32":
             tr.param_tree = f32_tree(tr.param_tree)
             tr.opt_tree = describe_opt_state(tr.param_tree, bf16_moments=cfg.bf16_moments)
@@ -324,6 +328,120 @@ def train_ssm_suite(work: Path) -> None:
     train_suite(work, C.TRAIN_SSM_CASES, cfgs, arrays)
 
 
+def family_configs() -> dict:
+    return {name: get_config(arch).reduced() for name, arch in C.TRAIN_FAMILY_CONFIGS.items()}
+
+
+def _batch(inputs: dict) -> dict:
+    """A numpy batch as the reference takes it: int32 tokens, f32 arrays."""
+    return {k: jnp.asarray(v, jnp.int32 if k in ("tokens", "steps") else jnp.float32)
+            for k, v in inputs.items()}
+
+
+def family_loss(cfg, name: str, shape, dtype: str) -> tuple[float, dict]:
+    """``Model.loss`` and its gradient on ``C.loss_inputs``: a jitted
+    ``value_and_grad`` on the mesh ``shape``, the seed-0 weights (from an
+    f32 descriptor tree in f32) and the batch placed by the train rules
+    and ``batch_specs``, as the dry run places them. Returns the loss and
+    each leaf's gradient in f32."""
+    from jax.sharding import Mesh
+
+    from repro.dist.sharding import make_train_rules
+    from repro.launch.steps import batch_specs
+
+    mesh = Mesh(np.array(jax.devices()).reshape(shape), ("data", "model"))
+    rules = make_train_rules(mesh)
+    model = Model(cfg)
+    desc = model.describe()
+    desc = f32_tree(desc) if dtype == "f32" else desc
+    params = materialize(desc, seed=0)
+    batch = _batch(C.loss_inputs(name, cfg))
+    ctx = ShardCtx(mesh, rules)
+    fn = jax.jit(jax.value_and_grad(lambda p, b: model.loss(p, b, ctx), has_aux=True),
+                 in_shardings=(sharding_tree(desc, mesh, rules), batch_specs(batch, mesh, rules)))
+    (loss, _), g = fn(params, batch)
+    return float(loss), {n: np.asarray(a.astype(jnp.float32)) for n, a in flatten_tree(g)}
+
+
+def family_cache(name: str, cfg, cache):
+    """A prefill's cache as decode takes it: gemma2's local K/V as a ring
+    of ``C.RING_SLOTS`` slots (position ``p`` at slot ``p % slots``, the
+    last ``slots`` positions) and its global K/V padded to
+    ``C.FAMILY_MAX_SEQ`` slots; whisper's and internvl2's self K/V padded
+    so, whisper's cross caches as they are."""
+    S = C.prompt_length(name, cfg)
+
+    def pad(t):
+        return jnp.pad(t, ((0, 0), (0, 0), (0, C.FAMILY_MAX_SEQ - t.shape[2]), (0, 0), (0, 0)))
+
+    if name == "gemma2":
+        R = C.RING_SLOTS
+        idx = np.arange(S - R, S) % R
+
+        def ring(t):
+            return jnp.zeros((*t.shape[:2], R, *t.shape[3:]), t.dtype).at[:, :, idx].set(
+                t[:, :, S - R:S])
+
+        return {"local": {k: ring(v) for k, v in cache["local"].items()},
+                "global": {k: pad(v) for k, v in cache["global"].items()}}
+    return {k: v if k in ("ck", "cv") else pad(v) for k, v in cache.items()}
+
+
+def family_model_level(name: str, cfg, dtype: str, placed: bool = True) -> dict:
+    """Reduced ``cfg`` at model level on ``C.MESH`` under the decode rules
+    (``placed``; else on one device): the seed-0 weights (in f32 from an
+    f32 descriptor tree, or bf16) placed as an engine places them, a
+    jitted prefill of ``C.family_prompt``'s batch, then
+    ``C.FAMILY_DECODE_STEPS`` jitted teacher-forced decode steps from its
+    cache (``family_cache``). Returns the logits of the prefill and of
+    each step and the last cache, whole."""
+    model = Model(cfg)
+    desc = model.describe()
+    desc = f32_tree(desc) if dtype == "f32" else desc
+    params, ctx = materialize(desc, seed=0), ShardCtx()
+    if placed:
+        rs = jdist.make_replica_set(1, mesh_shape=C.MESH, num_kv_heads=cfg.num_kv_heads)
+        params = jax.device_put(params, sharding_tree(desc, rs.meshes[0], rs.rules))
+        ctx = ShardCtx(rs.meshes[0], rs.rules)
+    batch = _batch(C.family_prompt(name, cfg))
+    steps = batch.pop("steps")
+    logits, cache = jax.jit(lambda p, b: model.prefill(p, b, ctx=ctx))(params, batch)
+    out = {"prefill logits": np.asarray(logits, np.float32)}
+    cache = family_cache(name, cfg, cache)
+    decode = jax.jit(lambda p, c, t, l: model.decode(p, c, t, l, ctx=ctx))
+    S = C.prompt_length(name, cfg)
+    for i, t in enumerate(steps):
+        lengths = jnp.full((t.shape[0],), S + i + 1, jnp.int32)
+        logits, cache = decode(params, cache, t, lengths)
+        out[f"step{i} logits"] = np.asarray(logits, np.float32)
+    out.update({f"cache {k}": np.asarray(v, np.float32) for k, v in flatten_tree(cache)})
+    return out
+
+
+def train_families_suite(work: Path) -> None:
+    """The families suite: model level on the mesh under the decode rules
+    (``C.FAMILY_MODEL_CASES``; in bf16 on one device too, the spread of
+    the reference's own rounding; whisper in bf16 alone, since the
+    reference's encoder refuses f32 weights), ``Model.loss`` and its
+    gradient (``C.LOSS_CASES``, whisper in bf16 alone), then
+    ``train_suite`` over ``C.GEMMA2_TRAIN_CASES``."""
+    cfgs = family_configs()
+    arrays, out = {}, {}
+    for name, dtype in C.FAMILY_MODEL_CASES:
+        if name == "whisper" and dtype == "f32":
+            continue
+        for side in ("mesh", "one")[:1 if dtype == "f32" else 2]:
+            got = family_model_level(name, cfgs[name], dtype, placed=side == "mesh")
+            arrays.update({f"{C.family_key(name, dtype)} {side} {k}": v for k, v in got.items()})
+    for name, shape, dtype in C.LOSS_CASES:
+        if name == "whisper" and dtype == "f32":
+            continue
+        key = f"{C.train_key(name, shape, dtype)} loss"
+        out[key], grads = family_loss(cfgs[name], name, shape, dtype)
+        arrays.update({f"{key} grad {n}": g for n, g in grads.items()})
+    train_suite(work, C.GEMMA2_TRAIN_CASES, cfgs, arrays, out)
+
+
 def main(work: Path) -> None:
     assert len(jax.devices()) == 2, jax.devices()
     cfgs = configs()
@@ -350,4 +468,5 @@ if __name__ == "__main__":
     assert len(jax.devices()) == 2, jax.devices()
     suite = sys.argv[2] if len(sys.argv) > 2 else "tp"
     {"serving": serving, "train": train_suite, "train_moe": train_moe_suite,
-     "train_ssm": train_ssm_suite}.get(suite, main)(Path(sys.argv[1]))
+     "train_ssm": train_ssm_suite, "train_families": train_families_suite}.get(
+        suite, main)(Path(sys.argv[1]))

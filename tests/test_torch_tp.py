@@ -221,22 +221,22 @@ def _placement(shape):
                             num_kv_heads=4).placement(0)
 
 
-@pytest.mark.parametrize("what", ["data axis", "vlm"])
+@pytest.mark.parametrize("what", ["data axis"])
 def test_engine_refuses_what_a_mesh_does_not_serve_yet(what):
-    # vlm is the one family beside dense and moe that Engine admits at all
-    cfg = get_config("internvl2-26b" if what == "vlm" else C.ARCH).reduced()
-    shape = (2, 1) if what == "data axis" else C.MESH
+    # an engine on a mesh serves every family it serves at all (vlm:
+    # tests/test_torch_tp_families.py), over a model axis alone
+    cfg = get_config(C.ARCH).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(cfg, materialize(Model(cfg).describe(), seed=0), placement=_placement(shape),
+        Engine(cfg, materialize(Model(cfg).describe(), seed=0), placement=_placement((2, 1)),
                **C.ENGINE_KW)
 
 
 def test_trainer_refuses_a_mesh():
-    # the dense, moe, ssm and hybrid families train on a mesh
-    # (tests/test_torch_tp_train*.py); the others refuse one, before any
-    # process group is asked for
-    cfg = get_config("whisper-medium").reduced()
-    mesh = Mesh(("data", "model"), np.array([[CPU, CPU]], dtype=object))
+    # every family trains on a mesh (tests/test_torch_tp_train*.py,
+    # tests/test_torch_tp_families.py) but moe on a "pod" axis of more
+    # than one device, which refuses before any process group is asked for
+    cfg = get_config("dbrx-132b").reduced()
+    mesh = Mesh(("pod", "data", "model"), np.array([CPU, CPU], dtype=object).reshape(2, 1, 1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, TrainConfig(), DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
                                                global_batch=2), mesh=mesh)

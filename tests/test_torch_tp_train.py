@@ -36,9 +36,9 @@ The tests read them:
   collective (``no_functional_collectives`` is armed over every backward
   in the ranks, and the port's ``place_block`` takes the same graph
   through ``torch.distributed``), a microbatch that "data" does not
-  divide, and gemma2's alternation, whisper and internvl2 on a mesh (MoE
-  training on a mesh is ``tests/test_torch_tp_train_moe.py``'s, mamba2's
-  and zamba2's ``tests/test_torch_tp_train_ssm.py``'s).
+  divide (MoE training on a mesh is ``tests/test_torch_tp_train_moe.py``'s,
+  mamba2's and zamba2's ``tests/test_torch_tp_train_ssm.py``'s, gemma2's,
+  whisper's and internvl2's ``tests/test_torch_tp_families.py``'s).
 """
 from __future__ import annotations
 
@@ -55,16 +55,11 @@ from repro.models.params import abstract as jax_abstract
 from repro.train import checkpoint as jax_ck
 from repro.train.optimizer import describe_opt_state as jax_describe_opt
 from repro_torch.configs import get_config
-from repro_torch.launch.mesh import Mesh
 from repro_torch.models import Model
-from repro_torch.models.layers import ShardCtx
 from repro_torch.models.params import flatten_tree, leaves
 from repro_torch.train import checkpoint as ck
-from repro_torch.train.data import DataConfig
-from repro_torch.train.loop import TrainConfig, Trainer
 from repro_torch.train.optimizer import describe_opt_state
 
-CPU = torch.device("cpu")
 #: the deadline of each side's processes
 DEADLINE_S = 240
 F32_CASES = [c for c in C.TRAIN_CASES if c[2] == "f32"]
@@ -271,21 +266,6 @@ def test_a_microbatch_that_data_does_not_divide_raises(runs):
     _, _, ranks, _ = runs
     for r in ranks:
         assert r["indivisible batch"] and "not divisible" in r["indivisible batch"]
-
-
-FAMILIES = {"encdec": "whisper-medium", "vlm": "internvl2-26b", "alternating": "gemma2-9b"}
-
-
-@pytest.mark.parametrize("family", sorted(FAMILIES))
-def test_alternating_encdec_and_vlm_refuse_a_mesh(family):
-    cfg = get_config(FAMILIES[family]).reduced()
-    for shape in C.TRAIN_MESHES:
-        mesh = Mesh(("data", "model"), np.array([CPU] * 2, dtype=object).reshape(shape))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(cfg, TrainConfig(), DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
-                                                   global_batch=2), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg).loss({"tokens": torch.zeros(2, 9, dtype=torch.long)}, ShardCtx(mesh=mesh))
 
 
 # --------------------------------------------- the embedding's gradient
